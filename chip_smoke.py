@@ -1,31 +1,56 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-The main path is the paper's workload: LeNet-5 with its three conv layers
-run through the paired subtractor GEMM kernel (``src/repro_torch``).  Phases,
-each printing one JSON line; any failure exits non-zero and prints no result:
+Two paths run through the port (``src/repro_torch``): the paper's workload,
+LeNet-5 with its three conv layers on the paired subtractor GEMM kernel (K1),
+and the paired LM serving path of qwen2-1.5b, every decoder GEMM on K1 and
+decode attention with the paired out-projection on the decode-attention
+kernel (K2).  Phases, each printing one JSON line; any failure exits
+non-zero and prints no result:
 
-1. build   — compile the CUDA kernel from ``src/repro_torch/kernels/csrc``;
-2. kernel  — the kernel against its plain PyTorch version on the card, in
-             every form (dense, structured, blocked at bn=1 and bn=4 with a
-             short last block, max2/avg2 pooling, fp32/bf16 residuals, all
-             activations, ragged edges, the empty contraction P + R = 0):
-             fp32 ≤ 1e-5 relative to the largest output, bf16 ≤ 2 output
-             ulps of the fp32 oracle;
-3. layers  — the kernel at the main path's own shapes (1000 images, every
-             layer and pairing mode) against its plain version, timed beside
-             the plain version, ``F.conv2d`` on the folded weights and its
-             memory/operation bound (the distinct im2col operand, live
-             weights and output; not the blocked forms' replicated copy);
-4. serve   — seeded LeNet, the synthetic MNIST test split, pairings at
-             r ∈ {0, 0.05} × {structured, column_blocked bn=4, per_column},
-             four requests of 1000 images through ``lenet_apply`` with the
-             pool fused and unfused: r=0 logits match ``F.conv2d`` ≤ 1e-5
-             with identical argmax; r=0.05 logits match the folded-weight
-             conv; every forward makes exactly 3 kernel launches;
-5. the kernels table, the card's name and power limit, and the ``ok`` line.
+1. build      — compile both CUDA sources from ``src/repro_torch/kernels/csrc``
+                (one nvcc each, in parallel): seconds, registers, spills;
+2. kernel     — K1 against its plain PyTorch version on the card, in every
+                form (dense, structured, blocked at bn=1 and bn=4 with a
+                short last block, max2/avg2 pooling, fp32/bf16 residuals, all
+                activations, ragged edges, the empty contraction P + R = 0):
+                fp32 ≤ 1e-5 relative to the largest output, bf16 ≤ 2 output
+                ulps of the fp32 oracle;
+3. decode_attention — K2 against its plain version, bare and fused, fp32
+                and bf16: G ∈ {1, 6}, D ∈ {64, 128}, S not a multiple of the
+                32-key tile, slots at 0 / mid-cache / S−1, windows with and
+                without sinks, structured / blocked bn=1 / bn=64 (short last
+                block) / unpaired out-projections, residual present and
+                absent: fp32 ≤ 2e-5 relative, bf16 ≤ 2 output ulps (the
+                fused form against the plain projection of the bare
+                kernel's bf16 rows: see fused_decode_attention_plain);
+4. layers     — K1 at LeNet's shapes (1000 images, every layer and pairing
+                mode) against its plain version, timed beside the plain
+                version, ``F.conv2d`` on the folded weights and its
+                memory/operation bound;
+5. serve      — LeNet's main path: seeded weights, the synthetic MNIST test
+                split, pairings at r ∈ {0, 0.05} × {structured,
+                column_blocked bn=4, per_column}, four requests of 1000 images
+                with the pool fused and unfused: r=0 logits match
+                ``F.conv2d`` ≤ 1e-5 with identical argmax; r=0.05 logits match
+                the folded-weight conv; exactly 3 kernel launches per forward;
+6. lm_parity  — qwen2-1.5b at full width, 2 layers, fp32: the plain engine
+                against the paired (column-blocked bn=64, r=0) engine with
+                fused decode attention, batch 2, prompts of 5 and 11 tokens,
+                6 tokens per slot: identical tokens, logits ≤ 1e-5; 5 kernel
+                launches per decode layer (one fused QKV K1, one K2, three
+                MLP K1), counted by the wrappers and by ``torch.profiler``;
+7. lm_serve   — qwen2-1.5b at full width and depth (28 layers), bf16,
+                structured pairing at r=0.05, through the launcher's
+                ``serve``: batch 4, prompts of 8/12/16/20 tokens, max_seq
+                256, 32 tokens per slot; pairing seconds, prefill ms per
+                request, decode ms per step, tokens/s, 7 launches per decode
+                layer (3 QKV K1, one K2, 3 MLP K1), a ``torch.profiler`` split
+                of one decode step, and K1 and K2 timed at the serving shapes
+                beside their plain versions, library calls and bounds;
+8. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -36,10 +61,13 @@ import time
 from pathlib import Path
 
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FMA-unit FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FMA-unit FLOP/s and
+# dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 FP32_RTOL = 1e-5
+ATTN_RTOL = 2e-5  # the JAX decode-attention tests' tolerance
 BF16_MAX_ULPS = 2.0
 REQUESTS, REQUEST_IMAGES = 4, 1000
 MODES = (("structured", 0), ("column_blocked", 4), ("per_column", 1))
@@ -112,28 +140,34 @@ def phase_build() -> dict:
     import re
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paired_matmul as pm
 
     t0 = time.perf_counter()
-    info = _build.build("paired_matmul")
-    pm._kernel()  # load the library and bind its entry points
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["log"])]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", info["log"])]
+    infos = _build.build_all()  # one nvcc per source, in parallel
+    pm._kernel()  # load the libraries and bind their entry points
+    da._kernel()
+    sources = {}
+    for name, info in infos.items():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["log"])]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", info["log"])]
+        sources[name] = {
+            "seconds": info["seconds"], "built": info["built"],
+            "kernels_compiled": len(regs), "max_registers": max(regs, default=None),
+            "spill_bytes": sum(spills),
+        }
     out = {
         "phase": "build",
         "seconds": time.perf_counter() - t0,
-        "built": info["built"],
         "nvcc": _build.nvcc_version(),
-        "kernels_compiled": len(regs),
-        "max_registers": max(regs, default=None),
-        "spill_bytes": sum(spills),
+        "sources": sources,
     }
     emit(out)
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the kernel against its plain version, every form
+# phase 2: K1 against its plain version, every form
 # ---------------------------------------------------------------------------
 
 
@@ -229,6 +263,100 @@ def phase_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: K2 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _outproj_segments(w2, rounding: float, block_n):
+    """The decode kernel's out-projection segments of ``w2`` (K, N): paired
+    per ``block_n`` columns (0 → structured), or unpaired (None)."""
+    import torch
+
+    from repro_torch.core.pairing import pair_rows_blocked, pair_rows_structured
+    from repro_torch.core.transform import _stack_blocked, _stack_structured
+    from repro_torch.kernels import ops
+
+    if block_n is None:
+        return ops.attn_outproj_segments(w2, None)
+    w64 = w2.double().cpu().numpy()
+    if block_n:
+        stacked = _stack_blocked([pair_rows_blocked(w64, rounding, block_n)])
+    else:
+        stacked = _stack_structured([pair_rows_structured(w64, rounding)])
+    meta = {k: torch.as_tensor(v[0], device=w2.device) for k, v in stacked.items()}
+    meta.update({k: meta[k].long() for k in ("I", "J", "resid")})
+    return ops.attn_outproj_segments(w2, meta, block_n)
+
+
+def phase_decode_attention() -> dict:
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.ref import bf16_ulps, rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    B, KH = 4, 2
+    # (name, G, D, S, window, n_sink, out-projection block_n (0 structured,
+    #  None unpaired), N, residual)
+    cases = [
+        ("qwen_heads_structured", 6, 128, 300, 0, 0, 0, 1536, True),
+        ("mha_bn64_short_block", 1, 64, 77, 0, 0, 64, 1000, False),
+        ("window_bn1", 6, 64, 77, 16, 0, 1, 200, True),
+        ("window_sink_unpaired", 1, 128, 300, 40, 4, None, 700, True),
+        ("window_sink_structured", 6, 128, 77, 16, 3, 0, 320, False),
+    ]
+    results, max_abs, max_rel, max_ulps = [], 0.0, 0.0, 0.0
+    for name, G, D, S, window, n_sink, block_n, N, has_res in cases:
+        H = G * KH
+        # weights of std 0.1 against r=0.3: 94-99% of lanes pair in every mode
+        seg = _outproj_segments(rnd(H * D, N) * 0.1, 0.3, block_n)
+        q, kc, vc, res = rnd(B, 1, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D), rnd(B, N)
+        pos = torch.tensor([0, S // 2, S - 1, 5], dtype=torch.int32, device="cuda")
+        kw = dict(window=window, n_sink=n_sink)
+        for dt in (torch.float32, torch.bfloat16):
+            q_, kc_, vc_ = q.to(dt), kc.to(dt), vc.to(dt)
+            proj = (seg.idx_i, seg.idx_j, seg.idx_r, seg.kmat.to(dt), seg.w_res.to(dt),
+                    res.to(dt) if has_res else None)
+            bare = da.decode_attention_cuda(q_, kc_, vc_, pos, **kw)
+            fused = da.fused_decode_attention_cuda(q_, kc_, vc_, pos, *proj, n_cols=N, **kw)
+            f32 = dict(out_dtype=torch.float32)
+            forms = {
+                "bare": (bare, da.decode_attention_plain(q_, kc_, vc_, pos, **kw, **f32)),
+                # bf16: the projection of the kernel's own rounded rows (see
+                # fused_decode_attention_plain); fp32: the whole plain version
+                "fused": (fused, da.outproj_plain(bare, *proj, n_cols=N, **f32)
+                          if dt == torch.bfloat16 else
+                          da.fused_decode_attention_plain(q_, kc_, vc_, pos, *proj, n_cols=N,
+                                                          **kw, **f32)),
+            }
+            torch.cuda.synchronize()
+            for form, (got, want) in forms.items():
+                row = {"case": name, "form": form, "dtype": str(dt).removeprefix("torch."),
+                       "shape": list(got.shape)}
+                label = f"decode_attention {name} {form} {row['dtype']}"
+                if dt == torch.float32:
+                    row["rel_err"] = rel_err(got, want)
+                    row["max_abs_err"] = float((got - want).abs().max())
+                    max_abs, max_rel = max(max_abs, row["max_abs_err"]), max(max_rel, row["rel_err"])
+                    check(row["rel_err"] <= ATTN_RTOL, f"{label} rel err {row['rel_err']:.3g}")
+                else:
+                    row["ulps"] = bf16_ulps(got, want)
+                    max_ulps = max(max_ulps, row["ulps"])
+                    check(row["ulps"] <= BF16_MAX_ULPS, f"{label} {row['ulps']:.3g} ulps")
+                check(bool(torch.isfinite(got).all()), f"{label} non-finite output")
+                results.append(row)
+    out = {
+        "phase": "decode_attention", "cases": len(results),
+        "fp32_max_rel_err": max_rel, "fp32_max_abs_err": max_abs, "bf16_max_ulps": max_ulps,
+        "tolerance": {"fp32_rel": ATTN_RTOL, "bf16_ulps": BF16_MAX_ULPS},
+        "results": results,
+    }
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main-path set-up
 # ---------------------------------------------------------------------------
 
@@ -273,7 +401,7 @@ def setup():
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the kernel at the main path's shapes
+# phase 4: K1 at LeNet's shapes
 # ---------------------------------------------------------------------------
 
 
@@ -389,7 +517,7 @@ def phase_layers(ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving — the main path
+# phase 5: serving LeNet — the first main path
 # ---------------------------------------------------------------------------
 
 
@@ -488,6 +616,261 @@ def phase_serve(ctx) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the LM serving path
+# ---------------------------------------------------------------------------
+
+K1_KERNEL, K2_KERNEL = "paired_matmul_kernel", "decode_attention_kernel"
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paired_matmul as pm
+
+    pm.reset_launches()
+    da.reset_launches()
+
+
+def profile_step(eng) -> dict:
+    """One decode step of ``eng`` under ``torch.profiler``: device ms and
+    launches of K1, K2 and every other kernel, and the step's wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K2", "other")}
+    for ev in prof.key_averages():
+        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        key = "K1" if K1_KERNEL in ev.key else "K2" if K2_KERNEL in ev.key else "other"
+        split[key]["ms"] += us / 1e3
+        split[key]["launches"] += ev.count
+    device_ms = sum(v["ms"] for v in split.values())
+    return {"wall_ms": wall, "device_ms": device_ms if device_ms else "not measured",
+            "idle_share": 1 - device_ms / wall if device_ms else "not measured", **split}
+
+
+def phase_lm_parity() -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.serve import kernel_launches
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2, dtype="float32")
+    model = M.init_lm(cfg, 0)
+    base = dict(q_chunk=32, k_chunk=32)
+    t0 = time.perf_counter()
+    plain = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=M.PerfKnobs(**base))
+    fused = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=M.PerfKnobs(
+        **base, gemm="pallas_paired", attn="pallas_fused", pair_block_n=64))
+    pairing_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = {0: rng.integers(0, cfg.vocab, size=5), 1: rng.integers(0, cfg.vocab, size=11)}
+    errs = []
+    for prompt in prompts.values():
+        tokens = torch.as_tensor(prompt[None], device="cuda")
+        want = M.prefill(cfg, plain.model, tokens, knobs=plain.knobs)[0]
+        errs.append(rel_err(M.prefill(cfg, fused.model, tokens, knobs=fused.knobs)[0], want))
+
+    _reset_launches()  # the path's own counts from here
+    toks = {name: {s: [eng.add_request(s, p)] for s, p in prompts.items()}
+            for name, eng in (("plain", plain), ("fused", fused))}
+    before = kernel_launches()
+    for _ in range(5):
+        for name, eng in (("plain", plain), ("fused", fused)):
+            nxt = eng.step()
+            for s in prompts:
+                toks[name][s].append(int(nxt[s]))
+        errs.append(rel_err(fused.last_logits, plain.last_logits))
+    decode = {k: v - before[k] for k, v in kernel_launches().items()}
+    launches = kernel_launches()
+    per_layer = {k: v / (5 * cfg.n_layers) for k, v in decode.items()}
+    prof = profile_step(fused)
+    prof_per_layer = {k: prof[k]["launches"] / cfg.n_layers for k in ("K1", "K2")}
+    check(toks["fused"] == toks["plain"], f"lm_parity tokens differ: {toks}")
+    check(max(errs) <= FP32_RTOL, f"lm_parity logits rel err {max(errs):.3g}")
+    check(per_layer == {"paired_matmul": 4, "decode_attention": 1},
+          f"lm_parity launches per decode layer {per_layer}")
+    check(prof_per_layer == {"K1": 4, "K2": 1} or prof["device_ms"] == "not measured",
+          f"lm_parity profiler launches per decode layer {prof_per_layer}")
+    out = {
+        "phase": "lm_parity", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "pairing": "column_blocked bn=64, r=0", "pairing_s": pairing_s,
+        "tokens": toks["fused"], "tokens_identical": toks["fused"] == toks["plain"],
+        "max_logit_rel_err": max(errs), "main_path_launches": launches,
+        "decode_launches_per_layer": per_layer, "profiled_step": prof,
+        "profiled_launches_per_layer": prof_per_layer,
+    }
+    emit(out)
+    return out
+
+
+def _k1_at(block, name, x, residual=None) -> dict:
+    """K1 on one decoder weight of the serving engine (its real segments),
+    for activations ``x`` (M, K): device ms beside the plain version,
+    ``torch.matmul`` on the folded weight, and the bound."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels.ref import bf16_ulps
+
+    dt = x.dtype
+    w = block.matrix(name, dt)
+    meta = block.pairing[name]
+    seg = ops.lm_paired_segments(w, meta)
+    xg = x[:, seg.perm].contiguous()
+    kmat, w_res = seg.kmat.contiguous(), seg.w_res.contiguous()
+    folded = ops.fold_lm_weight(w, meta)
+    got = pm.paired_matmul_cuda(xg, kmat, w_res, residual=residual)
+    want = pm.paired_matmul_plain(xg, kmat, w_res, residual=residual, out_dtype=torch.float32)
+    M, K = x.shape
+    P, N = kmat.shape
+    R = w_res.shape[0]
+    p_live, r_live = int(meta["pair_mask"].sum()), int(meta["resid_mask"].sum())
+    item = x.element_size()
+    nbytes = (M * K + (p_live + r_live) * N + M * N * (2 if residual is not None else 1)) * item
+    flops = M * (2 * N * (p_live + r_live) + p_live)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    lib = (lambda: torch.matmul(x, folded) + residual) if residual is not None else (
+        lambda: torch.matmul(x, folded))
+    ms = graph_ms(lambda: pm.paired_matmul_cuda(xg, kmat, w_res, residual=residual))
+    plain_ms = graph_ms(lambda: pm.paired_matmul_plain(xg, kmat, w_res, residual=residual))
+    return {
+        "weight": name, "M": M, "K": K, "N": N, "P": P, "R": R, "pairs_live": p_live,
+        "ulps": bf16_ulps(got, want), "ms": ms, "plain_ms": plain_ms,
+        "library_ms": graph_ms(lib), "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "kernel_over_bound": ms / max(t_bytes, t_ops),
+    }
+
+
+def _k2_at(eng) -> dict:
+    """K2 at the serving shapes: layer 0's cache and out-projection segments
+    of the engine, the slots at their positions; device ms beside the plain
+    version, the library pair of calls, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import bf16_ulps
+
+    cfg, attn = eng.cfg, eng.model.layers[0].attn
+    dt = eng.cache["k"].dtype
+    B, H, D, KH = eng.batch_size, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    w = attn.matrix("wo", dt)
+    meta = attn.pairing["wo"]
+    seg = ops.attn_outproj_segments(w, meta)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dt)
+    res = torch.randn(B, cfg.d_model, generator=gen, device="cuda").to(dt)
+    kc, vc = eng.cache["k"][0], eng.cache["v"][0]
+    pos = torch.as_tensor(eng.pos, device="cuda")
+    args = (q, kc, vc, pos, seg.idx_i, seg.idx_j, seg.idx_r, seg.kmat, seg.w_res, res)
+    got = da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols)
+    want = da.outproj_plain(da.decode_attention_cuda(q, kc, vc, pos), *args[4:],
+                            n_cols=seg.n_cols, out_dtype=torch.float32)
+    folded = ops.fold_lm_weight(w, meta)
+    mask = (torch.arange(kc.shape[1], device="cuda")[None, :] <= pos[:, None].long())
+
+    def library():  # two calls: no single PyTorch call computes K2
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
+                                           vc.transpose(1, 2), attn_mask=mask[:, None, None],
+                                           enable_gqa=True)
+        return torch.matmul(o.reshape(B, H * D), folded) + res
+
+    live_keys = int((pos.long() + 1).clamp(max=kc.shape[1]).sum())
+    p_live, r_live = int(meta["pair_mask"].sum()), int(meta["resid_mask"].sum())
+    N, item = seg.n_cols, q.element_size()
+    nbytes = (q.numel() + 2 * live_keys * KH * D + (p_live + r_live) * N + 2 * B * N) * item \
+        + (2 * p_live + r_live) * 4
+    flops = 4 * live_keys * H * D + B * (2 * N * (p_live + r_live) + p_live)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    ms = graph_ms(lambda: da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols))
+    return {
+        "B": B, "H": H, "KH": KH, "D": D, "S": kc.shape[1], "pos": eng.pos.tolist(),
+        "N": N, "pairs_live": p_live, "resid_live": r_live, "ulps": bf16_ulps(got, want),
+        "ms": ms,
+        "plain_ms": graph_ms(lambda: da.fused_decode_attention_plain(*args, n_cols=seg.n_cols)),
+        "library_ms": graph_ms(library),
+        "library_calls": "F.scaled_dot_product_attention(enable_gqa=True) + "
+                         "torch.matmul(folded wo) + residual add",
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "kernel_over_bound": ms / max(t_bytes, t_ops), "bytes": nbytes, "flops": flops,
+    }
+
+
+def phase_lm_serve() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import kernel_launches, serve
+
+    steps, batch = 32, 4
+    _reset_launches()  # the path's own counts from here
+    rec = serve(arch="qwen2-1.5b", batch=batch, max_seq=256, steps=steps,
+                pair_rounding=0.05, gemm="pallas_paired", attn="pallas_fused")
+    launches = kernel_launches()
+    eng = rec["engine"]
+    cfg, L = eng.cfg, eng.cfg.n_layers
+    dec = rec["launches"]["decode"]
+    per_layer = {k: v / ((steps - 1) * L) for k, v in dec.items()}
+    toks = rec["outputs"]
+    check(per_layer == {"paired_matmul": 6, "decode_attention": 1},
+          f"lm_serve launches per decode layer {per_layer}")
+    check(all(len(t) == steps and all(0 <= x < cfg.vocab for x in t) for t in toks.values()),
+          "lm_serve: tokens out of range")
+    check(bool(np.isfinite(eng.last_logits).all())
+          and eng.last_logits.shape == (batch, cfg.vocab), "lm_serve: bad logits")
+    prof = profile_step(eng)
+    prof_per_layer = {k: prof[k]["launches"] / L for k in ("K1", "K2")}
+    check(prof_per_layer == {"K1": 6, "K2": 1} or prof["device_ms"] == "not measured",
+          f"lm_serve profiler launches per decode layer {prof_per_layer}")
+    layer0 = eng.model.layers[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = lambda k: torch.randn(batch, k, generator=gen, device="cuda").to(torch.bfloat16)
+    d, f = cfg.d_model, cfg.d_ff
+    k1 = [_k1_at(layer0.attn, "wq", x(d)), _k1_at(layer0.attn, "wk", x(d)),
+          _k1_at(layer0.mlp, "w_gate", x(d)), _k1_at(layer0.mlp, "w_down", x(f), x(d))]
+    k2 = _k2_at(eng)
+    for row in k1:
+        check(row["ulps"] <= BF16_MAX_ULPS, f"lm_serve K1 {row['weight']} {row['ulps']:.3g} ulps")
+    check(k2["ulps"] <= BF16_MAX_ULPS, f"lm_serve K2 {k2['ulps']:.3g} ulps")
+    step_ms = sorted(rec["step_ms"])
+    rp = eng.pair_report
+    out = {
+        "phase": "lm_serve", "arch": cfg.name, "layers": L, "dtype": cfg.dtype,
+        "batch": batch, "max_seq": 256, "tokens_per_slot": steps,
+        "pairing": {"mode": rp.mode, "rounding": rp.rounding, "total_pairs": rp.total_pairs,
+                    "pair_fraction": rp.pair_fraction, "seconds": rec["pairing_s"]},
+        "prefill_ms": rec["prefill_ms"],
+        "decode_ms": {"median": step_ms[len(step_ms) // 2],
+                      "p90": step_ms[int(0.9 * (len(step_ms) - 1))], "n": len(step_ms)},
+        "tokens_per_s": rec["tokens_per_s"], "seconds": rec["seconds"],
+        "main_path_launches": launches, "prefill_launches": rec["launches"]["prefill"],
+        "decode_launches_per_layer": per_layer, "profiled_step": prof,
+        "profiled_launches_per_layer": prof_per_layer, "k1_decode_shapes": k1, "k2": k2,
+        "tokens": {s: t[:8] for s, t in toks.items()},
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -505,21 +888,31 @@ def main() -> int:
 
     build = phase_build()
     kernel = phase_kernel()
+    attn = phase_decode_attention()
     ctx = setup()
     layers = phase_layers(ctx)
-    serve = phase_serve(ctx)
+    lenet = phase_serve(ctx)
+    parity = phase_lm_parity()
+    lm = phase_lm_serve()
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
+    paths = {"lenet_serve": lenet["main_path_launches"],
+             "lm_parity": parity["main_path_launches"]["paired_matmul"],
+             "lm_serve": lm["main_path_launches"]["paired_matmul"]}
+    k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
+                "lm_serve": lm["main_path_launches"]["decode_attention"]}
+    k2 = lm["k2"]
     emit({"kernels": [{
         "name": "paired_matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paired_matmul.cu",
         "replaces": "src/repro/kernels/paired_matmul.py:158",
-        "launches": serve["main_path_launches"],
+        "launches": sum(paths.values()),
+        "launches_by_path": paths,
         "max_abs_err": max(kernel["fp32_max_abs_err"], layers["max_abs_err"]),
-        # one fused forward of 1000 images, per_column pairing at r=0.05:
-        # the sum over its three launches
+        # one fused LeNet forward of 1000 images, per_column pairing at
+        # r=0.05: the sum over its three launches
         "ms": sum(row["ms"] for row in head),
         "plain_ms": sum(row["plain_ms"] for row in head),
         "kernel_over_plain": sum(r["ms"] for r in head) / sum(r["plain_ms"] for r in head),
@@ -527,6 +920,23 @@ def main() -> int:
         "bound_by": "bytes" if sum(r["bytes"] / HBM_BYTES_PER_S for r in head)
         >= sum(r["flops"] / FP32_FLOP_PER_S for r in head) else "operations",
         "library_ms": sum(row["library_ms"] for row in head),
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:80",
+        "launches": sum(k2_paths.values()),
+        "launches_by_path": k2_paths,
+        "max_abs_err": attn["fp32_max_abs_err"],
+        # one fused launch at the serving shapes: qwen2-1.5b layer 0, bf16,
+        # batch 4, structured out-projection at r=0.05
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "kernel_over_plain": k2["ms"] / k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+        "library_calls": k2["library_calls"],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

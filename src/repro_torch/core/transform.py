@@ -1,11 +1,18 @@
-"""Conv pairing artifacts: the paper's one-time weight preprocessing.
+"""Pairing artifacts: the paper's one-time weight preprocessing.
 
-The conv half of ``repro.core.transform``: :func:`build_conv_pairings`
-pairs every conv kernel of a LeNet-style param tree and returns one
-:class:`PairedLayer` per layer, which ``kernels.paired_conv.paired_conv``
-consumes at inference.  Pairing runs on float64 numpy copies of the HWIO
-weights, as the reference does, so the metadata matches it index for index
-(float32 would change the ties that the stable sort of the row means sees).
+The conv and LM halves of ``repro.core.transform``.
+
+* :func:`build_conv_pairings` pairs every conv kernel of a LeNet-style param
+  tree and returns one :class:`PairedLayer` per layer, which
+  ``kernels.paired_conv.paired_conv`` consumes at inference.
+* :func:`pair_params` / :func:`pair_lm_params` pair the decoder weights of an
+  LM (``models.lm.LM``) and return a model that shares its weights and
+  carries each weight's metadata (``block.pairing[name]``), with a
+  :class:`PairedModelReport`.
+
+Pairing runs on float64 numpy copies of the weights, as the reference does,
+so the metadata matches it index for index (float32 would change the ties
+that the stable sort of the row means sees).
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import AsicCostModel, OpCounts
 from repro_torch.core.pairing import (
     BlockedPairing,
     StructuredPairing,
@@ -121,3 +129,229 @@ def build_conv_pairings(
             positions=(positions or {}).get(name, 1),
         )
     return arts
+
+
+# ---------------------------------------------------------------------------
+# LM pairing: per-layer metadata for the decoder stack
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LeafReport:
+    path: str
+    shape: tuple[int, ...]
+    n_weights: int
+    n_pairs: int
+    pair_fraction: float  # fraction of weights absorbed into pairs (2P/K·N)
+
+
+@dataclasses.dataclass
+class PairedModelReport:
+    rounding: float
+    mode: str
+    leaves: list[LeafReport]
+
+    @property
+    def total_weights(self) -> int:
+        return sum(leaf.n_weights for leaf in self.leaves)
+
+    @property
+    def total_pairs(self) -> int:
+        return sum(leaf.n_pairs for leaf in self.leaves)
+
+    @property
+    def pair_fraction(self) -> float:
+        tw = self.total_weights
+        return 2.0 * self.total_pairs / tw if tw else 0.0
+
+    def op_counts(self) -> OpCounts:
+        """Whole-model op ledger, one application per weight (GEMM accounting)."""
+        base, subs = self.total_weights, self.total_pairs
+        return OpCounts(mults=base - subs, adds=base - subs, subs=subs)
+
+    def baseline_op_counts(self) -> OpCounts:
+        return OpCounts(mults=self.total_weights, adds=self.total_weights, subs=0)
+
+    def savings(self, model: AsicCostModel | None = None) -> dict[str, float]:
+        m = model or AsicCostModel()
+        return {
+            "power_saving": m.power_saving(self.baseline_op_counts(), self.op_counts()),
+            "area_saving": m.area_saving(self.baseline_op_counts(), self.op_counts()),
+            "pair_fraction": self.pair_fraction,
+        }
+
+
+# Decoder weights of the dense GQA layers: (sub-block, weight name).  "wo"
+# contracts over all but its last axis, every other weight over its first.
+LM_PAIRED_WEIGHTS: tuple[tuple[str, str], ...] = (
+    ("attn", "wq"),
+    ("attn", "wk"),
+    ("attn", "wv"),
+    ("attn", "wo"),
+    ("mlp", "w_gate"),
+    ("mlp", "w_up"),
+    ("mlp", "w_down"),
+)
+
+
+def _lm_weight_matrix_shape(name: str, shape: tuple[int, ...]) -> tuple[int, int]:
+    """(K, N) GEMM view of one *per-layer* decoder weight shape."""
+    if name == "wo":
+        return int(np.prod(shape[:-1])), int(shape[-1])
+    return int(shape[0]), int(np.prod(shape[1:]))
+
+
+def _stack_structured(pairings: list[StructuredPairing]) -> dict[str, np.ndarray]:
+    """Pad per-layer structured pairings to a common (Pmax, Rmax) and stack.
+
+    Padded pair lanes point ``I == J == 0`` (their subtract is exactly zero)
+    and padded residual lanes at row 0 with a zero mask, so padding
+    contracts against nothing.
+    """
+    L = len(pairings)
+    P = max((sp.n_pairs for sp in pairings), default=0)
+    R = max((len(sp.resid) for sp in pairings), default=0)
+    I_m, J_m, R_m = (np.zeros((L, n), np.int32) for n in (P, P, R))
+    pmask, rmask = np.zeros((L, P), np.float32), np.zeros((L, R), np.float32)
+    for l, sp in enumerate(pairings):
+        p, r = sp.n_pairs, len(sp.resid)
+        I_m[l, :p], J_m[l, :p], R_m[l, :r] = sp.I, sp.J, sp.resid
+        pmask[l, :p] = 1.0
+        rmask[l, :r] = 1.0
+    return {"I": I_m, "J": J_m, "resid": R_m, "pair_mask": pmask, "resid_mask": rmask}
+
+
+def _stack_blocked(pairings: list[BlockedPairing]) -> dict[str, np.ndarray]:
+    """Pad per-layer blocked index matrices to common (Pmax, Rmax), stack."""
+    L, B = len(pairings), pairings[0].n_blocks
+    P = max(bp.Pmax for bp in pairings)
+    R = max(bp.Rmax for bp in pairings)
+    I_m, J_m, R_m = (np.zeros((L, B, n), np.int32) for n in (P, P, R))
+    pmask, rmask = np.zeros((L, B, P), np.float32), np.zeros((L, B, R), np.float32)
+    for l, bp in enumerate(pairings):
+        idx = bp.index_arrays()
+        p, r = bp.Pmax, bp.Rmax
+        I_m[l, :, :p], J_m[l, :, :p], R_m[l, :, :r] = idx["I"], idx["J"], idx["resid"]
+        pmask[l, :, :p] = idx["pair_mask"]
+        rmask[l, :, :r] = idx["resid_mask"]
+    return {"I": I_m, "J": J_m, "resid": R_m, "pair_mask": pmask, "resid_mask": rmask}
+
+
+def _indices_only(p: StructuredPairing | BlockedPairing):
+    """``p`` without its float64 magnitudes: the stacking needs only the
+    lane lists, and a full-depth model's magnitudes would fill the host."""
+    if isinstance(p, BlockedPairing):
+        return dataclasses.replace(p, blocks=[_indices_only(b) for b in p.blocks])
+    empty = np.zeros((0, p.shape[1]))
+    return dataclasses.replace(p, Kmat=empty, W_res=empty)
+
+
+def has_lm_pairing(model) -> bool:
+    """True iff some block of ``model`` already carries pairing metadata."""
+    return any(getattr(m, "pairing", None) for m in model.modules())
+
+
+def pair_params(
+    model,
+    rounding: float,
+    *,
+    mode: str = "structured",
+    block_n: int = 0,
+    leaves: tuple[tuple[str, str], ...] | None = None,
+    criterion: str = "rms",
+    min_dim: int = 8,
+):
+    """Pairing metadata for the decoder weights of an LM (``models.lm.LM``).
+
+    Each eligible weight of each layer is paired on a float64 copy, one layer
+    at a time; within a segment of identical layers the lane lists pad to the
+    segment-wide (Pmax, Rmax), as the JAX package's stacked metadata does.
+    Leaf selection is by ``(sub-block, weight-name)`` specs; with
+    ``leaves=None`` the :data:`LM_PAIRED_WEIGHTS` the layers carry are
+    paired, while an explicit list requires every spec to match.  ``mode``
+    is ``"structured"``, ``"column_blocked"`` (one pairing per ``block_n``
+    columns) or ``"per_column"`` (``block_n=1``, the paper's Algorithm 1).
+
+    Returns ``(model', report)``: ``model'`` shares the weights of ``model``
+    (nothing is copied) and carries ``block.pairing[name]`` — ``I``/``J``/
+    ``resid`` (int64) and ``pair_mask``/``resid_mask`` (fp32) on the
+    weights' device.  Weights are not folded: the magnitudes are recomputed
+    from the live weights (``kernels.ops.lm_paired_segments``).
+    """
+    if mode == "per_column":
+        mode, block_n = "column_blocked", 1
+    if mode not in ("structured", "column_blocked"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "column_blocked" and block_n < 1:
+        raise ValueError("mode='column_blocked' needs block_n >= 1")
+    specs = tuple(leaves) if leaves is not None else LM_PAIRED_WEIGHTS
+    matched: set[tuple[str, str]] = set()
+    report: list[LeafReport] = []
+    layer_pairing: list[dict[str, dict]] = [{} for _ in model.layers]
+
+    def pair_matrix(m: np.ndarray):
+        if mode == "column_blocked":
+            return pair_rows_blocked(m, rounding, min(block_n, m.shape[1]), criterion=criterion)
+        return pair_rows_structured(m, rounding, criterion=criterion)
+
+    start = 0
+    for si, (_, count) in enumerate(model.segments):
+        layers = model.layers[start:start + count]
+        for sub_path, w_name in specs:
+            blocks = [getattr(layer, sub_path, None) for layer in layers]
+            if any(b is None or not hasattr(b, w_name) for b in blocks):
+                continue
+            matched.add((sub_path, w_name))
+            shape = tuple(getattr(blocks[0], w_name).shape)
+            if len(shape) < 2:
+                continue  # matrices only
+            K, N = _lm_weight_matrix_shape(w_name, shape)
+            if K < min_dim or N < min_dim:
+                continue
+            pairings = [
+                _indices_only(pair_matrix(_as_numpy(getattr(b, w_name)).reshape(K, N)))
+                for b in blocks
+            ]
+            blocked = mode == "column_blocked"
+            meta = (_stack_blocked if blocked else _stack_structured)(pairings)
+            device = getattr(blocks[0], w_name).device
+            for l in range(count):
+                layer_meta = {k: torch.as_tensor(v[l], device=device) for k, v in meta.items()}
+                for k in ("I", "J", "resid"):
+                    layer_meta[k] = layer_meta[k].long()
+                layer_pairing[start + l].setdefault(sub_path, dict(blocks[l].pairing))[
+                    w_name] = layer_meta
+            n_pairs = sum(p.weighted_pairs for p in pairings)
+            n_weights = count * K * N
+            report.append(LeafReport(
+                path=f"segments[{si}].{sub_path}.{w_name}", shape=(count, *shape),
+                n_weights=n_weights, n_pairs=int(n_pairs),
+                pair_fraction=2.0 * n_pairs / n_weights,
+            ))
+        start += count
+
+    unmatched = [s for s in specs if s not in matched]
+    if leaves is not None and unmatched:
+        raise ValueError("pair_params: no weight matched leaf spec(s) "
+                         + ", ".join(f"{sp}.{wn}" for sp, wn in unmatched))
+    if not report:
+        raise ValueError("pair_params: no pairing-eligible weights found; looked for "
+                         + ", ".join(f"{sp}.{wn}" for sp, wn in specs)
+                         + f" among matrices with GEMM dims >= {min_dim}")
+    paired = model.copy(frozen=False, layer_pairing=layer_pairing)
+    return paired, PairedModelReport(rounding=rounding, mode=mode, leaves=report)
+
+
+def pair_lm_params(
+    model,
+    rounding: float,
+    *,
+    mode: str = "structured",
+    block_n: int = 0,
+    criterion: str = "rms",
+    min_dim: int = 8,
+):
+    """:func:`pair_params` over whatever of :data:`LM_PAIRED_WEIGHTS` the
+    model carries."""
+    return pair_params(model, rounding, mode=mode, block_n=block_n,
+                       criterion=criterion, min_dim=min_dim)

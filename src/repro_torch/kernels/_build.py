@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels (nvcc into a shared library, ctypes).
 
-Each source under ``csrc/`` is compiled on first use into
+Every source under ``csrc/`` (:data:`SOURCES`) is compiled on first use into
 ``build/repro_torch_kernels/`` at the repository root, by a plain ``nvcc``
-call for ``sm_90a``.  The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here runs at import: this module imports on a machine
-without ``nvcc`` or a GPU, and only :func:`load` needs them.
+call for ``sm_90a``; the first :func:`load` builds all of them, one ``nvcc``
+process per source, in parallel.  The library's file name carries a hash of
+the source and the flags, so an edited source is rebuilt and a stale library
+is never loaded.  Nothing here runs at import: this module imports on a
+machine without ``nvcc`` or a GPU, and only :func:`load` needs them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from concurrent.futures import ThreadPoolExecutor
 import hashlib
 import os
 import shutil
@@ -20,6 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("paired_matmul", "decode_attention")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,6 +87,15 @@ def build(name: str) -> dict:
 
 
 @functools.cache
+def build_all() -> dict[str, dict]:
+    """:func:`build` every source in :data:`SOURCES` at once (one ``nvcc``
+    each, in parallel); once per process.  Raises if any build fails."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SOURCES}
+        return {name: f.result() for name, f in futures.items()}
+
+
+@functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
-    return ctypes.CDLL(str(build(name)["path"]))
+    return ctypes.CDLL(str(build_all()[name]["path"]))

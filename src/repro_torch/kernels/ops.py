@@ -1,19 +1,26 @@
-"""GEMM entry points over the paired kernel, and applying a pairing.
+"""Kernel entry points: the paired GEMM, applying a pairing, and the LM ops.
 
-The port of the GEMM half of ``repro.kernels.ops``.  These functions take
+The port of ``repro.kernels.ops`` (forward only).  The GEMM functions take
 any leading shape, flatten it to the kernel's 2-D layout and restore it, and
 apply a :class:`~repro_torch.core.pairing.StructuredPairing` or
 :class:`~repro_torch.core.pairing.BlockedPairing` to activations (the lane
-gather, which in production folds into the previous layer).  The kernel's
-tiles are fixed (see ``csrc/paired_matmul.cu``); the JAX package's tile
-cache has no counterpart yet.  Each call runs where its tensors lie: the
-CUDA kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
+gather, which in production folds into the previous layer).  The LM ops run
+a decoder weight through the paired kernel from its live values and frozen
+pairing metadata (``core.transform.pair_lm_params``), and decode attention
+through the kernel that applies the paired out-projection in its flush.
+The kernels' tiles are fixed (see ``csrc/``); the JAX package's tile cache
+has no counterpart yet.  Each call runs where its tensors lie: the CUDA
+kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.pairing import BlockedPairing, StructuredPairing
+from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
 from repro_torch.kernels.paired_matmul import (
     dense_matmul_cuda,
     paired_matmul_blocked_cuda,
@@ -120,3 +127,259 @@ def apply_structured_pairing(
     kmat = torch.as_tensor(sp.Kmat, dtype=x.dtype, device=x.device)
     w_res = torch.as_tensor(sp.W_res, dtype=x.dtype, device=x.device)
     return paired_matmul(xp, kmat, w_res, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the LM: paired dense from live weights + frozen pairing metadata
+# ---------------------------------------------------------------------------
+#
+# The pairing metadata of one decoder weight (a layer's slice of
+# ``core.transform.pair_lm_params``) holds only the index structure: lane
+# lists ``I``/``J``/``resid`` and their masks, 1-D for a structured pairing
+# and ``(B, Pmax)`` for a column-blocked one, padded to the segment-wide
+# (Pmax, Rmax).  Padded pair lanes point I == J == 0 and every padded
+# weight row is masked to zero, so padding contracts against nothing.  The
+# magnitudes come from the live weights, ``Kmat = (W[I] − W[J]) / 2``,
+# computed in the weights' dtype (the compute dtype) as the JAX package does.
+
+
+class PairedSegments(NamedTuple):
+    """What the paired kernel contracts for one weight: the activation lane
+    order ``perm`` (``(K',)``, or ``(B, K')`` per column block) and the live
+    segments ``kmat``/``w_res`` (``(P, N)``/``(R, N)``, or
+    ``(B, Pmax, bn)``/``(B, Rmax, bn)``)."""
+
+    perm: torch.Tensor
+    kmat: torch.Tensor
+    w_res: torch.Tensor
+    n_cols: int
+
+
+class AttnOutSegments(NamedTuple):
+    """The out-projection in the decode-attention kernel's column-blocked
+    form: int32 lane lists ``(Bw, Pmax)``/``(Bw, Rmax)`` and segments
+    ``(Bw, Pmax, bn)``/``(Bw, Rmax, bn)``."""
+
+    idx_i: torch.Tensor
+    idx_j: torch.Tensor
+    idx_r: torch.Tensor
+    kmat: torch.Tensor
+    w_res: torch.Tensor
+    n_cols: int
+
+
+def _lm_structured_segments(w2: torch.Tensor, meta: dict):
+    """Live (kmat, w_res) for a structured LM pairing."""
+    kmat = (w2[meta["I"]] - w2[meta["J"]]) * 0.5
+    kmat = kmat * meta["pair_mask"][:, None].to(w2.dtype)
+    w_res = w2[meta["resid"]] * meta["resid_mask"][:, None].to(w2.dtype)
+    return kmat, w_res
+
+
+def _lm_blocked_weights(w2: torch.Tensor, n_blocks: int, bn: int) -> torch.Tensor:
+    """(K, N) live weights → block-major (n_blocks, K, bn), zero-padded cols."""
+    K, N = w2.shape
+    pad = n_blocks * bn - N
+    w_p = F.pad(w2, (0, pad)) if pad else w2
+    return w_p.reshape(K, n_blocks, bn).permute(1, 0, 2)
+
+
+def _take_block_segments(wm_t: torch.Tensor, meta: dict):
+    """Live per-block (kmat, w_res) from block-major (B, K, bn) weights and
+    (B, Pmax/Rmax) lane lists."""
+    bar = torch.arange(wm_t.shape[0], device=wm_t.device)[:, None]
+    pmask = meta["pair_mask"][:, :, None].to(wm_t.dtype)
+    rmask = meta["resid_mask"][:, :, None].to(wm_t.dtype)
+    kmat = (wm_t[bar, meta["I"]] - wm_t[bar, meta["J"]]) * 0.5 * pmask  # (B, Pmax, bn)
+    w_res = wm_t[bar, meta["resid"]] * rmask  # (B, Rmax, bn)
+    return kmat, w_res
+
+
+def _lm_blocked_segments(w2: torch.Tensor, meta: dict, bn: int):
+    """Packed per-block live (kmat, w_res) for a blocked LM pairing."""
+    return _take_block_segments(_lm_blocked_weights(w2, meta["I"].shape[0], bn), meta)
+
+
+def _check_block_n(meta: dict, pair_block_n: int) -> None:
+    if meta["I"].ndim == 2 and pair_block_n < 1:
+        raise ValueError("blocked pairing metadata needs pair_block_n >= 1")
+
+
+def fold_lm_weight(w2: torch.Tensor, meta: dict, pair_block_n: int = 0) -> torch.Tensor:
+    """Dense W_approx (K, N) the paired LM GEMM is equivalent to.
+
+    The live-weight fold under a frozen pairing structure (the test oracle):
+    paired rows snap to ±Kmat, residual rows pass through.  Scatter-*add*
+    because padded lanes all point at row 0 with exactly-zero contributions.
+    """
+    K, N = w2.shape
+    if meta["I"].ndim == 2:  # blocked: (B, Pmax)-shaped lane lists
+        B, bn = meta["I"].shape[0], pair_block_n
+        if bn < 1 or B != -(-N // bn):
+            raise ValueError(f"{B} blocks do not cover {N} columns at pair_block_n={bn}")
+        kmat, w_res = _lm_blocked_segments(w2, meta, bn)
+        bar = torch.arange(B, device=w2.device)[:, None]
+        wf_t = torch.zeros((B, K, bn), dtype=w2.dtype, device=w2.device)
+        wf_t.index_put_((bar, meta["I"]), kmat, accumulate=True)
+        wf_t.index_put_((bar, meta["J"]), -kmat, accumulate=True)
+        wf_t.index_put_((bar, meta["resid"]), w_res, accumulate=True)
+        return wf_t.permute(1, 0, 2).reshape(K, B * bn)[:, :N]
+    kmat, w_res = _lm_structured_segments(w2, meta)
+    wf = torch.zeros_like(w2)
+    wf.index_put_((meta["I"],), kmat, accumulate=True)
+    wf.index_put_((meta["J"],), -kmat, accumulate=True)
+    wf.index_put_((meta["resid"],), w_res, accumulate=True)
+    return wf
+
+
+def lm_paired_segments(w2: torch.Tensor, meta: dict, pair_block_n: int = 0) -> PairedSegments:
+    """The paired kernel's operands for (K, N) live weights ``w2`` under
+    ``meta``; ``pair_block_n`` is the block size blocked metadata was built
+    with."""
+    _check_block_n(meta, pair_block_n)
+    perm = torch.cat([meta["I"], meta["J"], meta["resid"]], dim=-1)
+    if meta["I"].ndim == 2:
+        kmat, w_res = _lm_blocked_segments(w2, meta, pair_block_n)
+    else:
+        kmat, w_res = _lm_structured_segments(w2, meta)
+    return PairedSegments(perm, kmat, w_res, w2.shape[1])
+
+
+def paired_dense(
+    x: torch.Tensor,
+    seg: PairedSegments,
+    bias: torch.Tensor | None = None,
+    *,
+    activation: str = "none",
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(…, K) through the paired kernel on precomputed segments → (…, N);
+    one launch.  ``bias``/``activation``/``residual`` fuse into its epilogue."""
+    kmat, w_res = seg.kmat.to(x.dtype), seg.w_res.to(x.dtype)
+    if seg.perm.ndim == 1:
+        return paired_matmul(x[..., seg.perm], kmat, w_res, bias, residual,
+                             activation=activation)
+    lead = x.shape[:-1]
+    xg = x.reshape(-1, x.shape[-1])[:, seg.perm].movedim(1, 0)  # (B, M, K')
+    res2 = None if residual is None else residual.reshape(-1, seg.n_cols)
+    y = paired_matmul_blocked(xg, kmat, w_res, bias, res2, n_cols=seg.n_cols,
+                              activation=activation)
+    return y.reshape(*lead, seg.n_cols)
+
+
+def fused_paired_dense(
+    x: torch.Tensor,
+    w: torch.Tensor,  # (K, N) live weights (reshape attention weights first)
+    meta: dict,  # one layer's pairing metadata (core.transform.pair_lm_params)
+    bias: torch.Tensor | None = None,
+    *,
+    activation: str = "none",
+    residual: torch.Tensor | None = None,
+    pair_block_n: int = 0,
+) -> torch.Tensor:
+    """Paired GEMM from live weights + frozen LM pairing (forward only).
+
+    1-D lane lists select the structured kernel, ``(B, Pmax)`` lists the
+    column-blocked one (``pair_block_n`` is then the block size the metadata
+    was built with).  ``residual`` fuses the sublayer skip connection into
+    the kernel's epilogue.
+    """
+    return paired_dense(x, lm_paired_segments(w, meta, pair_block_n), bias,
+                        activation=activation, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# fused decode attention feeding the paired out-projection
+# ---------------------------------------------------------------------------
+#
+# The decode-attention kernel applies the paired out-projection in its flush,
+# so the attended values never reach device memory.  Whatever out-projection
+# metadata the layer has is normalised into the kernel's column-blocked form:
+#
+#   * structured metadata lifts to one block of bn = N columns;
+#   * an unpaired weight becomes a pure-residual block (one zero pair lane,
+#     resid = arange(K)), so (o[I] − o[J])·kmat is exactly zero and
+#     o[resid]·w_res == o @ W;
+#   * empty pair/residual segments (r=0 pairs nothing) pad to one zero lane,
+#     so every kernel operand is non-empty.
+
+
+def attn_outproj_segments(
+    w2: torch.Tensor, meta: dict | None, pair_block_n: int = 0
+) -> AttnOutSegments:
+    """The out-projection's segments for the fused decode-attention kernel."""
+    K, N = w2.shape
+    i32 = dict(dtype=torch.int32, device=w2.device)
+    if meta is None:
+        zero = torch.zeros((1, 1), **i32)
+        return AttnOutSegments(zero, zero, torch.arange(K, **i32)[None],
+                               w2.new_zeros((1, 1, N)), w2[None], N)
+    _check_block_n(meta, pair_block_n)
+    if meta["I"].ndim == 1:
+        meta, bn = {k: v[None] for k, v in meta.items()}, N
+    else:
+        bn = pair_block_n
+    kmat, w_res = _lm_blocked_segments(w2, meta, bn)
+    idx_i, idx_j, idx_r = (meta[k].to(torch.int32) for k in ("I", "J", "resid"))
+    B = idx_i.shape[0]
+    if idx_i.shape[1] == 0:
+        idx_i = idx_j = torch.zeros((B, 1), **i32)
+        kmat = w2.new_zeros((B, 1, bn))
+    if idx_r.shape[1] == 0:
+        idx_r = torch.zeros((B, 1), **i32)
+        w_res = w2.new_zeros((B, 1, bn))
+    return AttnOutSegments(idx_i, idx_j, idx_r, kmat, w_res, N)
+
+
+def attn_decode(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KH, D)
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,  # (B,)
+    seg: AttnOutSegments,
+    *,
+    residual: torch.Tensor | None = None,  # (B, 1, N)
+    window: int = 0,
+    n_sink: int = 0,
+) -> torch.Tensor:
+    """Decode attention + the out-projection on precomputed segments, one
+    launch → (B, 1, N)."""
+    res2 = None if residual is None else residual.reshape(-1, seg.n_cols)
+    y = fused_decode_attention_cuda(
+        q, k_cache, v_cache, pos, seg.idx_i, seg.idx_j, seg.idx_r,
+        seg.kmat.to(q.dtype), seg.w_res.to(q.dtype), res2,
+        n_cols=seg.n_cols, window=window, n_sink=n_sink,
+    )
+    return y[:, None]
+
+
+def fused_attn_decode(
+    q: torch.Tensor,  # (B, 1, H, D) one post-rope query row per slot
+    k_cache: torch.Tensor,  # (B, S, KH, D)
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,  # (B,) int32
+    w: torch.Tensor,  # (K=H·D, N) live out-projection weights
+    meta: dict | None = None,  # out-projection pairing metadata (any layout)
+    *,
+    residual: torch.Tensor | None = None,  # (B, 1, N) fused skip connection
+    pair_block_n: int = 0,
+    window: int = 0,
+    n_sink: int = 0,
+) -> torch.Tensor:
+    """Fused decode attention + paired out-projection (forward only).
+
+    One launch per decode step: attention over the KV cache with the
+    out-projection (and the sublayer residual) applied in the kernel's
+    flush.  ``meta`` is the out-projection's pairing in either LM layout, or
+    ``None`` for an unpaired weight.  Returns (B, 1, N).
+    """
+    return attn_decode(q, k_cache, v_cache, pos,
+                       attn_outproj_segments(w, meta, pair_block_n),
+                       residual=residual, window=window, n_sink=n_sink)
+
+
+def paired_mode_of(knobs) -> tuple[str, int]:
+    """(pairing mode, block_n) a ``pair_block_n`` knob encodes: 0 →
+    structured, n ≥ 1 → column-blocked (1 == the paper's per-column)."""
+    n = int(knobs.pair_block_n or 0)
+    return ("column_blocked", n) if n >= 1 else ("structured", 0)

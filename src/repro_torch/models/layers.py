@@ -1,0 +1,464 @@
+"""Layers of the dense GQA decoder, in PyTorch.
+
+The port of the dense subset of ``repro.models.layers``.  Conventions, as in
+the JAX package:
+
+* activations ``(batch, seq, d_model)`` in the compute dtype (the config's);
+* softmax and normalisation statistics in fp32;
+* attention weights keep heads explicit: ``wq`` ``(d, H, hd)``, ``wk``/``wv``
+  ``(d, KH, hd)``, ``wo`` ``(H, hd, d)``;
+* prefill attention goes through :func:`flash_attention` (blocked online
+  softmax, plain PyTorch: the JAX package's is XLA code, not a kernel), a
+  single decode row through :func:`decode_attention` or, with
+  ``knobs.attn == "pallas_fused"``, the decode-attention kernel that applies
+  the paired out-projection in its flush (``kernels.ops.attn_decode``).
+
+Weights live in :class:`Block` modules (fp32 masters, as the JAX package
+keeps them) with each weight's pairing metadata beside it; every GEMM goes
+through :func:`dense`, the one dispatch point between ``torch.matmul`` and
+the paired kernel.  A *frozen* block (the serving engine's copy, whose
+weights never change) keeps what it derives from its weights, the
+compute-dtype casts and the paired kernel's segments, after the first call;
+an unfrozen block recomputes them on every call, as the JAX package does.
+Knobs arrive as an explicit ``PerfKnobs`` argument.
+"""
+from __future__ import annotations
+
+import math
+from collections.abc import Callable
+from typing import Any
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_mask
+
+# ---------------------------------------------------------------------------
+# weight containers
+# ---------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """Named weights (parameters), their pairing metadata, and a cache of
+    tensors derived from them.
+
+    ``pairing[name]`` is one layer's metadata of weight ``name``
+    (``core.transform.pair_lm_params``): lane lists ``I``/``J``/``resid``
+    (int64) and masks ``pair_mask``/``resid_mask`` (fp32).
+    """
+
+    REQUIRED: tuple[str, ...] = ()
+
+    def __init__(self, *, pairing: dict | None = None, **weights: torch.Tensor | None):
+        super().__init__()
+        missing = [n for n in self.REQUIRED if weights.get(n) is None]
+        if missing:
+            raise ValueError(f"{type(self).__name__} needs weights {missing}")
+        for name, t in weights.items():
+            if t is not None:
+                if not isinstance(t, nn.Parameter):
+                    t = nn.Parameter(t, requires_grad=False)
+                self.register_parameter(name, t)
+        self.pairing: dict[str, dict[str, torch.Tensor]] = dict(pairing or {})
+        self.frozen = False
+        self._derived: dict[Any, Any] = {}
+
+    def copy(self, *, frozen: bool, pairing: dict | None = None) -> Block:
+        """A block sharing these weights (not copied), with ``pairing`` (or
+        this block's) and an empty cache."""
+        new = type(self)(pairing=self.pairing if pairing is None else pairing,
+                         **dict(self.named_parameters(recurse=False)))
+        new.frozen = frozen
+        return new
+
+    def derived(self, key, fn: Callable[[], Any]):
+        """``fn()``, kept under ``key`` after the first call when frozen."""
+        if not self.frozen:
+            return fn()
+        if key not in self._derived:
+            self._derived[key] = fn()
+        return self._derived[key]
+
+    def matrix(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """Weight ``name`` as its (K, N) GEMM view, in ``dtype``: ``wo``
+        contracts over all but its last axis, every other weight over its
+        first."""
+        w = getattr(self, name)
+        w = w.reshape(-1, w.shape[-1]) if name == "wo" else w.reshape(w.shape[0], -1)
+        return w.to(dtype)
+
+
+class Norm(Block):
+    """RMSNorm scale ``(d,)``."""
+
+    REQUIRED = ("scale",)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(x, self.scale)
+
+
+class Attention(Block):
+    """GQA attention: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KH, hd), ``wo``
+    (H, hd, d); optional biases ``bq`` (H, hd), ``bk``/``bv`` (KH, hd) and
+    qk-norm scales ``q_norm``/``k_norm`` (hd,)."""
+
+    REQUIRED = ("wq", "wk", "wv", "wo")
+
+
+class MLP(Block):
+    """Gated MLP: ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d)."""
+
+    REQUIRED = ("w_gate", "w_up", "w_down")
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm decoder layer: ``h + attn(ln1(h))``, then ``h + mlp(ln2(h))``."""
+
+    def __init__(self, ln1: Norm, attn: Attention, ln2: Norm, mlp: MLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+    def copy(self, *, frozen: bool, pairing: dict | None = None) -> DecoderLayer:
+        """A layer sharing these weights; ``pairing`` maps a sub-block name
+        (``"attn"``, ``"mlp"``) to that block's new pairing dict."""
+        pairing = pairing or {}
+        return DecoderLayer(*(getattr(self, n).copy(frozen=frozen, pairing=pairing.get(n))
+                              for n in ("ln1", "attn", "ln2", "mlp")))
+
+
+# ---------------------------------------------------------------------------
+# norms / rope / activations
+# ---------------------------------------------------------------------------
+
+
+def apply_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, statistics in fp32."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS norm over head_dim (qk_norm). x: (..., head_dim)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, rotate-half convention, in fp32 then cast.
+
+    x: (B, S, H, D) with D even; positions: (B, S).
+    """
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
+    angles = positions[..., None].float() * freqs  # (B, S, D/2)
+    cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    # gelu is the tanh approximation, jax.nn.gelu's default
+    return F.silu(x) if name == "silu" else F.gelu(x, approximate="tanh")
+
+
+def dense(
+    x: torch.Tensor,
+    w: torch.Tensor | None,
+    bias: torch.Tensor | None = None,
+    act: str | None = None,
+    *,
+    pairing: dict | None = None,
+    residual: torch.Tensor | None = None,
+    knobs,
+    segments: ops.PairedSegments | None = None,
+) -> torch.Tensor:
+    """GEMM over the last axis with optional bias + activation + residual.
+
+    The single dispatch point: with ``knobs.gemm == "pallas_paired"`` a call
+    that carries ``pairing`` metadata runs the paired kernel
+    (``ops.fused_paired_dense``, on ``segments`` when the caller has them
+    precomputed from ``w``, which may then be None), bias, activation and
+    ``residual`` fused into its one store; otherwise ``torch.matmul`` and
+    plain adds (``pairing`` is ignored there: the live weights are the
+    r=0-exact reference).  ``residual`` is an output-shaped skip connection
+    added after the activation.
+    """
+    if pairing is not None and knobs.gemm == "pallas_paired":
+        if segments is None:
+            return ops.fused_paired_dense(x, w, pairing, bias, activation=act or "none",
+                                          residual=residual, pair_block_n=knobs.pair_block_n)
+        return ops.paired_dense(x, segments, bias, activation=act or "none", residual=residual)
+    y = torch.matmul(x, w)
+    if bias is not None:
+        y = y + bias
+    if act:
+        y = activation(act, y)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return y
+
+
+def _leaf_dense(p: Block, name: str, x: torch.Tensor, knobs, *, act=None, residual=None):
+    """:func:`dense` of ``x`` against weight ``name`` of ``p`` (its (K, N)
+    view in x's dtype), with the paired segments kept on a frozen block."""
+    cdt = x.dtype
+    meta = p.pairing.get(name)
+    if meta is not None and knobs.gemm == "pallas_paired":
+        seg = p.derived(("paired", name, cdt), lambda: ops.lm_paired_segments(
+            p.matrix(name, cdt), meta, knobs.pair_block_n))
+        return dense(x, None, act=act, pairing=meta, residual=residual, knobs=knobs,
+                     segments=seg)
+    w = p.derived(("matrix", name, cdt), lambda: p.matrix(name, cdt))
+    return dense(x, w, act=act, residual=residual, knobs=knobs)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (blocked online softmax, plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _block_mask(pos_q, pos_k, *, causal: bool, window: int, n_sink: int):
+    """(Q, K) bool mask for one (q-block, k-block) pair of position vectors."""
+    pq, pk = pos_q[:, None], pos_k[None, :]
+    ok = torch.ones((pq.shape[0], pk.shape[1]), dtype=torch.bool, device=pos_q.device)
+    if causal:
+        ok = pk <= pq
+    if window:
+        in_window = pk > pq - window
+        if n_sink:
+            in_window = in_window | (pk < n_sink)
+        ok = ok & in_window
+    return ok
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    n_sink: int = 0,
+    q_offset: int = 0,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Blocked attention with online softmax (fp32 statistics).
+
+    q: (B, Sq, H, D);  k, v: (B, Sk, KH, D) with H = KH * G (GQA).  Returns
+    (B, Sq, H, D).  Score and probability blocks are fp32; probabilities are
+    cast to v's dtype before the product with V, as in the JAX package.  Under
+    a causal mask a q-block stops at the last KV block its rows can see (the
+    blocks past it are fully masked and would add exact zeros).
+    """
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    q_chunk, k_chunk = min(q_chunk, Sq), min(k_chunk, Sk)
+    nq, nk = -(-Sq // q_chunk), -(-Sk // k_chunk)
+    q = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - Sq))
+    k = F.pad(k, (0, 0, 0, 0, 0, nk * k_chunk - Sk))
+    v = F.pad(v, (0, 0, 0, 0, 0, nk * k_chunk - Sk))
+    qb = q.reshape(B, nq, q_chunk, KH, G, D).float()
+    kb = k.reshape(B, nk, k_chunk, KH, D).float()
+    vb = v.reshape(B, nk, k_chunk, KH, D)
+    pos_k_all = torch.arange(nk * k_chunk, device=q.device)
+    blocks = []
+    for qi in range(nq):
+        pos_q = q_offset + qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        m = torch.full((B, KH, G, q_chunk), -math.inf, device=q.device)
+        l = torch.zeros((B, KH, G, q_chunk), device=q.device)
+        acc = torch.zeros((B, KH, G, q_chunk, D), device=q.device)
+        hi = min(nk, -(-(q_offset + (qi + 1) * q_chunk) // k_chunk)) if causal else nk
+        for ki in range(hi):
+            s = torch.einsum("bqkgd,bckd->bkgqc", qb[:, qi], kb[:, ki]) * scale
+            pos_k = pos_k_all[ki * k_chunk:(ki + 1) * k_chunk]
+            ok = _block_mask(pos_q, pos_k, causal=causal, window=window, n_sink=n_sink)
+            ok = ok & (pos_k < Sk)[None, :]  # padded keys are never attended
+            s = s.masked_fill(~ok, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+            p = torch.exp(s - m_safe[..., None]).masked_fill(~ok, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(vb.dtype).float(), vb[:, ki].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        blocks.append(out.permute(0, 3, 1, 2, 4))  # (B, q_chunk, KH, G, D)
+    out = torch.stack(blocks, dim=1).reshape(B, nq * q_chunk, H, D)
+    return out[:, :Sq].to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KH, D)
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,  # (B,) current position of the new token
+    *,
+    window: int = 0,
+    n_sink: int = 0,
+) -> torch.Tensor:
+    """Single-token attention against a (possibly longer) cache: fp32 scores
+    and softmax, probabilities cast to the cache dtype for the product."""
+    B, _, H, D = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KH, H // KH, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * (1.0 / math.sqrt(D))
+    ok = decode_mask(pos, S, window, n_sink)[:, None, None, :]
+    p = torch.softmax(s.masked_fill(~ok, -math.inf), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+
+def _qkv_post(cfg: ModelConfig, p: Attention, q, k, v, positions: torch.Tensor):
+    """Bias / qk-norm / rope applied to freshly projected (…, heads, hd)."""
+    cdt = q.dtype
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq.to(cdt), k + p.bk.to(cdt), v + p.bv.to(cdt)
+    if cfg.qk_norm:
+        q, k = rms_head_norm(p.q_norm, q), rms_head_norm(p.k_norm, k)
+    if cfg.rope_theta:
+        q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions, knobs):
+    """Three projections, each through :func:`dense` (one paired launch each
+    under ``gemm="pallas_paired"``)."""
+    def proj(name):
+        heads, hd = getattr(p, name).shape[-2:]
+        return _leaf_dense(p, name, x, knobs).reshape(*x.shape[:-1], heads, hd)
+
+    return _qkv_post(cfg, p, proj("wq"), proj("wk"), proj("wv"), positions)
+
+
+def _fused_qkv_proj(p: Attention, x: torch.Tensor, knobs):
+    """All three QKV projections as ONE paired launch, when possible.
+
+    The q/k/v weights concatenate along their output columns and their
+    blocked pairing metadata along the block axis (lane lists padded to a
+    common Pmax/Rmax with masked zero lanes).  Needs blocked metadata on all
+    three and a block size dividing the wq and wk column counts, so blocks
+    stay inside one weight.  Returns ``(q, k, v)`` shaped ``(…, heads, hd)``,
+    or None when the layout does not allow it.
+    """
+    names = ("wq", "wk", "wv")
+    metas = [p.pairing.get(n) for n in names]
+    if any(m is None or m["I"].ndim != 2 for m in metas):
+        return None
+    bn, cdt = knobs.pair_block_n, x.dtype
+    ns = [getattr(p, n).shape[-2] * getattr(p, n).shape[-1] for n in names]
+    if bn < 1 or ns[0] % bn or ns[1] % bn:
+        return None
+
+    def segments():
+        pmax = max(m["I"].shape[1] for m in metas)
+        rmax = max(m["resid"].shape[1] for m in metas)
+        width = {"I": pmax, "J": pmax, "pair_mask": pmax, "resid": rmax, "resid_mask": rmax}
+        meta = {key: torch.cat([F.pad(m[key], (0, n - m[key].shape[1])) for m in metas])
+                for key, n in width.items()}
+        w = torch.cat([p.matrix(n, cdt) for n in names], dim=1)
+        return ops.lm_paired_segments(w, meta, bn)
+
+    y = ops.paired_dense(x, p.derived(("paired_qkv", cdt), segments))
+    yq, yk, yv = torch.split(y, ns, dim=-1)
+    shape = lambda t, n: t.reshape(*x.shape[:-1], *getattr(p, n).shape[-2:])
+    return shape(yq, "wq"), shape(yk, "wk"), shape(yv, "wv")
+
+
+def attn_out_proj(p: Attention, out: torch.Tensor, knobs,
+                  residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention output projection through :func:`dense`, flattened-head
+    view; ``residual`` (the sublayer's skip connection) fuses into the
+    paired kernel's epilogue."""
+    o2 = out.reshape(*out.shape[:-2], -1)
+    return _leaf_dense(p, "wo", o2, knobs, residual=residual)
+
+
+def attention_block(
+    cfg: ModelConfig,
+    p: Attention,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    knobs,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    n_sink: int = 0,
+    residual: torch.Tensor | None = None,
+):
+    """Full attention sublayer (projections + flash attention + out
+    projection).  Returns ``(y, k, v)``: the post-rope K/V fill the cache."""
+    q, k, v = _qkv(cfg, p, x, positions, knobs)
+    out = flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink,
+                          q_chunk=knobs.q_chunk, k_chunk=knobs.k_chunk)
+    return attn_out_proj(p, out, knobs, residual=residual), k, v
+
+
+def attention_decode_block(
+    cfg: ModelConfig,
+    p: Attention,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: dict,  # {"k": (B, S, KH, hd), "v": ...}, updated in place
+    pos: torch.Tensor,  # (B,)
+    knobs,
+    *,
+    window: int = 0,
+    n_sink: int = 0,
+    residual: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """One decode token: QKV, cache write at ``pos`` (in place: the port's
+    caches are mutable, unlike the JAX package's), attention and the
+    out-projection with ``residual`` fused.
+
+    With ``knobs.attn == "pallas_fused"`` the attention and out-projection
+    run as one decode-attention launch, and under paired GEMMs with blocked
+    metadata the QKV projections as one paired launch.
+    """
+    fused = knobs.attn == "pallas_fused" and x.shape[1] == 1
+    paired = knobs.gemm == "pallas_paired"
+    qkv = _fused_qkv_proj(p, x, knobs) if fused and paired else None
+    if qkv is None:
+        q, k, v = _qkv(cfg, p, x, pos[:, None], knobs)
+    else:
+        q, k, v = _qkv_post(cfg, p, *qkv, pos[:, None])
+    bidx = torch.arange(x.shape[0], device=x.device)
+    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+    if not fused:
+        out = decode_attention(q, k_cache, v_cache, pos, window=window, n_sink=n_sink)
+        return attn_out_proj(p, out, knobs, residual=residual), cache
+    cdt = x.dtype
+    meta = p.pairing.get("wo") if paired else None
+    seg = p.derived(("attn_out", cdt, meta is not None), lambda: ops.attn_outproj_segments(
+        p.matrix("wo", cdt), meta, knobs.pair_block_n if paired else 0))
+    y = ops.attn_decode(q, k_cache, v_cache, pos, seg, residual=residual,
+                        window=window, n_sink=n_sink)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_block(cfg: ModelConfig, p: MLP, x: torch.Tensor, knobs,
+              residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Gated MLP; ``residual`` fuses the sublayer skip connection into the
+    down-projection (the paired kernel's epilogue, or a plain add)."""
+    g = _leaf_dense(p, "w_gate", x, knobs, act=cfg.act)
+    u = _leaf_dense(p, "w_up", x, knobs)
+    return _leaf_dense(p, "w_down", g * u, knobs, residual=residual)

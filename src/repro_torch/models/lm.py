@@ -1,0 +1,294 @@
+"""The dense decoder-only LM: init, forward, prefill and decode, in PyTorch.
+
+The port of the dense subset of ``repro.models.lm``:
+
+* :func:`lm_forward` — the forward over a prompt (logits, and optionally
+  the K/V it produced);
+* :func:`prefill` — last-position logits and a filled cache;
+* :func:`init_cache` — an empty decode cache ``{"k", "v"}`` of shape
+  ``(layers, batch, seq, kv_heads, head_dim)``;
+* :func:`decode_step` — one new token per slot against the cache.
+
+The model is an :class:`LM` module: the embedding (tied as the head), the
+final norm and one :class:`~repro_torch.models.layers.DecoderLayer` per
+layer.  The JAX package stacks a segment's layers for ``lax.scan``; the port
+keeps them apart and remembers the segments (``LM.segments``), which only
+decide how pairing metadata is padded.  :func:`lm_params_from_numpy` builds
+the model from the JAX package's value tree, so both packages can compute
+from the same weights; :func:`init_lm` makes seeded random weights of its
+own (``jax.random`` streams cannot be reproduced in torch).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (
+    MLP,
+    Attention,
+    Block,
+    DecoderLayer,
+    Norm,
+    attention_block,
+    attention_decode_block,
+    mlp_block,
+)
+
+GEMMS = ("xla", "pallas_paired")
+ATTNS = ("xla", "pallas_fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class PerfKnobs:
+    """Schedule knobs of the LM path (the fields of the JAX package's
+    ``PerfKnobs`` that this path reads).
+
+    ``gemm="pallas_paired"`` runs every decoder GEMM whose weight carries
+    pairing metadata on the paired kernel, with the sublayer residual adds
+    in its epilogue; ``pair_rounding`` and ``pair_block_n`` (0 → structured,
+    n ≥ 1 → column-blocked, 1 == the paper's per-column pairing) set the
+    pairing the serving engine builds.  ``attn="pallas_fused"`` runs decode
+    attention and the out-projection as one decode-attention launch.
+    ``q_chunk``/``k_chunk`` are prefill attention's blocks.
+    """
+
+    q_chunk: int = 1024
+    k_chunk: int = 1024
+    gemm: str = "xla"
+    attn: str = "xla"
+    pair_rounding: float = 0.0
+    pair_block_n: int = 0
+
+    def __post_init__(self):
+        if self.gemm not in GEMMS:
+            raise ValueError(f"unknown knobs.gemm {self.gemm!r} (expected one of {GEMMS})")
+        if self.attn not in ATTNS:
+            raise ValueError(f"unknown knobs.attn {self.attn!r} (expected one of {ATTNS})")
+
+
+DEFAULT_KNOBS = PerfKnobs()
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab rounded up to 128, as in the JAX package."""
+    return ((cfg.vocab + 127) // 128) * 128
+
+
+class LM(Block):
+    """Embedding ``embed`` (Vp, d), tied as the head, the final norm, the
+    decoder layers, and the config's segments."""
+
+    REQUIRED = ("embed",)
+
+    def __init__(self, *, final_norm: Norm, layers: list[DecoderLayer],
+                 segments: tuple[tuple[str, int], ...], pairing: dict | None = None,
+                 **weights):
+        super().__init__(pairing=pairing, **weights)
+        if sum(n for _, n in segments) != len(layers):
+            raise ValueError(f"segments {segments} do not cover {len(layers)} layers")
+        self.final_norm = final_norm
+        self.layers = nn.ModuleList(layers)
+        self.segments = tuple(segments)
+
+    def copy(self, *, frozen: bool, layer_pairing: list[dict] | None = None) -> LM:
+        """A model sharing these weights (nothing is copied), with empty
+        caches; ``layer_pairing[l]`` replaces layer ``l``'s pairing dicts
+        (``{"attn": {...}, "mlp": {...}}``)."""
+        per_layer = layer_pairing or [None] * len(self.layers)
+        new = LM(final_norm=self.final_norm.copy(frozen=frozen),
+                 layers=[layer.copy(frozen=frozen, pairing=lp)
+                         for layer, lp in zip(self.layers, per_layer, strict=True)],
+                 segments=self.segments, **dict(self.named_parameters(recurse=False)))
+        new.frozen = frozen
+        return new
+
+
+# ---------------------------------------------------------------------------
+# init / weights from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _trunc_normal(shape, fan_in: int, gen: torch.Generator, device) -> torch.Tensor:
+    """Normal truncated to ±2 standard deviations, over sqrt(fan_in) (the
+    JAX package's initialiser), by inverse transform of a uniform draw."""
+    lim = math.erf(2.0 / math.sqrt(2.0))
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    t.uniform_(-lim, lim, generator=gen)
+    return t.erfinv_().mul_(math.sqrt(2.0) / math.sqrt(fan_in)).clamp_(
+        -2.0 / math.sqrt(fan_in), 2.0 / math.sqrt(fan_in))
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
+    """Seeded random fp32 weights of the JAX package's shapes and scales
+    (qkv biases zero, norm scales one), made on ``device`` (the GPU unless
+    ``"cpu"`` is asked for)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, H, KH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    tn = lambda shape, fan_in: _trunc_normal(shape, fan_in, gen, dev)
+    ones = lambda *shape: torch.ones(shape, device=dev)
+    zeros = lambda *shape: torch.zeros(shape, device=dev)
+
+    def layer() -> DecoderLayer:
+        attn = {"wq": tn((d, H, hd), d), "wk": tn((d, KH, hd), d),
+                "wv": tn((d, KH, hd), d), "wo": tn((H, hd, d), H * hd)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(H, hd), bk=zeros(KH, hd), bv=zeros(KH, hd))
+        if cfg.qk_norm:
+            attn.update(q_norm=ones(hd), k_norm=ones(hd))
+        return DecoderLayer(
+            Norm(scale=ones(d)), Attention(**attn), Norm(scale=ones(d)),
+            MLP(w_gate=tn((d, f), d), w_up=tn((d, f), d), w_down=tn((f, d), f)),
+        )
+
+    return LM(embed=tn((padded_vocab(cfg), d), d), final_norm=Norm(scale=ones(d)),
+              layers=[layer() for _ in range(cfg.n_layers)], segments=cfg.segments())
+
+
+def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
+    """The model from the JAX package's value tree (``param.unzip(init_lm(…))[0]``
+    with every leaf mapped to a numpy array).
+
+    Each segment's stacked ``(L, …)`` leaves split into per-layer weights;
+    ``"<name>_pairing"`` siblings (``core.transform.pair_lm_params``) carry
+    over as each layer's pairing metadata (lane lists as int64).
+    """
+    dev = resolve_device(device)
+
+    def tensor(a) -> torch.Tensor:
+        t = torch.as_tensor(np.array(a), device=dev)
+        return t.long() if not t.is_floating_point() else t.float()
+
+    def block(cls, sub: dict, l: int):
+        weights = {k: tensor(v[l]) for k, v in sub.items() if not k.endswith("_pairing")}
+        pairing = {k[: -len("_pairing")]: {mk: tensor(mv[l]) for mk, mv in v.items()}
+                   for k, v in sub.items() if k.endswith("_pairing")}
+        return cls(pairing=pairing, **weights)
+
+    layers = []
+    for (_, count), seg in zip(cfg.segments(), values["segments"], strict=True):
+        for l in range(count):
+            layers.append(DecoderLayer(block(Norm, seg["ln1"], l), block(Attention, seg["attn"], l),
+                                       block(Norm, seg["ln2"], l), block(MLP, seg["mlp"], l)))
+    return LM(embed=tensor(values["embed"]),
+              final_norm=Norm(scale=tensor(values["final_norm"]["scale"])), layers=layers,
+              segments=cfg.segments())
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt) -> torch.Tensor:
+    """Rows of the (tied) embedding in the compute dtype, scaled by
+    sqrt(d_model) in that dtype."""
+    h = model.embed[tokens].to(cdt)
+    return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt, device=h.device)
+
+
+def lm_logits(cfg: ModelConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
+    """Final norm, then the tied head in the compute dtype; fp32 logits with
+    the padded vocab set to −1e9."""
+    h = model.final_norm(h)
+    w = model.derived(("head", h.dtype), lambda: model.embed.to(h.dtype).t())
+    logits = torch.matmul(h, w).float()
+    logits[..., cfg.vocab:] = -1e9
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill
+# ---------------------------------------------------------------------------
+
+
+def _window_for(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == "dense" else 0
+
+
+def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
+              positions: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
+    """One decoder layer over a sequence. Returns (h, {"k", "v"}): the
+    post-rope K/V of this layer, (B, S, KH, hd)."""
+    x = p.ln1(h)
+    # the skip connections ride the out- and down-projections (fused into
+    # the paired kernel's epilogue under gemm="pallas_paired")
+    h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
+                              window=_window_for(cfg, kind), residual=h)
+    h = mlp_block(cfg, p.mlp, p.ln2(h), knobs, residual=h)
+    return h, {"k": k, "v": v}
+
+
+def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
+               knobs: PerfKnobs = DEFAULT_KNOBS, collect_cache: bool = False):
+    """tokens (B, S) → (logits (B, S, Vp) fp32, cache or None); the cache is
+    ``{"k", "v"}`` of shape (L, B, S, KH, hd)."""
+    h = embed_tokens(cfg, model, tokens, compute_dtype(cfg))
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    ks, vs = [], []
+    for i, layer in enumerate(model.layers):
+        h, c = layer_fwd(cfg, cfg.layer_kind(i), layer, h, positions, knobs)
+        if collect_cache:
+            ks.append(c["k"])
+            vs.append(c["v"])
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
+    return lm_logits(cfg, model, h), cache
+
+
+def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
+            knobs: PerfKnobs = DEFAULT_KNOBS):
+    """Forward over the prompt; returns (last-position logits (B, 1, Vp),
+    cache (L, B, S, KH, hd))."""
+    logits, cache = lm_forward(cfg, model, tokens, knobs=knobs, collect_cache=True)
+    return logits[:, -1:], cache
+
+
+# ---------------------------------------------------------------------------
+# caches + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None) -> dict:
+    """Empty decode cache: ``{"k", "v"}`` zeros (L, B, max_seq, KH, hd) in the
+    compute dtype."""
+    shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {name: torch.zeros(shape, dtype=compute_dtype(cfg), device=dev)
+            for name in ("k", "v")}
+
+
+def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
+                 h: torch.Tensor, pos: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
+    """One decoder layer for one token per slot; ``c`` (this layer's
+    ``{"k", "v"}``, (B, S, KH, hd)) is written in place at ``pos``."""
+    x = p.ln1(h)
+    h, c = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
+                                  window=_window_for(cfg, kind), residual=h)
+    h = mlp_block(cfg, p.mlp, p.ln2(h), knobs, residual=h)
+    return h, c
+
+
+def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
+                pos: torch.Tensor, *, knobs: PerfKnobs = DEFAULT_KNOBS):
+    """One decode step: tokens (B, 1), pos (B,) → (logits (B, 1, Vp), cache).
+
+    The cache is updated in place (and returned): the port's caches are
+    mutable, which saves a copy of every layer's K/V per step.
+    """
+    h = embed_tokens(cfg, model, tokens, compute_dtype(cfg))
+    for i, layer in enumerate(model.layers):
+        c: dict[str, Any] = {"k": cache["k"][i], "v": cache["v"][i]}
+        h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos, knobs)
+    return lm_logits(cfg, model, h), cache

@@ -1,24 +1,35 @@
-"""The port's CUDA kernel on the card (``cuda`` marker; skipped elsewhere).
+"""The port's CUDA kernels on the card (``cuda`` marker; skipped elsewhere).
 
 This file imports neither ``jax`` nor ``repro``, so it also runs where
 only the port is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held to its plain PyTorch version on the same CUDA tensors:
-fp32 to 1e-5 relative to the largest output, bf16 to 2 output ulps of the
-fp32 oracle (the plain version without its final cast).
+Each kernel is held to its plain PyTorch version on the same CUDA tensors:
+the paired GEMM in fp32 to 1e-5 relative to the largest output, the decode
+attention in fp32 to 2e-5 (the JAX decode tests' tolerance), both in bf16
+to 2 output ulps of the fp32 oracle (the plain version without its final
+cast).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.transform import build_conv_pairings
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.pairing import pair_rows_blocked
+from repro_torch.core.transform import _stack_blocked, build_conv_pairings
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import ops
 from repro_torch.kernels import paired_matmul as pm
 from repro_torch.kernels.ref import bf16_ulps, rel_err
+from repro_torch.models import lm as M
 from repro_torch.models.lenet import init_lenet, lenet_apply
+from repro_torch.serving.engine import ServeEngine
 
 RTOL = 1e-5
+ATTN_RTOL = 2e-5
 BF16_ULPS = 2.0
 pytestmark = pytest.mark.cuda
 
@@ -31,12 +42,13 @@ def cuda(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     pm.reset_launches()
+    da.reset_launches()
     return torch.device("cuda")
 
 
-def _check(got, oracle, dtype):
+def _check(got, oracle, dtype, rtol=RTOL):
     if dtype == torch.float32:
-        assert rel_err(got, oracle) <= RTOL
+        assert rel_err(got, oracle) <= rtol
     else:
         assert bf16_ulps(got, oracle) <= BF16_ULPS
 
@@ -105,3 +117,82 @@ def test_paired_lenet_matches_torch_conv(cuda, mode, block_n):
     _check(got, want, torch.float32)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     assert pm.launch_count() == 3
+
+
+def _outproj(w2, rounding, block_n):
+    """Out-projection segments of ``w2`` in the decode kernel's form: paired
+    per ``block_n`` columns (0 → structured, None → unpaired)."""
+    if block_n is None:
+        return ops.attn_outproj_segments(w2, None)
+    bp = pair_rows_blocked(w2.double().cpu().numpy(), rounding, block_n or w2.shape[1])
+    meta = {k: torch.as_tensor(v[0], device=w2.device) for k, v in _stack_blocked([bp]).items()}
+    meta = {k: v.long() if k in ("I", "J", "resid") else v for k, v in meta.items()}
+    if not block_n:
+        meta = {k: v[0] for k, v in meta.items()}  # structured: 1-D lane lists
+    return ops.attn_outproj_segments(w2, meta, block_n or 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,window,n_sink,block_n,residual", [
+    (6, 128, 0, 0, 0, True),      # qwen2's heads; structured out-projection
+    (1, 64, 0, 0, 64, False),     # MHA; blocked, a short last block
+    (6, 64, 20, 0, 1, True),      # sliding window; per-column blocks
+    (1, 128, 20, 3, None, True),  # window + sinks; unpaired out-projection
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, G, D, window, n_sink, block_n,
+                                               residual):
+    """Both forms against their plain versions: slots at 0, mid-cache, S−1
+    and −1 (no key: zeros); S = 77 is not a multiple of the 32-key tile."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S, KH, N = 4, 77, 2, 150
+    H = G * KH
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    q, kc, vc = rnd(B, 1, H, D).to(dtype), rnd(B, S, KH, D).to(dtype), rnd(B, S, KH, D).to(dtype)
+    pos = torch.tensor([0, S // 2, S - 1, -1], dtype=torch.int32, device=cuda)
+    kw = dict(window=window, n_sink=n_sink)
+    got = da.decode_attention_cuda(q, kc, vc, pos, **kw)
+    want = da.decode_attention_plain(q, kc, vc, pos, out_dtype=torch.float32, **kw)
+    _check(got, want, dtype, ATTN_RTOL)
+    assert not got[3].any()
+
+    seg = _outproj(rnd(H * D, N) * 0.1, 0.3, block_n)  # most lanes pair
+    res = rnd(B, N).to(dtype) if residual else None
+    args = (q, kc, vc, pos, seg.idx_i, seg.idx_j, seg.idx_r, seg.kmat.to(dtype),
+            seg.w_res.to(dtype), res)
+    got = da.fused_decode_attention_cuda(*args, n_cols=N, **kw)
+    if dtype == torch.float32:
+        want = da.fused_decode_attention_plain(*args, n_cols=N, out_dtype=dtype, **kw)
+    else:  # the projection of the kernel's own bf16 rows: the attended
+        # vector's rounding point is where two correct versions may differ
+        want = da.outproj_plain(da.decode_attention_cuda(q, kc, vc, pos, **kw), *args[4:],
+                                n_cols=N, out_dtype=torch.float32)
+    assert got.dtype == dtype and got.shape == (B, N)
+    _check(got, want, dtype, ATTN_RTOL)
+    assert da.LAUNCHES == {"decode_attention": 1 + (dtype == torch.bfloat16),
+                           "fused_decode_attention": 1}
+
+
+@pytest.mark.parametrize("block_n", [0, 16])
+def test_engine_paired_fused_matches_plain_engine(cuda, block_n):
+    """r=0, fp32: the paired GEMMs with the fused decode attention give the
+    plain engine's tokens, logits within 1e-5; per decode step and layer,
+    one launch of the decode kernel and 6 (structured) or 4 (blocked, QKV as
+    one launch) of the paired GEMM."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), dtype="float32")
+    model = M.init_lm(cfg, 0, device=cuda)
+    base = dict(q_chunk=16, k_chunk=16)
+    plain = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=M.PerfKnobs(**base))
+    fused = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=M.PerfKnobs(
+        **base, gemm="pallas_paired", attn="pallas_fused", pair_block_n=block_n))
+    rng = np.random.default_rng(0)
+    prompts = {0: rng.integers(0, cfg.vocab, size=5), 1: rng.integers(0, cfg.vocab, size=11)}
+    for slot, prompt in prompts.items():
+        assert plain.add_request(slot, prompt) == fused.add_request(slot, prompt)
+    pm.reset_launches()
+    da.reset_launches()
+    for _ in range(5):
+        np.testing.assert_array_equal(plain.step(), fused.step())
+        assert rel_err(fused.last_logits, plain.last_logits) <= RTOL
+    per_layer = 5 * cfg.n_layers
+    assert da.launch_count() == per_layer
+    assert pm.launch_count() == (4 if block_n else 6) * per_layer

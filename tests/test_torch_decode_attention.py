@@ -1,0 +1,165 @@
+"""The port's decode attention against the JAX package's Pallas kernel.
+
+The JAX side runs ``decode_attention_fwd`` / ``fused_decode_attention``
+(and the op ``fused_attn_decode`` over them) in interpret mode, on the
+cases of ``tests/test_flash_kernel.py`` and ``tests/test_decode_attention.py``;
+the port side runs its wrappers on CPU tensors, which take the plain
+versions (``decode_attention_plain``, ``fused_decode_attention_plain``).
+Same numpy inputs, fp32, within 2e-5 (the JAX decode tests' tolerance).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.pairing import pair_rows_blocked as j_pair_rows_blocked
+from repro.core.pairing import pair_rows_structured as j_pair_rows_structured
+from repro.core.transform import _stack_blocked as j_stack_blocked
+from repro.kernels import decode_attention as j_da
+from repro.kernels import ops as j_ops
+from repro.models import layers as JL
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import ops
+from repro_torch.models import layers as TL
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(seed, B=2, S=16, H=4, KH=2, D=8, pos=None):
+    rng = np.random.default_rng(seed)
+    q, kc, vc = (rng.normal(size=s).astype(np.float32)
+                 for s in ((B, 1, H, D), (B, S, KH, D), (B, S, KH, D)))
+    pos = np.asarray([3, S - 1] if pos is None else pos, np.int32)
+    return rng, (q, kc, vc, pos)
+
+
+def _both(arrays):
+    """The same arrays as JAX arrays and as CPU tensors."""
+    return [jnp.asarray(a) for a in arrays], [torch.as_tensor(a) for a in arrays]
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("window,n_sink", [(0, 0), (6, 0), (6, 2)])
+@pytest.mark.parametrize("S,k_chunk", [(8, 8), (33, 16)])
+def test_bare_attention_matches_jax_kernel(S, k_chunk, window, n_sink):
+    """Cache lengths incl. ragged S, slots at 0 / mid / S−1, windows, sinks;
+    the port's plain decode attention of the XLA path agrees too."""
+    _, arrays = _inputs(S * 10 + window + n_sink, B=3, S=S, D=16, pos=[0, S // 2, S - 1])
+    (jq, jk, jv, jp), (tq, tk, tv, tp) = _both(arrays)
+    kw = dict(window=window, n_sink=n_sink)
+    want = j_da.decode_attention_fwd(jq, jk, jv, jp, k_chunk=k_chunk, interpret=True, **kw)
+    _close(da.decode_attention_cuda(tq, tk, tv, tp, **kw), want)
+    _close(TL.decode_attention(tq, tk, tv, tp, **kw), JL.decode_attention(jq, jk, jv, jp, **kw))
+
+
+def test_fully_masked_slot_is_finite_zero():
+    """pos = −1 admits no key: exact zeros, as the JAX kernel flushes."""
+    _, arrays = _inputs(11, pos=[-1, 7])
+    (jq, jk, jv, jp), (tq, tk, tv, tp) = _both(arrays)
+    got = da.decode_attention_cuda(tq, tk, tv, tp)
+    assert torch.isfinite(got).all() and not got[0].any()
+    _close(got, j_da.decode_attention_fwd(jq, jk, jv, jp, k_chunk=8, interpret=True))
+
+
+def test_gqa_non_divisible_heads_raise():
+    q, kv = torch.zeros((1, 1, 3, 8)), torch.zeros((1, 8, 2, 8))
+    with pytest.raises(ValueError, match="divide evenly"):
+        da.decode_attention_cuda(q, kv, kv, torch.zeros((1,), dtype=torch.int32))
+
+
+def _meta(w2, rounding, block_n):
+    """Single-layer metadata in the stacked-artifact layout: blocked
+    (``block_n`` ≥ 1) or structured (0); numpy."""
+    if block_n:
+        return {k: v[0] for k, v in j_stack_blocked(
+            [j_pair_rows_blocked(w2.astype(np.float64), rounding, block_n)]).items()}
+    sp = j_pair_rows_structured(w2.astype(np.float64), rounding)
+    return {"I": sp.I.astype(np.int32), "J": sp.J.astype(np.int32),
+            "resid": sp.resid.astype(np.int32),
+            "pair_mask": np.ones(sp.n_pairs, np.float32),
+            "resid_mask": np.ones(len(sp.resid), np.float32)}
+
+
+@pytest.mark.parametrize("rounding,block_n,residual,window,n_sink", [
+    (None, 0, True, 0, 0),    # unpaired: the synthesised pure-residual block
+    (0.0, 4, True, 0, 0),     # r=0: every lane residual
+    (0.3, 1, False, 0, 0),    # rounded: the kernel runs the snapped magnitudes
+    (0.3, 5, True, 0, 0),     # 12 columns in blocks of 5: a short last block
+    (0.3, 0, True, 0, 0),     # structured metadata lifted to one block
+    (None, 0, False, 6, 0),   # sliding window
+    (0.3, 4, True, 6, 2),     # window + sinks
+])
+def test_fused_op_matches_jax(rounding, block_n, residual, window, n_sink):
+    """``ops.fused_attn_decode`` (segments, gather, projection, residual)
+    against the JAX op, Pallas kernel in interpret mode."""
+    rng, arrays = _inputs(int(10 * (rounding or 0)) + block_n, S=24)
+    w = (rng.normal(size=(32, 12)) * 0.3).astype(np.float32)  # (H·D, N)
+    res = rng.normal(size=(2, 1, 12)).astype(np.float32) if residual else None
+    meta = None if rounding is None else _meta(w, rounding, block_n)
+    if rounding:
+        assert meta["pair_mask"].sum() > 0
+    (jq, jk, jv, jp), (tq, tk, tv, tp) = _both(arrays)
+    kw = dict(pair_block_n=block_n, window=window, n_sink=n_sink)
+    want = j_ops.fused_attn_decode(
+        jq, jk, jv, jp, jnp.asarray(w),
+        None if meta is None else {k: jnp.asarray(v) for k, v in meta.items()},
+        residual=None if res is None else jnp.asarray(res), k_chunk=8, **kw)
+    tmeta = None if meta is None else {
+        k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
+        for k, v in meta.items()}
+    got = ops.fused_attn_decode(tq, tk, tv, tp, torch.as_tensor(w), tmeta,
+                                residual=None if res is None else torch.as_tensor(res), **kw)
+    assert got.shape == (2, 1, 12)
+    _close(got, want)
+
+
+def test_fused_kernel_api_matches_jax():
+    """``fused_decode_attention`` on explicit segments, the kernel's own
+    entry point on both sides (bn=4, 3 blocks, a residual)."""
+    rng, arrays = _inputs(5, S=20)
+    w = (rng.normal(size=(32, 12)) * 0.3).astype(np.float32)
+    meta = _meta(w, 0.3, 4)
+    jseg = j_ops._attn_outproj_segments(jnp.asarray(w), {k: jnp.asarray(v) for k, v in
+                                                         meta.items()}, 4)
+    res = rng.normal(size=(2, 12)).astype(np.float32)
+    (jq, jk, jv, jp), (tq, tk, tv, tp) = _both(arrays)
+    want = j_da.fused_decode_attention(jq, jk, jv, jp, *jseg, jnp.asarray(res), n_cols=12,
+                                       k_chunk=8, interpret=True)
+    tseg = [torch.as_tensor(np.array(a)) for a in jseg]
+    got = da.fused_decode_attention_cuda(tq, tk, tv, tp, *tseg, torch.as_tensor(res),
+                                         n_cols=12)
+    _close(got, want)
+
+
+def test_outproj_segments_match_jax():
+    """The normalised segments themselves, index for index, in every layout."""
+    w = (np.random.default_rng(3).normal(size=(32, 12)) * 0.3).astype(np.float32)
+    for meta, bn in ((None, 0), (_meta(w, 0.3, 0), 0), (_meta(w, 0.3, 5), 5),
+                     (_meta(w, 0.0, 4), 4)):
+        want = j_ops._attn_outproj_segments(
+            jnp.asarray(w), None if meta is None else
+            {k: jnp.asarray(v) for k, v in meta.items()}, bn)
+        got = ops.attn_outproj_segments(
+            torch.as_tensor(w), None if meta is None else
+            {k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
+             for k, v in meta.items()}, bn)
+        for g, j in zip(got[:5], want, strict=True):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+        assert got.n_cols == 12
+
+
+def test_blocked_meta_requires_pair_block_n():
+    w = np.random.default_rng(5).normal(size=(32, 12)).astype(np.float32)
+    meta = {k: torch.as_tensor(v) for k, v in _meta(w, 0.0, 1).items()}
+    _, (q, kc, vc, pos) = _both(_inputs(5)[1])
+    with pytest.raises(ValueError, match="pair_block_n"):
+        ops.fused_attn_decode(q, kc, vc, pos, torch.as_tensor(w), meta)
+
+
+def test_wrappers_refuse_other_devices():
+    q, kv = torch.zeros((1, 1, 2, 8), device="meta"), torch.zeros((1, 8, 2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="CUDA .* or CPU"):
+        da.decode_attention_cuda(q, kv, kv, torch.zeros((1,), dtype=torch.int32, device="meta"))
