@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Two paths run through the port (``src/repro_torch``): the paper's workload,
-LeNet-5 with its three conv layers on the paired subtractor GEMM kernel (K1),
-and the paired LM serving path of qwen2-1.5b, every decoder GEMM on K1 and
+Four paths run through the port (``src/repro_torch``): the paper's workload,
+LeNet-5 with its three conv layers on the paired subtractor GEMM kernel (K1);
+the paired LM serving path of qwen2-1.5b, every decoder GEMM on K1 and
 decode attention with the paired out-projection on the decode-attention
-kernel (K2).  Phases, each printing one JSON line; any failure exits
+kernel (K2); the flash-attention forward (K3) through its entry point
+``flash_attention_fwd``; and the hardened serving front end over the LM
+engines (K1 + K2).  Phases, each printing one JSON line; any failure exits
 non-zero and prints no result:
 
-1. build      — compile both CUDA sources from ``src/repro_torch/kernels/csrc``
-                (one nvcc each, in parallel): seconds, registers, spills;
+1. build      — compile the three CUDA sources from ``src/repro_torch/kernels/csrc``
+                (one nvcc each, in parallel): seconds, registers, spills
+                (gate: K3 spills nothing);
 2. kernel     — K1 against its plain PyTorch version on the card, in every
                 form (dense, structured, blocked at bn=1 and bn=4 with a
                 short last block, max2/avg2 pooling, fp32/bf16 residuals, all
@@ -26,23 +29,32 @@ non-zero and prints no result:
                 absent: fp32 ≤ 2e-5 relative, bf16 ≤ 2 output ulps (the
                 fused form against the plain projection of the bare
                 kernel's bf16 rows: see fused_decode_attention_plain);
-4. layers     — K1 at LeNet's shapes (1000 images, every layer and pairing
+4. flash_attention — K3 through ``flash_attention_fwd`` against
+                ``flash_attention_plain``, fp32 and bf16: the CPU parity
+                file's shapes (grid, MQA, ragged, causal and full) and
+                qwen2-1.5b's heads (H 12, KH 2, D 128, B 4): causal S = 256,
+                2048 and ragged 333, causal 64 × 512 (top-left), full
+                200 × 512; fp32 ≤ 1e-5 relative, bf16 ≤ 1 output ulp, all
+                finite, one launch per case; device ms by CUDA graph beside
+                the plain version, ``F.scaled_dot_product_attention`` and
+                the bound;
+5. layers     — K1 at LeNet's shapes (1000 images, every layer and pairing
                 mode) against its plain version, timed beside the plain
                 version, ``F.conv2d`` on the folded weights and its
                 memory/operation bound;
-5. serve      — LeNet's main path: seeded weights, the synthetic MNIST test
+6. serve      — LeNet's main path: seeded weights, the synthetic MNIST test
                 split, pairings at r ∈ {0, 0.05} × {structured,
                 column_blocked bn=4, per_column}, four requests of 1000 images
                 with the pool fused and unfused: r=0 logits match
                 ``F.conv2d`` ≤ 1e-5 with identical argmax; r=0.05 logits match
                 the folded-weight conv; exactly 3 kernel launches per forward;
-6. lm_parity  — qwen2-1.5b at full width, 2 layers, fp32: the plain engine
+7. lm_parity  — qwen2-1.5b at full width, 2 layers, fp32: the plain engine
                 against the paired (column-blocked bn=64, r=0) engine with
                 fused decode attention, batch 2, prompts of 5 and 11 tokens,
                 6 tokens per slot: identical tokens, logits ≤ 1e-5; 5 kernel
                 launches per decode layer (one fused QKV K1, one K2, three
                 MLP K1), counted by the wrappers and by ``torch.profiler``;
-7. lm_serve   — qwen2-1.5b at full width and depth (28 layers), bf16,
+8. lm_serve   — qwen2-1.5b at full width and depth (28 layers), bf16,
                 structured pairing at r=0.05, through the launcher's
                 ``serve``: batch 4, prompts of 8/12/16/20 tokens, max_seq
                 256, 32 tokens per slot; pairing seconds, prefill ms per
@@ -50,7 +62,20 @@ non-zero and prints no result:
                 layer (3 QKV K1, one K2, 3 MLP K1), a ``torch.profiler`` split
                 of one decode step, and K1 and K2 timed at the serving shapes
                 beside their plain versions, library calls and bounds;
-8. the kernels table, the card's name and power limit, and the ``ok`` line.
+9. frontend   — ``serving.frontend`` over the LM engines.  (a) chaos: full
+                width, 2 layers, fp32, the lm_parity phase's paired engine
+                (bn=64, r=0, fused decode attention) with an unpaired
+                fallback, ``benchmarks/serving.py``'s chaos workload (30
+                req/s over 0.6 virtual s, batch 4) and fault schedule: 0
+                lost, every faulted request degraded or shed with a reason,
+                at least one of each, and every completion token-exact
+                against a fresh unpaired engine (the top-2 logit margin is
+                printed at any divergence).  (b) load sweep: the lm_serve
+                phase's engine (28 layers, bf16) with an unpaired fallback
+                on the same weights, the same workload shape at 10, 25 and
+                60 req/s: 0 lost; requests, steps, tokens, wall seconds and
+                wall tokens/s, and the virtual-clock figures labelled so;
+10. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -141,12 +166,14 @@ def phase_build() -> dict:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paired_matmul as pm
 
     t0 = time.perf_counter()
     infos = _build.build_all()  # one nvcc per source, in parallel
     pm._kernel()  # load the libraries and bind their entry points
     da._kernel()
+    fa._kernel()
     sources = {}
     for name, info in infos.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["log"])]
@@ -156,6 +183,9 @@ def phase_build() -> dict:
             "kernels_compiled": len(regs), "max_registers": max(regs, default=None),
             "spill_bytes": sum(spills),
         }
+    if infos["flash_attention"]["built"]:
+        check(sources["flash_attention"]["spill_bytes"] == 0,
+              f"flash_attention spills {sources['flash_attention']['spill_bytes']} bytes")
     out = {
         "phase": "build",
         "seconds": time.perf_counter() - t0,
@@ -357,6 +387,110 @@ def phase_decode_attention() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: K3 through its entry point, against its plain version
+# ---------------------------------------------------------------------------
+
+K3_RTOL, K3_BF16_ULPS = 1e-5, 1.0
+
+
+def _flash_bound(B, Sq, Sk, H, KH, D, causal, itemsize, flop_per_s):
+    """Bytes (q, k, v read once, the output written once), the FLOP of the
+    (query, key) pairs the mask admits (4·D each: QK and PV), and the least
+    time of each at the card's peaks."""
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KH * D) * itemsize
+    flops = 4 * B * H * D * pairs
+    return nbytes, flops, nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
+
+
+def phase_flash_attention() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import bf16_ulps, rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # (name, B, Sq, Sk, H, KH, D, causal): tests/test_torch_flash_attention.py's
+    # shapes, then qwen2-1.5b's heads at batch 4
+    cases = [(f"{name}_{'causal' if causal else 'full'}", *shape, causal)
+             for causal in (True, False) for name, shape in (
+                 ("grid_64x64", (2, 64, 64, 4, 2, 16)), ("grid_128x128", (1, 128, 128, 2, 2, 32)),
+                 ("mqa_32x32", (2, 32, 32, 4, 1, 8)), ("ragged_37x53", (2, 37, 53, 4, 2, 16)),
+                 ("ragged_17x64", (2, 17, 64, 4, 2, 16)), ("ragged_64x21", (2, 64, 21, 4, 2, 16)),
+                 ("bf16_64x64", (1, 64, 64, 2, 2, 32)))]
+    qwen = [("qwen_causal_256", 4, 256, 256, 12, 2, 128, True),
+            ("qwen_causal_2048", 4, 2048, 2048, 12, 2, 128, True),
+            ("qwen_causal_ragged_333", 4, 333, 333, 12, 2, 128, True),
+            ("qwen_causal_64x512", 4, 64, 512, 12, 2, 128, True),
+            ("qwen_full_200x512", 4, 200, 512, 12, 2, 128, False)]
+    inputs = {}
+    results, max_abs, max_rel, max_ulps = [], 0.0, 0.0, 0.0
+    fa.reset_launches()  # the entry point's own count from here
+    for name, B, Sq, Sk, H, KH, D, causal in cases + qwen:
+        base = [torch.randn(*shape, generator=gen, device="cuda")
+                for shape in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D))]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dt) for t in base)
+            inputs[name, dt] = (q, k, v)
+            got = fa.flash_attention_fwd(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            row = {"case": name, "dtype": str(dt).removeprefix("torch."),
+                   "shape": [B, Sq, Sk, H, KH, D], "causal": causal}
+            label = f"flash_attention {name} {row['dtype']}"
+            if dt == torch.float32:
+                row["rel_err"] = rel_err(got, want)
+                row["max_abs_err"] = float((got - want).abs().max())
+                max_abs, max_rel = max(max_abs, row["max_abs_err"]), max(max_rel, row["rel_err"])
+                check(row["rel_err"] <= K3_RTOL, f"{label} rel err {row['rel_err']:.3g}")
+            else:
+                row["ulps"] = bf16_ulps(got, want)
+                max_ulps = max(max_ulps, row["ulps"])
+                check(row["ulps"] <= K3_BF16_ULPS, f"{label} {row['ulps']:.3g} ulps")
+            check(bool(torch.isfinite(got.float()).all()) and got.dtype == dt
+                  and got.shape == q.shape, f"{label}: bad output")
+            results.append(row)
+    launches = fa.launch_count()
+    check(launches == len(results), f"flash_attention launched {launches} times "
+                                     f"for {len(results)} cases")
+
+    # device times at qwen2's shapes (CUDA graphs; these launches are not the
+    # path's), bf16 rows and the fp32 S = 2048 row
+    timed = []
+    for name, B, Sq, Sk, H, KH, D, causal in qwen:
+        for dt in (torch.bfloat16,) + ((torch.float32,) if Sq == 2048 else ()):
+            q, k, v = inputs[name, dt]
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            peak = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+            nbytes, flops, t_bytes, t_ops = _flash_bound(B, Sq, Sk, H, KH, D, causal,
+                                                          q.element_size(), peak)
+            ms = graph_ms(lambda q=q, k=k, v=v, c=causal: fa.flash_attention_fwd(q, k, v, causal=c))
+            timed.append({
+                "case": name, "dtype": str(dt).removeprefix("torch."), "ms": ms,
+                "plain_ms": graph_ms(lambda q=q, k=k, v=v, c=causal:
+                                     fa.flash_attention_plain(q, k, v, causal=c)),
+                "library_ms": graph_ms(lambda qt=qt, kt=kt, vt=vt, c=causal:
+                                       F.scaled_dot_product_attention(qt, kt, vt, is_causal=c,
+                                                                      enable_gqa=True)),
+                "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_fp32_fma_ms": max(t_bytes, flops / FP32_FLOP_PER_S * 1e3),
+                "kernel_over_bound": ms / max(t_bytes, t_ops),
+                "achieved_tflop_s": flops / ms / 1e9,
+            })
+    out = {
+        "phase": "flash_attention", "cases": len(results), "main_path_launches": launches,
+        "fp32_max_rel_err": max_rel, "fp32_max_abs_err": max_abs, "bf16_max_ulps": max_ulps,
+        "tolerance": {"fp32_rel": K3_RTOL, "bf16_ulps": K3_BF16_ULPS},
+        "library_call": "F.scaled_dot_product_attention(is_causal, enable_gqa=True)",
+        "timed": timed, "results": results,
+    }
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main-path set-up
 # ---------------------------------------------------------------------------
 
@@ -401,7 +535,7 @@ def setup():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: K1 at LeNet's shapes
+# phase 5: K1 at LeNet's shapes
 # ---------------------------------------------------------------------------
 
 
@@ -517,7 +651,7 @@ def phase_layers(ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving LeNet — the first main path
+# phase 6: serving LeNet — the first main path
 # ---------------------------------------------------------------------------
 
 
@@ -617,7 +751,7 @@ def phase_serve(ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: the LM serving path
+# phases 7 and 8: the LM serving path
 # ---------------------------------------------------------------------------
 
 K1_KERNEL, K2_KERNEL = "paired_matmul_kernel", "decode_attention_kernel"
@@ -625,10 +759,12 @@ K1_KERNEL, K2_KERNEL = "paired_matmul_kernel", "decode_attention_kernel"
 
 def _reset_launches() -> None:
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paired_matmul as pm
 
     pm.reset_launches()
     da.reset_launches()
+    fa.reset_launches()
 
 
 def profile_step(eng) -> dict:
@@ -703,7 +839,7 @@ def phase_lm_parity() -> dict:
     prof_per_layer = {k: prof[k]["launches"] / cfg.n_layers for k in ("K1", "K2")}
     check(toks["fused"] == toks["plain"], f"lm_parity tokens differ: {toks}")
     check(max(errs) <= FP32_RTOL, f"lm_parity logits rel err {max(errs):.3g}")
-    check(per_layer == {"paired_matmul": 4, "decode_attention": 1},
+    check(per_layer == {"paired_matmul": 4, "decode_attention": 1, "flash_attention": 0},
           f"lm_parity launches per decode layer {per_layer}")
     check(prof_per_layer == {"K1": 4, "K2": 1} or prof["device_ms"] == "not measured",
           f"lm_parity profiler launches per decode layer {prof_per_layer}")
@@ -716,7 +852,8 @@ def phase_lm_parity() -> dict:
         "profiled_launches_per_layer": prof_per_layer,
     }
     emit(out)
-    return out
+    # the frontend phase serves these weights again
+    return out, {"cfg": cfg, "plain_model": model, "paired_model": fused.model}
 
 
 def _k1_at(block, name, x, residual=None) -> dict:
@@ -831,7 +968,7 @@ def phase_lm_serve() -> dict:
     dec = rec["launches"]["decode"]
     per_layer = {k: v / ((steps - 1) * L) for k, v in dec.items()}
     toks = rec["outputs"]
-    check(per_layer == {"paired_matmul": 6, "decode_attention": 1},
+    check(per_layer == {"paired_matmul": 6, "decode_attention": 1, "flash_attention": 0},
           f"lm_serve launches per decode layer {per_layer}")
     check(all(len(t) == steps and all(0 <= x < cfg.vocab for x in t) for t in toks.values()),
           "lm_serve: tokens out of range")
@@ -868,6 +1005,166 @@ def phase_lm_serve() -> dict:
         "tokens": {s: t[:8] for s, t in toks.items()},
     }
     emit(out)
+    return out, eng
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the serving front end over the LM engines
+# ---------------------------------------------------------------------------
+
+# benchmarks/serving.py's workload shape, front-end config and chaos schedule
+FE_BATCH, FE_MAX_SEQ, FE_HORIZON_S = 4, 48, 0.6
+FE_PROMPT_LEN, FE_NEW_TOKENS = (3, 20), (2, 8)
+FE_CHAOS_RPS, FE_LOADS_RPS = 30.0, (10.0, 25.0, 60.0)
+
+
+def _fe_config():
+    from repro_torch.serving import FrontendConfig, GuardConfig
+
+    return FrontendConfig(prefill_chunk=6, queue_timeout_s=1.0,
+                          guard=GuardConfig(max_retries=2, quarantine_steps=2))
+
+
+def _fe_workload(vocab: int, rate: float):
+    from repro_torch.serving import poisson_workload
+
+    return poisson_workload(rate_rps=rate, horizon_s=FE_HORIZON_S, seed=0, vocab=vocab,
+                            prompt_len=FE_PROMPT_LEN, new_tokens=FE_NEW_TOKENS)
+
+
+def _chaos_schedule():
+    from repro_torch.serving import FaultEvent, FaultInjector
+
+    pinned = [
+        FaultEvent(step=3, kind="nan_logits", slot=0),
+        FaultEvent(step=5, kind="kv_poison", slot=1),
+        FaultEvent(step=7, kind="inf_logits", slot=2),
+        FaultEvent(step=9, kind="kernel_failure", magnitude=2),
+        FaultEvent(step=11, kind="latency_spike", magnitude=8.0),
+        FaultEvent(step=14, kind="kv_poison", slot=3),
+    ]
+    background = FaultInjector.from_rates(
+        1, n_steps=256, batch_size=FE_BATCH,
+        rates={"nan_logits": 0.02, "kv_poison": 0.01, "kernel_failure": 0.01,
+               "latency_spike": 0.02},
+        magnitude=2.0).events
+    return FaultInjector([*pinned, *background])
+
+
+def _reset_slots(*engines) -> None:
+    for eng in engines:
+        for slot in range(eng.batch_size):
+            eng.clear_quarantine(slot)
+            eng.release_slot(slot)
+
+
+def _divergence(cfg, model, r, want) -> dict:
+    """Where a request's tokens leave the reference's, and the reference's
+    top-2 logit margin there (a near tie on random weights, or a fault)."""
+    import torch
+
+    from repro_torch.models import lm as M
+
+    t = next(i for i, (a, b) in enumerate(zip(r.tokens + [None], want)) if a != b)
+    seq = torch.as_tensor(list(r.prompt) + want[:t], device="cuda")[None]
+    logits = M.lm_forward(cfg, model, seq)[0][0, -1, : cfg.vocab]
+    top2 = torch.topk(logits, 2).values
+    return {"rid": r.rid, "state": r.state, "step": t, "got": r.tokens[t: t + 1],
+            "want": want[t], "ref_top2_margin": float(top2[0] - top2[1])}
+
+
+def _fe_row(report, launches: dict) -> dict:
+    summ = report.summary()
+    return {
+        "offered_rps": report.offered_load_rps, "requests": summ["n_requests"],
+        "completed": summ["completed"], "degraded": summ["degraded"], "shed": summ["shed"],
+        "shed_reasons": summ["shed_reasons"], "lost": summ["lost"], "steps": report.steps,
+        "generated_tokens": summ["generated_tokens"], "wall_s": report.wall_s,
+        "wall_ms_per_step": report.wall_s / max(report.steps, 1) * 1e3,
+        "wall_tokens_per_s": summ["generated_tokens"] / report.wall_s,
+        "virtual_clock": {k: summ[k] for k in ("latency_s", "ttft_s", "tokens_per_s_virtual",
+                                                "virtual_time_s")},
+        "incidents": summ["incidents"], "launches": launches,
+    }
+
+
+def phase_frontend(parity_ctx, lm_engine) -> dict:
+    import torch
+
+    from repro_torch.launch.serve import kernel_launches
+    from repro_torch.models import lm as M
+    from repro_torch.serving import ServeEngine, ServeFrontend, faulted_request_ids
+
+    # (a) chaos at full width, 2 layers, fp32: K1 + K2 primary, exact fallback
+    cfg, plain_model = parity_ctx["cfg"], parity_ctx["plain_model"]
+    base = dict(q_chunk=16, k_chunk=16)
+    primary = ServeEngine(cfg, parity_ctx["paired_model"], max_seq=FE_MAX_SEQ,
+                          batch_size=FE_BATCH, knobs=M.PerfKnobs(
+                              **base, gemm="pallas_paired", attn="pallas_fused",
+                              pair_block_n=64))
+    fallback = ServeEngine(cfg, plain_model, max_seq=FE_MAX_SEQ, batch_size=FE_BATCH,
+                           knobs=M.PerfKnobs(**base))
+    workload = _fe_workload(cfg.vocab, FE_CHAOS_RPS)
+    faults = _chaos_schedule()
+    _reset_launches()  # the path's own counts from here
+    report = ServeFrontend(primary, fallback, _fe_config(), faults=faults).run(
+        workload, offered_load_rps=FE_CHAOS_RPS)
+    chaos = _fe_row(report, kernel_launches())
+    faulted = faulted_request_ids(report)
+    by_rid = {r.rid: r for r in report.requests}
+    unaccounted = [rid for rid in faulted if not (
+        by_rid[rid].state == "degraded"
+        or (by_rid[rid].state == "shed" and by_rid[rid].shed_reason))]
+    done = [r for r in report.requests if r.state in ("completed", "degraded")]
+    ref = ServeEngine(cfg, plain_model, max_seq=FE_MAX_SEQ, batch_size=1,
+                      knobs=M.PerfKnobs(**base))
+    diverged, n_parity = [], {"completed": 0, "degraded": 0}
+    for r in done:
+        want = ref.generate({0: r.prompt}, n_steps=r.max_new_tokens)[0]
+        ref.release_slot(0)
+        if r.tokens == want:
+            n_parity[r.state] += 1
+        else:
+            diverged.append(_divergence(cfg, ref.model, r, want))
+    check(chaos["lost"] == 0, f"frontend chaos lost {chaos['lost']} request(s)")
+    check(bool(faulted), "frontend chaos: no slot fault hit an occupied slot")
+    check(not unaccounted, f"frontend chaos: faulted requests {unaccounted} ended "
+                           "without degrading or a shed reason")
+    check(n_parity["degraded"] >= 1, "frontend chaos: no degraded completion")
+    check(not diverged, f"frontend chaos: token parity failed {diverged}")
+    check(chaos["launches"]["paired_matmul"] > 0 and chaos["launches"]["decode_attention"] > 0,
+          f"frontend chaos launches {chaos['launches']}")
+    chaos.update({"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+                  "primary": "column_blocked bn=64 r=0, pallas_paired + pallas_fused",
+                  "fallback": "unpaired (torch.matmul, plain decode attention)",
+                  "scheduled_faults": len(faults.events), "fired_faults": len(faults.fired),
+                  "faulted_requests": sorted(faulted), "parity_checked": n_parity,
+                  "diverged": diverged})
+
+    # (b) load sweep at full width and depth, bf16: the lm_serve engine
+    eng = lm_engine
+    fb = ServeEngine(eng.cfg, eng.model, max_seq=eng.max_seq, batch_size=eng.batch_size,
+                     knobs=M.PerfKnobs(q_chunk=32, k_chunk=32))  # gemm="xla": unpaired
+    sweep = []
+    for rate in FE_LOADS_RPS:
+        _reset_slots(eng, fb)
+        _reset_launches()
+        report = ServeFrontend(eng, fb, _fe_config()).run(
+            _fe_workload(eng.cfg.vocab, rate), offered_load_rps=rate)
+        torch.cuda.synchronize()
+        row = _fe_row(report, kernel_launches())
+        check(row["lost"] == 0, f"frontend load {rate}: lost {row['lost']} request(s)")
+        check(row["launches"]["paired_matmul"] > 0, f"frontend load {rate}: {row['launches']}")
+        sweep.append(row)
+    out = {
+        "phase": "frontend", "chaos": chaos,
+        "load_sweep": {"arch": eng.cfg.name, "layers": eng.cfg.n_layers, "dtype": eng.cfg.dtype,
+                       "batch": eng.batch_size, "max_seq": eng.max_seq,
+                       "primary": "structured r=0.05, pallas_paired + pallas_fused",
+                       "fallback": "unpaired (torch.matmul) on the same weights",
+                       "rows": sweep},
+    }
+    emit(out)
     return out
 
 
@@ -889,20 +1186,34 @@ def main() -> int:
     build = phase_build()
     kernel = phase_kernel()
     attn = phase_decode_attention()
+    flash = phase_flash_attention()
     ctx = setup()
     layers = phase_layers(ctx)
     lenet = phase_serve(ctx)
-    parity = phase_lm_parity()
-    lm = phase_lm_serve()
+    parity, parity_ctx = phase_lm_parity()
+    lm, lm_engine = phase_lm_serve()
+    fe = phase_frontend(parity_ctx, lm_engine)
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
+    fe_runs = {"frontend_chaos": fe["chaos"]["launches"],
+               **{f"frontend_load_{row['offered_rps']:g}": row["launches"]
+                  for row in fe["load_sweep"]["rows"]}}
     paths = {"lenet_serve": lenet["main_path_launches"],
              "lm_parity": parity["main_path_launches"]["paired_matmul"],
-             "lm_serve": lm["main_path_launches"]["paired_matmul"]}
+             "lm_serve": lm["main_path_launches"]["paired_matmul"],
+             **{k: v["paired_matmul"] for k, v in fe_runs.items()}}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
-                "lm_serve": lm["main_path_launches"]["decode_attention"]}
+                "lm_serve": lm["main_path_launches"]["decode_attention"],
+                **{k: v["decode_attention"] for k, v in fe_runs.items()}}
+    # K3 runs through its own entry point; the serving paths never call it
+    k3_paths = {"flash_attention": flash["main_path_launches"],
+                "lm_parity": parity["main_path_launches"]["flash_attention"],
+                "lm_serve": lm["main_path_launches"]["flash_attention"],
+                **{k: v["flash_attention"] for k, v in fe_runs.items()}}
     k2 = lm["k2"]
+    k3 = next(row for row in flash["timed"]
+              if (row["case"], row["dtype"]) == ("qwen_causal_2048", "bfloat16"))
     emit({"kernels": [{
         "name": "paired_matmul",
         "route": "cuda",
@@ -937,6 +1248,23 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
         "library_calls": k2["library_calls"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:51",
+        "launches": sum(k3_paths.values()),
+        "launches_by_path": k3_paths,
+        "max_abs_err": flash["fp32_max_abs_err"],
+        # one launch at qwen2-1.5b's heads: B 4, causal S = 2048, bf16
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "kernel_over_plain": k3["ms"] / k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "bound_fp32_fma_ms": k3["bound_fp32_fma_ms"],
+        "library_ms": k3["library_ms"],
+        "library_calls": flash["library_call"],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,8 @@
 """Batched serving engine: prefill once, decode step by step.
 
-The port of ``repro.serving.engine`` (single host; the mesh variant and the
-front end are not ported yet).  The engine owns a fixed-capacity batch of
+The port of ``repro.serving.engine`` (single host; the mesh variant is not
+ported yet; :mod:`~repro_torch.serving.frontend` drives it under load).  The
+engine owns a fixed-capacity batch of
 sequence slots: each slot tracks its own position, so requests of different
 lengths decode together, and a finished slot is refilled by the next
 request.  With ``knobs.gemm="pallas_paired"`` it pairs the decoder weights

@@ -9,7 +9,8 @@ Each kernel is held to its plain PyTorch version on the same CUDA tensors:
 the paired GEMM in fp32 to 1e-5 relative to the largest output, the decode
 attention in fp32 to 2e-5 (the JAX decode tests' tolerance), both in bf16
 to 2 output ulps of the fp32 oracle (the plain version without its final
-cast).
+cast); the flash-attention forward in fp32 to 1e-5 and in bf16 to 1 output
+ulp (one rounding of its fp32 result).
 """
 import dataclasses
 
@@ -21,6 +22,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.pairing import pair_rows_blocked
 from repro_torch.core.transform import _stack_blocked, build_conv_pairings
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paired_matmul as pm
 from repro_torch.kernels.ref import bf16_ulps, rel_err
@@ -43,6 +45,7 @@ def cuda(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     pm.reset_launches()
     da.reset_launches()
+    fa.reset_launches()
     return torch.device("cuda")
 
 
@@ -196,3 +199,46 @@ def test_engine_paired_fused_matches_plain_engine(cuda, block_n):
     per_layer = 5 * cfg.n_layers
     assert da.launch_count() == per_layer
     assert pm.launch_count() == (4 if block_n else 6) * per_layer
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D", [
+    (2, 64, 64, 4, 2, 16),
+    (2, 32, 32, 4, 1, 8),     # MQA
+    (2, 37, 53, 4, 2, 16),    # ragged, neither a multiple of the 64-row tile
+    (2, 17, 64, 4, 2, 32),    # Sq < Sk: the causal mask is top-left
+    (2, 64, 21, 4, 2, 64),    # Sq > Sk: rows past Sk see every key
+    (1, 130, 200, 12, 2, 128),  # qwen2's heads, three query tiles
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, B, Sq, Sk, H, KH, D):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(*shape, generator=g, device=cuda).to(dtype)
+               for shape in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D)))
+    got = fa.flash_attention_fwd(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        assert rel_err(got, want) <= RTOL
+    else:
+        assert bf16_ulps(got, want) <= 1.0
+    assert fa.LAUNCHES == {"flash_attention": 1}
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """q as a (B, S, H, D) view of a (B, H, S, D) tensor and k sliced from a
+    wider head axis: the kernel reads them through their strides."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(2, 12, 96, 128, generator=g, device=cuda).transpose(1, 2)
+    kv = torch.randn(2, 96, 4, 128, generator=g, device=cuda)
+    k, v = kv[:, :, :2], kv[:, :, 2:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert rel_err(got, fa.flash_attention_plain(q, k, v)) <= RTOL
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(*(torch.zeros(1, 8, 2, 24, device=cuda),) * 3)
