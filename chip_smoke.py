@@ -74,7 +74,9 @@ non-zero and prints no result:
                 phase's engine (28 layers, bf16) with an unpaired fallback
                 on the same weights, the same workload shape at 10, 25 and
                 60 req/s: 0 lost; requests, steps, tokens, wall seconds and
-                wall tokens/s, and the virtual-clock figures labelled so;
+                wall tokens/s (a smoke-sized functional run, a few dozen
+                requests: not a throughput measurement), and the
+                virtual-clock figures labelled so;
 10. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
@@ -1012,45 +1014,6 @@ def phase_lm_serve() -> dict:
 # phase 9: the serving front end over the LM engines
 # ---------------------------------------------------------------------------
 
-# benchmarks/serving.py's workload shape, front-end config and chaos schedule
-FE_BATCH, FE_MAX_SEQ, FE_HORIZON_S = 4, 48, 0.6
-FE_PROMPT_LEN, FE_NEW_TOKENS = (3, 20), (2, 8)
-FE_CHAOS_RPS, FE_LOADS_RPS = 30.0, (10.0, 25.0, 60.0)
-
-
-def _fe_config():
-    from repro_torch.serving import FrontendConfig, GuardConfig
-
-    return FrontendConfig(prefill_chunk=6, queue_timeout_s=1.0,
-                          guard=GuardConfig(max_retries=2, quarantine_steps=2))
-
-
-def _fe_workload(vocab: int, rate: float):
-    from repro_torch.serving import poisson_workload
-
-    return poisson_workload(rate_rps=rate, horizon_s=FE_HORIZON_S, seed=0, vocab=vocab,
-                            prompt_len=FE_PROMPT_LEN, new_tokens=FE_NEW_TOKENS)
-
-
-def _chaos_schedule():
-    from repro_torch.serving import FaultEvent, FaultInjector
-
-    pinned = [
-        FaultEvent(step=3, kind="nan_logits", slot=0),
-        FaultEvent(step=5, kind="kv_poison", slot=1),
-        FaultEvent(step=7, kind="inf_logits", slot=2),
-        FaultEvent(step=9, kind="kernel_failure", magnitude=2),
-        FaultEvent(step=11, kind="latency_spike", magnitude=8.0),
-        FaultEvent(step=14, kind="kv_poison", slot=3),
-    ]
-    background = FaultInjector.from_rates(
-        1, n_steps=256, batch_size=FE_BATCH,
-        rates={"nan_logits": 0.02, "kv_poison": 0.01, "kernel_failure": 0.01,
-               "latency_spike": 0.02},
-        magnitude=2.0).events
-    return FaultInjector([*pinned, *background])
-
-
 def _reset_slots(*engines) -> None:
     for eng in engines:
         for slot in range(eng.batch_size):
@@ -1093,30 +1056,30 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
 
     from repro_torch.launch.serve import kernel_launches
     from repro_torch.models import lm as M
-    from repro_torch.serving import ServeEngine, ServeFrontend, faulted_request_ids
+    from repro_torch.serving import ServeEngine, ServeFrontend, chaos, faulted_request_ids
 
     # (a) chaos at full width, 2 layers, fp32: K1 + K2 primary, exact fallback
     cfg, plain_model = parity_ctx["cfg"], parity_ctx["plain_model"]
     base = dict(q_chunk=16, k_chunk=16)
-    primary = ServeEngine(cfg, parity_ctx["paired_model"], max_seq=FE_MAX_SEQ,
-                          batch_size=FE_BATCH, knobs=M.PerfKnobs(
+    primary = ServeEngine(cfg, parity_ctx["paired_model"], max_seq=chaos.MAX_SEQ,
+                          batch_size=chaos.BATCH, knobs=M.PerfKnobs(
                               **base, gemm="pallas_paired", attn="pallas_fused",
                               pair_block_n=64))
-    fallback = ServeEngine(cfg, plain_model, max_seq=FE_MAX_SEQ, batch_size=FE_BATCH,
+    fallback = ServeEngine(cfg, plain_model, max_seq=chaos.MAX_SEQ, batch_size=chaos.BATCH,
                            knobs=M.PerfKnobs(**base))
-    workload = _fe_workload(cfg.vocab, FE_CHAOS_RPS)
-    faults = _chaos_schedule()
+    workload = chaos.chaos_workload(cfg.vocab, chaos.CHAOS_RPS)
+    faults = chaos.chaos_schedule()
     _reset_launches()  # the path's own counts from here
-    report = ServeFrontend(primary, fallback, _fe_config(), faults=faults).run(
-        workload, offered_load_rps=FE_CHAOS_RPS)
-    chaos = _fe_row(report, kernel_launches())
+    report = ServeFrontend(primary, fallback, chaos.frontend_config(), faults=faults).run(
+        workload, offered_load_rps=chaos.CHAOS_RPS)
+    chaos_run = _fe_row(report, kernel_launches())
     faulted = faulted_request_ids(report)
     by_rid = {r.rid: r for r in report.requests}
     unaccounted = [rid for rid in faulted if not (
         by_rid[rid].state == "degraded"
         or (by_rid[rid].state == "shed" and by_rid[rid].shed_reason))]
     done = [r for r in report.requests if r.state in ("completed", "degraded")]
-    ref = ServeEngine(cfg, plain_model, max_seq=FE_MAX_SEQ, batch_size=1,
+    ref = ServeEngine(cfg, plain_model, max_seq=chaos.MAX_SEQ, batch_size=1,
                       knobs=M.PerfKnobs(**base))
     diverged, n_parity = [], {"completed": 0, "degraded": 0}
     for r in done:
@@ -1126,42 +1089,46 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
             n_parity[r.state] += 1
         else:
             diverged.append(_divergence(cfg, ref.model, r, want))
-    check(chaos["lost"] == 0, f"frontend chaos lost {chaos['lost']} request(s)")
+    check(chaos_run["lost"] == 0, f"frontend chaos lost {chaos_run['lost']} request(s)")
     check(bool(faulted), "frontend chaos: no slot fault hit an occupied slot")
     check(not unaccounted, f"frontend chaos: faulted requests {unaccounted} ended "
                            "without degrading or a shed reason")
     check(n_parity["degraded"] >= 1, "frontend chaos: no degraded completion")
     check(not diverged, f"frontend chaos: token parity failed {diverged}")
-    check(chaos["launches"]["paired_matmul"] > 0 and chaos["launches"]["decode_attention"] > 0,
-          f"frontend chaos launches {chaos['launches']}")
-    chaos.update({"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-                  "primary": "column_blocked bn=64 r=0, pallas_paired + pallas_fused",
-                  "fallback": "unpaired (torch.matmul, plain decode attention)",
-                  "scheduled_faults": len(faults.events), "fired_faults": len(faults.fired),
-                  "faulted_requests": sorted(faulted), "parity_checked": n_parity,
-                  "diverged": diverged})
+    launches = chaos_run["launches"]
+    check(launches["paired_matmul"] > 0 and launches["decode_attention"] > 0,
+          f"frontend chaos launches {launches}")
+    chaos_run.update({"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+                      "primary": "column_blocked bn=64 r=0, pallas_paired + pallas_fused",
+                      "fallback": "unpaired (torch.matmul, plain decode attention)",
+                      "scheduled_faults": len(faults.events), "fired_faults": len(faults.fired),
+                      "faulted_requests": sorted(faulted), "parity_checked": n_parity,
+                      "diverged": diverged})
 
     # (b) load sweep at full width and depth, bf16: the lm_serve engine
     eng = lm_engine
     fb = ServeEngine(eng.cfg, eng.model, max_seq=eng.max_seq, batch_size=eng.batch_size,
                      knobs=M.PerfKnobs(q_chunk=32, k_chunk=32))  # gemm="xla": unpaired
     sweep = []
-    for rate in FE_LOADS_RPS:
+    for rate in chaos.LOADS_RPS:
         _reset_slots(eng, fb)
         _reset_launches()
-        report = ServeFrontend(eng, fb, _fe_config()).run(
-            _fe_workload(eng.cfg.vocab, rate), offered_load_rps=rate)
+        report = ServeFrontend(eng, fb, chaos.frontend_config()).run(
+            chaos.chaos_workload(eng.cfg.vocab, rate), offered_load_rps=rate)
         torch.cuda.synchronize()
         row = _fe_row(report, kernel_launches())
         check(row["lost"] == 0, f"frontend load {rate}: lost {row['lost']} request(s)")
         check(row["launches"]["paired_matmul"] > 0, f"frontend load {rate}: {row['launches']}")
         sweep.append(row)
     out = {
-        "phase": "frontend", "chaos": chaos,
+        "phase": "frontend", "chaos": chaos_run,
         "load_sweep": {"arch": eng.cfg.name, "layers": eng.cfg.n_layers, "dtype": eng.cfg.dtype,
                        "batch": eng.batch_size, "max_seq": eng.max_seq,
                        "primary": "structured r=0.05, pallas_paired + pallas_fused",
                        "fallback": "unpaired (torch.matmul) on the same weights",
+                       "wall_clock_note": "smoke-sized functional run (6-29 requests of 2-7 "
+                                          "tokens): wall figures are not a throughput "
+                                          "measurement",
                        "rows": sweep},
     }
     emit(out)

@@ -163,7 +163,6 @@ def run_frontend(
     seed: int = 0,
     prefill_chunk: int = 8,
     deadline: float = float("inf"),
-    fallback_gemm: str = "xla",
     inject: str = "",
 ) -> ServeReport:
     """Simulated-load run: Poisson arrivals + optional chaos, degrading to a
@@ -175,7 +174,7 @@ def run_frontend(
         pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device)
     # `model` is the pre-pairing model (the engine paired its own copy), so
     # the fallback runs plain exact GEMMs (decode attention as the primary's)
-    fb_knobs = dataclasses.replace(eng.knobs, gemm=fallback_gemm, pair_rounding=0.0)
+    fb_knobs = dataclasses.replace(eng.knobs, gemm="xla", pair_rounding=0.0)
     fallback = ServeEngine(cfg, model, max_seq=max_seq, batch_size=batch, knobs=fb_knobs)
     workload = poisson_workload(
         rate_rps=arrival_rate, horizon_s=horizon, seed=seed, vocab=cfg.vocab,
@@ -239,15 +238,12 @@ def main(argv: list[str] | None = None) -> None:
                          "longer prompts rides the shared decode steps")
     ap.add_argument("--deadline", type=float, default=float("inf"),
                     help="per-request completion deadline (virtual s)")
-    ap.add_argument("--fallback-gemm", choices=("xla",), default="xla",
-                    help="unpaired exact path quarantined requests degrade to "
-                         "(torch.matmul; the port has no unpaired GEMM kernel)")
     ap.add_argument("--inject", default="",
                     help="fault rates, e.g. 'nan_logits:0.05,kv_poison:0.02' "
                          "(per front-end step; see serving.faults.FAULT_KINDS)")
     args = vars(ap.parse_args(argv))
     fe_args = {k: args.pop(k) for k in ("arrival_rate", "horizon", "seed", "prefill_chunk",
-                                         "deadline", "fallback_gemm", "inject")}
+                                         "deadline", "inject")}
     if args.pop("frontend"):
         run_frontend(**args, **fe_args)
     else:

@@ -5,8 +5,9 @@ The workload is ``benchmarks/serving.py``'s chaos run: ``poisson_workload``
 at 30 req/s over 0.6 virtual s from seed 0 (prompts of 3–19 tokens, 2–7 new
 tokens), batch 4, ``max_seq`` 48, the bench's front-end config and its full
 fault schedule (six pinned faults plus the seeded background draw).  Each
-package builds its own workload and schedule from the seeds (the port's as
-``chip_smoke.py``'s frontend phase builds them); the test holds them equal,
+package builds its own workload and schedule from the seeds (the port's from
+``repro_torch.serving.chaos``, as ``chip_smoke.py``'s frontend phase builds
+them); the test holds them and their settings equal,
 then the two runs field for field: the report's summary (all but
 ``wall_s``), every request's lifecycle and tokens, the incident log and the
 faults that fired.
@@ -17,7 +18,6 @@ import jax
 import numpy as np
 import pytest
 
-import chip_smoke
 from benchmarks import serving as bench
 from repro import serving as J
 from repro.configs import get_smoke_config as jax_smoke_config
@@ -26,8 +26,9 @@ from repro.models.param import unzip
 from repro_torch import serving as T
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import lm as M
+from repro_torch.serving import chaos
 
-RATE = chip_smoke.FE_CHAOS_RPS
+RATE = chaos.CHAOS_RPS
 REQUEST_FIELDS = ("rid", "arrival", "state", "tokens", "admit_time", "first_token_time",
                   "finish_time", "shed_reason", "retries", "degraded", "prefill_done")
 
@@ -49,11 +50,11 @@ def runs():
     cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), dtype="float32")
     model = M.lm_params_from_numpy(values, cfg, device="cpu")
     knobs = M.PerfKnobs(q_chunk=16, k_chunk=16, gemm="xla")
-    teng = [T.ServeEngine(cfg, model, max_seq=chip_smoke.FE_MAX_SEQ,
-                          batch_size=chip_smoke.FE_BATCH, knobs=knobs) for _ in range(2)]
-    twl = chip_smoke._fe_workload(cfg.vocab, RATE)
-    tfaults = chip_smoke._chaos_schedule()
-    tcfg = chip_smoke._fe_config()
+    teng = [T.ServeEngine(cfg, model, max_seq=chaos.MAX_SEQ, batch_size=chaos.BATCH,
+                          knobs=knobs) for _ in range(2)]
+    twl = chaos.chaos_workload(cfg.vocab, RATE)
+    tfaults = chaos.chaos_schedule()
+    tcfg = chaos.frontend_config()
     trep = T.ServeFrontend(*teng, tcfg, faults=tfaults).run(twl, offered_load_rps=RATE)
     return {"jax": (jwl, jfaults, jrep), "torch": (twl, tfaults, trep),
             "configs": (bench._frontend_cfg(), tcfg)}
@@ -70,7 +71,10 @@ def test_same_workload_schedule_and_config(runs):
         [dataclasses.asdict(e) for e in tfaults.events]
     jcfg, tcfg = runs["configs"]
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    assert (chip_smoke.FE_BATCH, chip_smoke.FE_MAX_SEQ) == (bench.BATCH, bench.MAX_SEQ)
+    names = ("SEED", "BATCH", "MAX_SEQ", "HORIZON_S", "PROMPT_LEN", "NEW_TOKENS", "LOADS_RPS")
+    assert {n: getattr(chaos, n) for n in names} == {n: getattr(bench, n) for n in names}
+    # the bench's chaos run offers half its top load
+    assert RATE == bench.LOADS_RPS[-1] / 2
 
 
 def test_summary_matches_field_for_field(runs):
