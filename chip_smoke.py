@@ -13,14 +13,18 @@ engines (K1 + K2).  Phases, each printing one JSON line; any failure exits
 non-zero and prints no result:
 
 1. build      — compile the three CUDA sources from ``src/repro_torch/kernels/csrc``
-                (one nvcc each, in parallel): seconds, registers, spills
-                (gate: K3 spills nothing);
+                (one nvcc each, in parallel): seconds, registers, spills, and
+                per K1 instance its registers, stack frame and spills (gates:
+                K3 spills nothing; K1 compiles exactly the instances its plans
+                can name, and its skinny form spills nothing);
 2. kernel     — K1 against its plain PyTorch version on the card, in every
                 form (dense, structured, blocked at bn=1 and bn=4 with a
                 short last block, max2/avg2 pooling, fp32/bf16 residuals, all
-                activations, ragged edges, the empty contraction P + R = 0):
+                activations, ragged edges, the empty contraction P + R = 0)
+                and at qwen2's decode and prefill rows (``K1_SKINNY_CASES``):
                 fp32 ≤ 1e-5 relative to the largest output, bf16 ≤ 2 output
-                ulps of the fp32 oracle;
+                ulps of the fp32 oracle, a second launch bit-identical; each
+                row prints its launch plan (``kernels/tuning.py``);
 3. decode_attention — K2 against its plain version, bare and fused, fp32
                 and bf16: G ∈ {1, 6}, D ∈ {64, 128}, S not a multiple of the
                 32-key tile, slots at 0 / mid-cache / S−1, windows with and
@@ -40,8 +44,9 @@ non-zero and prints no result:
                 the bound;
 5. layers     — K1 at LeNet's shapes (1000 images, every layer and pairing
                 mode) against its plain version, timed beside the plain
-                version, ``F.conv2d`` on the folded weights and its
-                memory/operation bound;
+                version, ``F.conv2d`` on the folded weights, its
+                memory/operation bound and ``read_bound_ms`` (the bytes it
+                really reads, the B-fold operand, at 3.35 TB/s), with its plan;
 6. serve      — LeNet's main path: seeded weights, the synthetic MNIST test
                 split, pairings at r ∈ {0, 0.05} × {structured,
                 column_blocked bn=4, per_column}, four requests of 1000 images
@@ -60,8 +65,9 @@ non-zero and prints no result:
                 256, 32 tokens per slot; pairing seconds, prefill ms per
                 request, decode ms per step, tokens/s, 7 launches per decode
                 layer (3 QKV K1, one K2, 3 MLP K1), a ``torch.profiler`` split
-                of one decode step, and K1 and K2 timed at the serving shapes
-                beside their plain versions, library calls and bounds;
+                of one decode step, and K1 (all six decoder weights, with
+                their plans) and K2 timed at the serving shapes beside their
+                plain versions, library calls and bounds;
 9. frontend   — ``serving.frontend`` over the LM engines.  (a) chaos: full
                 width, 2 layers, fp32, the lm_parity phase's paired engine
                 (bn=64, r=0, fused decode attention) with an unpaired
@@ -170,13 +176,27 @@ def phase_build() -> dict:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels import tuning
 
     t0 = time.perf_counter()
     infos = _build.build_all()  # one nvcc per source, in parallel
     pm._kernel()  # load the libraries and bind their entry points
     da._kernel()
     fa._kernel()
-    sources = {}
+    sources, k1_instances = {}, []
+    func = None
+    for line in infos["paired_matmul"]["log"].splitlines():  # -Xptxas -v, per kernel
+        if m := re.search(r"Compiling entry function '\w*paired_matmul_kernel_(skinny|tall)"
+                          r"I(\w+?)EEv\w*'", line):
+            func = {"form": m.group(1), "template": m.group(2)}
+        elif func and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            func["stack_bytes"] = int(m.group(1))
+            func["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        elif func and (m := re.search(r"Used (\d+) registers", line)):
+            func["registers"] = int(m.group(1))
+            k1_instances.append(func)
+            func = None
     for name, info in infos.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["log"])]
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", info["log"])]
@@ -188,11 +208,21 @@ def phase_build() -> dict:
     if infos["flash_attention"]["built"]:
         check(sources["flash_attention"]["spill_bytes"] == 0,
               f"flash_attention spills {sources['flash_attention']['spill_bytes']} bytes")
+    if infos["paired_matmul"]["built"]:
+        # the instances the plans can name (kernels/tuning.py), and no other
+        n_skinny = sum(len(shapes) for shapes in tuning.SKINNY_SHAPES.values())
+        n_tall = 2 * 2 * len(tuning.TALL_TN)  # fp32 / bf16 x pool window 1 / 4
+        skinny = [f for f in k1_instances if f["form"] == "skinny"]
+        check(len(skinny) == n_skinny and len(k1_instances) == n_skinny + n_tall,
+              f"paired_matmul instances: {len(skinny)} skinny of {len(k1_instances)}")
+        check(all(f.get("spill_bytes", 0) == 0 for f in skinny),
+              f"paired_matmul skinny form spills: {skinny}")
     out = {
         "phase": "build",
         "seconds": time.perf_counter() - t0,
         "nvcc": _build.nvcc_version(),
         "sources": sources,
+        "paired_matmul_instances": k1_instances,
     }
     emit(out)
     return out
@@ -202,8 +232,58 @@ def phase_build() -> dict:
 # phase 2: K1 against its plain version, every form
 # ---------------------------------------------------------------------------
 
+# K1 at decode and prefill rows (the skinny form): qwen2-1.5b's K = 1536 /
+# 8960 (and a ragged 1535), N = 256 / 1536 / 8960, structured and blocked
+# bn=64, residual on and off, P = 0, R = 0 and P + R = 0.  (name, blocked, M,
+# P, R, N or (B, bn, n_cols), pool, activation, residual?)
+K1_SKINNY_CASES = [
+    ("skinny_M1_K1536_N256", False, 1, 690, 156, 256, "none", "none", False),
+    ("skinny_M4_K1536_N1536_res", False, 4, 690, 156, 1536, "none", "none", True),
+    ("skinny_M4_K8960_N1536_res", False, 4, 4030, 900, 1536, "none", "none", True),
+    ("skinny_M16_K1536_N8960", False, 16, 690, 156, 8960, "none", "silu", False),
+    ("skinny_M4_K1535_ragged", False, 4, 701, 133, 1536, "none", "none", False),
+    ("skinny_M4_P0", False, 4, 0, 1536, 256, "none", "none", True),
+    ("skinny_M4_R0", False, 4, 768, 0, 1536, "none", "none", False),
+    ("skinny_M4_PR0", False, 4, 0, 0, 256, "none", "none", True),
+    ("skinny_bn64_M4_res", True, 4, 300, 100, (24, 64, 1536), "none", "none", True),
+    ("skinny_bn64_M1_K8960", True, 1, 4000, 900, (4, 64, 256), "none", "none", False),
+    ("skinny_bn64_M16", True, 16, 300, 100, (140, 64, 8960), "none", "none", False),
+    ("skinny_bn64_P0", True, 4, 0, 300, (4, 64, 250), "none", "none", True),
+]
+
+
+def k1_cases() -> list[tuple]:
+    """K1's cases in the kernel phase: (name, blocked, M, P, R, N or (B, bn,
+    n_cols), pool, activation, dtype, residual dtype), dtypes by name."""
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cases += [
+            ("dense_P0", False, 1000, 0, 150, 16, "none", "relu", dt, None),
+            ("structured", False, 777, 37, 76, 120, "none", "none", dt, None),
+            ("R0", False, 129, 64, 0, 33, "none", "relu", dt, None),
+            ("pool_max2", False, 515, 9, 7, 6, "max2", "relu", dt, None),
+            ("pool_avg2", False, 300, 20, 110, 16, "avg2", "tanh", dt, None),
+            ("residual_f32", False, 257, 12, 30, 40, "none", "gelu", dt, "float32"),
+            ("residual_bf16", False, 257, 12, 30, 40, "max2", "silu", dt, "bfloat16"),
+            ("ragged_M1", False, 1, 3, 2, 7, "none", "none", dt, None),
+            ("empty_PR0", False, 300, 0, 0, 16, "max2", "gelu", dt, "float32"),
+            ("blocked_bn1", True, 501, 11, 3, (6, 1, 6), "max2", "relu", dt, None),
+            ("blocked_bn4_short", True, 333, 20, 110, (4, 4, 14), "none", "relu", dt, "float32"),
+            ("blocked_bn4_avg2", True, 200, 5, 15, (4, 4, 13), "avg2", "none", dt, None),
+            ("blocked_empty", True, 100, 0, 0, (3, 4, 10), "none", "silu", dt, None),
+        ]
+        cases += [(*case[:8], dt, dt if case[8] else None) for case in K1_SKINNY_CASES]
+    for act in ("none", "relu", "gelu", "silu", "tanh"):
+        # inputs scaled by 0.1 in the phase: pre-activations of order one,
+        # where the saturating activations are not flat
+        cases.append((f"act_{act}", False, 640, 30, 65, 24, "none", act, "float32", None))
+    return cases
+
 
 def phase_kernel() -> dict:
+    import dataclasses
+    import functools
+
     import torch
 
     from repro_torch.kernels import paired_matmul as pm
@@ -214,29 +294,10 @@ def phase_kernel() -> dict:
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    cases = []
-    # (name, blocked, M, P, R, N or (B, bn, n_cols), pool, act, dtype, residual dtype)
-    f32, bf = torch.float32, torch.bfloat16
-    for dt in (f32, bf):
-        cases += [
-            ("dense_P0", False, 1000, 0, 150, 16, "none", "relu", dt, None),
-            ("structured", False, 777, 37, 76, 120, "none", "none", dt, None),
-            ("R0", False, 129, 64, 0, 33, "none", "relu", dt, None),
-            ("pool_max2", False, 515, 9, 7, 6, "max2", "relu", dt, None),
-            ("pool_avg2", False, 300, 20, 110, 16, "avg2", "tanh", dt, None),
-            ("residual_f32", False, 257, 12, 30, 40, "none", "gelu", dt, f32),
-            ("residual_bf16", False, 257, 12, 30, 40, "max2", "silu", dt, bf),
-            ("ragged_M1", False, 1, 3, 2, 7, "none", "none", dt, None),
-            ("empty_PR0", False, 300, 0, 0, 16, "max2", "gelu", dt, f32),
-            ("blocked_bn1", True, 501, 11, 3, (6, 1, 6), "max2", "relu", dt, None),
-            ("blocked_bn4_short", True, 333, 20, 110, (4, 4, 14), "none", "relu", dt, f32),
-            ("blocked_bn4_avg2", True, 200, 5, 15, (4, 4, 13), "avg2", "none", dt, None),
-            ("blocked_empty", True, 100, 0, 0, (3, 4, 10), "none", "silu", dt, None),
-        ]
-    for act in ("none", "relu", "gelu", "silu", "tanh"):
-        # inputs scaled by 0.1 below: pre-activations of order one, where
-        # the saturating activations are not flat
-        cases.append((f"act_{act}", False, 640, 30, 65, 24, "none", act, f32, None))
+    cases = [(name, blocked, M, P, R, N, pool, act, getattr(torch, dt),
+              res_dt and getattr(torch, res_dt))
+             for name, blocked, M, P, R, N, pool, act, dt, res_dt in k1_cases()]
+    f32 = torch.float32
 
     results, max_abs, max_rel, max_ulps = [], 0.0, 0.0, 0.0
     for name, blocked, M, P, R, N, pool, act, dt, res_dt in cases:
@@ -257,18 +318,26 @@ def phase_kernel() -> dict:
         residual = None if res_dt is None else rnd(M, n_cols, dtype=res_dt)
         kw = dict(residual=residual, activation=act, pool=pool)
         if blocked:
-            got = pm.paired_matmul_blocked_cuda(x, kmat, w_res, bias, n_cols=n_cols, **kw)
+            launch = functools.partial(pm.paired_matmul_blocked_cuda, x, kmat, w_res, bias,
+                                       n_cols=n_cols, **kw)
+            got = launch()
             want = pm.paired_matmul_blocked_plain(
                 x, kmat, w_res, bias, n_cols=n_cols, out_dtype=torch.float32, **kw
             )
         elif name.startswith("dense"):
-            got = pm.dense_matmul_cuda(x, w_res, bias, residual=residual, activation=act)
+            launch = functools.partial(pm.dense_matmul_cuda, x, w_res, bias, residual=residual,
+                                       activation=act)
+            got = launch()
             want = pm.paired_matmul_plain(x, kmat, w_res, bias, out_dtype=torch.float32, **kw)
         else:
-            got = pm.paired_matmul_cuda(x, kmat, w_res, bias, **kw)
+            launch = functools.partial(pm.paired_matmul_cuda, x, kmat, w_res, bias, **kw)
+            got = launch()
             want = pm.paired_matmul_plain(x, kmat, w_res, bias, out_dtype=torch.float32, **kw)
         torch.cuda.synchronize()
-        row = {"case": name, "dtype": str(dt).removeprefix("torch."), "shape": list(got.shape)}
+        row = {"case": name, "dtype": str(dt).removeprefix("torch."), "shape": list(got.shape),
+               "plan": dataclasses.asdict(pm.launch_plan(x, kmat, w_res, pool))}
+        # one launch is deterministic: a second one gives the same bits
+        check(torch.equal(launch(), got), f"kernel {name} {row['dtype']}: two launches differ")
         if dt == f32:
             row["rel_err"] = rel_err(got, want)
             row["max_abs_err"] = float((got - want).abs().max())
@@ -583,7 +652,10 @@ def _bound(pairing, rows: int, k: int, n_out: int, n_cols: int, itemsize: int):
 def _measure_layer(x, w, b, w_folded, layer, pool) -> dict:
     """One conv layer at the main path's shapes: the kernel against its plain
     version on the operands ``paired_conv`` builds, their device times, the
-    im2col + gather time, ``F.conv2d`` on the folded weights, and the bound."""
+    im2col + gather time, ``F.conv2d`` on the folded weights, the bound,
+    and the time the bytes the kernel really reads take at the card's rate."""
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
 
@@ -609,6 +681,10 @@ def _measure_layer(x, w, b, w_folded, layer, pool) -> dict:
     nbytes, flops = _bound(layer.pairing, rows, k, got.numel(), got.shape[-1],
                            xg.element_size())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    # what the kernel really reads: the (B-fold, lane-padded) operand, the
+    # packed weights and the bias, and writes: the output
+    read_bytes = sum(t.numel() * t.element_size() for t in (xg, kmat, w_res, b, got)
+                     if t is not None)
     ms = graph_ms(lambda: kern(xg, kmat, w_res, b, **kw))
     plain_ms = graph_ms(lambda: plain(xg, kmat, w_res, b, **kw))
     return {
@@ -620,7 +696,9 @@ def _measure_layer(x, w, b, w_folded, layer, pool) -> dict:
             lambda: conv_gemm_operands(x, w, layer, pool=pool))["median"],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "read_bound_ms": read_bytes / HBM_BYTES_PER_S * 1e3, "read_bytes": read_bytes,
         "bytes": nbytes, "flops": flops,
+        "plan": dataclasses.asdict(pm.launch_plan(xg, kmat, w_res, pool)),
     }
 
 
@@ -862,6 +940,8 @@ def _k1_at(block, name, x, residual=None) -> dict:
     """K1 on one decoder weight of the serving engine (its real segments),
     for activations ``x`` (M, K): device ms beside the plain version,
     ``torch.matmul`` on the folded weight, and the bound."""
+    import dataclasses
+
     import torch
 
     from repro_torch.kernels import ops
@@ -891,6 +971,7 @@ def _k1_at(block, name, x, residual=None) -> dict:
     plain_ms = graph_ms(lambda: pm.paired_matmul_plain(xg, kmat, w_res, residual=residual))
     return {
         "weight": name, "M": M, "K": K, "N": N, "P": P, "R": R, "pairs_live": p_live,
+        "plan": dataclasses.asdict(pm.launch_plan(xg, kmat, w_res)),
         "ulps": bf16_ulps(got, want), "ms": ms, "plain_ms": plain_ms,
         "library_ms": graph_ms(lib), "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -985,7 +1066,8 @@ def phase_lm_serve() -> dict:
     x = lambda k: torch.randn(batch, k, generator=gen, device="cuda").to(torch.bfloat16)
     d, f = cfg.d_model, cfg.d_ff
     k1 = [_k1_at(layer0.attn, "wq", x(d)), _k1_at(layer0.attn, "wk", x(d)),
-          _k1_at(layer0.mlp, "w_gate", x(d)), _k1_at(layer0.mlp, "w_down", x(f), x(d))]
+          _k1_at(layer0.attn, "wv", x(d)), _k1_at(layer0.mlp, "w_gate", x(d)),
+          _k1_at(layer0.mlp, "w_up", x(d)), _k1_at(layer0.mlp, "w_down", x(f), x(d))]
     k2 = _k2_at(eng)
     for row in k1:
         check(row["ulps"] <= BF16_MAX_ULPS, f"lm_serve K1 {row['weight']} {row['ulps']:.3g} ulps")

@@ -3,59 +3,86 @@
 // Replaces the Pallas TPU kernel built by
 // src/repro/kernels/paired_matmul.py::_build_paired_call (reached from
 // paired_matmul_pallas, paired_matmul_blocked_pallas and dense_matmul_pallas).
-// One kernel covers every form the JAX package launches:
+// One kernel, in two forms, covers every shape the JAX package launches:
 //
 //   y = (x[:, :P] - x[:, P:2P]) @ Kmat + x[:, 2P:] @ W_res        (fp32 accumulate)
 //   y = act(y + bias) -> optional 2x2 max/avg over a window-major (4, M, K)
 //       operand -> optional fp32 residual add -> one cast, one store.
 //
 // The operand is the one permuted (..., M, K) buffer, K = 2P + R, read at
-// column offsets 0, P and 2P.  P == 0 is the dense GEMM, R == 0 drops the
-// residual segment, and P + R == 0 runs no contraction step: the epilogue
-// alone, on zero accumulators.  The column-blocked form gives each of B column blocks
-// its own [I | J | resid] lane segments: x is (B, [4,] M, K'), Kmat is
-// (B, P, bn), W_res (B, R, bn); the structured form is the case B == 1,
-// bn == N.  Padded lanes of the blocked layout point at row 0 and carry zero
-// weights, so they add exact zeros.
+// column offsets 0, P and 2P.  "Effective lane" e < P + R is the pair
+// x[e] - x[P+e] (e < P) or the residual x[P+e] (e >= P).  P == 0 is the dense
+// GEMM, R == 0 drops the residual segment, and P + R == 0 runs no contraction
+// step: the epilogue alone, on zero accumulators.  The column-blocked form
+// gives each of B column blocks its own [I | J | resid] lanes: x is
+// (B, [4,] M, K'), Kmat (B, P, bn), W_res (B, R, bn); the structured form is
+// B == 1, bn == N.  Padded lanes of the blocked layout carry zero weights.
+// The subtract rounds at input precision (a bf16 difference is rounded to
+// bf16 before the multiply); the epilogue keeps the reference order bias ->
+// activation -> pool -> residual and casts once; gelu is the tanh form.
 //
-// What bounds it on this card.  LeNet's conv GEMMs are thin: K = 25..400,
-// N = 6..120, M up to 784 000 rows per 1000 images.  At about 2 FLOP per
-// byte of activation read, they sit far below the H100's ridge point, so
-// the kernel is bound by the bytes of x it streams from HBM.  Design:
+// What bounds it on this card.  Both regimes sit far below the H100's ridge
+// (about 295 FLOP per byte in bf16): LeNet's conv GEMMs do about 2 FLOP per
+// byte of activation, a decode GEMM at M = 4 about 4 FLOP per weight byte.
+// So the kernel is bound by bytes in flight, by filling 132 SMs and by the
+// latency of each step, not by arithmetic: fp32 FMA on the CUDA cores (tensor
+// cores buy nothing at these shapes, and TF32 would break the 1e-5 parity
+// gate at rounding 0).  The host picks a plan per call (kernels/tuning.py:
+// form, tile, columns per thread, K-split, lanes, ring depth) and the entry
+// point checks it.
 //
-//   * fp32 FMA on the CUDA cores.  The widths are far from wgmma tiles, and
-//     TF32 would break the 1e-5 parity gate at rounding 0.
-//   * One CTA of 128 threads owns 128 output rows and TN output columns of
-//     one column block; each thread owns one row and keeps W x TN fp32
-//     accumulators in registers (W = 4 window elements when pooling, so the
-//     pooled map is reduced before the only store).
-//   * The contraction walks the P + R "effective lanes" in chunks of TK.
-//     For every chunk the CTA stages x in shared memory, already subtracted
-//     (the subtract rounds at input precision: a bf16 difference is rounded
-//     to bf16 before the multiply), and the matching weight rows.  Reads of
-//     x are coalesced along each row; the shared tile is padded by one word
-//     per row so the row-per-thread reads hit distinct banks.
-//   * Ragged M, N and K edges are masked in the kernel: nothing is padded
-//     on the host.
-//   * The epilogue keeps the reference order bias -> activation -> pool ->
-//     residual, then casts once.  gelu is the tanh form (jax.nn.gelu's
-//     default).
+// * skinny (decode and prefill rows, M <= 64, no pool).  The weights are the
+//   bytes: 1-20 rows of x against 1.5-15 MB of Kmat/W_res.  A CTA of 128
+//   threads owns `cols` columns of one block and one contiguous slice of the
+//   effective lanes; each thread holds TN adjacent columns for MR rows (more
+//   rows run in passes).  The slice of x is copied with cp.async ahead of
+//   the weights and subtracted once into shared memory.  Each thread streams
+//   its own weight rows as 8- or 16-byte vectors through a 5-stage cp.async
+//   ring that only it reads, so no barrier paces the loads.  The slices of
+//   one column tile are the CTAs of one thread-block cluster (up to 8, so
+//   that a launch puts two CTAs on every SM: wk/wv at N = 256 split K, not
+//   only N).  Row groups are reduced by warp shuffles and one shared-memory
+//   pass; each rank stores its partial sums into the leader's shared memory
+//   (distributed shared memory), and after one cluster barrier the leader
+//   adds them in rank order and runs the epilogue.  One launch, no
+//   workspace, no atomics, the same bits on every launch.
+// * tall (LeNet: 1 000-196 000 rows, K' = 25-462, bn = 1-120; pooled or
+//   not).  The activations are the bytes.  A CTA owns TN columns of one
+//   block and walks sub-tiles of `rows` pooled rows.  A sub-tile's whole
+//   rows are, per window, one contiguous span of x, so it is copied as
+//   16-byte cp.async units from the aligned address below it (no per-element
+//   index arithmetic, any row length) through a ring of up to 3 stages.  The
+//   slice's weights are staged once, as fp32.  `lanes` threads share a
+//   window-row and split its lanes (as many as keep the rows a warp reads on
+//   different banks); each thread holds RM window-rows x TN columns, so a
+//   weight it loads feeds RM * TN multiply-adds; the lane groups meet by
+//   shuffles, and the 2x2 pool is a shuffle across the window lanes.  Where
+//   the grid would leave SMs idle, K is split over a cluster as above.
 //
-// Left for later: tensor-core bf16 tiles for wide layers, gathering the
-// blocked activations in the kernel through the (B, K') index matrix
-// (which removes the B-fold replication of x), coalesced stores through
-// shared memory, and tiles tuned for this card.
+// Left for later: gathering the blocked activations in the kernel through the
+// (B, K') index matrix (the B-fold copy of x is most of LeNet's bytes), a
+// tile cache tuned per shape, tensor-core bf16 tiles for large M, and the
+// dense (P = 0) tall shapes, where cuBLAS's register tiling still wins.
 //
 // C interface (bound with ctypes): paired_matmul_launch returns
-// cudaGetLastError() after the launch, 0 on success.
+// cudaGetLastError() after the launch, 0 on success, and cudaErrorInvalidValue
+// for a shape or plan out of range (nothing is launched then).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kRows = 128;  // output rows per CTA == threads per CTA
+constexpr int kThreads = 128;  // both forms
+constexpr int kSkinnyStages = 5, kSkinnyUnroll = 4;
+constexpr int kMaxCluster = 8;
+constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in dynamic shared memory
 
 enum Act { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3, kTanh = 4 };
 enum Pool { kNoPool = 0, kMax2 = 1, kAvg2 = 2 };
@@ -72,6 +99,12 @@ struct Args {
   int pool, act, res_bf16;
 };
 
+// tuning.Plan: skinny rows = MR, cols = columns per CTA; tall rows = pooled
+// rows per sub-tile, cols = tn, lanes = lane groups per window-row
+struct Plan {
+  int rows, cols, tn, splits, lanes, subtiles, stages, smem;
+};
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -83,8 +116,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // The subtractor works at input precision: round the difference to T.
 template <typename T>
-__device__ __forceinline__ float sub_at_input_precision(T a, T b) {
-  return to_f(from_f<T>(to_f(a) - to_f(b)));
+__device__ __forceinline__ float sub_at_input_precision(float a, float b) {
+  return to_f(from_f<T>(a - b));
 }
 
 __device__ __forceinline__ float activation(float v, int act) {
@@ -104,123 +137,537 @@ __device__ __forceinline__ float activation(float v, int act) {
   }
 }
 
-template <typename T, int W, int TN>
-__global__ void __launch_bounds__(kRows) paired_matmul_kernel(Args a) {
-  constexpr int TK = 64 / W;  // lanes per chunk: W * TK * kRows words of x
-  __shared__ float xs[W][kRows][TK + 1];
-  __shared__ float ws[TK][TN];
+// The fp32 (or bf16) residual at flat output index o.
+__device__ __forceinline__ float residual_at(const Args& a, int64_t o) {
+  return a.res_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.residual)[o])
+                    : static_cast<const float*>(a.residual)[o];
+}
 
-  const int tid = threadIdx.x;
-  const int tiles_n = (a.bn + TN - 1) / TN;
-  const int b = blockIdx.y / tiles_n;          // column block
-  const int c0 = (blockIdx.y % tiles_n) * TN;  // first column inside the block
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int K = 2 * a.P + a.R;                 // row stride of x
-  const int KE = a.P + a.R;                    // effective (contracted) lanes
+// bias -> activation -> residual -> one cast (the skinny form's epilogue).
+template <typename T>
+__device__ __forceinline__ void store_out(const Args& a, int64_t m, int col, float s) {
+  float v = activation(s + (a.bias ? a.bias[col] : 0.f), a.act);
+  const int64_t o = m * a.n_cols + col;
+  if (a.residual) v += residual_at(a, o);
+  static_cast<T*>(a.out)[o] = from_f<T>(v);
+}
 
-  const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(b) * W * a.M * K;
+// cp.async of BYTES (4, 8 or 16) into shared memory; `n` < BYTES source bytes
+// zero-fill the rest (n == 0: no read at all).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int n) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(n)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Lanes per K-slice: ceil(KE / S) (tuning.slice_step).
+__host__ __device__ __forceinline__ int slice_step(int ke, int splits) {
+  return (ke + splits - 1) / splits;
+}
+
+// ---------------------------------------------------------------------------
+// skinny form
+// ---------------------------------------------------------------------------
+
+// 16-byte units that hold `lanes` elements at any alignment
+__host__ __device__ __forceinline__ int skinny_units(int lanes, int itemsize) {
+  return (lanes * itemsize + 15) / 16 + 1;
+}
+
+template <typename T, int MR, int TN>
+__global__ void __launch_bounds__(kThreads) paired_matmul_kernel_skinny(Args a, Plan p) {
+  constexpr int VB = TN * static_cast<int>(sizeof(T));  // bytes per weight vector
+  using Vec = typename std::conditional<VB == 16, uint4, uint2>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int S = p.splits, CT = p.cols;
+  const int tpr = CT / TN;         // threads across one weight row
+  const int G = kThreads / tpr;    // row groups: lanes read at once
+  const int Q = G < 4 ? G : 4;     // partial sums per column after the shuffles
+  const int cgi = tid % tpr, rg = tid / tpr;
+  const int tiles_n = (a.bn + CT - 1) / CT;
+  const int b = blockIdx.y / tiles_n;
+  const int c0 = (blockIdx.y % tiles_n) * CT;
+  const int col = c0 + cgi * TN;   // this thread's first column in the block
+  const int M = static_cast<int>(a.M);
+  const int K = 2 * a.P + a.R, KE = a.P + a.R;
+  const int step = slice_step(KE, S);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int e_begin = min(KE, rank * step);
+  const int len = min(KE, e_begin + step) - e_begin;
+
+  float* xs = reinterpret_cast<float*>(smem);  // [MR][step], subtracted
+  unsigned char* ring = smem + MR * step * 4;  // [stage][unroll][thread] vectors
+  const int ring_bytes = max(kSkinnyStages * kSkinnyUnroll * kThreads * VB, 4 * MR * CT * 4);
+  float* red = reinterpret_cast<float*>(ring);                // [Q][MR][CT], after the loop
+  // [S][MR][CT]: every rank's partial sums, gathered in the leader's copy
+  float* gather = reinterpret_cast<float*>(ring + ring_bytes);
+  // raw x of the slice, per row: [I lanes of the pairs | J lanes and residual
+  // lanes], each copied as the 16-byte units around it
+  const int u0 = skinny_units(min(step, a.P), sizeof(T)), u1 = skinny_units(step, sizeof(T));
+  unsigned char* raw = reinterpret_cast<unsigned char*>(gather + S * MR * CT);  // [MR][u0+u1][16]
+  const int pe = min(e_begin + len, a.P);  // pairs [e_begin, pe)
+
+  const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(b) * a.M * K;
   const T* km = static_cast<const T*>(a.kmat) + static_cast<int64_t>(b) * a.P * a.bn;
   const T* wr = static_cast<const T*>(a.wres) + static_cast<int64_t>(b) * a.R * a.bn;
 
-  float acc[W][TN];
+  // this thread's weight vectors of stage k: slice lanes (k*U + u)*G + rg
+  auto issue = [&](int k) {
+    const int slot = k % kSkinnyStages;
 #pragma unroll
-  for (int w = 0; w < W; ++w)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[w][c] = 0.f;
+    for (int u = 0; u < kSkinnyUnroll; ++u) {
+      const int j = (k * kSkinnyUnroll + u) * G + rg;
+      const int e = e_begin + j;
+      const bool ok = j < len && col < a.bn;
+      const T* src = km;
+      if (ok)
+        src = e < a.P ? km + static_cast<int64_t>(e) * a.bn + col
+                      : wr + static_cast<int64_t>(e - a.P) * a.bn + col;
+      cp_async<VB>(ring + ((slot * kSkinnyUnroll + u) * kThreads + tid) * VB, src, ok ? VB : 0);
+    }
+    cp_async_commit();
+  };
+  const int nk = (len + G * kSkinnyUnroll - 1) / (G * kSkinnyUnroll);
 
-  for (int e0 = 0; e0 < KE; e0 += TK) {
-    // Stage x: lane e of the chunk is x[e] - x[P + e] for a paired lane and
-    // x[P + e] for a residual lane (residual lanes start at column 2P).
-    for (int i = tid; i < W * kRows * TK; i += kRows) {
-      const int e = i % TK;
-      const int r = (i / TK) % kRows;
-      const int w = i / (TK * kRows);
-      const int ee = e0 + e;
-      const int64_t m = m0 + r;
-      float v = 0.f;
-      if (ee < KE && m < a.M) {
-        const T* row = x + (static_cast<int64_t>(w) * a.M + m) * K;
-        v = ee < a.P ? sub_at_input_precision(row[ee], row[a.P + ee]) : to_f(row[a.P + ee]);
-      }
-      xs[w][r][e] = v;
+  // rows in passes of MR (prefill); decode is one pass
+  for (int m0 = 0; m0 < M; m0 += MR) {
+    const int rows = min(MR, M - m0);
+    // x first (its own cp.async group), then the weight ring behind it
+    for (int i = tid; i < rows * (u0 + u1); i += kThreads) {
+      const int m = i / (u0 + u1), u = i - m * (u0 + u1);
+      const T* row = x + static_cast<int64_t>(m0 + m) * K;
+      const bool first = u < u0;
+      const int n = first ? max(0, pe - e_begin) : len;
+      const uintptr_t ga = reinterpret_cast<uintptr_t>(first ? row + e_begin : row + a.P + e_begin);
+      const uintptr_t ua = (ga & ~uintptr_t(15)) + (first ? u : u - u0) * 16;
+      const int64_t left = static_cast<int64_t>(ga + n * sizeof(T)) - static_cast<int64_t>(ua);
+      if (left > 0)
+        cp_async<16>(raw + (m * (u0 + u1) + u) * 16, reinterpret_cast<const void*>(ua),
+                     left < 16 ? static_cast<int>(left) : 16);
     }
-    for (int i = tid; i < TK * TN; i += kRows) {
-      const int c = i % TN;
-      const int e = i / TN;
-      const int ee = e0 + e;
-      const int col = c0 + c;
+    cp_async_commit();
+#pragma unroll
+    for (int k = 0; k < kSkinnyStages - 1; ++k) issue(k);
+
+    // x's slice, subtracted, once the x group has landed (the weight stages
+    // stay in flight); rows past the pass are zeros
+    cp_async_wait<kSkinnyStages - 1>();
+    __syncthreads();
+    for (int i = tid; i < MR * len; i += kThreads) {
+      const int m = i / len, j = i - m * len;
       float v = 0.f;
-      if (ee < KE && col < a.bn)
-        v = ee < a.P ? to_f(km[static_cast<int64_t>(ee) * a.bn + col])
-                     : to_f(wr[static_cast<int64_t>(ee - a.P) * a.bn + col]);
-      ws[e][c] = v;
+      if (m < rows) {
+        const unsigned char* rr = raw + m * (u0 + u1) * 16;
+        const uintptr_t row = reinterpret_cast<uintptr_t>(x + static_cast<int64_t>(m0 + m) * K);
+        const T* ia = reinterpret_cast<const T*>(rr + ((row + e_begin * sizeof(T)) & 15));
+        const T* jb = reinterpret_cast<const T*>(rr + u0 * 16 +
+                                                 ((row + (a.P + e_begin) * sizeof(T)) & 15));
+        v = e_begin + j < a.P ? sub_at_input_precision<T>(to_f(ia[j]), to_f(jb[j])) : to_f(jb[j]);
+      }
+      xs[m * step + j] = v;
     }
     __syncthreads();
+
+    float acc[MR][TN];
 #pragma unroll
-    for (int e = 0; e < TK; ++e) {
-      float wv[TN];
+    for (int m = 0; m < MR; ++m)
 #pragma unroll
-      for (int c = 0; c < TN; ++c) wv[c] = ws[e][c];
+      for (int c = 0; c < TN; ++c) acc[m][c] = 0.f;
+
+    for (int k = 0; k < nk; ++k) {
+      cp_async_wait<kSkinnyStages - 2>();  // this thread's stage k has landed
+      issue(k + kSkinnyStages - 1);        // into the slot it read at k - 1
+      const int slot = k % kSkinnyStages;
 #pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const float xv = xs[w][tid][e];
+      for (int u = 0; u < kSkinnyUnroll; ++u) {
+        const int j = (k * kSkinnyUnroll + u) * G + rg;
+        if (j >= len) break;
+        const Vec raw = *reinterpret_cast<const Vec*>(
+            ring + ((slot * kSkinnyUnroll + u) * kThreads + tid) * VB);
+        const T* wv = reinterpret_cast<const T*>(&raw);
+        float w[TN];
 #pragma unroll
-        for (int c = 0; c < TN; ++c) acc[w][c] = fmaf(xv, wv[c], acc[w][c]);
+        for (int c = 0; c < TN; ++c) w[c] = to_f(wv[c]);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          const float xv = xs[m * step + j];
+#pragma unroll
+          for (int c = 0; c < TN; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
+        }
       }
     }
+    cp_async_wait<0>();
     __syncthreads();
+
+    // row groups -> the CTA's partial sum: the row groups inside a warp by
+    // shuffles, then at most four partials in order (warps, or row groups)
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int c = 0; c < TN; ++c)
+        for (int off = tpr; off < 32; off <<= 1)
+          acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], off);
+    const int q = tpr < 32 ? tid / 32 : rg;
+    if (tpr >= 32 || lane < tpr) {
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) red[(q * MR + m) * CT + cgi * TN + c] = acc[m][c];
+    }
+    __syncthreads();
+    // each rank stores its partial sums into the leader's shared memory
+    float* dst = (S > 1 ? cluster.map_shared_rank(gather, 0) : gather) + rank * MR * CT;
+    for (int i = tid; i < MR * CT; i += kThreads) {
+      float s = red[i];
+      for (int qq = 1; qq < Q; ++qq) s += red[qq * MR * CT + i];
+      dst[i] = s;
+    }
+    if (S > 1) cluster.sync(); else __syncthreads();
+
+    if (rank == 0) {  // the leader adds the ranks in order and finishes
+      for (int i = tid; i < rows * CT; i += kThreads) {
+        const int m = i / CT, c = c0 + i % CT;
+        const int colg = b * a.bn + c;
+        if (c >= a.bn || colg >= a.n_cols) continue;
+        float s = gather[i];
+        for (int r = 1; r < S; ++r) s += gather[r * MR * CT + i];
+        store_out<T>(a, m0 + m, colg, s);
+      }
+    }
+    if (m0 + MR < M) {  // the next pass reuses the ring and the leader's gather
+      if (S > 1) cluster.sync(); else __syncthreads();
+    }
   }
+}
 
-  // Epilogue: bias -> activation -> pool -> residual -> one cast, one store.
-  const int64_t m = m0 + tid;
-  if (m >= a.M) return;
-  T* out = static_cast<T*>(a.out);
+// ---------------------------------------------------------------------------
+// tall form
+// ---------------------------------------------------------------------------
+
+// TN weights from shared memory (16-byte reads where TN allows)
+template <int TN>
+__device__ __forceinline__ void load_row(float (&wv)[TN], const float* w) {
+  if constexpr (TN % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < TN; c += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(w + c);
+      wv[c] = q.x;
+      wv[c + 1] = q.y;
+      wv[c + 2] = q.z;
+      wv[c + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < TN; ++c) wv[c] = w[c];
+  }
+}
+
+// Window-rows a tall thread holds at once (tuning.tall_rows_per_thread): each
+// weight it loads feeds RM * TN multiply-adds.
+__host__ __device__ constexpr int tall_rows_per_thread(int tn) {
+  return tn == 1 ? 1 : 2;
+}
+
+// Bytes of one window's block of `rows` whole rows of K elements in a stage:
+// the rows are contiguous in x, copied as the 16-byte units around them.
+__host__ __device__ __forceinline__ int tall_block_bytes(int rows, int K, int itemsize) {
+  return (rows * K * itemsize + 15) / 16 * 16 + 16;
+}
+
+// First byte of window w's rows from ms in x (b's block, (W, M, K)).
+template <typename T>
+__device__ __forceinline__ uintptr_t tall_rows(const T* x, int64_t M, int K, int w, int64_t ms) {
+  return reinterpret_cast<uintptr_t>(x + (static_cast<int64_t>(w) * M + ms) * K);
+}
+
+// A sub-tile into its slot: each window's rows from ms (at most RS of them)
+// are one contiguous span of x, copied as 16-byte units from the aligned
+// address below it; the last unit copies only the span's own bytes.
+template <typename T, int W>
+__device__ __forceinline__ void tall_issue(unsigned char* st, const T* x, int64_t M, int K,
+                                           int64_t ms, int RS, int block) {
+  const int64_t nbytes = min(static_cast<int64_t>(RS), M - ms) * K * static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uintptr_t ga = tall_rows(x, M, K, w, ms), ua = ga & ~uintptr_t(15);
+    const int units = static_cast<int>((ga - ua + nbytes + 15) / 16);
+    for (int u = threadIdx.x; u < units; u += kThreads) {
+      const int64_t left = static_cast<int64_t>(ga + nbytes) - static_cast<int64_t>(ua + u * 16);
+      cp_async<16>(st + w * block + u * 16, reinterpret_cast<const void*>(ua + u * 16),
+                   left < 16 ? static_cast<int>(left) : 16);
+    }
+  }
+}
+
+// The tall form's epilogue for one window-row's TN sums (in every lane of
+// its group): bias -> activation -> pool over the window lanes (the W
+// window-rows of a row sit LG lanes apart) -> residual -> one cast; lane g
+// stores the columns c = g mod LG of the group starting at block column cg.
+template <typename T, int W, int TN>
+__device__ __forceinline__ void tall_finish(const Args& a, const float (&acc)[TN], int64_t m,
+                                            int w, int b, int cg, int g, int LG) {
+  float v[TN];
 #pragma unroll
   for (int c = 0; c < TN; ++c) {
-    const int col_in_block = c0 + c;
-    const int col = b * a.bn + col_in_block;
-    if (col_in_block >= a.bn || col >= a.n_cols) break;
-    const float bias = a.bias ? a.bias[col] : 0.f;
-    float v = activation(acc[0][c] + bias, a.act);
-    if (W == 4) {
-#pragma unroll
-      for (int w = 1; w < W; ++w) {
-        const float u = activation(acc[w][c] + bias, a.act);
-        v = a.pool == kMax2 ? fmaxf(v, u) : v + u;
+    const int cb = cg + c, colg = b * a.bn + cb;
+    const float bias = a.bias && cb < a.bn && colg < a.n_cols ? a.bias[colg] : 0.f;
+    v[c] = activation(acc[c] + bias, a.act);
+    if constexpr (W == 4) {
+      for (int off = LG; off < 4 * LG; off <<= 1) {
+        const float u = __shfl_xor_sync(0xffffffffu, v[c], off);
+        v[c] = a.pool == kMax2 ? fmaxf(v[c], u) : v[c] + u;
       }
-      if (a.pool == kAvg2) v *= 0.25f;
+      if (a.pool == kAvg2) v[c] *= 0.25f;
     }
-    const int64_t o = m * a.n_cols + col;
-    if (a.residual)
-      v += a.res_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.residual)[o])
-                      : static_cast<const float*>(a.residual)[o];
-    out[o] = from_f<T>(v);
+  }
+  if (w != 0 || m >= a.M) return;
+#pragma unroll
+  for (int c = 0; c < TN; ++c) {
+    const int cb = cg + c, colg = b * a.bn + cb;
+    if (c % LG != g || cb >= a.bn || colg >= a.n_cols) continue;
+    const int64_t o = m * a.n_cols + colg;
+    const float y = a.residual ? v[c] + residual_at(a, o) : v[c];
+    static_cast<T*>(a.out)[o] = from_f<T>(y);
   }
 }
 
 template <typename T, int W, int TN>
-void launch(const Args& a, int n_blocks, cudaStream_t stream) {
-  const unsigned tiles_n = (a.bn + TN - 1) / TN;
-  const dim3 grid(static_cast<unsigned>((a.M + kRows - 1) / kRows), n_blocks * tiles_n);
-  paired_matmul_kernel<T, W, TN><<<grid, kRows, 0, stream>>>(a);
+__global__ void __launch_bounds__(kThreads) paired_matmul_kernel_tall(Args a, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int SZ = static_cast<int>(sizeof(T));
+
+  const int tid = threadIdx.x;
+  constexpr int RM = tall_rows_per_thread(TN);
+  const int S = p.splits, LG = p.lanes, RS = p.rows, NS = p.stages;
+  const int WRG = kThreads / LG;                // window-rows the threads take at once
+  const int g = tid % LG, wrow = tid / LG;      // lane group, first window-row
+  const int K = 2 * a.P + a.R, KE = a.P + a.R;
+  const int block = tall_block_bytes(RS, K, SZ);
+  const int stage_bytes = W * block;
+  const int tiles_n = (a.bn + TN - 1) / TN;
+  const int b = blockIdx.y / tiles_n, c0 = (blockIdx.y % tiles_n) * TN;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t n_sub = (a.M + RS - 1) / RS;
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x / S) * p.subtiles;
+  const int SUB = static_cast<int>(min(static_cast<int64_t>(p.subtiles), n_sub - s0));
+  const int step = slice_step(KE, S);
+  const int e_begin = min(KE, rank * step), e_end = min(KE, e_begin + step);
+  const int KS = e_end - e_begin;
+
+  float* ws = reinterpret_cast<float*>(smem);  // [slice lane][TN], fp32
+  unsigned char* ring = smem + (step * TN * 4 + 15) / 16 * 16;
+  float* part = reinterpret_cast<float*>(ring + NS * stage_bytes);  // [W * RS][TN], K split
+
+  const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(b) * W * a.M * K;
+  const T* km = static_cast<const T*>(a.kmat) + static_cast<int64_t>(b) * a.P * a.bn;
+  const T* wres = static_cast<const T*>(a.wres) + static_cast<int64_t>(b) * a.R * a.bn;
+  // the slice's weights for this column tile, fp32, once: fp32 weights are
+  // copied in the first stage's group, bf16 ones converted while it lands
+  for (int j = tid; j < KS; j += kThreads) {
+    const int e = e_begin + j;
+    const T* src = e < a.P ? km + static_cast<int64_t>(e) * a.bn + c0
+                           : wres + static_cast<int64_t>(e - a.P) * a.bn + c0;
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const bool live = c0 + c < a.bn;
+      if constexpr (SZ == 4)
+        cp_async<4>(ws + j * TN + c, live ? src + c : km, live ? 4 : 0);
+      else
+        ws[j * TN + c] = live ? to_f(src[c]) : 0.f;
+    }
+  }
+  // sub-tile k into its slot (past the last: an empty group)
+#define PM_TALL_ISSUE(k)                                                                      \
+  do {                                                                                        \
+    if ((k) < SUB)                                                                            \
+      tall_issue<T, W>(ring + ((k) % NS) * stage_bytes, x, a.M, K, (s0 + (k)) * RS, RS, block); \
+    cp_async_commit();                                                                        \
+  } while (0)
+  for (int k = 0; k < NS - 1; ++k) PM_TALL_ISSUE(k);
+
+  for (int k = 0; k < SUB; ++k) {
+    if (NS == 1) {  // one slot: refill it only after everyone has read it
+      __syncthreads();
+      PM_TALL_ISSUE(k);
+      cp_async_wait<0>();
+    } else if (NS == 2) {
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();  // sub-tile k visible to all; the slot of k - 1 free to refill
+    if (NS > 1) PM_TALL_ISSUE(k + NS - 1);
+    const unsigned char* st = ring + (k % NS) * stage_bytes;
+    const int64_t ms = (s0 + k) * RS;
+    // window-row wr = r * W + w: the W windows of a row are neighbours.  A
+    // thread takes RM window-rows WRG apart, so each weight it loads feeds
+    // RM * TN multiply-adds.
+    for (int wr0 = wrow; wr0 < W * RS; wr0 += WRG * RM) {
+      const T* row[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int wr = wr0 + i * WRG, w = wr % W;
+        row[i] = reinterpret_cast<const T*>(st + w * block + (tall_rows(x, a.M, K, w, ms) & 15)) +
+                 (wr / W) * K;
+      }
+      float acc[RM][TN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
+      for (int j = g; j < KS; j += LG) {
+        const int e = e_begin + j;
+        float wv[TN];
+        load_row<TN>(wv, ws + j * TN);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float v = e < a.P
+              ? sub_at_input_precision<T>(to_f(row[i][e]), to_f(row[i][a.P + e]))
+              : to_f(row[i][a.P + e]);
+#pragma unroll
+          for (int c = 0; c < TN; ++c) acc[i][c] = fmaf(v, wv[c], acc[i][c]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int wr = wr0 + i * WRG;
+        // the lane groups of the window-row -> its sums, in every lane of the group
+#pragma unroll
+        for (int c = 0; c < TN; ++c)
+          for (int off = 1; off < LG; off <<= 1)
+            acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], off);
+        if (S == 1) {
+          tall_finish<T, W, TN>(a, acc[i], ms + wr / W, wr % W, b, c0, g, LG);
+        } else if (g == 0) {
+#pragma unroll
+          for (int c = 0; c < TN; ++c) part[wr * TN + c] = acc[i][c];
+        }
+      }
+    }
+  }
+
+  if (S > 1) {  // K split over the cluster (one sub-tile a CTA): the leader adds in rank order
+    cluster.sync();
+    if (rank == 0) {
+      const int64_t ms = s0 * RS;
+      for (int wr = wrow; wr < W * RS; wr += WRG) {
+        float acc[TN];
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[c] = part[wr * TN + c];
+        for (int rr = 1; rr < S; ++rr) {
+          const float* remote = cluster.map_shared_rank(part, rr);
+#pragma unroll
+          for (int c = 0; c < TN; ++c) acc[c] += remote[wr * TN + c];
+        }
+        tall_finish<T, W, TN>(a, acc, ms + wr / W, wr % W, b, c0, g, LG);
+      }
+    }
+    cluster.sync();
+  }
+#undef PM_TALL_ISSUE
 }
 
-template <typename T, int W>
-void launch_tn(const Args& a, int n_blocks, cudaStream_t stream) {
-  // TN: the smallest power of two that covers the block's columns, at most 32
-  // (a block wider than 32 columns takes several CTAs along grid y).
-  if (a.bn <= 1) launch<T, W, 1>(a, n_blocks, stream);
-  else if (a.bn <= 2) launch<T, W, 2>(a, n_blocks, stream);
-  else if (a.bn <= 4) launch<T, W, 4>(a, n_blocks, stream);
-  else if (a.bn <= 8) launch<T, W, 8>(a, n_blocks, stream);
-  else if (a.bn <= 16) launch<T, W, 16>(a, n_blocks, stream);
-  else launch<T, W, 32>(a, n_blocks, stream);
+// ---------------------------------------------------------------------------
+// host side: plan checks and launch
+// ---------------------------------------------------------------------------
+
+// One instantiation per kernel, so the shared-memory limit is raised once each.
+template <auto kernel>
+int launch(dim3 grid, cudaStream_t stream, const Args& a, const Plan& p) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = static_cast<unsigned>(p.splits);  // the K-slices of a tile
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = p.splits > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a, p));
 }
 
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % static_cast<uintptr_t>(bytes) == 0;
+}
+
+// (MR, TN) instances of the skinny form (tuning.SKINNY_SHAPES)
 template <typename T>
-void launch_w(const Args& a, int window, int n_blocks, cudaStream_t stream) {
-  if (window == 4) launch_tn<T, 4>(a, n_blocks, stream);
-  else launch_tn<T, 1>(a, n_blocks, stream);
+int launch_skinny(const Args& a, const Plan& p, int n_blocks, cudaStream_t s) {
+  const int ke = a.P + a.R;
+  const int step = slice_step(ke, p.splits);
+  const int vb = p.tn * static_cast<int>(sizeof(T));
+  const int ring = kSkinnyStages * kSkinnyUnroll * kThreads * vb;
+  const int red = 4 * p.rows * p.cols * 4;
+  const int need = p.rows * step * 4 + (ring > red ? ring : red) + p.splits * p.rows * p.cols * 4 +
+                   p.rows * (skinny_units(step < a.P ? step : a.P, sizeof(T)) +
+                             skinny_units(step, sizeof(T))) * 16;
+  const long long tiles = static_cast<long long>(n_blocks) * ((a.bn + p.cols - 1) / p.cols);
+  if (ke < 1 || !pow2(p.cols) || a.bn % p.tn || p.cols % p.tn || p.cols / p.tn > kThreads ||
+      p.stages != kSkinnyStages || p.subtiles != 1 || (p.splits - 1) * step >= ke ||
+      p.smem != need || tiles > 65535 || !aligned(a.x, 16) || !aligned(a.kmat, vb) ||
+      !aligned(a.wres, vb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.splits, static_cast<unsigned>(tiles));
+  constexpr bool bf = sizeof(T) == 2;
+  if constexpr (bf)
+    if (p.rows == 4 && p.tn == 8) return launch<paired_matmul_kernel_skinny<T, 4, 8>>(grid, s, a, p);
+  if (p.rows == 4 && p.tn == 4) return launch<paired_matmul_kernel_skinny<T, 4, 4>>(grid, s, a, p);
+  if (p.rows == 16 && p.tn == 4) return launch<paired_matmul_kernel_skinny<T, 16, 4>>(grid, s, a, p);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// (W, TN) instances of the tall form (tuning.TALL_TN)
+template <typename T>
+int launch_tall(const Args& a, const Plan& p, int window, int n_blocks, cudaStream_t s) {
+  const int ke = a.P + a.R, K = 2 * a.P + a.R;
+  const int step = slice_step(ke, p.splits);
+  if (p.lanes < 1 || !pow2(p.lanes) || p.lanes * window > 32 || p.cols != p.tn ||
+      p.rows < 1 || (window * p.rows) % (kThreads / p.lanes * tall_rows_per_thread(p.tn)) ||
+      p.stages < 1 || p.stages > 3 ||
+      p.subtiles < 1 || (p.splits > 1 && p.subtiles != 1) ||
+      (ke > 0 && (p.splits - 1) * step >= ke) || (ke == 0 && p.splits != 1) ||
+      !aligned(a.x, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long block = tall_block_bytes(p.rows, K, sizeof(T));
+  const long long need = (step * p.tn * 4 + 15) / 16 * 16 + p.stages * window * block +
+                         (p.splits > 1 ? window * p.rows * p.tn * 4 : 0);
+  const long long n_sub = (a.M + p.rows - 1) / p.rows;
+  const long long groups = (n_sub + p.subtiles - 1) / p.subtiles;
+  const long long tiles = static_cast<long long>(n_blocks) * ((a.bn + p.tn - 1) / p.tn);
+  if (p.smem != need || tiles > 65535 || groups * p.splits > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(groups * p.splits), static_cast<unsigned>(tiles));
+#define PM_TALL(W_, TN_)           \
+  if (window == W_ && p.tn == TN_) \
+    return launch<paired_matmul_kernel_tall<T, W_, TN_>>(grid, s, a, p);
+  PM_TALL(1, 1) PM_TALL(1, 4) PM_TALL(1, 8) PM_TALL(4, 1) PM_TALL(4, 4) PM_TALL(4, 8)
+#undef PM_TALL
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -229,20 +676,27 @@ extern "C" int paired_matmul_launch(
     const void* x, const void* kmat, const void* wres, const void* bias,
     const void* residual, void* out, long long M, int P, int R, int n_blocks,
     int bn, int n_cols, int window, int pool, int act, int bf16, int res_bf16,
-    void* stream) {
+    int skinny, int rows, int cols, int tn, int splits, int lanes, int subtiles, int stages,
+    int smem, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   if (M <= 0 || P < 0 || R < 0 || n_blocks < 1 || bn < 1 ||
       n_cols < 1 || n_cols > n_blocks * bn || (window != 1 && window != 4) ||
       (window == 4) != (pool == kMax2 || pool == kAvg2) || act < kNone || act > kTanh ||
-      (M + kRows - 1) / kRows > 0x7fffffffLL ||
-      static_cast<long long>(n_blocks) * ((bn + 31) / 32) > 65535) {
+      rows < 1 || cols < 1 || !pow2(tn) || splits < 1 || splits > kMaxCluster || smem < 0 ||
+      smem > kMaxSmem || (skinny && window != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{x, kmat, wres, static_cast<const float*>(bias), residual, out,
          static_cast<int64_t>(M), P, R, bn, n_cols, pool, act, res_bf16};
+  const Plan p{rows, cols, tn, splits, lanes, subtiles, stages, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) launch_w<__nv_bfloat16>(a, window, n_blocks, s);
-  else launch_w<float>(a, window, n_blocks, s);
+  int err;
+  if (skinny)
+    err = bf16 ? launch_skinny<__nv_bfloat16>(a, p, n_blocks, s) : launch_skinny<float>(a, p, n_blocks, s);
+  else
+    err = bf16 ? launch_tall<__nv_bfloat16>(a, p, window, n_blocks, s)
+               : launch_tall<float>(a, p, window, n_blocks, s);
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,9 @@ Three wrappers mirror the JAX package's Pallas entry points:
 ``LAUNCHES[<form>]``; for a CPU tensor it runs the plain PyTorch version
 (``paired_matmul_plain``, ``paired_matmul_blocked_plain``; the dense
 form is the paired one at ``P == 0``), and for any other device it raises.
+The launch's plan (form, tile, K-split over a cluster) is
+:func:`launch_plan`, a pure function of the operands' shapes
+(``kernels/tuning.py``).
 ``P + R == 0`` (an empty contraction) launches the kernel too: its
 contraction loop runs no step and the epilogue runs on zero accumulators.
 """
@@ -32,7 +35,7 @@ from collections.abc import Callable
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 
 # Epilogue activations the kernel can fuse ("none" is the identity); gelu is
 # the tanh approximation, which is jax.nn.gelu's default.
@@ -128,7 +131,7 @@ def _kernel():
     lib = _build.load("paired_matmul")
     fn = lib.paired_matmul_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong] + [i] * 10 + [p]
+    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong] + [i] * 19 + [p]
     fn.restype = i
     lib.paired_matmul_error_string.argtypes = [i]
     lib.paired_matmul_error_string.restype = ctypes.c_char_p
@@ -146,6 +149,18 @@ def _on_cuda(x: torch.Tensor) -> bool:
     )
 
 
+def launch_plan(x, kmat, w_res, pool: str = "none") -> tuning.Plan:
+    """The kernel's launch plan for these operands (structured ``kmat``
+    (P, N) or blocked (B, P, bn)); a pure function of their shapes."""
+    B, P, bn = kmat.shape if kmat.ndim == 3 else (1, *kmat.shape)
+    window = POOL_WINDOW if pool != "none" else 1
+    return tuning.plan(x.shape[-2], P, w_res.shape[-2], B, bn, window, x.element_size())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(
     x, kmat, w_res, bias, residual, *, M, n_blocks, bn, n_cols, activation, pool,
     blocked,
@@ -157,9 +172,9 @@ def _launch(
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if bias is not None and bias.numel() != n_cols:
         raise ValueError(f"bias has {bias.numel()} entries for {n_cols} output columns")
-    x = x.contiguous()
-    kmat = kmat.to(x.dtype).contiguous()
-    w_res = w_res.to(x.dtype).contiguous()
+    # the kernel's vector copies need 16-byte aligned operands (a view
+    # into a larger buffer may start anywhere)
+    x, kmat, w_res = (_aligned(t.to(x.dtype).contiguous()) for t in (x, kmat, w_res))
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     if residual is not None:
@@ -168,16 +183,17 @@ def _launch(
         residual = residual.contiguous()
     out = torch.empty((M, n_cols), dtype=x.dtype, device=x.device)
     P, R = kmat.shape[-2], w_res.shape[-2]
+    window = POOL_WINDOW if pool != "none" else 1
+    plan = launch_plan(x, kmat, w_res, pool)
     fn, err_str = _kernel()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         err = fn(
             ptr(x), ptr(kmat), ptr(w_res), ptr(bias), ptr(residual), ptr(out),
-            M, P, R, n_blocks, bn, n_cols,
-            POOL_WINDOW if pool != "none" else 1, _POOL_CODE[pool],
+            M, P, R, n_blocks, bn, n_cols, window, _POOL_CODE[pool],
             _ACT_CODE[activation], int(x.dtype == torch.bfloat16),
             int(residual is not None and residual.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            *plan.as_args(), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (``cuda`` marker; skipped elsewhere).
 
-This file imports neither ``jax`` nor ``repro``, so it also runs where
-only the port is installed:
+This file imports neither ``jax`` nor ``repro`` (``chip_smoke`` lends it
+K1's decode-row cases and imports neither), so it also runs where only the
+port is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.pairing import pair_rows_blocked
 from repro_torch.core.transform import _stack_blocked, build_conv_pairings
@@ -103,6 +105,45 @@ def test_kernel_runs_the_empty_contraction(cuda, dtype):
     )
     _check(got, want, dtype)
     assert pm.launch_count() == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", chip_smoke.K1_SKINNY_CASES,
+                         ids=[c[0] for c in chip_smoke.K1_SKINNY_CASES])
+def test_kernel_at_decode_rows(cuda, dtype, case):
+    """K1's skinny form (and, at P + R = 0, the tall one) at qwen2's decode
+    and prefill shapes: one launch, the plain version's values, and the same
+    bits from a second launch (the cluster adds its partial sums in order)."""
+    name, blocked, M, P, R, N, pool, act, residual = case
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=g, device=cuda).to(dt)
+
+    if blocked:
+        B, bn, n_cols = N
+        x, kmat, w_res = rnd(B, M, 2 * P + R), rnd(B, P, bn), rnd(B, R, bn)
+        kmat[-1, :, n_cols - (B - 1) * bn:] = 0  # the short block's padded columns
+        w_res[-1, :, n_cols - (B - 1) * bn:] = 0
+    else:
+        n_cols = N
+        x, kmat, w_res = rnd(M, 2 * P + R), rnd(P, N), rnd(R, N)
+    bias = rnd(n_cols, dt=torch.float32)
+    res = rnd(M, n_cols) if residual else None
+    kw = dict(residual=res, activation=act)
+    if blocked:
+        launch = lambda: pm.paired_matmul_blocked_cuda(x, kmat, w_res, bias, n_cols=n_cols, **kw)
+        want = pm.paired_matmul_blocked_plain(x, kmat, w_res, bias, n_cols=n_cols,
+                                              out_dtype=torch.float32, **kw)
+    else:
+        launch = lambda: pm.paired_matmul_cuda(x, kmat, w_res, bias, **kw)
+        want = pm.paired_matmul_plain(x, kmat, w_res, bias, out_dtype=torch.float32, **kw)
+    got = launch()
+    assert pm.launch_count() == 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, n_cols)
+    _check(got, want, dtype)
+    assert torch.equal(launch(), got)
 
 
 @pytest.mark.parametrize("mode,block_n", [("structured", 0), ("column_blocked", 4),
