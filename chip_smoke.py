@@ -21,7 +21,7 @@ non-zero and prints no result:
                 form (dense, structured, blocked at bn=1 and bn=4 with a
                 short last block, max2/avg2 pooling, fp32/bf16 residuals, all
                 activations, ragged edges, the empty contraction P + R = 0)
-                and at qwen2's decode and prefill rows (``K1_SKINNY_CASES``):
+                and at qwen2's decode and prefill rows (``kernels/k1_cases.py``):
                 fp32 ≤ 1e-5 relative to the largest output, bf16 ≤ 2 output
                 ulps of the fp32 oracle, a second launch bit-identical; each
                 row prints its launch plan (``kernels/tuning.py``);
@@ -232,53 +232,6 @@ def phase_build() -> dict:
 # phase 2: K1 against its plain version, every form
 # ---------------------------------------------------------------------------
 
-# K1 at decode and prefill rows (the skinny form): qwen2-1.5b's K = 1536 /
-# 8960 (and a ragged 1535), N = 256 / 1536 / 8960, structured and blocked
-# bn=64, residual on and off, P = 0, R = 0 and P + R = 0.  (name, blocked, M,
-# P, R, N or (B, bn, n_cols), pool, activation, residual?)
-K1_SKINNY_CASES = [
-    ("skinny_M1_K1536_N256", False, 1, 690, 156, 256, "none", "none", False),
-    ("skinny_M4_K1536_N1536_res", False, 4, 690, 156, 1536, "none", "none", True),
-    ("skinny_M4_K8960_N1536_res", False, 4, 4030, 900, 1536, "none", "none", True),
-    ("skinny_M16_K1536_N8960", False, 16, 690, 156, 8960, "none", "silu", False),
-    ("skinny_M4_K1535_ragged", False, 4, 701, 133, 1536, "none", "none", False),
-    ("skinny_M4_P0", False, 4, 0, 1536, 256, "none", "none", True),
-    ("skinny_M4_R0", False, 4, 768, 0, 1536, "none", "none", False),
-    ("skinny_M4_PR0", False, 4, 0, 0, 256, "none", "none", True),
-    ("skinny_bn64_M4_res", True, 4, 300, 100, (24, 64, 1536), "none", "none", True),
-    ("skinny_bn64_M1_K8960", True, 1, 4000, 900, (4, 64, 256), "none", "none", False),
-    ("skinny_bn64_M16", True, 16, 300, 100, (140, 64, 8960), "none", "none", False),
-    ("skinny_bn64_P0", True, 4, 0, 300, (4, 64, 250), "none", "none", True),
-]
-
-
-def k1_cases() -> list[tuple]:
-    """K1's cases in the kernel phase: (name, blocked, M, P, R, N or (B, bn,
-    n_cols), pool, activation, dtype, residual dtype), dtypes by name."""
-    cases = []
-    for dt in ("float32", "bfloat16"):
-        cases += [
-            ("dense_P0", False, 1000, 0, 150, 16, "none", "relu", dt, None),
-            ("structured", False, 777, 37, 76, 120, "none", "none", dt, None),
-            ("R0", False, 129, 64, 0, 33, "none", "relu", dt, None),
-            ("pool_max2", False, 515, 9, 7, 6, "max2", "relu", dt, None),
-            ("pool_avg2", False, 300, 20, 110, 16, "avg2", "tanh", dt, None),
-            ("residual_f32", False, 257, 12, 30, 40, "none", "gelu", dt, "float32"),
-            ("residual_bf16", False, 257, 12, 30, 40, "max2", "silu", dt, "bfloat16"),
-            ("ragged_M1", False, 1, 3, 2, 7, "none", "none", dt, None),
-            ("empty_PR0", False, 300, 0, 0, 16, "max2", "gelu", dt, "float32"),
-            ("blocked_bn1", True, 501, 11, 3, (6, 1, 6), "max2", "relu", dt, None),
-            ("blocked_bn4_short", True, 333, 20, 110, (4, 4, 14), "none", "relu", dt, "float32"),
-            ("blocked_bn4_avg2", True, 200, 5, 15, (4, 4, 13), "avg2", "none", dt, None),
-            ("blocked_empty", True, 100, 0, 0, (3, 4, 10), "none", "silu", dt, None),
-        ]
-        cases += [(*case[:8], dt, dt if case[8] else None) for case in K1_SKINNY_CASES]
-    for act in ("none", "relu", "gelu", "silu", "tanh"):
-        # inputs scaled by 0.1 in the phase: pre-activations of order one,
-        # where the saturating activations are not flat
-        cases.append((f"act_{act}", False, 640, 30, 65, 24, "none", act, "float32", None))
-    return cases
-
 
 def phase_kernel() -> dict:
     import dataclasses
@@ -287,6 +240,7 @@ def phase_kernel() -> dict:
     import torch
 
     from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels.k1_cases import k1_cases
     from repro_torch.kernels.ref import bf16_ulps, rel_err
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -334,8 +288,12 @@ def phase_kernel() -> dict:
             got = launch()
             want = pm.paired_matmul_plain(x, kmat, w_res, bias, out_dtype=torch.float32, **kw)
         torch.cuda.synchronize()
+        plan = pm.launch_plan(x, kmat, w_res, pool)
         row = {"case": name, "dtype": str(dt).removeprefix("torch."), "shape": list(got.shape),
-               "plan": dataclasses.asdict(pm.launch_plan(x, kmat, w_res, pool))}
+               "plan": dataclasses.asdict(plan)}
+        # the planner's model of the kernel's shared memory is the kernel's own
+        smem = pm.kernel_smem(plan, P, R, 4 if pool != "none" else 1, x.element_size())
+        check(smem == plan.smem, f"kernel {name}: plan smem {plan.smem}, kernel's {smem}")
         # one launch is deterministic: a second one gives the same bits
         check(torch.equal(launch(), got), f"kernel {name} {row['dtype']}: two launches differ")
         if dt == f32:
@@ -849,19 +807,30 @@ def _reset_launches() -> None:
 
 def profile_step(eng) -> dict:
     """One decode step of ``eng`` under ``torch.profiler``: device ms and
-    launches of K1, K2 and every other kernel, and the step's wall ms."""
+    launches of K1, K2 and every other kernel, and the step's wall ms.  A
+    step traced and dropped comes first: the trace's first kernels can go
+    missing while the tracer starts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
     split = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K2", "other")}
+    others = []
     for ev in prof.key_averages():
         if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        # the step's own span on the device timeline is no kernel
+        if getattr(ev, "is_user_annotation", False) or ev.key.startswith("ProfilerStep"):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -869,9 +838,12 @@ def profile_step(eng) -> dict:
         key = "K1" if K1_KERNEL in ev.key else "K2" if K2_KERNEL in ev.key else "other"
         split[key]["ms"] += us / 1e3
         split[key]["launches"] += ev.count
+        if key == "other":
+            others.append({"kernel": ev.key[:80], "ms": us / 1e3, "launches": ev.count})
     device_ms = sum(v["ms"] for v in split.values())
     return {"wall_ms": wall, "device_ms": device_ms if device_ms else "not measured",
-            "idle_share": 1 - device_ms / wall if device_ms else "not measured", **split}
+            "idle_share": 1 - device_ms / wall if device_ms else "not measured", **split,
+            "other_top": sorted(others, key=lambda o: -o["ms"])[:5]}
 
 
 def phase_lm_parity() -> dict:

@@ -29,7 +29,8 @@
 // cores buy nothing at these shapes, and TF32 would break the 1e-5 parity
 // gate at rounding 0).  The host picks a plan per call (kernels/tuning.py:
 // form, tile, columns per thread, K-split, lanes, ring depth) and the entry
-// point checks it.
+// point checks it and lays out the shared memory it implies (skinny_layout,
+// tall_layout; paired_matmul_smem reports the bytes).
 //
 // * skinny (decode and prefill rows, M <= 64, no pool).  The weights are the
 //   bytes: 1-20 rows of x against 1.5-15 MB of Kmat/W_res.  A CTA of 128
@@ -43,9 +44,11 @@
 //   that a launch puts two CTAs on every SM: wk/wv at N = 256 split K, not
 //   only N).  Row groups are reduced by warp shuffles and one shared-memory
 //   pass; each rank stores its partial sums into the leader's shared memory
-//   (distributed shared memory), and after one cluster barrier the leader
-//   adds them in rank order and runs the epilogue.  One launch, no
-//   workspace, no atomics, the same bits on every launch.
+//   (distributed shared memory, once a first cluster barrier, passed while
+//   the first copies fly, has shown every rank started), and after one
+//   more cluster barrier the leader adds them in rank order and runs the
+//   epilogue.  One launch, no workspace, no atomics, the same bits on every
+//   launch.
 // * tall (LeNet: 1 000-196 000 rows, K' = 25-462, bn = 1-120; pooled or
 //   not).  The activations are the bytes.  A CTA owns TN columns of one
 //   block and walks sub-tiles of `rows` pooled rows.  A sub-tile's whole
@@ -100,9 +103,10 @@ struct Args {
 };
 
 // tuning.Plan: skinny rows = MR, cols = columns per CTA; tall rows = pooled
-// rows per sub-tile, cols = tn, lanes = lane groups per window-row
+// rows per sub-tile, cols = tn, lanes = lane groups per window-row.  The
+// dynamic shared memory follows from it (skinny_layout, tall_layout).
 struct Plan {
-  int rows, cols, tn, splits, lanes, subtiles, stages, smem;
+  int rows, cols, tn, splits, lanes, subtiles, stages;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -174,6 +178,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// A cluster barrier that orders no memory: past it, every CTA of the
+// cluster has started, and only then may a CTA touch another's shared memory.
+__device__ __forceinline__ void cluster_started() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // Lanes per K-slice: ceil(KE / S) (tuning.slice_step).
 __host__ __device__ __forceinline__ int slice_step(int ke, int splits) {
   return (ke + splits - 1) / splits;
@@ -186,6 +197,29 @@ __host__ __device__ __forceinline__ int slice_step(int ke, int splits) {
 // 16-byte units that hold `lanes` elements at any alignment
 __host__ __device__ __forceinline__ int skinny_units(int lanes, int itemsize) {
   return (lanes * itemsize + 15) / 16 + 1;
+}
+
+// The skinny form's shared memory, byte offsets from 0: the slice of x,
+// subtracted ([MR][step] fp32, at 0); the weight ring, which the row-group
+// reduction reuses ([4][MR][cols] fp32) after the loop; the gather of every
+// rank's partial sums ([S][MR][cols] fp32, used in the leader); x's raw
+// segments per row ([MR][u0 + u1] 16-byte units).  tuning._skinny_smem
+// models `total` for the planner.
+struct SkinnyLayout {
+  int64_t ring, gather, raw, total;
+};
+__host__ __device__ __forceinline__ SkinnyLayout skinny_layout(int mr, int cols, int tn,
+                                                               int itemsize, int P, int step,
+                                                               int splits) {
+  const int64_t ring = int64_t(kSkinnyStages) * kSkinnyUnroll * kThreads * tn * itemsize;
+  const int64_t red = int64_t(4) * mr * cols * 4;
+  SkinnyLayout l;
+  l.ring = int64_t(mr) * step * 4;
+  l.gather = l.ring + (ring > red ? ring : red);
+  l.raw = l.gather + int64_t(splits) * mr * cols * 4;
+  l.total = l.raw + int64_t(mr) * (skinny_units(step < P ? step : P, itemsize) +
+                                   skinny_units(step, itemsize)) * 16;
+  return l;
 }
 
 template <typename T, int MR, int TN>
@@ -212,16 +246,16 @@ __global__ void __launch_bounds__(kThreads) paired_matmul_kernel_skinny(Args a, 
   const int e_begin = min(KE, rank * step);
   const int len = min(KE, e_begin + step) - e_begin;
 
+  const SkinnyLayout L = skinny_layout(MR, CT, TN, sizeof(T), a.P, step, S);
   float* xs = reinterpret_cast<float*>(smem);  // [MR][step], subtracted
-  unsigned char* ring = smem + MR * step * 4;  // [stage][unroll][thread] vectors
-  const int ring_bytes = max(kSkinnyStages * kSkinnyUnroll * kThreads * VB, 4 * MR * CT * 4);
-  float* red = reinterpret_cast<float*>(ring);                // [Q][MR][CT], after the loop
+  unsigned char* ring = smem + L.ring;         // [stage][unroll][thread] vectors
+  float* red = reinterpret_cast<float*>(ring);  // [Q][MR][CT], after the loop
   // [S][MR][CT]: every rank's partial sums, gathered in the leader's copy
-  float* gather = reinterpret_cast<float*>(ring + ring_bytes);
+  float* gather = reinterpret_cast<float*>(smem + L.gather);
   // raw x of the slice, per row: [I lanes of the pairs | J lanes and residual
   // lanes], each copied as the 16-byte units around it
   const int u0 = skinny_units(min(step, a.P), sizeof(T)), u1 = skinny_units(step, sizeof(T));
-  unsigned char* raw = reinterpret_cast<unsigned char*>(gather + S * MR * CT);  // [MR][u0+u1][16]
+  unsigned char* raw = smem + L.raw;  // [MR][u0+u1][16]
   const int pe = min(e_begin + len, a.P);  // pairs [e_begin, pe)
 
   const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(b) * a.M * K;
@@ -265,6 +299,10 @@ __global__ void __launch_bounds__(kThreads) paired_matmul_kernel_skinny(Args a, 
     cp_async_commit();
 #pragma unroll
     for (int k = 0; k < kSkinnyStages - 1; ++k) issue(k);
+    // the stores into the leader's shared memory below need the whole
+    // cluster started: wait for it while the copies fly (later passes
+    // follow the cluster barrier that ends the one before)
+    if (S > 1 && m0 == 0) cluster_started();
 
     // x's slice, subtracted, once the x group has landed (the weight stages
     // stay in flight); rows past the pass are zeros
@@ -385,10 +423,23 @@ __host__ __device__ constexpr int tall_rows_per_thread(int tn) {
   return tn == 1 ? 1 : 2;
 }
 
-// Bytes of one window's block of `rows` whole rows of K elements in a stage:
-// the rows are contiguous in x, copied as the 16-byte units around them.
-__host__ __device__ __forceinline__ int tall_block_bytes(int rows, int K, int itemsize) {
-  return (rows * K * itemsize + 15) / 16 * 16 + 16;
+// The tall form's shared memory, byte offsets from 0: the slice's weights
+// ([step][TN] fp32, at 0); the ring (`stages` slots of W blocks, one a
+// window: its `rows` whole rows of K elements are contiguous in x, copied as
+// the 16-byte units around them); the partial sums of a K split ([W * rows][TN]
+// fp32).  tuning._tall_smem models `total` for the planner.
+struct TallLayout {
+  int64_t block, ring, part, total;
+};
+__host__ __device__ __forceinline__ TallLayout tall_layout(int window, int rows, int K,
+                                                           int itemsize, int tn, int step,
+                                                           int splits, int stages) {
+  TallLayout l;
+  l.block = (int64_t(rows) * K * itemsize + 15) / 16 * 16 + 16;
+  l.ring = (int64_t(step) * tn * 4 + 15) / 16 * 16;
+  l.part = l.ring + int64_t(stages) * window * l.block;
+  l.total = l.part + (splits > 1 ? int64_t(window) * rows * tn * 4 : 0);
+  return l;
 }
 
 // First byte of window w's rows from ms in x (b's block, (W, M, K)).
@@ -460,8 +511,6 @@ __global__ void __launch_bounds__(kThreads) paired_matmul_kernel_tall(Args a, Pl
   const int WRG = kThreads / LG;                // window-rows the threads take at once
   const int g = tid % LG, wrow = tid / LG;      // lane group, first window-row
   const int K = 2 * a.P + a.R, KE = a.P + a.R;
-  const int block = tall_block_bytes(RS, K, SZ);
-  const int stage_bytes = W * block;
   const int tiles_n = (a.bn + TN - 1) / TN;
   const int b = blockIdx.y / tiles_n, c0 = (blockIdx.y % tiles_n) * TN;
   const int rank = static_cast<int>(cluster.block_rank());
@@ -472,9 +521,11 @@ __global__ void __launch_bounds__(kThreads) paired_matmul_kernel_tall(Args a, Pl
   const int e_begin = min(KE, rank * step), e_end = min(KE, e_begin + step);
   const int KS = e_end - e_begin;
 
+  const TallLayout L = tall_layout(W, RS, K, SZ, TN, step, S, NS);
+  const int block = static_cast<int>(L.block), stage_bytes = W * block;
   float* ws = reinterpret_cast<float*>(smem);  // [slice lane][TN], fp32
-  unsigned char* ring = smem + (step * TN * 4 + 15) / 16 * 16;
-  float* part = reinterpret_cast<float*>(ring + NS * stage_bytes);  // [W * RS][TN], K split
+  unsigned char* ring = smem + L.ring;
+  float* part = reinterpret_cast<float*>(smem + L.part);  // [W * RS][TN], K split
 
   const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(b) * W * a.M * K;
   const T* km = static_cast<const T*>(a.kmat) + static_cast<int64_t>(b) * a.P * a.bn;
@@ -591,14 +642,14 @@ __global__ void __launch_bounds__(kThreads) paired_matmul_kernel_tall(Args a, Pl
 
 // One instantiation per kernel, so the shared-memory limit is raised once each.
 template <auto kernel>
-int launch(dim3 grid, cudaStream_t stream, const Args& a, const Plan& p) {
+int launch(dim3 grid, int64_t smem, cudaStream_t stream, const Args& a, const Plan& p) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
@@ -621,23 +672,23 @@ int launch_skinny(const Args& a, const Plan& p, int n_blocks, cudaStream_t s) {
   const int ke = a.P + a.R;
   const int step = slice_step(ke, p.splits);
   const int vb = p.tn * static_cast<int>(sizeof(T));
-  const int ring = kSkinnyStages * kSkinnyUnroll * kThreads * vb;
-  const int red = 4 * p.rows * p.cols * 4;
-  const int need = p.rows * step * 4 + (ring > red ? ring : red) + p.splits * p.rows * p.cols * 4 +
-                   p.rows * (skinny_units(step < a.P ? step : a.P, sizeof(T)) +
-                             skinny_units(step, sizeof(T))) * 16;
+  const int64_t smem =
+      skinny_layout(p.rows, p.cols, p.tn, sizeof(T), a.P, step, p.splits).total;
   const long long tiles = static_cast<long long>(n_blocks) * ((a.bn + p.cols - 1) / p.cols);
   if (ke < 1 || !pow2(p.cols) || a.bn % p.tn || p.cols % p.tn || p.cols / p.tn > kThreads ||
       p.stages != kSkinnyStages || p.subtiles != 1 || (p.splits - 1) * step >= ke ||
-      p.smem != need || tiles > 65535 || !aligned(a.x, 16) || !aligned(a.kmat, vb) ||
+      smem > kMaxSmem || tiles > 65535 || !aligned(a.x, 16) || !aligned(a.kmat, vb) ||
       !aligned(a.wres, vb))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(p.splits, static_cast<unsigned>(tiles));
   constexpr bool bf = sizeof(T) == 2;
   if constexpr (bf)
-    if (p.rows == 4 && p.tn == 8) return launch<paired_matmul_kernel_skinny<T, 4, 8>>(grid, s, a, p);
-  if (p.rows == 4 && p.tn == 4) return launch<paired_matmul_kernel_skinny<T, 4, 4>>(grid, s, a, p);
-  if (p.rows == 16 && p.tn == 4) return launch<paired_matmul_kernel_skinny<T, 16, 4>>(grid, s, a, p);
+    if (p.rows == 4 && p.tn == 8)
+      return launch<paired_matmul_kernel_skinny<T, 4, 8>>(grid, smem, s, a, p);
+  if (p.rows == 4 && p.tn == 4)
+    return launch<paired_matmul_kernel_skinny<T, 4, 4>>(grid, smem, s, a, p);
+  if (p.rows == 16 && p.tn == 4)
+    return launch<paired_matmul_kernel_skinny<T, 16, 4>>(grid, smem, s, a, p);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -653,18 +704,17 @@ int launch_tall(const Args& a, const Plan& p, int window, int n_blocks, cudaStre
       (ke > 0 && (p.splits - 1) * step >= ke) || (ke == 0 && p.splits != 1) ||
       !aligned(a.x, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long block = tall_block_bytes(p.rows, K, sizeof(T));
-  const long long need = (step * p.tn * 4 + 15) / 16 * 16 + p.stages * window * block +
-                         (p.splits > 1 ? window * p.rows * p.tn * 4 : 0);
+  const int64_t smem =
+      tall_layout(window, p.rows, K, sizeof(T), p.tn, step, p.splits, p.stages).total;
   const long long n_sub = (a.M + p.rows - 1) / p.rows;
   const long long groups = (n_sub + p.subtiles - 1) / p.subtiles;
   const long long tiles = static_cast<long long>(n_blocks) * ((a.bn + p.tn - 1) / p.tn);
-  if (p.smem != need || tiles > 65535 || groups * p.splits > 0x7fffffffLL)
+  if (smem > kMaxSmem || tiles > 65535 || groups * p.splits > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(groups * p.splits), static_cast<unsigned>(tiles));
 #define PM_TALL(W_, TN_)           \
   if (window == W_ && p.tn == TN_) \
-    return launch<paired_matmul_kernel_tall<T, W_, TN_>>(grid, s, a, p);
+    return launch<paired_matmul_kernel_tall<T, W_, TN_>>(grid, smem, s, a, p);
   PM_TALL(1, 1) PM_TALL(1, 4) PM_TALL(1, 8) PM_TALL(4, 1) PM_TALL(4, 4) PM_TALL(4, 8)
 #undef PM_TALL
   return static_cast<int>(cudaErrorInvalidValue);
@@ -677,18 +727,18 @@ extern "C" int paired_matmul_launch(
     const void* residual, void* out, long long M, int P, int R, int n_blocks,
     int bn, int n_cols, int window, int pool, int act, int bf16, int res_bf16,
     int skinny, int rows, int cols, int tn, int splits, int lanes, int subtiles, int stages,
-    int smem, void* stream) {
+    void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   if (M <= 0 || P < 0 || R < 0 || n_blocks < 1 || bn < 1 ||
       n_cols < 1 || n_cols > n_blocks * bn || (window != 1 && window != 4) ||
       (window == 4) != (pool == kMax2 || pool == kAvg2) || act < kNone || act > kTanh ||
-      rows < 1 || cols < 1 || !pow2(tn) || splits < 1 || splits > kMaxCluster || smem < 0 ||
-      smem > kMaxSmem || (skinny && window != 1)) {
+      rows < 1 || rows > 65536 || cols < 1 || !pow2(tn) || splits < 1 ||
+      splits > kMaxCluster || (skinny && window != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{x, kmat, wres, static_cast<const float*>(bias), residual, out,
          static_cast<int64_t>(M), P, R, bn, n_cols, pool, act, res_bf16};
-  const Plan p{rows, cols, tn, splits, lanes, subtiles, stages, smem};
+  const Plan p{rows, cols, tn, splits, lanes, subtiles, stages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (skinny)
@@ -698,6 +748,16 @@ extern "C" int paired_matmul_launch(
                : launch_tall<float>(a, p, window, n_blocks, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory, in bytes, that a plan's launch lays out (what
+// tuning.Plan.smem models).
+extern "C" long long paired_matmul_smem(int P, int R, int window, int bf16, int skinny, int rows,
+                                        int cols, int tn, int splits, int stages) {
+  const int itemsize = bf16 ? 2 : 4;
+  const int step = slice_step(P + R, splits < 1 ? 1 : splits);
+  return skinny ? skinny_layout(rows, cols, tn, itemsize, P, step, splits).total
+                : tall_layout(window, rows, 2 * P + R, itemsize, tn, step, splits, stages).total;
 }
 
 extern "C" const char* paired_matmul_error_string(int err) {

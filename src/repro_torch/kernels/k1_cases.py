@@ -1,0 +1,68 @@
+"""K1's check cases: the shapes at which the paired GEMM is held to its plain
+version on the card (``chip_smoke.py``'s kernel phase and
+``tests/test_torch_cuda.py``), and whose launch plans the CPU tests check
+(``tests/test_torch_tuning.py``).
+
+A case is ``(name, blocked, M, P, R, N or (B, bn, n_cols), pool, activation,
+residual?)``: ``M`` rows, ``P`` pairs and ``R`` residual lanes (``K = 2P +
+R``), a structured ``N`` or a column-blocked ``(B, bn, n_cols)``.
+"""
+from __future__ import annotations
+
+# K1 at decode and prefill rows (the skinny form): qwen2-1.5b's K = 1536 /
+# 8960 (and a ragged 1535), N = 256 / 1536 / 8960, structured and blocked
+# bn=64, residual on and off, P = 0, R = 0 and P + R = 0.  The serve engine's
+# six decoder weights (their P and R at r=0.05 with the seeded weights) at a
+# 20-token prefill: two passes of 16 rows over the cluster's ring and gather.
+# Past 64 rows: w_down's rows are too long for the tall form's stages, so the
+# skinny form runs 7 passes (the last one short); wq takes the tall form.
+K1_SKINNY_CASES = [
+    ("skinny_M1_K1536_N256", False, 1, 690, 156, 256, "none", "none", False),
+    ("skinny_M4_K1536_N1536_res", False, 4, 690, 156, 1536, "none", "none", True),
+    ("skinny_M4_K8960_N1536_res", False, 4, 4030, 900, 1536, "none", "none", True),
+    ("skinny_M16_K1536_N8960", False, 16, 690, 156, 8960, "none", "silu", False),
+    ("skinny_M4_K1535_ragged", False, 4, 701, 133, 1536, "none", "none", False),
+    ("skinny_M4_P0", False, 4, 0, 1536, 256, "none", "none", True),
+    ("skinny_M4_R0", False, 4, 768, 0, 1536, "none", "none", False),
+    ("skinny_M4_PR0", False, 4, 0, 0, 256, "none", "none", True),
+    ("skinny_bn64_M4_res", True, 4, 300, 100, (24, 64, 1536), "none", "none", True),
+    ("skinny_bn64_M1_K8960", True, 1, 4000, 900, (4, 64, 256), "none", "none", False),
+    ("skinny_bn64_M16", True, 16, 300, 100, (140, 64, 8960), "none", "none", False),
+    ("skinny_bn64_P0", True, 4, 0, 300, (4, 64, 250), "none", "none", True),
+    ("prefill_M20_wq", False, 20, 767, 62, 1536, "none", "none", False),
+    ("prefill_M20_wk", False, 20, 765, 106, 256, "none", "none", False),
+    ("prefill_M20_wv", False, 20, 768, 82, 256, "none", "none", False),
+    ("prefill_M20_w_gate", False, 20, 766, 70, 8960, "none", "none", False),
+    ("prefill_M20_w_up", False, 20, 767, 94, 8960, "none", "none", False),
+    ("prefill_M20_w_down_res", False, 20, 4478, 316, 1536, "none", "none", True),
+    ("passes_M100_w_down_res", False, 100, 4478, 316, 1536, "none", "none", True),
+    ("tall_M100_wq", False, 100, 767, 62, 1536, "none", "none", False),
+]
+
+
+def k1_cases() -> list[tuple]:
+    """K1's cases in the kernel phase: (name, blocked, M, P, R, N or (B, bn,
+    n_cols), pool, activation, dtype, residual dtype), dtypes by name."""
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cases += [
+            ("dense_P0", False, 1000, 0, 150, 16, "none", "relu", dt, None),
+            ("structured", False, 777, 37, 76, 120, "none", "none", dt, None),
+            ("R0", False, 129, 64, 0, 33, "none", "relu", dt, None),
+            ("pool_max2", False, 515, 9, 7, 6, "max2", "relu", dt, None),
+            ("pool_avg2", False, 300, 20, 110, 16, "avg2", "tanh", dt, None),
+            ("residual_f32", False, 257, 12, 30, 40, "none", "gelu", dt, "float32"),
+            ("residual_bf16", False, 257, 12, 30, 40, "max2", "silu", dt, "bfloat16"),
+            ("ragged_M1", False, 1, 3, 2, 7, "none", "none", dt, None),
+            ("empty_PR0", False, 300, 0, 0, 16, "max2", "gelu", dt, "float32"),
+            ("blocked_bn1", True, 501, 11, 3, (6, 1, 6), "max2", "relu", dt, None),
+            ("blocked_bn4_short", True, 333, 20, 110, (4, 4, 14), "none", "relu", dt, "float32"),
+            ("blocked_bn4_avg2", True, 200, 5, 15, (4, 4, 13), "avg2", "none", dt, None),
+            ("blocked_empty", True, 100, 0, 0, (3, 4, 10), "none", "silu", dt, None),
+        ]
+        cases += [(*case[:8], dt, dt if case[8] else None) for case in K1_SKINNY_CASES]
+    for act in ("none", "relu", "gelu", "silu", "tanh"):
+        # inputs scaled by 0.1 in the phase: pre-activations of order one,
+        # where the saturating activations are not flat
+        cases.append((f"act_{act}", False, 640, 30, 65, 24, "none", act, "float32", None))
+    return cases

@@ -131,11 +131,13 @@ def _kernel():
     lib = _build.load("paired_matmul")
     fn = lib.paired_matmul_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong] + [i] * 19 + [p]
+    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong] + [i] * 18 + [p]
     fn.restype = i
     lib.paired_matmul_error_string.argtypes = [i]
     lib.paired_matmul_error_string.restype = ctypes.c_char_p
-    return fn, lib.paired_matmul_error_string
+    lib.paired_matmul_smem.argtypes = [i] * 10
+    lib.paired_matmul_smem.restype = ctypes.c_longlong
+    return fn, lib.paired_matmul_error_string, lib.paired_matmul_smem
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -155,6 +157,14 @@ def launch_plan(x, kmat, w_res, pool: str = "none") -> tuning.Plan:
     B, P, bn = kmat.shape if kmat.ndim == 3 else (1, *kmat.shape)
     window = POOL_WINDOW if pool != "none" else 1
     return tuning.plan(x.shape[-2], P, w_res.shape[-2], B, bn, window, x.element_size())
+
+
+def kernel_smem(plan: tuning.Plan, P: int, R: int, window: int, itemsize: int) -> int:
+    """The dynamic shared memory, in bytes, that the kernel lays out for
+    ``plan`` (``plan.smem`` is the planner's model of it); needs the built
+    library."""
+    return _kernel()[2](P, R, window, int(itemsize == 2), int(plan.form == "skinny"), plan.rows,
+                        plan.cols, plan.tn, plan.splits, plan.stages)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -185,7 +195,7 @@ def _launch(
     P, R = kmat.shape[-2], w_res.shape[-2]
     window = POOL_WINDOW if pool != "none" else 1
     plan = launch_plan(x, kmat, w_res, pool)
-    fn, err_str = _kernel()
+    fn, err_str, _ = _kernel()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         err = fn(

@@ -61,9 +61,11 @@ class Plan:
     skinny: ``rows`` rows a pass, ``cols`` columns and one K-slice a CTA,
     ``tn`` adjacent columns a thread.  tall: ``rows`` pooled rows a
     sub-tile (a ring stage), ``subtiles`` sub-tiles and ``cols == tn``
-    columns a CTA, ``lanes`` threads a window-row.  Both: ``splits`` K-slices of a tile
-    (the ``cluster``'s CTAs), ``stages`` ring slots, ``smem`` dynamic shared
-    memory in bytes, ``grid`` (x, y) CTAs.
+    columns a CTA, ``lanes`` threads a window-row.  Both: ``splits``
+    K-slices of a column tile, the CTAs of one cluster; ``stages`` ring
+    slots; ``smem`` the dynamic shared memory the kernel lays out for this
+    plan, in bytes (the kernel's entry point works it out itself: this is
+    the planner's model of it, which the card's kernel phase holds equal).
     """
 
     form: str  # "skinny" | "tall"
@@ -71,16 +73,19 @@ class Plan:
     cols: int
     tn: int
     splits: int
-    cluster: int
     lanes: int
     subtiles: int
     stages: int
     smem: int
-    grid: tuple[int, int]
 
-    @property
-    def ctas(self) -> int:
-        return self.grid[0] * self.grid[1]
+    def grid(self, M: int, n_blocks: int, bn: int) -> tuple[int, int]:
+        """(x, y) CTAs of the launch, as the kernel's entry point works them
+        out: x the K-slices (of each group of sub-tiles, tall), y the
+        column tiles of every block."""
+        tiles = n_blocks * -(-bn // self.cols)
+        if self.form == "skinny":
+            return self.splits, tiles
+        return -(-(-(-M // self.rows)) // self.subtiles) * self.splits, tiles
 
     def slices(self, P: int, R: int) -> list[tuple[int, int]]:
         """[begin, end) of each cluster rank's effective lanes, as the
@@ -90,7 +95,7 @@ class Plan:
     def as_args(self) -> tuple[int, ...]:
         """The C entry point's plan arguments."""
         return (int(self.form == "skinny"), self.rows, self.cols, self.tn, self.splits,
-                self.lanes, self.subtiles, self.stages, self.smem)
+                self.lanes, self.subtiles, self.stages)
 
 
 def slice_step(ke: int, splits: int) -> int:
@@ -126,6 +131,7 @@ def _units(lanes: int, itemsize: int) -> int:
 
 
 def _skinny_smem(rows, cols, tn, itemsize, lanes, pairs, splits) -> int:
+    """Bytes of the skinny form's shared memory (csrc ``skinny_layout``)."""
     ring = SKINNY_STAGES * SKINNY_UNROLL * THREADS * tn * itemsize
     reduce = 4 * rows * cols * 4  # at most four partials per output
     gather = splits * rows * cols * 4  # every rank's partial sums, in the leader
@@ -151,7 +157,7 @@ def _plan_skinny(M, P, R, n_blocks, bn, itemsize) -> Plan | None:
     where no instance takes the shape.
     More than 16 rows run in passes of 16 (of 4 where 16 do not fit)."""
     ke = P + R
-    fits = []
+    fits = []  # (plan, CTAs)
     shapes = SKINNY_SHAPES[itemsize]
     for rows, tn in sorted(shapes, key=lambda s: -s[0]) if M > 4 else shapes:
         if (M <= 4 and rows != 4) or bn % tn:
@@ -162,18 +168,18 @@ def _plan_skinny(M, P, R, n_blocks, bn, itemsize) -> Plan | None:
             splits = _splits(ke, -(-TARGET_CTAS // tiles))
             smem = _skinny_smem(rows, cols, tn, itemsize, slice_step(ke, splits), P, splits)
             if tiles <= MAX_GRID_Y and smem <= SMEM_PER_BLOCK:
-                p = Plan("skinny", rows, cols, tn, splits, splits, 0, 1, SKINNY_STAGES, smem,
-                         (splits, tiles))
-                if p.ctas >= TARGET_CTAS and _one_wave(smem, p.ctas):
+                p = Plan("skinny", rows, cols, tn, splits, 0, 1, SKINNY_STAGES, smem)
+                ctas = splits * tiles
+                if ctas >= TARGET_CTAS and _one_wave(smem, ctas):
                     return p
-                fits.append(p)
+                fits.append((p, ctas))
             cols //= 2
         if fits and M > 4:
             break  # 16 rows a pass fit: no passes of 4
-    wide = [p for p in fits if p.ctas >= TARGET_CTAS]  # in two waves or more: the fewest
+    wide = [f for f in fits if f[1] >= TARGET_CTAS]  # in two waves or more: the fewest
     if wide:
-        return min(wide, key=lambda p: (_waves(p.smem, p.ctas), -p.cols))
-    return max(fits, key=lambda p: p.ctas, default=None)
+        return min(wide, key=lambda f: (_waves(f[0].smem, f[1]), -f[0].cols))[0]
+    return max(fits, key=lambda f: f[1], default=(None,))[0]
 
 
 def _tall_block(rows: int, K: int, itemsize: int) -> int:
@@ -190,6 +196,7 @@ def tall_rows_per_thread(tn: int) -> int:
 
 
 def _tall_smem(window, rows, K, itemsize, tn, slice_lanes, splits, stages) -> int:
+    """Bytes of the tall form's shared memory (csrc ``tall_layout``)."""
     weights = -(-slice_lanes * tn * 4 // 16) * 16
     part = window * rows * tn * 4 if splits > 1 else 0
     return weights + stages * window * _tall_block(rows, K, itemsize) + part
@@ -232,10 +239,7 @@ def _plan_tall(M, P, R, n_blocks, bn, window, itemsize) -> Plan | None:
         stages -= 1
     if smem() > SMEM_PER_BLOCK:
         return None
-    n_sub = -(-M // rows)
-    groups = -(-n_sub // subtiles)
-    return Plan("tall", rows, tn, tn, splits, splits, lanes, subtiles, stages, smem(),
-                (groups * splits, col_tiles))
+    return Plan("tall", rows, tn, tn, splits, lanes, subtiles, stages, smem())
 
 
 def plan(M: int, P: int, R: int, n_blocks: int, bn: int, window: int, itemsize: int) -> Plan:

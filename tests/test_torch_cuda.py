@@ -1,8 +1,7 @@
 """The port's CUDA kernels on the card (``cuda`` marker; skipped elsewhere).
 
-This file imports neither ``jax`` nor ``repro`` (``chip_smoke`` lends it
-K1's decode-row cases and imports neither), so it also runs where only the
-port is installed:
+This file imports neither ``jax`` nor ``repro``, so it also runs where only
+the port is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -19,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.pairing import pair_rows_blocked
 from repro_torch.core.transform import _stack_blocked, build_conv_pairings
@@ -27,6 +25,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paired_matmul as pm
+from repro_torch.kernels.k1_cases import K1_SKINNY_CASES
 from repro_torch.kernels.ref import bf16_ulps, rel_err
 from repro_torch.models import lm as M
 from repro_torch.models.lenet import init_lenet, lenet_apply
@@ -108,12 +107,13 @@ def test_kernel_runs_the_empty_contraction(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", chip_smoke.K1_SKINNY_CASES,
-                         ids=[c[0] for c in chip_smoke.K1_SKINNY_CASES])
+@pytest.mark.parametrize("case", K1_SKINNY_CASES,
+                         ids=[c[0] for c in K1_SKINNY_CASES])
 def test_kernel_at_decode_rows(cuda, dtype, case):
-    """K1's skinny form (and, at P + R = 0, the tall one) at qwen2's decode
-    and prefill shapes: one launch, the plain version's values, and the same
-    bits from a second launch (the cluster adds its partial sums in order)."""
+    """K1's skinny form (and the tall one at P + R = 0 and past 64 rows) at
+    qwen2's decode and prefill shapes: one launch, the plain version's
+    values, the same bits from a second launch (the cluster adds its partial
+    sums in order), and the shared memory the plan models."""
     name, blocked, M, P, R, N, pool, act, residual = case
     g = torch.Generator(device=cuda).manual_seed(11)
 
@@ -144,6 +144,8 @@ def test_kernel_at_decode_rows(cuda, dtype, case):
     assert got.dtype == dtype and got.shape == (M, n_cols)
     _check(got, want, dtype)
     assert torch.equal(launch(), got)
+    plan = pm.launch_plan(x, kmat, w_res)
+    assert pm.kernel_smem(plan, P, R, 1, x.element_size()) == plan.smem
 
 
 @pytest.mark.parametrize("mode,block_n", [("structured", 0), ("column_blocked", 4),

@@ -6,9 +6,9 @@ Shapes: LeNet's three conv layers in every pairing mode with the pool fused
 and unfused (operands built by ``conv_gemm_operands`` on a small batch, rows
 scaled to a 1000-image request); qwen2-1.5b's six decoder weights at decode
 and prefill rows, structured at several pair counts; the parity and chaos
-engines' column-blocked (bn=64, r=0) GEMMs; and ``chip_smoke.py``'s kernel
-phase cases.  Each plan must fit a block's shared memory, a portable cluster
-and the grid; cut the contraction into non-empty slices that read every
+engines' column-blocked (bn=64, r=0) GEMMs; and the kernel phase's cases
+(``kernels/k1_cases.py``).  Each plan must fit a block's shared memory, a
+portable cluster and the grid; cut the contraction into non-empty slices that read every
 column of ``x`` once (a pair's two, a residual lane's one); cover every
 output column and row once; and come out the same every time.  The skinny
 decode shapes must put two CTAs on every SM.
@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from repro_torch.core.transform import build_conv_pairings
 from repro_torch.kernels import tuning
+from repro_torch.kernels.k1_cases import k1_cases
 from repro_torch.kernels.paired_conv import conv_gemm_operands, pool2_reference
 from repro_torch.models.lenet import LENET_CONV_POSITIONS, _torch_conv, init_lenet
 
@@ -84,7 +84,7 @@ def _qwen_shapes():
 
 def _phase_kernel_shapes():
     shapes = []
-    for name, blocked, M, P, R, N, pool, _, dt, _ in chip_smoke.k1_cases():
+    for name, blocked, M, P, R, N, pool, _, dt, _ in k1_cases():
         B, bn = (N[0], N[1]) if blocked else (1, N)
         shapes.append((f"phase_{name}_{dt}", M, P, R, B, bn, 4 if pool != "none" else 1,
                        4 if dt == "float32" else 2))
@@ -101,19 +101,21 @@ def test_plan_fits_the_card(shape):
     _, M, P, R, B, bn, window, itemsize = shape
     p = tuning.plan(M, P, R, B, bn, window, itemsize)
     assert p.form in ("skinny", "tall")
+    grid = p.grid(M, B, bn)
     assert 0 < p.smem <= tuning.SMEM_PER_BLOCK
-    assert 1 <= p.cluster <= tuning.MAX_CLUSTER and p.cluster == p.splits
-    assert p.grid[0] % p.cluster == 0 and 1 <= p.grid[1] <= tuning.MAX_GRID_Y
+    assert 1 <= p.splits <= tuning.MAX_CLUSTER
+    assert grid[0] % p.splits == 0 and 1 <= grid[1] <= tuning.MAX_GRID_Y
     assert p.cols % p.tn == 0 and p.tn in (1, 4, 8)
     if p.form == "skinny":
         assert window == 1 and (p.rows, p.tn) in tuning.SKINNY_SHAPES[itemsize]
         assert p.cols & (p.cols - 1) == 0 and p.cols // p.tn <= tuning.THREADS
-        assert bn % p.tn == 0 and p.grid[0] == p.splits
+        assert bn % p.tn == 0 and grid[0] == p.splits
     else:
         assert p.tn in tuning.TALL_TN and p.lanes * window <= 32
         assert (window * p.rows * p.lanes) % tuning.THREADS == 0
         assert 1 <= p.stages <= tuning.TALL_STAGES and (p.splits == 1 or p.subtiles == 1)
-    assert len(p.as_args()) == 9
+        assert p.cols == p.tn
+    assert len(p.as_args()) == 8
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
@@ -141,9 +143,10 @@ def test_plan_partitions_the_work(shape):
     assert (read == 1).all()
 
     tiles_n = -(-bn // p.cols)
-    assert p.grid[1] == B * tiles_n
+    grid = p.grid(M, B, bn)
+    assert grid[1] == B * tiles_n
     cols = np.zeros(B * bn, dtype=int)
-    for tile in range(p.grid[1]):
+    for tile in range(grid[1]):
         b, c0 = tile // tiles_n, (tile % tiles_n) * p.cols
         c = np.arange(c0, min(c0 + p.cols, bn))
         np.add.at(cols, b * bn + c, 1)
@@ -151,7 +154,7 @@ def test_plan_partitions_the_work(shape):
 
     if p.form == "tall":
         n_sub = -(-M // p.rows)
-        groups = p.grid[0] // p.splits
+        groups = grid[0] // p.splits
         rows = np.zeros(groups * p.subtiles * p.rows, dtype=int)
         for g in range(groups):
             s0 = g * p.subtiles
@@ -177,7 +180,8 @@ def test_skinny_decode_fills_the_card(shape):
     _, M, P, R, B, bn, window, itemsize = shape
     p = tuning.plan(M, P, R, B, bn, window, itemsize)
     assert p.form == "skinny"
-    assert p.ctas >= 2 * tuning.SMS
+    x, y = p.grid(M, B, bn)
+    assert x * y >= 2 * tuning.SMS
 
 
 def test_plan_refuses_what_no_instance_takes():
