@@ -14,9 +14,11 @@ non-zero and prints no result:
 
 1. build      — compile the three CUDA sources from ``src/repro_torch/kernels/csrc``
                 (one nvcc each, in parallel): seconds, registers, spills, and
-                per K1 instance its registers, stack frame and spills (gates:
-                K3 spills nothing; K1 compiles exactly the instances its plans
-                can name, and its skinny form spills nothing);
+                per K1, K2 and K3 instance its registers, stack frame and
+                spills (gates: K3 spills nothing and compiles 4 tensor-core
+                and 6 FMA instances; K2 compiles 8 instances, none
+                spilling; K1 compiles exactly the instances its plans can
+                name, and its skinny form spills nothing);
 2. kernel     — K1 against its plain PyTorch version on the card, in every
                 form (dense, structured, blocked at bn=1 and bn=4 with a
                 short last block, max2/avg2 pooling, fp32/bf16 residuals, all
@@ -26,13 +28,19 @@ non-zero and prints no result:
                 ulps of the fp32 oracle, a second launch bit-identical; each
                 row prints its launch plan (``kernels/tuning.py``);
 3. decode_attention — K2 against its plain version, bare and fused, fp32
-                and bf16: G ∈ {1, 6}, D ∈ {64, 128}, S not a multiple of the
-                32-key tile, slots at 0 / mid-cache / S−1, windows with and
-                without sinks, structured / blocked bn=1 / bn=64 (short last
-                block) / unpaired out-projections, residual present and
-                absent: fp32 ≤ 2e-5 relative, bf16 ≤ 2 output ulps (the
-                fused form against the plain projection of the bare
-                kernel's bf16 rows: see fused_decode_attention_plain);
+                and bf16: G ∈ {1, 6, 48}, D ∈ {64, 128, 256} (G = 48 at
+                D = 256 cuts the heads into groups and the lanes into
+                chunks), S not a multiple of the 32-key tile, slots at 0 /
+                mid-cache / S−1, the serve engine's
+                shape (S 256, slots at 8-51), windows with and without
+                sinks, structured / blocked bn=1 / bn=64 (short last block) /
+                unpaired out-projections, residual present and absent: fp32
+                ≤ 2e-5 relative, bf16 ≤ 2 output ulps (the fused form
+                against the plain projection of the bare kernel's bf16
+                rows: see fused_decode_attention_plain), a second launch
+                bit-identical; each row prints its launch plan
+                (``kernels/tuning.py`` ``k2_plan``, which lays out the
+                kernel's shared memory);
 4. flash_attention — K3 through ``flash_attention_fwd`` against
                 ``flash_attention_plain``, fp32 and bf16: the CPU parity
                 file's shapes (grid, MQA, ragged, causal and full) and
@@ -41,7 +49,8 @@ non-zero and prints no result:
                 200 × 512; fp32 ≤ 1e-5 relative, bf16 ≤ 1 output ulp, all
                 finite, one launch per case; device ms by CUDA graph beside
                 the plain version, ``F.scaled_dot_product_attention`` and
-                the bound;
+                the bound, with the kernel's form (tensor-core or FMA) and
+                its achieved TFLOP/s;
 5. layers     — K1 at LeNet's shapes (1000 images, every layer and pairing
                 mode) against its plain version, timed beside the plain
                 version, ``F.conv2d`` on the folded weights, its
@@ -67,7 +76,9 @@ non-zero and prints no result:
                 layer (3 QKV K1, one K2, 3 MLP K1), a ``torch.profiler`` split
                 of one decode step, and K1 (all six decoder weights, with
                 their plans) and K2 timed at the serving shapes beside their
-                plain versions, library calls and bounds;
+                plain versions, library calls and bounds (K2 fused and bare:
+                the bare time is the attention, the rest the projection; a
+                relaunch bit-identical);
 9. frontend   — ``serving.frontend`` over the LM engines.  (a) chaos: full
                 width, 2 layers, fp32, the lm_parity phase's paired engine
                 (bn=64, r=0, fused decode attention) with an unpaired
@@ -197,6 +208,36 @@ def phase_build() -> dict:
             func["registers"] = int(m.group(1))
             k1_instances.append(func)
             func = None
+    def instances(log: str, kernel: str) -> list[dict]:
+        """Registers, stack and spills of each compiled instance of ``kernel``
+        (its mangled template arguments name it)."""
+        found, cur = [], None
+        for line in log.splitlines():
+            if m := re.search(rf"Compiling entry function '\w*?{kernel}(\w*?)I(\w+?)EEv\w*'", line):
+                cur = {"kernel": kernel + m.group(1), "template": m.group(2)}
+            elif cur and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                         r"(\d+) bytes spill loads", line)):
+                cur["stack_bytes"] = int(m.group(1))
+                cur["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+            elif cur and (m := re.search(r"Used (\d+) registers", line)):
+                cur["registers"] = int(m.group(1))
+                found.append(cur)
+                cur = None
+        return found
+
+    k2_instances = instances(infos["decode_attention"]["log"], "decode_attention_kernel")
+    k3_instances = instances(infos["flash_attention"]["log"], "flash_attention_kernel")
+    if infos["decode_attention"]["built"]:
+        # (fp32, bf16 inputs) x (fp32, bf16 output) x (16-byte vectors, single columns)
+        check(len(k2_instances) == 8, f"decode_attention instances: {k2_instances}")
+        check(all(f.get("spill_bytes", 1) == 0 for f in k2_instances),
+              f"decode_attention spills: {k2_instances}")
+    if infos["flash_attention"]["built"]:
+        tc = [f for f in k3_instances if f["kernel"].endswith("_tc")]
+        check(len(tc) == 4 and len(k3_instances) == 10,  # tc D 16-128; fma fp32 x 5 D, bf16 D 8
+              f"flash_attention instances: {k3_instances}")
+        check(all(f.get("spill_bytes", 1) == 0 for f in tc),
+              f"flash_attention tensor-core form spills: {tc}")
     for name, info in infos.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["log"])]
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", info["log"])]
@@ -223,6 +264,8 @@ def phase_build() -> dict:
         "nvcc": _build.nvcc_version(),
         "sources": sources,
         "paired_matmul_instances": k1_instances,
+        "decode_attention_instances": k2_instances,
+        "flash_attention_instances": k3_instances,
     }
     emit(out)
     return out
@@ -348,6 +391,8 @@ def _outproj_segments(w2, rounding: float, block_n):
 
 
 def phase_decode_attention() -> dict:
+    import dataclasses
+
     import torch
 
     from repro_torch.kernels import decode_attention as da
@@ -357,21 +402,27 @@ def phase_decode_attention() -> dict:
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     B, KH = 4, 2
     # (name, G, D, S, window, n_sink, out-projection block_n (0 structured,
-    #  None unpaired), N, residual)
+    #  None unpaired), N, residual, slot positions)
     cases = [
-        ("qwen_heads_structured", 6, 128, 300, 0, 0, 0, 1536, True),
-        ("mha_bn64_short_block", 1, 64, 77, 0, 0, 64, 1000, False),
-        ("window_bn1", 6, 64, 77, 16, 0, 1, 200, True),
-        ("window_sink_unpaired", 1, 128, 300, 40, 4, None, 700, True),
-        ("window_sink_structured", 6, 128, 77, 16, 3, 0, 320, False),
+        ("qwen_heads_structured", 6, 128, 300, 0, 0, 0, 1536, True, (0, 150, 299, 5)),
+        # the serve engine's shape: max_seq 256, slots after prompts of 8-20
+        # tokens and up to 32 decode steps
+        ("qwen_serving_shape", 6, 128, 256, 0, 0, 0, 1536, True, (8, 23, 37, 51)),
+        ("mha_bn64_short_block", 1, 64, 77, 0, 0, 64, 1000, False, (0, 38, 76, 5)),
+        ("window_bn1", 6, 64, 77, 16, 0, 1, 200, True, (0, 38, 76, 5)),
+        ("window_sink_unpaired", 1, 128, 300, 40, 4, None, 700, True, (0, 150, 299, 5)),
+        ("window_sink_structured", 6, 128, 77, 16, 3, 0, 320, False, (0, 38, 76, 5)),
+        # G = 48 at D = 256: the plan cuts the heads into groups and the
+        # block's 24576 lanes into chunks
+        ("wide_heads_grouped", 48, 256, 300, 0, 0, 0, 300, True, (0, 150, 299, 5)),
     ]
     results, max_abs, max_rel, max_ulps = [], 0.0, 0.0, 0.0
-    for name, G, D, S, window, n_sink, block_n, N, has_res in cases:
+    for name, G, D, S, window, n_sink, block_n, N, has_res, slots in cases:
         H = G * KH
         # weights of std 0.1 against r=0.3: 94-99% of lanes pair in every mode
         seg = _outproj_segments(rnd(H * D, N) * 0.1, 0.3, block_n)
         q, kc, vc, res = rnd(B, 1, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D), rnd(B, N)
-        pos = torch.tensor([0, S // 2, S - 1, 5], dtype=torch.int32, device="cuda")
+        pos = torch.tensor(slots, dtype=torch.int32, device="cuda")
         kw = dict(window=window, n_sink=n_sink)
         for dt in (torch.float32, torch.bfloat16):
             q_, kc_, vc_ = q.to(dt), kc.to(dt), vc.to(dt)
@@ -379,6 +430,16 @@ def phase_decode_attention() -> dict:
                     res.to(dt) if has_res else None)
             bare = da.decode_attention_cuda(q_, kc_, vc_, pos, **kw)
             fused = da.fused_decode_attention_cuda(q_, kc_, vc_, pos, *proj, n_cols=N, **kw)
+            Bw, P, bn = seg.kmat.shape
+            R = seg.w_res.shape[1]
+            plans = {"bare": da.launch_plan(q_, kc_),
+                     "fused": da.launch_plan(q_, kc_, N, bn, P, R)}
+            # the cluster merges its partials in rank order: a second launch
+            # gives the same bits
+            check(torch.equal(da.decode_attention_cuda(q_, kc_, vc_, pos, **kw), bare)
+                  and torch.equal(da.fused_decode_attention_cuda(q_, kc_, vc_, pos, *proj,
+                                                                 n_cols=N, **kw), fused),
+                  f"decode_attention {name} {dt}: two launches differ")
             f32 = dict(out_dtype=torch.float32)
             forms = {
                 "bare": (bare, da.decode_attention_plain(q_, kc_, vc_, pos, **kw, **f32)),
@@ -392,7 +453,7 @@ def phase_decode_attention() -> dict:
             torch.cuda.synchronize()
             for form, (got, want) in forms.items():
                 row = {"case": name, "form": form, "dtype": str(dt).removeprefix("torch."),
-                       "shape": list(got.shape)}
+                       "shape": list(got.shape), "plan": dataclasses.asdict(plans[form])}
                 label = f"decode_attention {name} {form} {row['dtype']}"
                 if dt == torch.float32:
                     row["rel_err"] = rel_err(got, want)
@@ -496,7 +557,8 @@ def phase_flash_attention() -> dict:
                                                           q.element_size(), peak)
             ms = graph_ms(lambda q=q, k=k, v=v, c=causal: fa.flash_attention_fwd(q, k, v, causal=c))
             timed.append({
-                "case": name, "dtype": str(dt).removeprefix("torch."), "ms": ms,
+                "case": name, "dtype": str(dt).removeprefix("torch."),
+                "form": fa.kernel_form(dt, D), "ms": ms,
                 "plain_ms": graph_ms(lambda q=q, k=k, v=v, c=causal:
                                      fa.flash_attention_plain(q, k, v, causal=c)),
                 "library_ms": graph_ms(lambda qt=qt, kt=kt, vt=vt, c=causal:
@@ -953,8 +1015,11 @@ def _k1_at(block, name, x, residual=None) -> dict:
 
 def _k2_at(eng) -> dict:
     """K2 at the serving shapes: layer 0's cache and out-projection segments
-    of the engine, the slots at their positions; device ms beside the plain
-    version, the library pair of calls, and the bound."""
+    of the engine, the slots at their positions; device ms of the fused and
+    the bare form beside the plain version, the library calls, and the
+    bounds; a relaunch gives the same bits."""
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
 
@@ -977,6 +1042,9 @@ def _k2_at(eng) -> dict:
     got = da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols)
     want = da.outproj_plain(da.decode_attention_cuda(q, kc, vc, pos), *args[4:],
                             n_cols=seg.n_cols, out_dtype=torch.float32)
+    check(torch.equal(da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols), got),
+          "lm_serve K2: two launches differ")
+    Bw, P, bn = seg.kmat.shape
     folded = ops.fold_lm_weight(w, meta)
     mask = (torch.arange(kc.shape[1], device="cuda")[None, :] <= pos[:, None].long())
 
@@ -994,10 +1062,21 @@ def _k2_at(eng) -> dict:
     flops = 4 * live_keys * H * D + B * (2 * N * (p_live + r_live) + p_live)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     ms = graph_ms(lambda: da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols))
+    # the bare form at the same shape: the attention alone (the rest of the
+    # fused time is the out-projection)
+    bare_bytes = (2 * q.numel() + 2 * live_keys * KH * D) * item
+    bare_ms = graph_ms(lambda: da.decode_attention_cuda(q, kc, vc, pos))
     return {
         "B": B, "H": H, "KH": KH, "D": D, "S": kc.shape[1], "pos": eng.pos.tolist(),
         "N": N, "pairs_live": p_live, "resid_live": r_live, "ulps": bf16_ulps(got, want),
-        "ms": ms,
+        "plan": dataclasses.asdict(da.launch_plan(q, kc, N, bn, P, seg.w_res.shape[1])),
+        "bare_plan": dataclasses.asdict(da.launch_plan(q, kc)),
+        "ms": ms, "bare_ms": bare_ms, "projection_ms": ms - bare_ms,
+        "bare_bound_ms": max(bare_bytes / HBM_BYTES_PER_S,
+                             4 * live_keys * H * D / BF16_FLOP_PER_S) * 1e3,
+        "bare_library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask[:, None, None], enable_gqa=True)),
         "plain_ms": graph_ms(lambda: da.fused_decode_attention_plain(*args, n_cols=seg.n_cols)),
         "library_ms": graph_ms(library),
         "library_calls": "F.scaled_dot_product_attention(enable_gqa=True) + "
@@ -1263,6 +1342,7 @@ def main() -> int:
         # one fused launch at the serving shapes: qwen2-1.5b layer 0, bf16,
         # batch 4, structured out-projection at r=0.05
         "ms": k2["ms"],
+        "bare_ms": k2["bare_ms"],
         "plain_ms": k2["plain_ms"],
         "kernel_over_plain": k2["ms"] / k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
@@ -1278,6 +1358,7 @@ def main() -> int:
         "launches_by_path": k3_paths,
         "max_abs_err": flash["fp32_max_abs_err"],
         # one launch at qwen2-1.5b's heads: B 4, causal S = 2048, bf16
+        "form": k3["form"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
         "kernel_over_plain": k3["ms"] / k3["plain_ms"],

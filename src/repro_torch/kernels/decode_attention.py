@@ -17,9 +17,14 @@ so the attended vector never reaches device memory.
 :func:`fused_decode_attention_cuda` (``(B, n_cols)``) launch the kernel in
 ``csrc/decode_attention.cu`` for CUDA tensors and add one to
 ``LAUNCHES[<form>]``; for CPU tensors they run :func:`decode_attention_plain`
-and :func:`fused_decode_attention_plain`; any other device raises.  The
-kernel walks the cache in tiles of 32 keys; the TPU kernel's ``k_chunk``
-(its block of the sequence axis) has no counterpart here.
+and :func:`fused_decode_attention_plain`; any other device raises.  Each
+launch follows a plan from ``kernels.tuning.k2_plan`` (:func:`launch_plan`),
+a pure function of the shapes that also lays out the kernel's shared
+memory: a thread-block cluster splits the slots' attention over its CTAs and
+merges their partial sums through distributed shared memory, and in the
+fused form each CTA projects a column tile for every slot of its cluster.  The kernel walks the cache in tiles of 32 keys;
+the TPU kernel's ``k_chunk`` (its block of the sequence axis) has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 
 # Kernel launches by form: the wrappers add one per launch, and only there.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -130,11 +135,28 @@ def _kernel():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 11 + [i] * 14 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 11 + [i] * 15 + [ctypes.c_float, ctypes.POINTER(i), i, p]
     fn.restype = i
     lib.decode_attention_error_string.argtypes = [i]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return fn, lib.decode_attention_error_string
+
+
+def launch_plan(q, k_cache, n_cols: int = 0, bn: int = 1, P: int = 0, R: int = 0
+                ) -> tuning.K2Plan:
+    """The plan of a launch on these operands: the bare form at ``n_cols ==
+    0``, else the fused form over ``n_cols`` columns in blocks of ``bn`` with
+    ``P`` pair and ``R`` residual lanes a block."""
+    B, _, H, D = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    return tuning.k2_plan(B, S, H, KH, D, n_cols, bn, P, R, q.element_size())
+
+
+@functools.cache
+def _plan_array(plan: tuning.K2Plan):
+    """The plan as the C entry point's int array (one per plan)."""
+    args = plan.as_args()
+    return (ctypes.c_int * len(args))(*args)
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -182,12 +204,14 @@ def _launch(q, k_cache, v_cache, pos, proj, residual, out, *, window, n_sink, fo
     pos = pos.to(torch.int32).contiguous()
     if proj is None:
         idx = seg = (None,) * 3
-        P = R = bn = n_cols = 0
+        P = R = bn = n_blocks = n_cols = 0
     else:
         idx_i, idx_j, idx_r, kmat, w_res, n_cols = proj
         idx = tuple(t.to(torch.int32).contiguous() for t in (idx_i, idx_j, idx_r))
         seg = (kmat.to(q.dtype).contiguous(), w_res.to(q.dtype).contiguous())
-        P, R, bn = kmat.shape[1], w_res.shape[1], kmat.shape[2]
+        n_blocks, P, bn = kmat.shape
+        R = w_res.shape[1]
+    plan = tuning.k2_plan(B, S, H, KH, D, n_cols, max(bn, 1), P, R, q.element_size())
     if residual is not None:
         if residual.dtype not in (torch.float32, torch.bfloat16):
             residual = residual.float()
@@ -201,10 +225,11 @@ def _launch(q, k_cache, v_cache, pos, proj, residual, out, *, window, n_sink, fo
         err = fn(
             ptr(q2), ptr(k_cache), ptr(v_cache), ptr(pos), *map(ptr, idx),
             *map(ptr, seg[:2]), ptr(residual), ptr(out),
-            B, S, H, KH, D, window, n_sink, P, R, bn, n_cols, int(proj is not None),
-            int(q.dtype == torch.bfloat16),
+            B, S, H, KH, D, window, n_sink, P, R, bn, n_blocks, n_cols,
+            int(proj is not None), int(q.dtype == torch.bfloat16),
             _RES_KIND[None if residual is None else residual.dtype],
-            1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+            1.0 / math.sqrt(D), _plan_array(plan), len(plan.as_args()),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise RuntimeError(

@@ -14,7 +14,12 @@ dtype.  The causal mask is top-left aligned: key ``j`` is live for query
 ``LAUNCHES["flash_attention"]``) and runs :func:`flash_attention_plain` for
 CPU tensors; any other device raises.  ``q_chunk``/``k_chunk`` are the TPU
 kernel's blocks: they decide only the order of the fp32 sums, which the
-plain version follows; the kernel uses its own 64 × 64 tiles.  In the JAX
+plain version follows; the kernel uses its own 64 × 64 tiles, in one of two
+forms that its entry point chooses from the dtype and head dim (and that
+:func:`kernel_form` names): bf16 with a head dim that is a multiple of 16
+runs on the tensor cores (``wgmma``, p kept in fp32 as a bf16 hi + lo pair
+for the PV product), everything else (fp32, and bf16 at D = 8) on the CUDA
+cores' fp32 FMAs.  In the JAX
 package no model path calls this kernel (prefill runs the blocked XLA
 ``layers.flash_attention``), and the port's prefill does not call it either.
 """
@@ -42,6 +47,16 @@ def reset_launches() -> None:
 def launch_count() -> int:
     """Kernel launches since the last :func:`reset_launches`."""
     return sum(LAUNCHES.values())
+
+
+def kernel_form(dtype: torch.dtype, head_dim: int) -> str:
+    """The form the kernel's entry point runs for inputs of ``dtype`` at
+    ``head_dim``: ``"tensor_core"`` for bf16 at a head dim that is a
+    multiple of 16 (``wgmma``'s depth), else ``"fma"`` (fp32 stays off the
+    tensor cores: TF32 would miss the fp32 gate)."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return "tensor_core"
+    return "fma"
 
 
 def _check(q, k, v, q_chunk: int, k_chunk: int):
@@ -151,17 +166,24 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     Sk, KH = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"the flash_attention kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    # the kernel reads any (batch, seq, head) strides; only a head_dim that
-    # is not contiguous is copied here
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    form = kernel_form(q.dtype, D)
+    # the kernel reads any (batch, seq, head) strides; a head_dim that is not
+    # contiguous is copied here, and so, for the tensor-core form's 16-byte
+    # copies, are rows that do not start 16-byte aligned
+    def usable(t):
+        if t.stride(-1) != 1:
+            return False
+        return form == "fma" or (t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
+
+    q, k, v = (t if usable(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     fn, err_str = _kernel()
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, H, KH, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+            int(causal), int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {err_str(err).decode()} ({err})")

@@ -1,4 +1,5 @@
-"""Launch plans for the paired GEMM kernel (K1) on an H100.
+"""Launch plans for the paired GEMM kernel (K1) and the fused decode
+attention (K2) on an H100.
 
 The port's counterpart of the block choice in ``repro.kernels.tuning``
 (``choose_blocks``), redone for this card: 132 SMs, 227 KB of shared memory
@@ -24,10 +25,22 @@ Two forms of the one kernel (``csrc/paired_matmul.cu``), 128 threads a CTA:
   each thread holds :func:`tall_rows_per_thread` window-rows.
   Where the grid would leave SMs idle the contraction is split over a
   cluster as in the skinny form.
+
+K2 (``csrc/decode_attention.cu``, 256 threads a CTA) takes a
+:class:`K2Plan` from :func:`k2_plan`: a cluster of ``cluster`` CTAs owns
+``slots`` slots, deals their (slot, unit, key range) work items over its
+ranks (a unit is a KV head with its query heads, or a group of them;
+``splits`` key ranges per pair, cut in the kernel from each slot's position)
+and merges the partial softmax sums through distributed shared memory; in
+the fused form each CTA then owns ``cols`` columns of one column block for
+all those slots, ``tn`` adjacent columns a thread.  The plan also lays out
+the kernel's shared memory (:func:`k2_layout`), which the kernel follows.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
 
 SMS = 132
@@ -260,3 +273,171 @@ def plan(M: int, P: int, R: int, n_blocks: int, bn: int, window: int, itemsize: 
         raise ValueError(f"no K1 plan for M={M}, P={P}, R={R}, blocks={n_blocks}, bn={bn}, "
                          f"window={window}")
     return p
+
+
+# ---------------------------------------------------------------------------
+# K2: fused decode attention
+# ---------------------------------------------------------------------------
+
+K2_THREADS = 256
+K2_WARPS = K2_THREADS // 32
+K2_TILE = 32  # keys a tile
+K2_MAX_D = 256
+K2_MAX_SLOTS = 4  # slots a cluster: the projection's rows
+K2_W_STAGES = (8, 4)  # weight ring slots a thread (16 bytes each), deepest first
+K2_SPLIT_BYTES = 32_768  # a pair's split partials (all G heads) a merging rank may hold
+K2_CHUNKS = (4096, 2048, 1024, 512, 256)  # lanes a chunk, where a block's do not fit at once
+#: the shared-memory regions, in the order of the kernel's ``struct Plan``
+K2_REGIONS = ("wring", "kv", "idx", "vec", "xg", "part", "gath", "coef", "qs", "sc", "corr",
+              "red")
+
+
+@dataclasses.dataclass(frozen=True)
+class K2Plan:
+    """One launch of K2: ``cluster`` CTAs a cluster own ``slots`` slots; each
+    KV head's query heads are cut in ``groups`` groups (units of
+    ``G / groups`` heads), each (slot, unit) pair's keys in ``splits``
+    ranges; fused form: ``cols`` columns a CTA (inside one column block),
+    ``tn`` adjacent columns a thread, ``wstages`` weight ring slots a thread,
+    the block's lanes gathered ``chunk`` at a time; ``stages`` K/V ring
+    slots.  ``layout`` is the kernel's shared memory: the strides (floats of
+    an item's partial, bytes of a K/V row, floats of a query row), then the
+    byte offset of each region of :data:`K2_REGIONS`; ``smem`` their end.
+    The kernel follows this layout and has none of its own."""
+
+    cluster: int
+    slots: int
+    splits: int
+    groups: int
+    cols: int
+    tn: int
+    stages: int
+    wstages: int
+    chunk: int
+    layout: tuple[int, ...]
+    smem: int
+
+    def items(self, KH: int) -> int:
+        """Work items a rank: ``ceil(slots · KH · groups · splits / cluster)``."""
+        return -(-self.slots * KH * self.groups * self.splits // self.cluster)
+
+    def grid(self, B: int, n_blocks: int, bn: int, proj: bool) -> tuple[int, int]:
+        """(x, y) CTAs of the launch: x the clusters' ranks (fused: one
+        column tile each, whole clusters), y the slot groups."""
+        tiles = n_blocks * -(-bn // self.cols) if proj else self.cluster
+        return -(-tiles // self.cluster) * self.cluster, -(-B // self.slots)
+
+    def as_args(self) -> tuple[int, ...]:
+        """The C entry point's plan (its ``struct Plan``, in order)."""
+        return (self.cluster, self.slots, self.splits, self.groups, self.cols, self.tn,
+                self.stages, self.wstages, self.chunk, *self.layout, self.smem)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def k2_layout(H, KH, D, itemsize, proj, cluster, slots, splits, groups, cols, stages, wstages,
+              chunk) -> tuple[tuple[int, ...], int]:
+    """K2's shared memory for a plan: ``(isz, row_bytes, dq, *offsets)`` and
+    the total bytes (see :class:`K2Plan`)."""
+    gc = H // KH // groups
+    items = -(-slots * KH * groups * splits // cluster)
+    pairs = -(-slots * KH * groups // cluster)  # (slot, unit) pairs a rank merges
+    isz = (gc * (D + 2) + 3) // 4 * 4  # floats of one item's partial
+    row_bytes = _align16(D * itemsize) + 16  # a K/V row, padded off the next one's banks
+    dq = (D + 3) // 4 * 4
+    sizes = {
+        "wring": wstages * K2_THREADS * 16 if proj else 0,
+        "kv": stages * 2 * K2_TILE * row_bytes,
+        "idx": 2 * chunk * 4 if proj else 0,  # the chunk's I or R lanes, then its J lanes
+        "vec": slots * H * D * itemsize if proj else 0,  # attended vectors, the I/O dtype
+        "xg": chunk * K2_MAX_SLOTS * 4 if proj else 0,  # the chunk's gathered lanes
+        "part": items * isz * 4,  # partial (acc, m, l) of the items
+        "gath": pairs * splits * isz * 4 if splits > 1 else 0,  # the splits pushed for merging
+        "coef": pairs * (splits + 1) * gc * 4,  # merge weights
+        "qs": gc * dq * 4,  # queries
+        "sc": K2_WARPS * gc * K2_TILE * 4,  # the warps' partial dots, then p
+        "corr": gc * 4,
+        "red": K2_WARPS * slots * cols * 4 if proj else 0,  # projection partials
+    }
+    # the attended vectors and the gathered lanes are written after every
+    # rank's attention is done: they reuse the K/V ring where it holds them
+    in_ring = _align16(sizes["vec"]) + sizes["xg"] <= sizes["kv"]
+    offsets, o = {}, 0
+    for name in K2_REGIONS:
+        if in_ring and name in ("vec", "xg"):
+            offsets[name] = offsets["kv"] + (0 if name == "vec" else _align16(sizes["vec"]))
+            continue
+        offsets[name] = o
+        o += _align16(sizes[name])
+    return (isz, row_bytes, dq, *(offsets[n] for n in K2_REGIONS)), o
+
+
+def _divisors(n: int) -> list[int]:
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+@functools.cache
+def k2_plan(B: int, S: int, H: int, KH: int, D: int, n_cols: int, bn: int, P: int, R: int,
+            itemsize: int) -> K2Plan:
+    """The launch plan of one K2 call: ``B`` slots, a cache of ``S`` keys,
+    ``H`` query and ``KH`` KV heads of ``D``; ``n_cols`` output columns in
+    blocks of ``bn`` with ``P`` pair and ``R`` residual lanes a block, or
+    ``n_cols == 0`` for the bare form; element size 4 (fp32) or 2 (bf16).
+
+    Both forms cut each (slot, unit) pair's keys in ``splits`` ranges, as
+    many as a cluster of 8 has ranks for the KV heads of ``min(B, 4)`` slots
+    (and the cache has 32-key tiles), fewer where a pair's split partials
+    would outgrow :data:`K2_SPLIT_BYTES`: a function of (B, S, H, KH, D)
+    alone, so a fused launch attends exactly as a bare one does.  Fused: the
+    narrowest column tile (at least ``tn`` columns, at most 32 threads
+    across it) that keeps the grid within one CTA an SM, a cluster of up to
+    8 of those tiles, all slots (up to 4) in one cluster, so each segment is
+    read once a launch.  Bare: a cluster per slot, a rank per (unit, key
+    range).  Then the first layout that fits 227 KB, trying in turn fewer
+    slots a cluster, more head groups, a 3- then 2-stage K/V ring, an 8- then
+    4-deep weight ring and the block's lanes whole, then in chunks."""
+    if itemsize not in (2, 4) or H < 1 or KH < 1 or H % KH or not 1 <= D <= K2_MAX_D \
+            or B < 1 or S < 1:
+        raise ValueError(f"no K2 plan for B={B}, S={S}, H={H}, KH={KH}, D={D}, "
+                         f"itemsize={itemsize}")
+    proj = n_cols > 0
+    G = H // KH
+    key_tiles = -(-S // K2_TILE)
+    splits = max(1, min(MAX_CLUSTER // (min(B, K2_MAX_SLOTS) * KH), key_tiles))
+    while splits > 1 and splits * G * (D + 2) * 4 > K2_SPLIT_BYTES:
+        splits -= 1
+    if proj:
+        if bn < 1 or P < 0 or R < 0:
+            raise ValueError(f"no K2 plan for n_cols={n_cols}, bn={bn}, P={P}, R={R}")
+        vec = 16 // itemsize
+        tn = vec if bn % vec == 0 else 1
+        n_blocks = -(-n_cols // bn)
+        cols, widest = tn, min(32 * tn, _pow2_at_least(bn))
+        while cols < widest and n_blocks * -(-bn // cols) > SMS:
+            cols *= 2
+        tile_cluster = min(MAX_CLUSTER, n_blocks * -(-bn // cols))
+        lanes = max(P + R, 1)
+        chunks = (lanes, *(c for c in K2_CHUNKS if c < lanes))
+        wrings = K2_W_STAGES
+    else:
+        tn = cols = 1
+        chunks, wrings = (0,), K2_W_STAGES[:1]
+    slots = min(B, K2_MAX_SLOTS) if proj else 1
+    while True:
+        for groups in _divisors(G):
+            # fused: a cluster of the column tiles, or of 8 where the
+            # attention needs more ranks (the extra ones own no tile)
+            first = tile_cluster if proj else min(MAX_CLUSTER, KH * groups * splits)
+            for cluster in dict.fromkeys((first, MAX_CLUSTER) if proj else (first,)):
+                for stages, wstages, chunk in itertools.product((3, 2), wrings, chunks):
+                    layout, smem = k2_layout(H, KH, D, itemsize, proj, cluster, slots, splits,
+                                             groups, cols, stages, wstages, chunk)
+                    if smem <= SMEM_PER_BLOCK:
+                        return K2Plan(cluster, slots, splits, groups, cols, tn, stages,
+                                      wstages, chunk, layout, smem)
+        if slots == 1:
+            raise ValueError(f"no K2 plan fits: B={B}, S={S}, H={H}, KH={KH}, D={D}, "
+                             f"n_cols={n_cols}, bn={bn}, P={P}, R={R}, itemsize={itemsize}")
+        slots //= 2

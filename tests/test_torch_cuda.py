@@ -285,3 +285,129 @@ def test_flash_attention_kernel_reads_strided_views(cuda):
     assert rel_err(got, fa.flash_attention_plain(q, k, v)) <= RTOL
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(*(torch.zeros(1, 8, 2, 24, device=cuda),) * 3)
+
+
+def test_flash_attention_tensor_core_form_reads_strided_views(cuda):
+    """The tensor-core form's strided reads: q a (B, S, H, D) view of a
+    (B, H, S, D) tensor, k sliced from a wider head axis and v a view of a
+    (B, KH, S, D) tensor, so that no two of the nine strides agree where a
+    mix-up could hide; within one bf16 ulp of the plain version and equal to
+    the contiguous copies' result."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    B, Sq, Sk, H, KH, D = 2, 96, 160, 12, 2, 128
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+    q = rnd(B, H, Sq, D).transpose(1, 2)
+    k = rnd(B, Sk, 5, D)[:, :, 1:3]
+    v = rnd(B, KH, Sk, D).transpose(1, 2)
+    assert len({q.stride()[:3], k.stride()[:3], v.stride()[:3]}) == 3
+    assert fa.kernel_form(q.dtype, D) == "tensor_core"
+    for causal in (True, False):
+        got = fa.flash_attention_fwd(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert bf16_ulps(got, want) <= 1.0
+        assert torch.equal(got, fa.flash_attention_fwd(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_serving_shape(cuda, dtype):
+    """K2 at qwen2-1.5b's serving shape (B 4, H 12, KH 2, D 128, S 256, slots
+    at positions 8-51, structured out-projection): both forms against their
+    plain versions, a second launch bit-identical (the cluster merges its
+    partials in rank order)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, S, H, KH, D, N = 4, 256, 12, 2, 128, 1536
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    q, kc, vc = rnd(B, 1, H, D).to(dtype), rnd(B, S, KH, D).to(dtype), rnd(B, S, KH, D).to(dtype)
+    pos = torch.tensor([8, 23, 37, 51], dtype=torch.int32, device=cuda)
+    seg = _outproj(rnd(H * D, N) * 0.1, 0.3, 0)
+    args = (q, kc, vc, pos, seg.idx_i, seg.idx_j, seg.idx_r, seg.kmat.to(dtype),
+            seg.w_res.to(dtype), rnd(B, N).to(dtype))
+    bare = da.decode_attention_cuda(q, kc, vc, pos)
+    _check(bare, da.decode_attention_plain(q, kc, vc, pos, out_dtype=torch.float32), dtype,
+           ATTN_RTOL)
+    got = da.fused_decode_attention_cuda(*args, n_cols=N)
+    if dtype == torch.float32:
+        want = da.fused_decode_attention_plain(*args, n_cols=N, out_dtype=dtype)
+    else:
+        want = da.outproj_plain(bare, *args[4:], n_cols=N, out_dtype=torch.float32)
+    _check(got, want, dtype, ATTN_RTOL)
+    assert torch.equal(da.decode_attention_cuda(q, kc, vc, pos), bare)
+    assert torch.equal(da.fused_decode_attention_cuda(*args, n_cols=N), got)
+
+
+@pytest.mark.parametrize("causal,Sq,Sk", [(True, 512, 512), (True, 333, 333), (False, 200, 512)])
+def test_flash_attention_tensor_core_form(cuda, causal, Sq, Sk):
+    """K3's tensor-core form (bf16, D 128) at qwen2's heads: within one bf16
+    ulp of the plain version (p kept in fp32 as a bf16 hi + lo pair)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+               for shape in ((2, Sq, 12, 128), (2, Sk, 2, 128), (2, Sk, 2, 128)))
+    assert fa.kernel_form(q.dtype, 128) == "tensor_core"
+    got = fa.flash_attention_fwd(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    assert bf16_ulps(got, want) <= 1.0
+    assert torch.equal(fa.flash_attention_fwd(q, k, v, causal=causal), got)
+
+
+@pytest.mark.parametrize("name,dtype,S,H,D,block_n,N", [
+    # unpaired, H·D = 1024 at D 256: the plan takes the 4-deep weight ring
+    ("shallow_weight_ring", torch.float32, 64, 4, 256, None, 1024),
+    # 68-byte rows (element copies, not 16-byte ones), D % 4 != 0, G = 3
+    ("unaligned_rows", torch.bfloat16, 77, 6, 34, 0, 150),
+    # G = 48 at D = 256 (H·D = 24576): the heads in groups, the lanes in
+    # chunks, one slot a cluster, shallow rings
+    ("wide_heads_grouped", torch.float32, 300, 96, 256, 0, 300),
+    # G = 32 at D = 128, bf16: the lanes in chunks, four slots a cluster
+    ("wide_heads_chunked", torch.bfloat16, 300, 64, 128, 0, 512),
+])
+def test_decode_attention_plan_edges(cuda, name, dtype, S, H, D, block_n, N):
+    """K2 on the paths the serving shapes do not take, against the plain
+    versions, with a bit-identical relaunch."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    B, KH = 4, 2
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    q, kc, vc = rnd(B, 1, H, D).to(dtype), rnd(B, S, KH, D).to(dtype), rnd(B, S, KH, D).to(dtype)
+    pos = torch.tensor([3, S // 2, S - 1, 40], dtype=torch.int32, device=cuda)
+    seg = _outproj(rnd(H * D, N) * 0.1, 0.3, block_n)
+    args = (q, kc, vc, pos, seg.idx_i, seg.idx_j, seg.idx_r, seg.kmat.to(dtype),
+            seg.w_res.to(dtype), rnd(B, N).to(dtype))
+    Bw, P, bn = seg.kmat.shape
+    plan = da.launch_plan(q, kc, N, bn, P, seg.w_res.shape[1])
+    if name == "shallow_weight_ring":
+        assert plan.wstages == 4
+    if name == "wide_heads_grouped":
+        assert plan.groups > 1 and plan.chunk < P + seg.w_res.shape[1]
+        assert da.launch_plan(q, kc).groups > 1
+    if name == "wide_heads_chunked":
+        assert plan.chunk < P + seg.w_res.shape[1]
+    bare = da.decode_attention_cuda(q, kc, vc, pos)
+    _check(bare, da.decode_attention_plain(q, kc, vc, pos, out_dtype=torch.float32), dtype,
+           ATTN_RTOL)
+    got = da.fused_decode_attention_cuda(*args, n_cols=N)
+    if dtype == torch.float32:
+        want = da.fused_decode_attention_plain(*args, n_cols=N, out_dtype=dtype)
+    else:
+        want = da.outproj_plain(bare, *args[4:], n_cols=N, out_dtype=torch.float32)
+    _check(got, want, dtype, ATTN_RTOL)
+    assert torch.equal(da.decode_attention_cuda(q, kc, vc, pos), bare)
+    assert torch.equal(da.fused_decode_attention_cuda(*args, n_cols=N), got)
+
+
+def test_flash_attention_tensor_core_form_copies_misaligned_views(cuda):
+    """The tensor-core form reads 16-byte rows: a bf16 view that starts off a
+    16-byte boundary is copied first and gives the aligned result."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    shape = (2, 96, 12, 128)
+    buf = torch.randn(2 * 96 * 12 * 128 + 1, generator=g, device=cuda).to(torch.bfloat16)
+    q = buf[1:].view(shape)
+    assert q.data_ptr() % 16
+    k, v = (torch.randn(2, 96, 2, 128, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    got = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fa.flash_attention_fwd(q.clone(), k, v))

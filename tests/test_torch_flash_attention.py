@@ -118,3 +118,58 @@ def test_other_devices_raise_and_nothing_launches():
         fa.flash_attention_fwd(q, q, q)
     fa.flash_attention_fwd(*(torch.zeros((1, 8, 2, 8)),) * 3)
     assert fa.launch_count() == 0  # the CPU path is the plain version
+
+
+def _split_p_reference(q, k, v, *, causal, tile=64):
+    """The tensor-core form's arithmetic in plain PyTorch: bf16 inputs, fp32
+    scores in 64-key tiles, the online softmax in fp32, and p split into
+    ``p_hi = bf16(p)`` and ``p_lo = bf16(p − p_hi)`` for two bf16 products
+    with V summed in fp32 (the kernel's two wgmma); one rounding to bf16."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qf = q.float().reshape(B, Sq, KH, G, D).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    m = torch.full((B, KH, G, Sq), -float("inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KH, G, Sq, D))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, tile):
+        k1 = min(k0 + tile, Sk)
+        s = torch.matmul(qf, kf[..., k0:k1, :].transpose(-1, -2)) * (1.0 / D ** 0.5)
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k1)[None, :] > rows, -float("inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), torch.zeros_like(s))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        vt = vf[..., k0:k1, :]  # bf16 values, exact in fp32
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(p_hi, vt) + torch.matmul(p_lo, vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D", [
+    (1, 64, 64, 2, 2, 32),
+    (2, 37, 53, 4, 2, 16),
+    (2, 64, 21, 4, 2, 64),
+    (1, 130, 150, 12, 2, 128),  # qwen2's heads: three query tiles, a ragged key tile
+])
+def test_bf16_split_p_within_one_ulp(B, Sq, Sk, H, KH, D, causal):
+    """The tensor-core form keeps p in fp32 as a bf16 hi + lo pair (a
+    relative error of about 2^-17): its result is within one bf16 ulp of the
+    plain version and of the JAX kernel (interpret mode)."""
+    arrays = _inputs(B * 1000 + Sq + Sk + D, B, Sq, Sk, H, KH, D)
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16) for a in arrays)
+    got = _split_p_reference(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
+    assert bf16_ulps(got, want) <= BF16_ULPS
+    j = j_flash(*(jnp.asarray(a, jnp.bfloat16) for a in arrays), causal=causal,
+                q_chunk=64, k_chunk=64, interpret=True)
+    assert bf16_ulps(got, np.asarray(j, np.float32)) <= BF16_ULPS
