@@ -4,7 +4,9 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
 Four paths run through the port (``src/repro_torch``): the paper's workload,
-LeNet-5 with its three conv layers on the paired subtractor GEMM kernel (K1);
+LeNet-5 with its three conv layers on the paired subtractor GEMM kernel (K1),
+served on seeded weights and then trained on the card and put through the
+paper's Table I and Fig. 8;
 the paired LM serving path of qwen2-1.5b, every decoder GEMM on K1 and
 decode attention with the paired out-projection on the decode-attention
 kernel (K2); the flash-attention forward (K3) through its entry point
@@ -62,13 +64,28 @@ non-zero and prints no result:
                 with the pool fused and unfused: r=0 logits match
                 ``F.conv2d`` ≤ 1e-5 with identical argmax; r=0.05 logits match
                 the folded-weight conv; exactly 3 kernel launches per forward;
-7. lm_parity  — qwen2-1.5b at full width, 2 layers, fp32: the plain engine
+7. paper      — the paper's workload on trained weights: LeNet-5 trained by
+                the port's ``get_trained_lenet`` on the card at its defaults
+                (3 epochs of 20000 synthetic images, 468 steps of 128, no
+                cache): wall seconds, steps/s, every loss finite, test
+                accuracy ≥ 0.9 on the 4000-image split; Table I
+                (``repro_torch.benchmarks.table1``) at every rounding with its
+                asserts; Fig. 8 (``benchmarks.fig8``): accuracy per rounding on
+                the folded weights, the six measured paired paths through K1
+                (3 launches each, r = 0 ≤ 1e-5 of ``F.conv2d``), the block
+                sweep at r = 0.05, the fused conv→pool counts
+                (``repro_torch.analysis``: 3 launches, 0 standalone pools
+                fused, 2 unfused), the r = 0.05 headline beside the paper's;
+                one trained-weight request of 1000 images (per_column r = 0.05,
+                pool fused) timed beside the serve phase's random-weight one,
+                and K1's three launches of it against their plain versions;
+8. lm_parity  — qwen2-1.5b at full width, 2 layers, fp32: the plain engine
                 against the paired (column-blocked bn=64, r=0) engine with
                 fused decode attention, batch 2, prompts of 5 and 11 tokens,
                 6 tokens per slot: identical tokens, logits ≤ 1e-5; 5 kernel
                 launches per decode layer (one fused QKV K1, one K2, three
                 MLP K1), counted by the wrappers and by ``torch.profiler``;
-8. lm_serve   — qwen2-1.5b at full width and depth (28 layers), bf16,
+9. lm_serve   — qwen2-1.5b at full width and depth (28 layers), bf16,
                 structured pairing at r=0.05, through the launcher's
                 ``serve``: batch 4, prompts of 8/12/16/20 tokens, max_seq
                 256, 32 tokens per slot; pairing seconds, prefill ms per
@@ -79,7 +96,7 @@ non-zero and prints no result:
                 plain versions, library calls and bounds (K2 fused and bare:
                 the bare time is the attention, the rest the projection; a
                 relaunch bit-identical);
-9. frontend   — ``serving.frontend`` over the LM engines.  (a) chaos: full
+10. frontend  — ``serving.frontend`` over the LM engines.  (a) chaos: full
                 width, 2 layers, fp32, the lm_parity phase's paired engine
                 (bn=64, r=0, fused decode attention) with an unpaired
                 fallback, ``benchmarks/serving.py``'s chaos workload (30
@@ -94,7 +111,7 @@ non-zero and prints no result:
                 wall tokens/s (a smoke-sized functional run, a few dozen
                 requests: not a throughput measurement), and the
                 virtual-clock figures labelled so;
-10. the kernels table, the card's name and power limit, and the ``ok`` line.
+11. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -851,7 +868,156 @@ def phase_serve(ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 7 and 8: the LM serving path
+# phase 7: the paper's workload on trained weights — Table I and Fig. 8
+# ---------------------------------------------------------------------------
+
+PAPER_TRAIN_STEPS = 3 * (20000 // 128)  # the trainer's defaults: 3 epochs of 20000
+PAPER_MIN_ACCURACY = 0.9
+
+
+def _warm_training(params, images, labels) -> dict:
+    """Training once the trainer's run has paid its one-time costs (imports,
+    cuDNN set-up): steps/s over two epochs of ``images`` with the trainer's
+    recipe, and one step under ``torch.profiler``."""
+    import torch
+
+    from repro_torch.data.mnist import batches
+    from repro_torch.models.lenet import lenet_loss
+    from repro_torch.train.loop import make_train_step, train
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+
+    opt = adamw(cosine_schedule(1e-3, 2 * (len(labels) // 128), warmup_steps=50))
+    t0 = time.perf_counter()
+    _, info = train(params, lenet_loss, opt, batches(images, labels, 128, epochs=2),
+                    log_every=0, verbose=False)
+    seconds = time.perf_counter() - t0
+    live = {k: {n: t.detach().clone().requires_grad_() for n, t in v.items()}
+            for k, v in params.items()}
+    step = make_train_step(lenet_loss, opt([t for v in live.values() for t in v.values()]))
+    xb = torch.as_tensor(images[:128], device="cuda")
+    yb = torch.as_tensor(labels[:128], device="cuda")
+    return {"warm_steps": info["steps"], "warm_steps_per_s": info["steps"] / seconds,
+            "profiled_step": profile_step(lambda: step(live, 0, xb, yb))}
+
+
+def phase_paper(serve) -> dict:
+    import math
+
+    import torch
+
+    from repro_torch.benchmarks import fig8, table1
+    from repro_torch.core.transform import build_conv_pairings
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels.paired_conv import folded_conv_weight
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.models.lenet import LENET_CONV_POSITIONS, lenet_apply
+    from repro_torch.train.lenet_trainer import get_trained_lenet
+
+    pm.reset_launches()  # counts from here on are the paper path's
+    t0 = time.perf_counter()
+    trained = get_trained_lenet(cache=False)  # on the card, the default budget
+    wall = time.perf_counter() - t0
+    params, test_x, test_y, info = trained
+    losses = info["losses"]
+    train_launches = pm.launch_count()
+    check(info["train_steps"] == PAPER_TRAIN_STEPS == len(losses),
+          f"paper: {info['train_steps']} training steps, want {PAPER_TRAIN_STEPS}")
+    check(all(math.isfinite(x) for x in losses), "paper: a training loss is not finite")
+    check(info["test_acc"] >= PAPER_MIN_ACCURACY,
+          f"paper: trained LeNet scores {info['test_acc']} < {PAPER_MIN_ACCURACY}")
+    check(params["conv1"]["w"].is_cuda and train_launches == 0,
+          f"paper: training ran on {params['conv1']['w'].device} with {train_launches} K1 "
+          "launches (it runs F.conv2d on the card)")
+    training = {
+        "wall_seconds": wall, "train_seconds": info["train_seconds"],
+        "steps": info["train_steps"], "steps_per_s": info["train_steps"] / info["train_seconds"],
+        "first_loss": losses[0], "last_loss": losses[-1], "test_accuracy": info["test_acc"],
+        "test_images": len(test_y), "source": info["source"],
+        **_warm_training(params, test_x, test_y),
+    }
+    emit({"phase": "paper_training", **training})
+
+    # Table I and Fig. 8 assert their own gates (Table I's invariants, r = 0
+    # within 1e-5, the fused path's counts): a failed one raises and fails the run
+    t0 = time.perf_counter()
+    t1 = table1.run(trained=trained)
+    t_table1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f8 = fig8.run(trained=trained)
+    t_fig8 = time.perf_counter() - t0
+    launches = pm.launch_count()
+    by_form = dict(pm.LAUNCHES)
+    for tag, m in f8["measured_conv_path"].items():
+        check(m["k1_launches"] == 3, f"paper: measured path {tag} launched K1 "
+              f"{m['k1_launches']} times, want 3")
+    for tag, v in f8["fused_pool_path"]["variants"].items():
+        if tag != "torch":
+            check(v["k1_launches"] == 3, f"paper: {tag} launched K1 {v['k1_launches']} times")
+
+    # one request of 1000 trained-weight images: per_column r = 0.05, pool fused
+    mode, r = HEADLINE
+    pr = build_conv_pairings(params, r, mode=mode, positions=LENET_CONV_POSITIONS)
+    folded = {k: {"w": folded_conv_weight(v["w"], pr[k]) if k in pr else v["w"], "b": v["b"]}
+              for k, v in params.items()}
+    x = torch.as_tensor(test_x[:REQUEST_IMAGES], dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        logits = lenet_apply(params, x, conv_impl="paired", paired=pr, fuse_pool=True)
+        want = lenet_apply(folded, x)
+        req_err = rel_err(logits, want)
+        check(req_err <= FP32_RTOL, f"paper request: rel err {req_err:.3g} vs folded F.conv2d")
+        request_ms = {
+            "paired_per_column_fused": request_stats(lambda: lenet_apply(
+                params, x, conv_impl="paired", paired=pr, fuse_pool=True)),
+            "torch_conv2d": request_stats(lambda: lenet_apply(params, x)),
+        }
+    # K1's three launches of that forward, on the trained pairing
+    inputs = _layer_inputs(params, x)
+    layer_rows = []
+    for name in ("conv1", "conv2", "conv3"):
+        pool = "max2" if name != "conv3" else "none"
+        row = {"layer": name, "pool": pool, "n_pairs": pr[name].n_pairs,
+               **pr[name].measured_op_counts()}
+        row.update(_measure_layer(inputs[name], params[name]["w"], params[name]["b"],
+                                  folded[name]["w"], pr[name], pool))
+        check(row["rel_err"] <= FP32_RTOL, f"paper layer {name}: rel err {row['rel_err']:.3g}")
+        layer_rows.append(row)
+    random_ms = serve["ms_per_request"][f"paired_{mode}_fused"]
+    out = {
+        "phase": "paper", "training": training, "seconds": {"table1": t_table1, "fig8": t_fig8},
+        "main_path_launches": launches, "launches_by_form": by_form,
+        "table1": {"rows": t1["rows"], "spectrum_ordered": t1["spectrum_ordered"]},
+        "fig8": {k: f8[k] for k in ("rows", "headline", "paper_headline", "kernel_plans",
+                                     "pairing_block_sweep", "baseline_accuracy")},
+        "measured_conv_path": {tag: {k: m[k] for k in (
+            "rounding", "mode", "block_n", "total_paired_lanes", "total_subs_per_image",
+            "k1_launches", "rel_err_vs_conv2d")} for tag, m in f8["measured_conv_path"].items()},
+        "fused_pool_path": f8["fused_pool_path"],
+        "request": {"mode": mode, "rounding": r, "images": REQUEST_IMAGES,
+                    "rel_err_vs_folded_conv2d": req_err, "ms": request_ms,
+                    "random_weight_ms": random_ms},
+        "k1_headline_forward": {
+            "ms": sum(row["ms"] for row in layer_rows),
+            "plain_ms": sum(row["plain_ms"] for row in layer_rows),
+            "bound_ms": sum(row["bound_ms"] for row in layer_rows),
+            "library_ms": sum(row["library_ms"] for row in layer_rows),
+            "rows": layer_rows,
+        },
+    }
+    emit(out)
+    h, ph = f8["headline"], f8["paper_headline"]
+    print(f"paper: trained {training['steps']} steps in {training['train_seconds']:.2f} s "
+          f"({training['steps_per_s']:.1f} steps/s, warm {training['warm_steps_per_s']:.1f}), "
+          f"test accuracy {info['test_acc']:.4f}; "
+          f"r=0.05 power {h['power_saving_%']:.2f} % / area {h['area_saving_%']:.2f} % / "
+          f"accuracy loss {h['acc_loss_%']:.2f} % (paper {ph['power_saving_%']} / "
+          f"{ph['area_saving_%']} / {ph['acc_loss_%']}); request "
+          f"{request_ms['paired_per_column_fused']['median']:.3f} ms trained vs "
+          f"{random_ms['median']:.3f} ms random weights", file=sys.stderr)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the LM serving path
 # ---------------------------------------------------------------------------
 
 K1_KERNEL, K2_KERNEL = "paired_matmul_kernel", "decode_attention_kernel"
@@ -867,22 +1033,22 @@ def _reset_launches() -> None:
     fa.reset_launches()
 
 
-def profile_step(eng) -> dict:
-    """One decode step of ``eng`` under ``torch.profiler``: device ms and
-    launches of K1, K2 and every other kernel, and the step's wall ms.  A
-    step traced and dropped comes first: the trace's first kernels can go
-    missing while the tracer starts."""
+def profile_step(step) -> dict:
+    """One call of ``step`` (an engine's decode step, a training step) under
+    ``torch.profiler``: device ms and launches of K1, K2 and every other
+    kernel, and the step's wall ms.  A step traced and dropped comes first:
+    the trace's first kernels can go missing while the tracer starts."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        eng.step()
+        step()
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
-        eng.step()
+        step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         prof.step()
@@ -949,7 +1115,7 @@ def phase_lm_parity() -> dict:
     decode = {k: v - before[k] for k, v in kernel_launches().items()}
     launches = kernel_launches()
     per_layer = {k: v / (5 * cfg.n_layers) for k, v in decode.items()}
-    prof = profile_step(fused)
+    prof = profile_step(fused.step)
     prof_per_layer = {k: prof[k]["launches"] / cfg.n_layers for k in ("K1", "K2")}
     check(toks["fused"] == toks["plain"], f"lm_parity tokens differ: {toks}")
     check(max(errs) <= FP32_RTOL, f"lm_parity logits rel err {max(errs):.3g}")
@@ -1108,7 +1274,7 @@ def phase_lm_serve() -> dict:
           "lm_serve: tokens out of range")
     check(bool(np.isfinite(eng.last_logits).all())
           and eng.last_logits.shape == (batch, cfg.vocab), "lm_serve: bad logits")
-    prof = profile_step(eng)
+    prof = profile_step(eng.step)
     prof_per_layer = {k: prof[k]["launches"] / L for k in ("K1", "K2")}
     check(prof_per_layer == {"K1": 6, "K2": 1} or prof["device_ms"] == "not measured",
           f"lm_serve profiler launches per decode layer {prof_per_layer}")
@@ -1144,7 +1310,7 @@ def phase_lm_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the serving front end over the LM engines
+# phase 10: the serving front end over the LM engines
 # ---------------------------------------------------------------------------
 
 def _reset_slots(*engines) -> None:
@@ -1290,6 +1456,7 @@ def main() -> int:
     ctx = setup()
     layers = phase_layers(ctx)
     lenet = phase_serve(ctx)
+    paper = phase_paper(lenet)
     parity, parity_ctx = phase_lm_parity()
     lm, lm_engine = phase_lm_serve()
     fe = phase_frontend(parity_ctx, lm_engine)
@@ -1300,6 +1467,7 @@ def main() -> int:
                **{f"frontend_load_{row['offered_rps']:g}": row["launches"]
                   for row in fe["load_sweep"]["rows"]}}
     paths = {"lenet_serve": lenet["main_path_launches"],
+             "paper": paper["main_path_launches"],
              "lm_parity": parity["main_path_launches"]["paired_matmul"],
              "lm_serve": lm["main_path_launches"]["paired_matmul"],
              **{k: v["paired_matmul"] for k, v in fe_runs.items()}}
@@ -1321,7 +1489,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/paired_matmul.py:158",
         "launches": sum(paths.values()),
         "launches_by_path": paths,
-        "max_abs_err": max(kernel["fp32_max_abs_err"], layers["max_abs_err"]),
+        "max_abs_err": max(kernel["fp32_max_abs_err"], layers["max_abs_err"],
+                           *(row["max_abs_err"] for row in paper["k1_headline_forward"]["rows"])),
         # one fused LeNet forward of 1000 images, per_column pairing at
         # r=0.05: the sum over its three launches
         "ms": sum(row["ms"] for row in head),

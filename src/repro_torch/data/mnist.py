@@ -169,3 +169,16 @@ def load_mnist(
 def pad_to_32(images: np.ndarray) -> np.ndarray:
     """LeNet-5 takes 32x32 inputs (paper Fig. 2); MNIST is 28x28 → pad."""
     return np.pad(images, ((0, 0), (2, 2), (2, 2), (0, 0)))
+
+
+def batches(images, labels, batch_size: int, *, seed: int = 0, epochs: int = 1):
+    """Shuffled minibatches, host-side and seeded: one permutation of the
+    whole set per epoch, no ragged last batch.  The reference's batches, in
+    the reference's order, for the same arrays and seed."""
+    n = images.shape[0]
+    rng = np.random.default_rng(seed)
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            sel = order[i : i + batch_size]
+            yield images[sel], labels[sel]

@@ -139,6 +139,17 @@ def lenet_apply(
     return x @ params["fc2"]["w"] + params["fc2"]["b"]
 
 
+def lenet_loss(params: dict, images: torch.Tensor, labels: torch.Tensor):
+    """Mean negative log-softmax of the label over F.conv2d's forward, and
+    the batch accuracy as aux: ``(loss, acc)``, both 0-d tensors."""
+    logits = lenet_apply(params, images)
+    logp = F.log_softmax(logits, dim=-1)
+    labels = labels.long()
+    loss = -logp.gather(1, labels[:, None]).mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, acc
+
+
 @torch.no_grad()
 def lenet_accuracy(
     params: dict,

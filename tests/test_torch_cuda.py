@@ -10,7 +10,9 @@ the paired GEMM in fp32 to 1e-5 relative to the largest output, the decode
 attention in fp32 to 2e-5 (the JAX decode tests' tolerance), both in bf16
 to 2 output ulps of the fp32 oracle (the plain version without its final
 cast); the flash-attention forward in fp32 to 1e-5 and in bf16 to 1 output
-ulp (one rounding of its fp32 result).
+ulp (one rounding of its fp32 result).  The paper's path: 16
+training steps on the card against the CPU, Fig. 8's conv→pool counts and
+its r = 0 measured path through K1.
 """
 import dataclasses
 
@@ -18,9 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.benchmarks import fig8
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.pairing import pair_rows_blocked
 from repro_torch.core.transform import _stack_blocked, build_conv_pairings
+from repro_torch.data.mnist import batches, load_mnist, pad_to_32
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -28,8 +32,10 @@ from repro_torch.kernels import paired_matmul as pm
 from repro_torch.kernels.k1_cases import K1_SKINNY_CASES
 from repro_torch.kernels.ref import bf16_ulps, rel_err
 from repro_torch.models import lm as M
-from repro_torch.models.lenet import init_lenet, lenet_apply
+from repro_torch.models.lenet import init_lenet, lenet_apply, lenet_loss
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.train.loop import train
+from repro_torch.train.optimizer import adamw, cosine_schedule
 
 RTOL = 1e-5
 ATTN_RTOL = 2e-5
@@ -411,3 +417,53 @@ def test_flash_attention_tensor_core_form_copies_misaligned_views(cuda):
     got = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(got, fa.flash_attention_fwd(q.clone(), k, v))
+
+
+@pytest.fixture(scope="module")
+def mnist_small():
+    """1024 training and 64 test images of the synthetic MNIST, 32×32."""
+    x, y, _ = load_mnist("train", synthetic_n=1024, seed=0)
+    tx, ty, _ = load_mnist("test", synthetic_n=64, seed=0)
+    return pad_to_32(x), y, pad_to_32(tx), ty
+
+
+def test_training_on_the_card_matches_the_cpu(cuda, mnist_small):
+    """16 AdamW steps of the trainer's recipe from the same init on the card
+    and on the CPU: every loss within 1e-4 relative, params within 1e-4."""
+    x, y, _, _ = mnist_small
+
+    def run(device):
+        opt = adamw(cosine_schedule(1e-3, 16, warmup_steps=50))
+        return train(init_lenet(0, device=device), lenet_loss, opt,
+                     batches(x, y, 128, seed=0, epochs=2), log_every=0, verbose=False)
+
+    (p_gpu, i_gpu), (p_cpu, i_cpu) = run(cuda), run("cpu")
+    assert i_gpu["steps"] == i_cpu["steps"] == 16
+    np.testing.assert_allclose(i_gpu["losses"], i_cpu["losses"], rtol=1e-4)
+    for layer, sub in p_cpu.items():
+        for k, t in sub.items():
+            assert p_gpu[layer][k].is_cuda
+            np.testing.assert_allclose(p_gpu[layer][k].cpu().numpy(), t.numpy(), rtol=0,
+                                       atol=1e-4)
+
+
+def test_fused_pool_path_counts_on_the_card(cuda, mnist_small):
+    """Fig. 8's conv→pool audit through K1: 3 launches and no standalone
+    pool on both fused layouts, 2 pools unfused, r = 0 within 1e-5."""
+    out = fig8.fused_pool_path(init_lenet(0), mnist_small[2], batch=32)
+    v = out["variants"]
+    for tag in ("paired_fused", "paired_fused_blocked"):
+        assert (v[tag]["k1_launches"], v[tag]["k1_calls"], v[tag]["pool_ops"]) == (3, 3, 0)
+        assert v[tag]["rel_err_vs_torch"] <= RTOL and v[tag]["ms"] > 0
+    assert (v["paired_unfused"]["k1_launches"], v["paired_unfused"]["pool_ops"]) == (3, 2)
+    assert (v["torch"]["k1_launches"], v["torch"]["pool_ops"]) == (0, 2)
+
+
+@pytest.mark.parametrize("mode,block_n", [("structured", 0), ("column_blocked", 4),
+                                          ("column_blocked", 1)])
+def test_measured_conv_path_at_r0_through_k1(cuda, mnist_small, mode, block_n):
+    out = fig8.measured_conv_path(init_lenet(0), mnist_small[2], 0.0, batch=32, mode=mode,
+                                  block_n=block_n)
+    assert out["k1_launches"] == 3
+    assert out["rel_err_vs_conv2d"] <= RTOL
+    assert out["total_baseline_lanes"] == 405600

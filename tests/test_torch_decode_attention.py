@@ -5,7 +5,8 @@ The JAX side runs ``decode_attention_fwd`` / ``fused_decode_attention``
 cases of ``tests/test_flash_kernel.py`` and ``tests/test_decode_attention.py``;
 the port side runs its wrappers on CPU tensors, which take the plain
 versions (``decode_attention_plain``, ``fused_decode_attention_plain``).
-Same numpy inputs, fp32, within 2e-5 (the JAX decode tests' tolerance).
+Same numpy inputs, fp32, within 2e-5 (the JAX decode tests' tolerance);
+bf16, bare and fused, within one output ulp of the JAX kernel's output.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ from repro.kernels import ops as j_ops
 from repro.models import layers as JL
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import bf16_ulps
 from repro_torch.models import layers as TL
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -163,3 +165,47 @@ def test_wrappers_refuse_other_devices():
     q, kv = torch.zeros((1, 1, 2, 8), device="meta"), torch.zeros((1, 8, 2, 8), device="meta")
     with pytest.raises(RuntimeError, match="CUDA .* or CPU"):
         da.decode_attention_cuda(q, kv, kv, torch.zeros((1,), dtype=torch.int32, device="meta"))
+
+
+def _bf16(arrays):
+    """The same values as bf16 JAX arrays and bf16 CPU tensors."""
+    return ([jnp.asarray(a, jnp.bfloat16) for a in arrays],
+            [torch.as_tensor(a).to(torch.bfloat16) for a in arrays])
+
+
+BF16_ULPS = 1.0  # one rounding of the output apart, at most
+
+
+@pytest.mark.parametrize("S", [16, 33, 64])
+def test_bare_attention_bf16_matches_jax_kernel(S):
+    """bf16 cache and query, slots at 0 / mid / S−1: the plain version
+    against the JAX kernel, in output ulps."""
+    _, arrays = _inputs(S + 100, B=3, S=S, D=16, pos=[0, S // 2, S - 1])
+    (jq, jk, jv), (tq, tk, tv) = _bf16(arrays[:3])
+    pos = arrays[3]
+    want = j_da.decode_attention_fwd(jq, jk, jv, jnp.asarray(pos), k_chunk=16, interpret=True)
+    got = da.decode_attention_cuda(tq, tk, tv, torch.as_tensor(pos))
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulps(got, np.asarray(want, np.float32)) <= BF16_ULPS
+
+
+@pytest.mark.parametrize("S", [16, 33, 64])
+def test_fused_op_bf16_matches_jax(S):
+    """bf16 through ``ops.fused_attn_decode``, column-blocked bn = 4 at
+    r = 0.3 with a residual: the plain version against the JAX op (Pallas
+    kernel in interpret mode), in output ulps."""
+    rng, arrays = _inputs(S + 200, S=S)
+    w = (rng.normal(size=(32, 12)) * 0.3).astype(np.float32)
+    res = rng.normal(size=(2, 1, 12)).astype(np.float32)
+    meta = _meta(w, 0.3, 4)
+    (jq, jk, jv, jw, jr), (tq, tk, tv, tw, tr) = _bf16([*arrays[:3], w, res])
+    pos = arrays[3]
+    want = j_ops.fused_attn_decode(
+        jq, jk, jv, jnp.asarray(pos), jw, {k: jnp.asarray(v) for k, v in meta.items()},
+        residual=jr, k_chunk=8, pair_block_n=4)
+    tmeta = {k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
+             for k, v in meta.items()}
+    got = ops.fused_attn_decode(tq, tk, tv, torch.as_tensor(pos), tw, tmeta, residual=tr,
+                                pair_block_n=4)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 1, 12)
+    assert bf16_ulps(got, np.asarray(want, np.float32)) <= BF16_ULPS

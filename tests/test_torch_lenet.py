@@ -5,12 +5,14 @@
   reference's ``lenet_apply`` for every ``conv_impl`` × ``fuse_pool`` ×
   pairing mode, and the trained model scores the same accuracy.
 * The synthetic MNIST split and the IDX reader give the reference's data.
-* Guards: nothing under ``src/repro_torch/`` (nor ``chip_smoke.py``)
-  imports ``jax`` or ``repro``, and the entry points refuse to run without
+* Guards: nothing under ``src/repro_torch/`` (nor ``chip_smoke.py`` or
+  ``examples/*_torch.py``) imports ``jax``, ``repro`` or ``benchmarks``;
+  every module of the port imports; and the entry points refuse to run without
   CUDA unless the caller asks for the CPU.
 """
 import ast
 import gzip
+import importlib
 import struct
 from pathlib import Path
 
@@ -164,13 +166,34 @@ def _imported_modules(path: Path) -> set[str]:
     return names
 
 
+PORT = ROOT / "src" / "repro_torch"
+PORT_PACKAGES = ("benchmarks", "configs", "core", "data", "kernels", "launch", "models",
+                 "serving", "train")
+PORT_MODULES = sorted(
+    ".".join(f.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
+    for f in PORT.rglob("*.py")
+)
+
+
 def test_port_imports_neither_jax_nor_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    """Nothing of the port, its smoke script or its examples imports JAX,
+    the JAX package or the JAX package's top-level ``benchmarks``."""
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
+    assert {f.parent.name for f in files} >= set(PORT_PACKAGES)
+    assert {f"repro_torch.{p}" for p in PORT_PACKAGES} <= set(PORT_MODULES)
+    assert ROOT / "examples" / "lenet_mnist_torch.py" in files
     for f in files:
         for name in _imported_modules(f):
             top = name.split(".")[0]
-            assert top not in {"jax", "jaxlib", "repro"}, f"{f.relative_to(ROOT)} imports {name}"
+            assert top not in {"jax", "jaxlib", "repro", "benchmarks"}, (
+                f"{f.relative_to(ROOT)} imports {name}")
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_module_imports(module):
+    """Every module of the port imports on a machine without a card."""
+    importlib.import_module(module)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
