@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Four paths run through the port (``src/repro_torch``): the paper's workload,
+Five paths run through the port (``src/repro_torch``): the paper's workload,
 LeNet-5 with its three conv layers on the paired subtractor GEMM kernel (K1),
 served on seeded weights and then trained on the card and put through the
 paper's Table I and Fig. 8;
 the paired LM serving path of qwen2-1.5b, every decoder GEMM on K1 and
 decode attention with the paired out-projection on the decode-attention
 kernel (K2); the flash-attention forward (K3) through its entry point
-``flash_attention_fwd``; and the hardened serving front end over the LM
-engines (K1 + K2).  Phases, each printing one JSON line; any failure exits
+``flash_attention_fwd``; the hardened serving front end over the LM
+engines (K1 + K2); and the MoE serving path of olmoe-1b-7b, every expert
+projection of a layer one K1 launch over the expert grid (K1 + K2).  Phases, each printing one JSON line; any failure exits
 non-zero and prints no result:
 
 1. build      — compile the three CUDA sources from ``src/repro_torch/kernels/csrc``
@@ -25,7 +26,8 @@ non-zero and prints no result:
                 form (dense, structured, blocked at bn=1 and bn=4 with a
                 short last block, max2/avg2 pooling, fp32/bf16 residuals, all
                 activations, ragged edges, the empty contraction P + R = 0)
-                and at qwen2's decode and prefill rows (``kernels/k1_cases.py``):
+                at qwen2's decode and prefill rows and at olmoe's expert grid
+                (64 blocks of 1024 or 2048 columns; ``kernels/k1_cases.py``):
                 fp32 ≤ 1e-5 relative to the largest output, bf16 ≤ 2 output
                 ulps of the fp32 oracle, a second launch bit-identical; each
                 row prints its launch plan (``kernels/tuning.py``);
@@ -84,13 +86,15 @@ non-zero and prints no result:
                 fused decode attention, batch 2, prompts of 5 and 11 tokens,
                 6 tokens per slot: identical tokens, logits ≤ 1e-5; 5 kernel
                 launches per decode layer (one fused QKV K1, one K2, three
-                MLP K1), counted by the wrappers and by ``torch.profiler``;
+                MLP K1: ``repro_torch.analysis.decode_launches``), counted by
+                the wrappers and by ``torch.profiler``;
 9. lm_serve   — qwen2-1.5b at full width and depth (28 layers), bf16,
                 structured pairing at r=0.05, through the launcher's
                 ``serve``: batch 4, prompts of 8/12/16/20 tokens, max_seq
                 256, 32 tokens per slot; pairing seconds, prefill ms per
                 request, decode ms per step, tokens/s, 7 launches per decode
-                layer (3 QKV K1, one K2, 3 MLP K1), a ``torch.profiler`` split
+                layer (3 QKV K1, one K2, 3 MLP K1: ``analysis.decode_launches``),
+                a ``torch.profiler`` split
                 of one decode step, and K1 (all six decoder weights, with
                 their plans) and K2 timed at the serving shapes beside their
                 plain versions, library calls and bounds (K2 fused and bare:
@@ -111,10 +115,31 @@ non-zero and prints no result:
                 wall tokens/s (a smoke-sized functional run, a few dozen
                 requests: not a throughput measurement), and the
                 virtual-clock figures labelled so;
-11. the kernels table, the card's name and power limit, and the ``ok`` line.
+11. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
+                engine (``torch.einsum`` experts, plain attention) against
+                the paired one (structured, r=0; K1 + K2), batch 2, prompts
+                of 11 tokens (the dense expert branch) and 24 (routed), 6
+                tokens per slot: identical tokens, logits ≤ 1e-5, the routed
+                prefill counted, 7 launches per decode layer (3 QKV K1, one
+                K2, 3 expert K1), by the wrappers and by ``torch.profiler``;
+12. moe_serve — olmoe-1b-7b at full width and its published depth (16
+                layers), bf16, structured r=0.05, through ``launch.serve.serve``:
+                batch 4, prompts of 12/16 (dense branch) and 24/64 tokens
+                (routed: two prefills each dispatch in every layer), max_seq
+                256, 32 tokens per slot; pairing seconds and pair fraction,
+                prefill ms per request, decode ms per step (median, p90),
+                tokens/s, 7 launches per decode layer, a ``torch.profiler``
+                split of one decode step, and K1 at the three expert-grid
+                shapes of layer 0 (gate on shared decode rows, down on
+                per-expert decode rows, gate on a routed prompt's capacity
+                rows) against its plain version and timed beside it,
+                ``torch.einsum`` on the folded experts and the bound; K2 at
+                olmoe's G = 1 heads;
+13. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -1080,6 +1105,7 @@ def phase_lm_parity() -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.analysis import decode_launches
     from repro_torch.configs import get_config
     from repro_torch.kernels.ref import rel_err
     from repro_torch.launch.serve import kernel_launches
@@ -1119,9 +1145,10 @@ def phase_lm_parity() -> dict:
     prof_per_layer = {k: prof[k]["launches"] / cfg.n_layers for k in ("K1", "K2")}
     check(toks["fused"] == toks["plain"], f"lm_parity tokens differ: {toks}")
     check(max(errs) <= FP32_RTOL, f"lm_parity logits rel err {max(errs):.3g}")
-    check(per_layer == {"paired_matmul": 4, "decode_attention": 1, "flash_attention": 0},
-          f"lm_parity launches per decode layer {per_layer}")
-    check(prof_per_layer == {"K1": 4, "K2": 1} or prof["device_ms"] == "not measured",
+    want = decode_launches(cfg, "dense", fused.knobs)
+    check(per_layer == want, f"lm_parity launches per decode layer {per_layer}, want {want}")
+    check(prof_per_layer == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
           f"lm_parity profiler launches per decode layer {prof_per_layer}")
     out = {
         "phase": "lm_parity", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -1256,6 +1283,7 @@ def phase_lm_serve() -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.analysis import decode_launches
     from repro_torch.launch.serve import kernel_launches, serve
 
     steps, batch = 32, 4
@@ -1268,15 +1296,16 @@ def phase_lm_serve() -> dict:
     dec = rec["launches"]["decode"]
     per_layer = {k: v / ((steps - 1) * L) for k, v in dec.items()}
     toks = rec["outputs"]
-    check(per_layer == {"paired_matmul": 6, "decode_attention": 1, "flash_attention": 0},
-          f"lm_serve launches per decode layer {per_layer}")
+    want = decode_launches(cfg, "dense", eng.knobs)
+    check(per_layer == want, f"lm_serve launches per decode layer {per_layer}, want {want}")
     check(all(len(t) == steps and all(0 <= x < cfg.vocab for x in t) for t in toks.values()),
           "lm_serve: tokens out of range")
     check(bool(np.isfinite(eng.last_logits).all())
           and eng.last_logits.shape == (batch, cfg.vocab), "lm_serve: bad logits")
     prof = profile_step(eng.step)
     prof_per_layer = {k: prof[k]["launches"] / L for k in ("K1", "K2")}
-    check(prof_per_layer == {"K1": 6, "K2": 1} or prof["device_ms"] == "not measured",
+    check(prof_per_layer == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
           f"lm_serve profiler launches per decode layer {prof_per_layer}")
     layer0 = eng.model.layers[0]
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1434,6 +1463,231 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the MoE serving path (olmoe-1b-7b)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+
+
+def _moe_routes():
+    """Counts of the routed MoE dispatches (``_moe_route`` calls) in a block."""
+    from repro_torch.analysis import counting
+    from repro_torch.models.layers import _moe_route
+
+    return counting(moe_routes=(_moe_route,))
+
+
+def phase_moe_parity() -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import decode_launches
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.serve import kernel_launches
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=2, dtype="float32")
+    model = M.init_lm(cfg, 0)
+    base = dict(q_chunk=32, k_chunk=32)
+    t0 = time.perf_counter()
+    plain = ServeEngine(cfg, model, max_seq=64, batch_size=2, knobs=M.PerfKnobs(**base))
+    paired = ServeEngine(cfg, model, max_seq=64, batch_size=2, knobs=M.PerfKnobs(
+        **base, gemm="pallas_paired", attn="pallas_fused"))
+    pairing_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = {0: rng.integers(0, cfg.vocab, size=11), 1: rng.integers(0, cfg.vocab, size=24)}
+    errs = []
+    for prompt in prompts.values():
+        tokens = torch.as_tensor(prompt[None], device="cuda")
+        want = M.prefill(cfg, plain.model, tokens, knobs=plain.knobs)[0]
+        errs.append(rel_err(M.prefill(cfg, paired.model, tokens, knobs=paired.knobs)[0], want))
+
+    _reset_launches()  # the path's own counts from here
+    with _moe_routes() as routes:
+        toks = {name: {s: [eng.add_request(s, p)] for s, p in prompts.items()}
+                for name, eng in (("plain", plain), ("paired", paired))}
+    prefill_launches = kernel_launches()
+    before = kernel_launches()
+    for _ in range(5):
+        for name, eng in (("plain", plain), ("paired", paired)):
+            nxt = eng.step()
+            for s in prompts:
+                toks[name][s].append(int(nxt[s]))
+        errs.append(rel_err(paired.last_logits, plain.last_logits))
+    decode = {k: v - before[k] for k, v in kernel_launches().items()}
+    launches = kernel_launches()
+    per_layer = {k: v / (5 * cfg.n_layers) for k, v in decode.items()}
+    prof = profile_step(paired.step)
+    prof_per_layer = {k: prof[k]["launches"] / cfg.n_layers for k in ("K1", "K2")}
+    want = decode_launches(cfg, "moe", paired.knobs)
+    mo = cfg.moe
+    routed = [len(p) for p in prompts.values() if len(p) * mo.top_k > 2 * mo.n_experts]
+    check(toks["paired"] == toks["plain"], f"moe_parity tokens differ: {toks}")
+    check(max(errs) <= FP32_RTOL, f"moe_parity logits rel err {max(errs):.3g}")
+    # the 24-token prompt dispatches in every layer of both engines, the
+    # 11-token one takes the dense branch
+    check(routes["moe_routes"] == 2 * len(routed) * cfg.n_layers and routed == [24],
+          f"moe_parity routed prefills {routes['moe_routes']} for prompts {routed}")
+    # a prefill layer: 3 QKV, the out-projection and 3 expert launches of K1
+    check(prefill_launches["paired_matmul"] == 7 * cfg.n_layers * len(prompts),
+          f"moe_parity prefill launches {prefill_launches}")
+    check(per_layer == want, f"moe_parity launches per decode layer {per_layer}, want {want}")
+    check(prof_per_layer == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
+          f"moe_parity profiler launches per decode layer {prof_per_layer}")
+    out = {
+        "phase": "moe_parity", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "pairing": "structured, r=0", "pairing_s": pairing_s,
+        "prompts": [len(p) for p in prompts.values()], "routed_prompts": routed,
+        "routed_prefills": routes["moe_routes"],
+        "tokens": toks["paired"], "tokens_identical": toks["paired"] == toks["plain"],
+        "max_logit_rel_err": max(errs), "main_path_launches": launches,
+        "prefill_launches": prefill_launches, "decode_launches_per_layer": per_layer,
+        "profiled_step": prof, "profiled_launches_per_layer": prof_per_layer,
+    }
+    emit(out)
+    return out
+
+
+def _k1_expert_at(block, name, x, act: str = "none") -> dict:
+    """K1 over the expert grid on one expert weight of the serving engine
+    (its real per-expert segments, one block an expert), for activations
+    ``x``: shared (M, K) or per-expert (E, M, K).  The kernel against its
+    plain version (bf16 ulps, a relaunch bit-identical), device ms beside
+    the plain version, ``torch.einsum`` on the folded experts and the bound
+    (the live weight rows, the gathered x and the output, once each)."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels.ref import bf16_ulps
+
+    dt = x.dtype
+    w = getattr(block, name).to(dt)
+    meta = block.pairing[name]
+    seg = ops.lm_expert_segments(w, meta)
+    E, K, n_ff = w.shape
+    per_expert = x.ndim == 3
+    M = x.shape[-2]
+    xg = ops.expert_rows(x, seg, per_expert).contiguous()
+    kmat, w_res = seg.kmat.contiguous(), seg.w_res.contiguous()
+    kw = dict(n_cols=seg.n_cols, activation=act)
+    launch = lambda: pm.paired_matmul_blocked_cuda(xg, kmat, w_res, **kw)
+    got = launch()
+    check(torch.equal(launch(), got), f"moe_serve K1 {name}: two launches differ")
+    check(torch.equal(got.reshape(M, E, n_ff),
+                      ops.expert_dense(x, seg, activation=act, x_per_expert=per_expert)),
+          f"moe_serve K1 {name}: expert_dense differs from its own launch")
+    want = pm.paired_matmul_blocked_plain(xg, kmat, w_res, out_dtype=torch.float32, **kw)
+    folded = ops.fold_lm_expert_weight(w, meta)
+    eq = "etd,edf->tef" if per_expert else "td,edf->tef"
+    fn = {"none": lambda t: t, "silu": F.silu}[act]
+    p_live, r_live = int(meta["pair_mask"].sum()), int(meta["resid_mask"].sum())
+    item = x.element_size()
+    nbytes = (M * (2 * p_live + r_live) + (p_live + r_live) * n_ff + M * E * n_ff) * item
+    flops = M * (2 * n_ff * (p_live + r_live) + p_live)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    ms = graph_ms(launch)
+    library_ms = graph_ms(lambda: fn(torch.einsum(eq, x, folded)))
+    return {
+        "weight": name, "x": "per_expert" if per_expert else "shared", "M": M, "E": E,
+        "K": K, "bn": n_ff, "n_cols": seg.n_cols, "Pmax": kmat.shape[1],
+        "Rmax": w_res.shape[1], "pairs_live": p_live, "resid_live": r_live,
+        "plan": dataclasses.asdict(pm.launch_plan(xg, kmat, w_res)),
+        "ulps": bf16_ulps(got, want), "ms": ms,
+        "plain_ms": graph_ms(lambda: pm.paired_matmul_blocked_plain(xg, kmat, w_res, **kw)),
+        "library_ms": library_ms,
+        "library_call": f"activation(torch.einsum('{eq}', x, folded experts))",
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops, "kernel_over_bound": ms / max(t_bytes, t_ops),
+        # the weight stream unpaired: every expert's K × F matrix
+        "unpaired_weight_bytes": E * K * n_ff * item,
+    }
+
+
+def phase_moe_serve() -> dict:
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import decode_launches
+    from repro_torch.launch.serve import kernel_launches, serve
+
+    steps, batch, lens = 32, 4, [12, 16, 24, 64]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the path's own counts from here
+    with _moe_routes() as routes:
+        rec = serve(arch=MOE_ARCH, batch=batch, max_seq=256, steps=steps, pair_rounding=0.05,
+                    gemm="pallas_paired", attn="pallas_fused", prompt_lens=lens)
+    launches = kernel_launches()
+    eng = rec["engine"]
+    cfg, L = eng.cfg, eng.cfg.n_layers
+    mo = cfg.moe
+    routed = [n for n in lens if n * mo.top_k > 2 * mo.n_experts]
+    dec = rec["launches"]["decode"]
+    per_layer = {k: v / ((steps - 1) * L) for k, v in dec.items()}
+    want = decode_launches(cfg, "moe", eng.knobs)
+    toks = rec["outputs"]
+    check(routes["moe_routes"] == len(routed) * L and len(routed) == 2,
+          f"moe_serve routed prefills {routes['moe_routes']} for prompts {lens}")
+    check(per_layer == want, f"moe_serve launches per decode layer {per_layer}, want {want}")
+    check(all(len(t) == steps and all(0 <= x < cfg.vocab for x in t) for t in toks.values()),
+          "moe_serve: tokens out of range")
+    check(bool(np.isfinite(eng.last_logits).all())
+          and eng.last_logits.shape == (batch, cfg.vocab), "moe_serve: bad logits")
+    prof = profile_step(eng.step)
+    prof_per_layer = {k: prof[k]["launches"] / L for k in ("K1", "K2")}
+    check(prof_per_layer == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
+          f"moe_serve profiler launches per decode layer {prof_per_layer}")
+
+    moe0 = eng.model.layers[0].moe
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    d, E, F = cfg.d_model, mo.n_experts, mo.d_ff_expert
+    cap = max(1, math.ceil(max(lens) * mo.top_k / E * mo.capacity_factor))
+    k1 = [_k1_expert_at(moe0, "w_gate", x(batch, d), "silu"),
+          _k1_expert_at(moe0, "w_down", x(E, batch, F)),
+          _k1_expert_at(moe0, "w_gate", x(E, cap, d), "silu")]
+    k2 = _k2_at(eng)
+    for row in k1:
+        check(row["ulps"] <= BF16_MAX_ULPS, f"moe_serve K1 {row['weight']} {row['ulps']:.3g} ulps")
+    check(k2["ulps"] <= BF16_MAX_ULPS, f"moe_serve K2 {k2['ulps']:.3g} ulps")
+    step_ms = sorted(rec["step_ms"])
+    rp = eng.pair_report
+    experts = [leaf for leaf in rp.leaves if ".moe." in leaf.path]
+    out = {
+        "phase": "moe_serve", "arch": cfg.name, "layers": L, "dtype": cfg.dtype,
+        "batch": batch, "max_seq": 256, "tokens_per_slot": steps, "prompts": lens,
+        "routed_prompts": routed, "routed_prefills": routes["moe_routes"],
+        "capacity_of_longest": cap,
+        "pairing": {"mode": rp.mode, "rounding": rp.rounding, "total_pairs": rp.total_pairs,
+                    "pair_fraction": rp.pair_fraction, "seconds": rec["pairing_s"],
+                    "expert_pair_fraction": 2 * sum(leaf.n_pairs for leaf in experts)
+                    / sum(leaf.n_weights for leaf in experts)},
+        "prefill_ms": rec["prefill_ms"],
+        "decode_ms": {"median": step_ms[len(step_ms) // 2],
+                      "p90": step_ms[int(0.9 * (len(step_ms) - 1))], "n": len(step_ms)},
+        "tokens_per_s": rec["tokens_per_s"], "seconds": rec["seconds"],
+        "main_path_launches": launches, "prefill_launches": rec["launches"]["prefill"],
+        "decode_launches_per_layer": per_layer, "profiled_step": prof,
+        "profiled_launches_per_layer": prof_per_layer, "k1_expert_grid": k1, "k2": k2,
+        "device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens": {s: t[:8] for s, t in toks.items()},
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1460,6 +1714,11 @@ def main() -> int:
     parity, parity_ctx = phase_lm_parity()
     lm, lm_engine = phase_lm_serve()
     fe = phase_frontend(parity_ctx, lm_engine)
+    del parity_ctx, lm_engine  # qwen2's weights and segments leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_parity = phase_moe_parity()
+    moe = phase_moe_serve()
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
@@ -1470,15 +1729,21 @@ def main() -> int:
              "paper": paper["main_path_launches"],
              "lm_parity": parity["main_path_launches"]["paired_matmul"],
              "lm_serve": lm["main_path_launches"]["paired_matmul"],
-             **{k: v["paired_matmul"] for k, v in fe_runs.items()}}
+             **{k: v["paired_matmul"] for k, v in fe_runs.items()},
+             "moe_parity": moe_parity["main_path_launches"]["paired_matmul"],
+             "moe_serve": moe["main_path_launches"]["paired_matmul"]}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
-                **{k: v["decode_attention"] for k, v in fe_runs.items()}}
+                **{k: v["decode_attention"] for k, v in fe_runs.items()},
+                "moe_parity": moe_parity["main_path_launches"]["decode_attention"],
+                "moe_serve": moe["main_path_launches"]["decode_attention"]}
     # K3 runs through its own entry point; the serving paths never call it
     k3_paths = {"flash_attention": flash["main_path_launches"],
                 "lm_parity": parity["main_path_launches"]["flash_attention"],
                 "lm_serve": lm["main_path_launches"]["flash_attention"],
-                **{k: v["flash_attention"] for k, v in fe_runs.items()}}
+                **{k: v["flash_attention"] for k, v in fe_runs.items()},
+                "moe_parity": moe_parity["main_path_launches"]["flash_attention"],
+                "moe_serve": moe["main_path_launches"]["flash_attention"]}
     k2 = lm["k2"]
     k3 = next(row for row in flash["timed"]
               if (row["case"], row["dtype"]) == ("qwen_causal_2048", "bfloat16"))
@@ -1500,6 +1765,12 @@ def main() -> int:
         "bound_by": "bytes" if sum(r["bytes"] / HBM_BYTES_PER_S for r in head)
         >= sum(r["flops"] / FP32_FLOP_PER_S for r in head) else "operations",
         "library_ms": sum(row["library_ms"] for row in head),
+        # olmoe-1b-7b layer 0 on the expert grid (bf16, structured r=0.05):
+        # gate on 4 shared decode rows, down on 4 rows an expert, gate on a
+        # routed prompt's capacity rows
+        "expert_grid": [{k: row[k] for k in ("weight", "x", "M", "n_cols", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms")}
+                        for row in moe["k1_expert_grid"]],
     }, {
         "name": "decode_attention",
         "route": "cuda",
@@ -1518,6 +1789,9 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
         "library_calls": k2["library_calls"],
+        # olmoe-1b-7b layer 0 (H = KH = 16, G = 1, D 128, batch 4)
+        "olmoe_g1": {k: moe["k2"][k] for k in ("ms", "bare_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")},
     }, {
         "name": "flash_attention",
         "route": "cuda",

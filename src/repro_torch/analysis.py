@@ -12,6 +12,10 @@ counts while the function runs:
   (the counterpart of the jaxpr's kernel writebacks);
 * ``pool_ops`` — standalone 2×2 pools (``pool2_reference``) outside K1.
 
+:func:`decode_launches` says what one decode layer should launch, by layer
+kind and schedule, for the launch counters of the serving paths to be held
+to.
+
 Calls are counted with ``sys.monitoring`` (Python 3.12+) on those
 functions' code objects alone, so nothing on the path changes and nothing
 is counted outside the ``with`` block.
@@ -32,15 +36,18 @@ _COUNTED = {
 
 
 @contextlib.contextmanager
-def counting():
+def counting(**extra):
     """Count K1 launches, K1 calls and standalone pools inside the block;
-    yields a ``Counter`` that is complete once the block exits."""
+    yields a ``Counter`` that is complete once the block exits.  ``extra``
+    names more functions to count calls of, by key (for instance
+    ``moe_routes=(models.layers._moe_route,)``: the routed MoE dispatches)."""
     mon = sys.monitoring
     tool = next((i for i in range(6) if mon.get_tool(i) is None), None)
     if tool is None:
         raise RuntimeError("no free sys.monitoring tool id")
-    codes = {fn.__code__: key for key, fns in _COUNTED.items() for fn in fns}
-    counts = collections.Counter({key: 0 for key in (*_COUNTED, "k1_launches")})
+    counted = {**_COUNTED, **extra}
+    codes = {fn.__code__: key for key, fns in counted.items() for fn in fns}
+    counts = collections.Counter({key: 0 for key in (*counted, "k1_launches")})
 
     def on_start(code, offset):
         counts[codes[code]] += 1
@@ -59,3 +66,26 @@ def counting():
         mon.register_callback(tool, mon.events.PY_START, None)
         mon.free_tool_id(tool)
 
+
+
+def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
+    """Kernel launches of one decode layer of ``kind`` (``"dense"`` or
+    ``"moe"``) under ``knobs`` (``models.lm.PerfKnobs``), every decoder
+    weight paired, keyed as ``launch.serve.kernel_launches``.
+
+    Under ``gemm="pallas_paired"`` K1 runs the QKV projections (one launch
+    when decode attention is fused and column blocks of ``pair_block_n``
+    tile q, k and v; three otherwise), the out-projection unless K2 fuses
+    it, and the feed-forward block's three projections: a gated MLP's, or
+    all experts' gate, up and down, one launch each over the expert grid,
+    whatever the expert count.  ``attn="pallas_fused"`` is one K2 launch.
+    K3 runs on no decode path.
+    """
+    if kind not in ("dense", "moe"):
+        raise ValueError(f"no decode layer of kind {kind!r} is ported")
+    paired, fused = knobs.gemm == "pallas_paired", knobs.attn == "pallas_fused"
+    bn, hd = knobs.pair_block_n, cfg.head_dim
+    one_qkv = fused and bn >= 1 and not (cfg.n_heads * hd) % bn and not (
+        cfg.n_kv_heads * hd) % bn
+    k1 = (1 if one_qkv else 3) + (0 if fused else 1) + 3 if paired else 0
+    return {"paired_matmul": k1, "decode_attention": int(fused), "flash_attention": 0}

@@ -1,11 +1,13 @@
-"""ModelConfig of the port: the dense / GQA subset of ``repro.configs.base``.
+"""ModelConfig of the port: the dense / GQA and MoE subset of
+``repro.configs.base``.
 
 The decoder stack is described by *segments*, maximal runs of identical
 layers, as in the JAX package; the port keeps one module per layer, and the
 segments only decide how pairing metadata is padded (segment-wide
-``(Pmax, Rmax)``, ``core.transform.pair_params``).  MoE, MLA, SSM, hybrid,
-encoder-decoder and vision fields are not ported yet, nor layernorm or an
-untied head: a config asking for them raises.
+``(Pmax, Rmax)``, ``core.transform.pair_params``).  MoE runs routed experts
+only: shared experts, dense leading layers, MLA, SSM, hybrid,
+encoder-decoder and vision fields are not ported yet, nor layernorm: a
+config asking for them raises.
 """
 from __future__ import annotations
 
@@ -14,9 +16,24 @@ from typing import Literal
 
 
 @dataclasses.dataclass(frozen=True)
+class MoeConfig:
+    """Top-k routed experts with per-sequence capacity (the JAX package's
+    fields and defaults)."""
+
+    n_experts: int = 64
+    top_k: int = 6
+    d_ff_expert: int = 1408
+    n_shared: int = 2
+    first_k_dense: int = 0  # leading layers with a dense FFN instead of MoE
+    d_ff_dense: int = 0  # d_ff of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense"]
+    family: Literal["dense", "moe"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +48,8 @@ class ModelConfig:
     sliding_window: int = 0  # 0 → full attention
     rope_theta: float = 10000.0
 
+    moe: MoeConfig | None = None
+
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     act: Literal["silu", "gelu"] = "silu"
     tie_embeddings: bool = True
@@ -42,10 +61,17 @@ class ModelConfig:
     paired_leaves: tuple[tuple[str, str], ...] = ()
 
     def __post_init__(self):
-        ported = {"family": "dense", "norm": "rmsnorm", "tie_embeddings": True}
-        for name, value in ported.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(f"{name}={getattr(self, name)!r} is not ported yet")
+        if self.norm != "rmsnorm":
+            raise NotImplementedError(f"norm={self.norm!r} is not ported yet")
+        if self.family not in ("dense", "moe"):
+            raise NotImplementedError(f"family={self.family!r} is not ported yet")
+        if (self.family == "moe") != (self.moe is not None):
+            raise ValueError(f"family={self.family!r} with moe={self.moe!r}")
+        if self.moe is not None:
+            for name in ("n_shared", "first_k_dense"):
+                if getattr(self.moe, name):
+                    raise NotImplementedError(
+                        f"moe.{name}={getattr(self.moe, name)} is not ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -54,8 +80,9 @@ class ModelConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     def layer_kind(self, i: int) -> str:
-        """Kind string for decoder layer i (every ported layer is dense)."""
-        return "dense"
+        """Kind string for decoder layer i: ``"moe"`` in an MoE model (no
+        dense leading layers are ported), else ``"dense"``."""
+        return "moe" if self.moe is not None else "dense"
 
     def segments(self) -> tuple[tuple[str, int], ...]:
         """Maximal runs of identical layer kinds."""
@@ -68,23 +95,32 @@ class ModelConfig:
                 segs.append((kind, 1))
         return tuple(segs)
 
-    def param_count(self) -> int:
+    def param_count(self, active_only: bool = False) -> int:
         """Parameter count, embeddings included once (norms and biases not
-        counted, as in the JAX package)."""
+        counted, as in the JAX package); ``active_only`` counts the top-k
+        experts a token runs instead of all of them."""
         d, ff, V, hd = self.d_model, self.d_ff, self.vocab, self.head_dim
-        n = V * d  # tied: one embedding serves as the head
+        n = V * d if self.tie_embeddings else 2 * V * d  # embedding, and the head
         att = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
-        return n + self.n_layers * (att + 3 * d * ff)
+        if self.moe is None:
+            return n + self.n_layers * (att + 3 * d * ff)
+        mo = self.moe
+        per_expert = 3 * d * mo.d_ff_expert
+        experts = mo.top_k if active_only else mo.n_experts
+        return n + self.n_layers * (att + experts * per_expert + d * mo.n_experts)
 
 
 def default_paired_leaves(
-    *, attn: bool = True, mlp: bool = True
+    *, attn: bool = True, mlp: bool = True, moe: bool = False
 ) -> tuple[tuple[str, str], ...]:
-    """The pairing-eligible leaf specs of a dense layer, by block type:
-    ``(sub-path, weight-name)`` into a decoder layer."""
+    """The pairing-eligible leaf specs of a decoder layer, by block type:
+    ``(sub-path, weight-name)`` into a decoder layer (the router is not
+    eligible)."""
     leaves: list[tuple[str, str]] = []
     if attn:
         leaves += [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo")]
     if mlp:
         leaves += [("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down")]
+    if moe:
+        leaves += [("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down")]
     return tuple(leaves)

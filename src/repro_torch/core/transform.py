@@ -6,9 +6,9 @@ The conv and LM halves of ``repro.core.transform``.
   tree and returns one :class:`PairedLayer` per layer, which
   ``kernels.paired_conv.paired_conv`` consumes at inference.
 * :func:`pair_params` / :func:`pair_lm_params` pair the decoder weights of an
-  LM (``models.lm.LM``) and return a model that shares its weights and
-  carries each weight's metadata (``block.pairing[name]``), with a
-  :class:`PairedModelReport`.
+  LM (``models.lm.LM``), each expert's matrix of an MoE layer on its own,
+  and return a model that shares its weights and carries each weight's
+  metadata (``block.pairing[name]``), with a :class:`PairedModelReport`.
 
 Pairing runs on float64 numpy copies of the weights, as the reference does,
 so the metadata matches it index for index (float32 would change the ties
@@ -192,6 +192,13 @@ LM_PAIRED_WEIGHTS: tuple[tuple[str, str], ...] = (
     ("mlp", "w_up"),
     ("mlp", "w_down"),
 )
+# What pair_params looks for when no leaves are named: the dense layers'
+# weights, then the routed experts' (the router is never paired).
+DEFAULT_PAIRED_LEAVES: tuple[tuple[str, str], ...] = LM_PAIRED_WEIGHTS + (
+    ("moe", "w_gate"),
+    ("moe", "w_up"),
+    ("moe", "w_down"),
+)
 
 
 def _lm_weight_matrix_shape(name: str, shape: tuple[int, ...]) -> tuple[int, int]:
@@ -263,11 +270,15 @@ def pair_params(
 ):
     """Pairing metadata for the decoder weights of an LM (``models.lm.LM``).
 
-    Each eligible weight of each layer is paired on a float64 copy, one layer
-    at a time; within a segment of identical layers the lane lists pad to the
-    segment-wide (Pmax, Rmax), as the JAX package's stacked metadata does.
+    Each eligible weight of each layer is paired on a float64 copy, one
+    matrix at a time; an MoE layer's ``(E, K, F)`` expert weights pair each
+    expert's matrix separately.  Within a segment of identical layers the
+    lane lists of all its matrices (``count × E`` of them for experts) pad to
+    one (Pmax, Rmax), as the JAX package's stacked metadata does, and each
+    layer gets its slice: ``(Pmax,)``/``(B, Pmax)`` for a plain weight,
+    ``(E, Pmax)``/``(E, Bc, Pmax)`` for expert weights.
     Leaf selection is by ``(sub-block, weight-name)`` specs; with
-    ``leaves=None`` the :data:`LM_PAIRED_WEIGHTS` the layers carry are
+    ``leaves=None`` the :data:`DEFAULT_PAIRED_LEAVES` the layers carry are
     paired, while an explicit list requires every spec to match.  ``mode``
     is ``"structured"``, ``"column_blocked"`` (one pairing per ``block_n``
     columns) or ``"per_column"`` (``block_n=1``, the paper's Algorithm 1).
@@ -284,7 +295,7 @@ def pair_params(
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "column_blocked" and block_n < 1:
         raise ValueError("mode='column_blocked' needs block_n >= 1")
-    specs = tuple(leaves) if leaves is not None else LM_PAIRED_WEIGHTS
+    specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
     matched: set[tuple[str, str]] = set()
     report: list[LeafReport] = []
     layer_pairing: list[dict[str, dict]] = [{} for _ in model.layers]
@@ -305,15 +316,18 @@ def pair_params(
             shape = tuple(getattr(blocks[0], w_name).shape)
             if len(shape) < 2:
                 continue  # matrices only
-            K, N = _lm_weight_matrix_shape(w_name, shape)
+            # expert weights carry a leading expert axis: one matrix per expert
+            expert = sub_path == "moe" and len(shape) == 3
+            K, N = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
             if K < min_dim or N < min_dim:
                 continue
-            pairings = [
-                _indices_only(pair_matrix(_as_numpy(getattr(b, w_name)).reshape(K, N)))
-                for b in blocks
-            ]
+            mats = [m for b in blocks
+                    for m in (getattr(b, w_name) if expert else [getattr(b, w_name)])]
+            pairings = [_indices_only(pair_matrix(_as_numpy(m).reshape(K, N))) for m in mats]
             blocked = mode == "column_blocked"
             meta = (_stack_blocked if blocked else _stack_structured)(pairings)
+            if expert:
+                meta = {k: v.reshape(count, shape[0], *v.shape[1:]) for k, v in meta.items()}
             device = getattr(blocks[0], w_name).device
             for l in range(count):
                 layer_meta = {k: torch.as_tensor(v[l], device=device) for k, v in meta.items()}
@@ -322,7 +336,7 @@ def pair_params(
                 layer_pairing[start + l].setdefault(sub_path, dict(blocks[l].pairing))[
                     w_name] = layer_meta
             n_pairs = sum(p.weighted_pairs for p in pairings)
-            n_weights = count * K * N
+            n_weights = len(mats) * K * N
             report.append(LeafReport(
                 path=f"segments[{si}].{sub_path}.{w_name}", shape=(count, *shape),
                 n_weights=n_weights, n_pairs=int(n_pairs),
@@ -351,7 +365,7 @@ def pair_lm_params(
     criterion: str = "rms",
     min_dim: int = 8,
 ):
-    """:func:`pair_params` over whatever of :data:`LM_PAIRED_WEIGHTS` the
+    """:func:`pair_params` over whatever of :data:`DEFAULT_PAIRED_LEAVES` the
     model carries."""
     return pair_params(model, rounding, mode=mode, block_n=block_n,
                        criterion=criterion, min_dim=min_dim)

@@ -16,6 +16,7 @@ from __future__ import annotations
 # 20-token prefill: two passes of 16 rows over the cluster's ring and gather.
 # Past 64 rows: w_down's rows are too long for the tall form's stages, so the
 # skinny form runs 7 passes (the last one short); wq takes the tall form.
+# Then olmoe-1b-7b's expert grid (below).
 K1_SKINNY_CASES = [
     ("skinny_M1_K1536_N256", False, 1, 690, 156, 256, "none", "none", False),
     ("skinny_M4_K1536_N1536_res", False, 4, 690, 156, 1536, "none", "none", True),
@@ -37,6 +38,19 @@ K1_SKINNY_CASES = [
     ("prefill_M20_w_down_res", False, 20, 4478, 316, 1536, "none", "none", True),
     ("passes_M100_w_down_res", False, 100, 4478, 316, 1536, "none", "none", True),
     ("tall_M100_wq", False, 100, 767, 62, 1536, "none", "none", False),
+] + [
+    # olmoe-1b-7b's experts on the expert grid: one block per expert, 64
+    # blocks of 1024 columns (gate/up, K = 2048) or 2048 (down, K = 1024).
+    # Decode rows (M = 4, every expert on every token) at the pairs r=0.05
+    # leaves on seeded weights, and r=0 (no pairs) at the parity engine's 2
+    # rows; routed prefill rows, one expert's capacity a row block: C = 4
+    # for a 24-token prompt, C = 10 for a 64-token one.
+    ("expert_gate_M4", True, 4, 1018, 12, (64, 1024, 65536), "none", "silu", False),
+    ("expert_down_M4", True, 4, 500, 24, (64, 2048, 131072), "none", "none", False),
+    ("expert_gate_r0_M2", True, 2, 0, 2048, (64, 1024, 65536), "none", "silu", False),
+    ("expert_down_r0_M2", True, 2, 0, 1024, (64, 2048, 131072), "none", "none", False),
+    ("expert_gate_C10", True, 10, 1018, 12, (64, 1024, 65536), "none", "silu", False),
+    ("expert_down_C10", True, 10, 500, 24, (64, 2048, 131072), "none", "none", False),
 ]
 
 

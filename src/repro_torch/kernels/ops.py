@@ -7,7 +7,9 @@ apply a :class:`~repro_torch.core.pairing.StructuredPairing` or
 gather, which in production folds into the previous layer).  The LM ops run
 a decoder weight through the paired kernel from its live values and frozen
 pairing metadata (``core.transform.pair_lm_params``), and decode attention
-through the kernel that applies the paired out-projection in its flush.
+through the kernel that applies the paired out-projection in its flush; an
+MoE layer's experts run one projection each as one launch of the
+column-blocked kernel over the expert grid.
 The kernels' tiles are fixed (see ``csrc/``); the JAX package's tile cache
 has no counterpart yet.  Each call runs where its tensors lie: the CUDA
 kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
@@ -147,12 +149,15 @@ class PairedSegments(NamedTuple):
     """What the paired kernel contracts for one weight: the activation lane
     order ``perm`` (``(K',)``, or ``(B, K')`` per column block) and the live
     segments ``kmat``/``w_res`` (``(P, N)``/``(R, N)``, or
-    ``(B, Pmax, bn)``/``(B, Rmax, bn)``)."""
+    ``(B, Pmax, bn)``/``(B, Rmax, bn)``).  On the expert grid
+    (:func:`lm_expert_segments`) the blocks are the ``n_experts`` experts'
+    (or their column blocks', expert-major) and ``n_cols`` is ``E·F``."""
 
     perm: torch.Tensor
     kmat: torch.Tensor
     w_res: torch.Tensor
     n_cols: int
+    n_experts: int = 0
 
 
 class AttnOutSegments(NamedTuple):
@@ -286,6 +291,102 @@ def fused_paired_dense(
     """
     return paired_dense(x, lm_paired_segments(w, meta, pair_block_n), bias,
                         activation=activation, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# the paired GEMM over a leading expert axis (MoE)
+# ---------------------------------------------------------------------------
+#
+# Per-expert pairing runs on the column-blocked kernel with the experts on
+# its block grid: structured-per-expert metadata (E, Pmax) makes each expert
+# one block of bn = F output columns; blocked-within-expert metadata
+# (E, Bc, Pmax) makes E·Bc blocks of pair_block_n columns.  Either way the
+# result is (M, E, F): the einsum "tk,ekf->tef" (shared activations) or
+# "etk,ekf->tef" (per-expert activations, each block's rows gathered from
+# its own expert's).
+
+
+def _expert_blocked_weights(w: torch.Tensor, n_blocks: int, bn: int) -> torch.Tensor:
+    """(E, K, F) live expert weights → block-major (E·n_blocks, K, bn),
+    zero-padding the short last block of each expert."""
+    E, K, n_ff = w.shape
+    pad = n_blocks * bn - n_ff
+    w_p = F.pad(w, (0, pad)) if pad else w
+    return w_p.reshape(E, K, n_blocks, bn).permute(0, 2, 1, 3).reshape(E * n_blocks, K, bn)
+
+
+def _expert_segments(w: torch.Tensor, meta: dict, pair_block_n: int):
+    """(kmat, w_res, the metadata flattened to the grid's blocks, Bc, bn)."""
+    E, _, n_ff = w.shape
+    if meta["I"].ndim == 3:  # blocked within each expert: (E, Bc, Pmax)
+        Bc, bn = meta["I"].shape[1], pair_block_n
+        if bn < 1 or Bc != -(-n_ff // bn):
+            raise ValueError(f"{Bc} blocks do not cover {n_ff} columns at pair_block_n={bn}")
+        m = {k: v.reshape(E * Bc, *v.shape[2:]) for k, v in meta.items()}
+        kmat, w_res = _take_block_segments(_expert_blocked_weights(w, Bc, bn), m)
+        return kmat, w_res, m, Bc, bn
+    kmat, w_res = _take_block_segments(w, meta)  # an expert is one block of F columns
+    return kmat, w_res, meta, 1, n_ff
+
+
+def fold_lm_expert_weight(w: torch.Tensor, meta: dict, pair_block_n: int = 0) -> torch.Tensor:
+    """Dense (E, K, F) equivalent of the per-expert paired weights: the
+    expert-axis :func:`fold_lm_weight` (the test oracle, and the weights of
+    the einsum the card times the expert GEMM against)."""
+    E, K, n_ff = w.shape
+    kmat, w_res, m, Bc, bn = _expert_segments(w, meta, pair_block_n)
+    bar = torch.arange(E * Bc, device=w.device)[:, None]
+    wf_t = torch.zeros((E * Bc, K, bn), dtype=w.dtype, device=w.device)
+    wf_t.index_put_((bar, m["I"]), kmat, accumulate=True)
+    wf_t.index_put_((bar, m["J"]), -kmat, accumulate=True)
+    wf_t.index_put_((bar, m["resid"]), w_res, accumulate=True)
+    return wf_t.reshape(E, Bc, K, bn).permute(0, 2, 1, 3).reshape(E, K, Bc * bn)[:, :, :n_ff]
+
+
+def lm_expert_segments(w: torch.Tensor, meta: dict, pair_block_n: int = 0) -> PairedSegments:
+    """The blocked kernel's operands for (E, K, F) live expert weights under
+    per-expert ``meta`` (``core.transform.pair_params``): ``(E, Pmax)`` lane
+    lists give E blocks of bn = F columns, ``(E, Bc, Pmax)`` lists E·Bc
+    blocks of ``pair_block_n`` columns."""
+    E, _, n_ff = w.shape
+    kmat, w_res, m, _, _ = _expert_segments(w, meta, pair_block_n)
+    perm = torch.cat([m["I"], m["J"], m["resid"]], dim=-1)  # (E·Bc, K')
+    return PairedSegments(perm, kmat, w_res, E * n_ff, E)
+
+
+def expert_rows(x: torch.Tensor, seg: PairedSegments, x_per_expert: bool) -> torch.Tensor:
+    """The blocked kernel's activations on the expert grid, (E·Bc, M, K'):
+    each block's ``[I | J | resid]`` lanes of shared (M, K) rows, or of its
+    own expert's rows of (E, M, K) with ``x_per_expert``."""
+    EB, Kp = seg.perm.shape
+    M = x.shape[-2]
+    if not x_per_expert:
+        return x[:, seg.perm].movedim(1, 0)
+    E = seg.n_experts
+    e = torch.arange(E, device=x.device)[:, None, None]
+    xg = x.transpose(1, 2)[e, seg.perm.reshape(E, EB // E, Kp)]  # (E, Bc, K', M)
+    return xg.transpose(2, 3).reshape(EB, M, Kp)
+
+
+def expert_dense(
+    x: torch.Tensor,
+    seg: PairedSegments,
+    *,
+    activation: str = "none",
+    x_per_expert: bool = False,
+) -> torch.Tensor:
+    """Every expert's GEMM as one launch of the blocked kernel → (M, E, F).
+
+    ``x`` is shared (M, K) activations (``"tk,ekf->tef"``), or per-expert
+    (E, M, K) ones with ``x_per_expert`` (``"etk,ekf->tef"``: expert ``e``'s
+    rows meet expert ``e``'s weights only), gathered by :func:`expert_rows`;
+    ``activation`` fuses into the kernel's epilogue.
+    """
+    E, M = seg.n_experts, x.shape[-2]
+    EB, bn = seg.perm.shape[0], seg.kmat.shape[-1]
+    y = paired_matmul_blocked(expert_rows(x, seg, x_per_expert), seg.kmat.to(x.dtype),
+                              seg.w_res.to(x.dtype), n_cols=EB * bn, activation=activation)
+    return y.reshape(M, E, EB // E * bn)[..., : seg.n_cols // E]
 
 
 # ---------------------------------------------------------------------------

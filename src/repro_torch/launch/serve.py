@@ -9,6 +9,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
         --gemm pallas_paired --attn pallas_fused --device cpu
 
+    # olmoe-1b-7b (64 experts top-8): every expert projection one K1 launch
+    # over the expert grid; prompts of 12 and 16 tokens take the dense
+    # expert branch, 24 and 64 the routed one
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 \
+        --batch 4 --max-seq 256 --prompt-lens 12,16,24,64
+
     # hardened front end: Poisson load + chaos over the paired engine, with
     # graceful degradation to the unpaired fallback engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
@@ -18,8 +25,8 @@
 The port of ``repro.launch.serve`` without its offline weight folding and
 conv lowering.  Weights are random from seed 0 (``models.lm.init_lm``).
 Without ``--frontend`` slot ``i`` is prefilled with a random prompt of
-``8 + 4·i`` tokens and every slot decodes ``--steps`` tokens (the first from
-its prefill); with it, ``serving.frontend`` serves a seeded Poisson workload
+``--prompt-lens``' ``i``-th length (default ``8 + 4·i`` tokens) and every
+slot decodes ``--steps`` tokens (the first from its prefill); with it, ``serving.frontend`` serves a seeded Poisson workload
 (``--seed``) and the run exits non-zero if any request is lost.
 """
 from __future__ import annotations
@@ -94,6 +101,7 @@ def serve(
     gemm: str = "xla",
     attn: str = "xla",
     device: str | None = None,
+    prompt_lens: list[int] | None = None,
 ) -> dict:
     """Build the engine, serve one prompt per slot, print what the JAX
     package's driver prints, and return the run's record: the engine, the
@@ -105,9 +113,12 @@ def serve(
         arch=arch, smoke=smoke, batch=batch, max_seq=max_seq, pair_rounding=pair_rounding,
         pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device)
 
+    lens = prompt_lens or [8 + 4 * i for i in range(batch)]
+    if len(lens) != batch:
+        raise ValueError(f"{len(lens)} prompt lengths for a batch of {batch}")
     rng = np.random.default_rng(0)
-    prompts = {i: rng.integers(0, cfg.vocab, size=(8 + 4 * i,)).astype(np.int32)
-               for i in range(batch)}
+    prompts = {i: rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
+               for i, n in enumerate(lens)}
     outs: dict[int, list[int]] = {}
     prefill_ms, step_ms = [], []
     t_all = time.perf_counter()
@@ -204,6 +215,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--prompt-lens", type=lambda v: [int(n) for n in v.split(",")],
+                    default=None, help="prompt length of each slot, comma-separated "
+                                       "(default 8 + 4·slot)")
     ap.add_argument("--pair-rounding", type=float, default=0.0,
                     help="rounding size of the pallas_paired LM pairing; 0.0 is "
                          "the exact-parity point")
@@ -245,6 +259,8 @@ def main(argv: list[str] | None = None) -> None:
     fe_args = {k: args.pop(k) for k in ("arrival_rate", "horizon", "seed", "prefill_chunk",
                                          "deadline", "inject")}
     if args.pop("frontend"):
+        if args.pop("prompt_lens"):
+            ap.error("--prompt-lens sets the prompts of a run without --frontend")
         run_frontend(**args, **fe_args)
     else:
         serve(**args)

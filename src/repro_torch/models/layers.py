@@ -1,7 +1,7 @@
-"""Layers of the dense GQA decoder, in PyTorch.
+"""Layers of the GQA decoder with a gated MLP or routed experts, in PyTorch.
 
-The port of the dense subset of ``repro.models.layers``.  Conventions, as in
-the JAX package:
+The port of the dense and MoE subset of ``repro.models.layers``.
+Conventions, as in the JAX package:
 
 * activations ``(batch, seq, d_model)`` in the compute dtype (the config's);
 * softmax and normalisation statistics in fp32;
@@ -11,7 +11,10 @@ the JAX package:
   softmax, plain PyTorch: the JAX package's is XLA code, not a kernel), a
   single decode row through :func:`decode_attention` or, with
   ``knobs.attn == "pallas_fused"``, the decode-attention kernel that applies
-  the paired out-projection in its flush (``kernels.ops.attn_decode``).
+  the paired out-projection in its flush (``kernels.ops.attn_decode``);
+* MoE layers route each token to its top-k experts; every expert's GEMM of
+  one projection runs as one paired launch over the expert grid
+  (``kernels.ops.expert_dense``).
 
 Weights live in :class:`Block` modules (fp32 masters, as the JAX package
 keeps them) with each weight's pairing metadata beside it; every GEMM goes
@@ -114,19 +117,33 @@ class MLP(Block):
     REQUIRED = ("w_gate", "w_up", "w_down")
 
 
-class DecoderLayer(nn.Module):
-    """Pre-norm decoder layer: ``h + attn(ln1(h))``, then ``h + mlp(ln2(h))``."""
+class MoE(Block):
+    """Routed experts: ``router`` (d, E), ``w_gate``/``w_up`` (E, d, F),
+    ``w_down`` (E, F, d); pairing metadata per expert (``(E, Pmax)``, or
+    ``(E, Bc, Pmax)`` column-blocked within each expert)."""
 
-    def __init__(self, ln1: Norm, attn: Attention, ln2: Norm, mlp: MLP):
+    REQUIRED = ("router", "w_gate", "w_up", "w_down")
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm decoder layer: ``h + attn(ln1(h))``, then ``h + ffn(ln2(h))``
+    where the feed-forward block ``ffn`` is a gated ``mlp`` or a ``moe``."""
+
+    def __init__(self, ln1: Norm, attn: Attention, ln2: Norm, mlp: MLP | None = None, *,
+                 moe: MoE | None = None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        if (mlp is None) == (moe is None):
+            raise ValueError("a decoder layer takes exactly one of mlp and moe")
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        self.ffn = "mlp" if moe is None else "moe"
+        setattr(self, self.ffn, mlp if moe is None else moe)
 
     def copy(self, *, frozen: bool, pairing: dict | None = None) -> DecoderLayer:
         """A layer sharing these weights; ``pairing`` maps a sub-block name
-        (``"attn"``, ``"mlp"``) to that block's new pairing dict."""
+        (``"attn"``, ``"mlp"``, ``"moe"``) to that block's new pairing dict."""
         pairing = pairing or {}
-        return DecoderLayer(*(getattr(self, n).copy(frozen=frozen, pairing=pairing.get(n))
-                              for n in ("ln1", "attn", "ln2", "mlp")))
+        return DecoderLayer(**{n: getattr(self, n).copy(frozen=frozen, pairing=pairing.get(n))
+                               for n in ("ln1", "attn", "ln2", self.ffn)})
 
 
 # ---------------------------------------------------------------------------
@@ -462,3 +479,161 @@ def mlp_block(cfg: ModelConfig, p: MLP, x: torch.Tensor, knobs,
     g = _leaf_dense(p, "w_gate", x, knobs, act=cfg.act)
     u = _leaf_dense(p, "w_up", x, knobs)
     return _leaf_dense(p, "w_down", g * u, knobs, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing with per-sequence capacity, sort-based dispatch)
+# ---------------------------------------------------------------------------
+
+
+def _top_k(gates: torch.Tensor, k: int):
+    """The ``k`` largest gates of each row and their experts, ties to the
+    lower expert index (``jax.lax.top_k``'s order): a stable descending sort."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_route(cfg: ModelConfig, x: torch.Tensor, topi: torch.Tensor, topw: torch.Tensor):
+    """Per-sequence dispatch buffers and their inverse maps.
+
+    Each sequence's (token, choice) pairs are sorted by expert (stably, so a
+    token keeps its place in its expert's queue) and the first ``C`` of each
+    expert kept.  Returns ``xb`` (B, E, C, d), the token ``inv_tok`` (B, E·C)
+    of each buffer slot (``S`` for an empty one) with its gate ``inv_w``
+    (B, E·C, fp32; 0 for an empty one), the per-sequence ``counts`` (B, E)
+    of choices of each expert, and ``C``.  Choices past capacity write the
+    overflow slot ``E·C``, which is cut off.
+    """
+    mo = cfg.moe
+    B, S, d = x.shape
+    E, K = mo.n_experts, mo.top_k
+    C = max(1, int(math.ceil(S * K / E * mo.capacity_factor)))
+    SK, dev = S * K, x.device
+    bidx = torch.arange(B, device=dev)[:, None]
+    flat_e = topi.reshape(B, SK)
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, sort_idx)
+    counts = torch.zeros((B, E), dtype=torch.int64, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    starts = counts.cumsum(-1) - counts
+    pos_in_e = torch.arange(SK, device=dev)[None] - torch.gather(starts, 1, sorted_e)
+    keep = pos_in_e < C
+    tok_of = sort_idx // K
+    buf_slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)
+
+    xb = x.new_zeros((B, E * C + 1, d))
+    xb[bidx, buf_slot] = x[bidx, tok_of]
+    xb = xb[:, : E * C].reshape(B, E, C, d)
+    w_sorted = torch.gather(topw.reshape(B, SK).float(), 1, sort_idx)
+    inv_tok = torch.full((B, E * C + 1), S, dtype=torch.int64, device=dev)
+    inv_tok[bidx, buf_slot] = tok_of
+    inv_w = torch.zeros((B, E * C + 1), dtype=torch.float32, device=dev)
+    inv_w[bidx, buf_slot] = w_sorted * keep
+    return xb, inv_tok[:, : E * C], inv_w[:, : E * C], counts, C
+
+
+def _moe_combine(B: int, S: int, d: int, yb: torch.Tensor, inv_tok: torch.Tensor,
+                 inv_w: torch.Tensor, cdt: torch.dtype, top_k: int) -> torch.Tensor:
+    """(B, S, d): each token's sum of its slots' gated outputs ``yb``
+    (B, E, C, d), added in the compute dtype in slot order.
+
+    The JAX package scatter-adds the slots in order; here each token gathers
+    its (at most ``top_k``) slots, in ascending order, and adds them one by
+    one: the same sums, with no atomics, so a rerun gives the same bits.
+    """
+    dev = yb.device
+    EC = inv_tok.shape[1]
+    bidx = torch.arange(B, device=dev)[:, None]
+    order = torch.argsort(inv_tok, dim=-1, stable=True)  # slots by token, ascending
+    tok = torch.gather(inv_tok, 1, order)
+    n_of = torch.zeros((B, S + 1), dtype=torch.int64, device=dev).scatter_add_(
+        1, tok, torch.ones_like(tok))
+    rank = torch.arange(EC, device=dev)[None] - torch.gather(n_of.cumsum(-1) - n_of, 1, tok)
+    # (B, S + 1, EC) would do; a token has at most top_k slots, the dummy
+    # token S many more, and its row is cut off
+    table = torch.full((B, S + 1, top_k), EC, dtype=torch.int64, device=dev)
+    real = tok < S
+    table[bidx.expand_as(tok)[real], tok[real], rank[real]] = order[real]
+    contrib = yb.reshape(B, EC, d) * inv_w[..., None].to(cdt)
+    contrib = torch.cat([contrib, contrib.new_zeros((B, 1, d))], dim=1)  # slot EC: zeros
+    y = torch.zeros((B, S, d), dtype=cdt, device=dev)
+    for k in range(top_k):
+        y = y + contrib[bidx, table[:, :S, k]]
+    return y
+
+
+def _expert_dense(p: MoE, name: str, x: torch.Tensor, knobs, *, act=None,
+                  per_expert: bool = False) -> torch.Tensor:
+    """Every expert's GEMM against weight ``name`` of ``p`` as one paired
+    launch over the expert grid → (M, E, F); the segments kept on a frozen
+    block."""
+    cdt = x.dtype
+    seg = p.derived(("paired", name, cdt), lambda: ops.lm_expert_segments(
+        getattr(p, name).to(cdt), p.pairing[name], knobs.pair_block_n))
+    return ops.expert_dense(x, seg, activation=act or "none", x_per_expert=per_expert)
+
+
+def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Routed experts over ``x`` (B, S, d). Returns ``(y, aux)``: the
+    experts' gated sum (B, S, d) in x's dtype, without the skip connection,
+    and the Switch load-balance loss (fp32 scalar; 0 on the dense branch).
+
+    The router runs in fp32: softmax gates, top-k, renormalised.  Two
+    branches, as in the JAX package (whose shard_map branch waits for tensor
+    parallelism):
+
+    * **dense** (``T·K ≤ 2E``, decode and short prompts): every expert runs
+      on every token, no capacity and no drops;
+    * **routed**: per-sequence capacity ``C``, sort-based dispatch into
+      (B, E, C, d) buffers, each expert's rows through its own weights,
+      then the gated combine.  Choices past capacity are dropped.
+
+    Under ``knobs.gemm == "pallas_paired"`` with expert pairing metadata,
+    each projection of all experts is one paired launch
+    (:func:`_expert_dense`); otherwise ``torch.einsum`` as the JAX package's
+    ``jnp.einsum``.
+    """
+    mo = cfg.moe
+    B, S, d = x.shape
+    T, E, K = B * S, mo.n_experts, mo.top_k
+    cdt = x.dtype
+    paired = knobs.gemm == "pallas_paired" and "w_gate" in p.pairing
+
+    def weight(name):
+        return p.derived(("matrix", name, cdt), lambda: getattr(p, name).to(cdt))
+
+    def experts(xe, per_expert):
+        """gate, up and down of every expert; xe (M, d) or (E, M, d) → (M, E, d)."""
+        if paired:
+            g = _expert_dense(p, "w_gate", xe, knobs, act=cfg.act, per_expert=per_expert)
+            u = _expert_dense(p, "w_up", xe, knobs, per_expert=per_expert)
+            return _expert_dense(p, "w_down", (g * u).movedim(1, 0), knobs, per_expert=True)
+        eq = "etd,edf->tef" if per_expert else "td,edf->tef"
+        g = activation(cfg.act, torch.einsum(eq, xe, weight("w_gate")))
+        u = torch.einsum(eq, xe, weight("w_up"))
+        return torch.einsum("tef,efd->ted", g * u, weight("w_down"))
+
+    x2 = x.reshape(T, d)
+    logits = x2.float() @ p.router.float()
+    gates = torch.softmax(logits, dim=-1)  # (T, E)
+    topw, topi = _top_k(gates, K)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    if T * K <= 2 * E:
+        y_all = experts(x2, per_expert=False)  # (T, E, d)
+        w_full = torch.zeros((T, E), dtype=cdt, device=x.device).scatter_(1, topi, topw.to(cdt))
+        y2 = torch.einsum("ted,te->td", y_all, w_full)
+        return y2.reshape(B, S, d), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    xb, inv_tok, inv_w, counts, C = _moe_route(cfg, x, topi, topw)
+    # experts as the grid's blocks: the (B, C) token rows of each expert's
+    # buffer are that expert's rows of the GEMM
+    yb = experts(xb.permute(1, 0, 2, 3).reshape(E, B * C, d), per_expert=True)
+    yb = yb.reshape(B, C, E, d).permute(0, 2, 1, 3)
+    y2 = _moe_combine(B, S, d, yb, inv_tok, inv_w, cdt, K)
+
+    me = gates.mean(0)  # mean router probability of each expert
+    ce = counts.sum(0).float() / max(T * K, 1)  # share of the choices it got
+    aux = (me * ce).sum() * (E * mo.router_aux_weight)
+    return y2, aux

@@ -1,6 +1,7 @@
-"""The dense decoder-only LM: init, forward, prefill and decode, in PyTorch.
+"""The decoder-only LM, dense or MoE: init, forward, prefill and decode, in
+PyTorch.
 
-The port of the dense subset of ``repro.models.lm``:
+The port of the dense and MoE subset of ``repro.models.lm``:
 
 * :func:`lm_forward` — the forward over a prompt (logits, and optionally
   the K/V it produced);
@@ -9,9 +10,10 @@ The port of the dense subset of ``repro.models.lm``:
   ``(layers, batch, seq, kv_heads, head_dim)``;
 * :func:`decode_step` — one new token per slot against the cache.
 
-The model is an :class:`LM` module: the embedding (tied as the head), the
-final norm and one :class:`~repro_torch.models.layers.DecoderLayer` per
-layer.  The JAX package stacks a segment's layers for ``lax.scan``; the port
+The model is an :class:`LM` module: the embedding (tied as the head, or an
+``lm_head`` of its own), the final norm and one
+:class:`~repro_torch.models.layers.DecoderLayer` per layer, with a gated MLP
+or routed experts.  The JAX package stacks a segment's layers for ``lax.scan``; the port
 keeps them apart and remembers the segments (``LM.segments``), which only
 decide how pairing metadata is padded.  :func:`lm_params_from_numpy` builds
 the model from the JAX package's value tree, so both packages can compute
@@ -35,10 +37,12 @@ from repro_torch.models.layers import (
     Attention,
     Block,
     DecoderLayer,
+    MoE,
     Norm,
     attention_block,
     attention_decode_block,
     mlp_block,
+    moe_block,
 )
 
 GEMMS = ("xla", "pallas_paired")
@@ -86,8 +90,9 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 class LM(Block):
-    """Embedding ``embed`` (Vp, d), tied as the head, the final norm, the
-    decoder layers, and the config's segments."""
+    """Embedding ``embed`` (Vp, d), tied as the head unless an ``lm_head``
+    (d, Vp) is given, the final norm, the decoder layers, and the config's
+    segments."""
 
     REQUIRED = ("embed",)
 
@@ -104,7 +109,7 @@ class LM(Block):
     def copy(self, *, frozen: bool, layer_pairing: list[dict] | None = None) -> LM:
         """A model sharing these weights (nothing is copied), with empty
         caches; ``layer_pairing[l]`` replaces layer ``l``'s pairing dicts
-        (``{"attn": {...}, "mlp": {...}}``)."""
+        (``{"attn": {...}, "mlp" or "moe": {...}}``)."""
         per_layer = layer_pairing or [None] * len(self.layers)
         new = LM(final_norm=self.final_norm.copy(frozen=frozen),
                  layers=[layer.copy(frozen=frozen, pairing=lp)
@@ -131,8 +136,9 @@ def _trunc_normal(shape, fan_in: int, gen: torch.Generator, device) -> torch.Ten
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     """Seeded random fp32 weights of the JAX package's shapes and scales
-    (qkv biases zero, norm scales one), made on ``device`` (the GPU unless
-    ``"cpu"`` is asked for)."""
+    (qkv biases zero, norm scales one; an expert weight's fan-in is its
+    second axis), made on ``device`` (the GPU unless ``"cpu"`` is asked
+    for)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, H, KH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -140,20 +146,28 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     ones = lambda *shape: torch.ones(shape, device=dev)
     zeros = lambda *shape: torch.zeros(shape, device=dev)
 
-    def layer() -> DecoderLayer:
+    def ffn(kind: str) -> dict:
+        if kind == "moe":
+            E, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+            return {"moe": MoE(router=tn((d, E), d), w_gate=tn((E, d, fe), d),
+                               w_up=tn((E, d, fe), d), w_down=tn((E, fe, d), fe))}
+        return {"mlp": MLP(w_gate=tn((d, f), d), w_up=tn((d, f), d), w_down=tn((f, d), f))}
+
+    def layer(kind: str) -> DecoderLayer:
         attn = {"wq": tn((d, H, hd), d), "wk": tn((d, KH, hd), d),
                 "wv": tn((d, KH, hd), d), "wo": tn((H, hd, d), H * hd)}
         if cfg.qkv_bias:
             attn.update(bq=zeros(H, hd), bk=zeros(KH, hd), bv=zeros(KH, hd))
         if cfg.qk_norm:
             attn.update(q_norm=ones(hd), k_norm=ones(hd))
-        return DecoderLayer(
-            Norm(scale=ones(d)), Attention(**attn), Norm(scale=ones(d)),
-            MLP(w_gate=tn((d, f), d), w_up=tn((d, f), d), w_down=tn((f, d), f)),
-        )
+        return DecoderLayer(Norm(scale=ones(d)), Attention(**attn), Norm(scale=ones(d)),
+                            **ffn(kind))
 
-    return LM(embed=tn((padded_vocab(cfg), d), d), final_norm=Norm(scale=ones(d)),
-              layers=[layer() for _ in range(cfg.n_layers)], segments=cfg.segments())
+    embed = tn((padded_vocab(cfg), d), d)
+    layers = [layer(cfg.layer_kind(i)) for i in range(cfg.n_layers)]
+    head = None if cfg.tie_embeddings else tn((d, padded_vocab(cfg)), d)
+    return LM(embed=embed, lm_head=head, final_norm=Norm(scale=ones(d)), layers=layers,
+              segments=cfg.segments())
 
 
 def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
@@ -162,7 +176,8 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
 
     Each segment's stacked ``(L, …)`` leaves split into per-layer weights;
     ``"<name>_pairing"`` siblings (``core.transform.pair_lm_params``) carry
-    over as each layer's pairing metadata (lane lists as int64).
+    over as each layer's pairing metadata (lane lists as int64), an MoE
+    layer's ``(E, …)`` per-expert metadata included.
     """
     dev = resolve_device(device)
 
@@ -179,9 +194,12 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
     layers = []
     for (_, count), seg in zip(cfg.segments(), values["segments"], strict=True):
         for l in range(count):
+            ffn = ({"moe": block(MoE, seg["moe"], l)} if "moe" in seg
+                   else {"mlp": block(MLP, seg["mlp"], l)})
             layers.append(DecoderLayer(block(Norm, seg["ln1"], l), block(Attention, seg["attn"], l),
-                                       block(Norm, seg["ln2"], l), block(MLP, seg["mlp"], l)))
-    return LM(embed=tensor(values["embed"]),
+                                       block(Norm, seg["ln2"], l), **ffn))
+    head = values.get("lm_head")
+    return LM(embed=tensor(values["embed"]), lm_head=None if head is None else tensor(head),
               final_norm=Norm(scale=tensor(values["final_norm"]["scale"])), layers=layers,
               segments=cfg.segments())
 
@@ -192,17 +210,20 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
 
 
 def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt) -> torch.Tensor:
-    """Rows of the (tied) embedding in the compute dtype, scaled by
-    sqrt(d_model) in that dtype."""
+    """Rows of the embedding in the compute dtype, scaled by sqrt(d_model)
+    in that dtype when it is tied as the head."""
     h = model.embed[tokens].to(cdt)
+    if not cfg.tie_embeddings:
+        return h
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt, device=h.device)
 
 
 def lm_logits(cfg: ModelConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
-    """Final norm, then the tied head in the compute dtype; fp32 logits with
-    the padded vocab set to −1e9."""
+    """Final norm, then the head (the tied embedding, or ``lm_head``) in the
+    compute dtype; fp32 logits with the padded vocab set to −1e9."""
     h = model.final_norm(h)
-    w = model.derived(("head", h.dtype), lambda: model.embed.to(h.dtype).t())
+    w = model.derived(("head", h.dtype), lambda: model.embed.to(h.dtype).t()
+                      if cfg.tie_embeddings else model.lm_head.to(h.dtype))
     logits = torch.matmul(h, w).float()
     logits[..., cfg.vocab:] = -1e9
     return logits
@@ -214,7 +235,20 @@ def lm_logits(cfg: ModelConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> int:
-    return cfg.sliding_window if kind == "dense" else 0
+    return cfg.sliding_window if kind in ("dense", "moe") else 0
+
+
+def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs) -> torch.Tensor:
+    """``h`` plus the feed-forward sublayer of ``ln2(h)``: the skip
+    connection rides the MLP's down-projection (the paired kernel's
+    epilogue under gemm="pallas_paired"); the experts' gated sum is added
+    after their combine, as in the JAX package (the load-balance loss is
+    dropped: nothing here trains)."""
+    x = p.ln2(h)
+    if p.ffn == "moe":
+        y, _ = moe_block(cfg, p.moe, x, knobs)
+        return h + y
+    return mlp_block(cfg, p.mlp, x, knobs, residual=h)
 
 
 def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
@@ -226,8 +260,7 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
     # the paired kernel's epilogue under gemm="pallas_paired")
     h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
                               window=_window_for(cfg, kind), residual=h)
-    h = mlp_block(cfg, p.mlp, p.ln2(h), knobs, residual=h)
-    return h, {"k": k, "v": v}
+    return _ffn(cfg, p, h, knobs), {"k": k, "v": v}
 
 
 def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
@@ -276,8 +309,7 @@ def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
     x = p.ln1(h)
     h, c = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
                                   window=_window_for(cfg, kind), residual=h)
-    h = mlp_block(cfg, p.mlp, p.ln2(h), knobs, residual=h)
-    return h, c
+    return _ffn(cfg, p, h, knobs), c
 
 
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,

@@ -12,7 +12,8 @@ to 2 output ulps of the fp32 oracle (the plain version without its final
 cast); the flash-attention forward in fp32 to 1e-5 and in bf16 to 1 output
 ulp (one rounding of its fp32 result).  The paper's path: 16
 training steps on the card against the CPU, Fig. 8's conv→pool counts and
-its r = 0 measured path through K1.
+its r = 0 measured path through K1.  The MoE path: every expert's GEMM in
+one K1 launch over the expert grid, and the olmoe smoke engine at r = 0.
 """
 import dataclasses
 
@@ -248,6 +249,69 @@ def test_engine_paired_fused_matches_plain_engine(cuda, block_n):
     per_layer = 5 * cfg.n_layers
     assert da.launch_count() == per_layer
     assert pm.launch_count() == (4 if block_n else 6) * per_layer
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("block_n", [0, 3])
+def test_expert_dense_on_the_card(cuda, monkeypatch, dtype, per_expert, block_n):
+    """Every expert's GEMM as one K1 launch over the expert grid equals the
+    plain version of the same call on the CPU copies of its operands, without
+    the final cast (fp32 1e-5, bf16 2 ulps of that fp32 oracle)."""
+    import functools
+
+    from repro_torch.core.pairing import pair_rows_structured
+    from repro_torch.core.transform import _stack_structured
+
+    g = torch.Generator().manual_seed(7)
+    E, K, F, Mr = 8, 40, 12, 5
+    w = torch.randn(E, K, F, generator=g) * 0.3
+    # r = 0.3: structured pairing finds pairs on rows this short
+    if block_n:
+        meta = _stack_blocked([pair_rows_blocked(w[e].double().numpy(), 0.3, block_n)
+                               for e in range(E)])
+    else:
+        meta = _stack_structured([pair_rows_structured(w[e].double().numpy(), 0.3)
+                                  for e in range(E)])
+    assert meta["pair_mask"].sum() > 0
+    meta = {k: torch.as_tensor(v, device=cuda) for k, v in meta.items()}
+    meta.update({k: meta[k].long() for k in ("I", "J", "resid")})
+    x = torch.randn(*((E, Mr, K) if per_expert else (Mr, K)), generator=g).to(cuda, dtype)
+    seg = ops.lm_expert_segments(w.to(cuda, dtype), meta, block_n)
+    got = ops.expert_dense(x, seg, activation="silu", x_per_expert=per_expert)
+    assert pm.LAUNCHES == {"paired_matmul_blocked": 1}  # pairs in the blocks: not P == 0
+    assert got.shape == (Mr, E, F) and got.dtype == dtype
+    monkeypatch.setattr(pm, "paired_matmul_blocked_plain", functools.partial(
+        pm.paired_matmul_blocked_plain, out_dtype=torch.float32))
+    seg_cpu = ops.PairedSegments(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in seg))
+    want = ops.expert_dense(x.cpu(), seg_cpu, activation="silu", x_per_expert=per_expert)
+    _check(got.cpu(), want, dtype)
+
+
+@pytest.mark.parametrize("prompt", [5, 11])
+def test_moe_engine_paired_fused_matches_plain_engine(cuda, prompt):
+    """olmoe smoke at r=0, fp32: the paired expert GEMMs and the fused
+    decode attention give the plain engine's tokens, logits within 1e-5; a
+    decode layer launches 6 K1 (3 QKV, 3 expert projections) and 1 K2."""
+    from repro_torch.analysis import decode_launches
+
+    cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"), dtype="float32")
+    model = M.init_lm(cfg, 0, device=cuda)
+    base = dict(q_chunk=16, k_chunk=16)
+    knobs = M.PerfKnobs(**base, gemm="pallas_paired", attn="pallas_fused")
+    plain = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=M.PerfKnobs(**base))
+    fused = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=knobs)
+    prompts = {s: np.random.default_rng(s).integers(0, cfg.vocab, size=prompt) for s in (0, 1)}
+    for slot, p in prompts.items():
+        assert plain.add_request(slot, p) == fused.add_request(slot, p)
+    pm.reset_launches()
+    da.reset_launches()
+    for _ in range(4):
+        np.testing.assert_array_equal(plain.step(), fused.step())
+        assert rel_err(fused.last_logits, plain.last_logits) <= RTOL
+    want = decode_launches(cfg, "moe", knobs)
+    assert pm.launch_count() == want["paired_matmul"] * 4 * cfg.n_layers
+    assert da.launch_count() == want["decode_attention"] * 4 * cfg.n_layers
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -6,7 +6,10 @@ Shapes: LeNet's three conv layers in every pairing mode with the pool fused
 and unfused (operands built by ``conv_gemm_operands`` on a small batch, rows
 scaled to a 1000-image request); qwen2-1.5b's six decoder weights at decode
 and prefill rows, structured at several pair counts; the parity and chaos
-engines' column-blocked (bn=64, r=0) GEMMs; and the kernel phase's cases
+engines' column-blocked (bn=64, r=0) GEMMs; olmoe-1b-7b's attention GEMMs
+and its experts on the expert grid (one block per expert, or 64-column
+blocks within each) at decode, parity and routed prefill rows; and the
+kernel phase's cases
 (``kernels/k1_cases.py``).  Each plan must fit a block's shared memory, a
 portable cluster and the grid; cut the contraction into non-empty slices that read every
 column of ``x`` once (a pair's two, a residual lane's one); cover every
@@ -82,6 +85,34 @@ def _qwen_shapes():
     return shapes
 
 
+OLMOE = {"d": 2048, "experts": 64, "ff": 1024}
+
+
+def _olmoe_shapes():
+    """olmoe-1b-7b on K1: wq/wk/wv (and the prefill wo), d × d; every
+    expert's gate/up (K = d, F columns) and down (K = F, d columns) as one
+    launch over the expert grid.  Rows: decode batches of 1-4 (and the parity
+    engine's 2), routed prefill capacities C of 4-40 (prompts of 24-255
+    tokens at top-8 of 64, capacity factor 1.25)."""
+    d, E, F = OLMOE["d"], OLMOE["experts"], OLMOE["ff"]
+    shapes = []
+    for share in PAIR_SHARES:
+        for itemsize in (2, 4):
+            for M in (1, 2, 4, 12, 64):
+                P = int(share * d)
+                shapes.append((f"olmoe_wq_P{P}_M{M}_{itemsize}", M, P, d - 2 * P, 1, d, 1,
+                               itemsize))
+            for name, K, bn in (("gate", d, F), ("down", F, d)):
+                P = int(share * K)
+                for M in (1, 2, 4, 10, 40):
+                    shapes.append((f"olmoe_expert_{name}_P{P}_M{M}_{itemsize}", M, P,
+                                   K - 2 * P, E, bn, 1, itemsize))
+                # blocked within each expert, 64 columns a block
+                shapes.append((f"olmoe_expert64_{name}_P{P}_M4_{itemsize}", 4, P, K - 2 * P,
+                               E * bn // 64, 64, 1, itemsize))
+    return shapes
+
+
 def _phase_kernel_shapes():
     shapes = []
     for name, blocked, M, P, R, N, pool, _, dt, _ in k1_cases():
@@ -91,9 +122,10 @@ def _phase_kernel_shapes():
     return shapes
 
 
-SHAPES = _lenet_shapes() + _qwen_shapes() + _phase_kernel_shapes()
-# the skinny decode shapes: qwen2's weights at batch 1-4, and the engines'
-DECODE = [s for s in SHAPES if s[0].startswith("qwen_") and s[1] in (1, 4) and s[2] + s[3] > 0]
+SHAPES = _lenet_shapes() + _qwen_shapes() + _olmoe_shapes() + _phase_kernel_shapes()
+# the skinny decode shapes: qwen2's and olmoe's weights at batch 1-4
+DECODE = [s for s in SHAPES if s[0].startswith(("qwen_", "olmoe_")) and s[1] in (1, 4)
+          and s[2] + s[3] > 0]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
