@@ -1061,41 +1061,34 @@ def _reset_launches() -> None:
 def profile_step(step) -> dict:
     """One call of ``step`` (an engine's decode step, a training step) under
     ``torch.profiler``: device ms and launches of K1, K2 and every other
-    kernel, and the step's wall ms.  A step traced and dropped comes first:
-    the trace's first kernels can go missing while the tracer starts."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    kernel, and the step's wall ms.  The tracer can start capturing late and
+    lose a window's first kernels (``repro_torch.benchmarks.profiler_window``
+    measures it), so ``trace_step`` runs the step well inside the window
+    between two marker kernels; a trace missing a marker did not see the whole
+    step and is taken again, at most three times."""
+    from repro_torch.benchmarks.profiler_window import MARK_KERNEL, device_kernels, trace_step
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        step()
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        prof.step()
-    split = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K2", "other")}
-    others = []
-    for ev in prof.key_averages():
-        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
-            continue
-        # the step's own span on the device timeline is no kernel
-        if getattr(ev, "is_user_annotation", False) or ev.key.startswith("ProfilerStep"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        key = "K1" if K1_KERNEL in ev.key else "K2" if K2_KERNEL in ev.key else "other"
-        split[key]["ms"] += us / 1e3
-        split[key]["launches"] += ev.count
-        if key == "other":
-            others.append({"kernel": ev.key[:80], "ms": us / 1e3, "launches": ev.count})
+    tries = 3
+    for trace in range(1, tries + 1):
+        prof, wall = trace_step(step)
+        split = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K2", "other")}
+        others, marks = [], 0
+        for kernel, count, us in device_kernels(prof):
+            if MARK_KERNEL in kernel:
+                marks += count
+                continue
+            key = "K1" if K1_KERNEL in kernel else "K2" if K2_KERNEL in kernel else "other"
+            split[key]["ms"] += us / 1e3
+            split[key]["launches"] += count
+            if key == "other":
+                others.append({"kernel": kernel[:80], "ms": us / 1e3, "launches": count})
+        if marks == 2:
+            break
+    check(marks == 2, f"profiler: {tries} traces each lost a marker of the traced step")
     device_ms = sum(v["ms"] for v in split.values())
     return {"wall_ms": wall, "device_ms": device_ms if device_ms else "not measured",
             "idle_share": 1 - device_ms / wall if device_ms else "not measured", **split,
+            "traces": trace, "markers": marks,
             "other_top": sorted(others, key=lambda o: -o["ms"])[:5]}
 
 
@@ -1554,7 +1547,7 @@ def phase_moe_parity() -> dict:
     return out
 
 
-def _k1_expert_at(block, name, x, act: str = "none") -> dict:
+def _k1_expert_at(block, name, x, act: str = "none", tag: str = "moe_serve") -> dict:
     """K1 over the expert grid on one expert weight of the serving engine
     (its real per-expert segments, one block an expert), for activations
     ``x``: shared (M, K) or per-expert (E, M, K).  The kernel against its
@@ -1582,10 +1575,10 @@ def _k1_expert_at(block, name, x, act: str = "none") -> dict:
     kw = dict(n_cols=seg.n_cols, activation=act)
     launch = lambda: pm.paired_matmul_blocked_cuda(xg, kmat, w_res, **kw)
     got = launch()
-    check(torch.equal(launch(), got), f"moe_serve K1 {name}: two launches differ")
+    check(torch.equal(launch(), got), f"{tag} K1 {name}: two launches differ")
     check(torch.equal(got.reshape(M, E, n_ff),
                       ops.expert_dense(x, seg, activation=act, x_per_expert=per_expert)),
-          f"moe_serve K1 {name}: expert_dense differs from its own launch")
+          f"{tag} K1 {name}: expert_dense differs from its own launch")
     want = pm.paired_matmul_blocked_plain(xg, kmat, w_res, out_dtype=torch.float32, **kw)
     folded = ops.fold_lm_expert_weight(w, meta)
     eq = "etd,edf->tef" if per_expert else "td,edf->tef"
@@ -1688,6 +1681,213 @@ def phase_moe_serve() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 13 and 14: the MLA serving path (deepseek-v2-lite-16b)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+
+
+def _per_step_want(cfg, knobs) -> dict[str, int]:
+    """Launches of one decode step: ``decode_launches`` summed over the
+    layers (their kinds differ: a dense first layer, then MoE)."""
+    from repro_torch.analysis import decode_launches
+
+    per = [decode_launches(cfg, cfg.layer_kind(i), knobs) for i in range(cfg.n_layers)]
+    return {k: sum(p[k] for p in per) for k in per[0]}
+
+
+def phase_mla_parity() -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import decode_launches
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.serve import kernel_launches
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+
+    # layer 0 dense, layer 1 MoE: both kinds of layer
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=2, dtype="float32")
+    model = M.init_lm(cfg, 0)
+    base = dict(q_chunk=32, k_chunk=32)
+    t0 = time.perf_counter()
+    plain = ServeEngine(cfg, model, max_seq=64, batch_size=2, knobs=M.PerfKnobs(**base))
+    paired = ServeEngine(cfg, model, max_seq=64, batch_size=2, knobs=M.PerfKnobs(
+        **base, gemm="pallas_paired", attn="pallas_fused"))
+    pairing_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = {0: rng.integers(0, cfg.vocab, size=11), 1: rng.integers(0, cfg.vocab, size=24)}
+    errs = []
+    for prompt in prompts.values():
+        tokens = torch.as_tensor(prompt[None], device="cuda")
+        want, want_cache = M.prefill(cfg, plain.model, tokens, knobs=plain.knobs)
+        got, got_cache = M.prefill(cfg, paired.model, tokens, knobs=paired.knobs)
+        errs += [rel_err(got, want)] + [rel_err(got_cache[k], want_cache[k]) for k in want_cache]
+
+    _reset_launches()  # the path's own counts from here
+    with _moe_routes() as routes:
+        toks = {name: {s: [eng.add_request(s, p)] for s, p in prompts.items()}
+                for name, eng in (("plain", plain), ("paired", paired))}
+    prefill_launches = kernel_launches()
+    before = kernel_launches()
+    for _ in range(5):
+        for name, eng in (("plain", plain), ("paired", paired)):
+            nxt = eng.step()
+            for s in prompts:
+                toks[name][s].append(int(nxt[s]))
+        errs.append(rel_err(paired.last_logits, plain.last_logits))
+    decode = {k: v - before[k] for k, v in kernel_launches().items()}
+    launches = kernel_launches()
+    per_step = {k: v / 5 for k, v in decode.items()}
+    prof = profile_step(paired.step)
+    prof_per_step = {k: prof[k]["launches"] for k in ("K1", "K2")}
+    want = _per_step_want(cfg, paired.knobs)
+    mo = cfg.moe
+    routed = [len(p) for p in prompts.values() if len(p) * mo.top_k > 2 * mo.n_experts]
+    n_moe = sum(cfg.layer_kind(i) == "moe" for i in range(cfg.n_layers))
+    check(toks["paired"] == toks["plain"], f"mla_parity tokens differ: {toks}")
+    check(max(errs) <= FP32_RTOL, f"mla_parity logits/cache rel err {max(errs):.3g}")
+    # the 24-token prompt dispatches in the MoE layer of both engines, the
+    # 11-token one takes the dense branch
+    check(routes["moe_routes"] == 2 * len(routed) * n_moe and routed == [24],
+          f"mla_parity routed prefills {routes['moe_routes']} for prompts {routed}")
+    # a prefill launches what a decode step does: 7 K1 (dense), 10 (MoE)
+    check(prefill_launches == {**want, "paired_matmul": want["paired_matmul"] * len(prompts)},
+          f"mla_parity prefill launches {prefill_launches}")
+    check(per_step == want, f"mla_parity launches per decode step {per_step}, want {want}")
+    check(prof_per_step == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
+          f"mla_parity profiler launches per decode step {prof_per_step}")
+    out = {
+        "phase": "mla_parity", "arch": cfg.name, "layers": cfg.n_layers,
+        "layer_kinds": [cfg.layer_kind(i) for i in range(cfg.n_layers)], "dtype": cfg.dtype,
+        "pairing": "structured, r=0", "pairing_s": pairing_s,
+        "prompts": [len(p) for p in prompts.values()], "routed_prompts": routed,
+        "routed_prefills": routes["moe_routes"],
+        "tokens": toks["paired"], "tokens_identical": toks["paired"] == toks["plain"],
+        "max_logit_rel_err": max(errs), "main_path_launches": launches,
+        "prefill_launches": prefill_launches, "decode_launches_per_step": per_step,
+        "decode_launches_per_layer": {k: decode_launches(cfg, k, paired.knobs)
+                                      for k in ("dense", "moe")},
+        "profiled_step": prof, "profiled_launches_per_step": prof_per_step,
+    }
+    emit(out)
+    return out
+
+
+def _memory_reckoning(eng) -> dict:
+    """The engine's bytes on the card by kind: every parameter as an fp32
+    master (what ``init_lm`` made), as held now, and the segments and casts
+    its frozen blocks derived."""
+    import torch
+
+    params = list(eng.model.parameters())
+    seen = {p.data_ptr() for p in params}  # a cast to a weight's own dtype is the weight
+    derived = 0
+    for block in eng.model.modules():
+        for v in getattr(block, "_derived", {}).values():
+            for t in v if isinstance(v, tuple) else (v,):
+                if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
+                    seen.add(t.data_ptr())
+                    derived += t.numel() * t.element_size()
+    cache = sum(t.numel() * t.element_size() for t in eng.cache.values())
+    return {"fp32_masters_gb": sum(p.numel() for p in params) * 4 / 1e9,
+            "weights_held_gb": sum(p.numel() * p.element_size() for p in params) / 1e9,
+            "derived_segments_gb": derived / 1e9, "cache_gb": cache / 1e9,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "card_total_gb": torch.cuda.get_device_properties(0).total_memory / 1e9}
+
+
+def phase_mla_serve() -> dict:
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import decode_launches
+    from repro_torch.launch.serve import kernel_launches, serve
+
+    steps, batch, lens = 32, 4, [12, 16, 24, 64]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the path's own counts from here
+    with _moe_routes() as routes:
+        rec = serve(arch=MLA_ARCH, batch=batch, max_seq=256, steps=steps, pair_rounding=0.05,
+                    gemm="pallas_paired", attn="pallas_fused", prompt_lens=lens)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    eng = rec["engine"]
+    cfg, L = eng.cfg, eng.cfg.n_layers
+    mo = cfg.moe
+    routed = [n for n in lens if n * mo.top_k > 2 * mo.n_experts]
+    n_moe = sum(cfg.layer_kind(i) == "moe" for i in range(L))
+    dec = rec["launches"]["decode"]
+    per_step = {k: v / (steps - 1) for k, v in dec.items()}
+    want = _per_step_want(cfg, eng.knobs)
+    toks = rec["outputs"]
+    memory = {"peak_gb": peak / 1e9, **_memory_reckoning(eng)}
+    check(L == 27 and cfg.segments() == (("dense", 1), ("moe", 26)),
+          f"mla_serve runs {cfg.segments()}, not the published 27 layers")
+    check(routes["moe_routes"] == len(routed) * n_moe and len(routed) == 2,
+          f"mla_serve routed prefills {routes['moe_routes']} for prompts {lens}")
+    check(per_step == want, f"mla_serve launches per decode step {per_step}, want {want}")
+    check(rec["launches"]["prefill"]["paired_matmul"] == want["paired_matmul"] * len(lens),
+          f"mla_serve prefill launches {rec['launches']['prefill']}")
+    check(all(len(t) == steps and all(0 <= x < cfg.vocab for x in t) for t in toks.values()),
+          "mla_serve: tokens out of range")
+    check(bool(np.isfinite(eng.last_logits).all())
+          and eng.last_logits.shape == (batch, cfg.vocab), "mla_serve: bad logits")
+    check(peak < memory["card_total_gb"] * 1e9, f"mla_serve peak memory {memory}")
+    prof = profile_step(eng.step)
+    prof_per_step = {k: prof[k]["launches"] for k in ("K1", "K2")}
+    check(prof_per_step == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
+          f"mla_serve profiler launches per decode step {prof_per_step}")
+
+    layer0, layer1 = eng.model.layers[0], eng.model.layers[1]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    d, E, F = cfg.d_model, mo.n_experts, mo.d_ff_expert
+    attn, moe1 = layer1.attn, layer1.moe
+    k1 = [_k1_at(attn, "wq", x(batch, d)), _k1_at(attn, "w_dkv", x(batch, d)),
+          _k1_at(attn, "w_kr", x(batch, d)),
+          _k1_at(layer0.mlp, "w_down", x(batch, mo.d_ff_dense), x(batch, d)),
+          _k1_at(moe1.shared, "w_gate", x(batch, d))]
+    k1_grid = [_k1_expert_at(moe1, "w_gate", x(batch, d), "silu", tag="mla_serve"),
+               _k1_expert_at(moe1, "w_down", x(E, batch, F), tag="mla_serve")]
+    for row in k1 + k1_grid:
+        check(row["ulps"] <= BF16_MAX_ULPS, f"mla_serve K1 {row['weight']} {row['ulps']:.3g} ulps")
+    step_ms = sorted(rec["step_ms"])
+    rp = eng.pair_report
+    experts = [leaf for leaf in rp.leaves if ".moe.w_" in leaf.path]
+    out = {
+        "phase": "mla_serve", "arch": cfg.name, "layers": L, "segments": cfg.segments(),
+        "dtype": cfg.dtype, "batch": batch, "max_seq": 256, "tokens_per_slot": steps,
+        "prompts": lens, "routed_prompts": routed, "routed_prefills": routes["moe_routes"],
+        "capacity_of_longest": max(1, math.ceil(max(lens) * mo.top_k / E * mo.capacity_factor)),
+        "pairing": {"mode": rp.mode, "rounding": rp.rounding, "total_pairs": rp.total_pairs,
+                    "pair_fraction": rp.pair_fraction, "seconds": rec["pairing_s"],
+                    "expert_pair_fraction": 2 * sum(leaf.n_pairs for leaf in experts)
+                    / sum(leaf.n_weights for leaf in experts)},
+        "prefill_ms": rec["prefill_ms"],
+        "decode_ms": {"median": step_ms[len(step_ms) // 2],
+                      "p90": step_ms[int(0.9 * (len(step_ms) - 1))], "n": len(step_ms)},
+        "tokens_per_s": rec["tokens_per_s"], "seconds": rec["seconds"],
+        "main_path_launches": launches, "prefill_launches": rec["launches"]["prefill"],
+        "decode_launches_per_step": per_step,
+        "decode_launches_per_layer": {k: decode_launches(cfg, k, eng.knobs)
+                                      for k in ("dense", "moe")},
+        "profiled_step": prof, "profiled_launches_per_step": prof_per_step,
+        "k1_new_shapes": k1, "k1_expert_grid": k1_grid, "device_memory": memory,
+        "tokens": {s: t[:8] for s, t in toks.items()},
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1719,6 +1919,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_parity = phase_moe_parity()
     moe = phase_moe_serve()
+    gc.collect()
+    torch.cuda.empty_cache()  # olmoe's weights leave the card
+    mla_parity = phase_mla_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla = phase_mla_serve()
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
@@ -1731,19 +1937,25 @@ def main() -> int:
              "lm_serve": lm["main_path_launches"]["paired_matmul"],
              **{k: v["paired_matmul"] for k, v in fe_runs.items()},
              "moe_parity": moe_parity["main_path_launches"]["paired_matmul"],
-             "moe_serve": moe["main_path_launches"]["paired_matmul"]}
+             "moe_serve": moe["main_path_launches"]["paired_matmul"],
+             "mla_parity": mla_parity["main_path_launches"]["paired_matmul"],
+             "mla_serve": mla["main_path_launches"]["paired_matmul"]}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},
                 "moe_parity": moe_parity["main_path_launches"]["decode_attention"],
-                "moe_serve": moe["main_path_launches"]["decode_attention"]}
+                "moe_serve": moe["main_path_launches"]["decode_attention"],
+                "mla_parity": mla_parity["main_path_launches"]["decode_attention"],
+                "mla_serve": mla["main_path_launches"]["decode_attention"]}
     # K3 runs through its own entry point; the serving paths never call it
     k3_paths = {"flash_attention": flash["main_path_launches"],
                 "lm_parity": parity["main_path_launches"]["flash_attention"],
                 "lm_serve": lm["main_path_launches"]["flash_attention"],
                 **{k: v["flash_attention"] for k, v in fe_runs.items()},
                 "moe_parity": moe_parity["main_path_launches"]["flash_attention"],
-                "moe_serve": moe["main_path_launches"]["flash_attention"]}
+                "moe_serve": moe["main_path_launches"]["flash_attention"],
+                "mla_parity": mla_parity["main_path_launches"]["flash_attention"],
+                "mla_serve": mla["main_path_launches"]["flash_attention"]}
     k2 = lm["k2"]
     k3 = next(row for row in flash["timed"]
               if (row["case"], row["dtype"]) == ("qwen_causal_2048", "bfloat16"))
@@ -1771,6 +1983,13 @@ def main() -> int:
         "expert_grid": [{k: row[k] for k in ("weight", "x", "M", "n_cols", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "library_ms")}
                         for row in moe["k1_expert_grid"]],
+        # deepseek-v2-lite-16b (bf16, structured r=0.05) at 4 decode rows:
+        # MLA's wq, w_dkv, w_kr (layer 1), the dense layer's w_down (K 10944,
+        # residual fused), the shared experts' gate, and the expert grid at
+        # 1408 columns an expert (gate on shared rows, down per expert)
+        "deepseek": [{k: row[k] for k in ("weight", "M", "K", "N", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms") if k in row}
+                     for row in mla["k1_new_shapes"] + mla["k1_expert_grid"]],
     }, {
         "name": "decode_attention",
         "route": "cuda",

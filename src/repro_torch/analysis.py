@@ -73,19 +73,26 @@ def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
     ``"moe"``) under ``knobs`` (``models.lm.PerfKnobs``), every decoder
     weight paired, keyed as ``launch.serve.kernel_launches``.
 
-    Under ``gemm="pallas_paired"`` K1 runs the QKV projections (one launch
-    when decode attention is fused and column blocks of ``pair_block_n``
-    tile q, k and v; three otherwise), the out-projection unless K2 fuses
-    it, and the feed-forward block's three projections: a gated MLP's, or
-    all experts' gate, up and down, one launch each over the expert grid,
-    whatever the expert count.  ``attn="pallas_fused"`` is one K2 launch.
-    K3 runs on no decode path.
+    Under ``gemm="pallas_paired"`` K1 runs the attention's projections and
+    the feed-forward block's three: a gated MLP's, or all experts' gate, up
+    and down, one launch each over the expert grid, whatever the expert
+    count, and three more for shared experts.  GQA attention: the QKV
+    projections (one launch when decode attention is fused and column
+    blocks of ``pair_block_n`` tile q, k and v; three otherwise) and the
+    out-projection unless K2 fuses it; ``attn="pallas_fused"`` is one K2
+    launch.  MLA: ``wq``, ``w_dkv``, ``w_kr`` and ``wo``, and no K2 under
+    any ``attn`` (its decode attention is latent einsums, as in the JAX
+    package).  K3 runs on no decode path.
     """
     if kind not in ("dense", "moe"):
         raise ValueError(f"no decode layer of kind {kind!r} is ported")
     paired, fused = knobs.gemm == "pallas_paired", knobs.attn == "pallas_fused"
+    ffn = 6 if kind == "moe" and cfg.moe.n_shared else 3
+    if cfg.mla is not None:
+        return {"paired_matmul": 4 + ffn if paired else 0, "decode_attention": 0,
+                "flash_attention": 0}
     bn, hd = knobs.pair_block_n, cfg.head_dim
     one_qkv = fused and bn >= 1 and not (cfg.n_heads * hd) % bn and not (
         cfg.n_kv_heads * hd) % bn
-    k1 = (1 if one_qkv else 3) + (0 if fused else 1) + 3 if paired else 0
+    k1 = (1 if one_qkv else 3) + (0 if fused else 1) + ffn if paired else 0
     return {"paired_matmul": k1, "decode_attention": int(fused), "flash_attention": 0}

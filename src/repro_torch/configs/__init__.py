@@ -1,8 +1,9 @@
 """Architecture configs of the port.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` resolve the architectures
-the port runs; so far ``qwen2-1.5b`` (dense GQA) and ``olmoe-1b-7b`` (MoE,
-64 routed experts top-8).  Every other name
+the port runs; so far ``qwen2-1.5b`` (dense GQA), ``olmoe-1b-7b`` (MoE,
+64 routed experts top-8) and ``deepseek-v2-lite-16b`` (MLA, 64 routed
+experts top-6 beside 2 shared ones, a dense first layer).  Every other name
 the JAX package knows raises ``KeyError`` saying it is not ported yet.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ ALL_ARCHS = [
     "olmoe-1b-7b",
     "hymba-1.5b",
 ]
-PORTED = ["qwen2-1.5b", "olmoe-1b-7b"]
+PORTED = ["qwen2-1.5b", "olmoe-1b-7b", "deepseek-v2-lite-16b"]
 
 
 def _module(name: str):

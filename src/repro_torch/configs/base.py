@@ -1,18 +1,29 @@
-"""ModelConfig of the port: the dense / GQA and MoE subset of
-``repro.configs.base``.
+"""ModelConfig of the port: the dense and MoE subset of
+``repro.configs.base``, with GQA or multi-head latent attention (MLA).
 
 The decoder stack is described by *segments*, maximal runs of identical
 layers, as in the JAX package; the port keeps one module per layer, and the
 segments only decide how pairing metadata is padded (segment-wide
-``(Pmax, Rmax)``, ``core.transform.pair_params``).  MoE runs routed experts
-only: shared experts, dense leading layers, MLA, SSM, hybrid,
-encoder-decoder and vision fields are not ported yet, nor layernorm: a
+``(Pmax, Rmax)``, ``core.transform.pair_params``).  MoE runs routed experts,
+shared experts beside them and dense leading layers.  SSM, hybrid,
+encoder-decoder and vision families are not ported yet, nor layernorm: a
 config asking for them raises.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaConfig:
+    """DeepSeek-V2 multi-head latent attention (the JAX package's fields and
+    defaults)."""
+
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +59,7 @@ class ModelConfig:
     sliding_window: int = 0  # 0 → full attention
     rope_theta: float = 10000.0
 
+    mla: MlaConfig | None = None
     moe: MoeConfig | None = None
 
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
@@ -67,11 +79,6 @@ class ModelConfig:
             raise NotImplementedError(f"family={self.family!r} is not ported yet")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"family={self.family!r} with moe={self.moe!r}")
-        if self.moe is not None:
-            for name in ("n_shared", "first_k_dense"):
-                if getattr(self.moe, name):
-                    raise NotImplementedError(
-                        f"moe.{name}={getattr(self.moe, name)} is not ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -80,9 +87,11 @@ class ModelConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     def layer_kind(self, i: int) -> str:
-        """Kind string for decoder layer i: ``"moe"`` in an MoE model (no
-        dense leading layers are ported), else ``"dense"``."""
-        return "moe" if self.moe is not None else "dense"
+        """Kind string for decoder layer i: ``"moe"`` in an MoE model past its
+        ``first_k_dense`` leading dense layers, else ``"dense"``."""
+        if self.moe is not None and i >= self.moe.first_k_dense:
+            return "moe"
+        return "dense"
 
     def segments(self) -> tuple[tuple[str, int], ...]:
         """Maximal runs of identical layer kinds."""
@@ -98,29 +107,46 @@ class ModelConfig:
     def param_count(self, active_only: bool = False) -> int:
         """Parameter count, embeddings included once (norms and biases not
         counted, as in the JAX package); ``active_only`` counts the top-k
-        experts a token runs instead of all of them."""
-        d, ff, V, hd = self.d_model, self.d_ff, self.vocab, self.head_dim
+        and shared experts a token runs instead of all of them."""
+        d, ff, V, hd, H = self.d_model, self.d_ff, self.vocab, self.head_dim, self.n_heads
         n = V * d if self.tie_embeddings else 2 * V * d  # embedding, and the head
-        att = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
-        if self.moe is None:
-            return n + self.n_layers * (att + 3 * d * ff)
-        mo = self.moe
-        per_expert = 3 * d * mo.d_ff_expert
-        experts = mo.top_k if active_only else mo.n_experts
-        return n + self.n_layers * (att + experts * per_expert + d * mo.n_experts)
+        if self.mla is not None:
+            m = self.mla
+            att = (d * H * (m.qk_nope_dim + m.qk_rope_dim)  # wq
+                   + d * (m.kv_lora_rank + m.qk_rope_dim)  # w_dkv, w_kr
+                   + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim)  # w_uk, w_uv
+                   + H * m.v_head_dim * d)  # wo
+        else:
+            att = d * H * hd + 2 * d * self.n_kv_heads * hd + H * hd * d
+        for i in range(self.n_layers):
+            if self.layer_kind(i) == "moe":
+                mo = self.moe
+                per_expert = 3 * d * mo.d_ff_expert
+                experts = (mo.top_k if active_only else mo.n_experts) + mo.n_shared
+                n += att + experts * per_expert + d * mo.n_experts
+            else:
+                n += att + 3 * d * (self.moe.d_ff_dense if self.moe is not None else ff)
+        return n
 
 
 def default_paired_leaves(
-    *, attn: bool = True, mlp: bool = True, moe: bool = False
+    *, attn: bool = True, mla: bool = False, mlp: bool = True, moe: bool = False,
+    moe_shared: bool = False,
 ) -> tuple[tuple[str, str], ...]:
     """The pairing-eligible leaf specs of a decoder layer, by block type:
-    ``(sub-path, weight-name)`` into a decoder layer (the router is not
-    eligible)."""
+    ``(sub-path, weight-name)`` into a decoder layer, a dotted sub-path
+    (``"moe.shared"``) naming a nested block.  The router and MLA's latent
+    up-projections ``w_uk``/``w_uv`` (einsums, never a plain GEMM) are not
+    eligible."""
     leaves: list[tuple[str, str]] = []
-    if attn:
+    if mla:
+        leaves += [("attn", "wq"), ("attn", "w_dkv"), ("attn", "w_kr"), ("attn", "wo")]
+    elif attn:
         leaves += [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo")]
     if mlp:
         leaves += [("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down")]
     if moe:
         leaves += [("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down")]
+    if moe_shared:
+        leaves += [("moe.shared", "w_gate"), ("moe.shared", "w_up"), ("moe.shared", "w_down")]
     return tuple(leaves)

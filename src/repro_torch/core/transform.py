@@ -192,13 +192,32 @@ LM_PAIRED_WEIGHTS: tuple[tuple[str, str], ...] = (
     ("mlp", "w_up"),
     ("mlp", "w_down"),
 )
-# What pair_params looks for when no leaves are named: the dense layers'
-# weights, then the routed experts' (the router is never paired).
+# What pair_params looks for when no leaves are named, in the JAX package's
+# order (its list without the families the port does not run): the dense
+# layers' weights, MLA's down-projections (w_uk/w_uv are latent einsums,
+# never paired), the routed experts' and the shared experts' (the router is
+# never paired).
 DEFAULT_PAIRED_LEAVES: tuple[tuple[str, str], ...] = LM_PAIRED_WEIGHTS + (
+    ("attn", "w_dkv"),
+    ("attn", "w_kr"),
     ("moe", "w_gate"),
     ("moe", "w_up"),
     ("moe", "w_down"),
+    ("moe.shared", "w_gate"),
+    ("moe.shared", "w_up"),
+    ("moe.shared", "w_down"),
 )
+
+
+def _resolve_sub(layer, sub_path: str):
+    """The block at a dotted ``sub_path`` of a decoder layer (``"attn"``,
+    ``"moe.shared"``), or None."""
+    node = layer
+    for part in sub_path.split("."):
+        node = getattr(node, part, None)
+        if node is None:
+            return None
+    return node
 
 
 def _lm_weight_matrix_shape(name: str, shape: tuple[int, ...]) -> tuple[int, int]:
@@ -277,7 +296,8 @@ def pair_params(
     one (Pmax, Rmax), as the JAX package's stacked metadata does, and each
     layer gets its slice: ``(Pmax,)``/``(B, Pmax)`` for a plain weight,
     ``(E, Pmax)``/``(E, Bc, Pmax)`` for expert weights.
-    Leaf selection is by ``(sub-block, weight-name)`` specs; with
+    Leaf selection is by ``(sub-path, weight-name)`` specs, a dotted
+    sub-path (``"moe.shared"``) naming a nested block; with
     ``leaves=None`` the :data:`DEFAULT_PAIRED_LEAVES` the layers carry are
     paired, while an explicit list requires every spec to match.  ``mode``
     is ``"structured"``, ``"column_blocked"`` (one pairing per ``block_n``
@@ -309,7 +329,7 @@ def pair_params(
     for si, (_, count) in enumerate(model.segments):
         layers = model.layers[start:start + count]
         for sub_path, w_name in specs:
-            blocks = [getattr(layer, sub_path, None) for layer in layers]
+            blocks = [_resolve_sub(layer, sub_path) for layer in layers]
             if any(b is None or not hasattr(b, w_name) for b in blocks):
                 continue
             matched.add((sub_path, w_name))
@@ -317,7 +337,7 @@ def pair_params(
             if len(shape) < 2:
                 continue  # matrices only
             # expert weights carry a leading expert axis: one matrix per expert
-            expert = sub_path == "moe" and len(shape) == 3
+            expert = sub_path.split(".")[-1] == "moe" and len(shape) == 3
             K, N = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
             if K < min_dim or N < min_dim:
                 continue

@@ -16,7 +16,7 @@ from __future__ import annotations
 # 20-token prefill: two passes of 16 rows over the cluster's ring and gather.
 # Past 64 rows: w_down's rows are too long for the tall form's stages, so the
 # skinny form runs 7 passes (the last one short); wq takes the tall form.
-# Then olmoe-1b-7b's expert grid (below).
+# Then olmoe-1b-7b's expert grid and deepseek-v2-lite-16b's weights (below).
 K1_SKINNY_CASES = [
     ("skinny_M1_K1536_N256", False, 1, 690, 156, 256, "none", "none", False),
     ("skinny_M4_K1536_N1536_res", False, 4, 690, 156, 1536, "none", "none", True),
@@ -51,6 +51,22 @@ K1_SKINNY_CASES = [
     ("expert_down_r0_M2", True, 2, 0, 1024, (64, 2048, 131072), "none", "none", False),
     ("expert_gate_C10", True, 10, 1018, 12, (64, 1024, 65536), "none", "silu", False),
     ("expert_down_C10", True, 10, 500, 24, (64, 2048, 131072), "none", "none", False),
+] + [
+    # deepseek-v2-lite-16b at its pairs at r=0.05 on seeded weights: MLA's
+    # wq (N = 3072), w_dkv (512) and w_kr (64) at 4 decode rows; the dense
+    # first layer's down-projection (K = 10944, residual fused) at 4 decode
+    # rows (skinny, split-K) and a 64-token prefill; the shared experts'
+    # gate (N = 2816); the expert grid at 1408 columns an expert (gate on 4
+    # shared rows and a 24-token prompt's capacity of 3, down with K = 1408).
+    ("mla_wq_M4", False, 4, 1015, 18, 3072, "none", "none", False),
+    ("mla_w_dkv_M4", False, 4, 992, 64, 512, "none", "none", False),
+    ("mla_w_kr_M4", False, 4, 1015, 18, 64, "none", "none", False),
+    ("mlp0_down_K10944_M4_res", False, 4, 5466, 12, 2048, "none", "none", True),
+    ("mlp0_down_K10944_M64_res", False, 64, 5466, 12, 2048, "none", "none", True),
+    ("shared_gate_M4", False, 4, 996, 56, 2816, "none", "silu", False),
+    ("expert1408_gate_M4", True, 4, 965, 118, (64, 1408, 90112), "none", "silu", False),
+    ("expert1408_gate_C3", True, 3, 965, 118, (64, 1408, 90112), "none", "silu", False),
+    ("expert1408_down_M4", True, 4, 694, 20, (64, 2048, 131072), "none", "none", False),
 ]
 
 

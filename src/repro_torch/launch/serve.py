@@ -16,6 +16,13 @@
         --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 \
         --batch 4 --max-seq 256 --prompt-lens 12,16,24,64
 
+    # deepseek-v2-lite-16b (MLA, 64 routed experts top-6 beside 2 shared, a
+    # dense first layer): every projection but MLA's latent up-projections
+    # on K1; decode attention is latent einsums (--attn is a no-op for it)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+        --gemm pallas_paired --pair-rounding 0.05 \
+        --batch 4 --max-seq 256 --prompt-lens 12,16,24,64
+
     # hardened front end: Poisson load + chaos over the paired engine, with
     # graceful degradation to the unpaired fallback engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
@@ -23,7 +30,11 @@
         --inject nan_logits:0.05,kv_poison:0.02,kernel_failure:0.02 --device cpu
 
 The port of ``repro.launch.serve`` without its offline weight folding and
-conv lowering.  Weights are random from seed 0 (``models.lm.init_lm``).
+conv lowering.  Weights are random from seed 0 (``models.lm.init_lm``); once
+the engine has paired them, the launcher holds the paired ones in the
+compute dtype (``models.lm.hold_paired_in_compute_dtype``), which every use
+casts them to: a bf16 model's paired fp32 masters would not fit one card
+beside their segments at deepseek-v2-lite-16b's size.
 Without ``--frontend`` slot ``i`` is prefilled with a random prompt of
 ``--prompt-lens``' ``i``-th length (default ``8 + 4·i`` tokens) and every
 slot decodes ``--steps`` tokens (the first from its prefill); with it, ``serving.frontend`` serves a seeded Poisson workload
@@ -67,8 +78,9 @@ def _since(before: dict[str, int]) -> dict[str, int]:
 def _build_engine(*, arch: str, smoke: bool, batch: int, max_seq: int, pair_rounding: float,
                  pair_block_n: int, gemm: str, attn: str, device: str | None):
     """Config, device, the model (seed 0, unpaired) and the engine over it
-    (paired by its constructor under ``gemm="pallas_paired"``), and the
-    seconds the engine took to build; prints the pairing report."""
+    (paired by its constructor under ``gemm="pallas_paired"``, its paired
+    weights then held in the compute dtype), and the seconds the engine
+    took to build; prints the pairing report."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     dev = resolve_device(device)
     model = M.init_lm(cfg, 0, device=dev)
@@ -77,6 +89,7 @@ def _build_engine(*, arch: str, smoke: bool, batch: int, max_seq: int, pair_roun
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, model, max_seq=max_seq, batch_size=batch, knobs=knobs)
     pairing_s = time.perf_counter() - t0
+    M.hold_paired_in_compute_dtype(cfg, eng.model)
     rp = eng.pair_report
     if rp is not None:
         print(f"[serve] paired-kernel LM path ({rp.mode}"

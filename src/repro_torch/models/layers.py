@@ -1,4 +1,5 @@
-"""Layers of the GQA decoder with a gated MLP or routed experts, in PyTorch.
+"""Layers of the decoder (GQA or multi-head latent attention, a gated MLP
+or routed experts), in PyTorch.
 
 The port of the dense and MoE subset of ``repro.models.layers``.
 Conventions, as in the JAX package:
@@ -12,9 +13,13 @@ Conventions, as in the JAX package:
   single decode row through :func:`decode_attention` or, with
   ``knobs.attn == "pallas_fused"``, the decode-attention kernel that applies
   the paired out-projection in its flush (``kernels.ops.attn_decode``);
+* MLA (DeepSeek-V2) caches a compressed latent ``(c_kv, k_rope)`` and decodes
+  in the latent space (:func:`mla_decode_block`, einsums as in the JAX
+  package, no kernel); its down- and out-projections are paired GEMMs;
 * MoE layers route each token to its top-k experts; every expert's GEMM of
   one projection runs as one paired launch over the expert grid
-  (``kernels.ops.expert_dense``).
+  (``kernels.ops.expert_dense``); shared experts run beside them as a gated
+  MLP.
 
 Weights live in :class:`Block` modules (fp32 masters, as the JAX package
 keeps them) with each weight's pairing metadata beside it; every GEMM goes
@@ -44,24 +49,34 @@ from repro_torch.kernels.decode_attention import decode_mask
 # ---------------------------------------------------------------------------
 
 
+def _below(paths: dict, name: str) -> dict:
+    """The entries of ``paths`` (keyed by dotted sub-paths) under child
+    ``name``, keyed relative to it."""
+    return {k[len(name) + 1:]: v for k, v in paths.items() if k.startswith(name + ".")}
+
+
 class Block(nn.Module):
-    """Named weights (parameters), their pairing metadata, and a cache of
-    tensors derived from them.
+    """Named weights (parameters), nested child blocks, their pairing
+    metadata, and a cache of tensors derived from them.
 
     ``pairing[name]`` is one layer's metadata of weight ``name``
     (``core.transform.pair_lm_params``): lane lists ``I``/``J``/``resid``
-    (int64) and masks ``pair_mask``/``resid_mask`` (fp32).
+    (int64) and masks ``pair_mask``/``resid_mask`` (fp32).  A child block
+    (an MoE layer's ``shared`` experts) keeps its own.
     """
 
     REQUIRED: tuple[str, ...] = ()
 
-    def __init__(self, *, pairing: dict | None = None, **weights: torch.Tensor | None):
+    def __init__(self, *, pairing: dict | None = None,
+                 **weights: torch.Tensor | Block | None):
         super().__init__()
         missing = [n for n in self.REQUIRED if weights.get(n) is None]
         if missing:
             raise ValueError(f"{type(self).__name__} needs weights {missing}")
         for name, t in weights.items():
-            if t is not None:
+            if isinstance(t, Block):
+                self.add_module(name, t)
+            elif t is not None:
                 if not isinstance(t, nn.Parameter):
                     t = nn.Parameter(t, requires_grad=False)
                 self.register_parameter(name, t)
@@ -69,11 +84,17 @@ class Block(nn.Module):
         self.frozen = False
         self._derived: dict[Any, Any] = {}
 
-    def copy(self, *, frozen: bool, pairing: dict | None = None) -> Block:
+    def copy(self, *, frozen: bool, pairing: dict | None = None,
+             children: dict | None = None) -> Block:
         """A block sharing these weights (not copied), with ``pairing`` (or
-        this block's) and an empty cache."""
+        this block's) and an empty cache; its child blocks are copied the
+        same way, ``children`` mapping a dotted sub-path below this block
+        (``"shared"``) to that block's new pairing dict."""
+        children = children or {}
+        kids = {n: c.copy(frozen=frozen, pairing=children.get(n), children=_below(children, n))
+                for n, c in self.named_children()}
         new = type(self)(pairing=self.pairing if pairing is None else pairing,
-                         **dict(self.named_parameters(recurse=False)))
+                         **dict(self.named_parameters(recurse=False)), **kids)
         new.frozen = frozen
         return new
 
@@ -111,6 +132,15 @@ class Attention(Block):
     REQUIRED = ("wq", "wk", "wv", "wo")
 
 
+class MLA(Block):
+    """Multi-head latent attention: ``wq`` (d, H, nope + rope), the latent
+    down-projection ``w_dkv`` (d, R) with its norm ``kv_norm`` (R,), the
+    shared rope key ``w_kr`` (d, rope), the up-projections ``w_uk`` (R, H,
+    nope) and ``w_uv`` (R, H, v), and ``wo`` (H, v, d)."""
+
+    REQUIRED = ("wq", "w_dkv", "w_kr", "w_uk", "w_uv", "wo", "kv_norm")
+
+
 class MLP(Block):
     """Gated MLP: ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d)."""
 
@@ -120,17 +150,20 @@ class MLP(Block):
 class MoE(Block):
     """Routed experts: ``router`` (d, E), ``w_gate``/``w_up`` (E, d, F),
     ``w_down`` (E, F, d); pairing metadata per expert (``(E, Pmax)``, or
-    ``(E, Bc, Pmax)`` column-blocked within each expert)."""
+    ``(E, Bc, Pmax)`` column-blocked within each expert).  Optional
+    ``shared`` experts: one gated :class:`MLP` of width ``n_shared · F``
+    that every token runs."""
 
     REQUIRED = ("router", "w_gate", "w_up", "w_down")
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm decoder layer: ``h + attn(ln1(h))``, then ``h + ffn(ln2(h))``
-    where the feed-forward block ``ffn`` is a gated ``mlp`` or a ``moe``."""
+    where ``attn`` is GQA :class:`Attention` or :class:`MLA` and the
+    feed-forward block ``ffn`` is a gated ``mlp`` or a ``moe``."""
 
-    def __init__(self, ln1: Norm, attn: Attention, ln2: Norm, mlp: MLP | None = None, *,
-                 moe: MoE | None = None):
+    def __init__(self, ln1: Norm, attn: Attention | MLA, ln2: Norm, mlp: MLP | None = None,
+                 *, moe: MoE | None = None):
         super().__init__()
         if (mlp is None) == (moe is None):
             raise ValueError("a decoder layer takes exactly one of mlp and moe")
@@ -139,10 +172,12 @@ class DecoderLayer(nn.Module):
         setattr(self, self.ffn, mlp if moe is None else moe)
 
     def copy(self, *, frozen: bool, pairing: dict | None = None) -> DecoderLayer:
-        """A layer sharing these weights; ``pairing`` maps a sub-block name
-        (``"attn"``, ``"mlp"``, ``"moe"``) to that block's new pairing dict."""
+        """A layer sharing these weights; ``pairing`` maps a sub-block's
+        dotted path (``"attn"``, ``"mlp"``, ``"moe"``, ``"moe.shared"``) to
+        that block's new pairing dict."""
         pairing = pairing or {}
-        return DecoderLayer(**{n: getattr(self, n).copy(frozen=frozen, pairing=pairing.get(n))
+        return DecoderLayer(**{n: getattr(self, n).copy(frozen=frozen, pairing=pairing.get(n),
+                                                        children=_below(pairing, n))
                                for n in ("ln1", "attn", "ln2", self.ffn)})
 
 
@@ -468,6 +503,103 @@ def attention_decode_block(
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_latent(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor, knobs):
+    """The normed latent ``c_kv`` (B, S, R) and the post-rope shared key
+    ``k_rope`` (B, S, rope) of ``x``: what the cache holds."""
+    c_kv = rms_head_norm(p.kv_norm, _leaf_dense(p, "w_dkv", x, knobs))
+    k_rope = rope(_leaf_dense(p, "w_kr", x, knobs)[:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_query(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor, knobs):
+    """``(q_nope, q_rope)`` of ``x``, (B, S, H, nope) and (B, S, H, rope)
+    post-rope."""
+    m = cfg.mla
+    q = _leaf_dense(p, "wq", x, knobs).reshape(*x.shape[:-1], cfg.n_heads,
+                                               m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_up(p: MLA, cdt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The latent up-projections ``w_uk``, ``w_uv`` in the compute dtype."""
+    return tuple(p.derived(("matrix", n, cdt), lambda n=n: getattr(p, n).to(cdt))
+                 for n in ("w_uk", "w_uv"))
+
+
+def mla_block(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor, knobs):
+    """Prefill MLA: per-head K/V materialised from the latent, then
+    :func:`flash_attention` (``v`` padded to the q/k head width, as in the
+    JAX package) and the out-projection.  Returns ``(y, c_kv, k_rope)``:
+    ``y`` (B, S, d) without the skip connection (the JAX package adds it
+    after), and the latent cache entries of :func:`_mla_latent`.
+
+    The down-projections ``wq``/``w_dkv``/``w_kr`` and ``wo`` go through
+    :func:`dense` (paired launches when they carry metadata); the
+    up-projections ``w_uk``/``w_uv`` stay einsums.
+    """
+    m, H = cfg.mla, cfg.n_heads
+    cdt = x.dtype
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions, knobs)
+    q_nope, q_rope = _mla_query(cfg, p, x, positions, knobs)
+    w_uk, w_uv = _mla_up(p, cdt)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, w_uk)
+    v = torch.einsum("bsr,rhk->bshk", c_kv, w_uv)
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, m.qk_rope_dim)
+    qc = torch.cat([q_nope, q_rope], dim=-1)
+    kc = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = flash_attention(qc, kc, F.pad(v, (0, qc.shape[-1] - m.v_head_dim)), causal=True,
+                          q_chunk=knobs.q_chunk, k_chunk=knobs.k_chunk)[..., : m.v_head_dim]
+    y = _leaf_dense(p, "wo", out.reshape(*out.shape[:-2], H * m.v_head_dim), knobs)
+    return y, c_kv, k_rope
+
+
+def mla_decode_block(
+    cfg: ModelConfig,
+    p: MLA,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: dict,  # {"c_kv": (B, S, R), "k_rope": (B, S, rope)}, updated in place
+    pos: torch.Tensor,  # (B,)
+    knobs,
+) -> tuple[torch.Tensor, dict]:
+    """Absorbed-matrix MLA decode: the new latent and rope key written into
+    the cache at ``pos`` (in place), then attention in the latent space,
+    ``w_uk`` folded into the query and ``w_uv`` into the output.  Returns
+    ``(y, cache)``, ``y`` (B, 1, d) without the skip connection.
+
+    The JAX package's rounding points: ``q_lat`` and the ``w_uv`` product in
+    the compute dtype; both scores and ``o_lat`` accumulated in fp32 (the
+    operands cast up, as ``preferred_element_type=float32``); the
+    probabilities cast to the compute dtype before ``o_lat``.
+    """
+    m, H = cfg.mla, cfg.n_heads
+    cdt, B = x.dtype, x.shape[0]
+    q_nope, q_rope = _mla_query(cfg, p, x, pos[:, None], knobs)
+    c_new, kr_new = _mla_latent(cfg, p, x, pos[:, None], knobs)
+    bidx = torch.arange(B, device=x.device)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[bidx, pos] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[bidx, pos] = kr_new[:, 0].to(k_rope.dtype)
+
+    w_uk, w_uv = _mla_up(p, cdt)
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], w_uk)
+    ckv = c_kv.float()
+    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv)
+    s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), k_rope.float())
+    s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    ok = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= pos[:, None]
+    pr = torch.softmax(s.masked_fill(~ok[:, None], -math.inf), dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", pr.to(cdt).float(), ckv).to(cdt)
+    out = torch.einsum("bhr,rhk->bhk", o_lat, w_uv)
+    y = _leaf_dense(p, "wo", out.reshape(B, H * m.v_head_dim), knobs)
+    return y[:, None], cache
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
@@ -589,6 +721,10 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
       (B, E, C, d) buffers, each expert's rows through its own weights,
       then the gated combine.  Choices past capacity are dropped.
 
+    Shared experts (``p.shared``) run on every token on both branches, their
+    three projections through :func:`dense`, and add to the routed sum, as
+    in the JAX package.
+
     Under ``knobs.gemm == "pallas_paired"`` with expert pairing metadata,
     each projection of all experts is one paired launch
     (:func:`_expert_dense`); otherwise ``torch.einsum`` as the JAX package's
@@ -600,8 +736,15 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
     cdt = x.dtype
     paired = knobs.gemm == "pallas_paired" and "w_gate" in p.pairing
 
+    shared = getattr(p, "shared", None)
+
     def weight(name):
         return p.derived(("matrix", name, cdt), lambda: getattr(p, name).to(cdt))
+
+    def shared_experts(x2):
+        """The shared experts' gated MLP over (T, d) rows, no skip connection."""
+        g = _leaf_dense(shared, "w_gate", x2, knobs, act=cfg.act)
+        return _leaf_dense(shared, "w_down", g * _leaf_dense(shared, "w_up", x2, knobs), knobs)
 
     def experts(xe, per_expert):
         """gate, up and down of every expert; xe (M, d) or (E, M, d) → (M, E, d)."""
@@ -624,6 +767,8 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
         y_all = experts(x2, per_expert=False)  # (T, E, d)
         w_full = torch.zeros((T, E), dtype=cdt, device=x.device).scatter_(1, topi, topw.to(cdt))
         y2 = torch.einsum("ted,te->td", y_all, w_full)
+        if shared is not None:
+            y2 = y2 + shared_experts(x2)
         return y2.reshape(B, S, d), torch.zeros((), dtype=torch.float32, device=x.device)
 
     xb, inv_tok, inv_w, counts, C = _moe_route(cfg, x, topi, topw)
@@ -632,6 +777,8 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
     yb = experts(xb.permute(1, 0, 2, 3).reshape(E, B * C, d), per_expert=True)
     yb = yb.reshape(B, C, E, d).permute(0, 2, 1, 3)
     y2 = _moe_combine(B, S, d, yb, inv_tok, inv_w, cdt, K)
+    if shared is not None:
+        y2 = y2 + shared_experts(x2).reshape(B, S, d)
 
     me = gates.mean(0)  # mean router probability of each expert
     ce = counts.sum(0).float() / max(T * K, 1)  # share of the choices it got

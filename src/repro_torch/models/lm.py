@@ -4,16 +4,18 @@ PyTorch.
 The port of the dense and MoE subset of ``repro.models.lm``:
 
 * :func:`lm_forward` — the forward over a prompt (logits, and optionally
-  the K/V it produced);
+  the cache entries it produced);
 * :func:`prefill` — last-position logits and a filled cache;
-* :func:`init_cache` — an empty decode cache ``{"k", "v"}`` of shape
-  ``(layers, batch, seq, kv_heads, head_dim)``;
+* :func:`init_cache` — an empty decode cache: ``{"k", "v"}`` of shape
+  ``(layers, batch, seq, kv_heads, head_dim)`` for GQA, the latent
+  ``{"c_kv", "k_rope"}`` ``(layers, batch, seq, kv_lora_rank | qk_rope_dim)``
+  for MLA;
 * :func:`decode_step` — one new token per slot against the cache.
 
 The model is an :class:`LM` module: the embedding (tied as the head, or an
 ``lm_head`` of its own), the final norm and one
-:class:`~repro_torch.models.layers.DecoderLayer` per layer, with a gated MLP
-or routed experts.  The JAX package stacks a segment's layers for ``lax.scan``; the port
+:class:`~repro_torch.models.layers.DecoderLayer` per layer, with GQA or MLA
+attention and a gated MLP or routed (and shared) experts.  The JAX package stacks a segment's layers for ``lax.scan``; the port
 keeps them apart and remembers the segments (``LM.segments``), which only
 decide how pairing metadata is padded.  :func:`lm_params_from_numpy` builds
 the model from the JAX package's value tree, so both packages can compute
@@ -33,6 +35,7 @@ import torch.nn as nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
+    MLA,
     MLP,
     Attention,
     Block,
@@ -41,6 +44,8 @@ from repro_torch.models.layers import (
     Norm,
     attention_block,
     attention_decode_block,
+    mla_block,
+    mla_decode_block,
     mlp_block,
     moe_block,
 )
@@ -108,8 +113,9 @@ class LM(Block):
 
     def copy(self, *, frozen: bool, layer_pairing: list[dict] | None = None) -> LM:
         """A model sharing these weights (nothing is copied), with empty
-        caches; ``layer_pairing[l]`` replaces layer ``l``'s pairing dicts
-        (``{"attn": {...}, "mlp" or "moe": {...}}``)."""
+        caches; ``layer_pairing[l]`` replaces layer ``l``'s pairing dicts,
+        keyed by sub-path (``{"attn": {...}, "mlp" or "moe": {...},
+        "moe.shared": {...}}``)."""
         per_layer = layer_pairing or [None] * len(self.layers)
         new = LM(final_norm=self.final_norm.copy(frozen=frozen),
                  layers=[layer.copy(frozen=frozen, pairing=lp)
@@ -137,8 +143,8 @@ def _trunc_normal(shape, fan_in: int, gen: torch.Generator, device) -> torch.Ten
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     """Seeded random fp32 weights of the JAX package's shapes and scales
     (qkv biases zero, norm scales one; an expert weight's fan-in is its
-    second axis), made on ``device`` (the GPU unless ``"cpu"`` is asked
-    for)."""
+    second axis, ``wo``'s its first two, MLA's up-projections' the latent
+    rank), made on ``device`` (the GPU unless ``"cpu"`` is asked for)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, H, KH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -146,22 +152,35 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     ones = lambda *shape: torch.ones(shape, device=dev)
     zeros = lambda *shape: torch.zeros(shape, device=dev)
 
-    def ffn(kind: str) -> dict:
-        if kind == "moe":
-            E, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
-            return {"moe": MoE(router=tn((d, E), d), w_gate=tn((E, d, fe), d),
-                               w_up=tn((E, d, fe), d), w_down=tn((E, fe, d), fe))}
-        return {"mlp": MLP(w_gate=tn((d, f), d), w_up=tn((d, f), d), w_down=tn((f, d), f))}
+    def mlp(f: int) -> MLP:
+        return MLP(w_gate=tn((d, f), d), w_up=tn((d, f), d), w_down=tn((f, d), f))
 
-    def layer(kind: str) -> DecoderLayer:
+    def ffn(kind: str) -> dict:
+        mo = cfg.moe
+        if kind == "moe":
+            E, fe = mo.n_experts, mo.d_ff_expert
+            return {"moe": MoE(router=tn((d, E), d), w_gate=tn((E, d, fe), d),
+                               w_up=tn((E, d, fe), d), w_down=tn((E, fe, d), fe),
+                               shared=mlp(fe * mo.n_shared) if mo.n_shared else None)}
+        return {"mlp": mlp(mo.d_ff_dense if mo is not None else f)}
+
+    def attention() -> Attention | MLA:
+        if cfg.mla is not None:
+            m = cfg.mla
+            R, nope, rp, v = m.kv_lora_rank, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+            return MLA(wq=tn((d, H, nope + rp), d), w_dkv=tn((d, R), d), w_kr=tn((d, rp), d),
+                       w_uk=tn((R, H, nope), R), w_uv=tn((R, H, v), R),
+                       wo=tn((H, v, d), H * v), kv_norm=ones(R))
         attn = {"wq": tn((d, H, hd), d), "wk": tn((d, KH, hd), d),
                 "wv": tn((d, KH, hd), d), "wo": tn((H, hd, d), H * hd)}
         if cfg.qkv_bias:
             attn.update(bq=zeros(H, hd), bk=zeros(KH, hd), bv=zeros(KH, hd))
         if cfg.qk_norm:
             attn.update(q_norm=ones(hd), k_norm=ones(hd))
-        return DecoderLayer(Norm(scale=ones(d)), Attention(**attn), Norm(scale=ones(d)),
-                            **ffn(kind))
+        return Attention(**attn)
+
+    def layer(kind: str) -> DecoderLayer:
+        return DecoderLayer(Norm(scale=ones(d)), attention(), Norm(scale=ones(d)), **ffn(kind))
 
     embed = tn((padded_vocab(cfg), d), d)
     layers = [layer(cfg.layer_kind(i)) for i in range(cfg.n_layers)]
@@ -177,7 +196,8 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
     Each segment's stacked ``(L, …)`` leaves split into per-layer weights;
     ``"<name>_pairing"`` siblings (``core.transform.pair_lm_params``) carry
     over as each layer's pairing metadata (lane lists as int64), an MoE
-    layer's ``(E, …)`` per-expert metadata included.
+    layer's ``(E, …)`` per-expert metadata and its nested ``shared`` block
+    included.
     """
     dev = resolve_device(device)
 
@@ -186,22 +206,43 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
         return t.long() if not t.is_floating_point() else t.float()
 
     def block(cls, sub: dict, l: int):
-        weights = {k: tensor(v[l]) for k, v in sub.items() if not k.endswith("_pairing")}
         pairing = {k[: -len("_pairing")]: {mk: tensor(mv[l]) for mk, mv in v.items()}
                    for k, v in sub.items() if k.endswith("_pairing")}
-        return cls(pairing=pairing, **weights)
+        weights = {k: tensor(v[l]) for k, v in sub.items() if not isinstance(v, dict)}
+        shared = {k: block(MLP, v, l) for k, v in sub.items()  # an MoE's shared experts
+                  if isinstance(v, dict) and not k.endswith("_pairing")}
+        return cls(pairing=pairing, **weights, **shared)
 
+    attn_cls = MLA if cfg.mla is not None else Attention
     layers = []
     for (_, count), seg in zip(cfg.segments(), values["segments"], strict=True):
         for l in range(count):
             ffn = ({"moe": block(MoE, seg["moe"], l)} if "moe" in seg
                    else {"mlp": block(MLP, seg["mlp"], l)})
-            layers.append(DecoderLayer(block(Norm, seg["ln1"], l), block(Attention, seg["attn"], l),
+            layers.append(DecoderLayer(block(Norm, seg["ln1"], l), block(attn_cls, seg["attn"], l),
                                        block(Norm, seg["ln2"], l), **ffn))
     head = values.get("lm_head")
     return LM(embed=tensor(values["embed"]), lm_head=None if head is None else tensor(head),
               final_norm=Norm(scale=tensor(values["final_norm"]["scale"])), layers=layers,
               segments=cfg.segments())
+
+
+def hold_paired_in_compute_dtype(cfg: ModelConfig, model: LM) -> None:
+    """Store every weight of ``model`` that carries pairing metadata in the
+    compute dtype, in place.
+
+    For serving once pairing is done (it reads the fp32 masters): every use
+    of such a weight casts it to the compute dtype first (``Block.matrix``,
+    the expert GEMMs, the paired segments), so the results keep their bits,
+    but every model sharing these parameters (the unpaired one it was paired
+    from, too) holds them so from here.  The router, norms and the unpaired
+    weights stay as they are.
+    """
+    cdt = compute_dtype(cfg)
+    for block in model.modules():
+        for name in getattr(block, "pairing", {}):
+            w = getattr(block, name)
+            w.data = w.data.to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -251,11 +292,24 @@ def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs) -
     return mlp_block(cfg, p.mlp, x, knobs, residual=h)
 
 
+def _mla_with_cache(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor,
+                    knobs: PerfKnobs):
+    """MLA prefill that also returns its compressed cache entries:
+    ``(y, {"c_kv": (B, S, R), "k_rope": (B, S, rope)})``."""
+    y, c_kv, k_rope = mla_block(cfg, p, x, positions, knobs)
+    return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+
 def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
               positions: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
-    """One decoder layer over a sequence. Returns (h, {"k", "v"}): the
-    post-rope K/V of this layer, (B, S, KH, hd)."""
+    """One decoder layer over a sequence. Returns (h, cache entries): the
+    post-rope K/V of this layer, ``{"k", "v"}`` (B, S, KH, hd), or MLA's
+    latent ``{"c_kv", "k_rope"}``."""
     x = p.ln1(h)
+    if cfg.mla is not None:
+        # the JAX package adds MLA's output after its out-projection
+        y, c = _mla_with_cache(cfg, p.attn, x, positions, knobs)
+        return _ffn(cfg, p, h + y, knobs), c
     # the skip connections ride the out- and down-projections (fused into
     # the paired kernel's epilogue under gemm="pallas_paired")
     h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
@@ -265,25 +319,25 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
 
 def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
                knobs: PerfKnobs = DEFAULT_KNOBS, collect_cache: bool = False):
-    """tokens (B, S) → (logits (B, S, Vp) fp32, cache or None); the cache is
-    ``{"k", "v"}`` of shape (L, B, S, KH, hd)."""
+    """tokens (B, S) → (logits (B, S, Vp) fp32, cache or None); the cache
+    holds each layer's entries of :func:`layer_fwd` stacked, (L, B, S, …)."""
     h = embed_tokens(cfg, model, tokens, compute_dtype(cfg))
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    ks, vs = [], []
+    entries = []
     for i, layer in enumerate(model.layers):
         h, c = layer_fwd(cfg, cfg.layer_kind(i), layer, h, positions, knobs)
         if collect_cache:
-            ks.append(c["k"])
-            vs.append(c["v"])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
+            entries.append(c)
+    cache = ({name: torch.stack([c[name] for c in entries]) for name in entries[0]}
+             if collect_cache else None)
     return lm_logits(cfg, model, h), cache
 
 
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
             knobs: PerfKnobs = DEFAULT_KNOBS):
     """Forward over the prompt; returns (last-position logits (B, 1, Vp),
-    cache (L, B, S, KH, hd))."""
+    cache of :func:`init_cache`'s names, S positions long)."""
     logits, cache = lm_forward(cfg, model, tokens, knobs=knobs, collect_cache=True)
     return logits[:, -1:], cache
 
@@ -294,19 +348,26 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None) -> dict:
-    """Empty decode cache: ``{"k", "v"}`` zeros (L, B, max_seq, KH, hd) in the
-    compute dtype."""
-    shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    dev = resolve_device(device)
+    """Empty decode cache in the compute dtype: ``{"k", "v"}`` zeros (L, B,
+    max_seq, KH, hd), or for MLA the latent ``{"c_kv": (L, B, max_seq, R),
+    "k_rope": (L, B, max_seq, rope)}``."""
+    L, dev = (cfg.n_layers, batch_size, max_seq), resolve_device(device)
+    if cfg.mla is not None:
+        shapes = {"c_kv": (*L, cfg.mla.kv_lora_rank), "k_rope": (*L, cfg.mla.qk_rope_dim)}
+    else:
+        shapes = {name: (*L, cfg.n_kv_heads, cfg.head_dim) for name in ("k", "v")}
     return {name: torch.zeros(shape, dtype=compute_dtype(cfg), device=dev)
-            for name in ("k", "v")}
+            for name, shape in shapes.items()}
 
 
 def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
                  h: torch.Tensor, pos: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
-    """One decoder layer for one token per slot; ``c`` (this layer's
-    ``{"k", "v"}``, (B, S, KH, hd)) is written in place at ``pos``."""
+    """One decoder layer for one token per slot; ``c`` (this layer's cache
+    entries, (B, S, …)) is written in place at ``pos``."""
     x = p.ln1(h)
+    if cfg.mla is not None:
+        y, c = mla_decode_block(cfg, p.attn, x, c, pos, knobs)
+        return _ffn(cfg, p, h + y, knobs), c
     h, c = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
                                   window=_window_for(cfg, kind), residual=h)
     return _ffn(cfg, p, h, knobs), c
@@ -321,6 +382,6 @@ def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
     """
     h = embed_tokens(cfg, model, tokens, compute_dtype(cfg))
     for i, layer in enumerate(model.layers):
-        c: dict[str, Any] = {"k": cache["k"][i], "v": cache["v"][i]}
+        c: dict[str, Any] = {name: t[i] for name, t in cache.items()}
         h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos, knobs)
     return lm_logits(cfg, model, h), cache

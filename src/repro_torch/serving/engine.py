@@ -78,7 +78,7 @@ class ServeEngine:
                                  device=self.device)
         with torch.no_grad():
             last_logits, cache = M.prefill(self.cfg, self.model, tokens, knobs=self.knobs)
-        # splice this request's cache (L, 1, plen, KH, hd) into the slot
+        # splice this request's cache (L, 1, plen, …) into the slot
         for name, dst in self.cache.items():
             dst[:, slot, :plen] = cache[name][:, 0].to(dst.dtype)
         self.pos[slot] = plen

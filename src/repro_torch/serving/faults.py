@@ -152,10 +152,10 @@ class FaultInjector:
 
 
 def poison_slot_cache(engine, slot: int) -> None:
-    """NaN one slot's attended K/V rows in place: ``[:, slot, :max(1, pos)]``
-    of the engine's ``{"k", "v"}`` cache (L, B, S, KH, hd), the positions
-    below the slot's pos, so the poison provably reaches the next step's
-    logits."""
+    """NaN one slot's attended cache rows in place: ``[:, slot, :max(1, pos)]``
+    of every tensor of the engine's cache (``{"k", "v"}`` (L, B, S, KH, hd),
+    or MLA's latent ``{"c_kv", "k_rope"}``), the positions below the slot's
+    pos, so the poison provably reaches the next step's logits."""
     upto = max(1, int(engine.pos[slot]))
     for t in engine.cache.values():
         t[:, slot, :upto] = torch.nan

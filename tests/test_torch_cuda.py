@@ -14,6 +14,7 @@ ulp (one rounding of its fp32 result).  The paper's path: 16
 training steps on the card against the CPU, Fig. 8's conv→pool counts and
 its r = 0 measured path through K1.  The MoE path: every expert's GEMM in
 one K1 launch over the expert grid, and the olmoe smoke engine at r = 0.
+The MLA path: the deepseek smoke engine at r = 0 on both expert branches.
 """
 import dataclasses
 
@@ -314,6 +315,36 @@ def test_moe_engine_paired_fused_matches_plain_engine(cuda, prompt):
     assert da.launch_count() == want["decode_attention"] * 4 * cfg.n_layers
 
 
+@pytest.mark.parametrize("prompt", [5, 11])
+def test_mla_engine_paired_matches_plain_engine(cuda, prompt):
+    """deepseek smoke (MLA, shared experts, a dense first layer) at r=0,
+    fp32: the paired engine gives the plain engine's tokens, logits within
+    1e-5, the 5-token prompt on the dense expert branch, the 11-token one
+    routed; a decode step launches 7 K1 in the dense layer and 10 in each
+    MoE layer, and no K2 (MLA's decode attention is latent einsums)."""
+    from repro_torch.analysis import decode_launches
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-lite-16b"), dtype="float32")
+    model = M.init_lm(cfg, 0, device=cuda)
+    base = dict(q_chunk=16, k_chunk=16)
+    knobs = M.PerfKnobs(**base, gemm="pallas_paired", attn="pallas_fused")
+    plain = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=M.PerfKnobs(**base))
+    paired = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=knobs)
+    prompts = {s: np.random.default_rng(s).integers(0, cfg.vocab, size=prompt) for s in (0, 1)}
+    for slot, p in prompts.items():
+        assert plain.add_request(slot, p) == paired.add_request(slot, p)
+    pm.reset_launches()
+    da.reset_launches()
+    for _ in range(4):
+        np.testing.assert_array_equal(plain.step(), paired.step())
+        assert rel_err(paired.last_logits, plain.last_logits) <= RTOL
+    want = sum(decode_launches(cfg, cfg.layer_kind(i), knobs)["paired_matmul"]
+               for i in range(cfg.n_layers))
+    assert want == 7 + 10 * (cfg.n_layers - 1)
+    assert pm.launch_count() == want * 4
+    assert da.launch_count() == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,Sq,Sk,H,KH,D", [
@@ -531,3 +562,12 @@ def test_measured_conv_path_at_r0_through_k1(cuda, mnist_small, mode, block_n):
     assert out["k1_launches"] == 3
     assert out["rel_err_vs_conv2d"] <= RTOL
     assert out["total_baseline_lanes"] == 405600
+
+
+def test_trace_step_sees_the_whole_step(cuda):
+    """The padded, marker-fenced trace that ``chip_smoke.py`` profiles steps
+    with keeps every kernel of a 2100-kernel step and both markers."""
+    from repro_torch.benchmarks.profiler_window import probe
+
+    (row,) = probe([0.1], reps=3)
+    assert (row["traces"], row["cut"]) == (3, 0)

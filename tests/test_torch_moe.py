@@ -116,14 +116,23 @@ def test_config_fields_equal(get):
 
 
 def test_config_refuses_unported_moe():
+    """Shared experts and dense leading layers are ported (deepseek-v2-lite,
+    ``tests/test_torch_mla.py``); the families not ported yet (SSM, hybrid,
+    enc-dec, vision) and layernorm still raise, as does an MoE config
+    without its family."""
     from repro_torch.configs.base import ModelConfig, MoeConfig
 
     base = dataclasses.asdict(t_configs.get_smoke_config(ARCH))
     base.pop("moe")
-    for field in ("n_shared", "first_k_dense"):
-        with pytest.raises(NotImplementedError, match=field):
-            ModelConfig(**base, moe=MoeConfig(n_experts=8, top_k=2,
-                                              **{"n_shared": 0, "first_k_dense": 0, field: 1}))
+    cfg = ModelConfig(**base, moe=MoeConfig(n_experts=8, top_k=2, n_shared=1,
+                                            first_k_dense=1, d_ff_dense=96))
+    assert cfg.moe.n_shared == 1
+    assert [cfg.layer_kind(i) for i in range(cfg.n_layers)] == ["dense", "moe"]
+    for family in ("ssm", "hybrid", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match=family):
+            ModelConfig(**{**base, "family": family})
+    with pytest.raises(NotImplementedError, match="layernorm"):
+        ModelConfig(**{**base, "norm": "layernorm"}, moe=MoeConfig())
     with pytest.raises(ValueError, match="family"):
         ModelConfig(**{**base, "family": "dense"}, moe=MoeConfig())
 

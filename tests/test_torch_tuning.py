@@ -8,8 +8,10 @@ scaled to a 1000-image request); qwen2-1.5b's six decoder weights at decode
 and prefill rows, structured at several pair counts; the parity and chaos
 engines' column-blocked (bn=64, r=0) GEMMs; olmoe-1b-7b's attention GEMMs
 and its experts on the expert grid (one block per expert, or 64-column
-blocks within each) at decode, parity and routed prefill rows; and the
-kernel phase's cases
+blocks within each) at decode, parity and routed prefill rows;
+deepseek-v2-lite-16b's MLA projections, its dense first layer's MLP, its
+shared experts and its expert grid (64 × 1408 columns) from decode to
+2048-row prefill rows; and the kernel phase's cases
 (``kernels/k1_cases.py``).  Each plan must fit a block's shared memory, a
 portable cluster and the grid; cut the contraction into non-empty slices that read every
 column of ``x`` once (a pair's two, a residual lane's one); cover every
@@ -113,6 +115,36 @@ def _olmoe_shapes():
     return shapes
 
 
+DEEPSEEK = {"d": 2048, "q": 16 * 192, "kv_lora": 512, "rope": 64, "ff": 10944,
+            "experts": 64, "expert_ff": 1408, "shared_ff": 2 * 1408}
+
+
+def _deepseek_shapes():
+    """deepseek-v2-lite-16b on K1: MLA's wq (N = 16·192), w_dkv (512),
+    w_kr (64) and wo (K = 16·128 = d); the dense first layer's gate/up
+    (N = 10944) and down (K = 10944); the shared experts' gate/up (N = 2816)
+    and down (K = 2816); the expert grid, one block per expert (64 × 1408
+    columns, or K = 1408 for down) or 64-column blocks within each (22 an
+    expert).  Rows: decode batches of 1-4, routed capacities 10-24, prefill
+    prompts of 64-2048 tokens."""
+    ds = DEEPSEEK
+    d, E, F = ds["d"], ds["experts"], ds["expert_ff"]
+    weights = [("wq", d, 1, ds["q"]), ("w_dkv", d, 1, ds["kv_lora"]), ("w_kr", d, 1, ds["rope"]),
+               ("wo", d, 1, d), ("dense_gate", d, 1, ds["ff"]), ("dense_down", ds["ff"], 1, d),
+               ("shared_gate", d, 1, ds["shared_ff"]), ("shared_down", ds["shared_ff"], 1, d),
+               ("expert_gate", d, E, F), ("expert_down", F, E, d),
+               ("expert64_gate", d, E * F // 64, 64)]
+    shapes = []
+    for name, K, B, bn in weights:
+        for share in PAIR_SHARES:
+            P = int(share * K)
+            for M in (1, 4, 10, 24, 64, 256, 2048):
+                for itemsize in (2, 4):
+                    shapes.append((f"deepseek_{name}_P{P}_M{M}_{itemsize}", M, P, K - 2 * P, B,
+                                   bn, 1, itemsize))
+    return shapes
+
+
 def _phase_kernel_shapes():
     shapes = []
     for name, blocked, M, P, R, N, pool, _, dt, _ in k1_cases():
@@ -122,10 +154,12 @@ def _phase_kernel_shapes():
     return shapes
 
 
-SHAPES = _lenet_shapes() + _qwen_shapes() + _olmoe_shapes() + _phase_kernel_shapes()
-# the skinny decode shapes: qwen2's and olmoe's weights at batch 1-4
-DECODE = [s for s in SHAPES if s[0].startswith(("qwen_", "olmoe_")) and s[1] in (1, 4)
-          and s[2] + s[3] > 0]
+SHAPES = (_lenet_shapes() + _qwen_shapes() + _olmoe_shapes() + _deepseek_shapes()
+          + _phase_kernel_shapes())
+# the skinny decode shapes: qwen2's, olmoe's and deepseek's weights at batch
+# 1-4 (but w_kr: 64 columns cannot fill the card)
+DECODE = [s for s in SHAPES if s[0].startswith(("qwen_", "olmoe_", "deepseek_"))
+          and s[1] in (1, 4) and s[2] + s[3] > 0 and not s[0].startswith("deepseek_w_kr")]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
