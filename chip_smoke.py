@@ -11,9 +11,13 @@ the paired LM serving path of qwen2-1.5b, every decoder GEMM on K1 and
 decode attention with the paired out-projection on the decode-attention
 kernel (K2); the flash-attention forward (K3) through its entry point
 ``flash_attention_fwd``; the hardened serving front end over the LM
-engines (K1 + K2); and the MoE serving path of olmoe-1b-7b, every expert
-projection of a layer one K1 launch over the expert grid (K1 + K2).  Phases, each printing one JSON line; any failure exits
-non-zero and prints no result:
+engines (K1 + K2); the MoE serving paths of olmoe-1b-7b, every expert
+projection of a layer one K1 launch over the expert grid (K1 + K2), and
+deepseek-v2-lite-16b (MLA, shared experts; K1); and the state-space paths
+of mamba2-2.7b (SSM layers; K1) and hymba-1.5b (attention beside SSM
+heads, windowed decode attention with meta-token sinks; K1 + K2).  Phases,
+each printing one JSON line; any failure exits non-zero and prints no
+result:
 
 1. build      — compile the three CUDA sources from ``src/repro_torch/kernels/csrc``
                 (one nvcc each, in parallel): seconds, registers, spills, and
@@ -38,7 +42,9 @@ non-zero and prints no result:
                 mid-cache / S−1, the serve engine's
                 shape (S 256, slots at 8-51), windows with and without
                 sinks, structured / blocked bn=1 / bn=64 (short last block) /
-                unpaired out-projections, residual present and absent: fp32
+                unpaired out-projections, residual present and absent,
+                hymba-1.5b's swa shape (G = 5 over 5 KV heads, D 64, S 1408,
+                window 1024 with 128 sinks, 1600 columns, no residual): fp32
                 ≤ 2e-5 relative, bf16 ≤ 2 output ulps (the fused form
                 against the plain projection of the bare kernel's bf16
                 rows: see fused_decode_attention_plain), a second launch
@@ -135,7 +141,31 @@ non-zero and prints no result:
                 rows) against its plain version and timed beside it,
                 ``torch.einsum`` on the folded experts and the bound; K2 at
                 olmoe's G = 1 heads;
-13. the kernels table, the card's name and power limit, and the ``ok`` line.
+13. mla_parity, 14. mla_serve — deepseek-v2-lite-16b the same way (2
+                layers: dense, MoE; then its 27), K1 at its new shapes,
+                peak device memory and its reckoning;
+15. ssm_parity — mamba2-2.7b at full width, 2 layers, fp32: the plain
+                engine against the paired one (structured, r=0), prompts
+                of 11 and 300 tokens (300 crosses the 256-token chunk),
+                6 tokens a slot: identical tokens, logits, state and conv
+                tails ≤ 1e-5, launches of the prefills and of a decode step
+                (6 K1 a layer, no K2) by the wrappers and the profiler;
+16. ssm_serve — mamba2-2.7b at its 64 layers, bf16, structured r=0.05:
+                batch 4, prompts 12/16/24/300, max_seq 512, 32 tokens a
+                slot; what moe_serve records, K1 timed at w_x, w_B, w_dt,
+                w_out, peak memory;
+17. hybrid_parity — hymba-1.5b, 3 layers (full, swa, swa), fp32, r=0,
+                prompts of 11 and 1200 tokens (the window of 1024 drops
+                keys past the 128 meta-token sinks in the prefill and the
+                decode): ssm_parity's gates, the K/V caches too (12 K1 and
+                one K2 a layer);
+18. hybrid_serve — hymba-1.5b at its 32 layers, bf16, r=0.05: batch 4,
+                prompts 12/16/24/1200, max_seq 1280; ssm_serve's record,
+                K1 at hymba's GEMMs, its K2 launches by window and sinks
+                (every windowed one on a slot whose window drops keys), K2
+                at layer 1 (swa) fused and bare against its plain version,
+                its bound and SDPA + ``torch.matmul`` under the same mask;
+19. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -442,24 +472,29 @@ def phase_decode_attention() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
-    B, KH = 4, 2
-    # (name, G, D, S, window, n_sink, out-projection block_n (0 structured,
-    #  None unpaired), N, residual, slot positions)
+    B = 4
+    # (name, G, KH, D, S, window, n_sink, out-projection block_n (0
+    #  structured, None unpaired), N, residual, slot positions)
     cases = [
-        ("qwen_heads_structured", 6, 128, 300, 0, 0, 0, 1536, True, (0, 150, 299, 5)),
+        ("qwen_heads_structured", 6, 2, 128, 300, 0, 0, 0, 1536, True, (0, 150, 299, 5)),
         # the serve engine's shape: max_seq 256, slots after prompts of 8-20
         # tokens and up to 32 decode steps
-        ("qwen_serving_shape", 6, 128, 256, 0, 0, 0, 1536, True, (8, 23, 37, 51)),
-        ("mha_bn64_short_block", 1, 64, 77, 0, 0, 64, 1000, False, (0, 38, 76, 5)),
-        ("window_bn1", 6, 64, 77, 16, 0, 1, 200, True, (0, 38, 76, 5)),
-        ("window_sink_unpaired", 1, 128, 300, 40, 4, None, 700, True, (0, 150, 299, 5)),
-        ("window_sink_structured", 6, 128, 77, 16, 3, 0, 320, False, (0, 38, 76, 5)),
+        ("qwen_serving_shape", 6, 2, 128, 256, 0, 0, 0, 1536, True, (8, 23, 37, 51)),
+        ("mha_bn64_short_block", 1, 2, 64, 77, 0, 0, 64, 1000, False, (0, 38, 76, 5)),
+        ("window_bn1", 6, 2, 64, 77, 16, 0, 1, 200, True, (0, 38, 76, 5)),
+        ("window_sink_unpaired", 1, 2, 128, 300, 40, 4, None, 700, True, (0, 150, 299, 5)),
+        ("window_sink_structured", 6, 2, 128, 77, 16, 3, 0, 320, False, (0, 38, 76, 5)),
         # G = 48 at D = 256: the plan cuts the heads into groups and the
         # block's 24576 lanes into chunks
-        ("wide_heads_grouped", 48, 256, 300, 0, 0, 0, 300, True, (0, 150, 299, 5)),
+        ("wide_heads_grouped", 48, 2, 256, 300, 0, 0, 0, 300, True, (0, 150, 299, 5)),
+        # hymba-1.5b's swa layers: 25 heads over 5 KV heads (G = 5, odd KH),
+        # D 64, the cache of max_seq 1280 + 128 meta rows, window 1024 with
+        # the 128 meta tokens as sinks, 1600 columns and no residual; slots
+        # whose window drops keys (1359, 1200), one inside it, one at 0
+        ("hymba_swa_g5", 5, 5, 64, 1408, 1024, 128, 0, 1600, False, (1359, 1200, 500, 0)),
     ]
     results, max_abs, max_rel, max_ulps = [], 0.0, 0.0, 0.0
-    for name, G, D, S, window, n_sink, block_n, N, has_res, slots in cases:
+    for name, G, KH, D, S, window, n_sink, block_n, N, has_res, slots in cases:
         H = G * KH
         # weights of std 0.1 against r=0.3: 94-99% of lanes pair in every mode
         seg = _outproj_segments(rnd(H * D, N) * 0.1, 0.3, block_n)
@@ -1199,11 +1234,14 @@ def _k1_at(block, name, x, residual=None) -> dict:
     }
 
 
-def _k2_at(eng) -> dict:
-    """K2 at the serving shapes: layer 0's cache and out-projection segments
-    of the engine, the slots at their positions; device ms of the fused and
-    the bare form beside the plain version, the library calls, and the
-    bounds; a relaunch gives the same bits."""
+def _k2_at(eng, layer: int = 0) -> dict:
+    """K2 at the serving shapes: one layer's cache and out-projection
+    segments of the engine, the slots at their positions (meta tokens
+    included), the layer's window and sinks, its skip connection fused where
+    the layer fuses one (dense and MoE layers; a hybrid layer has none);
+    device ms of the fused and the bare form beside the plain version, the
+    library calls under the same mask, and the bounds (the keys the mask
+    admits); a relaunch gives the same bits."""
     import dataclasses
 
     import torch
@@ -1212,8 +1250,12 @@ def _k2_at(eng) -> dict:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import bf16_ulps
+    from repro_torch.models import lm as M
 
-    cfg, attn = eng.cfg, eng.model.layers[0].attn
+    cfg, attn = eng.cfg, eng.model.layers[layer].attn
+    kind = cfg.layer_kind(layer)
+    window = M._window_for(cfg, kind)
+    n_sink = cfg.meta_tokens if window else 0
     dt = eng.cache["k"].dtype
     B, H, D, KH = eng.batch_size, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
     w = attn.matrix("wo", dt)
@@ -1222,51 +1264,61 @@ def _k2_at(eng) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dt)
     res = torch.randn(B, cfg.d_model, generator=gen, device="cuda").to(dt)
-    kc, vc = eng.cache["k"][0], eng.cache["v"][0]
-    pos = torch.as_tensor(eng.pos, device="cuda")
+    if kind.startswith("hybrid"):
+        res = None
+    kc, vc = eng.cache["k"][layer], eng.cache["v"][layer]
+    pos = torch.as_tensor(eng.pos + cfg.meta_tokens, device="cuda")
+    kw = dict(window=window, n_sink=n_sink)
     args = (q, kc, vc, pos, seg.idx_i, seg.idx_j, seg.idx_r, seg.kmat, seg.w_res, res)
-    got = da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols)
-    want = da.outproj_plain(da.decode_attention_cuda(q, kc, vc, pos), *args[4:],
+    got = da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols, **kw)
+    want = da.outproj_plain(da.decode_attention_cuda(q, kc, vc, pos, **kw), *args[4:],
                             n_cols=seg.n_cols, out_dtype=torch.float32)
-    check(torch.equal(da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols), got),
-          "lm_serve K2: two launches differ")
+    check(torch.equal(da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols, **kw), got),
+          f"K2 at {cfg.name} layer {layer}: two launches differ")
     Bw, P, bn = seg.kmat.shape
     folded = ops.fold_lm_weight(w, meta)
-    mask = (torch.arange(kc.shape[1], device="cuda")[None, :] <= pos[:, None].long())
+    mask = da.decode_mask(pos, kc.shape[1], window, n_sink)
+    n_res = 0 if res is None else 1
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
+                                              vc.transpose(1, 2), attn_mask=mask[:, None, None],
+                                              enable_gqa=True)
 
     def library():  # two calls: no single PyTorch call computes K2
-        o = F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
-                                           vc.transpose(1, 2), attn_mask=mask[:, None, None],
-                                           enable_gqa=True)
-        return torch.matmul(o.reshape(B, H * D), folded) + res
+        y = torch.matmul(sdpa().reshape(B, H * D), folded)
+        return y if res is None else y + res
 
-    live_keys = int((pos.long() + 1).clamp(max=kc.shape[1]).sum())
+    live_keys = int(mask.sum())
     p_live, r_live = int(meta["pair_mask"].sum()), int(meta["resid_mask"].sum())
     N, item = seg.n_cols, q.element_size()
-    nbytes = (q.numel() + 2 * live_keys * KH * D + (p_live + r_live) * N + 2 * B * N) * item \
-        + (2 * p_live + r_live) * 4
+    nbytes = (q.numel() + 2 * live_keys * KH * D + (p_live + r_live) * N + (1 + n_res) * B * N) \
+        * item + (2 * p_live + r_live) * 4
     flops = 4 * live_keys * H * D + B * (2 * N * (p_live + r_live) + p_live)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
-    ms = graph_ms(lambda: da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols))
+    ms = graph_ms(lambda: da.fused_decode_attention_cuda(*args, n_cols=seg.n_cols, **kw))
     # the bare form at the same shape: the attention alone (the rest of the
     # fused time is the out-projection)
     bare_bytes = (2 * q.numel() + 2 * live_keys * KH * D) * item
-    bare_ms = graph_ms(lambda: da.decode_attention_cuda(q, kc, vc, pos))
+    bare_ms = graph_ms(lambda: da.decode_attention_cuda(q, kc, vc, pos, **kw))
     return {
-        "B": B, "H": H, "KH": KH, "D": D, "S": kc.shape[1], "pos": eng.pos.tolist(),
+        "layer": layer, "kind": kind, "window": window, "n_sink": n_sink,
+        "B": B, "H": H, "KH": KH, "D": D, "S": kc.shape[1], "pos": pos.tolist(),
+        "live_keys": live_keys,
+        "masked_keys": [int(p) + 1 - int(k) for p, k in zip(pos.tolist(), mask.sum(-1).tolist())],
+        "residual": res is not None,
         "N": N, "pairs_live": p_live, "resid_live": r_live, "ulps": bf16_ulps(got, want),
         "plan": dataclasses.asdict(da.launch_plan(q, kc, N, bn, P, seg.w_res.shape[1])),
         "bare_plan": dataclasses.asdict(da.launch_plan(q, kc)),
         "ms": ms, "bare_ms": bare_ms, "projection_ms": ms - bare_ms,
         "bare_bound_ms": max(bare_bytes / HBM_BYTES_PER_S,
                              4 * live_keys * H * D / BF16_FLOP_PER_S) * 1e3,
-        "bare_library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-            attn_mask=mask[:, None, None], enable_gqa=True)),
-        "plain_ms": graph_ms(lambda: da.fused_decode_attention_plain(*args, n_cols=seg.n_cols)),
+        "bare_library_ms": graph_ms(sdpa),
+        "plain_ms": graph_ms(lambda: da.fused_decode_attention_plain(*args, n_cols=seg.n_cols,
+                                                                     **kw)),
         "library_ms": graph_ms(library),
-        "library_calls": "F.scaled_dot_product_attention(enable_gqa=True) + "
-                         "torch.matmul(folded wo) + residual add",
+        "library_calls": "F.scaled_dot_product_attention(enable_gqa=True, the same mask) + "
+                         "torch.matmul(folded wo)" + (" + residual add" if n_res else ""),
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "kernel_over_bound": ms / max(t_bytes, t_ops), "bytes": nbytes, "flops": flops,
     }
@@ -1888,6 +1940,295 @@ def phase_mla_serve() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 15-18: the SSM (mamba2-2.7b) and hybrid (hymba-1.5b) serving paths
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "hymba-1.5b"
+
+
+def _prefill_want(cfg, knobs, n_prompts: int) -> dict[str, int]:
+    """K1 launches of ``n_prompts`` prefills: a prefill layer runs each of
+    its GEMMs once, as a decode layer without the fused attention does (QKV
+    three launches and the out-projection one; K2 is decode only)."""
+    import dataclasses
+
+    per = _per_step_want(cfg, dataclasses.replace(knobs, attn="xla"))
+    return {**per, "paired_matmul": per["paired_matmul"] * n_prompts}
+
+
+def _masked_keys(cfg, eng) -> list[int]:
+    """Keys at or before each slot's position that its swa layers' window
+    drops (0 without a window)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_mask
+
+    if not cfg.sliding_window:
+        return [0] * eng.batch_size
+    pos = torch.as_tensor(eng.pos + cfg.meta_tokens)
+    S = int(pos.max()) + 1
+    ok = decode_mask(pos, S, cfg.sliding_window, cfg.meta_tokens).sum(-1)
+    return [int(p) + 1 - int(k) for p, k in zip(pos.tolist(), ok.tolist())]
+
+
+def phase_state_parity(tag: str, cfg, lens: list[int], max_seq: int) -> dict:
+    """The plain engine (``torch.matmul``, plain attention) against the
+    paired one (structured r=0; K1, and K2 for attention) at full width, a
+    few layers, fp32: the prefills' logits and every cache entry, tokens
+    and logits of 6 tokens a slot, and the caches after them, identical
+    tokens and ≤ 1e-5 relative; launches of the prefills and of a decode
+    step held to ``decode_launches``, by the wrappers and the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.serve import kernel_launches
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+
+    model = M.init_lm(cfg, 0)
+    base = dict(q_chunk=32, k_chunk=32)
+    t0 = time.perf_counter()
+    plain = ServeEngine(cfg, model, max_seq=max_seq, batch_size=len(lens),
+                        knobs=M.PerfKnobs(**base))
+    paired = ServeEngine(cfg, model, max_seq=max_seq, batch_size=len(lens), knobs=M.PerfKnobs(
+        **base, gemm="pallas_paired", attn="pallas_fused"))
+    pairing_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = {s: rng.integers(0, cfg.vocab, size=n) for s, n in enumerate(lens)}
+    errs: dict[str, float] = {}
+
+    def err(name: str, got, want) -> None:
+        errs[name] = max(errs.get(name, 0.0), rel_err(got, want))
+
+    for prompt in prompts.values():
+        tokens = torch.as_tensor(prompt[None], device="cuda")
+        want, want_cache = M.prefill(cfg, plain.model, tokens, knobs=plain.knobs)
+        got, got_cache = M.prefill(cfg, paired.model, tokens, knobs=paired.knobs)
+        err("prefill_logits", got, want)
+        for k in want_cache:
+            err(f"prefill_{k}", got_cache[k], want_cache[k])
+
+    _reset_launches()  # the path's own counts from here
+    toks = {name: {s: [eng.add_request(s, p)] for s, p in prompts.items()}
+            for name, eng in (("plain", plain), ("paired", paired))}
+    prefill_launches = kernel_launches()
+    before = kernel_launches()
+    for _ in range(5):
+        for name, eng in (("plain", plain), ("paired", paired)):
+            nxt = eng.step()
+            for s in prompts:
+                toks[name][s].append(int(nxt[s]))
+        err("decode_logits", paired.last_logits, plain.last_logits)
+    decode = {k: v - before[k] for k, v in kernel_launches().items()}
+    launches = kernel_launches()
+    for k in plain.cache:
+        err(f"cache_{k}", paired.cache[k], plain.cache[k])
+    masked = _masked_keys(cfg, paired)
+    per_step = {k: v / 5 for k, v in decode.items()}
+    prof = profile_step(paired.step)
+    prof_per_step = {k: prof[k]["launches"] for k in ("K1", "K2")}
+    want = _per_step_want(cfg, paired.knobs)
+    check(toks["paired"] == toks["plain"], f"{tag} tokens differ: {toks}")
+    check(max(errs.values()) <= FP32_RTOL, f"{tag} logits/cache rel err {errs}")
+    check(prefill_launches == _prefill_want(cfg, paired.knobs, len(prompts)),
+          f"{tag} prefill launches {prefill_launches}")
+    check(per_step == want, f"{tag} launches per decode step {per_step}, want {want}")
+    check(prof_per_step == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
+          f"{tag} profiler launches per decode step {prof_per_step}")
+    if cfg.sliding_window:  # the long prompt's window drops keys in the decode
+        check(max(masked) > 0, f"{tag}: no slot's window masks a key ({masked})")
+    out = {
+        "phase": tag, "arch": cfg.name, "layers": cfg.n_layers,
+        "layer_kinds": [cfg.layer_kind(i) for i in range(cfg.n_layers)], "dtype": cfg.dtype,
+        "pairing": "structured, r=0", "pairing_s": pairing_s, "prompts": lens,
+        "window": cfg.sliding_window, "n_sink": cfg.meta_tokens,
+        "masked_keys_at_last_step": masked,
+        "tokens": toks["paired"], "tokens_identical": toks["paired"] == toks["plain"],
+        "max_rel_err": max(errs.values()), "rel_err": errs, "main_path_launches": launches,
+        "prefill_launches": prefill_launches, "decode_launches_per_step": per_step,
+        "decode_launches_per_layer": _per_kind(cfg, paired.knobs),
+        "profiled_step": prof, "profiled_launches_per_step": prof_per_step,
+    }
+    emit(out)
+    return out
+
+
+def _per_kind(cfg, knobs) -> dict:
+    """``decode_launches`` of each layer kind of ``cfg``."""
+    from repro_torch.analysis import decode_launches
+
+    kinds = dict.fromkeys(cfg.layer_kind(i) for i in range(cfg.n_layers))
+    return {k: decode_launches(cfg, k, knobs) for k in kinds}
+
+
+def phase_ssm_parity() -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    # a 300-token prompt crosses the 256-token chunk: the inter-chunk
+    # recurrence runs
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=2, dtype="float32")
+    return phase_state_parity("ssm_parity", cfg, [11, 300], max_seq=320)
+
+
+def phase_hybrid_parity() -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    # layers full, swa, swa; at 1200 tokens + 128 meta the window drops keys
+    # 128…pos − 1024 in the prefill and the decode
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=3, full_attn_layers=(0,),
+                              dtype="float32")
+    return phase_state_parity("hybrid_parity", cfg, [11, 1200], max_seq=1216)
+
+
+def _k2_windows(eng) -> dict:
+    """The window, sinks and slot positions of every K2 launch of one decode
+    step, recorded at ``ops``' call of the kernel's wrapper (which alone
+    counts the launches)."""
+    import collections
+
+    from repro_torch.kernels import ops
+
+    seen, real = collections.Counter(), ops.fused_decode_attention_cuda
+    masking = []
+
+    def record(*args, window=0, n_sink=0, **kw):
+        seen[(window, n_sink)] += 1
+        pos = args[3]
+        if window:
+            masking.append(int(pos.max()) + 1 - window > n_sink)
+        return real(*args, window=window, n_sink=n_sink, **kw)
+
+    ops.fused_decode_attention_cuda = record
+    try:
+        eng.step()
+    finally:
+        ops.fused_decode_attention_cuda = real
+    return {"launches_by_window_sinks": {f"{w},{n}": c for (w, n), c in seen.items()},
+            "windowed_launches_masking_keys": sum(masking)}
+
+
+def phase_state_serve(tag: str, arch: str, lens: list[int], max_seq: int, k1_at) -> dict:
+    """``arch`` at full width and depth, bf16, structured r=0.05, through
+    ``launch.serve.serve``: batch 4, 32 tokens a slot; pairing seconds and
+    pair fraction, prefill ms per request, decode ms per step, tokens/s,
+    peak memory and its reckoning, launches of the prefills and a decode
+    step held to ``decode_launches``, a profiled step, K1 at the arch's
+    shapes (``k1_at(eng, x)``) against its plain version and timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import kernel_launches, serve
+
+    steps, batch = 32, len(lens)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the path's own counts from here
+    rec = serve(arch=arch, batch=batch, max_seq=max_seq, steps=steps, pair_rounding=0.05,
+                gemm="pallas_paired", attn="pallas_fused", prompt_lens=lens)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    eng = rec["engine"]
+    cfg, L = eng.cfg, eng.cfg.n_layers
+    per_step = {k: v / (steps - 1) for k, v in rec["launches"]["decode"].items()}
+    want = _per_step_want(cfg, eng.knobs)
+    toks = rec["outputs"]
+    memory = {"peak_gb": peak / 1e9, **_memory_reckoning(eng)}
+    check(per_step == want, f"{tag} launches per decode step {per_step}, want {want}")
+    check(rec["launches"]["prefill"] == _prefill_want(cfg, eng.knobs, len(lens)),
+          f"{tag} prefill launches {rec['launches']['prefill']}")
+    check(all(len(t) == steps and all(0 <= x < cfg.vocab for x in t) for t in toks.values()),
+          f"{tag}: tokens out of range")
+    check(bool(np.isfinite(eng.last_logits).all())
+          and eng.last_logits.shape == (batch, cfg.vocab), f"{tag}: bad logits")
+    check(peak < memory["card_total_gb"] * 1e9, f"{tag} peak memory {memory}")
+    prof = profile_step(eng.step)
+    prof_per_step = {k: prof[k]["launches"] for k in ("K1", "K2")}
+    check(prof_per_step == {"K1": want["paired_matmul"], "K2": want["decode_attention"]}
+          or prof["device_ms"] == "not measured",
+          f"{tag} profiler launches per decode step {prof_per_step}")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k1 = k1_at(eng, x)
+    for row in k1:
+        check(row["ulps"] <= BF16_MAX_ULPS, f"{tag} K1 {row['weight']} {row['ulps']:.3g} ulps")
+    step_ms = sorted(rec["step_ms"])
+    rp = eng.pair_report
+    out = {
+        "phase": tag, "arch": cfg.name, "layers": L, "segments": cfg.segments(),
+        "dtype": cfg.dtype, "batch": batch, "max_seq": max_seq, "tokens_per_slot": steps,
+        "prompts": lens, "meta_tokens": cfg.meta_tokens, "window": cfg.sliding_window,
+        "pairing": {"mode": rp.mode, "rounding": rp.rounding, "total_pairs": rp.total_pairs,
+                    "pair_fraction": rp.pair_fraction, "seconds": rec["pairing_s"],
+                    "ssm_pair_fraction": 2 * sum(leaf.n_pairs for leaf in rp.leaves
+                                                 if ".mamba." in leaf.path)
+                    / sum(leaf.n_weights for leaf in rp.leaves if ".mamba." in leaf.path)},
+        "prefill_ms": rec["prefill_ms"],
+        "decode_ms": {"median": step_ms[len(step_ms) // 2],
+                      "p90": step_ms[int(0.9 * (len(step_ms) - 1))], "n": len(step_ms)},
+        "tokens_per_s": rec["tokens_per_s"], "seconds": rec["seconds"],
+        "main_path_launches": launches, "prefill_launches": rec["launches"]["prefill"],
+        "decode_launches_per_step": per_step,
+        "decode_launches_per_layer": _per_kind(cfg, eng.knobs),
+        "profiled_step": prof, "profiled_launches_per_step": prof_per_step,
+        "k1_shapes": k1, "device_memory": memory,
+        "tokens": {s: t[:8] for s, t in toks.items()},
+    }
+    return out, eng
+
+
+def phase_ssm_serve() -> dict:
+    def k1_at(eng, x):
+        mamba, d = eng.model.layers[0].mamba, eng.cfg.d_model
+        d_in = eng.cfg.ssm.expand * d
+        return [_k1_at(mamba, "w_x", x(4, d)), _k1_at(mamba, "w_B", x(4, d)),
+                _k1_at(mamba, "w_dt", x(4, d)), _k1_at(mamba, "w_out", x(4, d_in))]
+
+    out, eng = phase_state_serve("ssm_serve", SSM_ARCH, [12, 16, 24, 300], 512, k1_at)
+    check(out["layers"] == 64 and out["segments"] == (("ssm", 64),),
+          f"ssm_serve runs {out['segments']}, not the published 64 layers")
+    emit(out)
+    return out
+
+
+def phase_hybrid_serve() -> dict:
+    def k1_at(eng, x):
+        layer, cfg = eng.model.layers[1], eng.cfg
+        d, d_in = cfg.d_model, cfg.ssm.expand * cfg.d_model
+        return [_k1_at(layer.attn, "wq", x(4, d)), _k1_at(layer.attn, "wk", x(4, d)),
+                _k1_at(layer.mlp, "w_gate", x(4, d)),
+                _k1_at(layer.mlp, "w_down", x(4, cfg.d_ff), x(4, d)),
+                _k1_at(layer.mamba, "w_z", x(4, d)), _k1_at(layer.mamba, "w_B", x(4, d)),
+                _k1_at(layer.mamba, "w_dt", x(4, d)), _k1_at(layer.mamba, "w_out", x(4, d_in))]
+
+    out, eng = phase_state_serve("hybrid_serve", HYBRID_ARCH, [12, 16, 24, 1200], 1280, k1_at)
+    cfg = eng.cfg
+    check(out["layers"] == 32 and len(out["segments"]) == 5,
+          f"hybrid_serve runs {out['segments']}, not the published 32 layers")
+    # K2 on the swa layers with window 1024 and the 128 meta tokens as sinks,
+    # on a slot whose window drops keys; no window on the full layers (the
+    # sinks are passed, and mean nothing without one)
+    k2_windows = _k2_windows(eng)
+    n_swa = sum(cfg.layer_kind(i) == "hybrid_swa" for i in range(cfg.n_layers))
+    check(k2_windows["launches_by_window_sinks"] == {
+        f"{cfg.sliding_window},{cfg.meta_tokens}": n_swa,
+        f"0,{cfg.meta_tokens}": cfg.n_layers - n_swa}
+        and k2_windows["windowed_launches_masking_keys"] == n_swa,
+        f"hybrid_serve K2 windows {k2_windows}")
+    k2 = _k2_at(eng, layer=1)
+    check(k2["ulps"] <= BF16_MAX_ULPS, f"hybrid_serve K2 {k2['ulps']:.3g} ulps")
+    check(k2["window"] == cfg.sliding_window and max(k2["masked_keys"]) > 0,
+          f"hybrid_serve K2 at layer 1: window {k2['window']}, masked {k2['masked_keys']}")
+    out.update({"k2_windows": k2_windows, "masked_keys": _masked_keys(cfg, eng), "k2": k2})
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1925,12 +2266,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mla = phase_mla_serve()
+    gc.collect()
+    torch.cuda.empty_cache()  # deepseek's weights leave the card
+    ssm_parity = phase_ssm_parity()
+    ssm = phase_ssm_serve()
+    gc.collect()
+    torch.cuda.empty_cache()  # mamba2's weights leave the card
+    hybrid_parity = phase_hybrid_parity()
+    hybrid = phase_hybrid_serve()
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
     fe_runs = {"frontend_chaos": fe["chaos"]["launches"],
                **{f"frontend_load_{row['offered_rps']:g}": row["launches"]
                   for row in fe["load_sweep"]["rows"]}}
+    state_paths = {"ssm_parity": ssm_parity, "ssm_serve": ssm, "hybrid_parity": hybrid_parity,
+                   "hybrid_serve": hybrid}
     paths = {"lenet_serve": lenet["main_path_launches"],
              "paper": paper["main_path_launches"],
              "lm_parity": parity["main_path_launches"]["paired_matmul"],
@@ -1939,14 +2290,17 @@ def main() -> int:
              "moe_parity": moe_parity["main_path_launches"]["paired_matmul"],
              "moe_serve": moe["main_path_launches"]["paired_matmul"],
              "mla_parity": mla_parity["main_path_launches"]["paired_matmul"],
-             "mla_serve": mla["main_path_launches"]["paired_matmul"]}
+             "mla_serve": mla["main_path_launches"]["paired_matmul"],
+             **{k: v["main_path_launches"]["paired_matmul"] for k, v in state_paths.items()}}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},
                 "moe_parity": moe_parity["main_path_launches"]["decode_attention"],
                 "moe_serve": moe["main_path_launches"]["decode_attention"],
                 "mla_parity": mla_parity["main_path_launches"]["decode_attention"],
-                "mla_serve": mla["main_path_launches"]["decode_attention"]}
+                "mla_serve": mla["main_path_launches"]["decode_attention"],
+                **{k: v["main_path_launches"]["decode_attention"]
+                   for k, v in state_paths.items()}}
     # K3 runs through its own entry point; the serving paths never call it
     k3_paths = {"flash_attention": flash["main_path_launches"],
                 "lm_parity": parity["main_path_launches"]["flash_attention"],
@@ -1955,7 +2309,9 @@ def main() -> int:
                 "moe_parity": moe_parity["main_path_launches"]["flash_attention"],
                 "moe_serve": moe["main_path_launches"]["flash_attention"],
                 "mla_parity": mla_parity["main_path_launches"]["flash_attention"],
-                "mla_serve": mla["main_path_launches"]["flash_attention"]}
+                "mla_serve": mla["main_path_launches"]["flash_attention"],
+                **{k: v["main_path_launches"]["flash_attention"]
+                   for k, v in state_paths.items()}}
     k2 = lm["k2"]
     k3 = next(row for row in flash["timed"]
               if (row["case"], row["dtype"]) == ("qwen_causal_2048", "bfloat16"))
@@ -1990,6 +2346,12 @@ def main() -> int:
         "deepseek": [{k: row[k] for k in ("weight", "M", "K", "N", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms") if k in row}
                      for row in mla["k1_new_shapes"] + mla["k1_expert_grid"]],
+        # mamba2-2.7b's SSM projections (layer 0) and hymba-1.5b's GEMMs
+        # (layer 1), bf16, structured r=0.05, at 4 decode rows
+        **{arch: [{k: row[k] for k in ("weight", "M", "K", "N", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
+                  for row in rec["k1_shapes"]]
+           for arch, rec in (("mamba2", ssm), ("hymba", hybrid))},
     }, {
         "name": "decode_attention",
         "route": "cuda",
@@ -2011,6 +2373,11 @@ def main() -> int:
         # olmoe-1b-7b layer 0 (H = KH = 16, G = 1, D 128, batch 4)
         "olmoe_g1": {k: moe["k2"][k] for k in ("ms", "bare_ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
+        # hymba-1.5b layer 1 (swa: window 1024, 128 sinks; H 25 over KH 5,
+        # D 64, 1600 columns, no residual; batch 4)
+        "hymba_swa": {k: hybrid["k2"][k] for k in ("ms", "bare_ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms", "live_keys",
+                                                   "masked_keys")},
     }, {
         "name": "flash_attention",
         "route": "cuda",

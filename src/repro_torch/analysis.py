@@ -69,9 +69,10 @@ def counting(**extra):
 
 
 def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
-    """Kernel launches of one decode layer of ``kind`` (``"dense"`` or
-    ``"moe"``) under ``knobs`` (``models.lm.PerfKnobs``), every decoder
-    weight paired, keyed as ``launch.serve.kernel_launches``.
+    """Kernel launches of one decode layer of ``kind`` (``"dense"``,
+    ``"moe"``, ``"ssm"``, ``"hybrid_full"`` or ``"hybrid_swa"``) under
+    ``knobs`` (``models.lm.PerfKnobs``), every decoder weight paired, keyed
+    as ``launch.serve.kernel_launches``.
 
     Under ``gemm="pallas_paired"`` K1 runs the attention's projections and
     the feed-forward block's three: a gated MLP's, or all experts' gate, up
@@ -82,17 +83,23 @@ def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
     out-projection unless K2 fuses it; ``attn="pallas_fused"`` is one K2
     launch.  MLA: ``wq``, ``w_dkv``, ``w_kr`` and ``wo``, and no K2 under
     any ``attn`` (its decode attention is latent einsums, as in the JAX
-    package).  K3 runs on no decode path.
+    package).  An SSM block: its six projections (``w_z``, ``w_x``,
+    ``w_B``, ``w_C``, ``w_dt``, ``w_out``; the conv and the state update are
+    plain PyTorch), alone in an ``"ssm"`` layer, beside GQA attention and
+    the MLP in a hybrid one.  K3 runs on no decode path.
     """
-    if kind not in ("dense", "moe"):
+    if kind not in ("dense", "moe", "ssm", "hybrid_full", "hybrid_swa"):
         raise ValueError(f"no decode layer of kind {kind!r} is ported")
     paired, fused = knobs.gemm == "pallas_paired", knobs.attn == "pallas_fused"
-    ffn = 6 if kind == "moe" and cfg.moe.n_shared else 3
+    if kind == "ssm":
+        return {"paired_matmul": 6 if paired else 0, "decode_attention": 0, "flash_attention": 0}
+    hybrid = kind.startswith("hybrid")
+    ffn = 6 if kind == "moe" and cfg.moe.n_shared else 3 if not hybrid or cfg.d_ff else 0
     if cfg.mla is not None:
         return {"paired_matmul": 4 + ffn if paired else 0, "decode_attention": 0,
                 "flash_attention": 0}
     bn, hd = knobs.pair_block_n, cfg.head_dim
     one_qkv = fused and bn >= 1 and not (cfg.n_heads * hd) % bn and not (
         cfg.n_kv_heads * hd) % bn
-    k1 = (1 if one_qkv else 3) + (0 if fused else 1) + ffn if paired else 0
+    k1 = (1 if one_qkv else 3) + (0 if fused else 1) + ffn + (6 if hybrid else 0) if paired else 0
     return {"paired_matmul": k1, "decode_attention": int(fused), "flash_attention": 0}

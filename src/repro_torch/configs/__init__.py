@@ -2,8 +2,11 @@
 
 ``get_config(name)`` / ``get_smoke_config(name)`` resolve the architectures
 the port runs; so far ``qwen2-1.5b`` (dense GQA), ``olmoe-1b-7b`` (MoE,
-64 routed experts top-8) and ``deepseek-v2-lite-16b`` (MLA, 64 routed
-experts top-6 beside 2 shared ones, a dense first layer).  Every other name
+64 routed experts top-8), ``deepseek-v2-lite-16b`` (MLA, 64 routed
+experts top-6 beside 2 shared ones, a dense first layer), ``mamba2-2.7b``
+(SSM: Mamba-2 SSD blocks, no attention) and ``hymba-1.5b`` (hybrid:
+attention beside SSM heads in every layer, 128 meta tokens, sliding windows
+on 29 of its 32 layers).  Every other name
 the JAX package knows raises ``KeyError`` saying it is not ported yet.
 """
 from __future__ import annotations
@@ -23,7 +26,7 @@ ALL_ARCHS = [
     "olmoe-1b-7b",
     "hymba-1.5b",
 ]
-PORTED = ["qwen2-1.5b", "olmoe-1b-7b", "deepseek-v2-lite-16b"]
+PORTED = ["qwen2-1.5b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b"]
 
 
 def _module(name: str):

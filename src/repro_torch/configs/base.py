@@ -1,13 +1,16 @@
-"""ModelConfig of the port: the dense and MoE subset of
+"""ModelConfig of the port: the dense, MoE, SSM and hybrid subset of
 ``repro.configs.base``, with GQA or multi-head latent attention (MLA).
 
 The decoder stack is described by *segments*, maximal runs of identical
 layers, as in the JAX package; the port keeps one module per layer, and the
 segments only decide how pairing metadata is padded (segment-wide
 ``(Pmax, Rmax)``, ``core.transform.pair_params``).  MoE runs routed experts,
-shared experts beside them and dense leading layers.  SSM, hybrid,
-encoder-decoder and vision families are not ported yet, nor layernorm: a
-config asking for them raises.
+shared experts beside them and dense leading layers.  SSM layers are Mamba-2
+(SSD) blocks; a hybrid layer (hymba) runs attention and an SSM block side by
+side on the same input, with meta tokens prepended to every prompt and a
+sliding window on all but its ``full_attn_layers``.  Encoder-decoder and
+vision families are not ported yet, nor layernorm: a config asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -42,9 +45,23 @@ class MoeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SsmConfig:
+    """Mamba-2 (SSD) block geometry (the JAX package's fields and defaults)."""
+
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2  # d_inner = expand * d_model
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 256  # SSD chunk length
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense", "moe"]
+    family: Literal["dense", "moe", "ssm", "hybrid"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,10 +74,17 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     sliding_window: int = 0  # 0 → full attention
+    full_attn_layers: tuple[int, ...] = ()  # hybrid: layers using full attn
     rope_theta: float = 10000.0
 
     mla: MlaConfig | None = None
     moe: MoeConfig | None = None
+    ssm: SsmConfig | None = None
+
+    # hybrid (hymba): every layer runs attention ∥ SSM heads in parallel;
+    # ``meta_tokens`` learned rows precede every prompt (and are the sinks
+    # of the sliding window)
+    meta_tokens: int = 0
 
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     act: Literal["silu", "gelu"] = "silu"
@@ -75,10 +99,12 @@ class ModelConfig:
     def __post_init__(self):
         if self.norm != "rmsnorm":
             raise NotImplementedError(f"norm={self.norm!r} is not ported yet")
-        if self.family not in ("dense", "moe"):
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(f"family={self.family!r} is not ported yet")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"family={self.family!r} with moe={self.moe!r}")
+        if (self.family in ("ssm", "hybrid")) != (self.ssm is not None):
+            raise ValueError(f"family={self.family!r} with ssm={self.ssm!r}")
 
     @property
     def head_dim(self) -> int:
@@ -87,8 +113,14 @@ class ModelConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     def layer_kind(self, i: int) -> str:
-        """Kind string for decoder layer i: ``"moe"`` in an MoE model past its
+        """Kind string for decoder layer i: ``"ssm"`` in an SSM model,
+        ``"hybrid_full"`` (one of ``full_attn_layers``) or ``"hybrid_swa"``
+        in a hybrid one, ``"moe"`` in an MoE model past its
         ``first_k_dense`` leading dense layers, else ``"dense"``."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "hybrid":
+            return "hybrid_full" if i in self.full_attn_layers else "hybrid_swa"
         if self.moe is not None and i >= self.moe.first_k_dense:
             return "moe"
         return "dense"
@@ -105,11 +137,20 @@ class ModelConfig:
         return tuple(segs)
 
     def param_count(self, active_only: bool = False) -> int:
-        """Parameter count, embeddings included once (norms and biases not
-        counted, as in the JAX package); ``active_only`` counts the top-k
-        and shared experts a token runs instead of all of them."""
+        """Parameter count, embeddings included once (norms, biases, the SSM
+        blocks' convs and per-head vectors and the meta tokens not counted,
+        as in the JAX package); ``active_only`` counts the top-k and shared
+        experts a token runs instead of all of them."""
         d, ff, V, hd, H = self.d_model, self.d_ff, self.vocab, self.head_dim, self.n_heads
         n = V * d if self.tie_embeddings else 2 * V * d  # embedding, and the head
+        ssm = 0
+        if self.ssm is not None:
+            s = self.ssm
+            d_in = s.expand * d
+            # w_z, w_x, w_B, w_C, w_dt, then w_out
+            ssm = d * (2 * d_in + 2 * s.n_groups * s.d_state + d_in // s.head_dim) + d_in * d
+        if self.family == "ssm":
+            return n + self.n_layers * ssm
         if self.mla is not None:
             m = self.mla
             att = (d * H * (m.qk_nope_dim + m.qk_rope_dim)  # wq
@@ -125,19 +166,19 @@ class ModelConfig:
                 experts = (mo.top_k if active_only else mo.n_experts) + mo.n_shared
                 n += att + experts * per_expert + d * mo.n_experts
             else:
-                n += att + 3 * d * (self.moe.d_ff_dense if self.moe is not None else ff)
+                n += att + 3 * d * (self.moe.d_ff_dense if self.moe is not None else ff) + ssm
         return n
 
 
 def default_paired_leaves(
     *, attn: bool = True, mla: bool = False, mlp: bool = True, moe: bool = False,
-    moe_shared: bool = False,
+    moe_shared: bool = False, ssm: bool = False,
 ) -> tuple[tuple[str, str], ...]:
     """The pairing-eligible leaf specs of a decoder layer, by block type:
     ``(sub-path, weight-name)`` into a decoder layer, a dotted sub-path
-    (``"moe.shared"``) naming a nested block.  The router and MLA's latent
-    up-projections ``w_uk``/``w_uv`` (einsums, never a plain GEMM) are not
-    eligible."""
+    (``"moe.shared"``) naming a nested block.  The router, MLA's latent
+    up-projections ``w_uk``/``w_uv`` (einsums, never a plain GEMM) and the
+    SSM block's depthwise convs are not eligible."""
     leaves: list[tuple[str, str]] = []
     if mla:
         leaves += [("attn", "wq"), ("attn", "w_dkv"), ("attn", "w_kr"), ("attn", "wo")]
@@ -149,4 +190,6 @@ def default_paired_leaves(
         leaves += [("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down")]
     if moe_shared:
         leaves += [("moe.shared", "w_gate"), ("moe.shared", "w_up"), ("moe.shared", "w_down")]
+    if ssm:
+        leaves += [("mamba", n) for n in ("w_z", "w_x", "w_B", "w_C", "w_dt", "w_out")]
     return tuple(leaves)

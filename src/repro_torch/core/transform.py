@@ -6,7 +6,8 @@ The conv and LM halves of ``repro.core.transform``.
   tree and returns one :class:`PairedLayer` per layer, which
   ``kernels.paired_conv.paired_conv`` consumes at inference.
 * :func:`pair_params` / :func:`pair_lm_params` pair the decoder weights of an
-  LM (``models.lm.LM``), each expert's matrix of an MoE layer on its own,
+  LM (``models.lm.LM``: attention, MLP, experts, SSM projections), each
+  expert's matrix of an MoE layer on its own,
   and return a model that shares its weights and carries each weight's
   metadata (``block.pairing[name]``), with a :class:`PairedModelReport`.
 
@@ -196,7 +197,8 @@ LM_PAIRED_WEIGHTS: tuple[tuple[str, str], ...] = (
 # order (its list without the families the port does not run): the dense
 # layers' weights, MLA's down-projections (w_uk/w_uv are latent einsums,
 # never paired), the routed experts' and the shared experts' (the router is
-# never paired).
+# never paired), and the SSM block's six projections (its depthwise convs
+# are never paired).
 DEFAULT_PAIRED_LEAVES: tuple[tuple[str, str], ...] = LM_PAIRED_WEIGHTS + (
     ("attn", "w_dkv"),
     ("attn", "w_kr"),
@@ -206,6 +208,12 @@ DEFAULT_PAIRED_LEAVES: tuple[tuple[str, str], ...] = LM_PAIRED_WEIGHTS + (
     ("moe.shared", "w_gate"),
     ("moe.shared", "w_up"),
     ("moe.shared", "w_down"),
+    ("mamba", "w_z"),
+    ("mamba", "w_x"),
+    ("mamba", "w_B"),
+    ("mamba", "w_C"),
+    ("mamba", "w_dt"),
+    ("mamba", "w_out"),
 )
 
 

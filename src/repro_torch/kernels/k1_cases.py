@@ -16,7 +16,8 @@ from __future__ import annotations
 # 20-token prefill: two passes of 16 rows over the cluster's ring and gather.
 # Past 64 rows: w_down's rows are too long for the tall form's stages, so the
 # skinny form runs 7 passes (the last one short); wq takes the tall form.
-# Then olmoe-1b-7b's expert grid and deepseek-v2-lite-16b's weights (below).
+# Then olmoe-1b-7b's expert grid, deepseek-v2-lite-16b's weights, and
+# mamba2-2.7b's and hymba-1.5b's (below).
 K1_SKINNY_CASES = [
     ("skinny_M1_K1536_N256", False, 1, 690, 156, 256, "none", "none", False),
     ("skinny_M4_K1536_N1536_res", False, 4, 690, 156, 1536, "none", "none", True),
@@ -67,6 +68,33 @@ K1_SKINNY_CASES = [
     ("expert1408_gate_M4", True, 4, 965, 118, (64, 1408, 90112), "none", "silu", False),
     ("expert1408_gate_C3", True, 3, 965, 118, (64, 1408, 90112), "none", "silu", False),
     ("expert1408_down_M4", True, 4, 694, 20, (64, 2048, 131072), "none", "none", False),
+] + [
+    # mamba2-2.7b's SSM projections at their pairs at r=0.05 on seeded
+    # weights: w_x (w_z alike, N = 5120), w_B (w_C alike, N = 128), w_dt
+    # (N = 80) and w_out (K = 5120) at 4 decode rows; w_x and w_out at a
+    # 300-token prompt's rows
+    ("mamba_w_x_M4", False, 4, 1256, 48, 5120, "none", "none", False),
+    ("mamba_w_B_M4", False, 4, 1269, 22, 128, "none", "none", False),
+    ("mamba_w_dt_M4", False, 4, 1279, 2, 80, "none", "none", False),
+    ("mamba_w_out_M4", False, 4, 2533, 54, 2560, "none", "none", False),
+    ("mamba_w_x_M300", False, 300, 1256, 48, 5120, "none", "none", False),
+    ("mamba_w_out_M300", False, 300, 2533, 54, 2560, "none", "none", False),
+    # hymba-1.5b the same way: wq (N = 1600), wk (N = 320, no residual
+    # lanes), the MLP's gate (N = 5504) and down (K = 5504, residual fused),
+    # the SSM block's w_z (N = 3200), w_B (N = 16), w_dt (N = 50) and w_out
+    # (K = 3200) at 4 decode rows; the column-blocked engine's fused QKV (35
+    # blocks of 64); gate and w_B at 1328 prefill rows (128 meta + 1200)
+    ("hymba_wq_M4", False, 4, 784, 32, 1600, "none", "none", False),
+    ("hymba_wk_M4", False, 4, 800, 0, 320, "none", "none", False),
+    ("hymba_w_gate_M4", False, 4, 770, 60, 5504, "none", "silu", False),
+    ("hymba_w_down_M4_res", False, 4, 2706, 92, 1600, "none", "none", True),
+    ("hymba_w_z_M4", False, 4, 793, 14, 3200, "none", "none", False),
+    ("hymba_w_B_M4", False, 4, 766, 68, 16, "none", "none", False),
+    ("hymba_w_dt_M4", False, 4, 795, 10, 50, "none", "none", False),
+    ("hymba_w_out_M4", False, 4, 1564, 72, 1600, "none", "none", False),
+    ("hymba_qkv_bn64_M4", True, 4, 780, 40, (35, 64, 2240), "none", "none", False),
+    ("hymba_w_gate_M1328", False, 1328, 770, 60, 5504, "none", "silu", False),
+    ("hymba_w_B_M1328", False, 1328, 766, 68, 16, "none", "none", False),
 ]
 
 

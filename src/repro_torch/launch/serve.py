@@ -23,6 +23,20 @@
         --gemm pallas_paired --pair-rounding 0.05 \
         --batch 4 --max-seq 256 --prompt-lens 12,16,24,64
 
+    # mamba2-2.7b (SSM: 64 Mamba-2 layers, no attention): the six SSM
+    # projections of every layer on K1; the conv, the SSD scan and the
+    # state step plain PyTorch; --attn is a no-op for it
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --gemm pallas_paired --pair-rounding 0.05 \
+        --batch 4 --max-seq 512 --prompt-lens 12,16,24,300
+
+    # hymba-1.5b (hybrid: attention beside SSM heads, 128 meta tokens, a
+    # window of 1024 with the meta tokens as its sinks on 29 of 32 layers):
+    # every projection on K1, the windowed decode attention on K2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 \
+        --batch 4 --max-seq 1280 --prompt-lens 12,16,24,1200
+
     # hardened front end: Poisson load + chaos over the paired engine, with
     # graceful degradation to the unpaired fallback engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
@@ -34,7 +48,8 @@ conv lowering.  Weights are random from seed 0 (``models.lm.init_lm``); once
 the engine has paired them, the launcher holds the paired ones in the
 compute dtype (``models.lm.hold_paired_in_compute_dtype``), which every use
 casts them to: a bf16 model's paired fp32 masters would not fit one card
-beside their segments at deepseek-v2-lite-16b's size.
+beside their segments at deepseek-v2-lite-16b's size.  ``--max-seq`` counts
+a slot's tokens; a hybrid model's cache holds its meta tokens beside them.
 Without ``--frontend`` slot ``i`` is prefilled with a random prompt of
 ``--prompt-lens``' ``i``-th length (default ``8 + 4·i`` tokens) and every
 slot decodes ``--steps`` tokens (the first from its prefill); with it, ``serving.frontend`` serves a seeded Poisson workload

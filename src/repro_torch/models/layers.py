@@ -1,7 +1,7 @@
 """Layers of the decoder (GQA or multi-head latent attention, a gated MLP
-or routed experts), in PyTorch.
+or routed experts, Mamba-2 SSD blocks), in PyTorch.
 
-The port of the dense and MoE subset of ``repro.models.layers``.
+The port of the dense, MoE and SSM subset of ``repro.models.layers``.
 Conventions, as in the JAX package:
 
 * activations ``(batch, seq, d_model)`` in the compute dtype (the config's);
@@ -19,7 +19,12 @@ Conventions, as in the JAX package:
 * MoE layers route each token to its top-k experts; every expert's GEMM of
   one projection runs as one paired launch over the expert grid
   (``kernels.ops.expert_dense``); shared experts run beside them as a gated
-  MLP.
+  MLP;
+* a Mamba-2 block (:class:`Mamba`) projects through :func:`dense` (six
+  paired GEMMs), runs a depthwise causal conv and the chunked SSD scan
+  (:func:`ssd_scan`) over a prompt, or one step of the state recurrence
+  (:func:`ssm_decode_block`) per decode token: plain PyTorch, as the JAX
+  package's are XLA code, not kernels.
 
 Weights live in :class:`Block` modules (fp32 masters, as the JAX package
 keeps them) with each weight's pairing metadata beside it; every GEMM goes
@@ -157,28 +162,58 @@ class MoE(Block):
     REQUIRED = ("router", "w_gate", "w_up", "w_down")
 
 
-class DecoderLayer(nn.Module):
-    """Pre-norm decoder layer: ``h + attn(ln1(h))``, then ``h + ffn(ln2(h))``
-    where ``attn`` is GQA :class:`Attention` or :class:`MLA` and the
-    feed-forward block ``ffn`` is a gated ``mlp`` or a ``moe``."""
+class Mamba(Block):
+    """Mamba-2 (SSD) block: input projections ``w_z``/``w_x`` (d, d_in),
+    ``w_B``/``w_C`` (d, G·N) and ``w_dt`` (d, H); depthwise causal convs
+    ``conv_x`` (W, d_in), ``conv_B``/``conv_C`` (W, G·N); per-head ``A_log``,
+    ``D`` and ``dt_bias`` (H,); the gated RMSNorm scale ``norm`` (d_in,); the
+    output projection ``w_out`` (d_in, d)."""
 
-    def __init__(self, ln1: Norm, attn: Attention | MLA, ln2: Norm, mlp: MLP | None = None,
-                 *, moe: MoE | None = None):
+    REQUIRED = ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_x", "conv_B", "conv_C", "A_log",
+                "D", "dt_bias", "norm", "w_out")
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm decoder layer, by the blocks it holds (``x = ln1(h)``):
+
+    * attention (``attn``: GQA :class:`Attention` or :class:`MLA`):
+      ``h + attn(x)``;
+    * SSM (``mamba``: :class:`Mamba`): ``h + mamba(x)``;
+    * hybrid (both, with their output norms ``ln_attn_out`` and
+      ``ln_ssm_out``): ``h + ½·(ln_attn_out(attn(x)) + ln_ssm_out(mamba(x)))``;
+
+    then, with a feed-forward block ``ffn`` (a gated ``mlp`` or a ``moe``),
+    ``h + ffn(ln2(h))``; an SSM layer has none."""
+
+    def __init__(self, ln1: Norm, attn: Attention | MLA | None = None, ln2: Norm | None = None,
+                 mlp: MLP | None = None, *, moe: MoE | None = None, mamba: Mamba | None = None,
+                 ln_attn_out: Norm | None = None, ln_ssm_out: Norm | None = None):
         super().__init__()
-        if (mlp is None) == (moe is None):
-            raise ValueError("a decoder layer takes exactly one of mlp and moe")
-        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
-        self.ffn = "mlp" if moe is None else "moe"
-        setattr(self, self.ffn, mlp if moe is None else moe)
+        if mlp is not None and moe is not None:
+            raise ValueError("a decoder layer takes at most one of mlp and moe")
+        if (ln2 is None) != (mlp is None and moe is None):
+            raise ValueError("ln2 goes with a feed-forward block (mlp or moe), and only with one")
+        if attn is None and mamba is None:
+            raise ValueError("a decoder layer needs attn, mamba or both")
+        if (attn is not None and mamba is not None) != (
+                ln_attn_out is not None and ln_ssm_out is not None):
+            raise ValueError("a hybrid layer (attn and mamba) takes ln_attn_out and ln_ssm_out, "
+                             "and only it")
+        self.ffn = "mlp" if mlp is not None else "moe" if moe is not None else None
+        blocks = dict(ln1=ln1, attn=attn, mamba=mamba, ln_attn_out=ln_attn_out,
+                      ln_ssm_out=ln_ssm_out, ln2=ln2, mlp=mlp, moe=moe)
+        for name, block in blocks.items():
+            if block is not None:
+                setattr(self, name, block)
 
     def copy(self, *, frozen: bool, pairing: dict | None = None) -> DecoderLayer:
         """A layer sharing these weights; ``pairing`` maps a sub-block's
-        dotted path (``"attn"``, ``"mlp"``, ``"moe"``, ``"moe.shared"``) to
-        that block's new pairing dict."""
+        dotted path (``"attn"``, ``"mamba"``, ``"mlp"``, ``"moe"``,
+        ``"moe.shared"``) to that block's new pairing dict."""
         pairing = pairing or {}
-        return DecoderLayer(**{n: getattr(self, n).copy(frozen=frozen, pairing=pairing.get(n),
-                                                        children=_below(pairing, n))
-                               for n in ("ln1", "attn", "ln2", self.ffn)})
+        return DecoderLayer(**{n: b.copy(frozen=frozen, pairing=pairing.get(n),
+                                         children=_below(pairing, n))
+                               for n, b in self.named_children()})
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +288,11 @@ def dense(
     if residual is not None:
         y = y + residual.to(y.dtype)
     return y
+
+
+def _cast(p: Block, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Weight ``name`` of ``p`` in ``dtype``, kept on a frozen block."""
+    return p.derived(("matrix", name, dtype), lambda: getattr(p, name).to(dtype))
 
 
 def _leaf_dense(p: Block, name: str, x: torch.Tensor, knobs, *, act=None, residual=None):
@@ -527,8 +567,7 @@ def _mla_query(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tenso
 
 def _mla_up(p: MLA, cdt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """The latent up-projections ``w_uk``, ``w_uv`` in the compute dtype."""
-    return tuple(p.derived(("matrix", n, cdt), lambda n=n: getattr(p, n).to(cdt))
-                 for n in ("w_uk", "w_uv"))
+    return _cast(p, "w_uk", cdt), _cast(p, "w_uv", cdt)
 
 
 def mla_block(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor, knobs):
@@ -738,9 +777,6 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
 
     shared = getattr(p, "shared", None)
 
-    def weight(name):
-        return p.derived(("matrix", name, cdt), lambda: getattr(p, name).to(cdt))
-
     def shared_experts(x2):
         """The shared experts' gated MLP over (T, d) rows, no skip connection."""
         g = _leaf_dense(shared, "w_gate", x2, knobs, act=cfg.act)
@@ -753,9 +789,9 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
             u = _expert_dense(p, "w_up", xe, knobs, per_expert=per_expert)
             return _expert_dense(p, "w_down", (g * u).movedim(1, 0), knobs, per_expert=True)
         eq = "etd,edf->tef" if per_expert else "td,edf->tef"
-        g = activation(cfg.act, torch.einsum(eq, xe, weight("w_gate")))
-        u = torch.einsum(eq, xe, weight("w_up"))
-        return torch.einsum("tef,efd->ted", g * u, weight("w_down"))
+        g = activation(cfg.act, torch.einsum(eq, xe, _cast(p, "w_gate", cdt)))
+        u = torch.einsum(eq, xe, _cast(p, "w_up", cdt))
+        return torch.einsum("tef,efd->ted", g * u, _cast(p, "w_down", cdt))
 
     x2 = x.reshape(T, d)
     logits = x2.float() @ p.router.float()
@@ -784,3 +820,193 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
     ce = counts.sum(0).float() / max(T * K, 1)  # share of the choices it got
     aux = (me * ce).sum() * (E * mo.router_aux_weight)
     return y2, aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along the sequence, then SiLU. x: (B, S, C);
+    w: (W, C); the sequence left-padded with W − 1 zero rows."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    return F.silu(sum(xp[:, i:i + S] * w[i] for i in range(W)))
+
+
+def _segsum_decay(dA_chunk: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular decay matrix ``L[q, t] = exp(sum_{t<i<=q} dA_i)``.
+
+    dA_chunk: (..., Q). Returns (..., Q, Q) with zeros above the diagonal.
+    """
+    Q = dA_chunk.shape[-1]
+    cs = torch.cumsum(dA_chunk, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # sum over (t, q]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=dA_chunk.device).tril()
+    return torch.where(mask, torch.exp(diff), torch.zeros((), device=diff.device))
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H), softplus'd: positive
+    A: torch.Tensor,  # (H,) negative
+    B_: torch.Tensor,  # (B, S, G, N)
+    C_: torch.Tensor,  # (B, S, G, N)
+    *,
+    chunk: int,
+    h0: torch.Tensor | None = None,  # (B, H, P, N) fp32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba-2 Listing 1, the matmul form): returns ``(y,
+    h_final)``, y (B, S, H, P) in x's dtype, h_final (B, H, P, N) fp32.
+
+    The sequence is zero-padded to whole chunks (``dt = 0`` there: the
+    padding neither decays nor feeds the state).  Within a chunk the output
+    is a masked (Q, Q) product against the decay matrix; the chunk states
+    pass from chunk to chunk through the sequential recurrence ``h ← h ·
+    exp(Σ dA) + state``, starting at ``h0``.  Heads share ``B``/``C`` within
+    each of the G groups.  The JAX package's rounding points: the scores
+    ``C·B`` accumulate in fp32 from the compute-dtype ``C``/``B``; ``dt``,
+    the decays, states and both output terms are fp32; y is cast to x's
+    dtype at the end.
+    """
+    Bb, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    rep = H // G
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        x, B_, C_ = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B_, C_))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    Q = chunk
+    xc = x.reshape(Bb, nc, Q, H, P)
+    dtc = dt.reshape(Bb, nc, Q, H).float()
+    Bc = B_.reshape(Bb, nc, Q, G, N).float()
+    Cc = C_.reshape(Bb, nc, Q, G, N).float()
+
+    dA = dtc * A  # (B, nc, Q, H), negative
+    cs = torch.cumsum(dA, dim=2)  # within each chunk
+
+    # intra-chunk (the diagonal blocks): scores[b,c,g,q,t] = C[q]·B[t], shared
+    # by the heads of a group, times the decay from t to q
+    scores = torch.einsum("bcqgn,bctgn->bcgqt", Cc, Bc)
+    L = _segsum_decay(dA.transpose(2, 3))  # (B, nc, H, Q, Q)
+    W = scores[:, :, :, None] * L.reshape(Bb, nc, G, rep, Q, Q)
+    xdt = (xc.float() * dtc[..., None]).reshape(Bb, nc, Q, G, rep, P)
+    y_diag = torch.einsum("bcgrqt,bctgrp->bcqgrp", W, xdt)
+
+    # each chunk's state: its inputs decayed to the chunk's end
+    decay_end = torch.exp(cs[:, :, -1:, :] - cs)  # (B, nc, Q, H)
+    dg = (decay_end * dtc).reshape(Bb, nc, Q, G, rep)
+    xg = xc.float().reshape(Bb, nc, Q, G, rep, P) * dg[..., None]
+    states = torch.einsum("bctgn,bctgrp->bcgrpn", Bc, xg)
+
+    # inter-chunk recurrence, sequential over chunks: the state before each
+    chunk_decay = torch.exp(cs[:, :, -1, :]).reshape(Bb, nc, G, rep, 1, 1)
+    h = (h0.float().reshape(Bb, G, rep, P, N) if h0 is not None
+         else torch.zeros((Bb, G, rep, P, N), dtype=torch.float32, device=x.device))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c] + states[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)  # (B, nc, G, rep, P, N)
+
+    # inter-chunk output: C against the state before the chunk, decayed from
+    # the chunk's start to q
+    decay_in = torch.exp(cs).reshape(Bb, nc, Q, G, rep)
+    y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", Cc, h_prev) * decay_in[..., None]
+
+    y = (y_diag + y_off).reshape(Bb, nc * Q, H, P)[:, :S]
+    return y.to(x.dtype), h.reshape(Bb, H, P, N)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + eˣ) as ``jax.nn.softplus`` computes it (``logaddexp(x, 0)``)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _ssm_projections(p: Mamba, x: torch.Tensor, knobs):
+    """The five input projections of ``x``, each through :func:`dense`:
+    ``(z, x_in, B_in, C_in, dt)`` in x's dtype."""
+    return tuple(_leaf_dense(p, name, x, knobs) for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
+def _gated_out(cfg: ModelConfig, p: Mamba, y: torch.Tensor, z: torch.Tensor, knobs):
+    """``y`` (fp32, (…, d_in)) in the compute dtype, gated by SiLU(z), the
+    RMSNorm in fp32, then the output projection through :func:`dense`."""
+    y = y.to(z.dtype) * F.silu(z)
+    yf = y.float()
+    y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6) * p.norm).to(z.dtype)
+    return _leaf_dense(p, "w_out", y, knobs)
+
+
+def ssm_forward(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs):
+    """Mamba-2 block over a sequence ``x`` (B, S, d). Returns ``(y, h_final,
+    raw)``: ``y`` (B, S, d) without the skip connection, the final SSM state
+    (B, H, P, N) fp32, and ``raw`` the conv inputs ``{"conv_x", "conv_B",
+    "conv_C"}`` (B, S, C) whose last W − 1 rows the decode cache keeps.
+
+    Projections and the conv in the compute dtype; ``dt``, ``A``, the scan's
+    state, the ``D`` skip and the gated RMSNorm in fp32, as in the JAX
+    package's ``ssm_block``.
+    """
+    s = cfg.ssm
+    cdt = x.dtype
+    d_in = s.expand * cfg.d_model
+    H = d_in // s.head_dim
+    z, xi0, Bi0, Ci0, dt = _ssm_projections(p, x, knobs)
+    xi = _causal_conv(xi0, _cast(p, "conv_x", cdt))
+    Bi = _causal_conv(Bi0, _cast(p, "conv_B", cdt))
+    Ci = _causal_conv(Ci0, _cast(p, "conv_C", cdt))
+    Bb, S = x.shape[:2]
+    xh = xi.reshape(Bb, S, H, s.head_dim)
+    dtp = _softplus(dt.float() + p.dt_bias)
+    A = -torch.exp(p.A_log)
+    y, h = ssd_scan(xh, dtp, A, Bi.reshape(Bb, S, s.n_groups, s.d_state),
+                    Ci.reshape(Bb, S, s.n_groups, s.d_state), chunk=s.chunk)
+    y = (y + xh.float() * p.D[None, None, :, None]).reshape(Bb, S, d_in)
+    return _gated_out(cfg, p, y, z, knobs), h, {"conv_x": xi0, "conv_B": Bi0, "conv_C": Ci0}
+
+
+def ssm_block(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs) -> torch.Tensor:
+    """Mamba-2 block forward over a sequence (prefill): (B, S, d) → (B, S, d),
+    without the skip connection."""
+    return ssm_forward(cfg, p, x, knobs)[0]
+
+
+def ssm_decode_block(
+    cfg: ModelConfig,
+    p: Mamba,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: dict,  # {"h": (B, H, P, N) fp32, "conv_x": (B, W-1, d_in), "conv_B", "conv_C"}
+    knobs,
+) -> tuple[torch.Tensor, dict]:
+    """One decode token per slot: the conv over the cached last W − 1 inputs
+    and the new one, then one step of the state recurrence ``h ← h ·
+    exp(dt·A) + dt·x ⊗ B`` and ``y = h·C + D·x``.  The cache entries are
+    updated in place (the port's caches are mutable).  Returns ``(y,
+    cache)``, y (B, 1, d) without the skip connection.  Unlike attention the
+    state carries time: no position is needed."""
+    s = cfg.ssm
+    cdt = x.dtype
+    d_in = s.expand * cfg.d_model
+    H = d_in // s.head_dim
+    Bb = x.shape[0]
+    z, xi, Bi, Ci, dt = (t[:, 0] for t in _ssm_projections(p, x, knobs))
+
+    def conv_step(name: str, new: torch.Tensor) -> torch.Tensor:
+        window = torch.cat([cache[name], new[:, None]], dim=1)  # (B, W, C)
+        cache[name].copy_(window[:, 1:])
+        return F.silu((window * _cast(p, name, cdt)[None]).sum(1))
+
+    xh = conv_step("conv_x", xi).reshape(Bb, H, s.head_dim).float()
+    rep = H // s.n_groups
+    Bh = conv_step("conv_B", Bi).reshape(Bb, s.n_groups, s.d_state).float()
+    Ch = conv_step("conv_C", Ci).reshape(Bb, s.n_groups, s.d_state).float()
+    Bh, Ch = Bh.repeat_interleave(rep, dim=1), Ch.repeat_interleave(rep, dim=1)  # (B, H, N)
+    dtp = _softplus(dt.float() + p.dt_bias)  # (B, H)
+    dA = torch.exp(dtp * -torch.exp(p.A_log))
+    h = cache["h"] * dA[..., None, None] + torch.einsum("bhp,bhn->bhpn", xh * dtp[..., None], Bh)
+    cache["h"].copy_(h)
+    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + xh * p.D[None, :, None]
+    return _gated_out(cfg, p, y.reshape(Bb, d_in), z, knobs)[:, None], cache

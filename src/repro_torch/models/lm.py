@@ -1,7 +1,7 @@
-"""The decoder-only LM, dense or MoE: init, forward, prefill and decode, in
-PyTorch.
+"""The decoder-only LM, dense, MoE, SSM or hybrid: init, forward, prefill and
+decode, in PyTorch.
 
-The port of the dense and MoE subset of ``repro.models.lm``:
+The port of the dense, MoE, SSM and hybrid subset of ``repro.models.lm``:
 
 * :func:`lm_forward` — the forward over a prompt (logits, and optionally
   the cache entries it produced);
@@ -9,13 +9,17 @@ The port of the dense and MoE subset of ``repro.models.lm``:
 * :func:`init_cache` — an empty decode cache: ``{"k", "v"}`` of shape
   ``(layers, batch, seq, kv_heads, head_dim)`` for GQA, the latent
   ``{"c_kv", "k_rope"}`` ``(layers, batch, seq, kv_lora_rank | qk_rope_dim)``
-  for MLA;
+  for MLA, and for an SSM block its state ``"h"`` ``(layers, batch, heads,
+  head_dim, d_state)`` (fp32) and conv tails ``"conv_x"``/``"conv_B"``/
+  ``"conv_C"`` ``(layers, batch, conv_width − 1, channels)``;
 * :func:`decode_step` — one new token per slot against the cache.
 
 The model is an :class:`LM` module: the embedding (tied as the head, or an
-``lm_head`` of its own), the final norm and one
+``lm_head`` of its own), learned ``meta`` token rows (hybrid) that precede
+every prompt, the final norm and one
 :class:`~repro_torch.models.layers.DecoderLayer` per layer, with GQA or MLA
-attention and a gated MLP or routed (and shared) experts.  The JAX package stacks a segment's layers for ``lax.scan``; the port
+attention, a Mamba-2 block or both side by side, and a gated MLP or routed
+(and shared) experts.  The JAX package stacks a segment's layers for ``lax.scan``; the port
 keeps them apart and remembers the segments (``LM.segments``), which only
 decide how pairing metadata is padded.  :func:`lm_params_from_numpy` builds
 the model from the JAX package's value tree, so both packages can compute
@@ -31,6 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -40,6 +45,7 @@ from repro_torch.models.layers import (
     Attention,
     Block,
     DecoderLayer,
+    Mamba,
     MoE,
     Norm,
     attention_block,
@@ -48,10 +54,14 @@ from repro_torch.models.layers import (
     mla_decode_block,
     mlp_block,
     moe_block,
+    ssm_decode_block,
+    ssm_forward,
 )
 
 GEMMS = ("xla", "pallas_paired")
 ATTNS = ("xla", "pallas_fused")
+#: the SSM block's cache entries: one state a slot, no sequence axis
+SSM_ENTRIES = ("h", "conv_x", "conv_B", "conv_C")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +106,8 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 class LM(Block):
     """Embedding ``embed`` (Vp, d), tied as the head unless an ``lm_head``
-    (d, Vp) is given, the final norm, the decoder layers, and the config's
-    segments."""
+    (d, Vp) is given, the ``meta`` tokens (M, d) of a hybrid model, the
+    final norm, the decoder layers, and the config's segments."""
 
     REQUIRED = ("embed",)
 
@@ -114,8 +124,8 @@ class LM(Block):
     def copy(self, *, frozen: bool, layer_pairing: list[dict] | None = None) -> LM:
         """A model sharing these weights (nothing is copied), with empty
         caches; ``layer_pairing[l]`` replaces layer ``l``'s pairing dicts,
-        keyed by sub-path (``{"attn": {...}, "mlp" or "moe": {...},
-        "moe.shared": {...}}``)."""
+        keyed by sub-path (``{"attn": {...}, "mamba": {...}, "mlp" or "moe":
+        {...}, "moe.shared": {...}}``)."""
         per_layer = layer_pairing or [None] * len(self.layers)
         new = LM(final_norm=self.final_norm.copy(frozen=frozen),
                  layers=[layer.copy(frozen=frozen, pairing=lp)
@@ -144,7 +154,10 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     """Seeded random fp32 weights of the JAX package's shapes and scales
     (qkv biases zero, norm scales one; an expert weight's fan-in is its
     second axis, ``wo``'s its first two, MLA's up-projections' the latent
-    rank), made on ``device`` (the GPU unless ``"cpu"`` is asked for)."""
+    rank; an SSM block's as ``init_ssm`` makes them: ``A_log = log(1…H)``,
+    ``dt_bias`` the inverse softplus of a log-uniform ``dt`` in [dt_min,
+    dt_max], the B/C convs passing their input through), made on ``device``
+    (the GPU unless ``"cpu"`` is asked for)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, H, KH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -179,14 +192,39 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
             attn.update(q_norm=ones(hd), k_norm=ones(hd))
         return Attention(**attn)
 
+    def mamba() -> Mamba:
+        s = cfg.ssm
+        d_in, GN, W = s.expand * d, s.n_groups * s.d_state, s.conv_width
+        H_s = d_in // s.head_dim
+        passthrough = zeros(W, GN)
+        passthrough[-1] = 1.0
+        u = torch.rand((H_s,), generator=gen, device=dev)
+        dt0 = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min)) + math.log(s.dt_min))
+        conv_x = torch.randn((W, d_in), generator=gen, device=dev) / math.sqrt(W)
+        return Mamba(w_z=tn((d, d_in), d), w_x=tn((d, d_in), d), w_B=tn((d, GN), d),
+                     w_C=tn((d, GN), d), w_dt=tn((d, H_s), d), conv_x=conv_x,
+                     conv_B=passthrough, conv_C=passthrough.clone(),
+                     A_log=torch.log(torch.arange(1, H_s + 1, dtype=torch.float32, device=dev)),
+                     D=ones(H_s), dt_bias=dt0 + torch.log(-torch.expm1(-dt0)), norm=ones(d_in),
+                     w_out=tn((d_in, d), d_in))
+
     def layer(kind: str) -> DecoderLayer:
+        if kind == "ssm":
+            return DecoderLayer(Norm(scale=ones(d)), mamba=mamba())
+        if kind in ("hybrid_full", "hybrid_swa"):
+            ffn_of = {"ln2": Norm(scale=ones(d)), "mlp": mlp(f)} if f else {}
+            return DecoderLayer(Norm(scale=ones(d)), attention(), mamba=mamba(),
+                                ln_attn_out=Norm(scale=ones(d)), ln_ssm_out=Norm(scale=ones(d)),
+                                **ffn_of)
         return DecoderLayer(Norm(scale=ones(d)), attention(), Norm(scale=ones(d)), **ffn(kind))
 
     embed = tn((padded_vocab(cfg), d), d)
     layers = [layer(cfg.layer_kind(i)) for i in range(cfg.n_layers)]
     head = None if cfg.tie_embeddings else tn((d, padded_vocab(cfg)), d)
-    return LM(embed=embed, lm_head=head, final_norm=Norm(scale=ones(d)), layers=layers,
-              segments=cfg.segments())
+    meta = (torch.randn((cfg.meta_tokens, d), generator=gen, device=dev) * 0.02
+            if cfg.meta_tokens else None)
+    return LM(embed=embed, lm_head=head, meta=meta, final_norm=Norm(scale=ones(d)),
+              layers=layers, segments=cfg.segments())
 
 
 def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
@@ -197,7 +235,8 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
     ``"<name>_pairing"`` siblings (``core.transform.pair_lm_params``) carry
     over as each layer's pairing metadata (lane lists as int64), an MoE
     layer's ``(E, …)`` per-expert metadata and its nested ``shared`` block
-    included.
+    included; so do an SSM block (``mamba``), a hybrid layer's output norms
+    and the ``meta`` tokens.
     """
     dev = resolve_device(device)
 
@@ -213,16 +252,16 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
                   if isinstance(v, dict) and not k.endswith("_pairing")}
         return cls(pairing=pairing, **weights, **shared)
 
-    attn_cls = MLA if cfg.mla is not None else Attention
+    classes = {"ln1": Norm, "attn": MLA if cfg.mla is not None else Attention, "mamba": Mamba,
+               "ln_attn_out": Norm, "ln_ssm_out": Norm, "ln2": Norm, "mlp": MLP, "moe": MoE}
     layers = []
     for (_, count), seg in zip(cfg.segments(), values["segments"], strict=True):
         for l in range(count):
-            ffn = ({"moe": block(MoE, seg["moe"], l)} if "moe" in seg
-                   else {"mlp": block(MLP, seg["mlp"], l)})
-            layers.append(DecoderLayer(block(Norm, seg["ln1"], l), block(attn_cls, seg["attn"], l),
-                                       block(Norm, seg["ln2"], l), **ffn))
-    head = values.get("lm_head")
+            layers.append(DecoderLayer(**{name: block(cls, seg[name], l)
+                                          for name, cls in classes.items() if name in seg}))
+    head, meta = values.get("lm_head"), values.get("meta")
     return LM(embed=tensor(values["embed"]), lm_head=None if head is None else tensor(head),
+              meta=None if meta is None else tensor(meta),
               final_norm=Norm(scale=tensor(values["final_norm"]["scale"])), layers=layers,
               segments=cfg.segments())
 
@@ -276,7 +315,10 @@ def lm_logits(cfg: ModelConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> int:
-    return cfg.sliding_window if kind in ("dense", "moe") else 0
+    """The sliding window of a layer of ``kind`` (0: full attention): the
+    config's on a hybrid model's ``hybrid_swa`` layers and on dense and MoE
+    layers, none on ``hybrid_full`` ones."""
+    return cfg.sliding_window if kind in ("dense", "moe", "hybrid_swa") else 0
 
 
 def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs) -> torch.Tensor:
@@ -285,6 +327,8 @@ def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs) -
     epilogue under gemm="pallas_paired"); the experts' gated sum is added
     after their combine, as in the JAX package (the load-balance loss is
     dropped: nothing here trains)."""
+    if p.ffn is None:  # an SSM layer
+        return h
     x = p.ln2(h)
     if p.ffn == "moe":
         y, _ = moe_block(cfg, p.moe, x, knobs)
@@ -300,12 +344,45 @@ def _mla_with_cache(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.
     return y, {"c_kv": c_kv, "k_rope": k_rope}
 
 
+def _ssm_with_cache(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs: PerfKnobs):
+    """SSM prefill that also returns the block's decode cache entries: ``(y,
+    {"h": (B, H, P, N) fp32, "conv_x"/"conv_B"/"conv_C": (B, W − 1, C)})``.
+
+    A conv tail is the last W − 1 conv inputs, left-padded with zero rows
+    when the sequence is shorter: the causal conv pads so too, and a decode
+    step then continues the prompt exactly.  (The JAX package takes
+    ``x[:, -(W - 1):]``, which is short for a prompt of fewer than W − 1
+    tokens.)
+    """
+    y, h, raw = ssm_forward(cfg, p, x, knobs)
+    W = cfg.ssm.conv_width
+    tails = {name: F.pad(t, (0, 0, W - 1, 0))[:, -(W - 1):] for name, t in raw.items()}
+    return y, {"h": h, **tails}
+
+
+def _hybrid_mix(p: DecoderLayer, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """A hybrid layer's sublayer output: the mean of the normed attention and
+    SSM outputs."""
+    return 0.5 * (p.ln_attn_out(a) + p.ln_ssm_out(m))
+
+
 def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
               positions: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
     """One decoder layer over a sequence. Returns (h, cache entries): the
     post-rope K/V of this layer, ``{"k", "v"}`` (B, S, KH, hd), or MLA's
-    latent ``{"c_kv", "k_rope"}``."""
+    latent ``{"c_kv", "k_rope"}``; an SSM block's ``{"h", "conv_x",
+    "conv_B", "conv_C"}`` (a hybrid layer's beside its K/V)."""
     x = p.ln1(h)
+    if kind == "ssm":
+        y, c = _ssm_with_cache(cfg, p.mamba, x, knobs)
+        return h + y, c
+    if kind in ("hybrid_full", "hybrid_swa"):
+        # attention (windowed on hybrid_swa, the meta tokens its sinks) beside
+        # the SSM block; no skip connection rides the out-projection here
+        a, k, v = attention_block(cfg, p.attn, x, positions, knobs,
+                                  window=_window_for(cfg, kind), n_sink=cfg.meta_tokens)
+        m, c = _ssm_with_cache(cfg, p.mamba, x, knobs)
+        return _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs), {"k": k, "v": v, **c}
     if cfg.mla is not None:
         # the JAX package adds MLA's output after its out-projection
         y, c = _mla_with_cache(cfg, p.attn, x, positions, knobs)
@@ -320,9 +397,18 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
 def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
                knobs: PerfKnobs = DEFAULT_KNOBS, collect_cache: bool = False):
     """tokens (B, S) → (logits (B, S, Vp) fp32, cache or None); the cache
-    holds each layer's entries of :func:`layer_fwd` stacked, (L, B, S, …)."""
-    h = embed_tokens(cfg, model, tokens, compute_dtype(cfg))
-    B, S = tokens.shape
+    holds each layer's entries of :func:`layer_fwd` stacked, (L, B, …).
+
+    A hybrid model's ``meta`` tokens precede the prompt: the layers see
+    ``meta_tokens + S`` positions (their K/V cache entries too), and the
+    logits are the prompt's S."""
+    cdt = compute_dtype(cfg)
+    h = embed_tokens(cfg, model, tokens, cdt)
+    B = tokens.shape[0]
+    if cfg.meta_tokens:
+        meta = model.meta.to(cdt)[None].expand(B, *model.meta.shape)
+        h = torch.cat([meta, h], dim=1)
+    S = h.shape[1]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     entries = []
     for i, layer in enumerate(model.layers):
@@ -331,13 +417,14 @@ def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
             entries.append(c)
     cache = ({name: torch.stack([c[name] for c in entries]) for name in entries[0]}
              if collect_cache else None)
-    return lm_logits(cfg, model, h), cache
+    return lm_logits(cfg, model, h[:, cfg.meta_tokens:]), cache
 
 
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
             knobs: PerfKnobs = DEFAULT_KNOBS):
     """Forward over the prompt; returns (last-position logits (B, 1, Vp),
-    cache of :func:`init_cache`'s names, S positions long)."""
+    cache of :func:`init_cache`'s names: attention entries ``meta_tokens +
+    S`` positions long, SSM entries the state after the prompt)."""
     logits, cache = lm_forward(cfg, model, tokens, knobs=knobs, collect_cache=True)
     return logits[:, -1:], cache
 
@@ -349,22 +436,46 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None) -> dict:
     """Empty decode cache in the compute dtype: ``{"k", "v"}`` zeros (L, B,
-    max_seq, KH, hd), or for MLA the latent ``{"c_kv": (L, B, max_seq, R),
-    "k_rope": (L, B, max_seq, rope)}``."""
-    L, dev = (cfg.n_layers, batch_size, max_seq), resolve_device(device)
-    if cfg.mla is not None:
-        shapes = {"c_kv": (*L, cfg.mla.kv_lora_rank), "k_rope": (*L, cfg.mla.qk_rope_dim)}
-    else:
-        shapes = {name: (*L, cfg.n_kv_heads, cfg.head_dim) for name in ("k", "v")}
-    return {name: torch.zeros(shape, dtype=compute_dtype(cfg), device=dev)
-            for name, shape in shapes.items()}
+    S, KH, hd), or for MLA the latent ``{"c_kv": (L, B, S, R), "k_rope":
+    (L, B, S, rope)}``, with ``S = max_seq + meta_tokens`` (``max_seq``
+    counts token positions, the meta tokens extend it); an SSM block's state
+    ``"h"`` (L, B, H, P, N) in fp32 and conv tails ``"conv_x"`` (L, B, W − 1,
+    d_in), ``"conv_B"``/``"conv_C"`` (L, B, W − 1, G·N).  A hybrid model has
+    both; its sliding-window layers keep the full-length K/V, as the JAX
+    package's do (the decode writes at absolute positions)."""
+    L, dev = (cfg.n_layers, batch_size), resolve_device(device)
+    cdt, S = compute_dtype(cfg), max_seq + cfg.meta_tokens
+    shapes = {}
+    if cfg.family != "ssm":
+        if cfg.mla is not None:
+            shapes = {"c_kv": (*L, S, cfg.mla.kv_lora_rank), "k_rope": (*L, S, cfg.mla.qk_rope_dim)}
+        else:
+            shapes = {name: (*L, S, cfg.n_kv_heads, cfg.head_dim) for name in ("k", "v")}
+    cache = {name: torch.zeros(shape, dtype=cdt, device=dev) for name, shape in shapes.items()}
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_in, GN, W = s.expand * cfg.d_model, s.n_groups * s.d_state, s.conv_width
+        cache["h"] = torch.zeros((*L, d_in // s.head_dim, s.head_dim, s.d_state),
+                                 dtype=torch.float32, device=dev)
+        for name, width in (("conv_x", d_in), ("conv_B", GN), ("conv_C", GN)):
+            cache[name] = torch.zeros((*L, W - 1, width), dtype=cdt, device=dev)
+    return cache
 
 
 def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
                  h: torch.Tensor, pos: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
     """One decoder layer for one token per slot; ``c`` (this layer's cache
-    entries, (B, S, …)) is written in place at ``pos``."""
+    entries, (B, …)) is written in place: attention entries at ``pos`` (the
+    absolute position, meta tokens included), the SSM state whole."""
     x = p.ln1(h)
+    if kind == "ssm":
+        y, c = ssm_decode_block(cfg, p.mamba, x, c, knobs)
+        return h + y, c
+    if kind in ("hybrid_full", "hybrid_swa"):
+        a, _ = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
+                                      window=_window_for(cfg, kind), n_sink=cfg.meta_tokens)
+        m, _ = ssm_decode_block(cfg, p.mamba, x, c, knobs)
+        return _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs), c
     if cfg.mla is not None:
         y, c = mla_decode_block(cfg, p.attn, x, c, pos, knobs)
         return _ffn(cfg, p, h + y, knobs), c
@@ -375,13 +486,16 @@ def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
 
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, *, knobs: PerfKnobs = DEFAULT_KNOBS):
-    """One decode step: tokens (B, 1), pos (B,) → (logits (B, 1, Vp), cache).
+    """One decode step: tokens (B, 1), pos (B,) in token coordinates →
+    (logits (B, 1, Vp), cache); a hybrid model's layers see ``pos +
+    meta_tokens``.
 
     The cache is updated in place (and returned): the port's caches are
     mutable, which saves a copy of every layer's K/V per step.
     """
     h = embed_tokens(cfg, model, tokens, compute_dtype(cfg))
+    pos_abs = pos + cfg.meta_tokens if cfg.meta_tokens else pos
     for i, layer in enumerate(model.layers):
         c: dict[str, Any] = {name: t[i] for name, t in cache.items()}
-        h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos, knobs)
+        h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos_abs, knobs)
     return lm_logits(cfg, model, h), cache

@@ -78,9 +78,15 @@ class ServeEngine:
                                  device=self.device)
         with torch.no_grad():
             last_logits, cache = M.prefill(self.cfg, self.model, tokens, knobs=self.knobs)
-        # splice this request's cache (L, 1, plen, …) into the slot
+        # splice this request's cache into the slot: an SSM entry (L, 1, …)
+        # whole, an attention entry (L, 1, meta_tokens + plen, …) over its
+        # positions
         for name, dst in self.cache.items():
-            dst[:, slot, :plen] = cache[name][:, 0].to(dst.dtype)
+            src = cache[name][:, 0].to(dst.dtype)
+            if name in M.SSM_ENTRIES:
+                dst[:, slot] = src
+            else:
+                dst[:, slot, :src.shape[1]] = src
         self.pos[slot] = plen
         next_tok = int(torch.argmax(last_logits[0, -1, : self.cfg.vocab]))
         self.tokens[slot, 0] = next_tok
@@ -116,8 +122,9 @@ class ServeEngine:
         self.tokens[slot, 0] = int(token)
 
     def release_slot(self, slot: int, *, scrub: bool = True) -> None:
-        """Evict a slot: mark it free and (by default) zero its cache rows, so
-        a later request in the slot never attends the previous occupant's."""
+        """Evict a slot: mark it free and (by default) zero its cache rows
+        (K/V or latents, SSM state and conv tails), so a later request in the
+        slot never sees the previous occupant's."""
         if not 0 <= slot < self.batch_size:
             raise CapacityError(f"slot {slot} out of range for batch_size={self.batch_size}")
         self.active[slot] = False

@@ -50,6 +50,15 @@ K2_SHAPES = [
     ("smoke_heads", 2, 32, 4, 2, 16, 64, 16, 10, 12, 4),
     ("mqa_max_d", 4, 512, 8, 1, 256, 2048, 2048, 900, 248, 4),
     ("odd_head_dim", 2, 40, 6, 3, 36, 200, 200, 90, 20, 2),
+    # hymba-1.5b: 25 query heads over 5 KV heads (G = 5), D 64, 1600
+    # columns, cache max_seq 1280 + 128 meta rows; structured r=0.05 (bf16),
+    # column-blocked bn=64, the parity engine's fp32 r=0 at 1200 + 128 + 16
+    ("hymba_serve_structured", 4, 1408, 25, 5, 64, 1600, 1600, 780, 40, 2),
+    ("hymba_serve_bare", 4, 1408, 25, 5, 64, 0, 1, 0, 0, 2),
+    ("hymba_bn64", 4, 1408, 25, 5, 64, 1600, 64, 30, 4, 2),
+    ("hymba_parity_fp32", 2, 1344, 25, 5, 64, 1600, 1600, 1, 1600, 4),
+    ("hymba_parity_bare", 2, 1344, 25, 5, 64, 0, 1, 0, 0, 4),
+    ("phase_hymba_window_sink", 4, 1408, 25, 5, 64, 1600, 1600, 780, 40, 4),
 ]
 
 

@@ -15,6 +15,10 @@ training steps on the card against the CPU, Fig. 8's conv→pool counts and
 its r = 0 measured path through K1.  The MoE path: every expert's GEMM in
 one K1 launch over the expert grid, and the olmoe smoke engine at r = 0.
 The MLA path: the deepseek smoke engine at r = 0 on both expert branches.
+The SSM and hybrid paths: the mamba2 and hymba smoke engines at r = 0 (a
+2-token prompt, shorter than the conv tail, and prompts whose window drops
+keys), and K2 at hymba's heads (G = 5 over 5 KV heads) with its window and
+sinks.
 """
 import dataclasses
 
@@ -343,6 +347,62 @@ def test_mla_engine_paired_matches_plain_engine(cuda, prompt):
     assert want == 7 + 10 * (cfg.n_layers - 1)
     assert pm.launch_count() == want * 4
     assert da.launch_count() == 0
+
+
+@pytest.mark.parametrize("arch,prompts", [("mamba2-2.7b", (2, 37)), ("hymba-1.5b", (5, 30))])
+@pytest.mark.parametrize("block_n", [0, 16])
+def test_ssm_and_hybrid_engines_paired_match_plain_engine(cuda, arch, prompts, block_n):
+    """mamba2 and hymba smoke at r=0, fp32: the paired engine (fused decode
+    attention for hymba) gives the plain engine's tokens, logits within
+    1e-5; the launches of a decode step are ``decode_launches``' (6 K1 an
+    SSM layer; 12 K1 and a K2 a hybrid one, 10 K1 with column blocks)."""
+    from repro_torch.analysis import decode_launches
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = M.init_lm(cfg, 0, device=cuda)
+    base = dict(q_chunk=8, k_chunk=8)
+    knobs = M.PerfKnobs(**base, gemm="pallas_paired", attn="pallas_fused", pair_block_n=block_n)
+    plain = ServeEngine(cfg, model, max_seq=48, batch_size=2, knobs=M.PerfKnobs(**base))
+    paired = ServeEngine(cfg, model, max_seq=48, batch_size=2, knobs=knobs)
+    for slot, n in enumerate(prompts):
+        p = np.random.default_rng(slot).integers(0, cfg.vocab, size=n)
+        assert plain.add_request(slot, p) == paired.add_request(slot, p)
+    pm.reset_launches()
+    da.reset_launches()
+    for _ in range(4):
+        np.testing.assert_array_equal(plain.step(), paired.step())
+        assert rel_err(paired.last_logits, plain.last_logits) <= RTOL
+    want = [decode_launches(cfg, cfg.layer_kind(i), knobs) for i in range(cfg.n_layers)]
+    assert pm.launch_count() == 4 * sum(w["paired_matmul"] for w in want)
+    assert da.launch_count() == 4 * sum(w["decode_attention"] for w in want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_hymba_heads(cuda, dtype):
+    """K2 at hymba-1.5b's heads (H 25 over KH 5, D 64) with its window of
+    1024 and 128 sinks, fused with a structured 1600-column out-projection
+    and no residual: slots whose window drops keys, one that attends every
+    key, one at the first position."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, S, H, KH, D, N = 4, 1408, 25, 5, 64, 1600
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    q, kc, vc = rnd(B, 1, H, D).to(dtype), rnd(B, S, KH, D).to(dtype), rnd(B, S, KH, D).to(dtype)
+    pos = torch.tensor([1359, 1200, 500, 0], dtype=torch.int32, device=cuda)
+    kw = dict(window=1024, n_sink=128)
+    got = da.decode_attention_cuda(q, kc, vc, pos, **kw)
+    _check(got, da.decode_attention_plain(q, kc, vc, pos, out_dtype=torch.float32, **kw),
+           dtype, ATTN_RTOL)
+    seg = _outproj(rnd(H * D, N) * 0.1, 0.3, 0)
+    args = (q, kc, vc, pos, seg.idx_i, seg.idx_j, seg.idx_r, seg.kmat.to(dtype),
+            seg.w_res.to(dtype), None)
+    fused = da.fused_decode_attention_cuda(*args, n_cols=N, **kw)
+    if dtype == torch.float32:
+        want = da.fused_decode_attention_plain(*args, n_cols=N, out_dtype=dtype, **kw)
+    else:
+        want = da.outproj_plain(got, *args[4:], n_cols=N, out_dtype=torch.float32)
+    assert fused.dtype == dtype and fused.shape == (B, N)
+    _check(fused, want, dtype, ATTN_RTOL)
+    assert torch.equal(da.fused_decode_attention_cuda(*args, n_cols=N, **kw), fused)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -11,7 +11,9 @@ and its experts on the expert grid (one block per expert, or 64-column
 blocks within each) at decode, parity and routed prefill rows;
 deepseek-v2-lite-16b's MLA projections, its dense first layer's MLP, its
 shared experts and its expert grid (64 × 1408 columns) from decode to
-2048-row prefill rows; and the kernel phase's cases
+2048-row prefill rows; mamba2-2.7b's six SSM projections and
+hymba-1.5b's thirteen GEMMs a layer (its column-blocked fused QKV too) from
+decode to prefill rows (meta tokens included); and the kernel phase's cases
 (``kernels/k1_cases.py``).  Each plan must fit a block's shared memory, a
 portable cluster and the grid; cut the contraction into non-empty slices that read every
 column of ``x`` once (a pair's two, a residual lane's one); cover every
@@ -145,6 +147,43 @@ def _deepseek_shapes():
     return shapes
 
 
+MAMBA2 = {"d": 2560, "d_in": 5120, "state": 128, "heads": 80}
+HYMBA = {"d": 1600, "kv": 320, "ff": 5504, "d_in": 3200, "state": 16, "heads": 50}
+
+
+def _ssm_shapes():
+    """mamba2-2.7b's SSM projections on K1 (w_z/w_x: N = 5120, w_B/w_C: 128,
+    w_dt: 80, w_out: K = 5120) and hymba-1.5b's GEMMs (wq/wo 1600 × 1600,
+    wk/wv N = 320, the MLP's N = 5504 and K = 5504, its SSM block's w_z/w_x
+    N = 3200, w_B/w_C 16, w_dt 50, w_out K = 3200; the fused QKV of the
+    column-blocked engine in 35 blocks of 64).  Rows: decode batches of 1-4,
+    prompts of 12-300 tokens (mamba2) and 140-1328 rows (hymba: 128 meta
+    tokens and a prompt)."""
+    m, h = MAMBA2, HYMBA
+    weights = [("mamba", "w_x", m["d"], 1, m["d_in"], (1, 4, 12, 24, 300)),
+               ("mamba", "w_B", m["d"], 1, m["state"], (1, 4, 12, 300)),
+               ("mamba", "w_dt", m["d"], 1, m["heads"], (1, 4, 12, 300)),
+               ("mamba", "w_out", m["d_in"], 1, m["d"], (1, 4, 12, 300)),
+               ("hymba", "wq", h["d"], 1, h["d"], (1, 4, 140, 1328)),
+               ("hymba", "wk", h["d"], 1, h["kv"], (1, 4, 140, 1328)),
+               ("hymba", "w_gate", h["d"], 1, h["ff"], (1, 4, 140, 1328)),
+               ("hymba", "w_down", h["ff"], 1, h["d"], (1, 4, 140, 1328)),
+               ("hymba", "w_z", h["d"], 1, h["d_in"], (1, 4, 140, 1328)),
+               ("hymba", "w_B", h["d"], 1, h["state"], (1, 4, 140, 1328)),
+               ("hymba", "w_dt", h["d"], 1, h["heads"], (1, 4, 140, 1328)),
+               ("hymba", "w_out", h["d_in"], 1, h["d"], (1, 4, 140, 1328)),
+               ("hymba", "qkv64", h["d"], (h["d"] + 2 * h["kv"]) // 64, 64, (1, 4))]
+    shapes = []
+    for arch, name, K, B, bn, rows in weights:
+        for share in PAIR_SHARES:
+            P = int(share * K)
+            for M in rows:
+                for itemsize in (2, 4):
+                    shapes.append((f"{arch}_{name}_P{P}_M{M}_{itemsize}", M, P, K - 2 * P, B,
+                                   bn, 1, itemsize))
+    return shapes
+
+
 def _phase_kernel_shapes():
     shapes = []
     for name, blocked, M, P, R, N, pool, _, dt, _ in k1_cases():
@@ -155,11 +194,14 @@ def _phase_kernel_shapes():
 
 
 SHAPES = (_lenet_shapes() + _qwen_shapes() + _olmoe_shapes() + _deepseek_shapes()
-          + _phase_kernel_shapes())
-# the skinny decode shapes: qwen2's, olmoe's and deepseek's weights at batch
-# 1-4 (but w_kr: 64 columns cannot fill the card)
-DECODE = [s for s in SHAPES if s[0].startswith(("qwen_", "olmoe_", "deepseek_"))
-          and s[1] in (1, 4) and s[2] + s[3] > 0 and not s[0].startswith("deepseek_w_kr")]
+          + _ssm_shapes() + _phase_kernel_shapes())
+# the skinny decode shapes: qwen2's, olmoe's, deepseek's, mamba2's and
+# hymba's weights at batch 1-4 (but the narrow ones, w_kr's 64 columns and
+# the SSM blocks' B, C and dt projections, cannot fill the card)
+NARROW = ("deepseek_w_kr", "mamba_w_B", "mamba_w_dt", "hymba_w_B", "hymba_w_dt")
+DECODE = [s for s in SHAPES if s[0].startswith(("qwen_", "olmoe_", "deepseek_", "mamba_",
+                                                 "hymba_"))
+          and s[1] in (1, 4) and s[2] + s[3] > 0 and not s[0].startswith(NARROW)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
