@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Five paths run through the port (``src/repro_torch``): the paper's workload,
+Six paths run through the port (``src/repro_torch``): the paper's workload,
 LeNet-5 with its three conv layers on the paired subtractor GEMM kernel (K1),
 served on seeded weights and then trained on the card and put through the
 paper's Table I and Fig. 8;
@@ -15,7 +15,9 @@ engines (K1 + K2); the MoE serving paths of olmoe-1b-7b, every expert
 projection of a layer one K1 launch over the expert grid (K1 + K2), and
 deepseek-v2-lite-16b (MLA, shared experts; K1); and the state-space paths
 of mamba2-2.7b (SSM layers; K1) and hymba-1.5b (attention beside SSM
-heads, windowed decode attention with meta-token sinks; K1 + K2).  Phases,
+heads, windowed decode attention with meta-token sinks; K1 + K2); and the
+LM training path of qwen2-1.5b, every layer GEMM's forward on K1 under
+autograd (its backward ``torch.matmul``).  Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
 
@@ -165,7 +167,34 @@ result:
                 (every windowed one on a slot whose window drops keys), K2
                 at layer 1 (swa) fused and bare against its plain version,
                 its bound and SDPA + ``torch.matmul`` under the same mask;
-19. the kernels table, the card's name and power limit, and the ``ok`` line.
+19. lm_train_parity — qwen2-1.5b at full width, 2 layers, fp32, r=0,
+                batch 8 × seq 128: ``lm_loss`` and the gradient of every
+                weight under gemm="pallas" (K1's dense form), "pallas_paired"
+                structured and column-blocked at bn=64 against gemm="xla"
+                (loss ≤ 1e-5 relative, gradients within rtol 1e-4, atol
+                1e-5); K1 launches a step equal to ``analysis.train_launches``
+                under remat "full" and "none"; 4 AdamW steps from the same
+                init, xla against pallas_paired, within 1e-5; K1's
+                differentiable GEMMs (``ops.fused_dense``,
+                ``ops.fused_paired_dense`` structured and blocked) against
+                their plain versions forward and backward (≤ 1e-5, one launch
+                forward, none backward);
+20. lm_train  — qwen2-1.5b at full width and depth (28 layers) trained
+                through ``launch.train.train``: bf16 compute, fp32 masters,
+                structured r=0.05 (``pair_lm_params``), remat "full", batch
+                8 × seq 128, AdamW 3e-4 with the cosine schedule, 6 steps,
+                a checkpoint at step 3 (``build/lm_train_ckpt``, removed at
+                the end): every metric finite, the last loss below the first,
+                K1 launches a step equal to ``train_launches``, and the run
+                resumed from step 3 giving steps 4–6's losses (≤ 1e-5, and
+                whether bit-identical); pairing seconds, ms a step (median of
+                steps 2–6), tokens/s, a profiled step (busy, idle share, K1
+                ms and launches, the library GEMMs' ms: the backward's and
+                the head's ``torch.matmul``), peak memory; K1 timed at 1024
+                rows on layer 0's wq, wk, wo, w_gate and w_down, paired and
+                dense, beside its plain version, ``torch.matmul`` on the
+                folded weight, its bound and its plan;
+21. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -1081,6 +1110,8 @@ def phase_paper(serve) -> dict:
 # ---------------------------------------------------------------------------
 
 K1_KERNEL, K2_KERNEL = "paired_matmul_kernel", "decode_attention_kernel"
+# name fragments of cuBLAS's and CUTLASS's GEMM kernels (torch.matmul) on Hopper
+GEMM_KERNEL_TAGS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
 def _reset_launches() -> None:
@@ -1107,6 +1138,7 @@ def profile_step(step) -> dict:
     for trace in range(1, tries + 1):
         prof, wall = trace_step(step)
         split = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K2", "other")}
+        gemm = {"ms": 0.0, "launches": 0}  # library GEMMs (torch.matmul), within "other"
         others, marks = [], 0
         for kernel, count, us in device_kernels(prof):
             if MARK_KERNEL in kernel:
@@ -1117,12 +1149,16 @@ def profile_step(step) -> dict:
             split[key]["launches"] += count
             if key == "other":
                 others.append({"kernel": kernel[:80], "ms": us / 1e3, "launches": count})
+                if any(tag in kernel.lower() for tag in GEMM_KERNEL_TAGS):
+                    gemm["ms"] += us / 1e3
+                    gemm["launches"] += count
         if marks == 2:
             break
     check(marks == 2, f"profiler: {tries} traces each lost a marker of the traced step")
     device_ms = sum(v["ms"] for v in split.values())
     return {"wall_ms": wall, "device_ms": device_ms if device_ms else "not measured",
             "idle_share": 1 - device_ms / wall if device_ms else "not measured", **split,
+            "library_gemm": gemm,
             "traces": trace, "markers": marks,
             "other_top": sorted(others, key=lambda o: -o["ms"])[:5]}
 
@@ -1191,10 +1227,11 @@ def phase_lm_parity() -> dict:
     return out, {"cfg": cfg, "plain_model": model, "paired_model": fused.model}
 
 
-def _k1_at(block, name, x, residual=None) -> dict:
-    """K1 on one decoder weight of the serving engine (its real segments),
-    for activations ``x`` (M, K): device ms beside the plain version,
-    ``torch.matmul`` on the folded weight, and the bound."""
+def _k1_at(block, name, x, residual=None, *, dense: bool = False) -> dict:
+    """K1 on one decoder weight of a model (its real segments, or with
+    ``dense`` the weight itself in K1's dense form, P = 0), for activations
+    ``x`` (M, K): device ms beside the plain version, ``torch.matmul`` on
+    the folded weight, and the bound."""
     import dataclasses
 
     import torch
@@ -1205,17 +1242,21 @@ def _k1_at(block, name, x, residual=None) -> dict:
 
     dt = x.dtype
     w = block.matrix(name, dt)
-    meta = block.pairing[name]
-    seg = ops.lm_paired_segments(w, meta)
-    xg = x[:, seg.perm].contiguous()
-    kmat, w_res = seg.kmat.contiguous(), seg.w_res.contiguous()
-    folded = ops.fold_lm_weight(w, meta)
+    if dense:
+        xg, kmat, w_res, folded = x, w.new_zeros((0, w.shape[1])), w.contiguous(), w
+        p_live, r_live = 0, w.shape[0]
+    else:
+        meta = block.pairing[name]
+        seg = ops.lm_paired_segments(w, meta)
+        xg = x[:, seg.perm].contiguous()
+        kmat, w_res = seg.kmat.contiguous(), seg.w_res.contiguous()
+        folded = ops.fold_lm_weight(w, meta)
+        p_live, r_live = int(meta["pair_mask"].sum()), int(meta["resid_mask"].sum())
     got = pm.paired_matmul_cuda(xg, kmat, w_res, residual=residual)
     want = pm.paired_matmul_plain(xg, kmat, w_res, residual=residual, out_dtype=torch.float32)
     M, K = x.shape
     P, N = kmat.shape
     R = w_res.shape[0]
-    p_live, r_live = int(meta["pair_mask"].sum()), int(meta["resid_mask"].sum())
     item = x.element_size()
     nbytes = (M * K + (p_live + r_live) * N + M * N * (2 if residual is not None else 1)) * item
     flops = M * (2 * N * (p_live + r_live) + p_live)
@@ -2229,6 +2270,267 @@ def phase_hybrid_serve() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 19–20: LM training (qwen2-1.5b), every layer GEMM's forward on K1
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5  # the JAX package's test_lm_loss_grad_r0_parity
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the JAX train CLI's defaults: K1 at 1024 rows
+
+
+def _train_batch(cfg, step: int) -> dict:
+    """Step ``step`` of the training CLI's token stream (seed 1), on the card."""
+    import torch
+
+    from repro_torch.data.tokens import token_batches
+
+    tok, lab = next(token_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=1, start_step=step))
+    return {k: torch.as_tensor(a, dtype=torch.int64, device="cuda")
+            for k, a in (("tokens", tok), ("labels", lab))}
+
+
+def _grad_violation(got, want) -> float:
+    """max(|got − want| − (atol + rtol·|want|)): ≤ 0 where allclose holds."""
+    return float(((got - want).abs() - (GRAD_ATOL + GRAD_RTOL * want.abs())).max())
+
+
+def _k1_function_checks() -> list[dict]:
+    """K1's differentiable GEMMs on the card against their plain versions,
+    fp32, at a training layer's shape (1024 rows, K = N = 1536): the output,
+    and the gradients of x, w, the bias and the residual for one random
+    cotangent, each ≤ 1e-5 relative; one launch forward, none backward."""
+    import torch
+
+    from repro_torch.core.pairing import pair_rows_blocked, pair_rows_structured
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels.ref import rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    M_, K, N = 1024, 1536, 1536
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    w0 = rnd(K, N) * K ** -0.5
+    w64 = w0.double().cpu().numpy()
+    sp = pair_rows_structured(w64, 0.05)
+    structured = {"I": sp.I, "J": sp.J, "resid": sp.resid,
+                  "pair_mask": [1.0] * sp.n_pairs, "resid_mask": [1.0] * len(sp.resid)}
+    blocked = pair_rows_blocked(w64, 0.05, 64).index_arrays()
+    to_meta = lambda m: {k: torch.as_tensor(v, device="cuda").to(
+        torch.float32 if k.endswith("mask") else torch.int64) for k, v in m.items()}
+    cases = {
+        "fused_dense (silu, bias)": (
+            lambda x, w, b, r: ops.fused_dense(x, w, b, activation="silu"),
+            lambda x, w, b, r: pm.ACTIVATIONS["silu"](torch.matmul(x, w) + b), (0, 1, 2)),
+        "fused_paired_dense structured (residual)": (
+            lambda x, w, b, r: ops.fused_paired_dense(x, w, to_meta(structured), residual=r),
+            lambda x, w, b, r: ops.fused_paired_dense_ref(x, w, to_meta(structured), residual=r),
+            (0, 1, 3)),
+        "fused_paired_dense blocked bn=64 (silu, bias)": (
+            lambda x, w, b, r: ops.fused_paired_dense(x, w, to_meta(blocked), b,
+                                                      activation="silu", pair_block_n=64),
+            lambda x, w, b, r: ops.fused_paired_dense_ref(x, w, to_meta(blocked), b,
+                                                          activation="silu", pair_block_n=64),
+            (0, 1, 2)),
+    }
+    rows = []
+    dy = rnd(M_, N)
+    for name, (fn, plain, live) in cases.items():
+        args = [rnd(M_, K), w0.clone(), rnd(N), rnd(M_, N)]
+        for i in live:
+            args[i].requires_grad_()
+        before = pm.launch_count()
+        y = fn(*args)
+        fwd_launches = pm.launch_count() - before
+        grads = torch.autograd.grad(y, [args[i] for i in live], dy)
+        bwd_launches = pm.launch_count() - before - fwd_launches
+        y_ref = plain(*args)
+        grads_ref = torch.autograd.grad(y_ref, [args[i] for i in live], dy)
+        errs = {"out": rel_err(y, y_ref),
+                **{("x", "w", "bias", "residual")[i]: rel_err(g, r)
+                   for i, g, r in zip(live, grads, grads_ref, strict=True)}}
+        rows.append({"case": name, "rel_err": errs, "launches": [fwd_launches, bwd_launches]})
+        check(max(errs.values()) <= FP32_RTOL, f"K1 Function {name}: {errs}")
+        check([fwd_launches, bwd_launches] == [1, 0],
+              f"K1 Function {name}: launches forward/backward {fwd_launches}/{bwd_launches}")
+    return rows
+
+
+def phase_lm_train_parity() -> dict:
+    import dataclasses
+
+    from repro_torch.analysis import train_launches
+    from repro_torch.configs import get_config
+    from repro_torch.core.transform import pair_lm_params
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm as M
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    batch = _train_batch(cfg, 0)
+    base = dict(q_chunk=TRAIN_SEQ, k_chunk=TRAIN_SEQ)
+    model = M.init_lm(cfg, 0)
+    model.requires_grad_(True)
+    variants = {
+        "pallas": (model, M.PerfKnobs(**base, gemm="pallas")),
+        "paired_structured": (pair_lm_params(model, 0.0)[0],
+                              M.PerfKnobs(**base, gemm="pallas_paired")),
+        "paired_blocked_64": (pair_lm_params(model, 0.0, mode="column_blocked", block_n=64)[0],
+                              M.PerfKnobs(**base, gemm="pallas_paired", pair_block_n=64)),
+    }
+
+    def loss_and_grads(m, knobs):
+        m.zero_grad(set_to_none=True)
+        loss, _ = M.lm_loss(cfg, m, batch, knobs=knobs)
+        loss.backward()
+        return float(loss), {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+
+    _reset_launches()  # the path's own counts from here
+    ref_loss, ref_grads = loss_and_grads(model, M.PerfKnobs(**base))
+    check(pm.launch_count() == 0, "lm_train_parity: gemm='xla' launched K1")
+    rows = {}
+    for tag, (m, knobs) in variants.items():
+        launches = {}
+        for remat in ("full", "none"):
+            k = dataclasses.replace(knobs, remat=remat)
+            before = pm.launch_count()
+            loss, grads = loss_and_grads(m, k)
+            launches[remat] = {"counted": pm.launch_count() - before,
+                               "want": train_launches(cfg, k)}
+            check(launches[remat]["counted"] == launches[remat]["want"],
+                  f"lm_train_parity {tag} remat={remat}: launches {launches[remat]}")
+            if remat == "full":
+                rel = abs(loss - ref_loss) / abs(ref_loss)
+                worst = {n: _grad_violation(g, ref_grads[n]) for n, g in grads.items()}
+                worst_name = max(worst, key=worst.get)
+                rows[tag] = {"loss": loss, "loss_rel_err": rel,
+                             "grad_max_abs_err": max(float((g - ref_grads[n]).abs().max())
+                                                     for n, g in grads.items()),
+                             "grad_worst": {"param": worst_name,
+                                            "excess_over_tolerance": worst[worst_name]},
+                             "grads_checked": len(grads)}
+                check(rel <= FP32_RTOL, f"lm_train_parity {tag}: loss rel err {rel:.3g}")
+                check(worst[worst_name] <= 0, f"lm_train_parity {tag}: grad of {worst_name} "
+                      f"beyond rtol {GRAD_RTOL}, atol {GRAD_ATOL} by {worst[worst_name]:.3g}")
+        rows[tag]["launches"] = launches
+    del ref_grads, grads
+
+    def four_steps(knobs, paired: bool) -> list[float]:
+        m = M.init_lm(cfg, 0)
+        if paired:
+            m = pair_lm_params(m, 0.0)[0]
+        step = build_train_step(cfg, adamw(cosine_schedule(3e-4, 4)), knobs)
+        opt_state = step.init(m)
+        return [float(step(m, opt_state, i, _train_batch(cfg, i))["loss"]) for i in range(4)]
+
+    steps_xla = four_steps(M.PerfKnobs(**base), False)
+    steps_paired = four_steps(M.PerfKnobs(**base, gemm="pallas_paired"), True)
+    step_err = max(abs(a - b) / abs(a) for a, b in zip(steps_xla, steps_paired, strict=True))
+    check(step_err <= FP32_RTOL, f"lm_train_parity: 4 AdamW steps differ by {step_err:.3g}")
+    launches = pm.launch_count()
+    functions = _k1_function_checks()
+    out = {
+        "phase": "lm_train_parity", "arch": cfg.name, "layers": cfg.n_layers,
+        "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "rounding": 0.0,
+        "reference": "gemm='xla' (torch.matmul, autograd)", "xla_loss": ref_loss,
+        "variants": rows, "adamw_4_steps": {"xla": steps_xla, "pallas_paired": steps_paired,
+                                            "max_rel_err": step_err},
+        "main_path_launches": launches, "k1_functions": functions,
+    }
+    emit(out)
+    return out
+
+
+def _k1_training_rows(layer) -> list[dict]:
+    """K1 at a training step's rows (batch 8 × seq 128 = 1024, bf16) on one
+    layer's weights, paired (the model's structured r = 0.05 metadata) and
+    dense: wq, wk, wo (its residual fused, as in the step), w_gate and
+    w_down (residual fused)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    M_ = TRAIN_BATCH * TRAIN_SEQ
+    x = lambda k: torch.randn(M_, k, generator=gen, device="cuda").to(torch.bfloat16)
+    d, f = layer.mlp.w_down.shape[1], layer.mlp.w_down.shape[0]
+    shapes = [(layer.attn, "wq", d, False), (layer.attn, "wk", d, False),
+              (layer.attn, "wo", d, True), (layer.mlp, "w_gate", d, False),
+              (layer.mlp, "w_down", f, True)]
+    rows = []
+    for block, name, k, with_res in shapes:
+        xs, res = x(k), x(d) if with_res else None
+        rows.append({**_k1_at(block, name, xs, res), "form": "paired structured r=0.05"})
+        rows.append({**_k1_at(block, name, xs, res, dense=True), "form": "dense"})
+    for row in rows:
+        check(row["ulps"] <= BF16_MAX_ULPS,
+              f"lm_train K1 {row['weight']} ({row['form']}) {row['ulps']:.3g} ulps")
+    return rows
+
+
+def phase_lm_train() -> dict:
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.analysis import train_launches
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.launch.train import train
+
+    ckpt = Path(__file__).resolve().parent / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(arch=TRAIN_ARCH, steps=6, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4,
+              gemm="pallas_paired", pair_rounding=0.05, log_every=1, ckpt_dir=str(ckpt))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # the path's own counts from here
+    rec = train(**kw, ckpt_every=3)
+    launches = pm.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, knobs, model = rec["cfg"], rec["knobs"], rec["model"]
+    want = train_launches(cfg, knobs)
+    losses, xents = [h["loss"] for h in rec["history"]], [h["xent"] for h in rec["history"]]
+    check(launches == 6 * want, f"lm_train: {launches} K1 launches in 6 steps, want 6 × {want}")
+    check(all(math.isfinite(v) for h in rec["history"] for v in h.values()),
+          f"lm_train: metrics not finite: {rec['history']}")
+    check(losses[-1] < losses[0], f"lm_train: loss did not fall: {losses}")
+    step_ms, pairing_s = rec["step_ms"], [rec["pairing_s"]]
+    median = sorted(step_ms[1:])[(len(step_ms) - 1) // 2]
+    prof = profile_step(lambda: rec["step"](model, rec["opt_state"], 6, _train_batch(cfg, 6)))
+    check(prof["K1"]["launches"] == want or prof["device_ms"] == "not measured",
+          f"lm_train: profiled step launched K1 {prof['K1']['launches']} times, want {want}")
+    k1_rows = _k1_training_rows(model.layers[0])
+    n_params = sum(p.numel() for p in model.parameters())
+    del rec, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resume: the checkpoint of step 3, the run again from there
+    shutil.rmtree(ckpt / f"step_{6:010d}")
+    resumed = train(**kw)
+    check(resumed["start"] == 3, f"lm_train: resumed from step {resumed['start']}, want 3")
+    again = [h["loss"] for h in resumed["history"]]
+    pairing_s.append(resumed["pairing_s"])
+    resume_err = max(abs(a - b) / abs(a) for a, b in zip(losses[3:], again, strict=True))
+    check(resume_err <= FP32_RTOL, f"lm_train: resumed losses {again} vs {losses[3:]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {
+        "phase": "lm_train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "masters": "float32", "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "pairing": {"mode": "structured", "rounding": 0.05, "seconds": pairing_s},
+        "remat": knobs.remat, "optimizer": "adamw 3e-4, cosine, clip 1.0",
+        "losses": losses, "xent": xents,
+        "step_ms": step_ms,
+        "median_step_ms_2_6": median, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median * 1e3,
+        "k1_launches_per_step": want, "main_path_launches": launches,
+        "profiled_step": prof, "peak_memory_gb": peak / 1e9,
+        "resume": {"from_step": 3, "losses": again, "max_rel_err": resume_err,
+                   "bit_identical": again == losses[3:]},
+        "k1_training_rows": k1_rows,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2274,6 +2576,12 @@ def main() -> int:
     torch.cuda.empty_cache()  # mamba2's weights leave the card
     hybrid_parity = phase_hybrid_parity()
     hybrid = phase_hybrid_serve()
+    gc.collect()
+    torch.cuda.empty_cache()  # hymba's weights leave the card
+    train_parity = phase_lm_train_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train = phase_lm_train()
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
@@ -2291,7 +2599,9 @@ def main() -> int:
              "moe_serve": moe["main_path_launches"]["paired_matmul"],
              "mla_parity": mla_parity["main_path_launches"]["paired_matmul"],
              "mla_serve": mla["main_path_launches"]["paired_matmul"],
-             **{k: v["main_path_launches"]["paired_matmul"] for k, v in state_paths.items()}}
+             **{k: v["main_path_launches"]["paired_matmul"] for k, v in state_paths.items()},
+             "lm_train_parity": train_parity["main_path_launches"],
+             "lm_train": lm_train["main_path_launches"]}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},
@@ -2352,6 +2662,12 @@ def main() -> int:
                                        "bound_by", "library_ms")}
                   for row in rec["k1_shapes"]]
            for arch, rec in (("mamba2", ssm), ("hymba", hybrid))},
+        # qwen2-1.5b's training step (bf16, 1024 rows: batch 8 × seq 128),
+        # layer 0's wq, wk, wo, w_gate, w_down, paired (structured r=0.05)
+        # and dense, the residual fused into wo and w_down as in the step
+        "training": [{k: row[k] for k in ("weight", "form", "M", "K", "N", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")}
+                     for row in lm_train["k1_training_rows"]],
     }, {
         "name": "decode_attention",
         "route": "cuda",

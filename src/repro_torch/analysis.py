@@ -13,8 +13,9 @@ counts while the function runs:
 * ``pool_ops`` — standalone 2×2 pools (``pool2_reference``) outside K1.
 
 :func:`decode_launches` says what one decode layer should launch, by layer
-kind and schedule, for the launch counters of the serving paths to be held
-to.
+kind and schedule, and :func:`train_launches` what one training step
+should, for the launch counters of the serving and training paths to be
+held to.
 
 Calls are counted with ``sys.monitoring`` (Python 3.12+) on those
 functions' code objects alone, so nothing on the path changes and nothing
@@ -103,3 +104,36 @@ def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
         cfg.n_kv_heads * hd) % bn
     k1 = (1 if one_qkv else 3) + (0 if fused else 1) + ffn + (6 if hybrid else 0) if paired else 0
     return {"paired_matmul": k1, "decode_attention": int(fused), "flash_attention": 0}
+
+
+def _forward_gemms(cfg, kind: str, knobs) -> int:
+    """K1 launches of one layer's forward over a sequence under ``knobs``:
+    each :func:`~repro_torch.models.layers.dense` call under ``gemm="pallas"``
+    (attention's four projections, GQA or MLA; an SSM block's six; a gated
+    MLP's or shared experts' three; the routed experts are einsums), each
+    paired weight's under ``"pallas_paired"`` (every decoder weight is
+    paired)."""
+    if knobs.gemm == "xla":
+        return 0
+    if kind == "moe" and knobs.gemm == "pallas_paired":
+        raise ValueError("the paired expert grid has no backward: MoE layers do not train "
+                         "under gemm='pallas_paired'")
+    attn = 4 if kind != "ssm" else 0
+    ssm = 6 if kind in ("ssm", "hybrid_full", "hybrid_swa") else 0
+    if kind == "moe":
+        ffn = 3 if cfg.moe.n_shared else 0
+    else:
+        ffn = 3 if kind != "ssm" and (not kind.startswith("hybrid") or cfg.d_ff) else 0
+    return attn + ssm + ffn
+
+
+def train_launches(cfg, knobs) -> int:
+    """K1 launches of one training step (``launch.steps.build_train_step``)
+    of ``cfg`` under ``knobs`` (``models.lm.PerfKnobs``), every decoder
+    weight paired under ``gemm="pallas_paired"``: each layer's forward
+    GEMMs (7 in a dense GQA layer), and the same again under
+    ``remat="full"``, which reruns every layer's forward in the backward
+    (``"dots"`` keeps K1's outputs).  The backward's GEMMs and the head are
+    ``torch.matmul``; K2 and K3 run on no training path."""
+    fwd = sum(_forward_gemms(cfg, cfg.layer_kind(i), knobs) for i in range(cfg.n_layers))
+    return fwd * (2 if knobs.remat == "full" else 1)

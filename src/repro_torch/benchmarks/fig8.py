@@ -12,8 +12,11 @@ Three substitutions for the reference's TPU machinery: the tile configs of
 host timer ``measure`` becomes CUDA-event timing on the card
 (``common.device_ms``; ``None`` on the CPU); the jaxpr schedule audit
 becomes counts of K1 launches, K1 calls and standalone pools
-(``repro_torch.analysis``).  The LM parts (``_train_tiny_lm``,
-``lm_paired_decode_bench``) wait for the port's LM training.
+(``repro_torch.analysis``).  The LM parts (:func:`lm_paired_decode_bench`,
+:func:`run_lm_paired`) train a tiny qwen2 on the token stream, hold the
+paired decode engines to the plain one at r = 0, report the pair rates of
+the trained weights at r = 0.05, and count a decode step's launches (the
+jaxpr audit's writebacks) against ``analysis.decode_launches``.
 
 Paper headline at rounding 0.05: 32.03 % power, 24.59 % area, 0.1 %
 accuracy loss.
@@ -48,6 +51,7 @@ from repro_torch.models.lenet import (
 ROUNDINGS = [0.0, 0.0001, 0.005, 0.01, 0.015, 0.02, 0.025, 0.05, 0.1, 0.15, 0.2, 0.25, 0.3]
 QUICK_ROUNDINGS = [0.0, 0.01, 0.05, 0.3]
 HEADLINE_ROUNDING = 0.05
+LM_HEADLINE_ROUNDING = 0.05  # the paper's headline point, applied to the LM
 PAPER_HEADLINE = {"rounding": 0.05, "power_saving_%": 32.03, "area_saving_%": 24.59,
                   "acc_loss_%": 0.1}
 POOLED = ("conv1", "conv2")  # the layers a 2×2 max-pool follows
@@ -322,4 +326,152 @@ def run(quick: bool = False, *, trained=None, device=None) -> dict:
           f"{dist['frac_positive']:.3f} (paper Fig. 3/4: roughly zero-centred, enabling "
           "opposite-sign pairs)")
     write_result("fig8", out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LM parts: paired decode on a trained tiny LM
+# ---------------------------------------------------------------------------
+
+
+def _train_tiny_lm(cfg, n_steps: int, seed: int = 0, *, device=None):
+    """AdamW steps on the token stream (batch 4 × 32, its seed 7), enough to
+    move the init weights to a trained distribution (the pairing rate is a
+    property of that distribution).  Returns ``(model, losses)``."""
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm as M
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+
+    model = M.init_lm(cfg, seed, device=device)
+    knobs = M.PerfKnobs(q_chunk=32, k_chunk=32, remat="none")
+    step = build_train_step(
+        cfg, adamw(cosine_schedule(3e-3, n_steps, warmup_steps=min(5, n_steps))), knobs)
+    opt_state = step.init(model)
+    losses = []
+    data = token_batches(4, 32, cfg.vocab, seed=7)
+    dev = model.embed.device
+    for i in range(n_steps):
+        tok, lab = (torch.as_tensor(a, dtype=torch.int64, device=dev) for a in next(data))
+        losses.append(float(step(model, opt_state, i, {"tokens": tok, "labels": lab})["loss"]))
+    model.requires_grad_(False)
+    return model, losses
+
+
+def lm_pair_rates(model, rounding: float = LM_HEADLINE_ROUNDING) -> dict:
+    """Pair rates of the decoder weights at ``rounding``: structured,
+    column-blocked at 4 and per-column (the lanes a token saves over the
+    baseline lanes)."""
+    from repro_torch.core.transform import pair_lm_params
+
+    rates = {}
+    for tag, kw in (("structured", dict(mode="structured")),
+                    ("block_4", dict(mode="column_blocked", block_n=4)),
+                    ("per_column", dict(mode="per_column"))):
+        _, rep = pair_lm_params(model, rounding, **kw)
+        rates[tag] = {"baseline_lanes_per_token": rep.total_weights,
+                      "lanes_saved_per_token": rep.total_pairs,
+                      "pair_rate": rep.total_pairs / rep.total_weights}
+    return rates
+
+
+def _decode_step_counts(cfg, eng) -> dict:
+    """Calls of K1 and of K2 in one decode step of ``eng``, per layer."""
+    from repro_torch.kernels import decode_attention as da
+
+    with counting(k2_calls=(da.fused_decode_attention_cuda, da.decode_attention_cuda)) as c:
+        eng.step()
+    return {"paired_matmul": c["k1_calls"] / cfg.n_layers,
+            "decode_attention": c["k2_calls"] / cfg.n_layers}
+
+
+@torch.no_grad()
+def lm_paired_decode_bench(quick: bool = False, *, device=None, trained=None) -> dict:
+    """Paired subtractor GEMMs on the LM decode path, run end to end.
+
+    * **parity**: serving engines with ``gemm="pallas_paired"`` at rounding
+      0, plain and with fused decode attention (per-column pairing, so the
+      QKV projections run as one launch), give token for token the plain
+      engine's greedy stream on a mixed-length batch;
+    * **ledger**: the pair rates of the *trained* tiny LM's decoder weights
+      at r = 0.05, structured, blocked at 4 and per-column;
+    * **schedule**: a paired decode step launches 7 kernels a layer (the
+      seven GEMMs, the skip connections in their epilogue), 5 with fused
+      decode attention (one QKV launch, one attention + out-projection, the
+      MLP's three), as ``analysis.decode_launches`` says; counted as calls
+      of the kernels' wrappers, so the CPU run counts too.
+
+    ``trained`` is ``_train_tiny_lm``'s result (trained here when None).
+    """
+    from repro_torch.analysis import decode_launches
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+
+    # fp32: the parity claim is the kernel path's exactness, not bf16 noise
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), dtype="float32")
+    base = dict(q_chunk=16, k_chunk=16, remat="none")
+    steps = 4 if quick else 6
+    train_steps = 60 if quick else 200
+    with torch.enable_grad():
+        model, losses = trained or _train_tiny_lm(cfg, train_steps, device=device)
+    # one batch's loss is noisy: compare the first and last ten steps' means
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    assert last < first, f"the tiny LM must train: mean loss {first:.4f} → {last:.4f}"
+
+    rng = np.random.default_rng(0)
+    prompts = {0: rng.integers(0, cfg.vocab, size=(5,)).astype(np.int32),
+               1: rng.integers(0, cfg.vocab, size=(11,)).astype(np.int32)}
+    knobs = {"xla": M.PerfKnobs(**base),
+             "paired": M.PerfKnobs(**base, gemm="pallas_paired"),
+             "fused": M.PerfKnobs(**base, gemm="pallas_paired", pair_block_n=1,
+                                  attn="pallas_fused")}
+    engines = {tag: ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=k)
+               for tag, k in knobs.items()}
+    outs = {tag: eng.generate(dict(prompts), steps) for tag, eng in engines.items()}
+    token_identical = outs["paired"] == outs["xla"]
+    fused_identical = outs["fused"] == outs["xla"]
+    assert token_identical, f"paired decode left the plain one at r=0: {outs}"
+    assert fused_identical, f"fused-attention decode left the plain one at r=0: {outs}"
+
+    rates = lm_pair_rates(model)
+    assert rates["per_column"]["lanes_saved_per_token"] > 0, (
+        "per-column pairing must save lanes at the headline rounding")
+
+    counts, want = {}, {}
+    for tag in ("paired", "fused"):
+        counts[tag] = _decode_step_counts(cfg, engines[tag])
+        want[tag] = {k: decode_launches(cfg, "dense", knobs[tag])[k]
+                     for k in ("paired_matmul", "decode_attention")}
+        assert counts[tag] == want[tag], (
+            f"{tag} decode step: {counts[tag]} launches a layer, want {want[tag]}")
+    per_layer = {tag: sum(c.values()) for tag, c in counts.items()}
+    assert per_layer == {"paired": 7, "fused": 5}, per_layer
+
+    out = {
+        "arch": cfg.name,
+        "device": str(model.embed.device),
+        "train_steps": len(losses),
+        "train_loss": {"first": losses[0], "last": losses[-1], "first_10_mean": first,
+                       "last_10_mean": last},
+        "decode_steps": steps,
+        "parity": {"rounding": 0.0, "token_identical": token_identical,
+                   "fused_attn_token_identical": fused_identical,
+                   "tokens": {int(k): v for k, v in outs["paired"].items()}},
+        "ledger": {"rounding": LM_HEADLINE_ROUNDING, "rates": rates},
+        "launch_audit": {"per_layer": counts, "want": want, "launches_per_layer": per_layer},
+    }
+    print(f"LM paired decode [{cfg.name}] @ r=0: token-identical to the plain engine over "
+          f"{steps} steps × 2 mixed-length slots (fused-attn engine: {fused_identical})")
+    print("LM pairing ledger @ r=0.05 (trained weights): " + ", ".join(
+        f"{tag}={r['pair_rate']:.3f}" for tag, r in rates.items()))
+    print(f"launches a decode layer: {per_layer['paired']} unfused → {per_layer['fused']} "
+          "with fused decode attention")
+    return out
+
+
+def run_lm_paired(quick: bool = False, *, device=None) -> dict:
+    """The paired-LM decode bench on its own; writes ``torch_lm_paired``."""
+    out = lm_paired_decode_bench(quick=quick, device=device)
+    write_result("torch_lm_paired", out)
     return out

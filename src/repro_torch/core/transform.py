@@ -10,6 +10,9 @@ The conv and LM halves of ``repro.core.transform``.
   expert's matrix of an MoE layer on its own,
   and return a model that shares its weights and carries each weight's
   metadata (``block.pairing[name]``), with a :class:`PairedModelReport`.
+* :func:`pair_model_params` folds every eligible leaf of a weight tree (the
+  training CLI's ``--paired-rounding``): the paired weights themselves,
+  no metadata.
 
 Pairing runs on float64 numpy copies of the weights, as the reference does,
 so the metadata matches it index for index (float32 would change the ties
@@ -26,7 +29,10 @@ import torch
 from repro_torch.core.cost_model import AsicCostModel, OpCounts
 from repro_torch.core.pairing import (
     BlockedPairing,
+    ColumnPairing,
     StructuredPairing,
+    fold_columns,
+    pair_columns,
     pair_rows_blocked,
     pair_rows_structured,
 )
@@ -144,6 +150,8 @@ class LeafReport:
     n_weights: int
     n_pairs: int
     pair_fraction: float  # fraction of weights absorbed into pairs (2P/K·N)
+    # the leaf's pairing, where pair_model_params(keep_pairings=True) keeps it
+    pairing: ColumnPairing | StructuredPairing | BlockedPairing | None = None
 
 
 @dataclasses.dataclass
@@ -397,3 +405,87 @@ def pair_lm_params(
     model carries."""
     return pair_params(model, rounding, mode=mode, block_n=block_n,
                        criterion=criterion, min_dim=min_dim)
+
+
+# ---------------------------------------------------------------------------
+# whole-tree folding (the training CLI's --paired-rounding)
+# ---------------------------------------------------------------------------
+
+
+def _tree_map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over nested dicts (keys in sorted order, as JAX
+    walks them), lists and tuples; paths in ``jax.tree_util.keystr``'s
+    form (``['segments'][0]['attn']['wq']``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, tree[k], f"{path}[{k!r}]")
+                for k in sorted(tree, key=str)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_with_path(fn, v, f"{path}[{i}]") for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def pair_model_params(
+    params: Any,
+    rounding: float,
+    *,
+    mode: str = "per_column",
+    block_n: int = 0,
+    min_dim: int = 8,
+    predicate=None,
+    keep_pairings: bool = False,
+):
+    """Pair and fold every eligible weight leaf of ``params``.
+
+    ``params`` is a tree of nested dicts, lists and tuples whose leaves are
+    tensors or numpy arrays.  Eligible: a float leaf with 2 or 4 axes whose
+    contraction dims are both at least ``min_dim``, and ``predicate(path,
+    leaf)`` (if given) true.  A 4-D leaf is a conv kernel (H, W, Cin, Cout),
+    paired per filter as the paper does for LeNet-5; a 2-D leaf (K, N) per
+    column (per output neuron).  ``mode``: ``"per_column"`` (the paper's
+    Algorithm 1), ``"structured"`` (one shared-row pairing a leaf) or
+    ``"column_blocked"`` (one shared-row pairing per ``block_n`` columns).
+
+    Returns ``(params', report)``: the same structure, each eligible leaf
+    replaced by its folded equivalent in the leaf's dtype (and device), the
+    rest as they were; pairing runs on float64 copies, as in the JAX
+    package's ``pair_model_params``.
+    """
+    if mode == "column_blocked" and block_n < 1:
+        raise ValueError("mode='column_blocked' needs block_n >= 1")
+    if mode not in ("per_column", "structured", "column_blocked"):
+        raise ValueError(f"unknown mode {mode!r}")
+    report: list[LeafReport] = []
+
+    def handle(path: str, leaf):
+        if not isinstance(leaf, (np.ndarray, torch.Tensor)):
+            return leaf
+        floating = leaf.is_floating_point() if isinstance(leaf, torch.Tensor) else (
+            leaf.dtype.kind == "f")
+        if not floating or leaf.ndim not in (2, 4):
+            return leaf
+        shape = tuple(leaf.shape)
+        K, N = (int(np.prod(shape[:-1])), shape[-1]) if len(shape) == 4 else shape
+        if K < min_dim or N < min_dim:
+            return leaf
+        if predicate is not None and not predicate(path, leaf):
+            return leaf
+        mat = _as_numpy(leaf).astype(np.float64).reshape(K, N)
+        if mode == "per_column":
+            pairing = pair_columns(mat, rounding)
+            folded, n_pairs = fold_columns(mat, pairing), pairing.total_pairs
+        elif mode == "structured":
+            pairing = pair_rows_structured(mat, rounding)
+            folded, n_pairs = pairing.fold(), pairing.weighted_pairs
+        else:
+            pairing = pair_rows_blocked(mat, rounding, block_n)
+            folded, n_pairs = pairing.fold(), pairing.weighted_pairs
+        report.append(LeafReport(path=path, shape=shape, n_weights=K * N, n_pairs=int(n_pairs),
+                                 pair_fraction=2.0 * n_pairs / (K * N),
+                                 pairing=pairing if keep_pairings else None))
+        folded = folded.reshape(shape)
+        if isinstance(leaf, torch.Tensor):
+            return torch.as_tensor(folded).to(dtype=leaf.dtype, device=leaf.device)
+        return folded.astype(leaf.dtype)
+
+    paired = _tree_map_with_path(handle, params)
+    return paired, PairedModelReport(rounding=rounding, mode=mode, leaves=report)

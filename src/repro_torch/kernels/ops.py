@@ -1,15 +1,19 @@
 """Kernel entry points: the paired GEMM, applying a pairing, and the LM ops.
 
-The port of ``repro.kernels.ops`` (forward only).  The GEMM functions take
-any leading shape, flatten it to the kernel's 2-D layout and restore it, and
-apply a :class:`~repro_torch.core.pairing.StructuredPairing` or
+The port of ``repro.kernels.ops``.  The GEMM functions take any leading
+shape, flatten it to the kernel's 2-D layout and restore it, and apply a
+:class:`~repro_torch.core.pairing.StructuredPairing` or
 :class:`~repro_torch.core.pairing.BlockedPairing` to activations (the lane
 gather, which in production folds into the previous layer).  The LM ops run
 a decoder weight through the paired kernel from its live values and frozen
 pairing metadata (``core.transform.pair_lm_params``), and decode attention
 through the kernel that applies the paired out-projection in its flush; an
 MoE layer's experts run one projection each as one launch of the
-column-blocked kernel over the expert grid.
+column-blocked kernel over the expert grid.  :func:`fused_dense` (K1's
+dense form) and :func:`fused_paired_dense` are differentiable, as the JAX
+package's custom VJPs are: the kernel's forward, a backward of
+``torch.matmul`` (the JAX package's XLA dots); the expert grid and decode
+attention are forward only.
 The kernels' tiles are fixed (see ``csrc/``); the JAX package's tile cache
 has no counterpart yet.  Each call runs where its tensors lie: the CUDA
 kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core.pairing import BlockedPairing, StructuredPairing
 from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
 from repro_torch.kernels.paired_matmul import (
+    ACTIVATIONS,
     dense_matmul_cuda,
     paired_matmul_blocked_cuda,
     paired_matmul_cuda,
@@ -213,9 +218,11 @@ def _check_block_n(meta: dict, pair_block_n: int) -> None:
 def fold_lm_weight(w2: torch.Tensor, meta: dict, pair_block_n: int = 0) -> torch.Tensor:
     """Dense W_approx (K, N) the paired LM GEMM is equivalent to.
 
-    The live-weight fold under a frozen pairing structure (the test oracle):
-    paired rows snap to ±Kmat, residual rows pass through.  Scatter-*add*
-    because padded lanes all point at row 0 with exactly-zero contributions.
+    The live-weight fold under a frozen pairing structure (the backward's
+    function and the test oracle): paired rows snap to ±Kmat, residual rows
+    pass through.  Scatter-*add* because padded lanes all point at row 0
+    with exactly-zero contributions; their masks zero those lanes' gradient
+    too, so ``w`` is reached only through live lanes.
     """
     K, N = w2.shape
     if meta["I"].ndim == 2:  # blocked: (B, Pmax)-shaped lane lists
@@ -250,6 +257,36 @@ def lm_paired_segments(w2: torch.Tensor, meta: dict, pair_block_n: int = 0) -> P
     return PairedSegments(perm, kmat, w_res, w2.shape[1])
 
 
+def _k1(xg: torch.Tensor, kmat: torch.Tensor, w_res: torch.Tensor, bias: torch.Tensor | None,
+        residual: torch.Tensor | None, n_cols: int, activation: str) -> torch.Tensor:
+    """One K1 call on gathered activations: structured (``xg`` (…, K'),
+    ``kmat`` (P, N); the dense form at P = 0) or column-blocked (``xg``
+    (B, M, K'), ``kmat`` (B, Pmax, bn), ``residual`` (M, n_cols))."""
+    if kmat.ndim == 3:
+        return paired_matmul_blocked(xg, kmat, w_res, bias, residual, n_cols=n_cols,
+                                     activation=activation)
+    return paired_matmul(xg, kmat, w_res, bias, residual, activation=activation)
+
+
+@torch.library.custom_op("repro_torch::k1", mutates_args=())
+def k1_op(xg: torch.Tensor, kmat: torch.Tensor, w_res: torch.Tensor, bias: torch.Tensor | None,
+          residual: torch.Tensor | None, n_cols: int, activation: str) -> torch.Tensor:
+    """:func:`_k1` as an operator of its own, which the differentiable LM
+    GEMMs call: a selective checkpoint policy sees it among the aten ops and
+    can keep its output (``models.lm`` under ``remat="dots"``)."""
+    return _k1(xg, kmat, w_res, bias, residual, n_cols, activation)
+
+
+def _paired_dense(x, seg: PairedSegments, bias, activation, residual, gemm) -> torch.Tensor:
+    kmat, w_res = seg.kmat.to(x.dtype), seg.w_res.to(x.dtype)
+    if seg.perm.ndim == 1:
+        return gemm(x[..., seg.perm], kmat, w_res, bias, residual, seg.n_cols, activation)
+    xg = x.reshape(-1, x.shape[-1])[:, seg.perm].movedim(1, 0)  # (B, M, K')
+    res2 = None if residual is None else residual.reshape(-1, seg.n_cols)
+    y = gemm(xg, kmat, w_res, bias, res2, seg.n_cols, activation)
+    return y.reshape(*x.shape[:-1], seg.n_cols)
+
+
 def paired_dense(
     x: torch.Tensor,
     seg: PairedSegments,
@@ -259,17 +296,125 @@ def paired_dense(
     residual: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(…, K) through the paired kernel on precomputed segments → (…, N);
-    one launch.  ``bias``/``activation``/``residual`` fuse into its epilogue."""
-    kmat, w_res = seg.kmat.to(x.dtype), seg.w_res.to(x.dtype)
-    if seg.perm.ndim == 1:
-        return paired_matmul(x[..., seg.perm], kmat, w_res, bias, residual,
-                             activation=activation)
-    lead = x.shape[:-1]
-    xg = x.reshape(-1, x.shape[-1])[:, seg.perm].movedim(1, 0)  # (B, M, K')
-    res2 = None if residual is None else residual.reshape(-1, seg.n_cols)
-    y = paired_matmul_blocked(xg, kmat, w_res, bias, res2, n_cols=seg.n_cols,
-                              activation=activation)
-    return y.reshape(*lead, seg.n_cols)
+    one launch.  ``bias``/``activation``/``residual`` fuse into its epilogue.
+    Forward only (the serving engines' frozen blocks), so it calls the
+    kernel's wrapper directly, not through :func:`k1_op` (the operator's
+    dispatch costs some 20 µs of host time a call, a decode step makes
+    hundreds)."""
+    return _paired_dense(x, seg, bias, activation, residual, _k1)
+
+
+# ---------------------------------------------------------------------------
+# differentiable LM GEMMs: K1's forward, the backward by torch.matmul
+# ---------------------------------------------------------------------------
+#
+# The JAX package differentiates its Pallas GEMMs with custom VJPs whose
+# backward is plain XLA dots (``_fused_dense_grad``, ``_fused_paired_dense_grad``):
+# pallas_call has no transpose rule.  Here each is a torch.autograd.Function
+# whose forward is one K1 launch and whose backward is torch.matmul: for the
+# dense form the pre-activation is recomputed, not saved; for the paired
+# forms the backward is autograd of the folded dense equivalent
+# (fold_lm_weight) with respect to the live weights.  The pairing metadata
+# is frozen structure and takes no gradient.
+
+
+def _act_grad(activation: str, z: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dy · act'(z)."""
+    if activation == "none":
+        return dy
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_()
+        (dz,) = torch.autograd.grad(ACTIVATIONS[activation](zz), zz, dy)
+    return dz
+
+
+class _FusedDense(torch.autograd.Function):
+    """K1's dense form forward, torch.matmul backward (``_fused_dense_grad``
+    of the JAX package's ``kernels/ops.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, activation):
+        N = w.shape[1]
+        y = k1_op(x, w.new_zeros((0, N)), w, bias, None, N, activation)
+        ctx.save_for_backward(x, w, bias)
+        ctx.activation = activation
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        z = torch.matmul(x, w)  # the pre-activation, recomputed
+        if b is not None:
+            z = z + b
+        dz = _act_grad(ctx.activation, z, dy)
+        N = w.shape[1]
+        dz2, x2 = dz.reshape(-1, N), x.reshape(-1, x.shape[-1])
+        dx = torch.matmul(dz, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.matmul(x2.t(), dz2).to(w.dtype) if ctx.needs_input_grad[1] else None
+        db = dz2.sum(0).to(b.dtype) if b is not None and ctx.needs_input_grad[2] else None
+        return dx, dw, db, None
+
+
+def fused_dense(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Differentiable ``act(x @ w + bias)``: one launch of K1's dense form
+    (P = 0), the bias and activation in its epilogue; what
+    ``layers.dense`` calls under ``gemm="pallas"``."""
+    return _FusedDense.apply(x, w, bias, activation)
+
+
+def fused_paired_dense_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    meta: dict,
+    bias: torch.Tensor | None = None,
+    *,
+    activation: str = "none",
+    residual: torch.Tensor | None = None,
+    pair_block_n: int = 0,
+) -> torch.Tensor:
+    """The plain folded reference of :func:`fused_paired_dense`: ``x @
+    fold_lm_weight(w) + bias → act → + residual``, differentiable in every
+    tensor but ``meta``; its autograd is the paired GEMM's backward."""
+    z = torch.matmul(x, fold_lm_weight(w, meta, pair_block_n))
+    if bias is not None:
+        z = z + bias
+    z = ACTIVATIONS[activation](z)
+    return z if residual is None else z + residual.to(z.dtype)
+
+
+class _FusedPairedDense(torch.autograd.Function):
+    """The paired kernel's forward on segments of the live weights, the
+    folded reference's autograd as the backward (``_fused_paired_dense_grad``
+    of the JAX package's ``kernels/ops.py``; ``paired_conv._PairedConv`` for
+    LeNet)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, meta, activation, pair_block_n):
+        seg = lm_paired_segments(w, meta, pair_block_n)
+        y = _paired_dense(x, seg, bias, activation, residual, k1_op)
+        ctx.save_for_backward(x, w, bias, residual)
+        ctx.conf = (meta, activation, pair_block_n)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        meta, activation, pair_block_n = ctx.conf
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            x, w, b, res = inputs
+            y = fused_paired_dense_ref(x, w, meta, b, activation=activation, residual=res,
+                                       pair_block_n=pair_block_n)
+            live = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, live, dy))
+        out = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+        return (*out, None, None, None)
 
 
 def fused_paired_dense(
@@ -282,15 +427,17 @@ def fused_paired_dense(
     residual: torch.Tensor | None = None,
     pair_block_n: int = 0,
 ) -> torch.Tensor:
-    """Paired GEMM from live weights + frozen LM pairing (forward only).
+    """Differentiable paired GEMM from live weights + frozen LM pairing.
 
     1-D lane lists select the structured kernel, ``(B, Pmax)`` lists the
     column-blocked one (``pair_block_n`` is then the block size the metadata
     was built with).  ``residual`` fuses the sublayer skip connection into
-    the kernel's epilogue.
+    the kernel's epilogue.  One K1 launch forward; the backward is
+    :func:`fused_paired_dense_ref`'s, with respect to ``x``, ``w``,
+    ``bias`` and ``residual``.
     """
-    return paired_dense(x, lm_paired_segments(w, meta, pair_block_n), bias,
-                        activation=activation, residual=residual)
+    _check_block_n(meta, pair_block_n)
+    return _FusedPairedDense.apply(x, w, bias, residual, meta, activation, pair_block_n)
 
 
 # ---------------------------------------------------------------------------

@@ -266,20 +266,30 @@ def dense(
 ) -> torch.Tensor:
     """GEMM over the last axis with optional bias + activation + residual.
 
-    The single dispatch point: with ``knobs.gemm == "pallas_paired"`` a call
-    that carries ``pairing`` metadata runs the paired kernel
-    (``ops.fused_paired_dense``, on ``segments`` when the caller has them
-    precomputed from ``w``, which may then be None), bias, activation and
-    ``residual`` fused into its one store; otherwise ``torch.matmul`` and
-    plain adds (``pairing`` is ignored there: the live weights are the
-    r=0-exact reference).  ``residual`` is an output-shaped skip connection
-    added after the activation.
+    The single dispatch point, as in the JAX package:
+
+    * ``knobs.gemm == "pallas_paired"``: a call that carries ``pairing``
+      metadata runs the paired kernel, bias, activation and ``residual``
+      fused into its one store: differentiably from the live ``w``
+      (``ops.fused_paired_dense``), or forward only on ``segments`` that the
+      caller keeps (a frozen serving block; ``w`` may then be None);
+    * ``knobs.gemm == "pallas"``: every call runs K1's dense form
+      (``ops.fused_dense``, differentiable), bias and activation in its
+      epilogue, ``residual`` added after it;
+    * otherwise ``torch.matmul`` and plain adds (``pairing`` is ignored
+      there: the live weights are the r=0-exact reference).
+
+    ``residual`` is an output-shaped skip connection added after the
+    activation.
     """
     if pairing is not None and knobs.gemm == "pallas_paired":
         if segments is None:
             return ops.fused_paired_dense(x, w, pairing, bias, activation=act or "none",
                                           residual=residual, pair_block_n=knobs.pair_block_n)
         return ops.paired_dense(x, segments, bias, activation=act or "none", residual=residual)
+    if knobs.gemm == "pallas":
+        y = ops.fused_dense(x, w, bias, activation=act or "none")
+        return y if residual is None else y + residual.to(y.dtype)
     y = torch.matmul(x, w)
     if bias is not None:
         y = y + bias
@@ -297,16 +307,18 @@ def _cast(p: Block, name: str, dtype: torch.dtype) -> torch.Tensor:
 
 def _leaf_dense(p: Block, name: str, x: torch.Tensor, knobs, *, act=None, residual=None):
     """:func:`dense` of ``x`` against weight ``name`` of ``p`` (its (K, N)
-    view in x's dtype), with the paired segments kept on a frozen block."""
+    view in x's dtype).  A frozen block keeps its casts and paired segments
+    (forward only); an unfrozen one computes them from the live weight on
+    every call, through the differentiable GEMMs."""
     cdt = x.dtype
     meta = p.pairing.get(name)
-    if meta is not None and knobs.gemm == "pallas_paired":
+    if meta is not None and knobs.gemm == "pallas_paired" and p.frozen:
         seg = p.derived(("paired", name, cdt), lambda: ops.lm_paired_segments(
             p.matrix(name, cdt), meta, knobs.pair_block_n))
         return dense(x, None, act=act, pairing=meta, residual=residual, knobs=knobs,
                      segments=seg)
     w = p.derived(("matrix", name, cdt), lambda: p.matrix(name, cdt))
-    return dense(x, w, act=act, residual=residual, knobs=knobs)
+    return dense(x, w, act=act, pairing=meta, residual=residual, knobs=knobs)
 
 
 # ---------------------------------------------------------------------------
@@ -739,6 +751,11 @@ def _expert_dense(p: MoE, name: str, x: torch.Tensor, knobs, *, act=None,
     launch over the expert grid → (M, E, F); the segments kept on a frozen
     block."""
     cdt = x.dtype
+    if torch.is_grad_enabled() and getattr(p, name).requires_grad:
+        raise NotImplementedError(
+            "the paired expert grid is forward only: its backward (the JAX package's "
+            "_fused_paired_expert_dense_grad) is not ported; train MoE models under "
+            "gemm='xla' or 'pallas'")
     seg = p.derived(("paired", name, cdt), lambda: ops.lm_expert_segments(
         getattr(p, name).to(cdt), p.pairing[name], knobs.pair_block_n))
     return ops.expert_dense(x, seg, activation=act or "none", x_per_expert=per_expert)

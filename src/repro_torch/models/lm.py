@@ -12,7 +12,11 @@ The port of the dense, MoE, SSM and hybrid subset of ``repro.models.lm``:
   for MLA, and for an SSM block its state ``"h"`` ``(layers, batch, heads,
   head_dim, d_state)`` (fp32) and conv tails ``"conv_x"``/``"conv_B"``/
   ``"conv_C"`` ``(layers, batch, conv_width − 1, channels)``;
-* :func:`decode_step` — one new token per slot against the cache.
+* :func:`decode_step` — one new token per slot against the cache;
+* :func:`lm_loss` — the training forward: masked next-token cross-entropy
+  (:func:`chunked_xent`, the head a chunk of the sequence at a time) plus
+  the MoE router's load-balance loss, each decoder layer checkpointed under
+  ``knobs.remat``.
 
 The model is an :class:`LM` module: the embedding (tied as the head, or an
 ``lm_head`` of its own), learned ``meta`` token rows (hybrid) that precede
@@ -29,6 +33,7 @@ own (``jax.random`` streams cannot be reproduced in torch).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -36,6 +41,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+    set_checkpoint_early_stop,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -58,8 +70,9 @@ from repro_torch.models.layers import (
     ssm_forward,
 )
 
-GEMMS = ("xla", "pallas_paired")
+GEMMS = ("xla", "pallas", "pallas_paired")
 ATTNS = ("xla", "pallas_fused")
+REMATS = ("full", "dots", "none")
 #: the SSM block's cache entries: one state a slot, no sequence axis
 SSM_ENTRIES = ("h", "conv_x", "conv_B", "conv_C")
 
@@ -69,17 +82,24 @@ class PerfKnobs:
     """Schedule knobs of the LM path (the fields of the JAX package's
     ``PerfKnobs`` that this path reads).
 
+    ``gemm="pallas"`` runs every decoder GEMM on K1's dense form;
     ``gemm="pallas_paired"`` runs every decoder GEMM whose weight carries
     pairing metadata on the paired kernel, with the sublayer residual adds
     in its epilogue; ``pair_rounding`` and ``pair_block_n`` (0 → structured,
     n ≥ 1 → column-blocked, 1 == the paper's per-column pairing) set the
     pairing the serving engine builds.  ``attn="pallas_fused"`` runs decode
     attention and the out-projection as one decode-attention launch.
-    ``q_chunk``/``k_chunk`` are prefill attention's blocks.
+    ``q_chunk``/``k_chunk`` are prefill attention's blocks.  Training
+    (:func:`lm_loss`) reads ``remat`` (``"full"``: recompute each decoder
+    layer in the backward; ``"dots"``: keep the GEMMs' outputs, recompute
+    the rest; ``"none"``) and ``xent_chunk`` (sequence positions a chunk of
+    the cross-entropy; 0 → one chunk).
     """
 
     q_chunk: int = 1024
     k_chunk: int = 1024
+    remat: str = "full"
+    xent_chunk: int = 512
     gemm: str = "xla"
     attn: str = "xla"
     pair_rounding: float = 0.0
@@ -90,6 +110,8 @@ class PerfKnobs:
             raise ValueError(f"unknown knobs.gemm {self.gemm!r} (expected one of {GEMMS})")
         if self.attn not in ATTNS:
             raise ValueError(f"unknown knobs.attn {self.attn!r} (expected one of {ATTNS})")
+        if self.remat not in REMATS:
+            raise ValueError(f"unknown knobs.remat {self.remat!r} (expected one of {REMATS})")
 
 
 DEFAULT_KNOBS = PerfKnobs()
@@ -266,6 +288,60 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
               segments=cfg.segments())
 
 
+def _block_values(block: nn.Module) -> dict:
+    """A block's weights by name, a child block's nested under its name."""
+    return {**dict(block.named_parameters(recurse=False)),
+            **{name: _block_values(child) for name, child in block.named_children()}}
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack([t.detach() for t in trees])
+
+
+def lm_value_tree(model: LM) -> dict:
+    """The model's weights in the JAX package's value-tree layout (what
+    :func:`lm_params_from_numpy` reads, without pairing metadata): each
+    segment's per-layer weights stacked along a leading layers axis, as new
+    tensors on the weights' device."""
+    segments, start = [], 0
+    for _, count in model.segments:
+        layers = model.layers[start:start + count]
+        segments.append(_stack([{name: _block_values(b) for name, b in layer.named_children()}
+                                for layer in layers]))
+        start += count
+    tree = {"embed": model.embed.detach().clone(),
+            "final_norm": {"scale": model.final_norm.scale.detach().clone()},
+            "segments": segments}
+    for name in ("lm_head", "meta"):
+        if getattr(model, name, None) is not None:
+            tree[name] = getattr(model, name).detach().clone()
+    return tree
+
+
+def load_lm_values(model: LM, tree: dict) -> None:
+    """Copy a value tree of :func:`lm_value_tree`'s layout into the model's
+    weights, in place."""
+    def load(block: nn.Module, values: dict, l: int | None):
+        for name, t in block.named_parameters(recurse=False):
+            t.copy_(values[name] if l is None else values[name][l])
+        for name, child in block.named_children():
+            load(child, values[name], l)
+
+    with torch.no_grad():
+        start = 0
+        for (_, count), seg in zip(model.segments, tree["segments"], strict=True):
+            for l in range(count):
+                for name, block in model.layers[start + l].named_children():
+                    load(block, seg[name], l)
+            start += count
+        model.final_norm.scale.copy_(tree["final_norm"]["scale"])
+        for name in ("embed", "lm_head", "meta"):
+            if getattr(model, name, None) is not None:
+                getattr(model, name).copy_(tree[name])
+
+
 def hold_paired_in_compute_dtype(cfg: ModelConfig, model: LM) -> None:
     """Store every weight of ``model`` that carries pairing metadata in the
     compute dtype, in place.
@@ -321,19 +397,22 @@ def _window_for(cfg: ModelConfig, kind: str) -> int:
     return cfg.sliding_window if kind in ("dense", "moe", "hybrid_swa") else 0
 
 
-def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs) -> torch.Tensor:
-    """``h`` plus the feed-forward sublayer of ``ln2(h)``: the skip
-    connection rides the MLP's down-projection (the paired kernel's
-    epilogue under gemm="pallas_paired"); the experts' gated sum is added
-    after their combine, as in the JAX package (the load-balance loss is
-    dropped: nothing here trains)."""
+def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs):
+    """``(h + ffn(ln2(h)), aux)``: the skip connection rides the MLP's
+    down-projection (the paired kernel's epilogue under gemm="pallas_paired");
+    the experts' gated sum is added after their combine, as in the JAX
+    package, and ``aux`` is their load-balance loss (0 without experts)."""
     if p.ffn is None:  # an SSM layer
-        return h
+        return h, _no_aux(h)
     x = p.ln2(h)
     if p.ffn == "moe":
-        y, _ = moe_block(cfg, p.moe, x, knobs)
-        return h + y
-    return mlp_block(cfg, p.mlp, x, knobs, residual=h)
+        y, aux = moe_block(cfg, p.moe, x, knobs)
+        return h + y, aux
+    return mlp_block(cfg, p.mlp, x, knobs, residual=h), _no_aux(h)
+
+
+def _no_aux(h: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _mla_with_cache(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor,
@@ -368,30 +447,47 @@ def _hybrid_mix(p: DecoderLayer, a: torch.Tensor, m: torch.Tensor) -> torch.Tens
 
 def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
               positions: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
-    """One decoder layer over a sequence. Returns (h, cache entries): the
-    post-rope K/V of this layer, ``{"k", "v"}`` (B, S, KH, hd), or MLA's
+    """One decoder layer over a sequence. Returns (h, cache entries, aux):
+    the post-rope K/V of this layer, ``{"k", "v"}`` (B, S, KH, hd), or MLA's
     latent ``{"c_kv", "k_rope"}``; an SSM block's ``{"h", "conv_x",
-    "conv_B", "conv_C"}`` (a hybrid layer's beside its K/V)."""
+    "conv_B", "conv_C"}`` (a hybrid layer's beside its K/V); the MoE
+    load-balance loss (fp32 scalar, 0 without experts)."""
     x = p.ln1(h)
     if kind == "ssm":
         y, c = _ssm_with_cache(cfg, p.mamba, x, knobs)
-        return h + y, c
+        return h + y, c, _no_aux(h)
     if kind in ("hybrid_full", "hybrid_swa"):
         # attention (windowed on hybrid_swa, the meta tokens its sinks) beside
         # the SSM block; no skip connection rides the out-projection here
         a, k, v = attention_block(cfg, p.attn, x, positions, knobs,
                                   window=_window_for(cfg, kind), n_sink=cfg.meta_tokens)
         m, c = _ssm_with_cache(cfg, p.mamba, x, knobs)
-        return _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs), {"k": k, "v": v, **c}
+        h, aux = _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs)
+        return h, {"k": k, "v": v, **c}, aux
     if cfg.mla is not None:
         # the JAX package adds MLA's output after its out-projection
         y, c = _mla_with_cache(cfg, p.attn, x, positions, knobs)
-        return _ffn(cfg, p, h + y, knobs), c
+        h, aux = _ffn(cfg, p, h + y, knobs)
+        return h, c, aux
     # the skip connections ride the out- and down-projections (fused into
     # the paired kernel's epilogue under gemm="pallas_paired")
     h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
                               window=_window_for(cfg, kind), residual=h)
-    return _ffn(cfg, p, h, knobs), {"k": k, "v": v}
+    h, aux = _ffn(cfg, p, h, knobs)
+    return h, {"k": k, "v": v}, aux
+
+
+def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor):
+    """The embedded tokens (B, meta_tokens + S, d) in the compute dtype, a
+    hybrid model's ``meta`` rows first, and their positions (B, meta_tokens + S)."""
+    cdt = compute_dtype(cfg)
+    h = embed_tokens(cfg, model, tokens, cdt)
+    B = tokens.shape[0]
+    if cfg.meta_tokens:
+        meta = model.meta.to(cdt)[None].expand(B, *model.meta.shape)
+        h = torch.cat([meta, h], dim=1)
+    S = h.shape[1]
+    return h, torch.arange(S, device=tokens.device).expand(B, S)
 
 
 def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
@@ -402,17 +498,10 @@ def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
     A hybrid model's ``meta`` tokens precede the prompt: the layers see
     ``meta_tokens + S`` positions (their K/V cache entries too), and the
     logits are the prompt's S."""
-    cdt = compute_dtype(cfg)
-    h = embed_tokens(cfg, model, tokens, cdt)
-    B = tokens.shape[0]
-    if cfg.meta_tokens:
-        meta = model.meta.to(cdt)[None].expand(B, *model.meta.shape)
-        h = torch.cat([meta, h], dim=1)
-    S = h.shape[1]
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    h, positions = _prepare_inputs(cfg, model, tokens)
     entries = []
     for i, layer in enumerate(model.layers):
-        h, c = layer_fwd(cfg, cfg.layer_kind(i), layer, h, positions, knobs)
+        h, c, _ = layer_fwd(cfg, cfg.layer_kind(i), layer, h, positions, knobs)
         if collect_cache:
             entries.append(c)
     cache = ({name: torch.stack([c[name] for c in entries]) for name in entries[0]}
@@ -427,6 +516,122 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
     S`` positions long, SSM entries the state after the prompt)."""
     logits, cache = lm_forward(cfg, model, tokens, knobs=knobs, collect_cache=True)
     return logits[:, -1:], cache
+
+
+# ---------------------------------------------------------------------------
+# training: remat, the chunked cross-entropy, the loss
+# ---------------------------------------------------------------------------
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep what a GEMM without batch dimensions computes
+    (K1, as its operator ``repro_torch::k1``, and ``aten.mm``/``addmm``, the
+    JAX package's ``dots_with_no_batch_dims_saveable``); recompute the
+    rest (attention's batched products included)."""
+    if op in (torch.ops.repro_torch.k1.default, torch.ops.aten.mm.default,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, knobs: PerfKnobs):
+    """``fn`` checkpointed as ``knobs.remat`` says: ``"none"`` runs it as it
+    is; ``"full"`` keeps only its inputs and reruns the whole of it in the
+    backward (no early stop, as the JAX package's ``jax.checkpoint`` reruns
+    the whole layer); ``"dots"`` keeps the GEMMs' outputs
+    (:func:`_dots_policy`).  The layers draw no random numbers, so no RNG
+    state is kept."""
+    if knobs.remat == "none":
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if knobs.remat == "dots" else noop_context_fn)
+
+    def run(*args):
+        with set_checkpoint_early_stop(False):
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
+                              preserve_rng_state=False)
+
+    return run
+
+
+def _train_layer(cfg: ModelConfig, kind: str, p: DecoderLayer, knobs: PerfKnobs,
+                 h: torch.Tensor, positions: torch.Tensor):
+    """One decoder layer for the loss: ``(h, aux)``, no cache."""
+    h, _, aux = layer_fwd(cfg, kind, p, h, positions, knobs)
+    return h, aux
+
+
+def _hidden_for_loss(cfg: ModelConfig, model: LM, tokens: torch.Tensor, knobs: PerfKnobs):
+    """The forward up to the final-normed hidden states (B, S, d), skipping
+    the logits, and the summed router aux loss; each layer under
+    :func:`_remat`."""
+    h, positions = _prepare_inputs(cfg, model, tokens)
+    aux_total = _no_aux(h)
+    for i, layer in enumerate(model.layers):
+        step = functools.partial(_train_layer, cfg, cfg.layer_kind(i), layer, knobs)
+        h, aux = _remat(step, knobs)(h, positions)
+        aux_total = aux_total + aux
+    return model.final_norm(h[:, cfg.meta_tokens:]), aux_total
+
+
+def _xent_chunk(cfg: ModelConfig, w: torch.Tensor, hx, lx, mx) -> torch.Tensor:
+    """Summed masked cross-entropy of one chunk: its fp32 logits against the
+    head ``w`` (the tied embedding (Vp, d) or ``lm_head`` (d, Vp)) in the
+    hiddens' dtype, the padded vocab at −1e9, the label logit by a masked
+    sum (as the JAX package takes it)."""
+    w = w.to(hx.dtype)
+    logits = torch.matmul(hx, w.t() if cfg.tie_embeddings else w).float()
+    vocab = torch.arange(logits.shape[-1], device=hx.device)
+    logits = torch.where(vocab < cfg.vocab, logits, -1e9)
+    lse = torch.logsumexp(logits, dim=-1)  # (B, chunk)
+    lab = torch.where(lx[..., None] == vocab, logits, 0.0).sum(-1)
+    return ((lse - lab) * mx).sum()
+
+
+def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Sequence-chunked softmax cross-entropy, summed over the masked
+    positions: ``h`` (B, S, d) final-normed hiddens, ``labels`` (B, S) (no
+    negatives), ``mask`` (B, S) fp32.
+
+    S is padded to a multiple of ``chunk`` (0 → one chunk of S); each
+    chunk's (B, chunk, Vp) fp32 logits are built, reduced and freed, and the
+    chunk body is checkpointed, so the backward rebuilds them instead of
+    keeping them: the (B, S, Vp) logits never exist.  The head is
+    ``torch.matmul``, as the JAX package's is an XLA einsum.
+    """
+    B, S, _ = h.shape
+    w = model.embed if cfg.tie_embeddings else model.lm_head
+    chunk = min(chunk, S) if chunk else S
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels, mask = F.pad(labels, (0, pad)), F.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_xent_chunk, cfg, w, h[:, cols], labels[:, cols],
+                                   mask[:, cols], use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total
+
+
+def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFAULT_KNOBS):
+    """Masked next-token cross-entropy plus the router's aux loss.
+
+    ``batch`` holds ``"tokens"`` and ``"labels"`` (B, S); a negative label
+    masks its position.  Returns ``(loss, {"xent", "aux"})``, fp32 scalars,
+    as the JAX package's ``lm_loss``.  Under ``knobs.gemm="pallas"`` or
+    ``"pallas_paired"`` every layer GEMM's forward is a K1 launch and its
+    backward ``torch.matmul`` (``kernels.ops``)."""
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    denom = mask.sum().clamp_min(1.0)
+    h, aux = _hidden_for_loss(cfg, model, batch["tokens"], knobs)
+    total = chunked_xent(cfg, model, h, labels.clamp_min(0), mask, knobs.xent_chunk)
+    xent = total / denom
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -475,13 +680,13 @@ def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
         a, _ = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
                                       window=_window_for(cfg, kind), n_sink=cfg.meta_tokens)
         m, _ = ssm_decode_block(cfg, p.mamba, x, c, knobs)
-        return _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs), c
+        return _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs)[0], c
     if cfg.mla is not None:
         y, c = mla_decode_block(cfg, p.attn, x, c, pos, knobs)
-        return _ffn(cfg, p, h + y, knobs), c
+        return _ffn(cfg, p, h + y, knobs)[0], c
     h, c = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
                                   window=_window_for(cfg, kind), residual=h)
-    return _ffn(cfg, p, h, knobs), c
+    return _ffn(cfg, p, h, knobs)[0], c
 
 
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,

@@ -14,6 +14,9 @@ caller's metadata):
   back whatever survived, into the structure, dtypes and devices of a tree
   the caller passes.
 
+:func:`save_train_state` and :func:`restore_train_state` checkpoint a
+training run: its parameters and the optimizer's moments, with the step.
+
 One process writes; the shard's name keeps the reference's layout, which
 numbers a shard by its process.
 """
@@ -137,3 +140,29 @@ def restore_checkpoint(
     with np.load(final / SHARD) as z:
         leaves = [_like(z[f"arr_{i}"], leaf) for i, (_, leaf) in enumerate(flat_like)]
     return _unflatten(tree_like, iter(leaves)), manifest["metadata"]
+
+
+def _train_state(params: Any, optimizer: torch.optim.Optimizer):
+    """``(params, [the optimizer's state of each leaf])``: what a run needs
+    to continue, beside its step counter."""
+    return params, [optimizer.state[leaf] for _, leaf in flatten(params)]
+
+
+def save_train_state(ckpt_dir: str | os.PathLike, step: int, params: Any,
+                     optimizer: torch.optim.Optimizer, *, keep: int = 3) -> Path:
+    """Checkpoint ``params`` (a tree of the optimizer's parameters) and
+    their optimizer state as step ``step``."""
+    return save_checkpoint(ckpt_dir, step, _train_state(params, optimizer),
+                           metadata={"step": int(step)}, keep=keep)
+
+
+def restore_train_state(ckpt_dir: str | os.PathLike, params: Any,
+                        optimizer: torch.optim.Optimizer) -> int:
+    """Copy the newest checkpoint's parameters and optimizer state into
+    ``params`` and ``optimizer`` in place; returns its step."""
+    live = _train_state(params, optimizer)
+    saved, meta = restore_checkpoint(ckpt_dir, live)
+    with torch.no_grad():
+        for (_, dst), (_, src) in zip(flatten(live), flatten(saved), strict=True):
+            dst.copy_(src)
+    return int(meta.get("step", latest_step(ckpt_dir)))

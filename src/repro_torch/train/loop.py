@@ -13,7 +13,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.train.checkpoint import flatten, latest_step, restore_checkpoint, save_checkpoint
+from repro_torch.train.checkpoint import (
+    flatten,
+    latest_step,
+    restore_train_state,
+    save_train_state,
+)
 
 
 def _map(fn, tree):
@@ -65,15 +70,9 @@ def train(
     leaves = [leaf for _, leaf in flatten(params)]
     device = leaves[0].device
     opt = optimizer(leaves)
-    moments = [opt.state[p] for p in leaves]
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
-        saved, meta = restore_checkpoint(ckpt_dir, (params, moments))
-        with torch.no_grad():
-            for (_, live), (_, value) in zip(flatten((params, moments)), flatten(saved),
-                                             strict=True):
-                live.copy_(value)
-        start = meta.get("step", latest_step(ckpt_dir))
+        start = restore_train_state(ckpt_dir, params, opt)
         if verbose:
             print(f"[train] resumed from step {start}")
 
@@ -94,9 +93,9 @@ def train(
                 f" ({(i + 1 - start) / (time.time() - t0):.1f} it/s)"
             )
         if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
-            save_checkpoint(ckpt_dir, i + 1, (params, moments), metadata={"step": i + 1})
+            save_train_state(ckpt_dir, i + 1, params, opt)
     if ckpt_dir and ckpt_every:
-        save_checkpoint(ckpt_dir, i + 1, (params, moments), metadata={"step": i + 1})
+        save_train_state(ckpt_dir, i + 1, params, opt)
     params = _map(torch.Tensor.detach, params)
     return params, {"last_loss": last_loss, "last_aux": last_aux, "steps": i + 1 - start,
                     "losses": losses}

@@ -18,7 +18,11 @@ The MLA path: the deepseek smoke engine at r = 0 on both expert branches.
 The SSM and hybrid paths: the mamba2 and hymba smoke engines at r = 0 (a
 2-token prompt, shorter than the conv tail, and prompts whose window drops
 keys), and K2 at hymba's heads (G = 5 over 5 KV heads) with its window and
-sinks.
+sinks.  The LM training path: K1's differentiable GEMMs forward and
+backward against their plain versions, and a training step of the qwen2
+smoke model on the card against the CPU under every K1 policy (loss within
+1e-5, gradients within rtol 1e-4, atol 1e-5), launching K1 as
+``analysis.train_launches`` says.
 """
 import dataclasses
 
@@ -631,3 +635,117 @@ def test_trace_step_sees_the_whole_step(cuda):
 
     (row,) = probe([0.1], reps=3)
     assert (row["traces"], row["cut"]) == (3, 0)
+
+
+# ---------------------------------------------------------------------------
+# LM training: K1 under autograd
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["dense", "structured", "blocked"])
+def test_k1_functions_forward_and_backward(cuda, dtype, form):
+    """``ops.fused_dense`` and ``ops.fused_paired_dense`` on the card: the
+    output within 1e-5 relative (fp32) or 2 ulps of the fp32 oracle (bf16),
+    one launch; the gradients equal those of the plain version's autograd
+    (the backward is torch.matmul of the same folded weight) within 1e-5
+    relative in fp32, and no launch in the backward."""
+    from repro_torch.core.pairing import pair_rows_structured
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    M_, K, N = 96, 72, 40
+    x = torch.randn(M_, K, generator=gen, device="cuda").to(dtype).requires_grad_()
+    w0 = torch.randn(K, N, generator=gen, device="cuda") * 0.1
+    w64 = w0.double().cpu().numpy()
+    w = w0.to(dtype).clone().requires_grad_()
+    res = torch.randn(M_, N, generator=gen, device="cuda").to(dtype).requires_grad_()
+
+    def oracle_gemm(xg, kmat, w_res, bias, residual, n_cols, act):
+        """K1's plain version without its final cast: the bf16 oracle."""
+        if kmat.ndim == 3:
+            return pm.paired_matmul_blocked_plain(xg, kmat, w_res, bias, n_cols=n_cols,
+                                                  residual=residual, activation=act,
+                                                  out_dtype=torch.float32)
+        return pm.paired_matmul_plain(xg, kmat, w_res, bias, residual=residual, activation=act,
+                                      out_dtype=torch.float32)
+
+    if form == "dense":
+        fn = lambda x, w, r: ops.fused_dense(x, w, activation="silu")
+        plain = lambda x, w, r: pm.ACTIVATIONS["silu"](torch.matmul(x, w))
+        oracle = lambda x, w, r: oracle_gemm(x, w.new_zeros((0, N)), w, None, None, N, "silu")
+        live = (x, w)
+    else:
+        if form == "structured":
+            sp = pair_rows_structured(w64, 0.05)
+            meta = {"I": sp.I, "J": sp.J, "resid": sp.resid,
+                    "pair_mask": np.ones(sp.n_pairs), "resid_mask": np.ones(len(sp.resid))}
+            bn = 0
+        else:
+            meta, bn = {k: v[0] for k, v in _stack_blocked([pair_rows_blocked(w64, 0.05, 16)]
+                                                         ).items()}, 16
+        meta = {k: torch.as_tensor(v, device="cuda").to(
+            torch.float32 if k.endswith("mask") else torch.int64) for k, v in meta.items()}
+        fn = lambda x, w, r: ops.fused_paired_dense(x, w, meta, residual=r, pair_block_n=bn)
+        plain = lambda x, w, r: ops.fused_paired_dense_ref(x, w, meta, residual=r,
+                                                           pair_block_n=bn)
+        oracle = lambda x, w, r: ops._paired_dense(x, ops.lm_paired_segments(w, meta, bn),
+                                                   None, "none", r, oracle_gemm)
+        live = (x, w, res)
+    y = fn(x, w, res)
+    assert pm.launch_count() == 1
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    grads = torch.autograd.grad(y, live, dy)
+    assert pm.launch_count() == 1
+    want = plain(x, w, res)
+    want_grads = torch.autograd.grad(want, live, dy)
+    if dtype == torch.float32:
+        assert rel_err(y, want) <= RTOL
+        for g, r in zip(grads, want_grads, strict=True):
+            assert rel_err(g, r) <= RTOL
+    else:
+        assert bf16_ulps(y, oracle(*(t.detach() for t in (x, w, res)))) <= BF16_ULPS
+        for g, r in zip(grads, want_grads, strict=True):
+            assert g.dtype == r.dtype and torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("gemm,block_n", [("pallas", 0), ("pallas_paired", 0),
+                                          ("pallas_paired", 16)])
+def test_lm_training_step_on_the_card_matches_the_cpu(cuda, gemm, block_n):
+    from repro_torch.analysis import train_launches
+    from repro_torch.core.transform import pair_lm_params
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), dtype="float32")
+    values = M.lm_value_tree(M.init_lm(cfg, 0, device="cpu"))
+    knobs = M.PerfKnobs(q_chunk=16, k_chunk=16, xent_chunk=8, gemm=gemm, pair_block_n=block_n)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (2, 12))
+
+    def run(device):
+        model = M.lm_params_from_numpy(_numpy_tree(values), cfg, device=device)
+        if gemm == "pallas_paired":
+            mode = "column_blocked" if block_n else "structured"
+            model, _ = pair_lm_params(model, 0.05, mode=mode, block_n=block_n)
+        model.requires_grad_(True)
+        t = torch.as_tensor(tokens, device=device)
+        before = pm.launch_count()
+        loss, _ = M.lm_loss(cfg, model, {"tokens": t, "labels": t}, knobs=knobs)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        return float(loss), grads, pm.launch_count() - before
+
+    (l_gpu, g_gpu, n_gpu), (l_cpu, g_cpu, n_cpu) = run(cuda), run("cpu")
+    assert (n_gpu, n_cpu) == (train_launches(cfg, knobs), 0)
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for name, g in g_cpu.items():
+        np.testing.assert_allclose(g_gpu[name].numpy(), g.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+
+
+def _numpy_tree(tree):
+    """A value tree of tensors as numpy arrays (``lm_params_from_numpy``'s
+    input)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.numpy()

@@ -217,4 +217,6 @@ def test_knobs_reject_unknown_schedules():
     with pytest.raises(ValueError, match="knobs.attn"):
         TM.PerfKnobs(attn="fused")
     with pytest.raises(ValueError, match="knobs.gemm"):
-        TM.PerfKnobs(gemm="pallas")
+        TM.PerfKnobs(gemm="cublas")  # "pallas" is K1's dense form since the training slice
+    with pytest.raises(ValueError, match="knobs.remat"):
+        TM.PerfKnobs(remat="selective")
