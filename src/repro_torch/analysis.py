@@ -13,9 +13,9 @@ counts while the function runs:
 * ``pool_ops`` — standalone 2×2 pools (``pool2_reference``) outside K1.
 
 :func:`decode_launches` says what one decode layer should launch, by layer
-kind and schedule, and :func:`train_launches` what one training step
-should, for the launch counters of the serving and training paths to be
-held to.
+kind and schedule, :func:`prefill_launches` what one request's prefill
+should, and :func:`train_launches` what one training step should, for the
+launch counters of the serving and training paths to be held to.
 
 Calls are counted with ``sys.monitoring`` (Python 3.12+) on those
 functions' code objects alone, so nothing on the path changes and nothing
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import sys
 
 from repro_torch.kernels import paired_matmul as pm
@@ -71,7 +72,8 @@ def counting(**extra):
 
 def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
     """Kernel launches of one decode layer of ``kind`` (``"dense"``,
-    ``"moe"``, ``"ssm"``, ``"hybrid_full"`` or ``"hybrid_swa"``) under
+    ``"moe"``, ``"ssm"``, ``"hybrid_full"``, ``"hybrid_swa"`` or
+    ``"encdec"``; a vision-language model's layers are ``"dense"``) under
     ``knobs`` (``models.lm.PerfKnobs``), every decoder weight paired, keyed
     as ``launch.serve.kernel_launches``.
 
@@ -87,10 +89,13 @@ def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
     package).  An SSM block: its six projections (``w_z``, ``w_x``,
     ``w_B``, ``w_C``, ``w_dt``, ``w_out``; the conv and the state update are
     plain PyTorch), alone in an ``"ssm"`` layer, beside GQA attention and
-    the MLP in a hybrid one.  K3 runs on no decode path.
+    the MLP in a hybrid one.  An ``"encdec"`` layer is a dense one and its
+    cross-attention's ``wq`` and ``wo``, two more K1 launches (the attention
+    over the frames is plain, as in the JAX package).  K3 runs on no decode
+    path.
     """
-    if kind not in ("dense", "moe", "ssm", "hybrid_full", "hybrid_swa"):
-        raise ValueError(f"no decode layer of kind {kind!r} is ported")
+    if kind not in ("dense", "moe", "ssm", "hybrid_full", "hybrid_swa", "encdec"):
+        raise ValueError(f"no decode layer of kind {kind!r}")
     paired, fused = knobs.gemm == "pallas_paired", knobs.attn == "pallas_fused"
     if kind == "ssm":
         return {"paired_matmul": 6 if paired else 0, "decode_attention": 0, "flash_attention": 0}
@@ -102,8 +107,29 @@ def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
     bn, hd = knobs.pair_block_n, cfg.head_dim
     one_qkv = fused and bn >= 1 and not (cfg.n_heads * hd) % bn and not (
         cfg.n_kv_heads * hd) % bn
-    k1 = (1 if one_qkv else 3) + (0 if fused else 1) + ffn + (6 if hybrid else 0) if paired else 0
+    xattn = 2 if kind == "encdec" else 0
+    k1 = ((1 if one_qkv else 3) + (0 if fused else 1) + ffn + (6 if hybrid else 0) + xattn
+          if paired else 0)
     return {"paired_matmul": k1, "decode_attention": int(fused), "flash_attention": 0}
+
+
+def prefill_launches(cfg, knobs) -> dict[str, int]:
+    """Kernel launches of one request's prefill under ``knobs``, every
+    weight paired, keyed as :func:`decode_launches`: each decoder layer runs
+    each of its paired GEMMs once, as a decode layer without the fused
+    attention does (three QKV launches and the out-projection; K2 is decode
+    only); an encoder layer runs seven (its attention's four and the
+    MLP's three).  Under ``attn="pallas_fused"`` K3 runs each encoder
+    layer's self-attention and each decoder layer's cross-attention, one
+    launch each; a decoder's causal self-attention stays plain."""
+    plain_attn = dataclasses.replace(knobs, attn="xla")
+    k1 = sum(decode_launches(cfg, cfg.layer_kind(i), plain_attn)["paired_matmul"]
+             for i in range(cfg.n_layers))
+    k3 = 0
+    if cfg.encoder is not None:
+        k1 += 7 * cfg.encoder.n_layers if knobs.gemm == "pallas_paired" else 0
+        k3 = cfg.encoder.n_layers + cfg.n_layers if knobs.attn == "pallas_fused" else 0
+    return {"paired_matmul": k1, "decode_attention": 0, "flash_attention": k3}
 
 
 def _forward_gemms(cfg, kind: str, knobs) -> int:
@@ -119,6 +145,8 @@ def _forward_gemms(cfg, kind: str, knobs) -> int:
         raise ValueError("the paired expert grid has no backward: MoE layers do not train "
                          "under gemm='pallas_paired'")
     attn = 4 if kind != "ssm" else 0
+    if kind == "encdec":  # and the cross-attention's wq and wo
+        attn += 2
     ssm = 6 if kind in ("ssm", "hybrid_full", "hybrid_swa") else 0
     if kind == "moe":
         ffn = 3 if cfg.moe.n_shared else 0
@@ -131,9 +159,12 @@ def train_launches(cfg, knobs) -> int:
     """K1 launches of one training step (``launch.steps.build_train_step``)
     of ``cfg`` under ``knobs`` (``models.lm.PerfKnobs``), every decoder
     weight paired under ``gemm="pallas_paired"``: each layer's forward
-    GEMMs (7 in a dense GQA layer), and the same again under
+    GEMMs (7 in a dense GQA layer or an encoder layer, 9 with
+    cross-attention), and the same again under
     ``remat="full"``, which reruns every layer's forward in the backward
     (``"dots"`` keeps K1's outputs).  The backward's GEMMs and the head are
     ``torch.matmul``; K2 and K3 run on no training path."""
     fwd = sum(_forward_gemms(cfg, cfg.layer_kind(i), knobs) for i in range(cfg.n_layers))
+    if cfg.encoder is not None:  # an encoder layer is a dense one
+        fwd += cfg.encoder.n_layers * _forward_gemms(cfg, "dense", knobs)
     return fwd * (2 if knobs.remat == "full" else 1)

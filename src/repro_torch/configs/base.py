@@ -1,5 +1,6 @@
-"""ModelConfig of the port: the dense, MoE, SSM and hybrid subset of
-``repro.configs.base``, with GQA or multi-head latent attention (MLA).
+"""ModelConfig of the port: ``repro.configs.base`` for the dense, MoE, SSM,
+hybrid, encoder-decoder and vision-language families, with GQA or
+multi-head latent attention (MLA).
 
 The decoder stack is described by *segments*, maximal runs of identical
 layers, as in the JAX package; the port keeps one module per layer, and the
@@ -8,9 +9,12 @@ segments only decide how pairing metadata is padded (segment-wide
 shared experts beside them and dense leading layers.  SSM layers are Mamba-2
 (SSD) blocks; a hybrid layer (hymba) runs attention and an SSM block side by
 side on the same input, with meta tokens prepended to every prompt and a
-sliding window on all but its ``full_attn_layers``.  Encoder-decoder and
-vision families are not ported yet, nor layernorm: a config asking for them
-raises.
+sliding window on all but its ``full_attn_layers``.  An encoder-decoder
+model (whisper) runs an audio encoder (:class:`EncoderConfig`) over
+precomputed frame embeddings, and each decoder layer cross-attends its
+output; a vision-language model (internvl2) takes precomputed patch
+embeddings, projected by ``vision_proj``, at its first ``vision_prefix``
+positions.  ``norm`` is RMSNorm or LayerNorm (with a bias).
 """
 from __future__ import annotations
 
@@ -59,9 +63,22 @@ class SsmConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style audio encoder (the JAX package's fields and defaults):
+    its inputs are precomputed frame embeddings (B, frames, d_model), the
+    conv front end a stub."""
+
+    n_layers: int = 6
+    frames: int = 1500
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense", "moe", "ssm", "hybrid"]
+    family: Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -80,11 +97,18 @@ class ModelConfig:
     mla: MlaConfig | None = None
     moe: MoeConfig | None = None
     ssm: SsmConfig | None = None
+    encoder: EncoderConfig | None = None
 
     # hybrid (hymba): every layer runs attention ∥ SSM heads in parallel;
     # ``meta_tokens`` learned rows precede every prompt (and are the sinks
     # of the sliding window)
     meta_tokens: int = 0
+
+    # vlm (internvl2): the first ``vision_prefix`` positions take precomputed
+    # patch embeddings of ``vision_embed_dim`` (a stub front end) through
+    # ``vision_proj`` instead of token embeddings
+    vision_prefix: int = 0
+    vision_embed_dim: int = 1024
 
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     act: Literal["silu", "gelu"] = "silu"
@@ -97,10 +121,14 @@ class ModelConfig:
     paired_leaves: tuple[tuple[str, str], ...] = ()
 
     def __post_init__(self):
-        if self.norm != "rmsnorm":
-            raise NotImplementedError(f"norm={self.norm!r} is not ported yet")
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(f"family={self.family!r} is not ported yet")
+        if self.norm not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm {self.norm!r}")
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
+        if (self.family == "encdec") != (self.encoder is not None):
+            raise ValueError(f"family={self.family!r} with encoder={self.encoder!r}")
+        if (self.family == "vlm") != (self.vision_prefix > 0):
+            raise ValueError(f"family={self.family!r} with vision_prefix={self.vision_prefix}")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"family={self.family!r} with moe={self.moe!r}")
         if (self.family in ("ssm", "hybrid")) != (self.ssm is not None):
@@ -116,7 +144,13 @@ class ModelConfig:
         """Kind string for decoder layer i: ``"ssm"`` in an SSM model,
         ``"hybrid_full"`` (one of ``full_attn_layers``) or ``"hybrid_swa"``
         in a hybrid one, ``"moe"`` in an MoE model past its
-        ``first_k_dense`` leading dense layers, else ``"dense"``."""
+        ``first_k_dense`` leading dense layers, ``"encdec"`` (self- and
+        cross-attention) in an encoder-decoder one, else ``"dense"``.  (The
+        JAX package's ``layer_kind`` says ``"dense"`` for an encoder-decoder
+        layer and its ``models.lm.segment_kinds`` ``"encdec"``: the port
+        keeps the second.)"""
+        if self.family == "encdec":
+            return "encdec"
         if self.family == "ssm":
             return "ssm"
         if self.family == "hybrid":
@@ -172,18 +206,22 @@ class ModelConfig:
 
 def default_paired_leaves(
     *, attn: bool = True, mla: bool = False, mlp: bool = True, moe: bool = False,
-    moe_shared: bool = False, ssm: bool = False,
+    moe_shared: bool = False, ssm: bool = False, xattn: bool = False,
 ) -> tuple[tuple[str, str], ...]:
-    """The pairing-eligible leaf specs of a decoder layer, by block type:
-    ``(sub-path, weight-name)`` into a decoder layer, a dotted sub-path
+    """The pairing-eligible leaf specs of a decoder (or encoder) layer, by
+    block type: ``(sub-path, weight-name)`` into a layer, a dotted sub-path
     (``"moe.shared"``) naming a nested block.  The router, MLA's latent
     up-projections ``w_uk``/``w_uv`` (einsums, never a plain GEMM) and the
-    SSM block's depthwise convs are not eligible."""
+    SSM block's depthwise convs are not eligible; ``xattn`` declares the
+    cross-attention's ``wq``/``wo`` (its ``wk``/``wv`` run once over the
+    encoder output at prefill, plain products)."""
     leaves: list[tuple[str, str]] = []
     if mla:
         leaves += [("attn", "wq"), ("attn", "w_dkv"), ("attn", "w_kr"), ("attn", "wo")]
     elif attn:
         leaves += [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo")]
+    if xattn:
+        leaves += [("xattn", "wq"), ("xattn", "wo")]
     if mlp:
         leaves += [("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down")]
     if moe:

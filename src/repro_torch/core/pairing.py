@@ -295,6 +295,7 @@ def pair_rows_structured(
     rounding: float,
     *,
     criterion: str = "rms",
+    magnitudes: bool = True,
 ) -> StructuredPairing:
     """Find one row pairing shared by every column of W (K, N).
 
@@ -309,6 +310,10 @@ def pair_rows_structured(
     is kept *exactly*; only s (bounded by `rounding`) is dropped.  Columns
     therefore keep individual magnitudes — only the pair structure is shared,
     which is what lets the computation stay a dense GEMM.
+
+    ``magnitudes=False`` leaves ``Kmat`` and ``W_res`` empty (0, N): the
+    lane lists alone, for callers that recompute the magnitudes from live
+    weights (``core.transform.pair_params``), without the two gathers of W.
     """
     W = np.asarray(W, dtype=np.float64)
     K, N = W.shape
@@ -366,6 +371,9 @@ def pair_rows_structured(
     I_a = np.asarray(I, dtype=np.int64)
     J_a = np.asarray(J, dtype=np.int64)
     R_a = np.asarray(sorted(resid), dtype=np.int64)
+    if not magnitudes:
+        empty = np.zeros((0, N))
+        return StructuredPairing(I=I_a, J=J_a, Kmat=empty, resid=R_a, W_res=empty, shape=(K, N))
     Kmat = (W[I_a] - W[J_a]) / 2.0 if len(I) else np.zeros((0, N))
     return StructuredPairing(
         I=I_a, J=J_a, Kmat=Kmat, resid=R_a, W_res=W[R_a], shape=(K, N)
@@ -497,6 +505,7 @@ def pair_rows_blocked(
     block_n: int,
     *,
     criterion: str = "rms",
+    magnitudes: bool = True,
 ) -> BlockedPairing:
     """One structured (shared-row) pairing per group of ``block_n`` columns.
 
@@ -512,6 +521,7 @@ def pair_rows_blocked(
 
     Smaller blocks weaken the shared-row constraint, so the weighted pair
     count is (weakly) monotone as ``block_n`` shrinks on real weights.
+    ``magnitudes`` as :func:`pair_rows_structured`'s.
     """
     W = np.asarray(W, dtype=np.float64)
     assert W.ndim == 2, "pair_rows_blocked expects (K, N)"
@@ -520,7 +530,7 @@ def pair_rows_blocked(
     block_n = min(block_n, N)
     blocks = [
         pair_rows_structured(W[:, lo : min(lo + block_n, N)], rounding,
-                             criterion=criterion)
+                             criterion=criterion, magnitudes=magnitudes)
         for lo in range(0, N, block_n)
     ]
     return BlockedPairing(blocks=blocks, block_n=block_n, shape=(K, N))

@@ -5,9 +5,10 @@ The conv and LM halves of ``repro.core.transform``.
 * :func:`build_conv_pairings` pairs every conv kernel of a LeNet-style param
   tree and returns one :class:`PairedLayer` per layer, which
   ``kernels.paired_conv.paired_conv`` consumes at inference.
-* :func:`pair_params` / :func:`pair_lm_params` pair the decoder weights of an
-  LM (``models.lm.LM``: attention, MLP, experts, SSM projections), each
-  expert's matrix of an MoE layer on its own,
+* :func:`pair_params` / :func:`pair_lm_params` pair the decoder (and
+  encoder) weights of an LM (``models.lm.LM``: attention, cross-attention,
+  MLP, experts, SSM projections), each expert's matrix of an MoE layer on
+  its own,
   and return a model that shares its weights and carries each weight's
   metadata (``block.pairing[name]``), with a :class:`PairedModelReport`.
 * :func:`pair_model_params` folds every eligible leaf of a weight tree (the
@@ -202,14 +203,16 @@ LM_PAIRED_WEIGHTS: tuple[tuple[str, str], ...] = (
     ("mlp", "w_down"),
 )
 # What pair_params looks for when no leaves are named, in the JAX package's
-# order (its list without the families the port does not run): the dense
-# layers' weights, MLA's down-projections (w_uk/w_uv are latent einsums,
-# never paired), the routed experts' and the shared experts' (the router is
-# never paired), and the SSM block's six projections (its depthwise convs
-# are never paired).
+# order: the dense layers' weights, MLA's down-projections (w_uk/w_uv are
+# latent einsums, never paired), the cross-attention's wq/wo (its wk/wv are
+# plain products over the encoder output), the routed experts' and the
+# shared experts' (the router is never paired), and the SSM block's six
+# projections (its depthwise convs are never paired).
 DEFAULT_PAIRED_LEAVES: tuple[tuple[str, str], ...] = LM_PAIRED_WEIGHTS + (
     ("attn", "w_dkv"),
     ("attn", "w_kr"),
+    ("xattn", "wq"),
+    ("xattn", "wo"),
     ("moe", "w_gate"),
     ("moe", "w_up"),
     ("moe", "w_down"),
@@ -279,15 +282,6 @@ def _stack_blocked(pairings: list[BlockedPairing]) -> dict[str, np.ndarray]:
     return {"I": I_m, "J": J_m, "resid": R_m, "pair_mask": pmask, "resid_mask": rmask}
 
 
-def _indices_only(p: StructuredPairing | BlockedPairing):
-    """``p`` without its float64 magnitudes: the stacking needs only the
-    lane lists, and a full-depth model's magnitudes would fill the host."""
-    if isinstance(p, BlockedPairing):
-        return dataclasses.replace(p, blocks=[_indices_only(b) for b in p.blocks])
-    empty = np.zeros((0, p.shape[1]))
-    return dataclasses.replace(p, Kmat=empty, W_res=empty)
-
-
 def has_lm_pairing(model) -> bool:
     """True iff some block of ``model`` already carries pairing metadata."""
     return any(getattr(m, "pairing", None) for m in model.modules())
@@ -303,7 +297,8 @@ def pair_params(
     criterion: str = "rms",
     min_dim: int = 8,
 ):
-    """Pairing metadata for the decoder weights of an LM (``models.lm.LM``).
+    """Pairing metadata for the decoder weights of an LM (``models.lm.LM``),
+    and for its encoder's (reported after them, as ``encoder.segments[…]``).
 
     Each eligible weight of each layer is paired on a float64 copy, one
     matrix at a time; an MoE layer's ``(E, K, F)`` expert weights pair each
@@ -334,51 +329,64 @@ def pair_params(
     specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
     matched: set[tuple[str, str]] = set()
     report: list[LeafReport] = []
-    layer_pairing: list[dict[str, dict]] = [{} for _ in model.layers]
 
     def pair_matrix(m: np.ndarray):
+        # the lane lists alone: the stacking needs nothing else, and a
+        # full-depth model's float64 magnitudes would cost time and fill the host
         if mode == "column_blocked":
-            return pair_rows_blocked(m, rounding, min(block_n, m.shape[1]), criterion=criterion)
-        return pair_rows_structured(m, rounding, criterion=criterion)
+            return pair_rows_blocked(m, rounding, min(block_n, m.shape[1]), criterion=criterion,
+                                     magnitudes=False)
+        return pair_rows_structured(m, rounding, criterion=criterion, magnitudes=False)
 
-    start = 0
-    for si, (_, count) in enumerate(model.segments):
-        layers = model.layers[start:start + count]
-        for sub_path, w_name in specs:
-            blocks = [_resolve_sub(layer, sub_path) for layer in layers]
-            if any(b is None or not hasattr(b, w_name) for b in blocks):
-                continue
-            matched.add((sub_path, w_name))
-            shape = tuple(getattr(blocks[0], w_name).shape)
-            if len(shape) < 2:
-                continue  # matrices only
-            # expert weights carry a leading expert axis: one matrix per expert
-            expert = sub_path.split(".")[-1] == "moe" and len(shape) == 3
-            K, N = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
-            if K < min_dim or N < min_dim:
-                continue
-            mats = [m for b in blocks
-                    for m in (getattr(b, w_name) if expert else [getattr(b, w_name)])]
-            pairings = [_indices_only(pair_matrix(_as_numpy(m).reshape(K, N))) for m in mats]
-            blocked = mode == "column_blocked"
-            meta = (_stack_blocked if blocked else _stack_structured)(pairings)
-            if expert:
-                meta = {k: v.reshape(count, shape[0], *v.shape[1:]) for k, v in meta.items()}
-            device = getattr(blocks[0], w_name).device
-            for l in range(count):
-                layer_meta = {k: torch.as_tensor(v[l], device=device) for k, v in meta.items()}
-                for k in ("I", "J", "resid"):
-                    layer_meta[k] = layer_meta[k].long()
-                layer_pairing[start + l].setdefault(sub_path, dict(blocks[l].pairing))[
-                    w_name] = layer_meta
-            n_pairs = sum(p.weighted_pairs for p in pairings)
-            n_weights = len(mats) * K * N
-            report.append(LeafReport(
-                path=f"segments[{si}].{sub_path}.{w_name}", shape=(count, *shape),
-                n_weights=n_weights, n_pairs=int(n_pairs),
-                pair_fraction=2.0 * n_pairs / n_weights,
-            ))
-        start += count
+    def pair_stack(all_layers, segments, prefix: str) -> list[dict[str, dict]]:
+        """Each layer's pairing dicts, keyed by sub-path; the leaves' reports
+        go to ``report``."""
+        layer_pairing: list[dict[str, dict]] = [{} for _ in all_layers]
+        start = 0
+        for si, (_, count) in enumerate(segments):
+            layers = all_layers[start:start + count]
+            for sub_path, w_name in specs:
+                blocks = [_resolve_sub(layer, sub_path) for layer in layers]
+                if any(b is None or not hasattr(b, w_name) for b in blocks):
+                    continue
+                matched.add((sub_path, w_name))
+                shape = tuple(getattr(blocks[0], w_name).shape)
+                if len(shape) < 2:
+                    continue  # matrices only
+                # expert weights carry a leading expert axis: one matrix per expert
+                expert = sub_path.split(".")[-1] == "moe" and len(shape) == 3
+                K, N = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
+                if K < min_dim or N < min_dim:
+                    continue
+                mats = [m for b in blocks
+                        for m in (getattr(b, w_name) if expert else [getattr(b, w_name)])]
+                pairings = [pair_matrix(_as_numpy(m).reshape(K, N)) for m in mats]
+                blocked = mode == "column_blocked"
+                meta = (_stack_blocked if blocked else _stack_structured)(pairings)
+                if expert:
+                    meta = {k: v.reshape(count, shape[0], *v.shape[1:]) for k, v in meta.items()}
+                device = getattr(blocks[0], w_name).device
+                for l in range(count):
+                    layer_meta = {k: torch.as_tensor(v[l], device=device) for k, v in meta.items()}
+                    for k in ("I", "J", "resid"):
+                        layer_meta[k] = layer_meta[k].long()
+                    layer_pairing[start + l].setdefault(sub_path, dict(blocks[l].pairing))[
+                        w_name] = layer_meta
+                n_pairs = sum(p.weighted_pairs for p in pairings)
+                n_weights = len(mats) * K * N
+                report.append(LeafReport(
+                    path=f"{prefix}[{si}].{sub_path}.{w_name}", shape=(count, *shape),
+                    n_weights=n_weights, n_pairs=int(n_pairs),
+                    pair_fraction=2.0 * n_pairs / n_weights,
+                ))
+            start += count
+        return layer_pairing
+
+    layer_pairing = pair_stack(model.layers, model.segments, "segments")
+    encoder_pairing = None
+    if model.encoder is not None:
+        encoder_pairing = pair_stack(model.encoder.layers, model.encoder.segments,
+                                     "encoder.segments")
 
     unmatched = [s for s in specs if s not in matched]
     if leaves is not None and unmatched:
@@ -388,7 +396,8 @@ def pair_params(
         raise ValueError("pair_params: no pairing-eligible weights found; looked for "
                          + ", ".join(f"{sp}.{wn}" for sp, wn in specs)
                          + f" among matrices with GEMM dims >= {min_dim}")
-    paired = model.copy(frozen=False, layer_pairing=layer_pairing)
+    paired = model.copy(frozen=False, layer_pairing=layer_pairing,
+                        encoder_pairing=encoder_pairing)
     return paired, PairedModelReport(rounding=rounding, mode=mode, leaves=report)
 
 

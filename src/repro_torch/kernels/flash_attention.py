@@ -19,9 +19,10 @@ forms that its entry point chooses from the dtype and head dim (and that
 :func:`kernel_form` names): bf16 with a head dim that is a multiple of 16
 runs on the tensor cores (``wgmma``, p kept in fp32 as a bf16 hi + lo pair
 for the PV product), everything else (fp32, and bf16 at D = 8) on the CUDA
-cores' fp32 FMAs.  In the JAX
-package no model path calls this kernel (prefill runs the blocked XLA
-``layers.flash_attention``), and the port's prefill does not call it either.
+cores' fp32 FMAs.  In the JAX package no model path calls this kernel
+(prefill runs the blocked XLA ``layers.flash_attention``); in the port,
+``models.layers.full_attention`` calls it for whisper's encoder
+self-attention and cross-attention prefill under ``attn="pallas_fused"``.
 """
 from __future__ import annotations
 

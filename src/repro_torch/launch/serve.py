@@ -37,6 +37,27 @@
         --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 \
         --batch 4 --max-seq 1280 --prompt-lens 12,16,24,1200
 
+    # qwen3-4b (qk-norm), granite-3-2b and mistral-large-123b (dense GQA):
+    # the same path as qwen2-1.5b; mistral's 88 layers (246 GB in bf16) do
+    # not fit one 80 GB card: --layers cuts the depth
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-large-123b \
+        --layers 4 --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 \
+        --batch 4 --max-seq 256 --prompt-lens 12,16,24,64
+
+    # whisper-base (encoder-decoder): each slot's prefill runs the encoder
+    # over its stub frames once (1500 × 512, make_batch), its
+    # self-attention and the decoder's cross-attention on the
+    # flash-attention kernel (K3) under --attn pallas_fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 \
+        --batch 4 --max-seq 128 --prompt-lens 12,16,24,64
+
+    # internvl2-2b (vision-language): 256 stub patch embeddings take a
+    # prompt's first positions, so a prompt has more than 256 tokens
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \
+        --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 \
+        --batch 4 --max-seq 320 --prompt-lens 260,270,280,300
+
     # hardened front end: Poisson load + chaos over the paired engine, with
     # graceful degradation to the unpaired fallback engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
@@ -51,9 +72,15 @@ casts them to: a bf16 model's paired fp32 masters would not fit one card
 beside their segments at deepseek-v2-lite-16b's size.  ``--max-seq`` counts
 a slot's tokens; a hybrid model's cache holds its meta tokens beside them.
 Without ``--frontend`` slot ``i`` is prefilled with a random prompt of
-``--prompt-lens``' ``i``-th length (default ``8 + 4·i`` tokens) and every
-slot decodes ``--steps`` tokens (the first from its prefill); with it, ``serving.frontend`` serves a seeded Poisson workload
-(``--seed``) and the run exits non-zero if any request is lost.
+``--prompt-lens``' ``i``-th length (default ``vision_prefix + 8 + 4·i``
+tokens) and every slot decodes ``--steps`` tokens (the first from its
+prefill); an encoder-decoder or vision-language slot gets row ``i`` of
+``launch.inputs.make_batch``'s seeded stub frames or patches (the JAX
+package's CLI feeds none, so it cannot serve these families).  With
+``--frontend``, ``serving.frontend`` serves a seeded Poisson workload
+(``--seed``) and the run exits non-zero if any request is lost; it feeds no
+frames or patches, and refuses those two families.  ``--layers`` cuts the
+decoder (and encoder) depth of the config (``configs.cut_layers``).
 """
 from __future__ import annotations
 
@@ -64,11 +91,12 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import cut_layers, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paired_matmul as pm
+from repro_torch.launch.inputs import make_batch
 from repro_torch.models import lm as M
 from repro_torch.serving import (
     FaultInjector,
@@ -91,12 +119,15 @@ def _since(before: dict[str, int]) -> dict[str, int]:
 
 
 def _build_engine(*, arch: str, smoke: bool, batch: int, max_seq: int, pair_rounding: float,
-                 pair_block_n: int, gemm: str, attn: str, device: str | None):
+                 pair_block_n: int, gemm: str, attn: str, device: str | None,
+                 layers: int | None = None):
     """Config, device, the model (seed 0, unpaired) and the engine over it
     (paired by its constructor under ``gemm="pallas_paired"``, its paired
     weights then held in the compute dtype), and the seconds the engine
     took to build; prints the pairing report."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if layers is not None:
+        cfg = cut_layers(cfg, layers)
     dev = resolve_device(device)
     model = M.init_lm(cfg, 0, device=dev)
     knobs = M.PerfKnobs(q_chunk=32, k_chunk=32, gemm=gemm, attn=attn,
@@ -130,6 +161,7 @@ def serve(
     attn: str = "xla",
     device: str | None = None,
     prompt_lens: list[int] | None = None,
+    layers: int | None = None,
 ) -> dict:
     """Build the engine, serve one prompt per slot, print what the JAX
     package's driver prints, and return the run's record: the engine, the
@@ -139,21 +171,23 @@ def serve(
     during the prefills and during the decode steps."""
     cfg, dev, _, eng, pairing_s = _build_engine(
         arch=arch, smoke=smoke, batch=batch, max_seq=max_seq, pair_rounding=pair_rounding,
-        pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device)
+        pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device, layers=layers)
 
-    lens = prompt_lens or [8 + 4 * i for i in range(batch)]
+    lens = prompt_lens or [cfg.vision_prefix + 8 + 4 * i for i in range(batch)]
     if len(lens) != batch:
         raise ValueError(f"{len(lens)} prompt lengths for a batch of {batch}")
     rng = np.random.default_rng(0)
     prompts = {i: rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
                for i, n in enumerate(lens)}
+    stubs = make_batch(cfg, batch, 1, "prefill", seed=0, device=dev)
+    extras = {i: {k: stubs[k][i:i + 1] for k in M.EXTRAS if k in stubs} for i in prompts}
     outs: dict[int, list[int]] = {}
     prefill_ms, step_ms = [], []
     t_all = time.perf_counter()
     before = kernel_launches()
     for slot, prompt in prompts.items():
         t0 = time.perf_counter()
-        outs[slot] = [eng.add_request(slot, prompt)]
+        outs[slot] = [eng.add_request(slot, prompt, extras[slot])]
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
     prefill_launches = _since(before)
     before = kernel_launches()
@@ -170,7 +204,8 @@ def serve(
     print(f"[serve] {batch * steps} tokens in {dt:.2f}s "
           f"({batch * steps / dt:.1f} tok/s incl. prefill) on {dev}")
     return {
-        "engine": eng, "prompts": prompts, "outputs": outs, "pairing_s": pairing_s,
+        "engine": eng, "prompts": prompts, "extras": extras, "outputs": outs,
+        "pairing_s": pairing_s,
         "prefill_ms": prefill_ms, "step_ms": step_ms, "seconds": dt,
         "tokens_per_s": batch * steps / dt,
         "launches": {"prefill": prefill_launches, "decode": decode_launches},
@@ -207,7 +242,12 @@ def run_frontend(
     """Simulated-load run: Poisson arrivals + optional chaos, degrading to a
     fresh unpaired fallback engine on the same (unpaired) weights.  Prints
     the report's summary and the kernel launches of the run; raises
-    ``SystemExit`` if any request is lost."""
+    ``SystemExit`` if any request is lost.  The front end feeds tokens
+    alone: an encoder-decoder or vision-language arch raises."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.encoder is not None or cfg.vision_prefix:
+        raise ValueError(f"the front end feeds no frames or patches: it cannot serve "
+                         f"{arch} ({cfg.family})")
     cfg, dev, model, eng, _ = _build_engine(
         arch=arch, smoke=smoke, batch=batch, max_seq=max_seq, pair_rounding=pair_rounding,
         pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device)
@@ -240,6 +280,8 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="the reduced config of the arch")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's decoder (and encoder) to this many layers")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--steps", type=int, default=16)
@@ -287,8 +329,8 @@ def main(argv: list[str] | None = None) -> None:
     fe_args = {k: args.pop(k) for k in ("arrival_rate", "horizon", "seed", "prefill_chunk",
                                          "deadline", "inject")}
     if args.pop("frontend"):
-        if args.pop("prompt_lens"):
-            ap.error("--prompt-lens sets the prompts of a run without --frontend")
+        if args.pop("prompt_lens") or args.pop("layers") is not None:
+            ap.error("--prompt-lens and --layers set a run without --frontend")
         run_frontend(**args, **fe_args)
     else:
         serve(**args)

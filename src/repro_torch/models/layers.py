@@ -1,7 +1,8 @@
-"""Layers of the decoder (GQA or multi-head latent attention, a gated MLP
-or routed experts, Mamba-2 SSD blocks), in PyTorch.
+"""Layers of the decoder and encoder (GQA or multi-head latent attention,
+cross-attention, a gated MLP or routed experts, Mamba-2 SSD blocks,
+RMSNorm or LayerNorm), in PyTorch.
 
-The port of the dense, MoE and SSM subset of ``repro.models.layers``.
+The port of ``repro.models.layers`` but its expert-parallel ``_moe_shard_map``.
 Conventions, as in the JAX package:
 
 * activations ``(batch, seq, d_model)`` in the compute dtype (the config's);
@@ -9,8 +10,11 @@ Conventions, as in the JAX package:
 * attention weights keep heads explicit: ``wq`` ``(d, H, hd)``, ``wk``/``wv``
   ``(d, KH, hd)``, ``wo`` ``(H, hd, d)``;
 * prefill attention goes through :func:`flash_attention` (blocked online
-  softmax, plain PyTorch: the JAX package's is XLA code, not a kernel), a
-  single decode row through :func:`decode_attention` or, with
+  softmax, plain PyTorch: the JAX package's is XLA code, not a kernel);
+  non-causal attention (whisper's encoder and cross-attention) through
+  :func:`full_attention`, on the flash-attention kernel (K3) with
+  ``knobs.attn == "pallas_fused"``; a single decode row through
+  :func:`decode_attention` or, with
   ``knobs.attn == "pallas_fused"``, the decode-attention kernel that applies
   the paired out-projection in its flush (``kernels.ops.attn_decode``);
 * MLA (DeepSeek-V2) caches a compressed latent ``(c_kv, k_rope)`` and decodes
@@ -46,6 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_mask
 
@@ -121,12 +126,12 @@ class Block(nn.Module):
 
 
 class Norm(Block):
-    """RMSNorm scale ``(d,)``."""
+    """RMSNorm scale ``(d,)``; with a ``bias`` ``(d,)``, LayerNorm."""
 
     REQUIRED = ("scale",)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_norm(x, self.scale)
+        return apply_norm(x, self.scale, self._parameters.get("bias"))
 
 
 class Attention(Block):
@@ -182,13 +187,19 @@ class DecoderLayer(nn.Module):
     * hybrid (both, with their output norms ``ln_attn_out`` and
       ``ln_ssm_out``): ``h + ½·(ln_attn_out(attn(x)) + ln_ssm_out(mamba(x)))``;
 
-    then, with a feed-forward block ``ffn`` (a gated ``mlp`` or a ``moe``),
-    ``h + ffn(ln2(h))``; an SSM layer has none."""
+    then, in an encoder-decoder model's layer, cross-attention (``xattn``:
+    an :class:`Attention` whose keys and values are the encoder output's)
+    ``h + xattn(lnx(h))``; then, with a feed-forward block ``ffn`` (a gated
+    ``mlp`` or a ``moe``), ``h + ffn(ln2(h))``; an SSM layer has none.  An
+    encoder layer is one of attention and an MLP."""
 
     def __init__(self, ln1: Norm, attn: Attention | MLA | None = None, ln2: Norm | None = None,
                  mlp: MLP | None = None, *, moe: MoE | None = None, mamba: Mamba | None = None,
-                 ln_attn_out: Norm | None = None, ln_ssm_out: Norm | None = None):
+                 ln_attn_out: Norm | None = None, ln_ssm_out: Norm | None = None,
+                 lnx: Norm | None = None, xattn: Attention | None = None):
         super().__init__()
+        if (lnx is None) != (xattn is None) or (xattn is not None and attn is None):
+            raise ValueError("cross-attention (xattn) takes lnx, and follows self-attention")
         if mlp is not None and moe is not None:
             raise ValueError("a decoder layer takes at most one of mlp and moe")
         if (ln2 is None) != (mlp is None and moe is None):
@@ -201,15 +212,15 @@ class DecoderLayer(nn.Module):
                              "and only it")
         self.ffn = "mlp" if mlp is not None else "moe" if moe is not None else None
         blocks = dict(ln1=ln1, attn=attn, mamba=mamba, ln_attn_out=ln_attn_out,
-                      ln_ssm_out=ln_ssm_out, ln2=ln2, mlp=mlp, moe=moe)
+                      ln_ssm_out=ln_ssm_out, lnx=lnx, xattn=xattn, ln2=ln2, mlp=mlp, moe=moe)
         for name, block in blocks.items():
             if block is not None:
                 setattr(self, name, block)
 
     def copy(self, *, frozen: bool, pairing: dict | None = None) -> DecoderLayer:
         """A layer sharing these weights; ``pairing`` maps a sub-block's
-        dotted path (``"attn"``, ``"mamba"``, ``"mlp"``, ``"moe"``,
-        ``"moe.shared"``) to that block's new pairing dict."""
+        dotted path (``"attn"``, ``"xattn"``, ``"mamba"``, ``"mlp"``,
+        ``"moe"``, ``"moe.shared"``) to that block's new pairing dict."""
         pairing = pairing or {}
         return DecoderLayer(**{n: b.copy(frozen=frozen, pairing=pairing.get(n),
                                          children=_below(pairing, n))
@@ -221,9 +232,16 @@ class DecoderLayer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def apply_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis, statistics in fp32."""
+def apply_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, or LayerNorm when there is a ``bias``;
+    statistics in fp32."""
     xf = x.float()
+    if bias is not None:
+        mu = xf.mean(-1, keepdim=True)
+        xc = xf - mu
+        y = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+        return (y * scale.float() + bias.float()).to(x.dtype)
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
@@ -400,6 +418,27 @@ def flash_attention(
     return out[:, :Sq].to(q.dtype)
 
 
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, knobs) -> torch.Tensor:
+    """Non-causal attention with no window and no sinks, every query
+    against every key (whisper's encoder self-attention and the decoder's
+    cross-attention over a prompt).
+
+    Under ``knobs.attn == "pallas_fused"`` it is one launch of the
+    flash-attention kernel (K3, ``kernels.flash_attention.flash_attention_fwd``,
+    whose plain version runs for CPU tensors; p stays in fp32 for the PV
+    product), forward only; otherwise :func:`flash_attention`, as the JAX
+    package computes it (p cast to v's dtype first).
+    """
+    if knobs.attn != "pallas_fused":
+        return flash_attention(q, k, v, causal=False, q_chunk=knobs.q_chunk,
+                               k_chunk=knobs.k_chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("the flash-attention kernel is forward only: train "
+                                  "under attn='xla'")
+    return fa.flash_attention_fwd(q, k, v, causal=False, q_chunk=knobs.q_chunk,
+                                  k_chunk=knobs.k_chunk)
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, 1, H, D)
     k_cache: torch.Tensor,  # (B, S, KH, D)
@@ -504,10 +543,15 @@ def attention_block(
     residual: torch.Tensor | None = None,
 ):
     """Full attention sublayer (projections + flash attention + out
-    projection).  Returns ``(y, k, v)``: the post-rope K/V fill the cache."""
+    projection).  Returns ``(y, k, v)``: the post-rope K/V fill the cache.
+    Without the causal mask (an encoder's) the attention is
+    :func:`full_attention`, on K3 under ``attn="pallas_fused"``."""
     q, k, v = _qkv(cfg, p, x, positions, knobs)
-    out = flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink,
-                          q_chunk=knobs.q_chunk, k_chunk=knobs.k_chunk)
+    if not causal and not window:
+        out = full_attention(q, k, v, knobs)
+    else:
+        out = flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink,
+                              q_chunk=knobs.q_chunk, k_chunk=knobs.k_chunk)
     return attn_out_proj(p, out, knobs, residual=residual), k, v
 
 

@@ -55,11 +55,18 @@ class ServeEngine:
         self.last_logits: np.ndarray | None = None
 
     # -- request management -------------------------------------------------
-    def add_request(self, slot: int, prompt: np.ndarray) -> int:
+    def add_request(self, slot: int, prompt: np.ndarray, extras: dict | None = None) -> int:
         """Prefill a prompt (plen,) into one slot; returns its first token.
 
-        Raises :class:`CapacityError` on any bound violation; a quarantined
-        slot refuses admission until :meth:`clear_quarantine`.
+        ``extras`` holds what the model reads beside the tokens, with a
+        batch axis of 1: an encoder-decoder model's ``"frames"`` (1, F, d),
+        a vision-language model's ``"patches"`` (1, vision_prefix,
+        vision_embed_dim), as numpy arrays or tensors.  Raises
+        :class:`CapacityError` on any bound violation, and for a
+        vision-language prompt of ``vision_prefix`` tokens or fewer (the
+        JAX package's engine keeps ``vision_prefix`` positions of such a
+        prompt but decodes from ``plen``, over the patches' keys); a
+        quarantined slot refuses admission until :meth:`clear_quarantine`.
         """
         plen = len(prompt)
         if not 0 <= slot < self.batch_size:
@@ -74,13 +81,19 @@ class ServeEngine:
             raise CapacityError(
                 f"prompt length {plen} leaves no decode room in "
                 f"max_seq={self.max_seq} (need plen < max_seq)")
+        if plen <= self.cfg.vision_prefix:
+            raise CapacityError(
+                f"prompt length {plen} is not longer than the {self.cfg.vision_prefix} "
+                "patch positions it starts with: no text token would be read")
         tokens = torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.int64,
                                  device=self.device)
+        extras = {k: torch.as_tensor(v, device=self.device) for k, v in (extras or {}).items()}
         with torch.no_grad():
-            last_logits, cache = M.prefill(self.cfg, self.model, tokens, knobs=self.knobs)
+            last_logits, cache = M.prefill(self.cfg, self.model, tokens, knobs=self.knobs,
+                                           extras=extras)
         # splice this request's cache into the slot: an SSM entry (L, 1, …)
         # whole, an attention entry (L, 1, meta_tokens + plen, …) over its
-        # positions
+        # positions, a cross-attention one (L, 1, frames, …) over all frames
         for name, dst in self.cache.items():
             src = cache[name][:, 0].to(dst.dtype)
             if name in M.SSM_ENTRIES:
@@ -147,10 +160,13 @@ class ServeEngine:
         return [i for i in range(self.batch_size)
                 if not self.active[i] and not self.quarantined[i]]
 
-    def generate(self, slot_prompts: dict[int, np.ndarray], n_steps: int) -> dict[int, list[int]]:
-        """Prefill the given slots, then decode greedily: ``n_steps`` tokens per
+    def generate(self, slot_prompts: dict[int, np.ndarray], n_steps: int,
+                 extras: dict | None = None) -> dict[int, list[int]]:
+        """Prefill the given slots (each with the same ``extras``, as the JAX
+        package's engine does), then decode greedily: ``n_steps`` tokens per
         slot, the first from the prefill."""
-        outs = {slot: [self.add_request(slot, prompt)] for slot, prompt in slot_prompts.items()}
+        outs = {slot: [self.add_request(slot, prompt, extras)]
+                for slot, prompt in slot_prompts.items()}
         for _ in range(n_steps - 1):
             nxt = self.step()
             for slot in slot_prompts:

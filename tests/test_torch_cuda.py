@@ -18,7 +18,9 @@ The MLA path: the deepseek smoke engine at r = 0 on both expert branches.
 The SSM and hybrid paths: the mamba2 and hymba smoke engines at r = 0 (a
 2-token prompt, shorter than the conv tail, and prompts whose window drops
 keys), and K2 at hymba's heads (G = 5 over 5 KV heads) with its window and
-sinks.  The LM training path: K1's differentiable GEMMs forward and
+sinks.  The rest of the zoo (qwen3, granite, mistral, whisper with its
+stub frames and K3 on the encoder, internvl2 with its stub patches): each
+smoke engine at r = 0.  The LM training path: K1's differentiable GEMMs forward and
 backward against their plain versions, and a training step of the qwen2
 smoke model on the card against the CPU under every K1 policy (loss within
 1e-5, gradients within rtol 1e-4, atol 1e-5), launching K1 as
@@ -379,6 +381,44 @@ def test_ssm_and_hybrid_engines_paired_match_plain_engine(cuda, arch, prompts, b
     want = [decode_launches(cfg, cfg.layer_kind(i), knobs) for i in range(cfg.n_layers)]
     assert pm.launch_count() == 4 * sum(w["paired_matmul"] for w in want)
     assert da.launch_count() == 4 * sum(w["decode_attention"] for w in want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-3-2b", "mistral-large-123b",
+                                  "whisper-base", "internvl2-2b"])
+def test_zoo_engines_paired_match_plain_engine(cuda, arch):
+    """The zoo's smoke configs at r=0, fp32: the paired engine with fused
+    decode attention gives the plain engine's tokens, logits within 1e-5,
+    with whisper's stub frames and internvl2's stub patches; the prefill
+    launches K1 (and whisper's K3) as ``prefill_launches`` says, a decode
+    step as ``decode_launches`` says."""
+    from repro_torch.analysis import decode_launches, prefill_launches
+    from repro_torch.launch.inputs import make_batch
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = M.init_lm(cfg, 0, device=cuda)
+    base = dict(q_chunk=8, k_chunk=8)
+    knobs = M.PerfKnobs(**base, gemm="pallas_paired", attn="pallas_fused")
+    plain = ServeEngine(cfg, model, max_seq=48, batch_size=2, knobs=M.PerfKnobs(**base))
+    paired = ServeEngine(cfg, model, max_seq=48, batch_size=2, knobs=knobs)
+    stubs = make_batch(cfg, 2, 1, "prefill", seed=0, device=cuda)
+    pm.reset_launches()
+    fa.reset_launches()
+    for slot, n in enumerate((cfg.vision_prefix + 3, cfg.vision_prefix + 20)):
+        p = np.random.default_rng(slot).integers(0, cfg.vocab, size=n)
+        extras = {k: v[slot:slot + 1] for k, v in stubs.items() if k in M.EXTRAS}
+        assert plain.add_request(slot, p, extras) == paired.add_request(slot, p, extras)
+    want = prefill_launches(cfg, knobs)
+    assert pm.launch_count() == 2 * want["paired_matmul"]
+    assert fa.launch_count() == 2 * want["flash_attention"]
+    assert (fa.launch_count() > 0) == (cfg.encoder is not None)
+    pm.reset_launches()
+    da.reset_launches()
+    for _ in range(4):
+        np.testing.assert_array_equal(plain.step(), paired.step())
+        assert rel_err(paired.last_logits, plain.last_logits) <= RTOL
+    per = [decode_launches(cfg, cfg.layer_kind(i), knobs) for i in range(cfg.n_layers)]
+    assert pm.launch_count() == 4 * sum(w["paired_matmul"] for w in per)
+    assert da.launch_count() == 4 * sum(w["decode_attention"] for w in per)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

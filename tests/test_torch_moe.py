@@ -117,11 +117,12 @@ def test_config_fields_equal(get):
 
 def test_config_refuses_unported_moe():
     """Shared experts and dense leading layers are ported (deepseek-v2-lite,
-    ``tests/test_torch_mla.py``); the families not ported yet (enc-dec,
-    vision) and layernorm still raise, as does an MoE config without its
-    family; the SSM and hybrid families (``tests/test_torch_ssm.py``,
+    ``tests/test_torch_mla.py``); an MoE config without its family raises;
+    the SSM and hybrid families (``tests/test_torch_ssm.py``,
     ``tests/test_torch_hybrid.py``) refuse a config without their SSM
-    geometry."""
+    geometry, the encoder-decoder and vision families
+    (``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``) one
+    without their encoder or patch prefix; layernorm is ported."""
     from repro_torch.configs.base import ModelConfig, MoeConfig
 
     base = dataclasses.asdict(t_configs.get_smoke_config(ARCH))
@@ -130,14 +131,12 @@ def test_config_refuses_unported_moe():
                                             first_k_dense=1, d_ff_dense=96))
     assert cfg.moe.n_shared == 1
     assert [cfg.layer_kind(i) for i in range(cfg.n_layers)] == ["dense", "moe"]
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match=family):
-            ModelConfig(**{**base, "family": family})
-    for family in ("ssm", "hybrid"):
+    for family in ("ssm", "hybrid", "encdec", "vlm"):
         with pytest.raises(ValueError, match=family):
             ModelConfig(**{**base, "family": family})
-    with pytest.raises(NotImplementedError, match="layernorm"):
-        ModelConfig(**{**base, "norm": "layernorm"}, moe=MoeConfig())
+    assert ModelConfig(**{**base, "norm": "layernorm"}, moe=MoeConfig()).norm == "layernorm"
+    with pytest.raises(ValueError, match="norm"):
+        ModelConfig(**{**base, "norm": "batchnorm"}, moe=MoeConfig())
     with pytest.raises(ValueError, match="family"):
         ModelConfig(**{**base, "family": "dense"}, moe=MoeConfig())
 

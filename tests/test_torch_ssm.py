@@ -547,8 +547,8 @@ def test_decode_launch_counts():
                                knobs=knobs)
             assert counts["k1_calls"] == 6 * tcfg.n_layers
     assert analysis.decode_launches(tcfg, "ssm", TM.PerfKnobs())["paired_matmul"] == 0
-    with pytest.raises(ValueError, match="encdec"):
-        analysis.decode_launches(tcfg, "encdec", TM.PerfKnobs())
+    with pytest.raises(ValueError, match="vlm"):  # a VLM's layers are "dense"
+        analysis.decode_launches(tcfg, "vlm", TM.PerfKnobs())
 
 
 def test_engine_splices_releases_and_scrubs_the_state():
