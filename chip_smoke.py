@@ -19,8 +19,11 @@ heads, windowed decode attention with meta-token sinks; K1 + K2); the rest
 of the model zoo, qwen3-4b, granite-3-2b, internvl2-2b (vision prefix),
 whisper-base (encoder-decoder: its encoder's self-attention and the
 cross-attention prefill on K3) and mistral-large-123b (K1 + K2, and K3);
-and the LM training path of qwen2-1.5b, every layer GEMM's forward on K1
-under autograd (its backward ``torch.matmul``).  Phases,
+the LM training path of qwen2-1.5b, every layer GEMM's forward on K1
+under autograd (its backward ``torch.matmul``); and the MoE training path
+of olmoe-1b-7b and deepseek-v2-lite-16b, every expert projection's forward
+one K1 launch over the expert grid (its backward ``torch.einsum`` on the
+folded experts), with the fused decode attention's VJP (K2).  Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
 
@@ -216,7 +219,36 @@ result:
                 rows on layer 0's wq, wk, wo, w_gate and w_down, paired and
                 dense, beside its plain version, ``torch.matmul`` on the
                 folded weight, its bound and its plan;
-23. the kernels table, the card's name and power limit, and the ``ok`` line.
+23. moe_train_parity — olmoe-1b-7b and deepseek-v2-lite-16b at full width,
+                2 layers (deepseek's: its dense first layer, one MoE layer),
+                fp32, r=0: ``lm_loss``, the router's aux loss and every
+                weight's gradient under "pallas_paired" structured and
+                column-blocked at bn=64 against gemm="xla" (``torch.einsum``
+                experts), on the routed branch (batch 8 × seq 128) and the
+                dense one (2 × 8 tokens: T·K ≤ 2E), lm_train_parity's
+                tolerances; K1 launches a step equal to ``train_launches``
+                under remat "full" and "none"; ``ops.fused_attn_decode`` at
+                qwen2-1.5b's decode shapes (fp32, structured r=0.05 with the
+                residual): its output and the gradients of q, the caches, w
+                and the residual against autograd of the plain composition,
+                one K2 launch forward, none backward;
+24. moe_train — olmoe-1b-7b at full width, 6 of its 16 layers (16 layers of
+                fp32 masters, gradients and Adam moments would not fit one
+                card), through ``launch.steps.build_train_step`` and
+                ``train.optimizer.adamw`` as the training CLI sets them: bf16
+                compute, fp32 masters, structured r=0.05, remat "full", batch
+                8 × seq 128, 6 steps: every metric finite, the last loss
+                below the first, K1 launches = 6 × ``train_launches`` and a
+                profiled step's = ``train_launches``; pairing seconds, ms a
+                step (median of steps 2–6), tokens/s, the profiled step (busy,
+                idle share, K1 ms and launches, library GEMMs, index
+                kernels), peak memory beside its reckoning (16 bytes a
+                parameter); K1 timed on layer 0's gate, up and down over the
+                expert grid at the step's routed rows (160 an expert) beside
+                its plain version, ``torch.einsum`` on the folded experts
+                and its bound; the device ms of the expert fold and of its
+                backward (the index kernels the expert grid's backward adds);
+25. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -1167,6 +1199,7 @@ def profile_step(step) -> dict:
         prof, wall = trace_step(step)
         split = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K2", "other")}
         gemm = {"ms": 0.0, "launches": 0}  # library GEMMs (torch.matmul), within "other"
+        index = {"ms": 0.0, "launches": 0}  # gathers and scatters (indexing), within "other"
         others, marks = [], 0
         for kernel, count, us in device_kernels(prof):
             if MARK_KERNEL in kernel:
@@ -1180,13 +1213,16 @@ def profile_step(step) -> dict:
                 if any(tag in kernel.lower() for tag in GEMM_KERNEL_TAGS):
                     gemm["ms"] += us / 1e3
                     gemm["launches"] += count
+                if "index" in kernel.lower():
+                    index["ms"] += us / 1e3
+                    index["launches"] += count
         if marks == 2:
             break
     check(marks == 2, f"profiler: {tries} traces each lost a marker of the traced step")
     device_ms = sum(v["ms"] for v in split.values())
     return {"wall_ms": wall, "device_ms": device_ms if device_ms else "not measured",
             "idle_share": 1 - device_ms / wall if device_ms else "not measured", **split,
-            "library_gemm": gemm,
+            "library_gemm": gemm, "index_kernels": index,
             "traces": trace, "markers": marks,
             "other_top": sorted(others, key=lambda o: -o["ms"])[:5]}
 
@@ -2670,6 +2706,272 @@ def phase_lm_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 23–24: MoE training (olmoe-1b-7b, deepseek-v2-lite-16b), every
+# expert projection's forward one K1 launch over the expert grid
+# ---------------------------------------------------------------------------
+
+MOE_DENSE_BATCH = (2, 8)  # 16 tokens: T·K ≤ 2E, every expert on every token
+
+
+def _attn_decode_vjp_check() -> dict:
+    """``ops.fused_attn_decode`` on the card at qwen2-1.5b's layer-0 decode
+    shapes (batch 4, H 12 over KH 2, D 128, a cache of 256, N 1536), fp32,
+    a structured r = 0.05 out-projection with the residual: the output and
+    the gradients of q, both caches, w and the residual against autograd of
+    the plain composition (``fused_attn_decode_ref``), ≤ 1e-5 relative
+    (the output ≤ 2e-5); one K2 launch forward, none backward."""
+    import torch
+
+    from repro_torch.core.pairing import pair_rows_structured
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, S, H, KH, D, N = 4, 256, 12, 2, 128, 1536
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    w = rnd(H * D, N) * (H * D) ** -0.5
+    sp = pair_rows_structured(w.double().cpu().numpy(), 0.05)
+    meta = {k: torch.as_tensor(v, device="cuda").to(torch.float32 if k.endswith("mask")
+                                                      else torch.int64)
+            for k, v in {"I": sp.I, "J": sp.J, "resid": sp.resid,
+                         "pair_mask": [1.0] * sp.n_pairs,
+                         "resid_mask": [1.0] * len(sp.resid)}.items()}
+    live = [t.requires_grad_() for t in (rnd(B, 1, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D),
+                                         w, rnd(B, 1, N))]
+    pos = torch.tensor([0, 23, 130, S - 1], dtype=torch.int32, device="cuda")
+    q, kc, vc, tw, res = live
+    before = da.launch_count()
+    y = ops.fused_attn_decode(q, kc, vc, pos, tw, meta, residual=res)
+    fwd = da.launch_count() - before
+    dy = rnd(*y.shape)
+    grads = torch.autograd.grad(y, live, dy)
+    bwd = da.launch_count() - before - fwd
+    want = ops.fused_attn_decode_ref(q, kc, vc, pos, tw, meta, residual=res)
+    want_grads = torch.autograd.grad(want, live, dy)
+    errs = {"out": rel_err(y, want),
+            **{name: rel_err(g, r) for name, g, r in zip(("q", "k_cache", "v_cache", "w",
+                                                           "residual"), grads, want_grads,
+                                                          strict=True)}}
+    check(errs["out"] <= ATTN_RTOL and max(v for k, v in errs.items() if k != "out")
+          <= FP32_RTOL, f"fused_attn_decode VJP: {errs}")
+    check([fwd, bwd] == [1, 0], f"fused_attn_decode VJP: K2 launches forward/backward "
+          f"{fwd}/{bwd}")
+    return {"shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D, "N": N},
+            "pairing": "structured r=0.05", "pairs": sp.n_pairs, "pos": pos.tolist(),
+            "rel_err": errs, "max_abs_err": float((y - want).abs().max()),
+            "launches": [fwd, bwd]}
+
+
+def phase_moe_train_parity() -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis import train_launches
+    from repro_torch.configs import get_config
+    from repro_torch.core.transform import pair_lm_params
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.models import lm as M
+
+    def loss_and_grads(cfg, m, batch, knobs):
+        m.zero_grad(set_to_none=True)
+        loss, metrics = M.lm_loss(cfg, m, batch, knobs=knobs)
+        loss.backward()
+        return (float(loss), float(metrics["aux"]),
+                {n: p.grad.detach().clone() for n, p in m.named_parameters()})
+
+    _reset_launches()  # the path's own counts from here
+    rows, pairing_s = {}, {}
+    for arch in (MOE_ARCH, MLA_ARCH):
+        # deepseek's 2 layers: its dense first layer and one MoE layer
+        cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+        mo = cfg.moe
+        tok, lab = next(token_batches(*MOE_DENSE_BATCH, cfg.vocab, seed=1))
+        batches = {"routed": _train_batch(cfg, 0),
+                   "dense": {k: torch.as_tensor(a, dtype=torch.int64, device="cuda")
+                             for k, a in (("tokens", tok), ("labels", lab))}}
+        for name, b in batches.items():
+            check((b["tokens"].numel() * mo.top_k > 2 * mo.n_experts) == (name == "routed"),
+                  f"moe_train_parity {arch}: the {name} batch takes the other branch")
+        model = M.init_lm(cfg, 0)
+        model.requires_grad_(True)
+        base = dict(q_chunk=TRAIN_SEQ, k_chunk=TRAIN_SEQ)
+        t0 = time.perf_counter()
+        variants = {
+            "paired_structured": (pair_lm_params(model, 0.0)[0],
+                                  M.PerfKnobs(**base, gemm="pallas_paired")),
+            "paired_blocked_64": (pair_lm_params(model, 0.0, mode="column_blocked",
+                                                 block_n=64)[0],
+                                  M.PerfKnobs(**base, gemm="pallas_paired", pair_block_n=64)),
+        }
+        pairing_s[arch] = time.perf_counter() - t0
+        for branch, batch in batches.items():
+            before = pm.launch_count()
+            ref_loss, ref_aux, ref_grads = loss_and_grads(cfg, model, batch, M.PerfKnobs(**base))
+            check(pm.launch_count() == before, f"moe_train_parity {arch}: gemm='xla' launched K1")
+            for tag, (m, knobs) in variants.items():
+                launches = {}
+                for remat in ("full", "none"):
+                    k = dataclasses.replace(knobs, remat=remat)
+                    before = pm.launch_count()
+                    loss, aux, grads = loss_and_grads(cfg, m, batch, k)
+                    launches[remat] = {"counted": pm.launch_count() - before,
+                                       "want": train_launches(cfg, k)}
+                    check(launches[remat]["counted"] == launches[remat]["want"],
+                          f"moe_train_parity {arch} {tag} {branch} remat={remat}: "
+                          f"launches {launches[remat]}")
+                    if remat != "full":
+                        continue
+                    rel = abs(loss - ref_loss) / abs(ref_loss)
+                    worst = {n: _grad_violation(g, ref_grads[n]) for n, g in grads.items()}
+                    worst_name = max(worst, key=worst.get)
+                    experts = [n for n in grads if ".moe.w_" in n]
+                    row = {"loss": loss, "xla_loss": ref_loss, "loss_rel_err": rel,
+                           "aux": aux, "xla_aux": ref_aux,
+                           "grad_max_abs_err": max(float((g - ref_grads[n]).abs().max())
+                                                   for n, g in grads.items()),
+                           "grad_worst": {"param": worst_name,
+                                          "excess_over_tolerance": worst[worst_name]},
+                           "grads_checked": len(grads), "expert_grads_checked": len(experts)}
+                    label = f"moe_train_parity {arch} {tag} {branch}"
+                    check(rel <= FP32_RTOL, f"{label}: loss rel err {rel:.3g}")
+                    check(worst[worst_name] <= 0, f"{label}: grad of {worst_name} beyond rtol "
+                          f"{GRAD_RTOL}, atol {GRAD_ATOL} by {worst[worst_name]:.3g}")
+                    check(len(experts) == 3 * sum(cfg.layer_kind(i) == "moe"
+                                                  for i in range(cfg.n_layers)),
+                          f"{label}: expert gradients {experts}")
+                rows[f"{arch}/{tag}/{branch}"] = {**row, "launches": launches}
+            del ref_grads, grads
+        del model, variants
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = pm.launch_count()
+    vjp = _attn_decode_vjp_check()
+    out = {
+        "phase": "moe_train_parity", "archs": [MOE_ARCH, MLA_ARCH], "layers": 2,
+        "dtype": "float32", "rounding": 0.0,
+        "batches": {"routed": [TRAIN_BATCH, TRAIN_SEQ], "dense": list(MOE_DENSE_BATCH)},
+        "reference": "gemm='xla' (torch.einsum experts, torch.matmul, autograd)",
+        "pairing_s": pairing_s, "variants": rows, "main_path_launches": launches,
+        "fused_attn_decode_vjp": vjp,
+    }
+    emit(out)
+    return out
+
+
+def _expert_fold_ms(block, name: str) -> dict:
+    """Device ms of ``fold_lm_expert_weight`` on one expert weight of the
+    trained model (bf16, its structured metadata) and of the fold's
+    backward: the index kernels (gathers, scatter-adds) the expert grid's
+    backward runs once a projection a step, beside the einsums."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    w = getattr(block, name).detach().to(torch.bfloat16).requires_grad_()
+    meta = block.pairing[name]
+    cot = torch.randn_like(w)
+    with torch.no_grad():
+        fwd = request_stats(lambda: ops.fold_lm_expert_weight(w, meta), n=10, warmup=1)
+    both = request_stats(lambda: torch.autograd.grad(ops.fold_lm_expert_weight(w, meta), w, cot),
+                         n=10, warmup=1)
+    return {"weight": name, "shape": list(w.shape), "forward_ms": fwd["median"],
+            "backward_ms": both["median"] - fwd["median"]}
+
+
+def phase_moe_train() -> dict:
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.analysis import train_launches
+    from repro_torch.configs import get_config
+    from repro_torch.core.transform import pair_lm_params
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm as M
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+
+    steps, layers = 6, 6
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=layers)
+    mo = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_lm(cfg, 0)
+    t0 = time.perf_counter()
+    model, rp = pair_lm_params(model, 0.05)
+    pairing_s = time.perf_counter() - t0
+    # the training CLI's knobs and optimizer (launch.train.train)
+    knobs = M.PerfKnobs(q_chunk=TRAIN_SEQ, gemm="pallas_paired", pair_rounding=0.05)
+    step = build_train_step(cfg, adamw(cosine_schedule(3e-4, steps, warmup_steps=0)), knobs)
+    opt_state = step.init(model)
+    want = train_launches(cfg, knobs)
+    _reset_launches()  # the path's own counts from here
+    history, step_ms = [], []
+    for i in range(steps):
+        batch = _train_batch(cfg, i)
+        t_step = time.perf_counter()
+        history.append({k: float(v) for k, v in step(model, opt_state, i, batch).items()})
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    launches = pm.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    check(launches == steps * want, f"moe_train: {launches} K1 launches in {steps} steps, "
+          f"want {steps} × {want}")
+    check(all(math.isfinite(v) for h in history for v in h.values()),
+          f"moe_train: metrics not finite: {history}")
+    check(losses[-1] < losses[0], f"moe_train: loss did not fall: {losses}")
+    median = sorted(step_ms[1:])[(len(step_ms) - 1) // 2]
+    prof = profile_step(lambda: step(model, opt_state, steps, _train_batch(cfg, steps)))
+    check(prof["K1"]["launches"] == want or prof["device_ms"] == "not measured",
+          f"moe_train: profiled step launched K1 {prof['K1']['launches']} times, want {want}")
+    n_params = sum(p.numel() for p in model.parameters())
+    moe0 = model.layers[0].moe
+    cap = max(1, math.ceil(TRAIN_SEQ * mo.top_k / mo.n_experts * mo.capacity_factor))
+    rows_per_expert = TRAIN_BATCH * cap  # the step's routed rows: (B, C) a buffer
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    d, E, F = cfg.d_model, mo.n_experts, mo.d_ff_expert
+    with torch.no_grad():
+        k1 = [_k1_expert_at(moe0, "w_gate", x(E, rows_per_expert, d), "silu", tag="moe_train"),
+              _k1_expert_at(moe0, "w_up", x(E, rows_per_expert, d), tag="moe_train"),
+              _k1_expert_at(moe0, "w_down", x(E, rows_per_expert, F), tag="moe_train")]
+    for row in k1:
+        check(row["ulps"] <= BF16_MAX_ULPS, f"moe_train K1 {row['weight']} {row['ulps']:.3g} ulps")
+    fold = [_expert_fold_ms(moe0, name) for name in ("w_gate", "w_up", "w_down")]
+    experts = [leaf for leaf in rp.leaves if ".moe." in leaf.path]
+    out = {
+        "phase": "moe_train", "arch": cfg.name, "layers": layers,
+        "published_layers": get_config(MOE_ARCH).n_layers, "dtype": cfg.dtype,
+        "masters": "float32", "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "capacity": cap, "rows_per_expert": rows_per_expert,
+        "pairing": {"mode": rp.mode, "rounding": rp.rounding, "total_pairs": rp.total_pairs,
+                    "pair_fraction": rp.pair_fraction, "seconds": pairing_s,
+                    "expert_pair_fraction": 2 * sum(leaf.n_pairs for leaf in experts)
+                    / sum(leaf.n_weights for leaf in experts)},
+        "remat": knobs.remat, "optimizer": "adamw 3e-4, cosine, clip 1.0",
+        "losses": losses, "aux": [h["aux"] for h in history], "step_ms": step_ms,
+        "median_step_ms_2_6": median, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median * 1e3,
+        "k1_launches_per_step": want, "main_path_launches": launches,
+        "profiled_step": prof, "peak_memory_gb": peak / 1e9,
+        "memory_reckoning_gb": {"fp32_masters": 4 * n_params / 1e9, "grads": 4 * n_params / 1e9,
+                                "adam_moments": 8 * n_params / 1e9,
+                                "sum_16_bytes_a_param": 16 * n_params / 1e9,
+                                "card_total": torch.cuda.get_device_properties(0).total_memory
+                                / 1e9},
+        "peak_bytes_per_param": peak / n_params,
+        "k1_expert_grid_rows": k1,
+        "expert_fold_ms": fold,
+        "expert_fold_ms_per_step": layers * sum(f["forward_ms"] + f["backward_ms"]
+                                                for f in fold),
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2725,6 +3027,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_train = phase_lm_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train_parity = phase_moe_train_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = phase_moe_train()
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
@@ -2746,7 +3054,9 @@ def main() -> int:
              "mla_serve": mla["main_path_launches"]["paired_matmul"],
              **{k: v["main_path_launches"]["paired_matmul"] for k, v in state_paths.items()},
              "lm_train_parity": train_parity["main_path_launches"],
-             "lm_train": lm_train["main_path_launches"]}
+             "moe_train_parity": moe_train_parity["main_path_launches"],
+             "lm_train": lm_train["main_path_launches"],
+             "moe_train": moe_train["main_path_launches"]}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},
@@ -2817,6 +3127,14 @@ def main() -> int:
         "training": [{k: row[k] for k in ("weight", "form", "M", "K", "N", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}
                      for row in lm_train["k1_training_rows"]],
+        # olmoe-1b-7b's training step (bf16, structured r=0.05), layer 0's
+        # gate, up and down on the expert grid at the step's routed rows
+        # (batch 8 × capacity 20 = 160 rows an expert), launches a step
+        "moe_training": {
+            "launches_per_step": moe_train["k1_launches_per_step"],
+            "rows": [{k: row[k] for k in ("weight", "x", "M", "E", "K", "bn", "n_cols",
+                                          *timing_keys)} for row in moe_train[
+                                              "k1_expert_grid_rows"]]},
         # the zoo's layer 0 at 4 decode rows (bf16, structured r=0.05):
         # qwen3-4b's wq, mistral-large-123b's w_gate and w_down, whisper's
         # cross wq and wo, and the others' wq and w_down
@@ -2830,6 +3148,10 @@ def main() -> int:
         "launches": sum(k2_paths.values()),
         "launches_by_path": k2_paths,
         "max_abs_err": attn["fp32_max_abs_err"],
+        # ops.fused_attn_decode's forward (one K2 launch) and its backward
+        # (autograd of the plain composition) at qwen2's decode shapes, fp32
+        "vjp": {k: moe_train_parity["fused_attn_decode_vjp"][k]
+                for k in ("rel_err", "max_abs_err", "launches")},
         # one fused launch at the serving shapes: qwen2-1.5b layer 0, bf16,
         # batch 4, structured out-projection at r=0.05
         "ms": k2["ms"],

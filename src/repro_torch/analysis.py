@@ -138,18 +138,16 @@ def _forward_gemms(cfg, kind: str, knobs) -> int:
     (attention's four projections, GQA or MLA; an SSM block's six; a gated
     MLP's or shared experts' three; the routed experts are einsums), each
     paired weight's under ``"pallas_paired"`` (every decoder weight is
-    paired)."""
+    paired), and there an MoE layer's three expert-grid launches (gate, up
+    and down of every expert, on either branch) besides."""
     if knobs.gemm == "xla":
         return 0
-    if kind == "moe" and knobs.gemm == "pallas_paired":
-        raise ValueError("the paired expert grid has no backward: MoE layers do not train "
-                         "under gemm='pallas_paired'")
     attn = 4 if kind != "ssm" else 0
     if kind == "encdec":  # and the cross-attention's wq and wo
         attn += 2
     ssm = 6 if kind in ("ssm", "hybrid_full", "hybrid_swa") else 0
     if kind == "moe":
-        ffn = 3 if cfg.moe.n_shared else 0
+        ffn = (3 if knobs.gemm == "pallas_paired" else 0) + (3 if cfg.moe.n_shared else 0)
     else:
         ffn = 3 if kind != "ssm" and (not kind.startswith("hybrid") or cfg.d_ff) else 0
     return attn + ssm + ffn
@@ -159,8 +157,10 @@ def train_launches(cfg, knobs) -> int:
     """K1 launches of one training step (``launch.steps.build_train_step``)
     of ``cfg`` under ``knobs`` (``models.lm.PerfKnobs``), every decoder
     weight paired under ``gemm="pallas_paired"``: each layer's forward
-    GEMMs (7 in a dense GQA layer or an encoder layer, 9 with
-    cross-attention), and the same again under
+    GEMMs (7 in a dense GQA or MLA layer or an encoder layer, 9 with
+    cross-attention; an MoE layer 7 under ``"pallas_paired"``, 10 with
+    shared experts, and under ``"pallas"`` 4, or 7 with shared experts),
+    and the same again under
     ``remat="full"``, which reruns every layer's forward in the backward
     (``"dots"`` keeps K1's outputs).  The backward's GEMMs and the head are
     ``torch.matmul``; K2 and K3 run on no training path."""

@@ -10,10 +10,13 @@ pairing metadata (``core.transform.pair_lm_params``), and decode attention
 through the kernel that applies the paired out-projection in its flush; an
 MoE layer's experts run one projection each as one launch of the
 column-blocked kernel over the expert grid.  :func:`fused_dense` (K1's
-dense form) and :func:`fused_paired_dense` are differentiable, as the JAX
-package's custom VJPs are: the kernel's forward, a backward of
-``torch.matmul`` (the JAX package's XLA dots); the expert grid and decode
-attention are forward only.
+dense form), :func:`fused_paired_dense`, :func:`fused_paired_expert_dense`
+(the expert grid) and :func:`fused_attn_decode` (K2) are differentiable, as
+the JAX package's custom VJPs are: the kernel's forward, a backward of
+``torch.matmul``/``torch.einsum`` on the folded weights (the JAX package's
+XLA dots); :func:`paired_dense`, :func:`expert_dense` and
+:func:`attn_decode`, on segments a frozen serving block keeps, are forward
+only.
 The kernels' tiles are fixed (see ``csrc/``); the JAX package's tile cache
 has no counterpart yet.  Each call runs where its tensors lie: the CUDA
 kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
@@ -26,7 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pairing import BlockedPairing, StructuredPairing
-from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
+from repro_torch.kernels.decode_attention import (
+    decode_attention_plain,
+    fused_decode_attention_cuda,
+)
 from repro_torch.kernels.paired_matmul import (
     ACTIVATIONS,
     dense_matmul_cuda,
@@ -318,6 +324,20 @@ def paired_dense(
 # is frozen structure and takes no gradient.
 
 
+def _ref_grads(ref, tensors, needs, dy: torch.Tensor) -> list:
+    """The backward of a kernel's autograd Function: autograd of its plain
+    reference ``ref(*tensors)`` for cotangent ``dy``; a gradient for each
+    tensor whose ``needs`` entry (``ctx.needs_input_grad``, in the inputs'
+    order) is true, None for the others (a None tensor, integer positions)."""
+    with torch.enable_grad():
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(tensors, needs, strict=False)]  # needs: every input
+        y = ref(*inputs)
+        live = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(y, live, dy.to(y.dtype)))
+    return [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+
+
 def _act_grad(activation: str, z: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dy · act'(z)."""
     if activation == "none":
@@ -405,16 +425,9 @@ class _FusedPairedDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         meta, activation, pair_block_n = ctx.conf
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            x, w, b, res = inputs
-            y = fused_paired_dense_ref(x, w, meta, b, activation=activation, residual=res,
-                                       pair_block_n=pair_block_n)
-            live = [t for t in inputs if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(y, live, dy))
-        out = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
-        return (*out, None, None, None)
+        ref = lambda x, w, b, res: fused_paired_dense_ref(
+            x, w, meta, b, activation=activation, residual=res, pair_block_n=pair_block_n)
+        return (*_ref_grads(ref, ctx.saved_tensors, ctx.needs_input_grad, dy), None, None, None)
 
 
 def fused_paired_dense(
@@ -450,7 +463,11 @@ def fused_paired_dense(
 # (E, Bc, Pmax) makes E·Bc blocks of pair_block_n columns.  Either way the
 # result is (M, E, F): the einsum "tk,ekf->tef" (shared activations) or
 # "etk,ekf->tef" (per-expert activations, each block's rows gathered from
-# its own expert's).
+# its own expert's).  :func:`expert_dense` launches it on segments a frozen
+# serving block keeps; :func:`fused_paired_expert_dense` on segments of the
+# live weights, differentiably: its backward is autograd of that einsum on
+# the folded experts (``_fused_paired_expert_dense_grad`` of the JAX
+# package's ``kernels/ops.py``).
 
 
 def _expert_blocked_weights(w: torch.Tensor, n_blocks: int, bn: int) -> torch.Tensor:
@@ -515,6 +532,15 @@ def expert_rows(x: torch.Tensor, seg: PairedSegments, x_per_expert: bool) -> tor
     return xg.transpose(2, 3).reshape(EB, M, Kp)
 
 
+def _expert_grid(x, seg: PairedSegments, activation: str, x_per_expert: bool,
+                 gemm) -> torch.Tensor:
+    E, M = seg.n_experts, x.shape[-2]
+    EB, bn = seg.perm.shape[0], seg.kmat.shape[-1]
+    y = gemm(expert_rows(x, seg, x_per_expert), seg.kmat.to(x.dtype), seg.w_res.to(x.dtype),
+             None, None, EB * bn, activation)
+    return y.reshape(M, E, EB // E * bn)[..., : seg.n_cols // E]
+
+
 def expert_dense(
     x: torch.Tensor,
     seg: PairedSegments,
@@ -527,13 +553,81 @@ def expert_dense(
     ``x`` is shared (M, K) activations (``"tk,ekf->tef"``), or per-expert
     (E, M, K) ones with ``x_per_expert`` (``"etk,ekf->tef"``: expert ``e``'s
     rows meet expert ``e``'s weights only), gathered by :func:`expert_rows`;
-    ``activation`` fuses into the kernel's epilogue.
+    ``activation`` fuses into the kernel's epilogue.  Forward only, on the
+    segments a frozen serving block keeps (not through :func:`k1_op`, as
+    :func:`paired_dense`).
     """
-    E, M = seg.n_experts, x.shape[-2]
-    EB, bn = seg.perm.shape[0], seg.kmat.shape[-1]
-    y = paired_matmul_blocked(expert_rows(x, seg, x_per_expert), seg.kmat.to(x.dtype),
-                              seg.w_res.to(x.dtype), n_cols=EB * bn, activation=activation)
-    return y.reshape(M, E, EB // E * bn)[..., : seg.n_cols // E]
+    return _expert_grid(x, seg, activation, x_per_expert, _k1)
+
+
+def fused_paired_expert_dense_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    meta: dict,
+    *,
+    activation: str = "none",
+    x_per_expert: bool = False,
+    pair_block_n: int = 0,
+) -> torch.Tensor:
+    """The plain folded reference of :func:`fused_paired_expert_dense`:
+    ``act(einsum(eq, x, fold_lm_expert_weight(w)))``, the weights cast to x's
+    dtype, differentiable in ``x`` and ``w``; its autograd is the expert
+    grid's backward."""
+    eq = "etk,ekf->tef" if x_per_expert else "tk,ekf->tef"
+    wf = fold_lm_expert_weight(w.to(x.dtype), meta, pair_block_n)
+    return ACTIVATIONS[activation](torch.einsum(eq, x, wf))
+
+
+class _FusedPairedExpertDense(torch.autograd.Function):
+    """One K1 launch over the expert grid on segments of the live weights,
+    the folded reference's autograd as the backward
+    (``_fused_paired_expert_dense_grad`` of the JAX package's
+    ``kernels/ops.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, meta, activation, x_per_expert, pair_block_n):
+        seg = lm_expert_segments(w.to(x.dtype), meta, pair_block_n)
+        y = _expert_grid(x, seg, activation, x_per_expert, k1_op)
+        ctx.save_for_backward(x, w)
+        ctx.conf = (meta, activation, x_per_expert, pair_block_n)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        meta, activation, x_per_expert, pair_block_n = ctx.conf
+        ref = lambda x, w: fused_paired_expert_dense_ref(
+            x, w, meta, activation=activation, x_per_expert=x_per_expert,
+            pair_block_n=pair_block_n)
+        # dw comes back in w's dtype, as autograd gives a leaf's gradient
+        return (*_ref_grads(ref, ctx.saved_tensors, ctx.needs_input_grad, dy),
+                None, None, None, None)
+
+
+def fused_paired_expert_dense(
+    x: torch.Tensor,  # (M, K) shared or (E, M, K) per-expert activations
+    w: torch.Tensor,  # (E, K, F) live expert weights
+    meta: dict,  # (E, …) per-expert pairing metadata (core.transform.pair_params)
+    *,
+    activation: str = "none",
+    x_per_expert: bool = False,
+    pair_block_n: int = 0,
+) -> torch.Tensor:
+    """Differentiable per-expert paired GEMM → (M, E, F): what
+    :func:`expert_dense` computes, from the live weights.
+
+    ``(E, Pmax)`` lane lists select the structured-per-expert layout (each
+    expert one kernel block of all F columns), ``(E, Bc, Pmax)`` the
+    blocked-within-expert one (``pair_block_n`` columns a block, as the
+    metadata was built).  One K1 launch forward, through :func:`k1_op` (so
+    ``remat="dots"`` keeps its output), on :func:`lm_expert_segments` of
+    ``w`` in x's dtype; the backward is :func:`fused_paired_expert_dense_ref`'s
+    with respect to ``x`` and ``w`` (``dw`` in w's dtype).  The metadata
+    takes no gradient.
+    """
+    if meta["I"].ndim == 3 and pair_block_n < 1:
+        raise ValueError("blocked expert pairing metadata needs pair_block_n >= 1")
+    return _FusedPairedExpertDense.apply(x, w, meta, activation, bool(x_per_expert),
+                                         pair_block_n)
 
 
 # ---------------------------------------------------------------------------
@@ -601,6 +695,53 @@ def attn_decode(
     return y[:, None]
 
 
+def fused_attn_decode_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,
+    w: torch.Tensor,
+    meta: dict | None = None,
+    *,
+    residual: torch.Tensor | None = None,
+    pair_block_n: int = 0,
+    window: int = 0,
+    n_sink: int = 0,
+) -> torch.Tensor:
+    """The plain composition :func:`fused_attn_decode` computes: the plain
+    decode attention under the same window and sinks, its rows in q's dtype
+    through ``fold_lm_weight(w)`` (``w`` itself when ``meta`` is None), plus
+    the residual; differentiable in every tensor but ``pos`` and ``meta``,
+    and its autograd is the fused op's backward."""
+    out = decode_attention_plain(q, k_cache, v_cache, pos, window=window, n_sink=n_sink)
+    wf = w if meta is None else fold_lm_weight(w, meta, pair_block_n)
+    z = torch.matmul(out.reshape(*out.shape[:2], -1), wf.to(out.dtype))
+    return z if residual is None else z + residual.to(z.dtype)
+
+
+class _FusedAttnDecode(torch.autograd.Function):
+    """One K2 launch on :func:`attn_outproj_segments` of the live weights,
+    the plain composition's autograd as the backward
+    (``_fused_attn_decode_grad`` of the JAX package's ``kernels/ops.py``)."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, pos, w, residual, meta, pair_block_n, window, n_sink):
+        y = attn_decode(q, k_cache, v_cache, pos, attn_outproj_segments(w, meta, pair_block_n),
+                        residual=residual, window=window, n_sink=n_sink)
+        ctx.save_for_backward(q, k_cache, v_cache, pos, w, residual)
+        ctx.conf = (meta, pair_block_n, window, n_sink)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        meta, pair_block_n, window, n_sink = ctx.conf
+        ref = lambda q, kc, vc, pos, w, res: fused_attn_decode_ref(
+            q, kc, vc, pos, w, meta, residual=res, pair_block_n=pair_block_n, window=window,
+            n_sink=n_sink)
+        return (*_ref_grads(ref, ctx.saved_tensors, ctx.needs_input_grad, dy),
+                None, None, None, None)
+
+
 def fused_attn_decode(
     q: torch.Tensor,  # (B, 1, H, D) one post-rope query row per slot
     k_cache: torch.Tensor,  # (B, S, KH, D)
@@ -614,16 +755,18 @@ def fused_attn_decode(
     window: int = 0,
     n_sink: int = 0,
 ) -> torch.Tensor:
-    """Fused decode attention + paired out-projection (forward only).
+    """Differentiable fused decode attention + paired out-projection.
 
-    One launch per decode step: attention over the KV cache with the
+    One K2 launch per decode step: attention over the KV cache with the
     out-projection (and the sublayer residual) applied in the kernel's
-    flush.  ``meta`` is the out-projection's pairing in either LM layout, or
-    ``None`` for an unpaired weight.  Returns (B, 1, N).
+    flush, on :func:`attn_outproj_segments` of the live ``w``.  ``meta`` is
+    the out-projection's pairing in either LM layout, or ``None`` for an
+    unpaired weight.  Returns (B, 1, N).  The backward is
+    :func:`fused_attn_decode_ref`'s, for ``q``, the caches, ``w`` and the
+    residual; ``pos`` and the metadata take none.
     """
-    return attn_decode(q, k_cache, v_cache, pos,
-                       attn_outproj_segments(w, meta, pair_block_n),
-                       residual=residual, window=window, n_sink=n_sink)
+    return _FusedAttnDecode.apply(q, k_cache, v_cache, pos, w, residual, meta, pair_block_n,
+                                  window, n_sink)
 
 
 def paired_mode_of(knobs) -> tuple[str, int]:

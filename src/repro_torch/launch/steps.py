@@ -6,8 +6,12 @@ its abstract-shape builders for the dry run have no counterpart.  The GEMM
 policy comes from ``knobs``, as the JAX package's ``perf_context(knobs)``
 sets it: under ``gemm="pallas"`` every layer GEMM's forward is a launch of
 K1's dense form, under ``"pallas_paired"`` every weight that carries
-pairing metadata is one of K1's paired forms; the backward is
-``torch.matmul`` either way (``kernels.ops``).
+pairing metadata is one of K1's paired forms, an MoE layer's experts one
+launch a projection over the expert grid; the backward is ``torch.matmul``
+or ``torch.einsum`` on the folded weights either way (``kernels.ops``).
+Every family trains: dense, MoE (olmoe, deepseek with MLA and shared
+experts), SSM, hybrid, encoder-decoder and vision-language models, the last
+two with their ``frames`` or ``patches`` in the batch.
 """
 from __future__ import annotations
 

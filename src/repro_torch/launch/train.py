@@ -23,7 +23,10 @@ paired forms on metadata built by ``pair_lm_params`` at ``--pair-rounding``
 and ``--pair-block-n``, as the serving engine builds it), the knobs the JAX
 package's train step already takes; without it the CLI reaches no kernel.
 Weights are random from seed 0 (``models.lm.init_lm``), fp32 masters,
-computed in the config's dtype.
+computed in the config's dtype.  A vision-language model trains on zero
+patches and an encoder-decoder model on zero frames, as the JAX CLI does
+(:func:`train_extras`).  Every family trains under every ``--gemm``: an MoE
+layer's experts run on K1's expert grid under ``pallas_paired``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,22 @@ from repro_torch.launch.steps import build_train_step
 from repro_torch.models import lm as M
 from repro_torch.train.checkpoint import latest_step, restore_train_state, save_train_state
 from repro_torch.train.optimizer import adamw, cosine_schedule
+
+
+def train_extras(cfg, batch: int, device) -> dict[str, torch.Tensor]:
+    """What the JAX CLI feeds beside the tokens: zero ``patches`` (batch,
+    vision_prefix, vision_embed_dim) for a vision-language model, zero
+    ``frames`` (batch, encoder frames, d_model) for an encoder-decoder one,
+    in the config's dtype."""
+    cdt = M.compute_dtype(cfg)
+    extras = {}
+    if cfg.vision_prefix:
+        extras["patches"] = torch.zeros((batch, cfg.vision_prefix, cfg.vision_embed_dim),
+                                        dtype=cdt, device=device)
+    if cfg.encoder is not None:
+        extras["frames"] = torch.zeros((batch, cfg.encoder.frames, cfg.d_model), dtype=cdt,
+                                       device=device)
+    return extras
 
 
 def train(
@@ -98,13 +117,14 @@ def train(
         print(f"[train] resumed from step {start}")
 
     data = token_batches(batch, seq, cfg.vocab, seed=1, start_step=start)
+    extras = train_extras(cfg, batch, dev)
     history: list[dict[str, float]] = []
     step_ms: list[float] = []
     t0 = time.time()
     for i in range(start, steps):
         tok, lab = next(data)
         b = {"tokens": torch.as_tensor(tok, dtype=torch.int64, device=dev),
-             "labels": torch.as_tensor(lab, dtype=torch.int64, device=dev)}
+             "labels": torch.as_tensor(lab, dtype=torch.int64, device=dev), **extras}
         t_step = time.perf_counter()
         metrics = {k: float(v) for k, v in step_fn(model, opt_state, i, b).items()}
         step_ms.append((time.perf_counter() - t_step) * 1e3)

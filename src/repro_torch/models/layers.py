@@ -22,8 +22,8 @@ Conventions, as in the JAX package:
   package, no kernel); its down- and out-projections are paired GEMMs;
 * MoE layers route each token to its top-k experts; every expert's GEMM of
   one projection runs as one paired launch over the expert grid
-  (``kernels.ops.expert_dense``); shared experts run beside them as a gated
-  MLP;
+  (``kernels.ops.expert_dense``, or ``fused_paired_expert_dense`` under
+  autograd); shared experts run beside them as a gated MLP;
 * a Mamba-2 block (:class:`Mamba`) projects through :func:`dense` (six
   paired GEMMs), runs a depthwise causal conv and the chunked SSD scan
   (:func:`ssd_scan`) over a prompt, or one step of the state recurrence
@@ -591,8 +591,14 @@ def attention_decode_block(
         return attn_out_proj(p, out, knobs, residual=residual), cache
     cdt = x.dtype
     meta = p.pairing.get("wo") if paired else None
+    bn = knobs.pair_block_n if paired else 0
+    if not p.frozen and torch.is_grad_enabled():  # from the live weights, differentiably
+        y = ops.fused_attn_decode(q, k_cache, v_cache, pos, p.matrix("wo", cdt), meta,
+                                  residual=residual, pair_block_n=bn, window=window,
+                                  n_sink=n_sink)
+        return y, cache
     seg = p.derived(("attn_out", cdt, meta is not None), lambda: ops.attn_outproj_segments(
-        p.matrix("wo", cdt), meta, knobs.pair_block_n if paired else 0))
+        p.matrix("wo", cdt), meta, bn))
     y = ops.attn_decode(q, k_cache, v_cache, pos, seg, residual=residual,
                         window=window, n_sink=n_sink)
     return y, cache
@@ -792,14 +798,16 @@ def _moe_combine(B: int, S: int, d: int, yb: torch.Tensor, inv_tok: torch.Tensor
 def _expert_dense(p: MoE, name: str, x: torch.Tensor, knobs, *, act=None,
                   per_expert: bool = False) -> torch.Tensor:
     """Every expert's GEMM against weight ``name`` of ``p`` as one paired
-    launch over the expert grid → (M, E, F); the segments kept on a frozen
-    block."""
+    launch over the expert grid → (M, E, F): under grad with a trainable
+    weight, differentiably from its live values
+    (``ops.fused_paired_expert_dense``); otherwise on segments, kept on a
+    frozen block."""
     cdt = x.dtype
-    if torch.is_grad_enabled() and getattr(p, name).requires_grad:
-        raise NotImplementedError(
-            "the paired expert grid is forward only: its backward (the JAX package's "
-            "_fused_paired_expert_dense_grad) is not ported; train MoE models under "
-            "gemm='xla' or 'pallas'")
+    w = getattr(p, name)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return ops.fused_paired_expert_dense(x, w.to(cdt), p.pairing[name],
+                                             activation=act or "none", x_per_expert=per_expert,
+                                             pair_block_n=knobs.pair_block_n)
     seg = p.derived(("paired", name, cdt), lambda: ops.lm_expert_segments(
         getattr(p, name).to(cdt), p.pairing[name], knobs.pair_block_n))
     return ops.expert_dense(x, seg, activation=act or "none", x_per_expert=per_expert)
@@ -826,8 +834,10 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
     in the JAX package.
 
     Under ``knobs.gemm == "pallas_paired"`` with expert pairing metadata,
-    each projection of all experts is one paired launch
-    (:func:`_expert_dense`); otherwise ``torch.einsum`` as the JAX package's
+    each projection of all experts is one paired launch over the expert grid
+    (:func:`_expert_dense`), on both branches and in training too: its
+    backward is autograd of the einsum on the folded experts, as the JAX
+    package's custom VJP; otherwise ``torch.einsum`` as the JAX package's
     ``jnp.einsum``.
     """
     mo = cfg.moe

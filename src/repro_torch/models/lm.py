@@ -819,12 +819,18 @@ def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFA
 
     ``batch`` holds ``"tokens"`` and ``"labels"`` (B, S), and the
     :data:`EXTRAS` the model needs; a negative label masks its position, as
-    does a vision-language model's patch positions.  Returns ``(loss,
+    does a vision-language model's patch positions (a sequence no longer
+    than ``vision_prefix`` raises).  Returns ``(loss,
     {"xent", "aux"})``, fp32 scalars, as the JAX package's ``lm_loss``.
     Under ``knobs.gemm="pallas"`` or ``"pallas_paired"`` every layer GEMM's
     forward is a K1 launch and its backward ``torch.matmul``
     (``kernels.ops``)."""
     labels = batch["labels"]
+    if cfg.vision_prefix and labels.shape[1] <= cfg.vision_prefix:
+        # the JAX package's lm_loss fails on a shorter one and returns 0 on
+        # one of vision_prefix tokens
+        raise ValueError(f"{cfg.name}: a sequence of {labels.shape[1]} tokens leaves no "
+                         f"labelled position after the {cfg.vision_prefix} patch positions")
     mask = (labels >= 0).float()
     if cfg.vision_prefix:  # patch positions carry no token labels
         mask = mask * (torch.arange(labels.shape[1], device=labels.device) >= cfg.vision_prefix)

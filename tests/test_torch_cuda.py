@@ -24,7 +24,10 @@ smoke engine at r = 0.  The LM training path: K1's differentiable GEMMs forward 
 backward against their plain versions, and a training step of the qwen2
 smoke model on the card against the CPU under every K1 policy (loss within
 1e-5, gradients within rtol 1e-4, atol 1e-5), launching K1 as
-``analysis.train_launches`` says.
+``analysis.train_launches`` says; the expert grid's and the fused decode
+attention's differentiable ops forward and backward against their plain
+compositions, and a training step of the olmoe and deepseek smoke models
+(the experts on the expert grid) on the card against the CPU.
 """
 import dataclasses
 
@@ -789,3 +792,134 @@ def _numpy_tree(tree):
     if isinstance(tree, list):
         return [_numpy_tree(v) for v in tree]
     return tree.numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("block_n", [0, 3])
+def test_expert_grid_function_forward_and_backward(cuda, dtype, per_expert, block_n):
+    """``ops.fused_paired_expert_dense`` on the card, structured and blocked
+    within each expert (bn 3 leaves a short last block of 13 columns): one
+    K1 launch forward, none backward; the output within 1e-5 relative of its
+    plain reference (fp32) or 2 ulps of K1's fp32 oracle (bf16); ``dx`` and
+    ``dw`` within 1e-5 relative of autograd of the reference in fp32."""
+    from repro_torch.core.pairing import pair_rows_structured
+    from repro_torch.core.transform import _stack_structured
+
+    g = torch.Generator().manual_seed(9)
+    E, K, F, Mr = 8, 40, 13, 6
+    w0 = torch.randn(E, K, F, generator=g) * 0.3
+    if block_n:
+        meta = _stack_blocked([pair_rows_blocked(w0[e].double().numpy(), 0.3, block_n)
+                               for e in range(E)])
+    else:
+        meta = _stack_structured([pair_rows_structured(w0[e].double().numpy(), 0.3)
+                                  for e in range(E)])
+    assert meta["pair_mask"].sum() > 0
+    meta = {k: torch.as_tensor(v, device=cuda) for k, v in meta.items()}
+    meta.update({k: meta[k].long() for k in ("I", "J", "resid")})
+    x = torch.randn(*((E, Mr, K) if per_expert else (Mr, K)), generator=g).to(cuda, dtype)
+    x.requires_grad_()
+    w = w0.to(cuda, dtype).requires_grad_()
+    kw = dict(activation="silu", x_per_expert=per_expert, pair_block_n=block_n)
+    y = ops.fused_paired_expert_dense(x, w, meta, **kw)
+    assert pm.LAUNCHES == {"paired_matmul_blocked": 1} and y.shape == (Mr, E, F)
+    dy = torch.randn(y.shape, generator=g).to(cuda, dtype)
+    grads = torch.autograd.grad(y, (x, w), dy)
+    assert pm.launch_count() == 1
+    want = ops.fused_paired_expert_dense_ref(x, w, meta, **kw)
+    want_grads = torch.autograd.grad(want, (x, w), dy)
+    if dtype == torch.float32:
+        assert rel_err(y, want) <= RTOL
+        for got, ref in zip(grads, want_grads, strict=True):
+            assert rel_err(got, ref) <= RTOL
+    else:
+        def oracle_gemm(xg, kmat, w_res, bias, residual, n_cols, act):
+            return pm.paired_matmul_blocked_plain(xg, kmat, w_res, n_cols=n_cols,
+                                                  activation=act, out_dtype=torch.float32)
+
+        seg = ops.lm_expert_segments(w.detach(), meta, block_n)
+        oracle = ops._expert_grid(x.detach(), seg, "silu", per_expert, oracle_gemm)
+        assert bf16_ulps(y, oracle) <= BF16_ULPS
+        for got, ref in zip(grads, want_grads, strict=True):
+            assert got.dtype == ref.dtype and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("block_n,window,n_sink", [(None, 0, 0), (0, 0, 0), (4, 16, 3)])
+def test_fused_attn_decode_grads_on_the_card(cuda, block_n, window, n_sink):
+    """``ops.fused_attn_decode`` on the card, fp32: one K2 launch forward,
+    none backward; the output within 2e-5 and the gradients of q, the
+    caches, w and the residual within 1e-5 relative of autograd of the plain
+    composition (``fused_attn_decode_ref``)."""
+    from repro_torch.core.pairing import pair_rows_structured
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, S, H, KH, D, N = 3, 77, 6, 2, 64, 100
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    w = rnd(H * D, N) * 0.03
+    w64 = w.double().cpu().numpy()
+    if block_n is None:
+        meta, bn = None, 0
+    elif block_n:
+        meta, bn = {k: v[0] for k, v in _stack_blocked([pair_rows_blocked(w64, 0.05, block_n)]
+                                                     ).items()}, block_n
+    else:
+        sp = pair_rows_structured(w64, 0.05)
+        meta, bn = {"I": sp.I, "J": sp.J, "resid": sp.resid, "pair_mask": np.ones(sp.n_pairs),
+                    "resid_mask": np.ones(len(sp.resid))}, 0
+    if meta is not None:
+        meta = {k: torch.as_tensor(v, device="cuda").to(
+            torch.float32 if k.endswith("mask") else torch.int64) for k, v in meta.items()}
+        assert meta["pair_mask"].sum() > 0
+    live = [rnd(B, 1, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D), w, rnd(B, 1, N)]
+    live = [t.requires_grad_() for t in live]
+    pos = torch.tensor([0, 40, S - 1], dtype=torch.int32, device="cuda")
+    kw = dict(pair_block_n=bn, window=window, n_sink=n_sink)
+    q, kc, vc, tw, res = live
+    y = ops.fused_attn_decode(q, kc, vc, pos, tw, meta, residual=res, **kw)
+    assert da.launch_count() == 1
+    dy = rnd(*y.shape)
+    grads = torch.autograd.grad(y, live, dy)
+    assert da.launch_count() == 1 and pm.launch_count() == 0
+    want = ops.fused_attn_decode_ref(q, kc, vc, pos, tw, meta, residual=res, **kw)
+    assert rel_err(y, want) <= ATTN_RTOL
+    for got, ref in zip(grads, torch.autograd.grad(want, live, dy), strict=True):
+        assert rel_err(got, ref) <= RTOL
+
+
+@pytest.mark.parametrize("arch,block_n", [("olmoe-1b-7b", 0), ("olmoe-1b-7b", 16),
+                                          ("deepseek-v2-lite-16b", 0)])
+def test_moe_training_step_on_the_card_matches_the_cpu(cuda, arch, block_n):
+    """A training step's loss and gradients of the MoE smoke models under
+    ``gemm="pallas_paired"`` at r = 0.05, fp32, on the routed branch (2 ×
+    12 tokens): the card's (the experts on K1's expert grid) against the
+    CPU's (its plain version) within 1e-5 (loss) and rtol 1e-4 / atol 1e-5,
+    K1 launched as ``analysis.train_launches`` says."""
+    from repro_torch.analysis import train_launches
+    from repro_torch.core.transform import pair_lm_params
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    values = M.lm_value_tree(M.init_lm(cfg, 0, device="cpu"))
+    knobs = M.PerfKnobs(q_chunk=16, k_chunk=16, xent_chunk=8, gemm="pallas_paired",
+                        pair_block_n=block_n)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+    assert tokens.size * cfg.moe.top_k > 2 * cfg.moe.n_experts  # routed
+
+    def run(device):
+        model = M.lm_params_from_numpy(_numpy_tree(values), cfg, device=device)
+        mode = "column_blocked" if block_n else "structured"
+        model, _ = pair_lm_params(model, 0.05, mode=mode, block_n=block_n)
+        model.requires_grad_(True)
+        t = torch.as_tensor(tokens, device=device)
+        before = pm.launch_count()
+        loss, _ = M.lm_loss(cfg, model, {"tokens": t, "labels": t}, knobs=knobs)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        return float(loss), grads, pm.launch_count() - before
+
+    (l_gpu, g_gpu, n_gpu), (l_cpu, g_cpu, n_cpu) = run(cuda), run("cpu")
+    assert (n_gpu, n_cpu) == (train_launches(cfg, knobs), 0)
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for name, g in g_cpu.items():
+        np.testing.assert_allclose(g_gpu[name].numpy(), g.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=name)

@@ -8,6 +8,7 @@ versions (``decode_attention_plain``, ``fused_decode_attention_plain``).
 Same numpy inputs, fp32, within 2e-5 (the JAX decode tests' tolerance);
 bf16, bare and fused, within one output ulp of the JAX kernel's output.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,3 +210,110 @@ def test_fused_op_bf16_matches_jax(S):
                                 pair_block_n=4)
     assert got.dtype == torch.bfloat16 and got.shape == (2, 1, 12)
     assert bf16_ulps(got, np.asarray(want, np.float32)) <= BF16_ULPS
+
+
+# ---------------------------------------------------------------------------
+# the fused op's gradients (the VJP of the JAX package's fused_attn_decode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout,rounding,window,n_sink,residual", [
+    (None, 0.0, 0, 0, True),            # unpaired
+    (None, 0.0, 6, 2, False),           # unpaired, window + sinks
+    ("structured", 0.0, 0, 0, True),    # r=0: every lane residual
+    ("structured", 0.05, 6, 2, True),
+    ("blocked", 0.0, 6, 0, False),      # bn 1, sliding window
+    ("blocked", 0.05, 6, 2, True),      # bn 1, window + sinks
+])
+def test_fused_op_grads_match_jax_vjp(layout, rounding, window, n_sink, residual):
+    """``ops.fused_attn_decode``'s gradients for q, both caches, the live
+    out-projection weights and the residual against ``jax.vjp`` of the JAX
+    op (its forward the Pallas kernel in interpret mode, its backward the
+    XLA reference), for one random cotangent; slots at 0 and S − 1.  rtol
+    1e-4 / atol 1e-5, the JAX package's gradient tolerance."""
+    block_n = 1 if layout == "blocked" else 0
+    rng, arrays = _inputs(31 + block_n + int(100 * rounding) + window + n_sink, S=24,
+                          pos=[0, 23])
+    # std 0.03: structured pairing pairs rows at r = 0.05
+    w = (rng.normal(size=(32, 12)) * 0.03).astype(np.float32)
+    res = rng.normal(size=(2, 1, 12)).astype(np.float32) if residual else None
+    meta = None if layout is None else _meta(w, rounding, block_n)
+    if rounding:
+        assert meta["pair_mask"].sum() > 0
+    dy = rng.normal(size=(2, 1, 12)).astype(np.float32)
+    q, kc, vc, pos = arrays
+    kw = dict(pair_block_n=block_n, window=window, n_sink=n_sink)
+    jmeta = None if meta is None else {k: jnp.asarray(v) for k, v in meta.items()}
+
+    def f(q, kc, vc, w, res):
+        return j_ops.fused_attn_decode(q, kc, vc, jnp.asarray(pos), w, jmeta, residual=res,
+                                       k_chunk=8, interpret=True, **kw)
+
+    primals = [q, kc, vc, w] + ([res] if residual else [])
+    y, vjp = jax.vjp(lambda *a: f(*a[:4], a[4] if residual else None),
+                     *map(jnp.asarray, primals))
+    want = vjp(jnp.asarray(dy))
+    tmeta = None if meta is None else {
+        k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
+        for k, v in meta.items()}
+    tp = [torch.as_tensor(a).requires_grad_() for a in primals]
+    got = ops.fused_attn_decode(tp[0], tp[1], tp[2], torch.as_tensor(pos), tp[3], tmeta,
+                                residual=tp[4] if residual else None, **kw)
+    _close(got.detach(), y)
+    got.backward(torch.as_tensor(dy))
+    for name, t, g in zip(("q", "k_cache", "v_cache", "w", "residual"), tp, want,
+                          strict=False):  # no residual: four
+        assert t.grad.dtype == t.dtype
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+    assert float(tp[1].grad.abs().sum()) > 0  # the keys carry the softmax's gradient
+
+
+def test_fused_op_backward_is_the_plain_composition():
+    """The op's gradients equal autograd of ``fused_attn_decode_ref`` (the
+    plain decode attention through the folded out-projection) and take no
+    kernel launch; ``pos`` takes none."""
+    rng, arrays = _inputs(41, S=20, pos=[0, 13])
+    w = (rng.normal(size=(32, 12)) * 0.3).astype(np.float32)
+    meta = {k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
+            for k, v in _meta(w, 0.3, 5).items()}
+    dy = torch.as_tensor(rng.normal(size=(2, 1, 12)).astype(np.float32))
+    grads = []
+    for fn in (ops.fused_attn_decode, ops.fused_attn_decode_ref):
+        q, kc, vc, tw = (torch.as_tensor(a).requires_grad_() for a in (*arrays[:3], w))
+        y = fn(q, kc, vc, torch.as_tensor(arrays[3]), tw, meta, pair_block_n=5, window=8,
+               n_sink=2)
+        grads.append(torch.autograd.grad(y, (q, kc, vc, tw), dy))
+    for g, r in zip(*grads, strict=True):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+
+
+def test_decode_layer_differentiates_through_the_fused_op():
+    """A decode layer whose block is not frozen, under grad and
+    ``attn="pallas_fused"``, calls the differentiable op on the live
+    weights: its output and the gradients of the weights equal the unfused
+    path's (plain attention, then the out-projection) at r = 0."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.transform import pair_lm_params
+    from repro_torch.models import lm as TM
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    cfg = type(cfg)(**{**cfg.__dict__, "dtype": "float32"})
+    model, _ = pair_lm_params(TM.init_lm(cfg, 0, device="cpu"), 0.0)
+    model.requires_grad_(True)
+    attn = model.layers[0].attn
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32))
+    pos = torch.as_tensor([0, 5])
+    outs = []
+    for fused in ("xla", "pallas_fused"):
+        knobs = TM.PerfKnobs(gemm="pallas_paired", attn=fused)
+        cache = {n: torch.as_tensor(rng.normal(size=(2, 8, cfg.n_kv_heads, cfg.head_dim))
+                                    .astype(np.float32)) for n in ("k", "v")} if not outs \
+            else {n: c.detach().clone() for n, c in outs[0][2].items()}
+        start = {n: c.clone() for n, c in cache.items()}
+        y, _ = TL.attention_decode_block(cfg, attn, x, cache, pos, knobs, residual=x)
+        (g,) = torch.autograd.grad(y.pow(2).sum(), attn.wo)
+        outs.append((y.detach(), g, start))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-4, atol=1e-5)

@@ -16,7 +16,8 @@ seeded numpy batch; JAX on the CPU, its Pallas kernels in interpret mode
   (the JAX package's own metadata): loss within 1e-5 relative, gradients
   within rtol 1e-4, atol 1e-5 (``test_lm_loss_grad_r0_parity``'s);
 * the three remat modes: equal losses and gradients, to the bit;
-* K1 calls of a training step against ``analysis.train_launches``;
+* K1 calls of a training step against ``analysis.train_launches``, the
+  MoE families' expert grid among them;
 * ``pair_model_params``: folded leaves equal to the JAX function's to the
   bit, the report leaf for leaf.
 """
@@ -48,20 +49,29 @@ B, S = 2, 7
 CHUNK = 4  # flash-attention blocks: two, the second ragged
 
 
-def _values(arch="qwen2-1.5b", scale=1.0):
-    """JAX smoke values (numpy, fp32); the layer matrices times ``scale``
-    (0.3 makes every pairing mode pair lanes at r = 0.05), random biases and
-    norm scales so their gradients carry signal."""
-    cfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+def _values(arch="qwen2-1.5b", scale=1.0, cfg=None):
+    """JAX smoke values (numpy, fp32) of ``arch`` (or of the JAX config
+    ``cfg``); the layer matrices (attention's, MLA's, the MLP's, the
+    experts' and shared experts', the SSM block's and the cross-attention's,
+    the encoder's too) times ``scale`` (0.3 makes every pairing mode pair
+    lanes at r = 0.05), random biases and norm scales so their gradients
+    carry signal."""
+    cfg = cfg or dataclasses.replace(jax_smoke_config(arch), dtype="float32")
     vals = jax.tree.map(np.asarray, unzip(JM.init_lm(cfg, jax.random.key(0)))[0])
     rng = np.random.default_rng(0)
-    for seg in vals["segments"]:
-        for sub in ("attn", "mlp"):
-            for name, a in seg.get(sub, {}).items():
-                if name.startswith("w"):
-                    seg[sub][name] = (a * scale).astype(np.float32)
-                elif name.startswith("b"):
-                    seg[sub][name] = (0.1 * rng.normal(size=a.shape)).astype(np.float32)
+
+    def block(sub: dict):
+        for name, a in sub.items():
+            if isinstance(a, dict):  # an MoE layer's shared experts
+                block(a)
+            elif name.startswith("w"):
+                sub[name] = (a * scale).astype(np.float32)
+            elif name.startswith("b"):
+                sub[name] = (0.1 * rng.normal(size=a.shape)).astype(np.float32)
+
+    for seg in vals["segments"] + vals.get("encoder", {}).get("segments", []):
+        for sub in ("attn", "mlp", "moe", "mamba", "xattn"):
+            block(seg.get(sub, {}))
         for norm in ("ln1", "ln2"):
             if norm in seg:
                 seg[norm]["scale"] = (1 + 0.1 * rng.normal(size=seg[norm]["scale"].shape)
@@ -77,12 +87,14 @@ def _batch(vocab, seed=5):
     return tokens, labels
 
 
-def _port(cfg, values, knobs, tokens, labels):
-    """The port's loss, metrics and gradients (by parameter name)."""
+def _port(cfg, values, knobs, tokens, labels, extras=None):
+    """The port's loss, metrics and gradients (by parameter name);
+    ``extras`` the numpy ``frames`` or ``patches`` beside the tokens."""
     model = TM.lm_params_from_numpy(values, cfg, device="cpu")
     model.requires_grad_(True)
     batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64),
-             "labels": torch.as_tensor(labels, dtype=torch.int64)}
+             "labels": torch.as_tensor(labels, dtype=torch.int64),
+             **{k: torch.as_tensor(v) for k, v in (extras or {}).items()}}
     loss, metrics = TM.lm_loss(cfg, model, batch, knobs=knobs)
     loss.backward()
     grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
@@ -98,8 +110,9 @@ def _jax_loss_and_grad(cfg, knobs):
     return jax.jit(jax.value_and_grad(f, has_aux=True, allow_int=True))
 
 
-def _jax(cfg, values, knobs, tokens, labels):
-    batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+def _jax(cfg, values, knobs, tokens, labels, extras=None):
+    batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels),
+             **{k: jnp.asarray(v) for k, v in (extras or {}).items()}}
     (loss, metrics), grads = _jax_loss_and_grad(cfg, knobs)(
         jax.tree.map(jnp.asarray, values), batch)
     return float(loss), {k: float(v) for k, v in metrics.items()}, grads
@@ -107,22 +120,41 @@ def _jax(cfg, values, knobs, tokens, labels):
 
 def _port_grad_tree(cfg, grads):
     """The port's gradients (by parameter name) in the JAX value tree's
-    layout: each segment's per-layer gradients stacked."""
-    out, start = {"embed": grads["embed"], "final_norm": {"scale": grads["final_norm.scale"]},
-                  "segments": []}, 0
-    for _, count in cfg.segments():
-        seg: dict = {}
-        for name in grads:
-            parts = name.split(".")
-            if parts[0] != "layers" or not start <= int(parts[1]) < start + count:
-                continue
-            node = seg
-            for p in parts[2:-1]:
-                node = node.setdefault(p, {})
-            node.setdefault(parts[-1], []).append(grads[name])
-        out["segments"].append(jax.tree.map(np.stack, seg, is_leaf=lambda x: isinstance(x, list)))
-        start += count
-    return out
+    layout: the top-level leaves nested by name (``embed``, ``lm_head``,
+    ``final_norm``, ``meta``, ``vision_proj``, the encoder's norm), each
+    segment's per-layer gradients stacked, the encoder's segment too."""
+    def stacked(prefix: str, segments) -> list:
+        out, start = [], 0
+        for _, count in segments:
+            seg: dict = {}
+            for name, g in grads.items():
+                if not name.startswith(prefix + "."):
+                    continue
+                parts = name[len(prefix) + 1:].split(".")
+                if not start <= int(parts[0]) < start + count:
+                    continue
+                node = seg
+                for p in parts[1:-1]:
+                    node = node.setdefault(p, {})
+                node.setdefault(parts[-1], []).append(g)
+            out.append(jax.tree.map(np.stack, seg, is_leaf=lambda x: isinstance(x, list)))
+            start += count
+        return out
+
+    tree: dict = {}
+    for name, g in grads.items():
+        parts = name.split(".")
+        if "layers" in parts:
+            continue
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = g
+    tree["segments"] = stacked("layers", cfg.segments())
+    if cfg.encoder is not None:
+        tree["encoder"]["segments"] = stacked("encoder.layers",
+                                              (("dense", cfg.encoder.n_layers),))
+    return tree
 
 
 def _assert_grads(got_tree, jax_grads, what):
@@ -283,11 +315,16 @@ def test_remat_modes_give_equal_loss_and_grads(gemm, block_n):
 
 @pytest.mark.parametrize("remat", ["full", "dots", "none"])
 @pytest.mark.parametrize("arch,gemm", [("qwen2-1.5b", "pallas"), ("qwen2-1.5b", "pallas_paired"),
-                                       ("mamba2-2.7b", "pallas_paired"), ("hymba-1.5b", "pallas")])
+                                       ("mamba2-2.7b", "pallas_paired"), ("hymba-1.5b", "pallas"),
+                                       ("olmoe-1b-7b", "pallas_paired"),
+                                       ("deepseek-v2-lite-16b", "pallas_paired"),
+                                       ("deepseek-v2-lite-16b", "pallas")])
 def test_k1_calls_of_a_training_step(arch, gemm, remat):
     """A training step calls K1 as ``analysis.train_launches`` says it
-    launches it: each layer GEMM's forward once, again in the recompute
-    under remat "full", never in the backward."""
+    launches it: each layer GEMM's forward once (an MoE layer's three
+    expert-grid launches under "pallas_paired", on the routed branch here:
+    2 × 7 tokens at top-2 of 8 experts), again in the recompute under remat
+    "full", never in the backward."""
     from repro_torch.core.transform import pair_lm_params
     from repro_torch.launch.steps import build_train_step
     from repro_torch.train.optimizer import adamw
@@ -305,27 +342,8 @@ def test_k1_calls_of_a_training_step(arch, gemm, remat):
     assert c["k1_calls"] == train_launches(cfg, knobs) > 0
     assert c["k1_launches"] == 0  # the CPU runs the plain versions
     assert set(metrics) == {"loss", "xent", "aux"}
-
-
-def test_train_launches_refuses_the_paired_expert_grid():
-    cfg = get_smoke_config("olmoe-1b-7b")
-    with pytest.raises(ValueError, match="expert grid"):
-        train_launches(cfg, TM.PerfKnobs(gemm="pallas_paired"))
-    assert train_launches(cfg, TM.PerfKnobs(gemm="xla")) == 0
-
-
-def test_paired_expert_grid_refuses_to_train():
-    """The expert grid is forward only: a step through it raises rather
-    than leaving the experts' gradients at zero."""
-    from repro_torch.core.transform import pair_lm_params
-
-    cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"), dtype="float32")
-    model, _ = pair_lm_params(TM.init_lm(cfg, 0, device="cpu"), 0.0)
-    model.requires_grad_(True)
-    tokens = torch.as_tensor(_batch(cfg.vocab)[0], dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="expert grid"):
-        TM.lm_loss(cfg, model, {"tokens": tokens, "labels": tokens},
-                   knobs=TM.PerfKnobs(gemm="pallas_paired"))
+    if cfg.moe is not None:
+        assert metrics["aux"] > 0  # the routed branch
 
 
 # ---------------------------------------------------------------------------
