@@ -23,7 +23,10 @@ the LM training path of qwen2-1.5b, every layer GEMM's forward on K1
 under autograd (its backward ``torch.matmul``); and the MoE training path
 of olmoe-1b-7b and deepseek-v2-lite-16b, every expert projection's forward
 one K1 launch over the expert grid (its backward ``torch.einsum`` on the
-folded experts), with the fused decode attention's VJP (K2).  Phases,
+folded experts), with the fused decode attention's VJP (K2); K1's
+measured tile cache over qwen2's serving and training problems, and the
+serving CLI with the JAX CLI's flags (the weights folded per column, the
+cache's plans, the front end degrading to K1's dense form).  Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
 
@@ -132,14 +135,38 @@ result:
                 wall tokens/s (a smoke-sized functional run, a few dozen
                 requests: not a throughput measurement), and the
                 virtual-clock figures labelled so;
-11. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
+11. tile_cache — K1's measured tile cache (``kernels/tuning.py``
+                ``TileCache``, ``autotune_plans``): every distinct K1 problem
+                of the lm_serve engine (prefills of 8/12/16/20 tokens, decode
+                at batch 4), of the training step's 1024 rows (layer 0's wq,
+                wk, wo, w_gate, w_down, paired and dense) and of the
+                lm_parity engine (fp32, bn=64); each problem's
+                ``candidate_plans`` launched on seeded operands and held to
+                K1's plain version (fp32 ≤ 1e-5 relative, bf16 ≤ 2 output
+                ulps), each plan's shared memory to the kernel's own, then
+                timed (CUDA-graph replays) and the fastest written to
+                ``.cache/tile_cache.json``: the heuristic's and the winner's
+                ms beside the bound and ``torch.matmul``; then the serve
+                engine over the same weights with the cache launches exactly
+                the cached plans (counted by plan), and the r=0 fp32 parity
+                engine with the cache gives the tokens of the one without,
+                logits ≤ 1e-5; the card's name and power limit;
+12. serve_cli — ``launch.serve.main`` with the flags of the JAX CLI:
+                qwen2-1.5b at full width (1 layer), ``--paired-rounding
+                0.05`` (the weights folded per column), ``--tile-cache``
+                (the phase above's), ``--conv``/``--fuse-pool`` (no-ops),
+                ``--frontend --fallback-gemm pallas --inject
+                nan_logits:0.05``: 0 lost, a request degraded, the fallback
+                on K1's dense form; and ``--block-k 1024``: every launch's
+                K-slices at most 1024 lanes;
+13. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
                 engine (``torch.einsum`` experts, plain attention) against
                 the paired one (structured, r=0; K1 + K2), batch 2, prompts
                 of 11 tokens (the dense expert branch) and 24 (routed), 6
                 tokens per slot: identical tokens, logits ≤ 1e-5, the routed
                 prefill counted, 7 launches per decode layer (3 QKV K1, one
                 K2, 3 expert K1), by the wrappers and by ``torch.profiler``;
-12. moe_serve — olmoe-1b-7b at full width and its published depth (16
+14. moe_serve — olmoe-1b-7b at full width and its published depth (16
                 layers), bf16, structured r=0.05, through ``launch.serve.serve``:
                 batch 4, prompts of 12/16 (dense branch) and 24/64 tokens
                 (routed: two prefills each dispatch in every layer), max_seq
@@ -152,31 +179,31 @@ result:
                 rows) against its plain version and timed beside it,
                 ``torch.einsum`` on the folded experts and the bound; K2 at
                 olmoe's G = 1 heads;
-13. mla_parity, 14. mla_serve — deepseek-v2-lite-16b the same way (2
+15. mla_parity, 16. mla_serve — deepseek-v2-lite-16b the same way (2
                 layers: dense, MoE; then its 27), K1 at its new shapes,
                 peak device memory and its reckoning;
-15. ssm_parity — mamba2-2.7b at full width, 2 layers, fp32: the plain
+17. ssm_parity — mamba2-2.7b at full width, 2 layers, fp32: the plain
                 engine against the paired one (structured, r=0), prompts
                 of 11 and 300 tokens (300 crosses the 256-token chunk),
                 6 tokens a slot: identical tokens, logits, state and conv
                 tails ≤ 1e-5, launches of the prefills and of a decode step
                 (6 K1 a layer, no K2) by the wrappers and the profiler;
-16. ssm_serve — mamba2-2.7b at its 64 layers, bf16, structured r=0.05:
+18. ssm_serve — mamba2-2.7b at its 64 layers, bf16, structured r=0.05:
                 batch 4, prompts 12/16/24/300, max_seq 512, 32 tokens a
                 slot; what moe_serve records, K1 timed at w_x, w_B, w_dt,
                 w_out, peak memory;
-17. hybrid_parity — hymba-1.5b, 3 layers (full, swa, swa), fp32, r=0,
+19. hybrid_parity — hymba-1.5b, 3 layers (full, swa, swa), fp32, r=0,
                 prompts of 11 and 1200 tokens (the window of 1024 drops
                 keys past the 128 meta-token sinks in the prefill and the
                 decode): ssm_parity's gates, the K/V caches too (12 K1 and
                 one K2 a layer);
-18. hybrid_serve — hymba-1.5b at its 32 layers, bf16, r=0.05: batch 4,
+20. hybrid_serve — hymba-1.5b at its 32 layers, bf16, r=0.05: batch 4,
                 prompts 12/16/24/1200, max_seq 1280; ssm_serve's record,
                 K1 at hymba's GEMMs, its K2 launches by window and sinks
                 (every windowed one on a slot whose window drops keys), K2
                 at layer 1 (swa) fused and bare against its plain version,
                 its bound and SDPA + ``torch.matmul`` under the same mask;
-19. zoo_parity — qwen3-4b, granite-3-2b, internvl2-2b, whisper-base and
+21. zoo_parity — qwen3-4b, granite-3-2b, internvl2-2b, whisper-base and
                 mistral-large-123b at full width, 2 layers (whisper 2 + 2
                 over its 1500 stub frames), fp32, r=0: ssm_parity's gates
                 (tokens identical; logits and every cache entry, whisper's
@@ -185,14 +212,14 @@ result:
                 the others' 11 and 24; the prefills' launches held to
                 ``analysis.prefill_launches`` (whisper's K3: one an encoder
                 layer and one a decoder layer's cross-attention);
-20. zoo_serve — the same five at full width and their published depth
+22. zoo_serve — the same five at full width and their published depth
                 (qwen3 36 layers, granite 40, internvl2 24, whisper 6 + 6),
                 mistral-large-123b at 4 of its 88 (123 G parameters are 246
                 GB in bf16), bf16, structured r=0.05, batch 4, 32 tokens a
                 slot: ssm_serve's record, K1 at qwen3's wq, mistral's w_gate
                 and w_down and whisper's cross wq/wo (4 rows), K2 at layer 0
                 of each, whisper's K3 launches a prefill;
-21. lm_train_parity — qwen2-1.5b at full width, 2 layers, fp32, r=0,
+23. lm_train_parity — qwen2-1.5b at full width, 2 layers, fp32, r=0,
                 batch 8 × seq 128: ``lm_loss`` and the gradient of every
                 weight under gemm="pallas" (K1's dense form), "pallas_paired"
                 structured and column-blocked at bn=64 against gemm="xla"
@@ -204,7 +231,7 @@ result:
                 ``ops.fused_paired_dense`` structured and blocked) against
                 their plain versions forward and backward (≤ 1e-5, one launch
                 forward, none backward);
-22. lm_train  — qwen2-1.5b at full width and depth (28 layers) trained
+24. lm_train  — qwen2-1.5b at full width and depth (28 layers) trained
                 through ``launch.train.train``: bf16 compute, fp32 masters,
                 structured r=0.05 (``pair_lm_params``), remat "full", batch
                 8 × seq 128, AdamW 3e-4 with the cosine schedule, 6 steps,
@@ -219,7 +246,7 @@ result:
                 rows on layer 0's wq, wk, wo, w_gate and w_down, paired and
                 dense, beside its plain version, ``torch.matmul`` on the
                 folded weight, its bound and its plan;
-23. moe_train_parity — olmoe-1b-7b and deepseek-v2-lite-16b at full width,
+25. moe_train_parity — olmoe-1b-7b and deepseek-v2-lite-16b at full width,
                 2 layers (deepseek's: its dense first layer, one MoE layer),
                 fp32, r=0: ``lm_loss``, the router's aux loss and every
                 weight's gradient under "pallas_paired" structured and
@@ -232,7 +259,7 @@ result:
                 residual): its output and the gradients of q, the caches, w
                 and the residual against autograd of the plain composition,
                 one K2 launch forward, none backward;
-24. moe_train — olmoe-1b-7b at full width, 6 of its 16 layers (16 layers of
+26. moe_train — olmoe-1b-7b at full width, 6 of its 16 layers (16 layers of
                 fp32 masters, gradients and Adam moments would not fit one
                 card), through ``launch.steps.build_train_step`` and
                 ``train.optimizer.adamw`` as the training CLI sets them: bf16
@@ -248,7 +275,7 @@ result:
                 its plain version, ``torch.einsum`` on the folded experts
                 and its bound; the device ms of the expert fold and of its
                 backward (the index kernels the expert grid's backward adds);
-25. the kernels table, the card's name and power limit, and the ``ok`` line.
+27. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -276,7 +303,14 @@ HEADLINE = ("per_column", 0.05)  # the paper's own pairing at its headline round
 failures: list[str] = []
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """Print one JSON line; a phase's line also gets ``at_s``, the script's
+    wall seconds when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1614,7 +1648,262 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 11 and 12: the MoE serving path (olmoe-1b-7b)
+# phases 11 and 12: K1's measured tile cache, and the serving CLI with it
+# ---------------------------------------------------------------------------
+
+TILE_CACHE_REPLAYS = 3  # CUDA-graph replays (of 10 calls) a candidate plan is timed over
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not measured"
+
+
+def _problem(key: str) -> dict:
+    """The K1 problem a tile-cache key names (``tuning.key_problem``)."""
+    from repro_torch.kernels import tuning
+
+    names = ("M", "P", "R", "n_blocks", "bn", "pool", "itemsize", "residual")
+    return {"key": key, **dict(zip(names, tuning.key_problem(key), strict=True))}
+
+
+def _engine_keys(eng, prompts: dict, steps: int) -> dict:
+    """K1's launches by (key, plan) in one run of ``eng``: a prefill of each
+    prompt into its slot, then ``steps`` decode steps; the run's tokens and
+    logits beside them."""
+    import torch
+
+    from repro_torch.kernels import paired_matmul as pm
+
+    _reset_slots(eng)
+    _reset_launches()
+    toks = {s: [eng.add_request(s, p)] for s, p in prompts.items()}
+    logits = []
+    for _ in range(steps):
+        nxt = eng.step()
+        logits.append(eng.last_logits)
+        for s in prompts:
+            toks[s].append(int(nxt[s]))
+    torch.cuda.synchronize()
+    return {"by_plan": pm.launches_by_plan(), "tokens": toks, "logits": logits}
+
+
+def _tune(prob: dict, cache) -> dict:
+    """Every candidate plan of one K1 problem (seeded operands of its
+    shapes) held to K1's plain version at the kernel phase's tolerance, its
+    shared memory to the kernel's own, then ``tuning.autotune_plans``
+    writing the fastest into ``cache``; the heuristic's and the winner's ms
+    beside the bound and ``torch.matmul`` at the same (M, K, N)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.ref import bf16_ulps, rel_err
+
+    M, P, R, B, bn, pool = (prob[k] for k in ("M", "P", "R", "n_blocks", "bn", "pool"))
+    item, window, K, n_cols = prob["itemsize"], tuning.POOL_WINDOWS[pool], 2 * P + R, B * bn
+    dt = torch.bfloat16 if item == 2 else torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    lead, win = ((B,) if B > 1 else ()), ((4,) if window == 4 else ())
+    x, kmat, w_res = rnd(*lead, *win, M, K), rnd(*lead, P, bn), rnd(*lead, R, bn)
+    res = rnd(M, n_cols) if prob["residual"] else None
+    kw = dict(residual=res, pool=pool)
+    if B > 1:
+        run = lambda plan: pm.paired_matmul_blocked_cuda(x, kmat, w_res, n_cols=n_cols,
+                                                         plan=plan, **kw)
+        want = pm.paired_matmul_blocked_plain(x, kmat, w_res, n_cols=n_cols,
+                                              out_dtype=torch.float32, **kw)
+    else:
+        run = lambda plan: pm.paired_matmul_cuda(x, kmat, w_res, plan=plan, **kw)
+        want = pm.paired_matmul_plain(x, kmat, w_res, out_dtype=torch.float32, **kw)
+    cands = tuning.candidate_plans(M, P, R, B, bn, window, item)
+    worst = 0.0
+    for p in cands:
+        got = run(p)
+        torch.cuda.synchronize()
+        err = bf16_ulps(got, want) if dt == torch.bfloat16 else rel_err(got, want)
+        worst = max(worst, err)
+        check(err <= (BF16_MAX_ULPS if dt == torch.bfloat16 else FP32_RTOL)
+              and bool(torch.isfinite(got).all()), f"tile_cache {prob['key']} {p}: err {err:.3g}")
+        smem = pm.kernel_smem(p, P, R, window, item)
+        check(smem == p.smem, f"tile_cache {prob['key']} {p}: kernel smem {smem}")
+    winner, records = tuning.autotune_plans(run, M, P, R, B, bn, pool, item,
+                                            residual=res is not None, cache=cache,
+                                            candidates=cands, reps=TILE_CACHE_REPLAYS)
+    heur = records[0]  # candidate_plans lists the heuristic first
+    nbytes = (x.numel() + (P + R) * n_cols + M * n_cols * (2 if res is not None else 1)) * item
+    flops = M * (2 * n_cols * (P + R) + B * P)
+    peak = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    xm, wm = rnd(M, K), rnd(K, n_cols)
+    lib = (lambda: torch.matmul(xm, wm) + res) if res is not None else (
+        lambda: torch.matmul(xm, wm))
+    best = min(records, key=lambda r: r["time_s"])
+    return {
+        **{k: prob[k] for k in ("key", "M", "P", "R", "n_blocks", "bn", "residual")},
+        "dtype": str(dt).removeprefix("torch."),
+        "candidates": len(cands), "max_err": worst, "err_unit": "ulps" if item == 2 else "rel",
+        "heuristic": {k: heur[k] for k in tuning.PLAN_FIELDS},
+        "heuristic_ms": heur["time_s"] * 1e3,
+        "winner": dataclasses.asdict(winner), "winner_ms": best["time_s"] * 1e3,
+        "winner_is_heuristic": bool(best["heuristic"]),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": graph_ms(lib), "library_call": "torch.matmul (M, K) @ (K, n_cols)",
+        "all_ms": sorted(r["time_s"] * 1e3 for r in records),
+    }
+
+
+def phase_tile_cache(parity_ctx, lm_engine) -> dict:
+    """K1's tile cache over the qwen2 serve engine's problems (decode and
+    prefill rows), the training step's 1024-row ones (layer 0's wq, wk, wo,
+    w_gate, w_down, paired and dense, as ``_k1_training_rows``) and the r=0
+    fp32 parity engine's; then the engines served with the cache."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.serve import kernel_launches
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    path = Path(__file__).resolve().parent / ".cache" / "tile_cache.json"
+    path.unlink(missing_ok=True)
+    cache = tuning.TileCache(path)
+    eng = lm_engine
+    rng = np.random.default_rng(0)
+    serve_prompts = {i: rng.integers(0, eng.cfg.vocab, size=8 + 4 * i) for i in range(4)}
+    serve_keys = set(_engine_keys(eng, serve_prompts, 3)["by_plan"])  # (key, plan)
+    layer0 = eng.model.layers[0]
+    rows, dt = TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16
+    train_keys = set()
+    for block, name, res in ((layer0.attn, "wq", False), (layer0.attn, "wk", False),
+                             (layer0.attn, "wo", True), (layer0.mlp, "w_gate", False),
+                             (layer0.mlp, "w_down", True)):
+        meta, (K, N) = block.pairing[name], block.matrix(name, dt).shape
+        for P, R in ((meta["I"].shape[-1], meta["resid"].shape[-1]), (0, K)):  # paired, dense
+            train_keys.add(tuning.launch_key(rows, P, R, 1, N, "none", 2, res))
+    cfg_p, base = parity_ctx["cfg"], dict(q_chunk=32, k_chunk=32, gemm="pallas_paired",
+                                          attn="pallas_fused", pair_block_n=64)
+    parity_prompts = {0: rng.integers(0, cfg_p.vocab, size=5),
+                      1: rng.integers(0, cfg_p.vocab, size=11)}
+    fused = ServeEngine(cfg_p, parity_ctx["paired_model"], max_seq=32, batch_size=2,
+                        knobs=M.PerfKnobs(**base))
+    plain_run = _engine_keys(fused, parity_prompts, 5)
+    parity_keys = {k for k, _ in plain_run["by_plan"]}
+    keys = sorted({k for k, _ in serve_keys} | train_keys | parity_keys)
+    problems = [_tune(_problem(k), cache) for k in keys]
+    tune_s = time.perf_counter() - t0
+    reloaded = tuning.TileCache(path)
+    check(sorted(reloaded.entries) == keys, f"tile_cache: {len(reloaded)} entries saved of "
+                                            f"{len(keys)} problems")
+
+    # the serve engine over the same paired model with the cache: it launches
+    # exactly the cached plans
+    cached = ServeEngine(eng.cfg, eng.model, max_seq=eng.max_seq, batch_size=eng.batch_size,
+                         knobs=dataclasses.replace(eng.knobs, tile_cache=str(path)))
+    run = _engine_keys(cached, serve_prompts, 3)
+    launches = kernel_launches()
+    by_plan = run["by_plan"]
+    wrong = [(k, str(p)) for k, p in by_plan
+             if k not in reloaded or p != _cached_plan(reloaded, k)]
+    check(not wrong, f"tile_cache: launched plans not the cached ones: {wrong[:4]}")
+    check({k for k, _ in by_plan} == {k for k, _ in serve_keys},
+          "tile_cache: the cached engine launched other problems than the engine")
+    changed = sum(1 for k, p in by_plan if (k, p) not in serve_keys)
+    # the r=0 fp32 parity engines, with the cache and without: the same tokens,
+    # logits within 1e-5 (the cached plans may split the sum differently)
+    fused_c = ServeEngine(cfg_p, parity_ctx["paired_model"], max_seq=32, batch_size=2,
+                          knobs=M.PerfKnobs(**base, tile_cache=str(path)))
+    cached_run = _engine_keys(fused_c, parity_prompts, 5)
+    wrong_p = [k for k, p in cached_run["by_plan"] if p != _cached_plan(reloaded, k)]
+    parity_err = max(rel_err(torch.as_tensor(a), torch.as_tensor(b))
+                     for a, b in zip(cached_run["logits"], plain_run["logits"], strict=True))
+    check(not wrong_p, f"tile_cache parity: launched plans not the cached ones: {wrong_p}")
+    check(cached_run["tokens"] == plain_run["tokens"],
+          f"tile_cache parity: tokens differ {cached_run['tokens']} vs {plain_run['tokens']}")
+    check(parity_err <= FP32_RTOL, f"tile_cache parity: logits rel err {parity_err:.3g}")
+    out = {
+        "phase": "tile_cache", "card": _card(), "path": str(path), "entries": len(reloaded),
+        "problems": problems, "tune_s": tune_s,
+        "serve": {"arch": eng.cfg.name, "layers": eng.cfg.n_layers, "dtype": eng.cfg.dtype,
+                  "prompts": [len(p) for p in serve_prompts.values()], "decode_steps": 3,
+                  "launches_by_plan": len(by_plan), "plans_changed": changed,
+                  "tokens": run["tokens"]},
+        "main_path_launches": launches,
+        "parity": {"arch": cfg_p.name, "layers": cfg_p.n_layers, "dtype": cfg_p.dtype,
+                   "max_logit_rel_err": parity_err,
+                   "tokens_identical": cached_run["tokens"] == plain_run["tokens"]},
+    }
+    emit(out)
+    return out
+
+
+def _cached_plan(cache, key: str):
+    """The plan a launch under ``cache`` takes for ``key``."""
+    from repro_torch.kernels import tuning
+
+    *launch, residual = tuning.key_problem(key)
+    with tuning.use_tile_cache(cache):
+        return tuning.resolve_plan(*launch, residual=residual)
+
+
+def phase_serve_cli(cache_path: str) -> dict:
+    """``launch.serve.main`` with the flags the JAX CLI has: qwen2-1.5b at
+    full width (1 layer: folding per column is host work a layer), the
+    weights folded at r=0.05 (``--paired-rounding``), K1's plans from the
+    tile cache, the front end under NaN-logit chaos degrading to the
+    unpaired fallback on K1's dense form; then a short run with
+    ``--block-k``, whose every launch cuts K in slices of at most that."""
+    from repro_torch.kernels import paired_matmul as pm
+    from repro_torch.kernels import tuning
+    from repro_torch.launch import serve as S
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    report = S.main(["--arch", "qwen2-1.5b", "--layers", "1", "--batch", "4", "--max-seq",
+                     "128", "--steps", "8", "--gemm", "pallas_paired", "--attn",
+                     "pallas_fused", "--pair-rounding", "0.05", "--paired-rounding", "0.05",
+                     "--tile-cache", cache_path, "--conv", "pallas_paired", "--fuse-pool",
+                     "--frontend", "--fallback-gemm", "pallas", "--inject", "nan_logits:0.05"])
+    launches = S.kernel_launches()
+    forms = dict(pm.LAUNCHES)
+    summ = report.summary()
+    check(summ["lost"] == 0, f"serve_cli lost {summ['lost']}")
+    check(summ["degraded"] > 0, "serve_cli: no request degraded to the fallback")
+    check(forms.get("dense_matmul", 0) > 0, f"serve_cli: no K1 dense-form launch {forms}")
+    cli_s = time.perf_counter() - t0
+
+    block_k = 1024  # w_down's ~4800 lanes at r=0.05 in 5 slices (a cluster holds 8)
+    _reset_launches()
+    S.main(["--arch", "qwen2-1.5b", "--layers", "1", "--batch", "2", "--max-seq", "64",
+            "--steps", "3", "--gemm", "pallas_paired", "--pair-rounding", "0.05",
+            "--block-k", str(block_k)])
+    slices = {key: tuning.slice_step(_problem(key)["P"] + _problem(key)["R"], plan.splits)
+              for key, plan in pm.launches_by_plan()}
+    check(bool(slices) and max(slices.values()) <= block_k,
+          f"serve_cli --block-k {block_k}: K-slices {slices}")
+    out = {
+        "phase": "serve_cli", "arch": "qwen2-1.5b", "layers": 1, "seconds": cli_s,
+        "frontend": {k: summ[k] for k in ("n_requests", "completed", "degraded", "shed", "lost")},
+        "fallback": "gemm='pallas' (K1's dense form), pair_rounding 0",
+        "k1_forms": forms, "main_path_launches": launches,
+        "block_k": {"block_k": block_k, "launches": sum(pm.LAUNCHES.values()),
+                    "max_slice": max(slices.values(), default=0)},
+    }
+    emit(out)
+    return out
+
+# ---------------------------------------------------------------------------
+# phases 13 and 14: the MoE serving path (olmoe-1b-7b)
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "olmoe-1b-7b"
@@ -1839,7 +2128,7 @@ def phase_moe_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 13 and 14: the MLA serving path (deepseek-v2-lite-16b)
+# phases 15 and 16: the MLA serving path (deepseek-v2-lite-16b)
 # ---------------------------------------------------------------------------
 
 MLA_ARCH = "deepseek-v2-lite-16b"
@@ -2046,7 +2335,7 @@ def phase_mla_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 15-18: the SSM (mamba2-2.7b) and hybrid (hymba-1.5b) serving paths
+# phases 17-20: the SSM (mamba2-2.7b) and hybrid (hymba-1.5b) serving paths
 # ---------------------------------------------------------------------------
 
 SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "hymba-1.5b"
@@ -2357,7 +2646,7 @@ def phase_hybrid_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 19–20: the rest of the zoo (qwen3-4b, granite-3-2b, internvl2-2b,
+# phases 21–22: the rest of the zoo (qwen3-4b, granite-3-2b, internvl2-2b,
 # whisper-base, mistral-large-123b)
 # ---------------------------------------------------------------------------
 
@@ -2446,7 +2735,7 @@ def phase_zoo_serve() -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# phases 21–22: LM training (qwen2-1.5b), every layer GEMM's forward on K1
+# phases 23–24: LM training (qwen2-1.5b), every layer GEMM's forward on K1
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen2-1.5b"
@@ -2707,7 +2996,7 @@ def phase_lm_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 23–24: MoE training (olmoe-1b-7b, deepseek-v2-lite-16b), every
+# phases 25–26: MoE training (olmoe-1b-7b, deepseek-v2-lite-16b), every
 # expert projection's forward one K1 launch over the expert grid
 # ---------------------------------------------------------------------------
 
@@ -2998,7 +3287,11 @@ def main() -> int:
     parity, parity_ctx = phase_lm_parity()
     lm, lm_engine = phase_lm_serve()
     fe = phase_frontend(parity_ctx, lm_engine)
+    tile = phase_tile_cache(parity_ctx, lm_engine)
     del parity_ctx, lm_engine  # qwen2's weights and segments leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_serve_cli(tile["path"])
     gc.collect()
     torch.cuda.empty_cache()
     moe_parity = phase_moe_parity()
@@ -3048,6 +3341,8 @@ def main() -> int:
              "lm_parity": parity["main_path_launches"]["paired_matmul"],
              "lm_serve": lm["main_path_launches"]["paired_matmul"],
              **{k: v["paired_matmul"] for k, v in fe_runs.items()},
+             "tile_cache": tile["main_path_launches"]["paired_matmul"],
+             "serve_cli": cli["main_path_launches"]["paired_matmul"],
              "moe_parity": moe_parity["main_path_launches"]["paired_matmul"],
              "moe_serve": moe["main_path_launches"]["paired_matmul"],
              "mla_parity": mla_parity["main_path_launches"]["paired_matmul"],
@@ -3060,6 +3355,8 @@ def main() -> int:
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},
+                "tile_cache": tile["main_path_launches"]["decode_attention"],
+                "serve_cli": cli["main_path_launches"]["decode_attention"],
                 "moe_parity": moe_parity["main_path_launches"]["decode_attention"],
                 "moe_serve": moe["main_path_launches"]["decode_attention"],
                 "mla_parity": mla_parity["main_path_launches"]["decode_attention"],
@@ -3073,6 +3370,8 @@ def main() -> int:
                 "lm_parity": parity["main_path_launches"]["flash_attention"],
                 "lm_serve": lm["main_path_launches"]["flash_attention"],
                 **{k: v["flash_attention"] for k, v in fe_runs.items()},
+                "tile_cache": tile["main_path_launches"]["flash_attention"],
+                "serve_cli": cli["main_path_launches"]["flash_attention"],
                 "moe_parity": moe_parity["main_path_launches"]["flash_attention"],
                 "moe_serve": moe["main_path_launches"]["flash_attention"],
                 "mla_parity": mla_parity["main_path_launches"]["flash_attention"],
@@ -3140,6 +3439,11 @@ def main() -> int:
         # cross wq and wo, and the others' wq and w_down
         "zoo": {arch: [{k: row[k] for k in ("weight", "M", "K", "N", *timing_keys)}
                        for row in rec["k1_shapes"]] for arch, rec in zoo_by.items()},
+        # the tile cache's problems (qwen2-1.5b's serve engine, training rows,
+        # the parity engine): the heuristic plan's ms and the measured winner's
+        "tile_cache": [{k: row[k] for k in ("key", "heuristic_ms", "winner_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
+                       for row in tile["problems"]],
     }, {
         "name": "decode_attention",
         "route": "cuda",

@@ -140,6 +140,15 @@ def pair_columns(W: np.ndarray, rounding: float) -> ColumnPairing:
     """
     W = np.asarray(W)
     assert W.ndim == 2, "pair_columns expects (K, N)"
+    return _walk_columns(W, rounding)
+
+
+def _walk_columns(W: np.ndarray, rounding: float,
+                  neg_order: np.ndarray | None = None) -> ColumnPairing:
+    """Algorithm 1 on every column of ``W`` in lock-step; ``neg_order``
+    lists each column's rows with its negatives by |.| ascending (the order
+    the walk meets them, ties included), by default the ascending sort read
+    backwards, so tied negatives come last row first."""
     K, N = W.shape
 
     # --- per-column sorted positive values and |negative| values -----------
@@ -169,9 +178,9 @@ def pair_columns(W: np.ndarray, rounding: float) -> ColumnPairing:
     sel = is_pos
     pos_vals[rank_pos[sel], col_ids[sel]] = Ws[sel]
     pos_rows[rank_pos[sel], col_ids[sel]] = order[sel]
-    # negatives: |.| ascending == value descending
-    desc = Ws[::-1]
-    order_desc = order[::-1]
+    # negatives: |.| ascending
+    order_desc = order[::-1] if neg_order is None else neg_order
+    desc = np.take_along_axis(W, order_desc, axis=0)
     is_neg_d = desc < 0
     rank_neg = np.cumsum(is_neg_d, axis=0) - 1
     seln = is_neg_d
@@ -328,46 +337,64 @@ def pair_rows_structured(
     pos_idx = pos_idx[np.argsort(mean[pos_idx], kind="stable")]
     neg_idx = neg_idx[np.argsort(-mean[neg_idx], kind="stable")]
 
-    if criterion == "rms":
-        def sym_err(i: int, j: int) -> float:
-            s = (W[i] + W[j])
-            return float(np.sqrt(np.mean(s * s)))
-    elif criterion == "max":
-        def sym_err(i: int, j: int) -> float:
-            return float(np.max(np.abs(W[i] + W[j])))
-    else:  # pragma: no cover
+    if criterion not in ("rms", "max"):  # pragma: no cover
         raise ValueError(f"unknown criterion {criterion!r}")
 
-    pp, pn = 0, 0
-    I, J = [], []
+    # The walk on Python floats (the same doubles): a step whose means are
+    # too far apart retires a row at once.  Where they are near, the walk
+    # combines while it can, both pointers stepping along a diagonal
+    # (pos_idx[pp + t], neg_idx[pn + t]): a run of those pairs is judged in
+    # one batch, with the one-pair comparisons and symmetric-error formula
+    # row by row, and the batch doubles while runs go through (capped at
+    # 2^16 weights of W).  A run ends at a pair whose means are not near (the
+    # next step retires it) or whose profiles do not cancel.
+    pos, neg = pos_idx.tolist(), neg_idx.tolist()
+    p_mean, m_mean = mean[pos_idx], -mean[neg_idx]  # the walk's p and m
+    p_list, m_list = p_mean.tolist(), m_mean.tolist()
+    n_p, n_n = len(pos), len(neg)
+    row_cap = max(1, (1 << 16) // max(N, 1))
+    pp, pn, size = 0, 0, 1
+    I_runs, J_runs = [], []
     resid: list[int] = []
-    while pp < len(pos_idx) and pn < len(neg_idx):
-        i, j = int(pos_idx[pp]), int(neg_idx[pn])
-        p, m = mean[i], -mean[j]
+    while pp < n_p and pn < n_n:
+        p, m = p_list[pp], m_list[pn]
         if p >= m + rounding:
-            resid.append(j)
+            resid.append(neg[pn])
             pn += 1
-        elif p <= m - rounding:
-            resid.append(i)
+            continue
+        if p <= m - rounding:
+            resid.append(pos[pp])
             pp += 1
-        elif sym_err(i, j) < rounding:
-            I.append(i)
-            J.append(j)
-            pp += 1
-            pn += 1
-        else:
+            continue
+        size = min(size, row_cap, n_p - pp, n_n - pn)
+        pv, mv = p_mean[pp:pp + size], m_mean[pn:pn + size]
+        near = ~(pv >= mv + rounding) & ~(pv <= mv - rounding)
+        run = size if near.all() else int(np.argmin(near))  # ≥ 1: this pair is near
+        s = W[pos_idx[pp:pp + run]] + W[neg_idx[pn:pn + run]]
+        err = (np.sqrt(np.mean(s * s, axis=1)) if criterion == "rms"
+               else np.max(np.abs(s), axis=1))
+        ok = err < rounding
+        cancels = bool(ok.all())
+        run = run if cancels else int(np.argmin(ok))
+        I_runs.append(pos_idx[pp:pp + run])
+        J_runs.append(neg_idx[pn:pn + run])
+        pp, pn = pp + run, pn + run
+        size = size * 2 if run == size else max(1, size // 2)
+        if not cancels:
             # profiles don't cancel even though means do — retire the one
-            # with the smaller mean magnitude (it has fewer future partners).
-            if p <= m:
-                resid.append(i)
+            # with the smaller mean magnitude (it has fewer future partners)
+            if p_list[pp] <= m_list[pn]:
+                resid.append(pos[pp])
                 pp += 1
             else:
-                resid.append(j)
+                resid.append(neg[pn])
                 pn += 1
-    resid.extend(int(i) for i in pos_idx[pp:])
-    resid.extend(int(j) for j in neg_idx[pn:])
-    resid.extend(int(z) for z in zero_idx)
+    resid.extend(pos[pp:])
+    resid.extend(neg[pn:])
+    resid.extend(zero_idx.tolist())
 
+    I = np.concatenate(I_runs) if I_runs else []
+    J = np.concatenate(J_runs) if J_runs else []
     I_a = np.asarray(I, dtype=np.int64)
     J_a = np.asarray(J, dtype=np.int64)
     R_a = np.asarray(sorted(resid), dtype=np.int64)
@@ -528,12 +555,39 @@ def pair_rows_blocked(
     K, N = W.shape
     assert block_n >= 1, f"block_n must be >= 1, got {block_n}"
     block_n = min(block_n, N)
+    if block_n == 1 and N > 1:
+        return BlockedPairing(blocks=_per_column_blocks(W, rounding, magnitudes), block_n=1,
+                              shape=(K, N))
     blocks = [
         pair_rows_structured(W[:, lo : min(lo + block_n, N)], rounding,
                              criterion=criterion, magnitudes=magnitudes)
         for lo in range(0, N, block_n)
     ]
     return BlockedPairing(blocks=blocks, block_n=block_n, shape=(K, N))
+
+
+def _per_column_blocks(W: np.ndarray, rounding: float, magnitudes: bool
+                       ) -> list[StructuredPairing]:
+    """``pair_rows_structured`` of each column of ``W`` alone, from one
+    lock-step walk over all columns: on one column the structured walk is
+    Algorithm 1 (its symmetric-error check is the rounding window), with
+    tied rows met in ascending row order, the order of its stable sorts."""
+    K, N = W.shape
+    cp = _walk_columns(W, rounding, np.argsort(-W, axis=0, kind="stable"))
+    used = np.zeros((K, N), bool)
+    blocks = []
+    for c in range(N):
+        n = int(cp.n_pairs[c])
+        I, J = cp.pair_pos[:n, c].copy(), cp.pair_neg[:n, c].copy()
+        used[I, c] = used[J, c] = True
+        resid = np.flatnonzero(~used[:, c])
+        if magnitudes:
+            Kmat, W_res = ((W[I, c] - W[J, c]) / 2.0)[:, None], W[resid, c][:, None]
+        else:
+            Kmat = W_res = np.zeros((0, 1))
+        blocks.append(StructuredPairing(I=I, J=J, Kmat=Kmat, resid=resid, W_res=W_res,
+                                        shape=(K, 1)))
+    return blocks
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,12 @@ The conv and LM halves of ``repro.core.transform``.
   its own,
   and return a model that shares its weights and carries each weight's
   metadata (``block.pairing[name]``), with a :class:`PairedModelReport`.
-* :func:`pair_model_params` folds every eligible leaf of a weight tree (the
-  training CLI's ``--paired-rounding``): the paired weights themselves,
-  no metadata.
+* :func:`fold_lm_params` folds an LM's decoder (and encoder) weights per
+  column (the CLIs' ``--paired-rounding``): a model of the paired weights
+  themselves, no metadata.
+* :func:`pair_model_params` folds every eligible leaf of a weight tree, as
+  the JAX package's function does (on an LM tree that pairs the wrong axes:
+  the CLIs use :func:`fold_lm_params`).
 
 Pairing runs on float64 numpy copies of the weights, as the reference does,
 so the metadata matches it index for index (float32 would change the ties
@@ -416,8 +419,44 @@ def pair_lm_params(
                        criterion=criterion, min_dim=min_dim)
 
 
+def fold_lm_params(model, rounding: float, *, block_n: int = 1, criterion: str = "rms",
+                   min_dim: int = 8):
+    """The LM with each eligible decoder (and encoder) weight replaced by
+    its paired equivalent: ``pair_lm_params(model, rounding,
+    mode="column_blocked", block_n=block_n)`` (1: the paper's per-column
+    pairing), each weight then folded by ``kernels.ops.fold_lm_weight`` (an
+    expert weight by ``fold_lm_expert_weight``) in fp32 and cast back to its
+    dtype.  The CLIs' ``--paired-rounding``: the JAX package's CLIs run
+    ``pair_model_params`` on the whole value tree instead, which reads a
+    stacked ``(layers, d, H, hd)`` attention weight as a conv filter and
+    pairs across layers and heads.
+
+    Returns ``(model', report)``: ``model'`` carries the folded weights (new
+    tensors) and the rest of ``model``'s (shared), and no pairing metadata;
+    ``report`` is the pairing's :class:`PairedModelReport`."""
+    from repro_torch.kernels.ops import fold_lm_expert_weight, fold_lm_weight
+    from repro_torch.models.layers import Block, MoE
+
+    paired, report = pair_lm_params(model, rounding, mode="column_blocked", block_n=block_n,
+                                    criterion=criterion, min_dim=min_dim)
+    folded = model.copy(frozen=False)
+    for src, dst in zip(paired.modules(), folded.modules(), strict=True):
+        if not isinstance(dst, Block):
+            continue
+        for name, meta in src.pairing.items():
+            w = getattr(src, name)
+            if isinstance(src, MoE) and w.ndim == 3:
+                wf = fold_lm_expert_weight(w.float(), meta, block_n)
+            else:
+                wf = fold_lm_weight(src.matrix(name, torch.float32), meta, block_n)
+            dst.register_parameter(name, torch.nn.Parameter(
+                wf.reshape(w.shape).to(w.dtype), requires_grad=w.requires_grad))
+        dst.pairing = {}
+    return folded, report
+
+
 # ---------------------------------------------------------------------------
-# whole-tree folding (the training CLI's --paired-rounding)
+# whole-tree folding (the JAX package's pair_model_params)
 # ---------------------------------------------------------------------------
 
 

@@ -667,8 +667,9 @@ bool aligned(const void* ptr, int bytes) {
 }
 
 // (MR, TN) instances of the skinny form (tuning.SKINNY_SHAPES)
+// dry: the checks alone, 0 where the plan has an instance, nothing launched
 template <typename T>
-int launch_skinny(const Args& a, const Plan& p, int n_blocks, cudaStream_t s) {
+int launch_skinny(const Args& a, const Plan& p, int n_blocks, cudaStream_t s, bool dry) {
   const int ke = a.P + a.R;
   const int step = slice_step(ke, p.splits);
   const int vb = p.tn * static_cast<int>(sizeof(T));
@@ -684,17 +685,18 @@ int launch_skinny(const Args& a, const Plan& p, int n_blocks, cudaStream_t s) {
   constexpr bool bf = sizeof(T) == 2;
   if constexpr (bf)
     if (p.rows == 4 && p.tn == 8)
-      return launch<paired_matmul_kernel_skinny<T, 4, 8>>(grid, smem, s, a, p);
+      return dry ? 0 : launch<paired_matmul_kernel_skinny<T, 4, 8>>(grid, smem, s, a, p);
   if (p.rows == 4 && p.tn == 4)
-    return launch<paired_matmul_kernel_skinny<T, 4, 4>>(grid, smem, s, a, p);
+    return dry ? 0 : launch<paired_matmul_kernel_skinny<T, 4, 4>>(grid, smem, s, a, p);
   if (p.rows == 16 && p.tn == 4)
-    return launch<paired_matmul_kernel_skinny<T, 16, 4>>(grid, smem, s, a, p);
+    return dry ? 0 : launch<paired_matmul_kernel_skinny<T, 16, 4>>(grid, smem, s, a, p);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // (W, TN) instances of the tall form (tuning.TALL_TN)
 template <typename T>
-int launch_tall(const Args& a, const Plan& p, int window, int n_blocks, cudaStream_t s) {
+int launch_tall(const Args& a, const Plan& p, int window, int n_blocks, cudaStream_t s,
+                bool dry) {
   const int ke = a.P + a.R, K = 2 * a.P + a.R;
   const int step = slice_step(ke, p.splits);
   if (p.lanes < 1 || !pow2(p.lanes) || p.lanes * window > 32 || p.cols != p.tn ||
@@ -714,10 +716,27 @@ int launch_tall(const Args& a, const Plan& p, int window, int n_blocks, cudaStre
   const dim3 grid(static_cast<unsigned>(groups * p.splits), static_cast<unsigned>(tiles));
 #define PM_TALL(W_, TN_)           \
   if (window == W_ && p.tn == TN_) \
-    return launch<paired_matmul_kernel_tall<T, W_, TN_>>(grid, smem, s, a, p);
+    return dry ? 0 : launch<paired_matmul_kernel_tall<T, W_, TN_>>(grid, smem, s, a, p);
   PM_TALL(1, 1) PM_TALL(1, 4) PM_TALL(1, 8) PM_TALL(4, 1) PM_TALL(4, 4) PM_TALL(4, 8)
 #undef PM_TALL
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch's range checks, then its form's (dry: nothing launched).
+int run(const Args& a, int n_blocks, int window, int bf16, int skinny, const Plan& p,
+        cudaStream_t s, bool dry) {
+  if (a.M <= 0 || a.P < 0 || a.R < 0 || n_blocks < 1 || a.bn < 1 || a.n_cols < 1 ||
+      a.n_cols > n_blocks * a.bn || (window != 1 && window != 4) ||
+      (window == 4) != (a.pool == kMax2 || a.pool == kAvg2) || a.act < kNone ||
+      a.act > kTanh || p.rows < 1 || p.rows > 65536 || p.cols < 1 || !pow2(p.tn) ||
+      p.splits < 1 || p.splits > kMaxCluster || (skinny && window != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (skinny)
+    return bf16 ? launch_skinny<__nv_bfloat16>(a, p, n_blocks, s, dry)
+                : launch_skinny<float>(a, p, n_blocks, s, dry);
+  return bf16 ? launch_tall<__nv_bfloat16>(a, p, window, n_blocks, s, dry)
+              : launch_tall<float>(a, p, window, n_blocks, s, dry);
 }
 
 }  // namespace
@@ -729,25 +748,25 @@ extern "C" int paired_matmul_launch(
     int skinny, int rows, int cols, int tn, int splits, int lanes, int subtiles, int stages,
     void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
-  if (M <= 0 || P < 0 || R < 0 || n_blocks < 1 || bn < 1 ||
-      n_cols < 1 || n_cols > n_blocks * bn || (window != 1 && window != 4) ||
-      (window == 4) != (pool == kMax2 || pool == kAvg2) || act < kNone || act > kTanh ||
-      rows < 1 || rows > 65536 || cols < 1 || !pow2(tn) || splits < 1 ||
-      splits > kMaxCluster || (skinny && window != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Args a{x, kmat, wres, static_cast<const float*>(bias), residual, out,
          static_cast<int64_t>(M), P, R, bn, n_cols, pool, act, res_bf16};
   const Plan p{rows, cols, tn, splits, lanes, subtiles, stages};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (skinny)
-    err = bf16 ? launch_skinny<__nv_bfloat16>(a, p, n_blocks, s) : launch_skinny<float>(a, p, n_blocks, s);
-  else
-    err = bf16 ? launch_tall<__nv_bfloat16>(a, p, window, n_blocks, s)
-               : launch_tall<float>(a, p, window, n_blocks, s);
+  const int err = run(a, n_blocks, window, bf16, skinny, p, static_cast<cudaStream_t>(stream),
+                      false);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+// paired_matmul_launch's checks of a plan for one problem, nothing launched:
+// 0 where it would take the plan, else the error it would return
+// (tuning.refusal is the host's copy of these checks).
+extern "C" int paired_matmul_check(long long M, int P, int R, int n_blocks, int bn, int window,
+                                   int bf16, int skinny, int rows, int cols, int tn, int splits,
+                                   int lanes, int subtiles, int stages) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<int64_t>(M), P, R,
+         bn, n_blocks * bn, window == 4 ? kMax2 : 0, kNone, 0};
+  const Plan p{rows, cols, tn, splits, lanes, subtiles, stages};
+  return run(a, n_blocks, window, bf16, skinny, p, nullptr, true);
 }
 
 // The dynamic shared memory, in bytes, that a plan's launch lays out (what

@@ -1,8 +1,8 @@
 """im2col: lower a convolution to the GEMM the paired kernel understands.
 
-The port of ``repro.kernels.im2col`` (``im2col``, ``resolve_padding``,
-``conv_output_hw``).  Every receptive field becomes one row of a patch
-matrix, so the conv becomes
+The port of ``repro.kernels.im2col`` (``im2col``, its adjoint ``col2im``,
+``overlap_counts``, ``resolve_padding``, ``conv_output_hw``).  Every
+receptive field becomes one row of a patch matrix, so the conv becomes
 
     y[n, oh, ow, :] = patches[n, oh, ow, :] @ W.reshape(kh*kw*cin, cout)
 
@@ -91,3 +91,45 @@ def im2col(
         for j in range(kw)
     ]
     return torch.cat(views, dim=-1)
+
+
+def col2im(
+    cols: torch.Tensor,
+    x_shape: tuple[int, int, int, int],
+    kh: int,
+    kw: int,
+    *,
+    stride: Stride = 1,
+    padding: Padding = "VALID",
+) -> torch.Tensor:
+    """Adjoint of :func:`im2col`: overlap-add patches back to image shape,
+    (N, OH, OW, kh*kw*C) → (N, H, W, C).  ``<im2col(x), y> == <x,
+    col2im(y)>`` at every stride and padding: a scatter-add into the padded
+    frame, then the padding sliced off (the transpose of pad-then-strided-
+    slice)."""
+    n, h, w, c = x_shape
+    sh, sw = _stride_hw(stride)
+    (ph0, ph1), (pw0, pw1) = resolve_padding(h, w, kh, kw, stride, padding)
+    oh, ow = conv_output_hw(h, w, kh, kw, stride, padding)
+    out = cols.new_zeros((n, h + ph0 + ph1, w + pw0 + pw1, c))
+    for idx, (i, j) in enumerate((i, j) for i in range(kh) for j in range(kw)):
+        out[:, i : i + sh * (oh - 1) + 1 : sh, j : j + sw * (ow - 1) + 1 : sw, :] += (
+            cols[..., idx * c : (idx + 1) * c])
+    return out[:, ph0 : ph0 + h, pw0 : pw0 + w, :]
+
+
+def overlap_counts(
+    x_shape: tuple[int, int, int, int],
+    kh: int,
+    kw: int,
+    *,
+    stride: Stride = 1,
+    padding: Padding = "VALID",
+    device=None,
+) -> torch.Tensor:
+    """How many patches cover each input pixel, ``col2im(im2col(1))``
+    (fp32): dividing by it undoes the round trip where the count is
+    nonzero (a stride can skip pixels; padding makes the borders uneven)."""
+    ones = torch.ones(x_shape, dtype=torch.float32, device=device)
+    cols = im2col(ones, kh, kw, stride=stride, padding=padding)
+    return col2im(cols, x_shape, kh, kw, stride=stride, padding=padding)

@@ -17,18 +17,21 @@ the JAX package's custom VJPs are: the kernel's forward, a backward of
 XLA dots); :func:`paired_dense`, :func:`expert_dense` and
 :func:`attn_decode`, on segments a frozen serving block keeps, are forward
 only.
-The kernels' tiles are fixed (see ``csrc/``); the JAX package's tile cache
-has no counterpart yet.  Each call runs where its tensors lie: the CUDA
-kernels for CUDA tensors, the plain PyTorch versions for CPU tensors.
+K1's launch plans come from ``kernels.tuning``: a persisted, measured tile
+cache where :func:`tile_cache_context` installs one, else the heuristic.
+Each call runs where its tensors lie: the CUDA kernels for CUDA tensors,
+the plain PyTorch versions for CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pairing import BlockedPairing, StructuredPairing
+from repro_torch.kernels import tuning
 from repro_torch.kernels.decode_attention import (
     decode_attention_plain,
     fused_decode_attention_cuda,
@@ -774,3 +777,23 @@ def paired_mode_of(knobs) -> tuple[str, int]:
     structured, n ≥ 1 → column-blocked (1 == the paper's per-column)."""
     n = int(knobs.pair_block_n or 0)
     return ("column_blocked", n) if n >= 1 else ("structured", 0)
+
+
+@contextlib.contextmanager
+def tile_cache_context(knobs, cache: tuning.TileCache | None = None):
+    """Install what a PerfKnobs-like object asks of K1's plans for the
+    calls inside: ``knobs.tile_cache`` (a path, which must exist; or
+    ``cache``, already loaded from it) makes measured plans beat the
+    heuristic, and ``knobs.block_k`` (0: none) sets the K-slice width of
+    every launch, winning over the cache.  The JAX package's context sets the
+    cache alone (its ``block_k`` rides its GEMM policy, which the port does
+    not have).  Thread-local: enter it where the step runs.  Yields the
+    cache, or None."""
+    path = getattr(knobs, "tile_cache", "")
+    if cache is None and path:
+        cache = tuning.load_tile_cache(path)
+    with contextlib.ExitStack() as stack:
+        if cache is not None:
+            stack.enter_context(tuning.use_tile_cache(cache))
+        stack.enter_context(tuning.use_block_k(getattr(knobs, "block_k", 0)))
+        yield cache

@@ -20,8 +20,12 @@ Three wrappers mirror the JAX package's Pallas entry points:
 (``paired_matmul_plain``, ``paired_matmul_blocked_plain``; the dense
 form is the paired one at ``P == 0``), and for any other device it raises.
 The launch's plan (form, tile, K-split over a cluster) is
-:func:`launch_plan`, a pure function of the operands' shapes
-(``kernels/tuning.py``).
+:func:`launch_plan`: an explicit ``block_k``, else the active tile cache's
+plan for the launch's key, else the heuristic, a pure function of the
+operands' shapes (``kernels/tuning.py`` ``resolve_plan``); each wrapper also
+takes a ``plan`` to launch at (the autotuner's candidates).  A plan the
+kernel refuses raises, naming the tile cache's key where the plan came from
+one.
 ``P + R == 0`` (an empty contraction) launches the kernel too: its
 contraction loop runs no step and the epilogue runs on zero accumulators.
 """
@@ -57,18 +61,28 @@ POOLS: dict[str, Callable] = {
 _POOL_CODE = {"none": 0, "max2": 1, "avg2": 2}
 POOL_WINDOW = 4  # 2×2 — the only window geometry LeNet (and the paper) uses
 
-# Kernel launches by form (paired_matmul / dense_matmul, + _blocked, + _pool):
+# Kernel launches by form (paired_matmul / dense_matmul, + _blocked, + _pool),
+# and by (launch, plan), a launch being ``tuning.launch_key``'s arguments:
 # the wrappers add one per launch, and only there.
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCHES_BY_PLAN: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    _LAUNCHES_BY_PLAN.clear()
 
 
 def launch_count() -> int:
     """Kernel launches since the last :func:`reset_launches`, all forms."""
     return sum(LAUNCHES.values())
+
+
+def launches_by_plan() -> dict[tuple[str, tuning.Plan], int]:
+    """Kernel launches since the last :func:`reset_launches` by (tile-cache
+    key, plan)."""
+    return {(tuning.launch_key(*launch), plan): n
+            for (launch, plan), n in _LAUNCHES_BY_PLAN.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -151,12 +165,22 @@ def _on_cuda(x: torch.Tensor) -> bool:
     )
 
 
-def launch_plan(x, kmat, w_res, pool: str = "none") -> tuning.Plan:
-    """The kernel's launch plan for these operands (structured ``kmat``
-    (P, N) or blocked (B, P, bn)); a pure function of their shapes."""
+def _problem(x, kmat, w_res, pool: str) -> tuple:
+    """(M, P, R, n_blocks, bn, pool, itemsize) of a launch (structured
+    ``kmat`` (P, N) or blocked (B, P, bn))."""
     B, P, bn = kmat.shape if kmat.ndim == 3 else (1, *kmat.shape)
-    window = POOL_WINDOW if pool != "none" else 1
-    return tuning.plan(x.shape[-2], P, w_res.shape[-2], B, bn, window, x.element_size())
+    return x.shape[-2], P, w_res.shape[-2], B, bn, pool, x.element_size()
+
+
+def launch_plan(x, kmat, w_res, pool: str = "none", residual: bool = False) -> tuning.Plan:
+    """The kernel's launch plan for these operands (``tuning.resolve_plan``:
+    an explicit block_k, the active tile cache, or the heuristic)."""
+    return tuning.resolve_plan(*_problem(x, kmat, w_res, pool), residual=residual)
+
+
+def launch_key(x, kmat, w_res, pool: str = "none", residual: bool = False) -> str:
+    """The tile cache's key of a launch on these operands."""
+    return tuning.launch_key(*_problem(x, kmat, w_res, pool), residual)
 
 
 def kernel_smem(plan: tuning.Plan, P: int, R: int, window: int, itemsize: int) -> int:
@@ -167,13 +191,30 @@ def kernel_smem(plan: tuning.Plan, P: int, R: int, window: int, itemsize: int) -
                         plan.cols, plan.tn, plan.splits, plan.stages)
 
 
+@functools.cache
+def _check():
+    fn = _build.load("paired_matmul").paired_matmul_check
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 14
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_accepts(plan: tuning.Plan, M: int, P: int, R: int, n_blocks: int, bn: int,
+                   window: int, itemsize: int) -> bool:
+    """Whether the C entry point takes ``plan`` for this problem: its own
+    checks, run without a launch (``tuning.refusal`` is their copy on the
+    host); needs the built library."""
+    return _check()(M, P, R, n_blocks, bn, window, int(itemsize == 2),
+                    *plan.as_args()) == 0
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(
     x, kmat, w_res, bias, residual, *, M, n_blocks, bn, n_cols, activation, pool,
-    blocked,
+    blocked, plan=None,
 ) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the paired_matmul kernel takes fp32 or bf16, got {x.dtype}")
@@ -194,7 +235,8 @@ def _launch(
     out = torch.empty((M, n_cols), dtype=x.dtype, device=x.device)
     P, R = kmat.shape[-2], w_res.shape[-2]
     window = POOL_WINDOW if pool != "none" else 1
-    plan = launch_plan(x, kmat, w_res, pool)
+    launch = (*_problem(x, kmat, w_res, pool), residual is not None)
+    plan = plan or tuning.resolve_plan(*launch[:-1], residual=launch[-1])
     fn, err_str, _ = _kernel()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
@@ -206,11 +248,15 @@ def _launch(
             *plan.as_args(), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(
-            f"paired_matmul kernel launch failed: {err_str(err).decode()} ({err})"
-        )
+        cache = tuning.active_tile_cache()
+        key = tuning.launch_key(*launch)
+        cached = (f", the tile cache {cache.path}'s plan for {key}"
+                  if cache is not None and key in cache else "")
+        raise RuntimeError(f"paired_matmul kernel launch failed: {err_str(err).decode()} "
+                           f"({err}) at {plan}{cached}")
     form = ("paired_matmul" if P else "dense_matmul") + ("_blocked" if blocked else "")
     LAUNCHES[form + ("_pool" if pool != "none" else "")] += 1
+    _LAUNCHES_BY_PLAN[launch, plan] += 1
     return out
 
 
@@ -230,6 +276,7 @@ def paired_matmul_cuda(
     residual: torch.Tensor | None = None,  # (M, N) fused skip-connection add
     activation: str = "none",
     pool: str = "none",
+    plan: tuning.Plan | None = None,  # launch at this plan (on a CUDA tensor)
 ) -> torch.Tensor:
     """Fused subtract-then-MAC GEMM with epilogue. Returns (M, N).
 
@@ -254,7 +301,7 @@ def paired_matmul_cuda(
         )
     return _launch(
         x, kmat, w_res, bias, residual, M=M, n_blocks=1, bn=N, n_cols=N,
-        activation=activation, pool=pool, blocked=False,
+        activation=activation, pool=pool, blocked=False, plan=plan,
     )
 
 
@@ -268,6 +315,7 @@ def paired_matmul_blocked_cuda(
     residual: torch.Tensor | None = None,  # (M, n_cols) fused skip-connection add
     activation: str = "none",
     pool: str = "none",
+    plan: tuning.Plan | None = None,  # launch at this plan (on a CUDA tensor)
 ) -> torch.Tensor:
     """Column-blocked paired GEMM. Returns (M, n_cols).
 
@@ -296,7 +344,7 @@ def paired_matmul_blocked_cuda(
         )
     return _launch(
         x, kmat, w_res, bias, residual, M=M, n_blocks=B, bn=bn, n_cols=n_cols,
-        activation=activation, pool=pool, blocked=True,
+        activation=activation, pool=pool, blocked=True, plan=plan,
     )
 
 
@@ -307,9 +355,10 @@ def dense_matmul_cuda(
     *,
     residual: torch.Tensor | None = None,
     activation: str = "none",
+    plan: tuning.Plan | None = None,
 ) -> torch.Tensor:
     """Plain GEMM with the same epilogue: the paired kernel at ``P == 0``."""
     p0 = w.new_zeros((0, w.shape[1]))
     return paired_matmul_cuda(
-        x, p0, w, bias, residual=residual, activation=activation
+        x, p0, w, bias, residual=residual, activation=activation, plan=plan
     )

@@ -5,8 +5,12 @@ The port's counterpart of the block choice in ``repro.kernels.tuning``
 (``choose_blocks``), redone for this card: 132 SMs, 227 KB of shared memory
 per block, thread-block clusters of at most 8 CTAs (the portable size).
 :func:`plan` is a pure function of the launch's shape; the wrapper passes
-its result to the C entry point, which checks it and refuses a plan out of
-range.  There is no autotuning and no tile cache.
+the plan :func:`resolve_plan` picks to the C entry point, which checks it and
+refuses a plan out of range (:func:`refusal` is the same check on the host).
+Measured plans beat the heuristic where a :class:`TileCache` is active
+(:func:`use_tile_cache`): :func:`autotune_plans` times the
+:func:`candidate_plans` of one problem and writes the fastest through, under
+the JAX package's :func:`cache_key` of that problem.
 
 Two forms of the one kernel (``csrc/paired_matmul.cu``), 128 threads a CTA:
 
@@ -41,7 +45,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import json
 import math
+import re
+import threading
+import time
+from pathlib import Path
 
 SMS = 132
 SMEM_PER_BLOCK = 232_448  # 227 KB: the opt-in dynamic shared memory of a block
@@ -215,9 +224,10 @@ def _tall_smem(window, rows, K, itemsize, tn, slice_lanes, splits, stages) -> in
     return weights + stages * window * _tall_block(rows, K, itemsize) + part
 
 
-def _plan_tall(M, P, R, n_blocks, bn, window, itemsize) -> Plan | None:
+def _plan_tall(M, P, R, n_blocks, bn, window, itemsize, tn: int = 0) -> Plan | None:
+    """The tall form at ``tn`` columns a CTA (0: by the block's width)."""
     ke, K = P + R, 2 * P + R
-    tn = 1 if bn == 1 else 4 if bn <= 4 else 8
+    tn = tn or (1 if bn == 1 else 4 if bn <= 4 else 8)
     col_tiles = n_blocks * -(-bn // tn)
     if col_tiles > MAX_GRID_Y:
         return None
@@ -255,6 +265,7 @@ def _plan_tall(M, P, R, n_blocks, bn, window, itemsize) -> Plan | None:
     return Plan("tall", rows, tn, tn, splits, lanes, subtiles, stages, smem())
 
 
+@functools.cache
 def plan(M: int, P: int, R: int, n_blocks: int, bn: int, window: int, itemsize: int) -> Plan:
     """The launch plan of one K1 call: ``M`` output rows, ``P`` pairs and
     ``R`` residual lanes per block, ``n_blocks`` column blocks of ``bn``
@@ -274,6 +285,432 @@ def plan(M: int, P: int, R: int, n_blocks: int, bn: int, window: int, itemsize: 
                          f"window={window}")
     return p
 
+
+# ---------------------------------------------------------------------------
+# K1: the host's check of a plan, the persisted tile cache, measured plans
+# ---------------------------------------------------------------------------
+
+#: the pool epilogue's window of each pool the cache keys name
+POOL_WINDOWS = {"none": 1, "max2": 4, "avg2": 4}
+#: K1's element types by size, under the names the JAX package's keys use
+DTYPE_NAMES = {4: "float32", 2: "bfloat16"}
+#: K-slices of a column tile that the candidates try (a cluster's CTAs)
+CANDIDATE_SPLITS = (1, 2, 4, 8)
+
+
+def plan_smem(plan: Plan, P: int, R: int, window: int, itemsize: int) -> int:
+    """The planner's model of the shared memory ``plan`` lays out (its
+    ``smem`` field, whatever it holds)."""
+    step = slice_step(P + R, plan.splits)
+    if plan.form == "skinny":
+        return _skinny_smem(plan.rows, plan.cols, plan.tn, itemsize, step, P, plan.splits)
+    return _tall_smem(window, plan.rows, 2 * P + R, itemsize, plan.tn, step, plan.splits,
+                      plan.stages)
+
+
+def _resized(plan: Plan, P, R, window, itemsize, **fields) -> Plan:
+    """``plan`` with ``fields`` replaced and its ``smem`` worked out again."""
+    p = dataclasses.replace(plan, **fields)
+    return dataclasses.replace(p, smem=plan_smem(p, P, R, window, itemsize))
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def refusal(plan: Plan, M: int, P: int, R: int, n_blocks: int, bn: int, window: int,
+            itemsize: int) -> str | None:
+    """Why the C entry point (``paired_matmul_launch``) would refuse
+    ``plan`` for this launch, or None where it takes it: its range checks,
+    and the instances the source compiles (``SKINNY_SHAPES``, ``TALL_TN``).
+    ``plan.smem`` is not read: the shared memory is worked out from the
+    other fields, as the kernel does."""
+    ke = P + R
+    if plan.form not in ("skinny", "tall"):
+        return f"form {plan.form!r}"
+    if not 1 <= plan.rows <= 65_536 or plan.cols < 1 or not _pow2(plan.tn):
+        return "rows, cols or tn out of range"
+    if not 1 <= plan.splits <= MAX_CLUSTER:
+        return f"{plan.splits} K-slices (a cluster holds 1 to {MAX_CLUSTER})"
+    step = slice_step(ke, plan.splits)
+    if ke and (plan.splits - 1) * step >= ke or not ke and plan.splits != 1:
+        return f"{plan.splits} K-slices of {ke} lanes leave one empty"
+    if plan.form == "skinny":
+        if window != 1 or ke < 1:
+            return "the skinny form takes no pool and no empty contraction"
+        if (plan.rows, plan.tn) not in SKINNY_SHAPES[itemsize]:
+            return f"no skinny instance of {plan.rows} rows × {plan.tn} columns"
+        if (not _pow2(plan.cols) or bn % plan.tn or plan.cols % plan.tn
+                or plan.cols // plan.tn > THREADS):
+            return f"a column tile of {plan.cols} at tn={plan.tn}, bn={bn}"
+        if plan.stages != SKINNY_STAGES or plan.subtiles != 1:
+            return f"the skinny form runs {SKINNY_STAGES} stages and one sub-tile"
+    else:
+        if plan.tn not in TALL_TN or plan.cols != plan.tn:
+            return f"no tall instance of {plan.tn} columns (cols {plan.cols})"
+        if not _pow2(plan.lanes) or plan.lanes * window > 32:
+            return f"{plan.lanes} threads a window-row"
+        if window * plan.rows % (THREADS // plan.lanes * tall_rows_per_thread(plan.tn)):
+            return f"{plan.rows} rows a sub-tile do not fill the threads"
+        if not 1 <= plan.stages <= TALL_STAGES or plan.subtiles < 1:
+            return f"{plan.stages} stages, {plan.subtiles} sub-tiles"
+        if plan.splits > 1 and plan.subtiles != 1:
+            return "a split contraction takes one sub-tile a CTA"
+        groups = -(-(-(-M // plan.rows)) // plan.subtiles)
+        if groups * plan.splits > 2**31 - 1:
+            return "too many CTAs"
+    smem = plan_smem(plan, P, R, window, itemsize)
+    if smem > SMEM_PER_BLOCK:
+        return f"{smem} bytes of shared memory (at most {SMEM_PER_BLOCK})"
+    tiles = n_blocks * -(-bn // plan.cols)
+    if tiles > MAX_GRID_Y:
+        return f"{tiles} column tiles (at most {MAX_GRID_Y})"
+    return None
+
+
+def candidate_plans(M: int, P: int, R: int, n_blocks: int, bn: int, window: int,
+                    itemsize: int) -> list[Plan]:
+    """The plans :func:`autotune_plans` measures for one launch: the
+    heuristic :func:`plan` first, then variants of its form that the C
+    entry point takes, none twice.
+
+    skinny: the instances of the heuristic's rows a pass (``SKINNY_SHAPES``),
+    each at the heuristic's column tile, half and twice it, split over 1, 2,
+    4 and 8 CTAs (at most 24).  tall: each of ``TALL_TN`` up to the block's
+    width, at the heuristic's layout for that width with a ring of 1 to 3
+    ``stages``, and at one sub-tile a CTA with the contraction split over 1,
+    2, 4 and 8 CTAs (at most 21)."""
+    heur = plan(M, P, R, n_blocks, bn, window, itemsize)
+    ke, geom = P + R, (P, R, window, itemsize)
+    out = [heur]
+
+    def add(p: Plan | None) -> None:
+        if p is not None and p not in out and refusal(p, M, *geom[:2], n_blocks, bn,
+                                                      *geom[2:]) is None:
+            out.append(p)
+
+    if heur.form == "skinny":
+        for rows, tn in SKINNY_SHAPES[itemsize]:
+            if rows != heur.rows or bn % tn:
+                continue
+            widest = min(_pow2_at_least(bn), 256, THREADS * tn)
+            for cols in (heur.cols, heur.cols // 2, heur.cols * 2):
+                cols = max(tn, min(cols, widest))
+                for want in CANDIDATE_SPLITS:
+                    add(_resized(heur, *geom, tn=tn, cols=cols, splits=_splits(ke, want)))
+        return out
+    for tn in TALL_TN:
+        if tn > _pow2_at_least(bn):
+            continue
+        base = _plan_tall(M, P, R, n_blocks, bn, window, itemsize, tn)
+        if base is None:
+            continue
+        for stages in range(1, min(TALL_STAGES, base.subtiles) + 1):
+            add(_resized(base, *geom, stages=stages))
+        for want in CANDIDATE_SPLITS:
+            add(_resized(base, *geom, subtiles=1, stages=1, splits=_splits(ke, want)))
+    return out
+
+
+def _at_block_k(p: Plan, M, P, R, n_blocks, bn, window, itemsize, block_k: int) -> Plan:
+    """``p`` with its contraction cut in K-slices of at most ``block_k``
+    lanes (the fewest that do), the JAX package's explicit ``block_k``."""
+    ke, geom = P + R, (P, R, window, itemsize)
+    splits = _splits(ke, -(-ke // block_k)) if ke else 1
+    if -(-ke // block_k) > MAX_CLUSTER:
+        raise ValueError(f"block_k={block_k} cuts {ke} lanes in more than {MAX_CLUSTER} "
+                         "K-slices: no K1 plan takes it")
+    if p.form == "skinny":
+        q = _resized(p, *geom, splits=splits)
+        while q.smem > SMEM_PER_BLOCK and q.cols > q.tn:  # a narrower tile gathers less
+            q = _resized(q, *geom, cols=q.cols // 2)
+    else:
+        q = _resized(p, *geom, splits=splits, **({"subtiles": 1, "stages": 1}
+                                                  if splits > 1 else {}))
+    why = refusal(q, M, P, R, n_blocks, bn, window, itemsize)
+    if why:
+        raise ValueError(f"block_k={block_k}: no K1 plan takes it ({why})")
+    return q
+
+
+def cache_key(
+    M: int,
+    N: int,
+    P: int,
+    R: int,
+    *,
+    dtype: str = "",
+    dtype_bytes: int = 2,
+    pool: str = "none",
+    blocks: int = 1,
+    residual: bool = False,
+) -> str:
+    """The key of one K1 problem: the JAX package's ``cache_key`` string for
+    the same problem (``N``/``P``/``R`` are a block's in the column-blocked
+    form and on the expert grid, ``blocks`` the number of blocks)."""
+    K = 2 * P + R
+    dt = dtype or f"b{dtype_bytes}"
+    suffix = f"-x{blocks}" if blocks > 1 else ""
+    if residual:
+        suffix += "-res"
+    return f"M{M}-N{N}-K{K}-{dt}-p{P}r{R}-{pool}{suffix}"
+
+
+def launch_key(M: int, P: int, R: int, n_blocks: int, bn: int, pool: str, itemsize: int,
+               residual: bool = False) -> str:
+    """:func:`cache_key` of one launch of K1."""
+    return cache_key(M, bn, P, R, dtype=DTYPE_NAMES[itemsize], dtype_bytes=itemsize, pool=pool,
+                     blocks=n_blocks, residual=residual)
+
+
+_KEY = re.compile(r"^M(\d+)-N(\d+)-K\d+-(float32|bfloat16)-p(\d+)r(\d+)-(none|max2|avg2)"
+                  r"(?:-x(\d+))?(-res)?$")
+
+
+def key_problem(key: str) -> tuple[int, int, int, int, int, str, int, bool]:
+    """The launch a :func:`launch_key` names: ``(M, P, R, n_blocks, bn,
+    pool, itemsize, residual)``."""
+    m = _KEY.match(key)
+    if m is None:
+        raise ValueError(f"not a K1 launch key: {key!r}")
+    M, N, dt, P, R, pool, B, res = m.groups()
+    return (int(M), int(P), int(R), int(B or 1), int(N), pool,
+            next(i for i, d in DTYPE_NAMES.items() if d == dt), bool(res))
+
+
+#: The port's cache schema: the JAX package's version 1 holds Pallas tiles
+#: (``block_m``, ``block_n``, ``block_k``), which name no K1 plan.
+CACHE_VERSION = 2
+DEFAULT_CACHE_PATH = Path(".cache") / "tile_cache.json"
+PLAN_FIELDS = ("form", "rows", "cols", "tn", "splits", "lanes", "subtiles", "stages")
+
+
+_UNSET = object()
+
+
+def _plan_entry(entry) -> bool:
+    return (isinstance(entry, dict) and entry.get("form") in ("skinny", "tall")
+            and all(type(entry.get(f)) is int for f in PLAN_FIELDS[1:]))
+
+
+class TileCache:
+    """Versioned on-disk map from :func:`cache_key` to a measured K1 plan.
+
+    ``{"version": 2, "entries": {key: {"form": …, "rows": …, "cols": …,
+    "tn": …, "splits": …, "lanes": …, "subtiles": …, "stages": …, "smem":
+    …, "time_s": …, "source": …}}}``.  A version mismatch, an unreadable
+    file or an entry without a plan's fields loads as empty, so a cache the
+    JAX package wrote supplies no plan.  A missing file is an empty cache
+    (:func:`load_tile_cache` refuses one)."""
+
+    def __init__(self, path: str | Path | None = None):
+        self.path = Path(path) if path is not None else DEFAULT_CACHE_PATH
+        self.entries: dict[str, dict] = {}
+        # launch → its plan, resized and checked once (None: no entry; str:
+        # why K1 refuses the entry); put() starts it again
+        self._resolved: dict[tuple, Plan | str | None] = {}
+        try:
+            raw = json.loads(self.path.read_text())
+        except (OSError, ValueError):
+            return
+        if isinstance(raw, dict) and raw.get("version") == CACHE_VERSION and isinstance(
+                raw.get("entries"), dict):
+            self.entries = {k: v for k, v in raw["entries"].items() if _plan_entry(v)}
+
+    def get(self, key: str) -> Plan | None:
+        """The cached plan of ``key`` (its ``smem`` as stored)."""
+        e = self.entries.get(key)
+        if e is None:
+            return None
+        return Plan(**{f: e[f] for f in PLAN_FIELDS}, smem=int(e.get("smem", 0)))
+
+    def put(self, key: str, plan: Plan, *, time_s: float | None = None,
+            source: str = "measured") -> None:
+        entry = dict(dataclasses.asdict(plan), source=source)
+        if time_s is not None:
+            entry["time_s"] = time_s
+        self.entries[key] = entry
+        self._resolved.clear()
+
+    def plan_for(self, M: int, P: int, R: int, n_blocks: int, bn: int, pool: str,
+                 itemsize: int, residual: bool = False) -> Plan | None:
+        """The cached plan of one launch, its ``smem`` worked out for the
+        launch, or None where the cache holds no entry for it; raises
+        ``RuntimeError`` naming the key where K1 would refuse the entry.
+        Each launch's entry is resized and checked once."""
+        launch = (M, P, R, n_blocks, bn, pool, itemsize, residual)
+        hit = self._resolved.get(launch, _UNSET)
+        if hit is _UNSET:
+            key = launch_key(*launch)
+            hit = self.get(key)
+            if hit is not None:
+                window = POOL_WINDOWS[pool]
+                hit = _resized(hit, P, R, window, itemsize)
+                why = refusal(hit, M, P, R, n_blocks, bn, window, itemsize)
+                if why:
+                    hit = (f"the tile cache {self.path} holds a plan for {key} that K1 "
+                           f"refuses: {why} ({hit})")
+            self._resolved[launch] = hit
+        if isinstance(hit, str):
+            raise RuntimeError(hit)
+        return hit
+
+    def save(self) -> Path:
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.path.write_text(json.dumps({"version": CACHE_VERSION, "entries": self.entries},
+                                        indent=2))
+        return self.path
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.entries
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+
+def load_tile_cache(path: str | Path) -> TileCache:
+    """The cache at ``path``, which must exist (the CLI's ``--tile-cache``)."""
+    if not Path(path).is_file():
+        raise FileNotFoundError(f"no tile cache at {path}")
+    return TileCache(path)
+
+
+_state = threading.local()
+
+
+def active_tile_cache() -> TileCache | None:
+    return getattr(_state, "cache", None)
+
+
+def active_block_k() -> int:
+    return getattr(_state, "block_k", 0)
+
+
+class _Installed:
+    """Sets one thread-local field on entry and restores it on exit (so
+    installs nest)."""
+
+    def __init__(self, field: str, value):
+        self.field, self.value = field, value
+
+    def __enter__(self):
+        self._prev = _state.__dict__.get(self.field, _UNSET)
+        setattr(_state, self.field, self.value)
+        return self.value
+
+    def __exit__(self, *exc) -> None:
+        if self._prev is _UNSET:
+            delattr(_state, self.field)
+        else:
+            setattr(_state, self.field, self._prev)
+
+
+def use_tile_cache(cache: TileCache | str | Path) -> _Installed:
+    """Install a :class:`TileCache` (or the one at a path) for this thread's
+    K1 launches: their plans come from it where it holds their key."""
+    return _Installed("cache", cache if isinstance(cache, TileCache) else TileCache(cache))
+
+
+def use_block_k(block_k: int) -> _Installed:
+    """An explicit K-slice width for this thread's K1 launches (0: none)."""
+    return _Installed("block_k", int(block_k))
+
+
+def resolve_plan(M: int, P: int, R: int, n_blocks: int, bn: int, pool: str, itemsize: int, *,
+                 residual: bool = False) -> Plan:
+    """The plan of one K1 launch, as the JAX package's ``resolve_blocks``
+    picks tiles: an explicit block_k (:func:`use_block_k`) wins, then the
+    active cache's plan for the launch's key, then the heuristic
+    :func:`plan`.  A block_k no plan takes raises ``ValueError``; a cached
+    plan the C entry point would refuse raises ``RuntimeError`` naming its
+    key: there is no fallback to the heuristic.  Each answer is worked out
+    once (per cache, per block_k) and then looked up."""
+    block_k = active_block_k()
+    if block_k:
+        return _block_k_plan(M, P, R, n_blocks, bn, POOL_WINDOWS[pool], itemsize, block_k)
+    cache = active_tile_cache()
+    if cache is not None:
+        hit = cache.plan_for(M, P, R, n_blocks, bn, pool, itemsize, residual)
+        if hit is not None:
+            return hit
+    return plan(M, P, R, n_blocks, bn, POOL_WINDOWS[pool], itemsize)
+
+
+@functools.cache
+def _block_k_plan(M, P, R, n_blocks, bn, window, itemsize, block_k: int) -> Plan:
+    heur = plan(M, P, R, n_blocks, bn, window, itemsize)
+    return _at_block_k(heur, M, P, R, n_blocks, bn, window, itemsize, block_k)
+
+
+def _graph_s(fn, calls: int, replays: int) -> float:
+    """Seconds of one ``fn()`` on the card: ``calls`` calls captured in a
+    CUDA graph, replayed ``replays`` times between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / (calls * replays)
+
+
+def measure(fn, *, reps: int = 5, warmup: int = 1) -> float:
+    """Seconds of one ``fn()``: where it returns a CUDA tensor, the device
+    time over CUDA-graph replays (10 calls a graph, ``reps`` replays);
+    otherwise the best of ``reps`` host-clock runs after ``warmup``."""
+    out = fn()
+    if getattr(out, "is_cuda", False):
+        return _graph_s(fn, 10, reps)
+    for _ in range(warmup - 1):
+        fn()
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def autotune_plans(runner, M: int, P: int, R: int, n_blocks: int, bn: int, pool: str,
+                   itemsize: int, *, residual: bool = False, cache: TileCache | None = None,
+                   candidates: list[Plan] | None = None, reps: int = 5,
+                   warmup: int = 1) -> tuple[Plan, list[dict]]:
+    """Measure every candidate plan of one K1 problem and keep the fastest.
+
+    ``runner(plan)`` launches K1 for this problem at ``plan`` and returns
+    its output; :func:`measure` times it.  Returns ``(winner, records)``,
+    a record per candidate (its fields, ``time_s``, ``heuristic``); with a
+    ``cache`` the winner is written through under the problem's key and the
+    cache saved."""
+    window = POOL_WINDOWS[pool]
+    cands = candidates or candidate_plans(M, P, R, n_blocks, bn, window, itemsize)
+    heur = plan(M, P, R, n_blocks, bn, window, itemsize)
+    records, best, best_t = [], None, math.inf
+    for p in cands:
+        t = measure(lambda p=p: runner(p), reps=reps, warmup=warmup)
+        records.append({**dataclasses.asdict(p), "time_s": t, "heuristic": p == heur})
+        if t < best_t:
+            best, best_t = p, t
+    if best is None:
+        raise ValueError("no candidate plans")
+    if cache is not None:
+        cache.put(launch_key(M, P, R, n_blocks, bn, pool, itemsize, residual), best,
+                  time_s=best_t)
+        cache.save()
+    return best, records
 
 # ---------------------------------------------------------------------------
 # K2: fused decode attention

@@ -59,13 +59,31 @@
         --batch 4 --max-seq 320 --prompt-lens 260,270,280,300
 
     # hardened front end: Poisson load + chaos over the paired engine, with
-    # graceful degradation to the unpaired fallback engine
+    # graceful degradation to the unpaired fallback engine (--fallback-gemm
+    # pallas: its GEMMs on K1's dense form)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
         --gemm pallas_paired --frontend --arrival-rate 20 --horizon 0.5 \
         --inject nan_logits:0.05,kv_poison:0.02,kernel_failure:0.02 --device cpu
 
-The port of ``repro.launch.serve`` without its offline weight folding and
-conv lowering.  Weights are random from seed 0 (``models.lm.init_lm``); once
+    # K1's plans from a measured tile cache (chip_smoke.py's tile_cache phase
+    # writes one for this engine; kernels.tuning.autotune_plans)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --gemm pallas_paired --attn pallas_fused --pair-rounding 0.05 --batch 4 \
+        --max-seq 256 --tile-cache .cache/tile_cache.json
+
+    # the weights folded per column at r=0.05 first (host work: about 20 s
+    # a full-width qwen2 layer), one layer
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --layers 1 \
+        --gemm pallas_paired --pair-rounding 0.05 --paired-rounding 0.05
+
+The port of ``repro.launch.serve``.  ``--paired-rounding`` folds the weights
+per column first (``core.transform.fold_lm_params``; the JAX CLI's
+``pair_model_params`` on the whole value tree pairs the wrong axes of an LM,
+so the port departs from it on purpose).  ``--tile-cache`` (a file that must
+exist) and ``--block-k`` set K1's launch plans (``kernels.tuning``);
+``--conv`` and ``--fuse-pool`` are the JAX CLI's conv knobs, which change
+nothing on the LM archs, as there.  Weights are random from seed 0
+(``models.lm.init_lm``); once
 the engine has paired them, the launcher holds the paired ones in the
 compute dtype (``models.lm.hold_paired_in_compute_dtype``), which every use
 casts them to: a bf16 model's paired fp32 masters would not fit one card
@@ -88,10 +106,12 @@ import argparse
 import dataclasses
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 
 from repro_torch.configs import cut_layers, get_config, get_smoke_config
+from repro_torch.core.transform import fold_lm_params
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -120,17 +140,31 @@ def _since(before: dict[str, int]) -> dict[str, int]:
 
 def _build_engine(*, arch: str, smoke: bool, batch: int, max_seq: int, pair_rounding: float,
                  pair_block_n: int, gemm: str, attn: str, device: str | None,
-                 layers: int | None = None):
-    """Config, device, the model (seed 0, unpaired) and the engine over it
+                 layers: int | None = None, paired_rounding: float = 0.0, block_k: int = 0,
+                 tile_cache: str = "", conv: str = "xla", fuse_pool: bool = False):
+    """Config, device, the model (seed 0, folded per column at
+    ``paired_rounding`` if it is above 0, unpaired) and the engine over it
     (paired by its constructor under ``gemm="pallas_paired"``, its paired
     weights then held in the compute dtype), and the seconds the engine
-    took to build; prints the pairing report."""
+    took to build; prints the pairing reports."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if layers is not None:
         cfg = cut_layers(cfg, layers)
     dev = resolve_device(device)
     model = M.init_lm(cfg, 0, device=dev)
-    knobs = M.PerfKnobs(q_chunk=32, k_chunk=32, gemm=gemm, attn=attn,
+    if paired_rounding > 0:
+        mode = "column_blocked" if pair_block_n >= 1 else "per_column"
+        t0 = time.perf_counter()
+        model, report = fold_lm_params(model, paired_rounding, block_n=max(1, pair_block_n))
+        s = report.savings()
+        print(f"[serve] subtractor pairing ({mode}"
+              f"{f', block_n={pair_block_n}' if pair_block_n else ''}): "
+              f"{report.total_pairs} pairs ({100 * report.pair_fraction:.1f}% of weights) "
+              f"→ modeled power −{100 * s['power_saving']:.1f}%, "
+              f"area −{100 * s['area_saving']:.1f}%; folded in "
+              f"{time.perf_counter() - t0:.1f} s")
+    knobs = M.PerfKnobs(q_chunk=32, k_chunk=32, gemm=gemm, attn=attn, conv=conv,
+                        block_k=block_k, fuse_pool=fuse_pool, tile_cache=tile_cache,
                         pair_block_n=pair_block_n, pair_rounding=pair_rounding)
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, model, max_seq=max_seq, batch_size=batch, knobs=knobs)
@@ -162,6 +196,11 @@ def serve(
     device: str | None = None,
     prompt_lens: list[int] | None = None,
     layers: int | None = None,
+    paired_rounding: float = 0.0,
+    block_k: int = 0,
+    tile_cache: str = "",
+    conv: str = "xla",
+    fuse_pool: bool = False,
 ) -> dict:
     """Build the engine, serve one prompt per slot, print what the JAX
     package's driver prints, and return the run's record: the engine, the
@@ -171,7 +210,9 @@ def serve(
     during the prefills and during the decode steps."""
     cfg, dev, _, eng, pairing_s = _build_engine(
         arch=arch, smoke=smoke, batch=batch, max_seq=max_seq, pair_rounding=pair_rounding,
-        pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device, layers=layers)
+        pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device, layers=layers,
+        paired_rounding=paired_rounding, block_k=block_k, tile_cache=tile_cache, conv=conv,
+        fuse_pool=fuse_pool)
 
     lens = prompt_lens or [cfg.vision_prefix + 8 + 4 * i for i in range(batch)]
     if len(lens) != batch:
@@ -212,6 +253,10 @@ def serve(
     }
 
 
+#: the front end's fallback GEMMs: torch.matmul, or K1's dense form
+FALLBACK_GEMMS = ("xla", "pallas")
+
+
 def _parse_fault_rates(spec: str) -> dict[str, float]:
     rates: dict[str, float] = {}
     for part in filter(None, (p.strip() for p in spec.split(","))):
@@ -238,22 +283,34 @@ def run_frontend(
     prefill_chunk: int = 8,
     deadline: float = float("inf"),
     inject: str = "",
+    fallback_gemm: str = "xla",
+    layers: int | None = None,
+    paired_rounding: float = 0.0,
+    block_k: int = 0,
+    tile_cache: str = "",
+    conv: str = "xla",
+    fuse_pool: bool = False,
 ) -> ServeReport:
     """Simulated-load run: Poisson arrivals + optional chaos, degrading to a
-    fresh unpaired fallback engine on the same (unpaired) weights.  Prints
-    the report's summary and the kernel launches of the run; raises
-    ``SystemExit`` if any request is lost.  The front end feeds tokens
-    alone: an encoder-decoder or vision-language arch raises."""
+    fresh unpaired fallback engine on the same (folded, unpaired) weights,
+    its GEMMs ``torch.matmul`` (``fallback_gemm="xla"``) or K1's dense form
+    (``"pallas"``).  Prints the report's summary and the kernel launches of
+    the run; raises ``SystemExit`` if any request is lost.  The front end
+    feeds tokens alone: an encoder-decoder or vision-language arch raises."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if cfg.encoder is not None or cfg.vision_prefix:
         raise ValueError(f"the front end feeds no frames or patches: it cannot serve "
                          f"{arch} ({cfg.family})")
+    if fallback_gemm not in FALLBACK_GEMMS:
+        raise ValueError(f"fallback_gemm {fallback_gemm!r} not in {FALLBACK_GEMMS}")
     cfg, dev, model, eng, _ = _build_engine(
         arch=arch, smoke=smoke, batch=batch, max_seq=max_seq, pair_rounding=pair_rounding,
-        pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device)
+        pair_block_n=pair_block_n, gemm=gemm, attn=attn, device=device, layers=layers,
+        paired_rounding=paired_rounding, block_k=block_k, tile_cache=tile_cache, conv=conv,
+        fuse_pool=fuse_pool)
     # `model` is the pre-pairing model (the engine paired its own copy), so
     # the fallback runs plain exact GEMMs (decode attention as the primary's)
-    fb_knobs = dataclasses.replace(eng.knobs, gemm="xla", pair_rounding=0.0)
+    fb_knobs = dataclasses.replace(eng.knobs, gemm=fallback_gemm, pair_rounding=0.0)
     fallback = ServeEngine(cfg, model, max_seq=max_seq, batch_size=batch, knobs=fb_knobs)
     workload = poisson_workload(
         rate_rps=arrival_rate, horizon_s=horizon, seed=seed, vocab=cfg.vocab,
@@ -276,7 +333,8 @@ def run_frontend(
     return report
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict | ServeReport:
+    """The CLI; returns :func:`serve`'s record, or the front end's report."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="the reduced config of the arch")
@@ -288,9 +346,16 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prompt-lens", type=lambda v: [int(n) for n in v.split(",")],
                     default=None, help="prompt length of each slot, comma-separated "
                                        "(default 8 + 4·slot)")
+    ap.add_argument("--paired-rounding", type=float, default=0.0,
+                    help="fold the weights first: per-column pairing (per "
+                         "--pair-block-n columns if n >= 1) of each decoder weight "
+                         "matrix at this rounding (core.transform.fold_lm_params; "
+                         "the JAX CLI's pair_model_params pairs the wrong axes of an "
+                         "LM tree); 0.0 folds nothing")
     ap.add_argument("--pair-rounding", type=float, default=0.0,
-                    help="rounding size of the pallas_paired LM pairing; 0.0 is "
-                         "the exact-parity point")
+                    help="rounding size of the pallas_paired LM pairing (live-weight "
+                         "kernel path, distinct from --paired-rounding's offline "
+                         "folding); 0.0 is the exact-parity point")
     ap.add_argument("--pair-block-n", type=int, default=0,
                     help="pairing-mode spectrum: 0 → structured (one shared-row "
                          "pairing per weight); n >= 1 → column-blocked, one "
@@ -303,6 +368,20 @@ def main(argv: list[str] | None = None) -> None:
                     help="decode attention: xla is plain PyTorch; pallas_fused is "
                          "the decode-attention kernel with the out-projection "
                          "(and residual) in its flush")
+    ap.add_argument("--conv", choices=M.CONVS, default="xla",
+                    help="conv lowering for conv-bearing models (no-op for the LM "
+                         "archs)")
+    ap.add_argument("--fuse-pool", action="store_true",
+                    help="conv→pool megakernel for conv-bearing models (no-op for "
+                         "the LM archs)")
+    ap.add_argument("--block-k", type=int, default=0,
+                    help="K1's K-slice width in lanes (the contraction split over "
+                         "ceil(K'/block_k) CTAs of a cluster); 0 → tile cache / "
+                         "heuristic")
+    ap.add_argument("--tile-cache", default="",
+                    help="path to a persisted K1 TileCache (kernels.tuning."
+                         "autotune_plans writes one; chip_smoke.py's tile_cache "
+                         "phase measures it); its measured plans beat the heuristic")
     ap.add_argument("--device", default=None,
                     help="torch device; default the GPU ('cpu' runs the kernels' "
                          "plain versions)")
@@ -322,18 +401,22 @@ def main(argv: list[str] | None = None) -> None:
                          "longer prompts rides the shared decode steps")
     ap.add_argument("--deadline", type=float, default=float("inf"),
                     help="per-request completion deadline (virtual s)")
+    ap.add_argument("--fallback-gemm", choices=FALLBACK_GEMMS, default="xla",
+                    help="unpaired exact path quarantined requests degrade to: "
+                         "torch.matmul (xla) or K1's dense form (pallas)")
     ap.add_argument("--inject", default="",
                     help="fault rates, e.g. 'nan_logits:0.05,kv_poison:0.02' "
                          "(per front-end step; see serving.faults.FAULT_KINDS)")
     args = vars(ap.parse_args(argv))
+    if args["tile_cache"] and not Path(args["tile_cache"]).is_file():
+        ap.error(f"--tile-cache: no file at {args['tile_cache']}")
     fe_args = {k: args.pop(k) for k in ("arrival_rate", "horizon", "seed", "prefill_chunk",
-                                         "deadline", "inject")}
+                                         "deadline", "inject", "fallback_gemm")}
     if args.pop("frontend"):
-        if args.pop("prompt_lens") or args.pop("layers") is not None:
-            ap.error("--prompt-lens and --layers set a run without --frontend")
-        run_frontend(**args, **fe_args)
-    else:
-        serve(**args)
+        if args.pop("prompt_lens"):
+            ap.error("--prompt-lens sets a run without --frontend")
+        return run_frontend(**args, **fe_args)
+    return serve(**args)
 
 
 if __name__ == "__main__":

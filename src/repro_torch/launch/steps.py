@@ -1,8 +1,13 @@
-"""The LM training step.
+"""The LM step builders: training, prefill and decode.
 
-The port of ``repro.launch.steps.build_train_step``, on one device: the
-mesh and sharding rules of the JAX package wait for tensor parallelism, and
-its abstract-shape builders for the dry run have no counterpart.  The GEMM
+The port of ``repro.launch.steps`` ``build_train_step``,
+``build_prefill_step`` and ``build_serve_step``, on one device: the mesh
+and sharding rules of the JAX package wait for tensor parallelism, and its
+abstract-shape builders for the dry run have no counterpart.  Each step runs
+under ``kernels.ops.tile_cache_context(knobs)`` (the tile cache is read
+once, when the step is built), as the JAX package's steps run under
+``perf_context(knobs)``; the serving steps live in ``serving.steps`` and
+run without autograd.  The GEMM
 policy comes from ``knobs``, as the JAX package's ``perf_context(knobs)``
 sets it: under ``gemm="pallas"`` every layer GEMM's forward is a launch of
 K1's dense form, under ``"pallas_paired"`` every weight that carries
@@ -21,7 +26,13 @@ from collections.abc import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops, tuning
 from repro_torch.models import lm as M
+from repro_torch.serving.steps import (  # noqa: F401  (the JAX module's three builders)
+    build_prefill_step,
+    build_serve_step,
+    load_knobs_tile_cache,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +48,7 @@ class TrainStep:
     cfg: ModelConfig
     opt: Callable[..., torch.optim.Optimizer]  # train.optimizer.adamw(...) or sgd(...)
     knobs: M.PerfKnobs
+    tile_cache: tuning.TileCache | None = None  # the one knobs.tile_cache names
 
     def init(self, model: M.LM) -> torch.optim.Optimizer:
         """Make ``model``'s weights trainable and build the optimizer over
@@ -49,8 +61,9 @@ class TrainStep:
     def __call__(self, model: M.LM, opt_state: torch.optim.Optimizer, step: int,
                  batch: dict) -> dict[str, torch.Tensor]:
         opt_state.zero_grad(set_to_none=True)
-        loss, metrics = M.lm_loss(self.cfg, model, batch, knobs=self.knobs)
-        loss.backward()
+        with ops.tile_cache_context(self.knobs, self.tile_cache):
+            loss, metrics = M.lm_loss(self.cfg, model, batch, knobs=self.knobs)
+            loss.backward()
         for group in opt_state.param_groups:
             group["step"] = int(step)
         opt_state.step()
@@ -61,4 +74,4 @@ def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer]
                      knobs: M.PerfKnobs) -> TrainStep:
     """The training step of ``cfg`` under ``knobs`` with optimizer ``opt``
     (a constructor over the parameters, the JAX package's ``Optimizer``)."""
-    return TrainStep(cfg, opt, knobs)
+    return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs))

@@ -15,8 +15,11 @@ the optimizer's moments) are written every ``--ckpt-every`` steps; a run
 finding one in ``--ckpt-dir`` resumes from it and regenerates the token
 stream from the step counter (``data.tokens``), so a killed run continues
 as the straight one would.  ``--paired-rounding`` folds the weights at that
-rounding before training (the JAX CLI's pairing-aware finetune: the paper's
-per-column pairing of every eligible leaf, ``core.transform.pair_model_params``).
+rounding before training (the JAX CLI's pairing-aware finetune): the paper's
+per-column pairing of each layer's ``(K, N)`` matrix,
+``core.transform.fold_lm_params``.  The JAX CLI folds the whole value tree
+through ``pair_model_params``, which on an LM tree pairs the wrong axes: the
+port departs from it there on purpose.
 Beyond the JAX CLI: ``--gemm`` picks the layer GEMMs' route (``xla``:
 ``torch.matmul``; ``pallas``: K1's dense form; ``pallas_paired``: K1's
 paired forms on metadata built by ``pair_lm_params`` at ``--pair-rounding``
@@ -36,7 +39,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.transform import pair_lm_params, pair_model_params
+from repro_torch.core.transform import fold_lm_params, pair_lm_params
 from repro_torch.data.tokens import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import paired_mode_of
@@ -89,8 +92,7 @@ def train(
     dev = resolve_device(device)
     model = M.init_lm(cfg, 0, device=dev)
     if paired_rounding > 0:
-        folded, report = pair_model_params(M.lm_value_tree(model), paired_rounding)
-        M.load_lm_values(model, folded)
+        model, report = fold_lm_params(model, paired_rounding)
         print(f"[train] paired {report.total_pairs} weight pairs "
               f"({100 * report.pair_fraction:.1f}% of weights) "
               f"→ modeled savings {report.savings()}")
@@ -154,7 +156,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--paired-rounding", type=float, default=0.0,
                     help="fold the weights at this rounding before training "
-                         "(per-column pairing of every eligible leaf)")
+                         "(per-column pairing of each decoder weight matrix)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--gemm", choices=M.GEMMS, default="xla",
                     help="xla: torch.matmul; pallas: K1's dense form; pallas_paired: "

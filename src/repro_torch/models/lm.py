@@ -83,6 +83,9 @@ from repro_torch.models.layers import (
 
 GEMMS = ("xla", "pallas", "pallas_paired")
 ATTNS = ("xla", "pallas_fused")
+#: the JAX package's conv lowerings (``repro.models.lenet.CONV_IMPLS``): the
+#: LM archs have no 2-D convs, so none changes their path
+CONVS = ("xla", "im2col", "pallas_paired")
 REMATS = ("full", "dots", "none")
 #: the SSM block's cache entries: one state a slot, no sequence axis
 SSM_ENTRIES = ("h", "conv_x", "conv_B", "conv_C")
@@ -109,7 +112,14 @@ class PerfKnobs:
     (:func:`lm_loss`) reads ``remat`` (``"full"``: recompute each decoder
     layer in the backward; ``"dots"``: keep the GEMMs' outputs, recompute
     the rest; ``"none"``) and ``xent_chunk`` (sequence positions a chunk of
-    the cross-entropy; 0 → one chunk).
+    the cross-entropy; 0 → one chunk).  ``block_k`` (0: none) is the
+    K-slice width of every K1 launch and ``tile_cache`` (a path; "" → none)
+    the persisted tile cache whose measured plans beat the heuristic
+    (``kernels.ops.tile_cache_context``, which the step builders of
+    ``launch.steps`` enter around each step).  ``conv`` (one of
+    :data:`CONVS`) and ``fuse_pool`` are the JAX package's conv lowering and
+    conv→pool megakernel knobs: no LM arch has a 2-D conv, so they change
+    nothing here, as in the JAX package.
     """
 
     q_chunk: int = 1024
@@ -120,12 +130,24 @@ class PerfKnobs:
     attn: str = "xla"
     pair_rounding: float = 0.0
     pair_block_n: int = 0
+    block_k: int = 0
+    tile_cache: str = ""
+    conv: str = "xla"
+    fuse_pool: bool = False
 
     def __post_init__(self):
         if self.gemm not in GEMMS:
             raise ValueError(f"unknown knobs.gemm {self.gemm!r} (expected one of {GEMMS})")
         if self.attn not in ATTNS:
             raise ValueError(f"unknown knobs.attn {self.attn!r} (expected one of {ATTNS})")
+        if self.conv not in CONVS:
+            raise ValueError(f"unknown knobs.conv {self.conv!r} (expected one of {CONVS})")
+        if type(self.block_k) is not int or self.block_k < 0:
+            raise ValueError(f"knobs.block_k must be an int >= 0, got {self.block_k!r}")
+        if not isinstance(self.tile_cache, str):
+            raise ValueError(f"knobs.tile_cache must be a path string, got {self.tile_cache!r}")
+        if not isinstance(self.fuse_pool, bool):
+            raise ValueError(f"knobs.fuse_pool must be a bool, got {self.fuse_pool!r}")
         if self.remat not in REMATS:
             raise ValueError(f"unknown knobs.remat {self.remat!r} (expected one of {REMATS})")
 

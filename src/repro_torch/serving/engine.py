@@ -9,7 +9,10 @@ request.  With ``knobs.gemm="pallas_paired"`` it pairs the decoder weights
 (``core.transform.pair_lm_params``) unless the model already carries
 metadata; it then serves from a frozen copy of the model, which shares the
 caller's weights and keeps the compute-dtype casts and the paired kernels'
-segments after their first use (serving never updates weights).
+segments after their first use (serving never updates weights).  Its
+prefill and decode are the step functions of ``serving.steps``
+(``build_prefill_step``, ``build_serve_step``), which run under the knobs'
+tile cache.
 """
 from __future__ import annotations
 
@@ -22,6 +25,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.transform import has_lm_pairing, pair_lm_params
 from repro_torch.kernels.ops import paired_mode_of
 from repro_torch.models import lm as M
+from repro_torch.serving.steps import (
+    build_prefill_step,
+    build_serve_step,
+    load_knobs_tile_cache,
+)
 
 
 class CapacityError(ValueError):
@@ -44,6 +52,9 @@ class ServeEngine:
             model, self.pair_report = pair_lm_params(
                 model, knobs.pair_rounding, mode=mode, block_n=block_n)
         self.model = model.copy(frozen=True)
+        tile_cache = load_knobs_tile_cache(knobs)  # read once, for both steps
+        self._prefill = build_prefill_step(cfg, knobs, tile_cache)
+        self._decode = build_serve_step(cfg, knobs, tile_cache)
         self.cache = M.init_cache(cfg, batch_size, max_seq, device=self.device)
         self.pos = np.zeros((batch_size,), np.int32)
         self.tokens = torch.zeros((batch_size, 1), dtype=torch.int64, device=self.device)
@@ -87,10 +98,9 @@ class ServeEngine:
                 "patch positions it starts with: no text token would be read")
         tokens = torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.int64,
                                  device=self.device)
-        extras = {k: torch.as_tensor(v, device=self.device) for k, v in (extras or {}).items()}
-        with torch.no_grad():
-            last_logits, cache = M.prefill(self.cfg, self.model, tokens, knobs=self.knobs,
-                                           extras=extras)
+        batch = {"tokens": tokens, **{k: torch.as_tensor(v, device=self.device)
+                                       for k, v in (extras or {}).items()}}
+        last_logits, cache = self._prefill(self.model, batch)
         # splice this request's cache into the slot: an SSM entry (L, 1, …)
         # whole, an attention entry (L, 1, meta_tokens + plen, …) over its
         # positions, a cross-attention one (L, 1, frames, …) over all frames
@@ -120,9 +130,8 @@ class ServeEngine:
                 f"{self.pos[over].tolist()} have no cache rows "
                 f"left (max_seq={self.max_seq}) — evict or raise max_seq")
         pos = torch.as_tensor(self.pos, device=self.device)
-        with torch.no_grad():
-            logits, self.cache = M.decode_step(self.cfg, self.model, self.cache, self.tokens,
-                                               pos, knobs=self.knobs)
+        logits, self.cache = self._decode(self.model, self.cache,
+                                          {"tokens": self.tokens, "pos": pos})
         logits = logits[:, 0, : self.cfg.vocab]
         nxt = torch.argmax(logits, dim=-1) if sample is None else sample(logits)
         self.pos = self.pos + self.active.astype(np.int32)

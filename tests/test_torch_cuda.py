@@ -27,9 +27,14 @@ smoke model on the card against the CPU under every K1 policy (loss within
 ``analysis.train_launches`` says; the expert grid's and the fused decode
 attention's differentiable ops forward and backward against their plain
 compositions, and a training step of the olmoe and deepseek smoke models
-(the experts on the expert grid) on the card against the CPU.
+(the experts on the expert grid) on the card against the CPU.  K1's tile
+cache: every candidate plan (``tuning.candidate_plans``) at qwen2's
+decode shapes against the plain version, with the shared memory the
+planner models; the smoke engine serving the plans of a cache, with the
+tokens of the engine without it; a refused cached plan raising with its key.
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -923,3 +928,111 @@ def test_moe_training_step_on_the_card_matches_the_cpu(cuda, arch, block_n):
     for name, g in g_cpu.items():
         np.testing.assert_allclose(g_gpu[name].numpy(), g.numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K1's tile cache: every candidate plan, cached plans on the engine
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b's decoder GEMMs at 4 decode rows (their pairs at r=0.05), the
+# fused wo/w_down residual among them, and a column-blocked bn=64 one
+QWEN_DECODE = [(c[0], c[2], c[3], c[4], c[5], c[8]) for c in K1_SKINNY_CASES
+               if c[0].startswith("prefill_M20_")] + [
+    ("skinny_bn64_M4_res", 4, 300, 100, (24, 64, 1536), True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", QWEN_DECODE, ids=lambda c: c[0])
+def test_every_candidate_plan_matches_the_plain_version(cuda, case, dtype):
+    """Each of ``tuning.candidate_plans`` at qwen2's decode shapes launches,
+    lays out the shared memory the planner models, and gives the plain
+    version's result."""
+    from repro_torch.kernels import tuning
+
+    _, _, P, R, N, with_res = case
+    M = 4
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)
+    B, bn, n_cols = N if isinstance(N, tuple) else (1, N, N)
+    lead = (B,) if B > 1 else ()
+    x, kmat, w_res = rnd(*lead, M, 2 * P + R), rnd(*lead, P, bn), rnd(*lead, R, bn)
+    res = rnd(M, n_cols) if with_res else None
+    if B > 1:
+        run = lambda p: pm.paired_matmul_blocked_cuda(x, kmat, w_res, n_cols=n_cols,
+                                                      residual=res, plan=p)
+        want = pm.paired_matmul_blocked_plain(x, kmat, w_res, n_cols=n_cols, residual=res,
+                                              out_dtype=torch.float32)
+    else:
+        run = lambda p: pm.paired_matmul_cuda(x, kmat, w_res, residual=res, plan=p)
+        want = pm.paired_matmul_plain(x, kmat, w_res, residual=res, out_dtype=torch.float32)
+    cands = tuning.candidate_plans(M, P, R, B, bn, 1, x.element_size())
+    assert len(cands) > 1
+    for p in cands:
+        _check(run(p), want, dtype)
+        assert pm.kernel_smem(p, P, R, 1, x.element_size()) == p.smem
+    key = pm.launch_key(x, kmat, w_res, residual=res is not None)
+    assert {k for k, _ in pm.launches_by_plan()} == {key}
+    assert set(p for _, p in pm.launches_by_plan()) == set(cands)
+
+
+def test_cached_plans_are_launched_and_refusals_name_the_key(cuda, tmp_path):
+    """The qwen2 smoke engine with a tile cache of its problems (each at its
+    last candidate plan) launches the cached plans and gives the tokens of
+    the engine without it; a plan the
+    kernel refuses, launched under the cache that holds it, raises naming
+    the key."""
+    from repro_torch.kernels import tuning
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), dtype="float32")
+    model = M.init_lm(cfg, 0, device=cuda)
+    knobs = M.PerfKnobs(q_chunk=16, k_chunk=16, gemm="pallas_paired")
+    prompts = {0: np.arange(5) % cfg.vocab, 1: (np.arange(9) * 7) % cfg.vocab}
+    plain = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=knobs)
+    want = plain.generate(prompts, 4)
+    cache = tuning.TileCache(tmp_path / "tc.json")
+    for key, plan in list(pm.launches_by_plan()):
+        M_, P, R, B, bn, pool, item, _ = tuning.key_problem(key)
+        cands = tuning.candidate_plans(M_, P, R, B, bn, tuning.POOL_WINDOWS[pool], item)
+        cache.put(key, cands[-1])  # another plan than the heuristic's, where there is one
+    cache.save()
+    cached = ServeEngine(cfg, plain.model, max_seq=32, batch_size=2,
+                         knobs=dataclasses.replace(knobs, tile_cache=str(cache.path)))
+    pm.reset_launches()
+    assert cached.generate(prompts, 4) == want
+    for key, plan in pm.launches_by_plan():
+        *launch, residual = tuning.key_problem(key)
+        with tuning.use_tile_cache(cache):
+            assert plan == tuning.resolve_plan(*launch, residual=residual)
+    x = torch.zeros(4, 10, device=cuda)
+    kmat, w_res = torch.zeros(3, 16, device=cuda), torch.zeros(4, 16, device=cuda)
+    bad = dataclasses.replace(pm.launch_plan(x, kmat, w_res), cols=3)
+    cache.put(pm.launch_key(x, kmat, w_res), bad)
+    with tuning.use_tile_cache(cache), pytest.raises(RuntimeError, match="M4-N16-K10"):
+        pm.paired_matmul_cuda(x, kmat, w_res, plan=bad)
+
+
+
+# problems (M, P, R, n_blocks, bn, window, itemsize) the plan grid below is
+# checked on: decode and prefill rows, column blocks, a pooled tall one, the
+# empty contraction
+CHECK_PROBLEMS = [(4, 700, 100, 1, 1536, 1, 2), (20, 300, 100, 24, 64, 1, 4),
+                  (5000, 10, 5, 1, 16, 4, 4), (1024, 600, 336, 1, 256, 1, 2),
+                  (64, 0, 8, 1, 32, 1, 4)]
+
+
+@pytest.mark.parametrize("problem", CHECK_PROBLEMS, ids=str)
+def test_host_refusal_is_the_kernels_check(cuda, problem):
+    """``tuning.refusal`` (the host's copy of the C entry point's checks)
+    gives the kernel's own verdict (``paired_matmul_check``, nothing
+    launched) on a grid of plans, both forms, taken and refused."""
+    from repro_torch.kernels import tuning
+
+    grid = itertools.product(("skinny", "tall"), (1, 4, 16, 32, 64), (1, 4, 8, 16, 64, 256),
+                             (1, 4, 8), (1, 2, 8, 9), (1, 8, 16), (1, 2), (1, 3, 5))
+    taken = differ = 0
+    for fields in grid:
+        p = tuning.Plan(*fields, smem=0)
+        host = tuning.refusal(p, *problem) is None
+        differ += host != pm.kernel_accepts(p, *problem)
+        taken += host
+    assert differ == 0 and taken > 0

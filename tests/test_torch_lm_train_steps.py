@@ -134,10 +134,25 @@ def test_cli_gemm_policies_agree_at_r0(capsys):
 
 
 def test_cli_paired_rounding_folds_the_weights(capsys):
+    """``--paired-rounding`` trains ``core.transform.fold_lm_params`` of the
+    seeded model (each decoder matrix folded per column; the JAX CLI's
+    ``pair_model_params`` pairs the wrong axes of the LM tree): the CLI's
+    line reports its pairs, and the model a run trains (one step at
+    learning rate 0) holds the folded weights."""
+    from repro_torch.core.transform import fold_lm_params
+
     losses, lines = _cli(capsys, "--steps", "1", "--paired-rounding", "0.05")
     (line,) = [x for x in lines if x.startswith("[train] paired ") and "weight pairs" in x]
     n_pairs = int(line.split()[2])
-    assert n_pairs > 0 and "power_saving" in line and len(losses) == 1
+    folded, report = fold_lm_params(TM.init_lm(get_smoke_config("qwen2-1.5b"), 0, device="cpu"),
+                                    0.05)
+    assert n_pairs == report.total_pairs > 0 and "power_saving" in line and len(losses) == 1
+    rec = t_train.train(arch="qwen2-1.5b", smoke=True, steps=1, batch=2, seq=16, lr=0.0,
+                        paired_rounding=0.05, device="cpu", log_every=0)
+    want = jax.tree_util.tree_flatten_with_path(TM.lm_value_tree(folded))[0]
+    got = jax.tree_util.tree_flatten_with_path(TM.lm_value_tree(rec["model"]))[0]
+    for (path, w), (_, g) in zip(want, got, strict=True):
+        assert torch.equal(g.detach(), w), jax.tree_util.keystr(path)
 
 
 def test_cli_resumes_from_its_checkpoint(capsys, tmp_path):

@@ -174,3 +174,28 @@ def test_build_conv_pairings_rejects_bad_mode():
         t_transform.build_conv_pairings(params, 0.0, mode="column_blocked")
     with pytest.raises(ValueError):
         t_transform.build_conv_pairings(params, 0.0, mode="diagonal")
+
+
+def _run_weights(kind: str) -> np.ndarray:
+    """Matrices whose structured walk combines in long runs (``runs``), or
+    breaks them on row means too far apart (``row_offsets``) and on
+    profiles that do not cancel (``row_scales``)."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "runs":
+        return rng.normal(size=(600, 6)) * 0.02
+    if kind == "row_offsets":
+        return rng.normal(size=(500, 10)) * 0.02 + rng.normal(size=(500, 1)) * 0.05
+    return rng.normal(size=(300, 64)) * rng.uniform(0.005, 0.3, size=(300, 1))
+
+
+@pytest.mark.parametrize("r", [0.01, 0.05, 0.2])
+@pytest.mark.parametrize("kind", ["runs", "row_offsets", "row_scales"])
+@pytest.mark.parametrize("criterion", ["rms", "max"])
+def test_structured_walk_in_runs_equal(kind, r, criterion):
+    """The walk judged a run of pairs at a time gives the reference's
+    one-pair-at-a-time walk, index for index."""
+    w = _run_weights(kind)
+    _assert_structured_equal(
+        t_pair.pair_rows_structured(w, r, criterion=criterion),
+        j_pair.pair_rows_structured(w, r, criterion=criterion),
+    )
