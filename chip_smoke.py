@@ -26,7 +26,9 @@ one K1 launch over the expert grid (its backward ``torch.einsum`` on the
 folded experts), with the fused decode attention's VJP (K2); K1's
 measured tile cache over qwen2's serving and training problems, and the
 serving CLI with the JAX CLI's flags (the weights folded per column, the
-cache's plans, the front end degrading to K1's dense form).  Phases,
+cache's plans, the front end degrading to K1's dense form); and the
+tensor-parallel paired decode of qwen2-1.5b and olmoe-1b-7b on gloo ranks
+that share the card (K1 on every rank).  Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
 
@@ -40,7 +42,10 @@ result:
 2. kernel     — K1 against its plain PyTorch version on the card, in every
                 form (dense, structured, blocked at bn=1 and bn=4 with a
                 short last block, max2/avg2 pooling, fp32/bf16 residuals, all
-                activations, ragged edges, the empty contraction P + R = 0)
+                activations, ragged edges, the empty contraction P + R = 0,
+                fp32 stores of bf16 operands: a tensor-parallel rank's partial
+                sums at qwen2's wo and w_down slabs, ≤ 1e-5, and the bf16
+                store their cast)
                 at qwen2's decode and prefill rows and at olmoe's expert grid
                 (64 blocks of 1024 or 2048 columns; ``kernels/k1_cases.py``):
                 fp32 ≤ 1e-5 relative to the largest output, bf16 ≤ 2 output
@@ -159,14 +164,32 @@ result:
                 nan_logits:0.05``: 0 lost, a request degraded, the fallback
                 on K1's dense form; and ``--block-k 1024``: every launch's
                 K-slices at most 1024 lanes;
-13. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
+13. mesh_decode — tensor-parallel paired decode, ``ServeEngine(mesh=...)``
+                on ranks of ``launch.mesh.spawn`` (one process each, gloo,
+                all on this one card: they time-share it, so no
+                tensor-parallel speed is measured).  Parity, fp32, r=0,
+                seed-0 weights on every rank: qwen2-1.5b at full width, 2
+                layers, column-blocked bn=16, meshes (1, 2), (1, 4) (its 2
+                KV heads do not divide 4: a sequence-sharded cache, partial
+                softmaxes merged) and (2, 2) (slots over the data rows);
+                olmoe-1b-7b, 2 layers, structured, (1, 2) and (1, 4), a
+                40-token prompt on the expert-parallel route: every rank's
+                tokens equal the single-rank engine's, logits ≤ 1e-5.
+                Served, bf16, structured r=0.05, (1, 2): qwen2-1.5b at 28
+                layers (batch 4, 32 tokens a slot) and olmoe at 4 of its 16
+                layers; K1 launches and collectives a decode step held to
+                ``analysis.decode_launches`` / ``mesh_decode_collectives``;
+                decode ms (median, p90), each rank's wiring seconds and peak
+                memory; the r=0.05 ledger gates of
+                ``repro_torch/benchmarks/mesh_decode.py`` (bn=16);
+14. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
                 engine (``torch.einsum`` experts, plain attention) against
                 the paired one (structured, r=0; K1 + K2), batch 2, prompts
                 of 11 tokens (the dense expert branch) and 24 (routed), 6
                 tokens per slot: identical tokens, logits ≤ 1e-5, the routed
                 prefill counted, 7 launches per decode layer (3 QKV K1, one
                 K2, 3 expert K1), by the wrappers and by ``torch.profiler``;
-14. moe_serve — olmoe-1b-7b at full width and its published depth (16
+15. moe_serve — olmoe-1b-7b at full width and its published depth (16
                 layers), bf16, structured r=0.05, through ``launch.serve.serve``:
                 batch 4, prompts of 12/16 (dense branch) and 24/64 tokens
                 (routed: two prefills each dispatch in every layer), max_seq
@@ -179,31 +202,31 @@ result:
                 rows) against its plain version and timed beside it,
                 ``torch.einsum`` on the folded experts and the bound; K2 at
                 olmoe's G = 1 heads;
-15. mla_parity, 16. mla_serve — deepseek-v2-lite-16b the same way (2
+16. mla_parity, 17. mla_serve — deepseek-v2-lite-16b the same way (2
                 layers: dense, MoE; then its 27), K1 at its new shapes,
                 peak device memory and its reckoning;
-17. ssm_parity — mamba2-2.7b at full width, 2 layers, fp32: the plain
+18. ssm_parity — mamba2-2.7b at full width, 2 layers, fp32: the plain
                 engine against the paired one (structured, r=0), prompts
                 of 11 and 300 tokens (300 crosses the 256-token chunk),
                 6 tokens a slot: identical tokens, logits, state and conv
                 tails ≤ 1e-5, launches of the prefills and of a decode step
                 (6 K1 a layer, no K2) by the wrappers and the profiler;
-18. ssm_serve — mamba2-2.7b at its 64 layers, bf16, structured r=0.05:
+19. ssm_serve — mamba2-2.7b at its 64 layers, bf16, structured r=0.05:
                 batch 4, prompts 12/16/24/300, max_seq 512, 32 tokens a
                 slot; what moe_serve records, K1 timed at w_x, w_B, w_dt,
                 w_out, peak memory;
-19. hybrid_parity — hymba-1.5b, 3 layers (full, swa, swa), fp32, r=0,
+20. hybrid_parity — hymba-1.5b, 3 layers (full, swa, swa), fp32, r=0,
                 prompts of 11 and 1200 tokens (the window of 1024 drops
                 keys past the 128 meta-token sinks in the prefill and the
                 decode): ssm_parity's gates, the K/V caches too (12 K1 and
                 one K2 a layer);
-20. hybrid_serve — hymba-1.5b at its 32 layers, bf16, r=0.05: batch 4,
+21. hybrid_serve — hymba-1.5b at its 32 layers, bf16, r=0.05: batch 4,
                 prompts 12/16/24/1200, max_seq 1280; ssm_serve's record,
                 K1 at hymba's GEMMs, its K2 launches by window and sinks
                 (every windowed one on a slot whose window drops keys), K2
                 at layer 1 (swa) fused and bare against its plain version,
                 its bound and SDPA + ``torch.matmul`` under the same mask;
-21. zoo_parity — qwen3-4b, granite-3-2b, internvl2-2b, whisper-base and
+22. zoo_parity — qwen3-4b, granite-3-2b, internvl2-2b, whisper-base and
                 mistral-large-123b at full width, 2 layers (whisper 2 + 2
                 over its 1500 stub frames), fp32, r=0: ssm_parity's gates
                 (tokens identical; logits and every cache entry, whisper's
@@ -212,14 +235,14 @@ result:
                 the others' 11 and 24; the prefills' launches held to
                 ``analysis.prefill_launches`` (whisper's K3: one an encoder
                 layer and one a decoder layer's cross-attention);
-22. zoo_serve — the same five at full width and their published depth
+23. zoo_serve — the same five at full width and their published depth
                 (qwen3 36 layers, granite 40, internvl2 24, whisper 6 + 6),
                 mistral-large-123b at 4 of its 88 (123 G parameters are 246
                 GB in bf16), bf16, structured r=0.05, batch 4, 32 tokens a
                 slot: ssm_serve's record, K1 at qwen3's wq, mistral's w_gate
                 and w_down and whisper's cross wq/wo (4 rows), K2 at layer 0
                 of each, whisper's K3 launches a prefill;
-23. lm_train_parity — qwen2-1.5b at full width, 2 layers, fp32, r=0,
+24. lm_train_parity — qwen2-1.5b at full width, 2 layers, fp32, r=0,
                 batch 8 × seq 128: ``lm_loss`` and the gradient of every
                 weight under gemm="pallas" (K1's dense form), "pallas_paired"
                 structured and column-blocked at bn=64 against gemm="xla"
@@ -231,7 +254,7 @@ result:
                 ``ops.fused_paired_dense`` structured and blocked) against
                 their plain versions forward and backward (≤ 1e-5, one launch
                 forward, none backward);
-24. lm_train  — qwen2-1.5b at full width and depth (28 layers) trained
+25. lm_train  — qwen2-1.5b at full width and depth (28 layers) trained
                 through ``launch.train.train``: bf16 compute, fp32 masters,
                 structured r=0.05 (``pair_lm_params``), remat "full", batch
                 8 × seq 128, AdamW 3e-4 with the cosine schedule, 6 steps,
@@ -246,7 +269,7 @@ result:
                 rows on layer 0's wq, wk, wo, w_gate and w_down, paired and
                 dense, beside its plain version, ``torch.matmul`` on the
                 folded weight, its bound and its plan;
-25. moe_train_parity — olmoe-1b-7b and deepseek-v2-lite-16b at full width,
+26. moe_train_parity — olmoe-1b-7b and deepseek-v2-lite-16b at full width,
                 2 layers (deepseek's: its dense first layer, one MoE layer),
                 fp32, r=0: ``lm_loss``, the router's aux loss and every
                 weight's gradient under "pallas_paired" structured and
@@ -259,7 +282,7 @@ result:
                 residual): its output and the gradients of q, the caches, w
                 and the residual against autograd of the plain composition,
                 one K2 launch forward, none backward;
-26. moe_train — olmoe-1b-7b at full width, 6 of its 16 layers (16 layers of
+27. moe_train — olmoe-1b-7b at full width, 6 of its 16 layers (16 layers of
                 fp32 masters, gradients and Adam moments would not fit one
                 card), through ``launch.steps.build_train_step`` and
                 ``train.optimizer.adamw`` as the training CLI sets them: bf16
@@ -275,7 +298,7 @@ result:
                 its plain version, ``torch.einsum`` on the folded experts
                 and its bound; the device ms of the expert fold and of its
                 backward (the index kernels the expert grid's backward adds);
-27. the kernels table, the card's name and power limit, and the ``ok`` line.
+28. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -539,6 +562,40 @@ def phase_kernel() -> dict:
             max_ulps = max(max_ulps, row["ulps"])
             check(row["ulps"] <= BF16_MAX_ULPS, f"kernel {name} bf16 {row['ulps']:.3g} ulps")
         check(bool(torch.isfinite(got).all()), f"kernel {name} non-finite output")
+        results.append(row)
+    # fp32 stores of bf16 operands (out_dtype): a tensor-parallel rank's
+    # partial sums, qwen2-1.5b's row-parallel wo and w_down slabs at (1, 2)
+    # (K 768 and 4480 a rank, r=0.05-like splits), decode rows and a prompt's,
+    # the skip connection fused, structured and column-blocked bn=16
+    bf16 = torch.bfloat16
+    for name, M, P, R, N, blocked in (("wo_slab", 4, 300, 168, 1536, False),
+                                      ("w_down_slab", 4, 2000, 480, 1536, False),
+                                      ("wo_slab_prompt", 24, 300, 168, 1536, False),
+                                      ("w_down_slab_blocked16", 4, 1800, 880, 1536, True)):
+        residual = rnd(M, N, dtype=bf16)
+        if blocked:
+            B = N // 16
+            x, kmat, w_res = rnd(B, M, 2 * P + R, dtype=bf16), rnd(B, P, 16, dtype=bf16), \
+                rnd(B, R, 16, dtype=bf16)
+            launch = functools.partial(pm.paired_matmul_blocked_cuda, x, kmat, w_res, n_cols=N,
+                                       residual=residual)
+            want = pm.paired_matmul_blocked_plain(x, kmat, w_res, n_cols=N, residual=residual,
+                                                  out_dtype=f32)
+        else:
+            x, kmat, w_res = rnd(M, 2 * P + R, dtype=bf16), rnd(P, N, dtype=bf16), \
+                rnd(R, N, dtype=bf16)
+            launch = functools.partial(pm.paired_matmul_cuda, x, kmat, w_res, residual=residual)
+            want = pm.paired_matmul_plain(x, kmat, w_res, residual=residual, out_dtype=f32)
+        got = launch(out_dtype=f32)
+        torch.cuda.synchronize()
+        row = {"case": f"fp32_partial_{name}", "dtype": "bfloat16->float32",
+               "shape": list(got.shape), "rel_err": rel_err(got, want),
+               "max_abs_err": float((got - want).abs().max())}
+        check(got.dtype == f32 and row["rel_err"] <= FP32_RTOL,
+              f"kernel fp32 partial {name}: {got.dtype}, rel err {row['rel_err']:.3g}")
+        check(torch.equal(launch(), got.to(bf16)),
+              f"kernel fp32 partial {name}: the bf16 store is not the fp32 store's cast")
+        max_abs, max_rel = max(max_abs, row["max_abs_err"]), max(max_rel, row["rel_err"])
         results.append(row)
     out = {
         "phase": "kernel",
@@ -1903,7 +1960,189 @@ def phase_serve_cli(cache_path: str) -> dict:
     return out
 
 # ---------------------------------------------------------------------------
-# phases 13 and 14: the MoE serving path (olmoe-1b-7b)
+# phase 13: tensor-parallel paired decode (gloo ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_knobs(rounding: float, block_n: int):
+    from repro_torch.models import lm as M
+
+    return M.PerfKnobs(q_chunk=64, k_chunk=64, remat="none", gemm="pallas_paired",
+                       pair_rounding=rounding, pair_block_n=block_n)
+
+
+def _mesh_ref(cfg, knobs, prompts: dict, steps: int, batch: int, max_seq: int):
+    """The single-rank port engine on the card over the ranks' weights (seed
+    0): its tokens and last logits."""
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(cfg, M.init_lm(cfg, 0), max_seq=max_seq, batch_size=batch, knobs=knobs)
+    out = eng.generate(dict(prompts), steps)
+    return out, eng.last_logits
+
+
+def phase_mesh_decode() -> dict:
+    """Tensor-parallel paired decode: ranks of ``launch.mesh.spawn`` (one
+    process each, gloo, every rank on this one card) each serving its
+    shards through ``ServeEngine(mesh=...)``.  Parity (fp32, r = 0, seed-0
+    weights regenerated on every rank): qwen2-1.5b at full width, 2 layers,
+    column-blocked bn=16 on meshes (1, 2), (1, 4), (2, 2); olmoe-1b-7b at
+    full width, 2 layers, structured, on (1, 2) and (1, 4), a 40-token
+    prompt on the expert-parallel route: every rank's tokens equal the
+    single-rank engine's on the card, logits ≤ 1e-5.  Served (bf16,
+    structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at 28 layers, 32
+    tokens a slot, and olmoe at 4 of its 16 layers: K1 launches and
+    collectives a decode step held to ``analysis.decode_launches`` and
+    ``mesh_decode_collectives``; decode ms (two ranks time-share one card:
+    no tensor-parallel speed is measured), each rank's wiring seconds
+    (slicing and pairing) and peak memory.  Ledgers: the three gates of
+    ``repro_torch/benchmarks/mesh_decode.py`` at r = 0.05, bn=16, on the
+    parity qwen2's weights at (1, 2)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import analysis
+    from repro_torch.benchmarks.mesh_decode import ledger_checks, serve_many
+    from repro_torch.configs import cut_layers, get_config
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import lm as M
+    from repro_torch.parallel.sharding import Mesh
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    q_cfg = dataclasses.replace(cut_layers(get_config("qwen2-1.5b"), 2), dtype="float32")
+    q_knobs = _mesh_knobs(0.0, 16)
+    q_prompts = {i: rng.integers(1, q_cfg.vocab, size=n) for i, n in enumerate((12, 16, 24))}
+    q_want = _mesh_ref(q_cfg, q_knobs, q_prompts, 6, 4, 64)
+    m_cfg = dataclasses.replace(cut_layers(get_config(MOE_ARCH), 2), dtype="float32")
+    m_knobs = _mesh_knobs(0.0, 0)
+    m_prompts = {0: rng.integers(1, m_cfg.vocab, size=11), 1: rng.integers(1, m_cfg.vocab, size=40)}
+    m_want = _mesh_ref(m_cfg, m_knobs, m_prompts, 6, 3, 64)
+    ref_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sq_cfg = get_config("qwen2-1.5b")
+    sm_cfg = cut_layers(get_config(MOE_ARCH), 4)
+    served_knobs = _mesh_knobs(0.05, 0)
+    s_lens = (12, 16, 24, 40)
+    s_prompts = {i: rng.integers(1, sq_cfg.vocab, size=n) for i, n in enumerate(s_lens)}
+    sm_prompts = {i: rng.integers(1, sm_cfg.vocab, size=n) for i, n in enumerate(s_lens)}
+    parity_kw = {"max_seq": 64, "batch_size": 4}
+    jobs = {(1, 2): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw),
+                     "olmoe": ((m_cfg, 0, m_knobs, m_prompts, 6),
+                               {"max_seq": 64, "batch_size": 3}),
+                     "qwen2_served": ((sq_cfg, 0, served_knobs, s_prompts, 32),
+                                      {"max_seq": 128, "batch_size": 4, "hold": True,
+                                       "timed_steps": 16}),
+                     "olmoe_served": ((sm_cfg, 0, served_knobs, sm_prompts, 16),
+                                      {"max_seq": 128, "batch_size": 4, "hold": True,
+                                       "timed_steps": 16})},
+            (1, 4): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw),
+                     "olmoe": ((m_cfg, 0, m_knobs, m_prompts, 6),
+                               {"max_seq": 64, "batch_size": 3})},
+            (2, 2): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw)}}
+    cfgs = {"qwen2": (q_cfg, q_knobs, 4, 64), "olmoe": (m_cfg, m_knobs, 3, 64),
+            "qwen2_served": (sq_cfg, served_knobs, 4, 128),
+            "olmoe_served": (sm_cfg, served_knobs, 4, 128)}
+    wants = {"qwen2": q_want, "olmoe": m_want}
+    meshes, k1_total, spawn_s = [], 0, {}
+    for shape, mesh_jobs in jobs.items():
+        t1 = time.perf_counter()
+        try:
+            ranks = spawn(serve_many, shape, backend="gloo", device="cuda",
+                          args=(mesh_jobs,), timeout=400)
+        except RuntimeError as e:
+            check(False, f"mesh_decode {shape}: {str(e)[-2000:]}")
+            continue
+        spawn_s[str(shape)] = time.perf_counter() - t1
+        mesh = Mesh(dict(zip(("data", "model"), shape, strict=True)))
+        for name in mesh_jobs:
+            cfg, knobs, batch, max_seq = cfgs[name]
+            coll = analysis.mesh_decode_collectives(cfg, knobs, mesh, batch_size=batch,
+                                                    max_seq=max_seq)
+            k1 = sum(analysis.decode_launches(cfg, cfg.layer_kind(i), knobs)["paired_matmul"]
+                     for i in range(cfg.n_layers))
+            # the split the rules give: qwen2's 2 KV heads divide 2 ranks, not 4 (then
+            # the cache's positions take the axis); olmoe's 16 divide both
+            kv = cfg.n_kv_heads % shape[1] == 0
+            want_tp = {"vocab_split": True, "q_split": True, "kv_split": kv,
+                       "cache_seq": not kv, "ff_split": cfg.moe is None,
+                       "experts_split": cfg.moe is not None, "batch_split": shape[0] > 1}
+            row = {"mesh": list(shape), "job": name, "arch": cfg.name, "layers": cfg.n_layers,
+                   "dtype": cfg.dtype, "want_collectives_per_step": coll,
+                   "want_k1_per_step": k1, "want_tp": want_tp, "ranks": []}
+            for rec in ranks:
+                got = rec[name]
+                k1_total += got["k1_launches"]
+                check(got["tp"] == want_tp, f"mesh_decode {shape} {name} rank {got['rank']}: "
+                                            f"layout {got['tp']}, want {want_tp}")
+                calls = {k: v["calls"] for k, v in got["step_collectives"].items()}
+                check(calls == coll, f"mesh_decode {shape} {name} rank {got['rank']}: "
+                                     f"collectives a step {calls}, want {coll}")
+                check(got["step_k1"] == k1, f"mesh_decode {shape} {name} rank {got['rank']}: "
+                                            f"K1 launches a step {got['step_k1']}, want {k1}")
+                r = {"rank": got["rank"], "coords": got["coords"], "wire_s": got["wire_s"],
+                     "slice_s": got["wire_seconds"].get("slice"),
+                     "pair_s": got["wire_seconds"].get("pair"),
+                     "k1_launches": got["k1_launches"], "step_k1": got["step_k1"],
+                     "step_collectives": got["step_collectives"],
+                     "wire_peak_gb": (got["wire_peak_bytes"] or 0) / 1e9,
+                     "serve_peak_gb": got.get("peak_bytes", 0) / 1e9, "tp": got["tp"],
+                     "moe_shard_map_calls": got["moe_shard_map_calls"]}
+                if name in wants:
+                    want_tok, want_logits = wants[name]
+                    r["tokens_identical"] = got["tokens"] == want_tok
+                    r["max_logit_rel_err"] = rel_err(got["logits"], want_logits)
+                    check(r["tokens_identical"], f"mesh_decode {shape} {name} rank "
+                                                 f"{got['rank']}: tokens {got['tokens']} vs "
+                                                 f"single-rank {want_tok}")
+                    check(r["max_logit_rel_err"] <= FP32_RTOL,
+                          f"mesh_decode {shape} {name}: logits {r['max_logit_rel_err']:.3g}")
+                if name == "olmoe":  # the 40-token prefill dispatches in every layer
+                    mo = m_cfg.moe
+                    routed = sum(len(p) * mo.top_k > 2 * mo.n_experts for p in m_prompts.values())
+                    check(routed >= 1 and got["moe_shard_map_calls"] == routed * m_cfg.n_layers,
+                          f"mesh_decode {shape} olmoe: {got['moe_shard_map_calls']} "
+                          f"expert-parallel prefill layers for {routed} routed prompt(s)")
+                if "step_ms" in got:
+                    ms = sorted(got["step_ms"])
+                    r["decode_ms_median"] = ms[len(ms) // 2]
+                    r["decode_ms_p90"] = ms[int(0.9 * (len(ms) - 1))]
+                    r["tokens"] = {s: t[:8] for s, t in got["tokens"].items()}
+                    check(all(len(t) == 32 if name == "qwen2_served" else len(t) == 16
+                              for t in got["tokens"].values()), f"mesh_decode {name} tokens")
+                row["ranks"].append(r)
+            if name.endswith("served"):
+                toks = [rec[name]["tokens"] for rec in ranks]
+                check(all(t == toks[0] for t in toks),
+                      f"mesh_decode {name}: the ranks returned different tokens")
+            meshes.append(row)
+    t2 = time.perf_counter()
+    q_model = M.init_lm(q_cfg, 0, device="cpu")
+    rows, slices, failures = ledger_checks(q_cfg, q_model, {"data": 1, "model": 2}, 0.05, 16)
+    for f in failures:
+        check(False, f"mesh_decode ledger: {f}")
+    check(len(slices) == 2, f"mesh_decode ledger: slice checks {slices}")
+    ledger_s = time.perf_counter() - t2
+    out = {"phase": "mesh_decode", "card": _card(), "backend": "gloo",
+           "ranks_share_one_card": True, "reference_s": ref_s, "spawn_s": spawn_s,
+           "ledger_s": ledger_s, "seconds": time.perf_counter() - t0,
+           "main_path_launches": {"paired_matmul": k1_total, "decode_attention": 0,
+                                  "flash_attention": 0},
+           "runs": meshes,
+           "ledger": {"mesh": [1, 2], "rounding": 0.05, "block_n": 16, "rows": rows,
+                      "slice_checks": slices}}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: the MoE serving path (olmoe-1b-7b)
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "olmoe-1b-7b"
@@ -2128,7 +2367,7 @@ def phase_moe_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 15 and 16: the MLA serving path (deepseek-v2-lite-16b)
+# phases 16 and 17: the MLA serving path (deepseek-v2-lite-16b)
 # ---------------------------------------------------------------------------
 
 MLA_ARCH = "deepseek-v2-lite-16b"
@@ -2335,7 +2574,7 @@ def phase_mla_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 17-20: the SSM (mamba2-2.7b) and hybrid (hymba-1.5b) serving paths
+# phases 18-21: the SSM (mamba2-2.7b) and hybrid (hymba-1.5b) serving paths
 # ---------------------------------------------------------------------------
 
 SSM_ARCH, HYBRID_ARCH = "mamba2-2.7b", "hymba-1.5b"
@@ -2646,7 +2885,7 @@ def phase_hybrid_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 21–22: the rest of the zoo (qwen3-4b, granite-3-2b, internvl2-2b,
+# phases 22–23: the rest of the zoo (qwen3-4b, granite-3-2b, internvl2-2b,
 # whisper-base, mistral-large-123b)
 # ---------------------------------------------------------------------------
 
@@ -2735,7 +2974,7 @@ def phase_zoo_serve() -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# phases 23–24: LM training (qwen2-1.5b), every layer GEMM's forward on K1
+# phases 24–25: LM training (qwen2-1.5b), every layer GEMM's forward on K1
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen2-1.5b"
@@ -2996,7 +3235,7 @@ def phase_lm_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 25–26: MoE training (olmoe-1b-7b, deepseek-v2-lite-16b), every
+# phases 26–27: MoE training (olmoe-1b-7b, deepseek-v2-lite-16b), every
 # expert projection's forward one K1 launch over the expert grid
 # ---------------------------------------------------------------------------
 
@@ -3294,6 +3533,9 @@ def main() -> int:
     cli = phase_serve_cli(tile["path"])
     gc.collect()
     torch.cuda.empty_cache()
+    mesh = phase_mesh_decode()
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_parity = phase_moe_parity()
     moe = phase_moe_serve()
     gc.collect()
@@ -3343,6 +3585,7 @@ def main() -> int:
              **{k: v["paired_matmul"] for k, v in fe_runs.items()},
              "tile_cache": tile["main_path_launches"]["paired_matmul"],
              "serve_cli": cli["main_path_launches"]["paired_matmul"],
+             "mesh_decode": mesh["main_path_launches"]["paired_matmul"],
              "moe_parity": moe_parity["main_path_launches"]["paired_matmul"],
              "moe_serve": moe["main_path_launches"]["paired_matmul"],
              "mla_parity": mla_parity["main_path_launches"]["paired_matmul"],

@@ -13,9 +13,14 @@ counts while the function runs:
 * ``pool_ops`` — standalone 2×2 pools (``pool2_reference``) outside K1.
 
 :func:`decode_launches` says what one decode layer should launch, by layer
-kind and schedule, :func:`prefill_launches` what one request's prefill
-should, and :func:`train_launches` what one training step should, for the
-launch counters of the serving and training paths to be held to.
+kind and schedule, :func:`prefill_launches`
+what one request's prefill should, and :func:`train_launches` what one
+training step should, for the launch counters of the serving and training
+paths to be held to; :func:`mesh_decode_collectives` and
+:func:`mesh_prefill_collectives` say which collectives one rank of a
+tensor-parallel serve cell should make a decode step and a prefill, for
+``parallel.collectives``' counter to be held to (the counterpart of the JAX
+package's ``collective_stats`` over a compiled step).
 
 Calls are counted with ``sys.monitoring`` (Python 3.12+) on those
 functions' code objects alone, so nothing on the path changes and nothing
@@ -93,6 +98,12 @@ def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
     cross-attention's ``wq`` and ``wo``, two more K1 launches (the attention
     over the frames is plain, as in the JAX package).  K3 runs on no decode
     path.
+
+    One rank of a mesh (dense and MoE layers, ``attn="xla"``) launches each
+    projection once on the shard it holds, whatever the split: a
+    column-parallel one on its columns, a row-parallel one on its rows, a
+    replicated one whole, the expert grid over its own experts; so its count
+    is a single device's.
     """
     if kind not in ("dense", "moe", "ssm", "hybrid_full", "hybrid_swa", "encdec"):
         raise ValueError(f"no decode layer of kind {kind!r}")
@@ -168,3 +179,58 @@ def train_launches(cfg, knobs) -> int:
     if cfg.encoder is not None:  # an encoder layer is a dense one
         fwd += cfg.encoder.n_layers * _forward_gemms(cfg, "dense", knobs)
     return fwd * (2 if knobs.remat == "full" else 1)
+
+
+def _tp_layout(cfg, mesh, batch_size: int, max_seq: int):
+    from repro_torch.parallel.rules import rules_for
+    from repro_torch.parallel.tp import layout_for
+
+    return layout_for(cfg, mesh, rules_for(cfg, "decode", mesh), batch_size, max_seq)
+
+
+def mesh_decode_collectives(cfg, knobs, mesh, *, batch_size: int,
+                            max_seq: int) -> dict[str, int]:
+    """Collectives one rank makes in one decode step of a tensor-parallel
+    serve cell of ``cfg`` on ``mesh`` (``batch_size`` slots of ``max_seq``
+    positions, ``rules_for(cfg, "decode", mesh)``), by kind, as
+    ``parallel.collectives.collective_stats`` counts calls:
+
+    * all-reduce over ``model``: the vocab-parallel embedding's lookup; in
+      each layer wo's partial sums where the query heads are split, and the
+      MLP's (w_down's) or the experts' where they are split;
+    * all-gather over ``model``: in each layer against a sequence-sharded
+      cache the queries (where the heads are split) and the partial
+      softmaxes; the head's vocab columns; over the data axes, the logits of
+      the slots, where they are split there.
+
+    ``knobs`` picks nothing here: the GEMM route does not change the
+    collectives."""
+    tp = _tp_layout(cfg, mesh, batch_size, max_seq)
+    m = tp.n > 1  # a split over a model axis of one rank sends nothing
+    reduce = gather = 0
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        reduce += m * (tp.q_split + (tp.experts_split if kind == "moe" else tp.ff_split))
+        if tp.cache_seq:
+            gather += m * (tp.q_split + 1)
+    reduce += m * tp.vocab_split
+    gather += m * tp.vocab_split + tp.batch_split
+    return {"all_reduce": int(reduce), "all_gather": int(gather)}
+
+
+def mesh_prefill_collectives(cfg, knobs, mesh, *, batch_size: int,
+                             max_seq: int) -> dict[str, int]:
+    """Collectives one rank makes in one request's prefill, by kind, as
+    :func:`mesh_decode_collectives` counts them: the embedding's all-reduce;
+    each layer's all-reduce of wo's partial sums and of the MLP's or the
+    experts' (the expert-parallel route's combine on a routed prompt, the
+    dense branch's sum on a short one: one each); the head's all-gather.
+    A prompt's attention reads only keys the rank just computed, so it
+    makes none; every data row prefills alike, so nothing crosses them."""
+    tp = _tp_layout(cfg, mesh, batch_size, max_seq)
+    m = tp.n > 1
+    reduce = m * tp.vocab_split
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        reduce += m * (tp.q_split + (tp.experts_split if kind == "moe" else tp.ff_split))
+    return {"all_reduce": int(reduce), "all_gather": int(m * tp.vocab_split)}

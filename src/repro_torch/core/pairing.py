@@ -35,7 +35,9 @@ Four implementations live here:
 
 All pairing is offline preprocessing (runs once, numpy), exactly as in the
 paper ("the weights preprocessing occurs once before deploying the weights").
-The shard-constrained pairing functions of the JAX package are not ported yet.
+Section 5 constrains the pairing to tensor-parallel shards: no pair spans two
+row slabs of a contraction-sharded weight (:func:`pair_rows_structured_sharded`,
+:func:`pair_rows_blocked_sharded`, :func:`concat_structured`).
 """
 from __future__ import annotations
 
@@ -588,6 +590,93 @@ def _per_column_blocks(W: np.ndarray, rounding: float, magnitudes: bool
         blocks.append(StructuredPairing(I=I, J=J, Kmat=Kmat, resid=resid, W_res=W_res,
                                         shape=(K, 1)))
     return blocks
+
+
+# ---------------------------------------------------------------------------
+# 5. Shard-constrained pairing: rows never pair across a TP shard boundary
+# ---------------------------------------------------------------------------
+
+
+def concat_structured(parts: list[StructuredPairing], offsets: list[int],
+                      shape: tuple[int, int]) -> StructuredPairing:
+    """Per-row-shard pairings concatenated into one pairing of the full
+    (K, N) matrix: ``parts[s]`` pairs rows ``[offsets[s], offsets[s] +
+    parts[s].shape[0])``, its indices rebased to global rows.  Each part's
+    residual list is sorted and the offsets increase, so the result's stays
+    sorted, and slicing it at the shard boundaries gives back each part."""
+    N = shape[1]
+    cat = lambda key: (np.concatenate([getattr(p, key) + o for p, o in zip(parts, offsets)])
+                       if parts else np.zeros(0, np.int64)).astype(np.int64)
+    stack = lambda key: (np.concatenate([getattr(p, key) for p in parts], axis=0)
+                         if parts else np.zeros((0, N)))
+    return StructuredPairing(I=cat("I"), J=cat("J"), Kmat=stack("Kmat"), resid=cat("resid"),
+                             W_res=stack("W_res"), shape=shape)
+
+
+def pair_rows_structured_sharded(
+    W: np.ndarray,
+    rounding: float,
+    *,
+    criterion: str = "rms",
+    row_shards: int = 1,
+    magnitudes: bool = True,
+) -> StructuredPairing:
+    """:func:`pair_rows_structured` constrained to ``row_shards`` row slabs.
+
+    A contraction-sharded weight (the attention out-projection, the MLP
+    down-projection) gives each rank a contiguous slab of rows, and a pair
+    whose rows live on two ranks would need its subtrahend sent every step.
+    Each slab is paired on its own (what the rank would build from its
+    shard) and the indices rebased, so slicing the result at the slab
+    boundaries reproduces the standalone pairings bit for bit.
+    ``row_shards`` that do not divide K fall back to the unsharded pairing,
+    the degradation ``parallel.sharding`` applies to the weight.
+    """
+    W = np.asarray(W, dtype=np.float64)
+    K, _ = W.shape
+    if row_shards <= 1 or K % row_shards:
+        return pair_rows_structured(W, rounding, criterion=criterion, magnitudes=magnitudes)
+    step = K // row_shards
+    offsets = [s * step for s in range(row_shards)]
+    parts = [pair_rows_structured(W[o:o + step], rounding, criterion=criterion,
+                                  magnitudes=magnitudes) for o in offsets]
+    return concat_structured(parts, offsets, shape=W.shape)
+
+
+def pair_rows_blocked_sharded(
+    W: np.ndarray,
+    rounding: float,
+    block_n: int,
+    *,
+    criterion: str = "rms",
+    row_shards: int = 1,
+    magnitudes: bool = True,
+) -> BlockedPairing:
+    """:func:`pair_rows_blocked` with every block's rows shard-constrained.
+
+    Column sharding needs no constraint: blocks are column-local, so a
+    column split on block boundaries partitions the block list, each
+    shard's blocks what it would build from its local columns.  Block ``b``
+    here is :func:`pair_rows_structured_sharded` of its columns; it is built
+    as each row slab's :func:`pair_rows_blocked` (the per-column walk at
+    ``block_n == 1``), block by block concatenated: the same pairings.
+    """
+    W = np.asarray(W, dtype=np.float64)
+    assert W.ndim == 2, "pair_rows_blocked_sharded expects (K, N)"
+    K, N = W.shape
+    assert block_n >= 1, f"block_n must be >= 1, got {block_n}"
+    block_n = min(block_n, N)
+    if row_shards <= 1 or K % row_shards:
+        return pair_rows_blocked(W, rounding, block_n, criterion=criterion,
+                                 magnitudes=magnitudes)
+    step = K // row_shards
+    offsets = [s * step for s in range(row_shards)]
+    slabs = [pair_rows_blocked(W[o:o + step], rounding, block_n, criterion=criterion,
+                               magnitudes=magnitudes) for o in offsets]
+    blocks = [concat_structured([sl.blocks[b] for sl in slabs], offsets,
+                                shape=(K, slabs[0].blocks[b].shape[1]))
+              for b in range(slabs[0].n_blocks)]
+    return BlockedPairing(blocks=blocks, block_n=block_n, shape=(K, N))
 
 
 # ---------------------------------------------------------------------------

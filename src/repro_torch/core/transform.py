@@ -38,7 +38,9 @@ from repro_torch.core.pairing import (
     fold_columns,
     pair_columns,
     pair_rows_blocked,
+    pair_rows_blocked_sharded,
     pair_rows_structured,
+    pair_rows_structured_sharded,
 )
 
 
@@ -156,6 +158,13 @@ class LeafReport:
     pair_fraction: float  # fraction of weights absorbed into pairs (2P/K·N)
     # the leaf's pairing, where pair_model_params(keep_pairings=True) keeps it
     pairing: ColumnPairing | StructuredPairing | BlockedPairing | None = None
+    # shard-aware builds (pair_params(shards=…)): how the leaf's GEMM view was
+    # split, and the per-shard ledger: the per-column-equivalent pairs of
+    # each column shard (col_shards > 1) or row shard (row_shards > 1),
+    # summed over layers; sum(shard_pairs) == n_pairs
+    row_shards: int = 1
+    col_shards: int = 1
+    shard_pairs: tuple[int, ...] | None = None
 
 
 @dataclasses.dataclass
@@ -290,6 +299,212 @@ def has_lm_pairing(model) -> bool:
     return any(getattr(m, "pairing", None) for m in model.modules())
 
 
+def _structured_shard_ledger(pairings: list[StructuredPairing],
+                             row_shards: int) -> tuple[int, ...]:
+    """Per-row-shard weighted pair counts (both rows of a shard-constrained
+    pair live in one shard, so attribution by I is exact)."""
+    out = np.zeros(row_shards, np.int64)
+    for sp in pairings:
+        step = sp.shape[0] // row_shards
+        if len(sp.I):
+            idx = np.minimum(np.asarray(sp.I, np.int64) // step, row_shards - 1)
+            out += np.bincount(idx, minlength=row_shards) * sp.shape[1]
+    return tuple(int(x) for x in out)
+
+
+def _blocked_shard_ledger(pairings: list[BlockedPairing], row_shards: int,
+                          col_shards: int) -> tuple[int, ...] | None:
+    """Per-shard weighted pair counts of a blocked build, summed over layers:
+    column shards own contiguous runs of blocks; with only row shards, pairs
+    count where their rows live."""
+    if col_shards > 1:
+        out = np.zeros(col_shards, np.int64)
+        for bp in pairings:
+            per = bp.n_blocks // col_shards
+            for b, sp in enumerate(bp.blocks):
+                out[min(b // per, col_shards - 1)] += sp.n_pairs * sp.shape[1]
+        return tuple(int(x) for x in out)
+    if row_shards > 1:
+        return _structured_shard_ledger([sp for bp in pairings for sp in bp.blocks], row_shards)
+    return None
+
+
+def _resolve_tree(node, sub_path: str):
+    """The sub-dict at a dotted ``sub_path`` of a value or axes tree's layer
+    dict, or None."""
+    for part in sub_path.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node if isinstance(node, dict) else None
+
+
+def tp_shard_plan(param_axes: Any, params: Any, mesh, rules, *,
+                  leaves: tuple[tuple[str, str], ...] | None = None
+                  ) -> dict[tuple[str, str], tuple[int, int]]:
+    """(row_shards, col_shards) of every paired leaf's per-layer GEMM view.
+
+    ``param_axes`` is ``models.param.param_axes(cfg)``, ``params`` a tree of
+    the same layout whose leaves have a ``shape`` (``param_axes_and_shapes``'s
+    ``meta`` tensors, or ``models.lm.lm_value_tree``).  Each eligible weight's
+    axes resolve against (mesh, rules), the ``spec_for_axes`` call that places
+    the weight, and the splits of the GEMM's contraction rows and output
+    columns are counted.  A split counts only on the *leading* dim of the
+    flattened view (a contiguous chunk; a sharded trailing dim would
+    interleave), else the leaf stays at 1, which is always safe.  A leaf
+    seen with two different splits (an encoder and a decoder) degrades to
+    (1, 1).  ``pair_params(shards=…)`` takes the result.
+    """
+    from repro_torch.parallel.sharding import spec_for_axes
+
+    def mesh_size(entry) -> int:
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        return int(np.prod([mesh.shape[a] for a in names]))
+
+    specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
+    plan: dict[tuple[str, str], tuple[int, int]] = {}
+
+    def scan_segments(ax_segments: list, val_segments: list) -> None:
+        for ax_seg, val_seg in zip(ax_segments, val_segments, strict=True):
+            for sub_path, w_name in specs:
+                ax_sub, val_sub = _resolve_tree(ax_seg, sub_path), _resolve_tree(val_seg, sub_path)
+                if ax_sub is None or val_sub is None or w_name not in ax_sub:
+                    continue
+                w_axes = ax_sub[w_name]
+                shape = tuple(getattr(val_sub[w_name], "shape", ()))
+                if not isinstance(w_axes, tuple) or len(w_axes) != len(shape):
+                    continue
+                nd = len(shape)
+                expert = sub_path.split(".")[-1] == "moe" and nd == 4
+                mat0 = 2 if expert else 1
+                if nd <= mat0:
+                    continue
+                spec = spec_for_axes(w_axes, mesh=mesh, rules=rules, dim_sizes=shape)
+                if w_name == "wo":
+                    row_dims, col_dims = list(range(mat0, nd - 1)), [nd - 1]
+                else:
+                    row_dims, col_dims = [mat0], list(range(mat0 + 1, nd))
+
+                def split(dims, spec=spec):
+                    lead = spec[dims[0]]
+                    if lead is None or any(spec[d] is not None for d in dims[1:]):
+                        return 1
+                    return mesh_size(lead)
+
+                rc = (split(row_dims), split(col_dims))
+                key = (sub_path, w_name)
+                plan[key] = (1, 1) if key in plan and plan[key] != rc else rc
+
+    scan_segments(param_axes.get("segments", []), params.get("segments", []))
+    ax_enc, val_enc = param_axes.get("encoder"), params.get("encoder")
+    if isinstance(ax_enc, dict) and isinstance(val_enc, dict):
+        scan_segments(ax_enc.get("segments", []), val_enc.get("segments", []))
+    return plan
+
+
+def _effective_shards(K: int, N: int, want: tuple[int, int], mode: str,
+                      block_n: int) -> tuple[int, int]:
+    """The (row, col) shards a leaf is paired at: a count that does not
+    divide its dim degrades to 1, and so does a column split that would cut
+    a pairing block; structured pairs are whole rows, which a column split
+    never cuts, so only the rows are constrained there."""
+    rs = want[0] if want[0] > 1 and K % want[0] == 0 else 1
+    cs = want[1] if want[1] > 1 and N % want[1] == 0 else 1
+    if mode != "column_blocked":
+        return rs, 1
+    if cs > 1 and (N // cs) % min(block_n, N):
+        cs = 1  # a shard boundary would split a block: keep it whole
+    return rs, cs
+
+
+def _pair_stacks(model, specs, min_dim: int, pair_stack):
+    """Run ``pair_stack(sub_path, w_name, mats, K, N, expert, segment, first)``
+    over every eligible weight of each segment of identical layers of the
+    model (decoder, then encoder), ``mats`` the segment's (K, N) weight views
+    (tensors, ``count × E`` of them for experts; each is copied to float64 by
+    :func:`_as_numpy` only as it is paired: a segment of expert matrices in
+    float64 at once would not fit the host).  It returns ``(pairings,
+    report kwargs)``; the pairings of a segment are padded to one
+    (Pmax, Rmax) and each layer gets its slice.  Returns ``(matched,
+    reports, layer_pairing, encoder_pairing)``."""
+    matched: set[tuple[str, str]] = set()
+    report: list[LeafReport] = []
+
+    def stack_of(all_layers, segments, prefix: str) -> list[dict[str, dict]]:
+        layer_pairing: list[dict[str, dict]] = [{} for _ in all_layers]
+        start = 0
+        for si, (_, count) in enumerate(segments):
+            layers = all_layers[start:start + count]
+            for sub_path, w_name in specs:
+                blocks = [_resolve_sub(layer, sub_path) for layer in layers]
+                if any(b is None or not hasattr(b, w_name) for b in blocks):
+                    continue
+                matched.add((sub_path, w_name))
+                shape = tuple(getattr(blocks[0], w_name).shape)
+                if len(shape) < 2:
+                    continue  # matrices only
+                # expert weights carry a leading expert axis: one matrix per expert
+                expert = sub_path.split(".")[-1] == "moe" and len(shape) == 3
+                K, N = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
+                if K < min_dim or N < min_dim:
+                    continue
+                mats = [m.reshape(K, N) for b in blocks
+                        for m in (getattr(b, w_name) if expert else [getattr(b, w_name)])]
+                pairings, extra = pair_stack(sub_path, w_name, mats, K, N, expert, si, start)
+                blocked = isinstance(pairings[0], BlockedPairing)
+                meta = (_stack_blocked if blocked else _stack_structured)(pairings)
+                if expert:
+                    meta = {k: v.reshape(count, shape[0], *v.shape[1:]) for k, v in meta.items()}
+                device = getattr(blocks[0], w_name).device
+                for l in range(count):
+                    layer_meta = {k: torch.as_tensor(v[l], device=device) for k, v in meta.items()}
+                    for k in ("I", "J", "resid"):
+                        layer_meta[k] = layer_meta[k].long()
+                    layer_pairing[start + l].setdefault(sub_path, dict(blocks[l].pairing))[
+                        w_name] = layer_meta
+                n_pairs = sum(p.weighted_pairs for p in pairings)
+                n_weights = len(mats) * K * N
+                report.append(LeafReport(
+                    path=f"{prefix}[{si}].{sub_path}.{w_name}", shape=(count, *shape),
+                    n_weights=n_weights, n_pairs=int(n_pairs),
+                    pair_fraction=2.0 * n_pairs / n_weights, **extra,
+                ))
+            start += count
+        return layer_pairing
+
+    layer_pairing = stack_of(model.layers, model.segments, "segments")
+    encoder_pairing = None
+    if model.encoder is not None:
+        encoder_pairing = stack_of(model.encoder.layers, model.encoder.segments,
+                                   "encoder.segments")
+    return matched, report, layer_pairing, encoder_pairing
+
+
+def _check_mode(mode: str, block_n: int) -> tuple[str, int]:
+    if mode == "per_column":
+        mode, block_n = "column_blocked", 1
+    if mode not in ("structured", "column_blocked"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "column_blocked" and block_n < 1:
+        raise ValueError("mode='column_blocked' needs block_n >= 1")
+    return mode, block_n
+
+
+def _finish(model, specs, leaves, min_dim, matched, report, layer_pairing, encoder_pairing,
+            rounding, mode):
+    unmatched = [s for s in specs if s not in matched]
+    if leaves is not None and unmatched:
+        raise ValueError("pair_params: no weight matched leaf spec(s) "
+                         + ", ".join(f"{sp}.{wn}" for sp, wn in unmatched))
+    if not report:
+        raise ValueError("pair_params: no pairing-eligible weights found; looked for "
+                         + ", ".join(f"{sp}.{wn}" for sp, wn in specs)
+                         + f" among matrices with GEMM dims >= {min_dim}")
+    paired = model.copy(frozen=False, layer_pairing=layer_pairing,
+                        encoder_pairing=encoder_pairing)
+    return paired, PairedModelReport(rounding=rounding, mode=mode, leaves=report)
+
+
 def pair_params(
     model,
     rounding: float,
@@ -299,6 +514,7 @@ def pair_params(
     leaves: tuple[tuple[str, str], ...] | None = None,
     criterion: str = "rms",
     min_dim: int = 8,
+    shards: dict[tuple[str, str], tuple[int, int]] | None = None,
 ):
     """Pairing metadata for the decoder weights of an LM (``models.lm.LM``),
     and for its encoder's (reported after them, as ``encoder.segments[…]``).
@@ -317,91 +533,115 @@ def pair_params(
     is ``"structured"``, ``"column_blocked"`` (one pairing per ``block_n``
     columns) or ``"per_column"`` (``block_n=1``, the paper's Algorithm 1).
 
+    ``shards`` makes the build shard-aware, as the JAX package's: a mapping
+    from ``(sub_path, weight_name)`` to the ``(row_shards, col_shards)`` of
+    the leaf's per-layer GEMM view (:func:`tp_shard_plan`).  Row shards
+    constrain the pairing so no pair spans two contraction shards; column
+    shards must land on block boundaries (else the leaf is paired whole);
+    counts that do not divide a dim degrade to 1.  Each
+    :class:`LeafReport` then carries ``row_shards``, ``col_shards`` and the
+    per-shard ledger ``shard_pairs``.
+
     Returns ``(model', report)``: ``model'`` shares the weights of ``model``
     (nothing is copied) and carries ``block.pairing[name]`` — ``I``/``J``/
     ``resid`` (int64) and ``pair_mask``/``resid_mask`` (fp32) on the
     weights' device.  Weights are not folded: the magnitudes are recomputed
     from the live weights (``kernels.ops.lm_paired_segments``).
     """
-    if mode == "per_column":
-        mode, block_n = "column_blocked", 1
-    if mode not in ("structured", "column_blocked"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if mode == "column_blocked" and block_n < 1:
-        raise ValueError("mode='column_blocked' needs block_n >= 1")
+    mode, block_n = _check_mode(mode, block_n)
     specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
-    matched: set[tuple[str, str]] = set()
-    report: list[LeafReport] = []
 
-    def pair_matrix(m: np.ndarray):
+    def pair_stack(sub_path, w_name, mats, K, N, expert, si, start):
         # the lane lists alone: the stacking needs nothing else, and a
         # full-depth model's float64 magnitudes would cost time and fill the host
+        rs, cs = _effective_shards(K, N, (shards or {}).get((sub_path, w_name), (1, 1)),
+                                   mode, block_n)
+        if mode == "column_blocked":
+            ps = [pair_rows_blocked_sharded(m, rounding, min(block_n, N), criterion=criterion,
+                                            row_shards=rs, magnitudes=False)
+                  for m in map(_as_numpy, mats)]
+            ledger = _blocked_shard_ledger(ps, rs, cs)
+        else:
+            ps = [pair_rows_structured_sharded(m, rounding, criterion=criterion, row_shards=rs,
+                                               magnitudes=False)
+                  for m in map(_as_numpy, mats)]
+            ledger = _structured_shard_ledger(ps, rs) if rs > 1 else None
+        return ps, ({"row_shards": rs, "col_shards": cs, "shard_pairs": ledger}
+                    if shards is not None else {})
+
+    found = _pair_stacks(model, specs, min_dim, pair_stack)
+    return _finish(model, specs, leaves, min_dim, *found, rounding, mode)
+
+
+def pair_shard_params(
+    local,
+    full,
+    rounding: float,
+    *,
+    shards: dict[tuple[str, str], tuple[int, int]],
+    mode: str = "structured",
+    block_n: int = 0,
+    leaves: tuple[tuple[str, str], ...] | None = None,
+    criterion: str = "rms",
+    min_dim: int = 8,
+):
+    """One tensor-parallel rank's pairing: the metadata of ``local``, the
+    rank's shard of the model ``full`` (``launch.steps.wire_serve_cell``
+    slices it), built from what the rank reads.
+
+    For each leaf at its :func:`tp_shard_plan` split (degraded as
+    :func:`pair_params` degrades it):
+
+    * a row-parallel leaf (``row_shards > 1``): the rank's row slab, paired
+      alone; its lane lists index the slab's rows, and equal the shard's
+      part of ``pair_params(shards=…)``'s build, rebased;
+    * a column-blocked, column-parallel leaf: the rank's own blocks, from
+      its local columns, equal to that build's blocks of this shard (a split
+      that would cut a block raises);
+    * a structured, column-parallel leaf: the whole matrix's lane lists,
+      from ``full`` (a structured pairing is shared by every column); the
+      magnitudes come from the live local columns when the kernel's
+      segments are made;
+    * a replicated leaf, and every expert the rank holds: its whole matrix.
+
+    Returns ``(local', report)``: ``local'`` shares ``local``'s weights and
+    carries the metadata; the report's ``n_pairs`` count the rank's own
+    matrices at their local column counts, with the leaf's split.
+    """
+    mode, block_n = _check_mode(mode, block_n)
+    specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
+    full_of = full.layers
+
+    def pair_one(m: np.ndarray):
         if mode == "column_blocked":
             return pair_rows_blocked(m, rounding, min(block_n, m.shape[1]), criterion=criterion,
                                      magnitudes=False)
         return pair_rows_structured(m, rounding, criterion=criterion, magnitudes=False)
 
-    def pair_stack(all_layers, segments, prefix: str) -> list[dict[str, dict]]:
-        """Each layer's pairing dicts, keyed by sub-path; the leaves' reports
-        go to ``report``."""
-        layer_pairing: list[dict[str, dict]] = [{} for _ in all_layers]
-        start = 0
-        for si, (_, count) in enumerate(segments):
-            layers = all_layers[start:start + count]
-            for sub_path, w_name in specs:
-                blocks = [_resolve_sub(layer, sub_path) for layer in layers]
-                if any(b is None or not hasattr(b, w_name) for b in blocks):
-                    continue
-                matched.add((sub_path, w_name))
-                shape = tuple(getattr(blocks[0], w_name).shape)
-                if len(shape) < 2:
-                    continue  # matrices only
-                # expert weights carry a leading expert axis: one matrix per expert
-                expert = sub_path.split(".")[-1] == "moe" and len(shape) == 3
-                K, N = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
-                if K < min_dim or N < min_dim:
-                    continue
-                mats = [m for b in blocks
-                        for m in (getattr(b, w_name) if expert else [getattr(b, w_name)])]
-                pairings = [pair_matrix(_as_numpy(m).reshape(K, N)) for m in mats]
-                blocked = mode == "column_blocked"
-                meta = (_stack_blocked if blocked else _stack_structured)(pairings)
-                if expert:
-                    meta = {k: v.reshape(count, shape[0], *v.shape[1:]) for k, v in meta.items()}
-                device = getattr(blocks[0], w_name).device
-                for l in range(count):
-                    layer_meta = {k: torch.as_tensor(v[l], device=device) for k, v in meta.items()}
-                    for k in ("I", "J", "resid"):
-                        layer_meta[k] = layer_meta[k].long()
-                    layer_pairing[start + l].setdefault(sub_path, dict(blocks[l].pairing))[
-                        w_name] = layer_meta
-                n_pairs = sum(p.weighted_pairs for p in pairings)
-                n_weights = len(mats) * K * N
-                report.append(LeafReport(
-                    path=f"{prefix}[{si}].{sub_path}.{w_name}", shape=(count, *shape),
-                    n_weights=n_weights, n_pairs=int(n_pairs),
-                    pair_fraction=2.0 * n_pairs / n_weights,
-                ))
-            start += count
-        return layer_pairing
+    def pair_stack(sub_path, w_name, mats, K, N, expert, si, first):
+        layer0 = _resolve_sub(full_of[first], sub_path)
+        shape = tuple(getattr(layer0, w_name).shape)
+        Kf, Nf = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
+        rs, cs = _effective_shards(Kf, Nf, shards.get((sub_path, w_name), (1, 1)), mode, block_n)
+        if (rs > 1 and K * rs != Kf) or (cs > 1 and N * cs != Nf):
+            raise ValueError(f"{sub_path}.{w_name}: the rank holds a ({K}, {N}) view of a "
+                             f"({Kf}, {Nf}) matrix split ({rs}, {cs})")
+        want_cs = shards.get((sub_path, w_name), (1, 1))[1]
+        if mode == "column_blocked" and N != Nf and cs == 1 and want_cs > 1:
+            raise ValueError(f"{sub_path}.{w_name}: pair_block_n={block_n} cuts the "
+                             f"{Nf // want_cs}-column shards' blocks; pick a block size "
+                             "that divides them")
+        if mode == "structured" and N != Nf and not expert:
+            # the whole matrix's lane lists, shared by the rank's columns
+            whole = (getattr(_resolve_sub(full_of[first + l], sub_path), w_name).reshape(Kf, Nf)
+                     for l in range(len(mats)))
+            ps = [dataclasses.replace(pair_one(_as_numpy(m)), shape=(Kf, N)) for m in whole]
+        else:
+            ps = [pair_one(_as_numpy(m)) for m in mats]
+        return ps, {"row_shards": rs, "col_shards": cs}
 
-    layer_pairing = pair_stack(model.layers, model.segments, "segments")
-    encoder_pairing = None
-    if model.encoder is not None:
-        encoder_pairing = pair_stack(model.encoder.layers, model.encoder.segments,
-                                     "encoder.segments")
-
-    unmatched = [s for s in specs if s not in matched]
-    if leaves is not None and unmatched:
-        raise ValueError("pair_params: no weight matched leaf spec(s) "
-                         + ", ".join(f"{sp}.{wn}" for sp, wn in unmatched))
-    if not report:
-        raise ValueError("pair_params: no pairing-eligible weights found; looked for "
-                         + ", ".join(f"{sp}.{wn}" for sp, wn in specs)
-                         + f" among matrices with GEMM dims >= {min_dim}")
-    paired = model.copy(frozen=False, layer_pairing=layer_pairing,
-                        encoder_pairing=encoder_pairing)
-    return paired, PairedModelReport(rounding=rounding, mode=mode, leaves=report)
+    found = _pair_stacks(local, specs, min_dim, pair_stack)
+    return _finish(local, specs, leaves, min_dim, *found, rounding, mode)
 
 
 def pair_lm_params(

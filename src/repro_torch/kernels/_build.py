@@ -5,12 +5,17 @@ Every source under ``csrc/`` (:data:`SOURCES`) is compiled on first use into
 call for ``sm_90a``; the first :func:`load` builds all of them, one ``nvcc``
 process per source, in parallel.  The library's file name carries a hash of
 the source and the flags, so an edited source is rebuilt and a stale library
-is never loaded.  Nothing here runs at import: this module imports on a
-machine without ``nvcc`` or a GPU, and only :func:`load` needs them.
+is never loaded.  A file lock a source serialises the first build across
+processes (the ranks of a mesh, ``launch.mesh.spawn``, load at once): one
+compiles, the others wait and load its library.  Nothing here runs at
+import: this module imports on a machine without ``nvcc`` or a GPU, and
+only :func:`load` needs them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 from concurrent.futures import ThreadPoolExecutor
 import hashlib
@@ -62,6 +67,24 @@ def build(name: str) -> dict:
     if lib.exists():
         return {"path": lib, "built": False, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _locked(BUILD_DIR / f"{name}.lock"):
+        if lib.exists():  # another process built it while this one waited
+            return {"path": lib, "built": False, "seconds": 0.0, "log": ""}
+        return _compile(src, lib)
+
+
+@contextlib.contextmanager
+def _locked(path: Path):
+    """An exclusive lock on ``path`` between processes, held inside the block."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(src: Path, lib: Path) -> dict:
     t0 = time.perf_counter()
     # compile to a private name, then rename: concurrent builds never load
     # a half-written library

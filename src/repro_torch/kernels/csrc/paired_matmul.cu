@@ -7,7 +7,9 @@
 //
 //   y = (x[:, :P] - x[:, P:2P]) @ Kmat + x[:, 2P:] @ W_res        (fp32 accumulate)
 //   y = act(y + bias) -> optional 2x2 max/avg over a window-major (4, M, K)
-//       operand -> optional fp32 residual add -> one cast, one store.
+//       operand -> optional fp32 residual add -> one cast, one store (or an fp32
+//       store for bf16 operands: a tensor-parallel rank's partial sum, which the
+//       reduce across ranks adds before the one cast).
 //
 // The operand is the one permuted (..., M, K) buffer, K = 2P + R, read at
 // column offsets 0, P and 2P.  "Effective lane" e < P + R is the pair
@@ -100,6 +102,7 @@ struct Args {
   int64_t M;
   int P, R, bn, n_cols;
   int pool, act, res_bf16;
+  int out_f32;  // store fp32 whatever T is (a partial sum that a reduce across ranks adds)
 };
 
 // tuning.Plan: skinny rows = MR, cols = columns per CTA; tall rows = pooled
@@ -147,13 +150,22 @@ __device__ __forceinline__ float residual_at(const Args& a, int64_t o) {
                     : static_cast<const float*>(a.residual)[o];
 }
 
+// The one store of an output: cast to T, or fp32 as it is where out_f32 asks.
+template <typename T>
+__device__ __forceinline__ void store_at(const Args& a, int64_t o, float v) {
+  if (a.out_f32)
+    static_cast<float*>(a.out)[o] = v;
+  else
+    static_cast<T*>(a.out)[o] = from_f<T>(v);
+}
+
 // bias -> activation -> residual -> one cast (the skinny form's epilogue).
 template <typename T>
 __device__ __forceinline__ void store_out(const Args& a, int64_t m, int col, float s) {
   float v = activation(s + (a.bias ? a.bias[col] : 0.f), a.act);
   const int64_t o = m * a.n_cols + col;
   if (a.residual) v += residual_at(a, o);
-  static_cast<T*>(a.out)[o] = from_f<T>(v);
+  store_at<T>(a, o, v);
 }
 
 // cp.async of BYTES (4, 8 or 16) into shared memory; `n` < BYTES source bytes
@@ -495,7 +507,7 @@ __device__ __forceinline__ void tall_finish(const Args& a, const float (&acc)[TN
     if (c % LG != g || cb >= a.bn || colg >= a.n_cols) continue;
     const int64_t o = m * a.n_cols + colg;
     const float y = a.residual ? v[c] + residual_at(a, o) : v[c];
-    static_cast<T*>(a.out)[o] = from_f<T>(y);
+    store_at<T>(a, o, y);
   }
 }
 
@@ -744,12 +756,12 @@ int run(const Args& a, int n_blocks, int window, int bf16, int skinny, const Pla
 extern "C" int paired_matmul_launch(
     const void* x, const void* kmat, const void* wres, const void* bias,
     const void* residual, void* out, long long M, int P, int R, int n_blocks,
-    int bn, int n_cols, int window, int pool, int act, int bf16, int res_bf16,
+    int bn, int n_cols, int window, int pool, int act, int bf16, int res_bf16, int out_f32,
     int skinny, int rows, int cols, int tn, int splits, int lanes, int subtiles, int stages,
     void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   Args a{x, kmat, wres, static_cast<const float*>(bias), residual, out,
-         static_cast<int64_t>(M), P, R, bn, n_cols, pool, act, res_bf16};
+         static_cast<int64_t>(M), P, R, bn, n_cols, pool, act, res_bf16, out_f32};
   const Plan p{rows, cols, tn, splits, lanes, subtiles, stages};
   const int err = run(a, n_blocks, window, bf16, skinny, p, static_cast<cudaStream_t>(stream),
                       false);
@@ -764,7 +776,7 @@ extern "C" int paired_matmul_check(long long M, int P, int R, int n_blocks, int 
                                    int bf16, int skinny, int rows, int cols, int tn, int splits,
                                    int lanes, int subtiles, int stages) {
   Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<int64_t>(M), P, R,
-         bn, n_blocks * bn, window == 4 ? kMax2 : 0, kNone, 0};
+         bn, n_blocks * bn, window == 4 ? kMax2 : 0, kNone, 0, 0};
   const Plan p{rows, cols, tn, splits, lanes, subtiles, stages};
   return run(a, n_blocks, window, bf16, skinny, p, nullptr, true);
 }

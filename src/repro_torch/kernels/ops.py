@@ -53,22 +53,25 @@ def paired_matmul(
     *,
     activation: str = "none",
     pool: str = "none",
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """(…, K) @ paired weights → (…, N). x pre-permuted to [I|J|residual].
 
     ``bias``/``activation`` and an output-shaped ``residual`` fuse into the
     kernel epilogue.  With ``pool="max2"``/``"avg2"`` ``x`` must be
     window-major ``(4, M, K)`` and the result is the pooled ``(M, N)`` map.
+    ``out_dtype=torch.float32`` keeps the epilogue's fp32 result uncast.
     """
     if pool != "none":
         return paired_matmul_cuda(
-            x, kmat, w_res, bias, residual=residual, activation=activation, pool=pool
+            x, kmat, w_res, bias, residual=residual, activation=activation, pool=pool,
+            out_dtype=out_dtype,
         )
     lead = x.shape[:-1]
     res2 = None if residual is None else residual.reshape(-1, residual.shape[-1])
     y = paired_matmul_cuda(
         x.reshape(-1, x.shape[-1]), kmat, w_res, bias,
-        residual=res2, activation=activation,
+        residual=res2, activation=activation, out_dtype=out_dtype,
     )
     return y.reshape(*lead, y.shape[-1])
 
@@ -100,6 +103,7 @@ def paired_matmul_blocked(
     n_cols: int,
     activation: str = "none",
     pool: str = "none",
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Column-blocked paired GEMM → (M, n_cols).
 
@@ -108,7 +112,7 @@ def paired_matmul_blocked(
     """
     return paired_matmul_blocked_cuda(
         x, kmat, w_res, bias, n_cols=n_cols, residual=residual,
-        activation=activation, pool=pool,
+        activation=activation, pool=pool, out_dtype=out_dtype,
     )
 
 
@@ -267,14 +271,16 @@ def lm_paired_segments(w2: torch.Tensor, meta: dict, pair_block_n: int = 0) -> P
 
 
 def _k1(xg: torch.Tensor, kmat: torch.Tensor, w_res: torch.Tensor, bias: torch.Tensor | None,
-        residual: torch.Tensor | None, n_cols: int, activation: str) -> torch.Tensor:
+        residual: torch.Tensor | None, n_cols: int, activation: str,
+        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One K1 call on gathered activations: structured (``xg`` (…, K'),
     ``kmat`` (P, N); the dense form at P = 0) or column-blocked (``xg``
     (B, M, K'), ``kmat`` (B, Pmax, bn), ``residual`` (M, n_cols))."""
     if kmat.ndim == 3:
         return paired_matmul_blocked(xg, kmat, w_res, bias, residual, n_cols=n_cols,
-                                     activation=activation)
-    return paired_matmul(xg, kmat, w_res, bias, residual, activation=activation)
+                                     activation=activation, out_dtype=out_dtype)
+    return paired_matmul(xg, kmat, w_res, bias, residual, activation=activation,
+                         out_dtype=out_dtype)
 
 
 @torch.library.custom_op("repro_torch::k1", mutates_args=())
@@ -286,13 +292,14 @@ def k1_op(xg: torch.Tensor, kmat: torch.Tensor, w_res: torch.Tensor, bias: torch
     return _k1(xg, kmat, w_res, bias, residual, n_cols, activation)
 
 
-def _paired_dense(x, seg: PairedSegments, bias, activation, residual, gemm) -> torch.Tensor:
+def _paired_dense(x, seg: PairedSegments, bias, activation, residual, gemm,
+                  **kw) -> torch.Tensor:
     kmat, w_res = seg.kmat.to(x.dtype), seg.w_res.to(x.dtype)
     if seg.perm.ndim == 1:
-        return gemm(x[..., seg.perm], kmat, w_res, bias, residual, seg.n_cols, activation)
+        return gemm(x[..., seg.perm], kmat, w_res, bias, residual, seg.n_cols, activation, **kw)
     xg = x.reshape(-1, x.shape[-1])[:, seg.perm].movedim(1, 0)  # (B, M, K')
     res2 = None if residual is None else residual.reshape(-1, seg.n_cols)
-    y = gemm(xg, kmat, w_res, bias, res2, seg.n_cols, activation)
+    y = gemm(xg, kmat, w_res, bias, res2, seg.n_cols, activation, **kw)
     return y.reshape(*x.shape[:-1], seg.n_cols)
 
 
@@ -303,14 +310,17 @@ def paired_dense(
     *,
     activation: str = "none",
     residual: torch.Tensor | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """(…, K) through the paired kernel on precomputed segments → (…, N);
-    one launch.  ``bias``/``activation``/``residual`` fuse into its epilogue.
+    one launch.  ``bias``/``activation``/``residual`` fuse into its epilogue;
+    ``out_dtype=torch.float32`` keeps its fp32 result uncast (a
+    tensor-parallel rank's partial sum).
     Forward only (the serving engines' frozen blocks), so it calls the
     kernel's wrapper directly, not through :func:`k1_op` (the operator's
     dispatch costs some 20 µs of host time a call, a decode step makes
     hundreds)."""
-    return _paired_dense(x, seg, bias, activation, residual, _k1)
+    return _paired_dense(x, seg, bias, activation, residual, _k1, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------

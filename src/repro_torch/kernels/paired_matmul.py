@@ -8,7 +8,8 @@ The port of ``repro.kernels.paired_matmul``.  With ``P`` shared pairs and
 
 contracts over ``P + R = K − P`` lanes instead of ``K``, followed by the
 fused epilogue bias → activation → optional 2×2 window pool → optional fp32
-residual add → one cast to the input dtype.
+residual add → one cast to the input dtype (or no cast: ``out_dtype=torch.float32``
+keeps a bf16 launch's fp32 result, a tensor-parallel partial sum).
 
 Three wrappers mirror the JAX package's Pallas entry points:
 :func:`paired_matmul_cuda` (structured; ``x`` is ``(M, K)``, or window-major
@@ -145,7 +146,7 @@ def _kernel():
     lib = _build.load("paired_matmul")
     fn = lib.paired_matmul_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong] + [i] * 18 + [p]
+    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong] + [i] * 19 + [p]
     fn.restype = i
     lib.paired_matmul_error_string.argtypes = [i]
     lib.paired_matmul_error_string.restype = ctypes.c_char_p
@@ -214,7 +215,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(
     x, kmat, w_res, bias, residual, *, M, n_blocks, bn, n_cols, activation, pool,
-    blocked, plan=None,
+    blocked, plan=None, out_dtype=None,
 ) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the paired_matmul kernel takes fp32 or bf16, got {x.dtype}")
@@ -232,7 +233,10 @@ def _launch(
         if residual.dtype not in (torch.float32, torch.bfloat16):
             residual = residual.float()
         residual = residual.contiguous()
-    out = torch.empty((M, n_cols), dtype=x.dtype, device=x.device)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"the kernel stores {x.dtype} or float32, not {out_dtype}")
+    out = torch.empty((M, n_cols), dtype=out_dtype, device=x.device)
     P, R = kmat.shape[-2], w_res.shape[-2]
     window = POOL_WINDOW if pool != "none" else 1
     launch = (*_problem(x, kmat, w_res, pool), residual is not None)
@@ -245,6 +249,7 @@ def _launch(
             M, P, R, n_blocks, bn, n_cols, window, _POOL_CODE[pool],
             _ACT_CODE[activation], int(x.dtype == torch.bfloat16),
             int(residual is not None and residual.dtype == torch.bfloat16),
+            int(out_dtype == torch.float32 and x.dtype != torch.float32),
             *plan.as_args(), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
@@ -277,12 +282,16 @@ def paired_matmul_cuda(
     activation: str = "none",
     pool: str = "none",
     plan: tuning.Plan | None = None,  # launch at this plan (on a CUDA tensor)
+    out_dtype: torch.dtype | None = None,  # x's dtype (None), or float32
 ) -> torch.Tensor:
     """Fused subtract-then-MAC GEMM with epilogue. Returns (M, N).
 
     With ``pool="max2"``/``"avg2"`` ``x`` is window-major ``(4, M, K)`` (axis
     0 enumerates the 2×2 window elements of pooled row ``m``) and the result
     is the pooled ``(M, N)`` map; ``residual`` is then pooled-shaped too.
+    ``out_dtype=torch.float32`` stores the fp32 epilogue result of bf16
+    operands uncast: a tensor-parallel rank's partial sum, reduced across
+    ranks before the one cast.
     """
     _check_common(activation, pool)
     if x.ndim != (3 if pool != "none" else 2) or (pool != "none" and x.shape[0] != 4):
@@ -297,11 +306,12 @@ def paired_matmul_cuda(
         raise ValueError(f"residual must be {(M, N)}, got {tuple(residual.shape)}")
     if not _on_cuda(x):
         return paired_matmul_plain(
-            x, kmat, w_res, bias, residual=residual, activation=activation, pool=pool
+            x, kmat, w_res, bias, residual=residual, activation=activation, pool=pool,
+            out_dtype=out_dtype,
         )
     return _launch(
         x, kmat, w_res, bias, residual, M=M, n_blocks=1, bn=N, n_cols=N,
-        activation=activation, pool=pool, blocked=False, plan=plan,
+        activation=activation, pool=pool, blocked=False, plan=plan, out_dtype=out_dtype,
     )
 
 
@@ -316,6 +326,7 @@ def paired_matmul_blocked_cuda(
     activation: str = "none",
     pool: str = "none",
     plan: tuning.Plan | None = None,  # launch at this plan (on a CUDA tensor)
+    out_dtype: torch.dtype | None = None,  # as paired_matmul_cuda's
 ) -> torch.Tensor:
     """Column-blocked paired GEMM. Returns (M, n_cols).
 
@@ -340,11 +351,11 @@ def paired_matmul_blocked_cuda(
     if not _on_cuda(x):
         return paired_matmul_blocked_plain(
             x, kmat, w_res, bias, n_cols=n_cols, residual=residual,
-            activation=activation, pool=pool,
+            activation=activation, pool=pool, out_dtype=out_dtype,
         )
     return _launch(
         x, kmat, w_res, bias, residual, M=M, n_blocks=B, bn=bn, n_cols=n_cols,
-        activation=activation, pool=pool, blocked=True, plan=plan,
+        activation=activation, pool=pool, blocked=True, plan=plan, out_dtype=out_dtype,
     )
 
 

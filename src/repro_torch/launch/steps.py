@@ -1,9 +1,10 @@
 """The LM step builders: training, prefill and decode.
 
 The port of ``repro.launch.steps`` ``build_train_step``,
-``build_prefill_step`` and ``build_serve_step``, on one device: the mesh
-and sharding rules of the JAX package wait for tensor parallelism, and its
-abstract-shape builders for the dry run have no counterpart.  Each step runs
+``build_prefill_step`` and ``build_serve_step``, and of ``wire_serve_cell``,
+which wires one rank of a tensor-parallel serve cell over a
+``parallel.sharding.Mesh`` (the training step runs on one device; the
+abstract-shape builders of the dry run have no counterpart).  Each step runs
 under ``kernels.ops.tile_cache_context(knobs)`` (the tile cache is read
 once, when the step is built), as the JAX package's steps run under
 ``perf_context(knobs)``; the serving steps live in ``serving.steps`` and
@@ -21,13 +22,35 @@ two with their ``frames`` or ``patches`` in the batch.
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from collections.abc import Callable
+from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.transform import (
+    has_lm_pairing,
+    pair_shard_params,
+    tp_shard_plan,
+)
 from repro_torch.kernels import ops, tuning
+from repro_torch.models import layers as Lyr
 from repro_torch.models import lm as M
+from repro_torch.models.param import (
+    cache_axes_and_shapes,
+    pairing_axes,
+    param_axes_and_shapes,
+)
+from repro_torch.parallel.rules import rules_for
+from repro_torch.parallel.sharding import (
+    Mesh,
+    Rules,
+    paired_shardings_for,
+    shardings_for,
+)
+from repro_torch.parallel.tp import TensorParallel, layout_for
 from repro_torch.serving.steps import (  # noqa: F401  (the JAX module's three builders)
     build_prefill_step,
     build_serve_step,
@@ -75,3 +98,198 @@ def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer]
     """The training step of ``cfg`` under ``knobs`` with optimizer ``opt``
     (a constructor over the parameters, the JAX package's ``Optimizer``)."""
     return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs))
+
+
+# ---------------------------------------------------------------------------
+# one rank of a tensor-parallel serve cell
+# ---------------------------------------------------------------------------
+
+#: weights a rank holds whole whatever their spec says: the router (routing
+#: is replicated, every rank of a data row routes its tokens alike)
+KEEP_WHOLE = (("moe", "router"),)
+
+
+def _take(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``: each split dim narrowed to
+    the rank's chunk along its mesh axes, copied (so the whole can go)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            size = t.shape[dim] // mesh.axis_size(entry)
+            t = t.narrow(dim, mesh.index(entry) * size, size)
+    return t.detach().clone()
+
+
+def shard_model(model: M.LM, specs: dict, mesh: Mesh) -> M.LM:
+    """The rank's part of ``model``: every weight sliced by its resolved spec
+    (``specs``, :func:`~repro_torch.parallel.sharding.shardings_for` of
+    ``models.param.param_axes``; a stacked layer weight's spec without its
+    ``"layers"`` entry), the router whole (:data:`KEEP_WHOLE`); new tensors
+    on the weights' device, no pairing metadata."""
+
+    def block(b: Lyr.Block, spec_tree: dict, path: str, stacked: bool) -> Lyr.Block:
+        weights = {}
+        for name, t in b.named_parameters(recurse=False):
+            spec = spec_tree[name][1:] if stacked else spec_tree[name]
+            whole = (path, name) in KEEP_WHOLE
+            weights[name] = t.detach().clone() if whole else _take(t, spec, mesh)
+        kids = {n: block(c, spec_tree[n], f"{path}.{n}", stacked) for n, c in b.named_children()}
+        return type(b)(**weights, **kids)
+
+    layers, start = [], 0
+    for si, (_, count) in enumerate(model.segments):
+        seg = specs["segments"][si]
+        for layer in model.layers[start:start + count]:
+            layers.append(Lyr.DecoderLayer(**{n: block(c, seg[n], n, True)
+                                             for n, c in layer.named_children()}))
+        start += count
+    top = {name: _take(getattr(model, name), specs[name], mesh)
+           for name in ("embed", "lm_head") if getattr(model, name, None) is not None}
+    return M.LM(final_norm=block(model.final_norm, specs["final_norm"], "final_norm", False),
+                layers=layers, segments=model.segments, **top)
+
+
+def _paired_shapes(cfg: ModelConfig, shapes: dict, mode: str, block_n: int) -> dict:
+    """``shapes`` (``param_axes_and_shapes``'s) with a ``"<name>_pairing"``
+    sibling beside every paired weight, shaped as the JAX package's stacked
+    metadata ``(L, [E,] [B,] lanes)`` (the lane count, which placement never
+    reads, as 0): the tree ``paired_shardings_for`` places."""
+    def copy(tree):
+        return {k: copy(v) for k, v in tree.items()} if isinstance(tree, dict) else tree
+
+    out = dict(shapes)
+    out["segments"] = []
+    for seg in shapes["segments"]:
+        seg = copy(seg)
+        for sub_path, w_name in cfg.paired_leaves:
+            parts = sub_path.split(".")
+            node = seg
+            for part in parts:
+                node = node.get(part) if isinstance(node, dict) else None
+            if not isinstance(node, dict) or w_name not in node:
+                continue
+            shape = tuple(node[w_name].shape)
+            expert = parts[-1] == "moe" and len(shape) == 4
+            mat = shape[2:] if expert else shape[1:]
+            N = mat[-1] if w_name == "wo" else math.prod(mat[1:])
+            lead = shape[:2] if expert else shape[:1]
+            blocks = (-(-N // min(block_n, N)),) if mode == "column_blocked" else ()
+            meta = torch.empty((*lead, *blocks, 0), device="meta")
+            node[w_name + "_pairing"] = {k: meta for k in
+                                         ("I", "J", "resid", "pair_mask", "resid_mask")}
+        out["segments"].append(seg)
+    return out
+
+
+#: why the mesh refuses the fused decode attention: the JAX engine's words
+MESH_FUSED_REFUSAL = (
+    "attn='pallas_fused' is single-host only: the sharded serve "
+    "cell decodes against a sequence-sharded cache, and the fused "
+    "decode-attention kernel has no cross-shard softmax yet — "
+    "the mesh path keeps the dense decode attention")
+
+
+@dataclasses.dataclass
+class ServeCell:
+    """One rank's wired decode cell: its part of the model (sliced, paired
+    per shard, frozen), the steps over it, the placements they follow (the
+    weights' and metadata's specs ``p_shard``, the cache's ``c_shard``), the
+    rule table, the rank's :class:`~repro_torch.parallel.tp.TensorParallel`
+    and its pairing report."""
+
+    model: M.LM
+    decode: Any  # serve_step(model, cache, {"tokens", "pos"})
+    prefill: Any  # prefill_step(model, batch)
+    p_shard: Any
+    c_shard: Any
+    rules: Rules
+    tp: TensorParallel
+    pair_report: Any
+    plan: dict | None = None
+    seconds: dict = dataclasses.field(default_factory=dict)  # "slice", "pair"
+
+
+def wire_serve_cell(
+    cfg: ModelConfig,
+    model: M.LM,
+    mesh: Mesh,
+    *,
+    batch_size: int,
+    max_seq: int,
+    knobs: M.PerfKnobs = M.DEFAULT_KNOBS,
+    rules: Rules | None = None,
+) -> ServeCell:
+    """Wire this rank's part of a decode cell of ``model`` (the whole
+    unpaired model, the same on every rank) on ``mesh``.
+
+    The JAX package's chain, rank by rank: the weights' axes resolve against
+    (mesh, rules) (``rules_for(cfg, "decode", mesh)`` unless given) to a
+    tensor-parallel shard plan (``core.transform.tp_shard_plan``); the rank
+    slices its weights by their resolved specs (:func:`shard_model`) and
+    pairs only what it reads (``core.transform.pair_shard_params``: no pair
+    crosses a shard boundary); the metadata's placement comes from its
+    weight's resolved spec (``parallel.sharding.paired_shardings_for``),
+    and the rank's metadata is checked to hold that placement's blocks.  The
+    steps are ``serving.steps``' with the rank's
+    :class:`~repro_torch.parallel.tp.TensorParallel`.  Raises
+    ``NotImplementedError`` for a family the mesh does not serve and for
+    ``attn="pallas_fused"`` (the one place both are checked: the steps and
+    the forward assume them).
+    """
+    M.check_mesh_family(cfg)
+    if knobs.attn != "xla":
+        raise NotImplementedError(MESH_FUSED_REFUSAL)
+    if has_lm_pairing(model):
+        raise ValueError("a mesh pairs each rank's shards itself: hand wire_serve_cell the "
+                         "unpaired model")
+    rules = rules or rules_for(cfg, "decode", mesh)
+    axes, shapes = param_axes_and_shapes(cfg)
+    tp = layout_for(cfg, mesh, rules, batch_size, max_seq)
+    t0 = time.perf_counter()
+    p_shard = shardings_for(axes, mesh, rules, shapes)
+    local = shard_model(model, p_shard, mesh)
+    seconds = {"slice": time.perf_counter() - t0}
+    report = plan = None
+    if knobs.gemm == "pallas_paired":
+        mode, block_n = ops.paired_mode_of(knobs)
+        plan = tp_shard_plan(axes, shapes, mesh, rules, leaves=cfg.paired_leaves)
+        local, report = pair_shard_params(local, model, knobs.pair_rounding, shards=plan,
+                                          mode=mode, block_n=block_n, leaves=cfg.paired_leaves)
+        meta_shapes = _paired_shapes(cfg, shapes, mode, block_n)
+        p_shard = paired_shardings_for(pairing_axes(meta_shapes, axes), mesh, rules, meta_shapes)
+        _check_meta_placement(local, p_shard, meta_shapes, mesh)
+        seconds["pair"] = time.perf_counter() - t0 - seconds["slice"]
+    c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
+    c_shard = shardings_for(c_axes, mesh, rules, c_shapes)
+    tile_cache = load_knobs_tile_cache(knobs)
+    return ServeCell(model=local.copy(frozen=True),
+                     decode=build_serve_step(cfg, knobs, tile_cache, tp=tp),
+                     prefill=build_prefill_step(cfg, knobs, tile_cache, tp=tp),
+                     p_shard=p_shard, c_shard=c_shard, rules=rules, tp=tp,
+                     pair_report=report, plan=plan, seconds=seconds)
+
+
+def _check_meta_placement(local: M.LM, p_shard: dict, meta_shapes: dict, mesh: Mesh) -> None:
+    """Each blocked metadata leaf the rank built holds the blocks its
+    placement gives it: all of them where the block axis is replicated,
+    ``B / n`` where it rides the weight's column split."""
+    start = 0
+    for si, (_, count) in enumerate(local.segments):
+        seg_spec, seg_shape = p_shard["segments"][si], meta_shapes["segments"][si]
+        for layer in local.layers[start:start + count]:
+            for sub_name, sub in layer.named_children():
+                for name, meta in getattr(sub, "pairing", {}).items():
+                    spec = seg_spec[sub_name][name + "_pairing"]["I"]
+                    shape = tuple(seg_shape[sub_name][name + "_pairing"]["I"].shape)
+                    # stacked (L, [E,] [B,] lanes); the rank's per layer ([E,] [B,] lanes)
+                    expert = isinstance(sub, Lyr.MoE) and getattr(sub, name).ndim == 3
+                    dims = [1] if expert else []
+                    if meta["I"].ndim == (3 if expert else 2):
+                        dims.append(2 if expert else 1)
+                    for dim in dims:
+                        want = shape[dim] // mesh.axis_size(spec[dim])
+                        if meta["I"].shape[dim - 1] != want:
+                            raise AssertionError(
+                                f"{sub_name}.{name}: the rank holds {meta['I'].shape[dim - 1]} "
+                                f"along metadata dim {dim}, its placement {tuple(spec)} "
+                                f"gives it {want}")
+        start += count

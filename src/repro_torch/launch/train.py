@@ -9,8 +9,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \
         --steps 2 --gemm pallas_paired --device cpu
 
-The port of ``repro.launch.train`` on one device: ``--mesh`` is dropped,
-since tensor and data parallelism are not ported.  Checkpoints (weights and
+The port of ``repro.launch.train`` on one device: ``--mesh`` is dropped.
+The port's mesh (``parallel``, ``launch.steps.wire_serve_cell``) serves the
+dense and MoE families tensor-parallel; training on it, with the ``train``
+rules' sequence parallelism, is ROADMAP queue 1, item 9.  Checkpoints (weights and
 the optimizer's moments) are written every ``--ckpt-every`` steps; a run
 finding one in ``--ckpt-dir`` resumes from it and regenerates the token
 stream from the step counter (``data.tokens``), so a killed run continues

@@ -2,8 +2,8 @@
 cross-attention, a gated MLP or routed experts, Mamba-2 SSD blocks,
 RMSNorm or LayerNorm), in PyTorch.
 
-The port of ``repro.models.layers`` but its expert-parallel ``_moe_shard_map``.
-Conventions, as in the JAX package:
+The port of ``repro.models.layers``, its expert-parallel ``_moe_shard_map``
+included.  Conventions, as in the JAX package:
 
 * activations ``(batch, seq, d_model)`` in the compute dtype (the config's);
 * softmax and normalisation statistics in fp32;
@@ -30,6 +30,17 @@ Conventions, as in the JAX package:
   (:func:`ssm_decode_block`) per decode token: plain PyTorch, as the JAX
   package's are XLA code, not kernels.
 
+On a mesh (``tp``, a ``parallel.tp.TensorParallel``: one rank's split of the
+dense GQA and MoE families) each rank holds its shards and closes every
+split with a collective (``parallel.collectives``): the row-parallel
+out- and down-projections (:func:`row_parallel_dense`) store fp32 partial
+sums, the skip connection on the first model rank only, and all-reduce them
+before the one cast; attention reads the KV heads of the rank's query heads
+(:func:`local_kv`), or, against a sequence-sharded cache, merges the ranks'
+partial softmaxes (:func:`seq_sharded_decode_attention`); the experts run
+on the ranks that hold them (:func:`_moe_shard_map` on a prompt, the dense
+branch on decode rows), their gated sums all-reduced.
+
 Weights live in :class:`Block` modules (fp32 masters, as the JAX package
 keeps them) with each weight's pairing metadata beside it; every GEMM goes
 through :func:`dense`, the one dispatch point between ``torch.matmul`` and
@@ -53,6 +64,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_mask
+from repro_torch.parallel.collectives import all_gather, all_reduce
 
 # ---------------------------------------------------------------------------
 # weight containers
@@ -281,6 +293,7 @@ def dense(
     residual: torch.Tensor | None = None,
     knobs,
     segments: ops.PairedSegments | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """GEMM over the last axis with optional bias + activation + residual.
 
@@ -298,17 +311,25 @@ def dense(
       there: the live weights are the r=0-exact reference).
 
     ``residual`` is an output-shaped skip connection added after the
-    activation.
+    activation.  ``out_dtype=torch.float32`` returns the result before its
+    cast to x's dtype (a tensor-parallel rank's partial sum): the paired
+    kernel's fp32 epilogue stored uncast; elsewhere the product in x's dtype,
+    then the epilogue in fp32.
     """
     if pairing is not None and knobs.gemm == "pallas_paired":
         if segments is None:
-            return ops.fused_paired_dense(x, w, pairing, bias, activation=act or "none",
-                                          residual=residual, pair_block_n=knobs.pair_block_n)
-        return ops.paired_dense(x, segments, bias, activation=act or "none", residual=residual)
+            y = ops.fused_paired_dense(x, w, pairing, bias, activation=act or "none",
+                                       residual=residual, pair_block_n=knobs.pair_block_n)
+            return y if out_dtype is None else y.to(out_dtype)
+        return ops.paired_dense(x, segments, bias, activation=act or "none", residual=residual,
+                                out_dtype=out_dtype)
     if knobs.gemm == "pallas":
         y = ops.fused_dense(x, w, bias, activation=act or "none")
+        y = y if out_dtype is None else y.to(out_dtype)
         return y if residual is None else y + residual.to(y.dtype)
     y = torch.matmul(x, w)
+    if out_dtype is not None:
+        y = y.to(out_dtype)
     if bias is not None:
         y = y + bias
     if act:
@@ -323,7 +344,8 @@ def _cast(p: Block, name: str, dtype: torch.dtype) -> torch.Tensor:
     return p.derived(("matrix", name, dtype), lambda: getattr(p, name).to(dtype))
 
 
-def _leaf_dense(p: Block, name: str, x: torch.Tensor, knobs, *, act=None, residual=None):
+def _leaf_dense(p: Block, name: str, x: torch.Tensor, knobs, *, act=None, residual=None,
+                out_dtype=None):
     """:func:`dense` of ``x`` against weight ``name`` of ``p`` (its (K, N)
     view in x's dtype).  A frozen block keeps its casts and paired segments
     (forward only); an unfrozen one computes them from the live weight on
@@ -334,9 +356,22 @@ def _leaf_dense(p: Block, name: str, x: torch.Tensor, knobs, *, act=None, residu
         seg = p.derived(("paired", name, cdt), lambda: ops.lm_paired_segments(
             p.matrix(name, cdt), meta, knobs.pair_block_n))
         return dense(x, None, act=act, pairing=meta, residual=residual, knobs=knobs,
-                     segments=seg)
+                     segments=seg, out_dtype=out_dtype)
     w = p.derived(("matrix", name, cdt), lambda: p.matrix(name, cdt))
-    return dense(x, w, act=act, pairing=meta, residual=residual, knobs=knobs)
+    return dense(x, w, act=act, pairing=meta, residual=residual, knobs=knobs,
+                 out_dtype=out_dtype)
+
+
+def row_parallel_dense(p: Block, name: str, x: torch.Tensor, knobs, tp, *,
+                       residual: torch.Tensor | None = None) -> torch.Tensor:
+    """A row-parallel GEMM on a mesh (``wo``, ``w_down``: the rank holds a
+    slab of the contraction rows and ``x``'s matching columns): the partial
+    sum stored in fp32 (the paired kernel's ``out_dtype``), the skip
+    connection fused on the first model rank only, one all-reduce over
+    ``model`` in fp32, then the one cast to x's dtype."""
+    y = _leaf_dense(p, name, x, knobs, residual=residual if tp.r == 0 else None,
+                    out_dtype=torch.float32)
+    return all_reduce(y, tp.model_group).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -522,12 +557,34 @@ def _fused_qkv_proj(p: Attention, x: torch.Tensor, knobs):
 
 
 def attn_out_proj(p: Attention, out: torch.Tensor, knobs,
-                  residual: torch.Tensor | None = None) -> torch.Tensor:
+                  residual: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """Attention output projection through :func:`dense`, flattened-head
     view; ``residual`` (the sublayer's skip connection) fuses into the
-    paired kernel's epilogue."""
+    paired kernel's epilogue.  With query heads split over a mesh, the
+    rank's heads are wo's row slab: :func:`row_parallel_dense`."""
     o2 = out.reshape(*out.shape[:-2], -1)
+    if tp is not None and tp.q_split:
+        return row_parallel_dense(p, "wo", o2, knobs, tp, residual=residual)
     return _leaf_dense(p, "wo", o2, knobs, residual=residual)
+
+
+def local_kv(tp, k: torch.Tensor, v: torch.Tensor):
+    """The KV heads ``(B, S, KH', D)`` that this rank's query heads read.
+
+    Its own where the KV heads split as the query heads do (or nothing is
+    split).  Where only the query heads split, local head ``i`` is global
+    head ``h0 + i`` and reads global KV head ``(h0 + i) // G``: a slice of
+    whole groups, or the one KV head a rank's heads share (then all of them
+    are its group), or else a gather of one KV head a query head."""
+    if tp is None or not tp.q_split or tp.kv_split:
+        return k, v
+    h0, n_loc = tp.local_heads
+    G = tp.n_heads // tp.n_kv_heads
+    if n_loc % G == 0 or G % n_loc == 0:
+        sl = slice(h0 // G, h0 // G + max(n_loc // G, 1))
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.div(h0 + torch.arange(n_loc, device=k.device), G, rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
 
 
 def attention_block(
@@ -541,18 +598,23 @@ def attention_block(
     window: int = 0,
     n_sink: int = 0,
     residual: torch.Tensor | None = None,
+    tp=None,
 ):
     """Full attention sublayer (projections + flash attention + out
     projection).  Returns ``(y, k, v)``: the post-rope K/V fill the cache.
     Without the causal mask (an encoder's) the attention is
-    :func:`full_attention`, on K3 under ``attn="pallas_fused"``."""
+    :func:`full_attention`, on K3 under ``attn="pallas_fused"``.  On a mesh
+    (``tp``) the rank's query heads attend the KV heads they read
+    (:func:`local_kv`: the prompt's keys are all here), and the K/V returned
+    are the ones its cache holds."""
     q, k, v = _qkv(cfg, p, x, positions, knobs)
     if not causal and not window:
         out = full_attention(q, k, v, knobs)
     else:
-        out = flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink,
+        kq, vq = local_kv(tp, k, v)
+        out = flash_attention(q, kq, vq, causal=causal, window=window, n_sink=n_sink,
                               q_chunk=knobs.q_chunk, k_chunk=knobs.k_chunk)
-    return attn_out_proj(p, out, knobs, residual=residual), k, v
+    return attn_out_proj(p, out, knobs, residual=residual, tp=tp), k, v
 
 
 def attention_decode_block(
@@ -566,6 +628,7 @@ def attention_decode_block(
     window: int = 0,
     n_sink: int = 0,
     residual: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode token: QKV, cache write at ``pos`` (in place: the port's
     caches are mutable, unlike the JAX package's), attention and the
@@ -573,8 +636,24 @@ def attention_decode_block(
 
     With ``knobs.attn == "pallas_fused"`` the attention and out-projection
     run as one decode-attention launch, and under paired GEMMs with blocked
-    metadata the QKV projections as one paired launch.
+    metadata the QKV projections as one paired launch.  On a mesh (``tp``;
+    the attention is plain there, as the JAX package's mesh engine keeps it)
+    the rank's query heads attend its cache: the KV heads they read
+    (:func:`local_kv`), or against a sequence-sharded cache
+    :func:`seq_sharded_decode_attention`; wo is row-parallel.
     """
+    if tp is not None:
+        q, k, v = _qkv(cfg, p, x, pos[:, None], knobs)
+        if tp.cache_seq:
+            out = seq_sharded_decode_attention(tp, q, k, v, cache, pos, window=window,
+                                               n_sink=n_sink)
+        else:
+            bidx = torch.arange(x.shape[0], device=x.device)
+            cache["k"][bidx, pos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][bidx, pos] = v[:, 0].to(cache["v"].dtype)
+            kc, vc = local_kv(tp, cache["k"], cache["v"])
+            out = decode_attention(q, kc, vc, pos, window=window, n_sink=n_sink)
+        return attn_out_proj(p, out, knobs, residual=residual, tp=tp), cache
     fused = knobs.attn == "pallas_fused" and x.shape[1] == 1
     paired = knobs.gemm == "pallas_paired"
     qkv = _fused_qkv_proj(p, x, knobs) if fused and paired else None
@@ -602,6 +681,62 @@ def attention_decode_block(
     y = ops.attn_decode(q, k_cache, v_cache, pos, seg, residual=residual,
                         window=window, n_sink=n_sink)
     return y, cache
+
+
+def seq_sharded_decode_attention(tp, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 cache: dict, pos: torch.Tensor, *, window: int = 0,
+                                 n_sink: int = 0) -> torch.Tensor:
+    """One decode token's attention against a cache whose positions are
+    split over ``model``: the rank holds keys ``[r·S', (r + 1)·S')``.
+
+    The new K/V ``(B, 1, KH, D)`` are written only by the rank that holds
+    ``pos`` (each slot's own).  Every rank needs every query head for its
+    keys, so the queries are all-gathered over ``model`` (where they are
+    split); each rank computes the fp32 partial softmax ``(m, l, acc)`` of
+    its keys under the window/sink mask, the partials are all-gathered and
+    merged in fp32 in rank order, and the rank keeps its own heads.  A rank
+    with no admitted key contributes ``m = −inf`` and zeros (its
+    ``exp(−inf − (−inf))`` is never formed).  Returns ``(B, 1, H', D)`` in
+    q's dtype.
+    """
+    k_cache, v_cache = cache["k"], cache["v"]
+    B, S_loc = k_cache.shape[0], k_cache.shape[1]
+    lo = tp.r * S_loc
+    bidx = torch.arange(B, device=q.device)
+    mine = ((pos >= lo) & (pos < lo + S_loc))[:, None, None]
+    at = (pos - lo).clamp(0, S_loc - 1)
+    k_cache[bidx, at] = torch.where(mine, k[:, 0].to(k_cache.dtype), k_cache[bidx, at])
+    v_cache[bidx, at] = torch.where(mine, v[:, 0].to(v_cache.dtype), v_cache[bidx, at])
+
+    h0, n_loc = tp.local_heads
+    qf = all_gather(q, tp.model_group, dim=2) if tp.q_split else q  # (B, 1, H, D)
+    H, D = qf.shape[2], qf.shape[3]
+    KH = k_cache.shape[2]
+    qg = qf.reshape(B, KH, H // KH, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * (1.0 / math.sqrt(D))
+    pk = lo + torch.arange(S_loc, device=q.device)[None, :]
+    p_ = pos.to(torch.int64)[:, None]
+    ok = pk <= p_
+    if window:
+        in_w = pk > p_ - window
+        if n_sink:
+            in_w = in_w | (pk < n_sink)
+        ok = ok & in_w
+    s = s.masked_fill(~ok[:, None, None, :], -math.inf)
+    m = s.amax(-1)  # (B, KH, G); −inf where no key is admitted
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe[..., None])  # masked keys: exp(−inf) = 0
+    l = p.sum(-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    parts = all_gather(torch.cat([m[..., None], l[..., None], acc], dim=-1)[None],
+                       tp.model_group, dim=0)  # (n, B, KH, G, D + 2)
+    m_all, l_all, acc_all = parts[..., 0], parts[..., 1], parts[..., 2:]
+    m_max = m_all.amax(0)
+    m_max = torch.where(torch.isfinite(m_max), m_max, torch.zeros_like(m_max))
+    w = torch.where(torch.isfinite(m_all), torch.exp(m_all - m_max), torch.zeros_like(m_all))
+    out = (w[..., None] * acc_all).sum(0) / (w * l_all).sum(0).clamp_min(1e-30)[..., None]
+    out = out.reshape(B, 1, H, D)[:, :, h0:h0 + n_loc]
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -706,11 +841,15 @@ def mla_decode_block(
 
 
 def mlp_block(cfg: ModelConfig, p: MLP, x: torch.Tensor, knobs,
-              residual: torch.Tensor | None = None) -> torch.Tensor:
+              residual: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """Gated MLP; ``residual`` fuses the sublayer skip connection into the
-    down-projection (the paired kernel's epilogue, or a plain add)."""
+    down-projection (the paired kernel's epilogue, or a plain add).  With
+    the hidden columns split over a mesh, w_gate and w_up are
+    column-parallel and w_down row-parallel (:func:`row_parallel_dense`)."""
     g = _leaf_dense(p, "w_gate", x, knobs, act=cfg.act)
     u = _leaf_dense(p, "w_up", x, knobs)
+    if tp is not None and tp.ff_split:
+        return row_parallel_dense(p, "w_down", g * u, knobs, tp, residual=residual)
     return _leaf_dense(p, "w_down", g * u, knobs, residual=residual)
 
 
@@ -813,15 +952,14 @@ def _expert_dense(p: MoE, name: str, x: torch.Tensor, knobs, *, act=None,
     return ops.expert_dense(x, seg, activation=act or "none", x_per_expert=per_expert)
 
 
-def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
+def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Routed experts over ``x`` (B, S, d). Returns ``(y, aux)``: the
     experts' gated sum (B, S, d) in x's dtype, without the skip connection,
     and the Switch load-balance loss (fp32 scalar; 0 on the dense branch).
 
     The router runs in fp32: softmax gates, top-k, renormalised.  Two
-    branches, as in the JAX package (whose shard_map branch waits for tensor
-    parallelism):
+    branches, as in the JAX package:
 
     * **dense** (``T·K ≤ 2E``, decode and short prompts): every expert runs
       on every token, no capacity and no drops;
@@ -832,6 +970,12 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
     Shared experts (``p.shared``) run on every token on both branches, their
     three projections through :func:`dense`, and add to the routed sum, as
     in the JAX package.
+
+    With the experts split over a mesh (``tp.experts_split``; the router is
+    replicated, every rank routes alike), a rank runs its own ``E/n``
+    experts: on the dense branch every token through them, their gated sum
+    in fp32; on the routed branch :func:`_moe_shard_map`.  One all-reduce
+    over ``model`` in fp32 closes the sum before its cast.
 
     Under ``knobs.gemm == "pallas_paired"`` with expert pairing metadata,
     each projection of all experts is one paired launch over the expert grid
@@ -870,13 +1014,29 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
     topw, topi = _top_k(gates, K)
     topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
 
+    split = tp is not None and tp.experts_split
+    if split and shared is not None:
+        raise NotImplementedError("shared experts on a mesh (deepseek's MLA family: "
+                                  "ROADMAP queue 1, item 9)")
     if T * K <= 2 * E:
-        y_all = experts(x2, per_expert=False)  # (T, E, d)
+        y_all = experts(x2, per_expert=False)  # (T, E, d), or (T, E/n, d) on a mesh
         w_full = torch.zeros((T, E), dtype=cdt, device=x.device).scatter_(1, topi, topw.to(cdt))
-        y2 = torch.einsum("ted,te->td", y_all, w_full)
+        if split:
+            e0 = tp.r * y_all.shape[1]
+            w_loc = w_full[:, e0:e0 + y_all.shape[1]]
+            y2 = torch.einsum("ted,te->td", y_all.float(), w_loc.float())
+            y2 = all_reduce(y2, tp.model_group).to(cdt)
+        else:
+            y2 = torch.einsum("ted,te->td", y_all, w_full)
         if shared is not None:
             y2 = y2 + shared_experts(x2)
         return y2.reshape(B, S, d), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if split:
+        y2, counts = _moe_shard_map(cfg, x, topi, topw, experts, tp)
+        me = gates.mean(0)
+        ce = counts.float() / max(T * K, 1)
+        return y2, (me * ce).sum() * (E * mo.router_aux_weight)
 
     xb, inv_tok, inv_w, counts, C = _moe_route(cfg, x, topi, topw)
     # experts as the grid's blocks: the (B, C) token rows of each expert's
@@ -891,6 +1051,38 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs
     ce = counts.sum(0).float() / max(T * K, 1)  # share of the choices it got
     aux = (me * ce).sum() * (E * mo.router_aux_weight)
     return y2, aux
+
+
+def _moe_shard_map(cfg: ModelConfig, x: torch.Tensor, topi: torch.Tensor,
+                   topw: torch.Tensor, experts, tp) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel routed branch, the JAX package's
+    ``_moe_shard_map`` with its collectives written out: routing is
+    replicated (every rank of a data row holds the same tokens and gates),
+    each rank slices its own experts' dispatch buffers from the full
+    dispatch, runs them (``experts``, the rank's ``E/n`` expert weights: one
+    K1 launch a projection over the grid under ``gemm="pallas_paired"``),
+    combines its slots' gated outputs into a partial sum in fp32, and one
+    all-reduce over ``model`` closes the combine; there is no all-to-all.
+    Returns ``(y (B, S, d) in x's dtype, counts (E,))``, the choices of
+    each expert summed over the sequences and, where the batch is split
+    over the data axes, over them (one all-reduce)."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    E = mo.n_experts
+    E_loc = E // tp.n
+    e0 = tp.r * E_loc
+    xb, inv_tok, inv_w, counts, C = _moe_route(cfg, x, topi, topw)
+    xb_mine = xb[:, e0:e0 + E_loc]  # (B, E/n, C, d)
+    yb = experts(xb_mine.permute(1, 0, 2, 3).reshape(E_loc, B * C, d), per_expert=True)
+    yb = yb.reshape(B, C, E_loc, d).permute(0, 2, 1, 3)
+    inv_tok_m = inv_tok.reshape(B, E, C)[:, e0:e0 + E_loc].reshape(B, E_loc * C)
+    inv_w_m = inv_w.reshape(B, E, C)[:, e0:e0 + E_loc].reshape(B, E_loc * C)
+    y2 = _moe_combine(B, S, d, yb.float(), inv_tok_m, inv_w_m, torch.float32, mo.top_k)
+    y2 = all_reduce(y2, tp.model_group).to(x.dtype)
+    counts = counts.sum(0)
+    if tp.batch_split:
+        counts = all_reduce(counts, tp.data_group)
+    return y2, counts
 
 
 # ---------------------------------------------------------------------------

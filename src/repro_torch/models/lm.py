@@ -23,6 +23,15 @@ The port of ``repro.models.lm``:
   the MoE router's load-balance loss, each decoder layer checkpointed under
   ``knobs.remat``.
 
+On a mesh (``tp``, a ``parallel.tp.TensorParallel``; the dense GQA and MoE
+families) :func:`prefill`, :func:`decode_step` and :func:`init_cache` run
+one rank's part of the model it holds (``launch.steps.wire_serve_cell``
+slices it): the embedding vocab-parallel (a masked lookup, then an
+all-reduce), the head over the rank's vocab columns (then an all-gather, so
+every rank holds all the logits), the cache in the layout its resolved spec
+gives (heads or positions over ``model``, slots over the data axes), and the
+layers as ``models.layers`` splits them.
+
 The model is an :class:`LM` module: the embedding (tied as the head, or an
 ``lm_head`` of its own), learned ``meta`` token rows (hybrid) that precede
 every prompt, a ``vision_proj`` (vlm) that maps patch embeddings to the
@@ -58,6 +67,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.collectives import all_gather, all_reduce
 from repro_torch.models.layers import (
     MLA,
     MLP,
@@ -493,22 +503,42 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt,
+                 tp=None) -> torch.Tensor:
     """Rows of the embedding in the compute dtype, scaled by sqrt(d_model)
-    in that dtype when it is tied as the head."""
-    h = model.embed[tokens].to(cdt)
+    in that dtype when it is tied as the head.  With the vocab split over a
+    mesh, each rank looks up the tokens its rows hold (zeros for the rest)
+    and an all-reduce over ``model`` sums them: the one row, exactly.  A
+    token no rank holds raises ``IndexError`` on every rank (they all see
+    the same tokens), as the whole table's lookup does on one device."""
+    if tp is not None and tp.vocab_split:
+        rows = model.embed.shape[0]
+        bad = (tokens < 0) | (tokens >= rows * tp.n)
+        if bool(bad.any()):
+            raise IndexError(f"token ids {tokens[bad].tolist()[:8]} outside the "
+                             f"embedding's {rows * tp.n} rows")
+        local = tokens - tp.r * rows
+        held = (local >= 0) & (local < rows)
+        h = model.embed[local.clamp(0, rows - 1)] * held[..., None].to(model.embed.dtype)
+        h = all_reduce(h, tp.model_group).to(cdt)
+    else:
+        h = model.embed[tokens].to(cdt)
     if not cfg.tie_embeddings:
         return h
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt, device=h.device)
 
 
-def lm_logits(cfg: ModelConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg: ModelConfig, model: LM, h: torch.Tensor, tp=None) -> torch.Tensor:
     """Final norm, then the head (the tied embedding, or ``lm_head``) in the
-    compute dtype; fp32 logits with the padded vocab set to −1e9."""
+    compute dtype; fp32 logits with the padded vocab set to −1e9.  With the
+    vocab split over a mesh, each rank's logits over its vocab columns are
+    all-gathered over ``model``."""
     h = model.final_norm(h)
     w = model.derived(("head", h.dtype), lambda: model.embed.to(h.dtype).t()
                       if cfg.tie_embeddings else model.lm_head.to(h.dtype))
     logits = torch.matmul(h, w).float()
+    if tp is not None and tp.vocab_split:
+        logits = all_gather(logits, tp.model_group, dim=-1)
     logits[..., cfg.vocab:] = -1e9
     return logits
 
@@ -525,7 +555,7 @@ def _window_for(cfg: ModelConfig, kind: str) -> int:
     return cfg.sliding_window if kind in ("dense", "moe", "hybrid_swa") else 0
 
 
-def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs):
+def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs, tp=None):
     """``(h + ffn(ln2(h)), aux)``: the skip connection rides the MLP's
     down-projection (the paired kernel's epilogue under gemm="pallas_paired");
     the experts' gated sum is added after their combine, as in the JAX
@@ -534,9 +564,27 @@ def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs):
         return h, _no_aux(h)
     x = p.ln2(h)
     if p.ffn == "moe":
-        y, aux = moe_block(cfg, p.moe, x, knobs)
+        y, aux = moe_block(cfg, p.moe, x, knobs, tp=tp)
         return h + y, aux
-    return mlp_block(cfg, p.mlp, x, knobs, residual=h), _no_aux(h)
+    return mlp_block(cfg, p.mlp, x, knobs, residual=h, tp=tp), _no_aux(h)
+
+
+#: the layer kinds a mesh serves (GQA attention with a gated MLP or experts)
+MESH_KINDS = ("dense", "moe")
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the mesh path does not
+    serve: the tensor-parallel forward covers the dense GQA and MoE
+    families (no MLA, SSM, hybrid, encoder-decoder or vision prefix)."""
+    other = ("MLA" if cfg.mla is not None else "an SSM block" if cfg.ssm is not None
+             else "an encoder" if cfg.encoder is not None
+             else "a vision prefix" if cfg.vision_prefix else None)
+    if other or any(cfg.layer_kind(i) not in MESH_KINDS for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}{', ' + other if other else ''}) on a mesh: the port "
+            "serves the dense GQA and MoE families tensor-parallel; the rest waits in "
+            "ROADMAP queue 1, item 9")
 
 
 def _no_aux(h: torch.Tensor) -> torch.Tensor:
@@ -630,15 +678,21 @@ def encoder_fwd(cfg: ModelConfig, enc: Encoder, frames: torch.Tensor,
 
 def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
               positions: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS,
-              enc_out: torch.Tensor | None = None):
+              enc_out: torch.Tensor | None = None, tp=None):
     """One decoder layer over a sequence. Returns (h, cache entries, aux):
     the post-rope K/V of this layer, ``{"k", "v"}`` (B, S, KH, hd), or MLA's
     latent ``{"c_kv", "k_rope"}``; an SSM block's ``{"h", "conv_x",
     "conv_B", "conv_C"}`` (a hybrid layer's beside its K/V); an
     encoder-decoder layer's cross-attention keys and values over
     ``enc_out``, ``{"xk", "xv"}`` (B, F, KH, hd), beside its K/V; the MoE
-    load-balance loss (fp32 scalar, 0 without experts)."""
+    load-balance loss (fp32 scalar, 0 without experts).  On a mesh
+    (``tp``: dense and MoE layers) the rank's part of it."""
     x = p.ln1(h)
+    if tp is not None:
+        h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
+                                  window=_window_for(cfg, kind), residual=h, tp=tp)
+        h, aux = _ffn(cfg, p, h, knobs, tp)
+        return h, {"k": k, "v": v}, aux
     if kind == "ssm":
         y, c = _ssm_with_cache(cfg, p.mamba, x, knobs)
         return h + y, c, _no_aux(h)
@@ -674,7 +728,7 @@ def _extra(cfg: ModelConfig, extras: dict | None, name: str) -> torch.Tensor:
 
 
 def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: dict | None,
-                    knobs: PerfKnobs, *, train: bool = False):
+                    knobs: PerfKnobs, *, train: bool = False, tp=None):
     """The embedded tokens (B, meta_tokens + S, d) in the compute dtype, a
     hybrid model's ``meta`` rows first, a vision-language model's first
     ``vision_prefix`` rows replaced by ``extras["patches"] @ vision_proj``,
@@ -682,7 +736,7 @@ def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: d
     (B, meta_tokens + S); and the encoder's output over ``extras["frames"]``
     (None without an encoder)."""
     cdt = compute_dtype(cfg)
-    h = embed_tokens(cfg, model, tokens, cdt)
+    h = embed_tokens(cfg, model, tokens, cdt, tp)
     B = tokens.shape[0]
     if cfg.vision_prefix:
         proj = model.derived(("vision_proj", cdt), lambda: model.vision_proj.to(cdt))
@@ -724,13 +778,28 @@ def lm_forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
 
 
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
-            knobs: PerfKnobs = DEFAULT_KNOBS, extras: dict | None = None):
+            knobs: PerfKnobs = DEFAULT_KNOBS, extras: dict | None = None, tp=None):
     """Forward over the prompt; returns (last-position logits (B, 1, Vp),
     cache of :func:`init_cache`'s names: attention entries ``meta_tokens +
     S`` positions long, SSM entries the state after the prompt, the
     cross-attention's over all frames).  The encoder runs once, where the
     JAX package's ``prefill`` runs it a second time for the cross keys and
-    values (the same ones)."""
+    values (the same ones).
+
+    On a mesh (``tp``) every rank runs the prompt (the same tokens on every
+    data row) through its shards; the head runs on the last position alone
+    (the logits of the others are never read), and the cache entries are
+    the K/V heads the rank's cache holds, over all ``S`` positions (the
+    engine keeps the rank's own positions of a sequence-sharded cache)."""
+    if tp is not None:
+        tp = dataclasses.replace(tp, batch_split=False)  # every data row runs the prompt
+        h, positions, _ = _prepare_inputs(cfg, model, tokens, extras, knobs, tp=tp)
+        entries = []
+        for i, layer in enumerate(model.layers):
+            h, c, _ = layer_fwd(cfg, cfg.layer_kind(i), layer, h, positions, knobs, tp=tp)
+            entries.append(c)
+        cache = {name: torch.stack([c[name] for c in entries]) for name in entries[0]}
+        return lm_logits(cfg, model, h[:, -1:], tp), cache
     logits, cache = lm_forward(cfg, model, tokens, knobs=knobs, collect_cache=True,
                                extras=extras)
     return logits[:, -1:], cache
@@ -869,7 +938,8 @@ def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFA
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None) -> dict:
+def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None,
+               tp=None) -> dict:
     """Empty decode cache in the compute dtype: ``{"k", "v"}`` zeros (L, B,
     S, KH, hd), or for MLA the latent ``{"c_kv": (L, B, S, R), "k_rope":
     (L, B, S, rope)}``, with ``S = max_seq + meta_tokens`` (``max_seq``
@@ -879,9 +949,20 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None) 
     both; its sliding-window layers keep the full-length K/V, as the JAX
     package's do (the decode writes at absolute positions).  An
     encoder-decoder model's cross-attention keys and values ``"xk"``/``"xv"``
-    (L, B, F, KH, hd) cover all F frames."""
+    (L, B, F, KH, hd) cover all F frames.
+
+    On a mesh (``tp``) the rank's part of the K/V cache, as its resolved
+    spec splits it: ``B / dp`` slots where the batch is split over the data
+    axes, ``S / n`` positions where it is sequence-sharded, ``KH / n`` heads
+    where the heads are split."""
     L, dev = (cfg.n_layers, batch_size), resolve_device(device)
     cdt, S = compute_dtype(cfg), max_seq + cfg.meta_tokens
+    if tp is not None:
+        B = batch_size // tp.dp if tp.batch_split else batch_size
+        S = S // tp.n if tp.cache_seq else S
+        KH = cfg.n_kv_heads // tp.n if tp.kv_split else cfg.n_kv_heads
+        return {name: torch.zeros((cfg.n_layers, B, S, KH, cfg.head_dim), dtype=cdt, device=dev)
+                for name in ("k", "v")}
     shapes = {}
     if cfg.family != "ssm":
         if cfg.mla is not None:
@@ -903,11 +984,17 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None) 
 
 
 def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
-                 h: torch.Tensor, pos: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS):
+                 h: torch.Tensor, pos: torch.Tensor, knobs: PerfKnobs = DEFAULT_KNOBS,
+                 tp=None):
     """One decoder layer for one token per slot; ``c`` (this layer's cache
     entries, (B, …)) is written in place: attention entries at ``pos`` (the
-    absolute position, meta tokens included), the SSM state whole."""
+    absolute position, meta tokens included), the SSM state whole.  On a
+    mesh (``tp``: dense and MoE layers) the rank's part of it."""
     x = p.ln1(h)
+    if tp is not None:
+        h, c = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
+                                      window=_window_for(cfg, kind), residual=h, tp=tp)
+        return _ffn(cfg, p, h, knobs, tp)[0], c
     if kind == "ssm":
         y, c = ssm_decode_block(cfg, p.mamba, x, c, knobs)
         return h + y, c
@@ -932,7 +1019,7 @@ def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
 
 
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
-                pos: torch.Tensor, *, knobs: PerfKnobs = DEFAULT_KNOBS):
+                pos: torch.Tensor, *, knobs: PerfKnobs = DEFAULT_KNOBS, tp=None):
     """One decode step: tokens (B, 1), pos (B,) in token coordinates →
     (logits (B, 1, Vp), cache); a hybrid model's layers see ``pos +
     meta_tokens``, an encoder-decoder model's embeddings the sinusoid at
@@ -940,7 +1027,25 @@ def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
 
     The cache is updated in place (and returned): the port's caches are
     mutable, which saves a copy of every layer's K/V per step.
+
+    On a mesh (``tp``) ``tokens`` and ``pos`` cover all slots: where the
+    batch is split over the data axes the rank decodes its data row's slots
+    against its cache, and the logits of all slots are all-gathered over the
+    data axes, so every rank returns (B, 1, Vp).
     """
+    if tp is not None:
+        if tp.batch_split:
+            B_loc = tokens.shape[0] // tp.dp
+            rows = slice(tp.dr * B_loc, (tp.dr + 1) * B_loc)
+            tokens, pos = tokens[rows], pos[rows]
+        h = embed_tokens(cfg, model, tokens, compute_dtype(cfg), tp)
+        for i, layer in enumerate(model.layers):
+            c = {name: t[i] for name, t in cache.items()}
+            h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos, knobs, tp)
+        logits = lm_logits(cfg, model, h, tp)
+        if tp.batch_split:
+            logits = all_gather(logits, tp.data_group, dim=0)
+        return logits, cache
     cdt = compute_dtype(cfg)
     h = embed_tokens(cfg, model, tokens, cdt)
     pos_abs = pos + cfg.meta_tokens if cfg.meta_tokens else pos

@@ -1,8 +1,8 @@
 """Batched serving engine: prefill once, decode step by step.
 
-The port of ``repro.serving.engine`` (single host; the mesh variant is not
-ported yet; :mod:`~repro_torch.serving.frontend` drives it under load).  The
-engine owns a fixed-capacity batch of
+The port of ``repro.serving.engine``, the mesh variant included
+(:mod:`~repro_torch.serving.frontend` drives it under load).  The engine owns
+a fixed-capacity batch of
 sequence slots: each slot tracks its own position, so requests of different
 lengths decode together, and a finished slot is refilled by the next
 request.  With ``knobs.gemm="pallas_paired"`` it pairs the decoder weights
@@ -13,6 +13,14 @@ segments after their first use (serving never updates weights).  Its
 prefill and decode are the step functions of ``serving.steps``
 (``build_prefill_step``, ``build_serve_step``), which run under the knobs'
 tile cache.
+
+With a ``mesh`` (``parallel.sharding.make_mesh``; one engine a rank, every
+rank fed the same requests) the engine is one rank of a tensor-parallel
+cell (``launch.steps.wire_serve_cell``): it holds its shards of the weights,
+paired per shard, and its part of the cache; its steps close each split
+with a collective, and every rank returns every slot's token.  With a
+``data`` axis the slots are split over the data rows: a request's cache
+lives on its slot's row, and every row prefills it alike.
 """
 from __future__ import annotations
 
@@ -31,7 +39,6 @@ from repro_torch.serving.steps import (
     load_knobs_tile_cache,
 )
 
-
 class CapacityError(ValueError):
     """A request or decode step would exceed the engine's hard bounds."""
 
@@ -43,19 +50,30 @@ INACTIVE_TOKEN = -1
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: M.LM, max_seq: int, batch_size: int,
-                 knobs: M.PerfKnobs = M.DEFAULT_KNOBS):
+                 knobs: M.PerfKnobs = M.DEFAULT_KNOBS, mesh=None, rules=None):
         self.cfg, self.max_seq, self.batch_size, self.knobs = cfg, max_seq, batch_size, knobs
-        self.device = model.embed.device
+        self.mesh, self.rules, self.tp, self.cell = mesh, rules, None, None
         self.pair_report = None
-        if knobs.gemm == "pallas_paired" and not has_lm_pairing(model):
-            mode, block_n = paired_mode_of(knobs)
-            model, self.pair_report = pair_lm_params(
-                model, knobs.pair_rounding, mode=mode, block_n=block_n)
-        self.model = model.copy(frozen=True)
-        tile_cache = load_knobs_tile_cache(knobs)  # read once, for both steps
-        self._prefill = build_prefill_step(cfg, knobs, tile_cache)
-        self._decode = build_serve_step(cfg, knobs, tile_cache)
-        self.cache = M.init_cache(cfg, batch_size, max_seq, device=self.device)
+        if mesh is not None:
+            from repro_torch.launch.steps import wire_serve_cell
+
+            cell = wire_serve_cell(cfg, model, mesh, batch_size=batch_size, max_seq=max_seq,
+                                   knobs=knobs, rules=rules)
+            self.model, self.rules, self.tp = cell.model, cell.rules, cell.tp
+            self.pair_report, self.cell = cell.pair_report, cell
+            self._prefill, self._decode = cell.prefill, cell.decode
+            self.device = mesh.device
+        else:
+            self.device = model.embed.device
+            if knobs.gemm == "pallas_paired" and not has_lm_pairing(model):
+                mode, block_n = paired_mode_of(knobs)
+                model, self.pair_report = pair_lm_params(
+                    model, knobs.pair_rounding, mode=mode, block_n=block_n)
+            self.model = model.copy(frozen=True)
+            tile_cache = load_knobs_tile_cache(knobs)  # read once, for both steps
+            self._prefill = build_prefill_step(cfg, knobs, tile_cache)
+            self._decode = build_serve_step(cfg, knobs, tile_cache)
+        self.cache = M.init_cache(cfg, batch_size, max_seq, device=self.device, tp=self.tp)
         self.pos = np.zeros((batch_size,), np.int32)
         self.tokens = torch.zeros((batch_size, 1), dtype=torch.int64, device=self.device)
         self.active = np.zeros((batch_size,), bool)
@@ -104,12 +122,14 @@ class ServeEngine:
         # splice this request's cache into the slot: an SSM entry (L, 1, …)
         # whole, an attention entry (L, 1, meta_tokens + plen, …) over its
         # positions, a cross-attention one (L, 1, frames, …) over all frames
-        for name, dst in self.cache.items():
+        local, lo = self._local_slot(slot)
+        for name, dst in self.cache.items() if local is not None else ():
             src = cache[name][:, 0].to(dst.dtype)
             if name in M.SSM_ENTRIES:
-                dst[:, slot] = src
-            else:
-                dst[:, slot, :src.shape[1]] = src
+                dst[:, local] = src
+            else:  # a sequence-sharded cache keeps its own positions [lo, lo + S')
+                src = src[:, lo:lo + dst.shape[2]]
+                dst[:, local, :src.shape[1]] = src
         self.pos[slot] = plen
         next_tok = int(torch.argmax(last_logits[0, -1, : self.cfg.vocab]))
         self.tokens[slot, 0] = next_tok
@@ -139,6 +159,18 @@ class ServeEngine:
         self.last_logits = logits.cpu().numpy()
         return np.where(self.active, nxt.cpu().numpy(), INACTIVE_TOKEN)
 
+    def _local_slot(self, slot: int) -> tuple[int | None, int]:
+        """(this rank's cache row of ``slot``, or None where another data row
+        holds it; the first position its cache holds)."""
+        tp = self.tp
+        if tp is None:
+            return slot, 0
+        lo = tp.r * next(iter(self.cache.values())).shape[2] if tp.cache_seq else 0
+        if not tp.batch_split:
+            return slot, lo
+        per = self.batch_size // tp.dp
+        return (slot - tp.dr * per if slot // per == tp.dr else None), lo
+
     def force_token(self, slot: int, token: int) -> None:
         """Override the next input token of one slot."""
         self.tokens[slot, 0] = int(token)
@@ -152,9 +184,10 @@ class ServeEngine:
         self.active[slot] = False
         self.pos[slot] = 0
         self.tokens[slot, 0] = 0
-        if scrub:
+        local, _ = self._local_slot(slot)
+        if scrub and local is not None:
             for t in self.cache.values():
-                t[:, slot] = 0
+                t[:, local] = 0
 
     def quarantine_slot(self, slot: int) -> None:
         """Evict + scrub a slot and refuse admission until :meth:`clear_quarantine`."""

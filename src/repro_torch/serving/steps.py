@@ -1,13 +1,14 @@
 """The serving step builders: prefill and decode.
 
 The port of ``repro.launch.steps`` ``build_prefill_step`` and
-``build_serve_step``, on one device (the JAX package's mesh and sharding
-rules wait for tensor parallelism).  Each returns a plain function over the
-model, the cache and a batch that runs without autograd under
+``build_serve_step``.  Each returns a plain function over the model, the
+cache and a batch that runs without autograd under
 ``kernels.ops.tile_cache_context(knobs)``, as the JAX package's steps run
-under ``perf_context(knobs)``; ``launch.steps`` exports them beside the
-training step, and ``serving.engine.ServeEngine`` prefills and decodes
-through them.
+under ``perf_context(knobs)``; with a ``tp`` (``parallel.tp.TensorParallel``,
+what the JAX package's mesh and rules resolve to on one rank) the step is
+that rank's part of the tensor-parallel model (``launch.steps.wire_serve_cell``
+builds it).  ``launch.steps`` exports them beside the training step, and
+``serving.engine.ServeEngine`` prefills and decodes through them.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ def load_knobs_tile_cache(knobs: M.PerfKnobs) -> tuning.TileCache | None:
 
 
 def build_prefill_step(cfg: ModelConfig, knobs: M.PerfKnobs = M.DEFAULT_KNOBS,
-                       tile_cache: tuning.TileCache | None = None):
+                       tile_cache: tuning.TileCache | None = None, tp=None):
     """``prefill_step(model, batch) -> (logits, cache)``: ``models.lm.prefill``
     of ``batch["tokens"]`` (B, S), with an encoder-decoder model's
     ``"frames"`` or a vision-language one's ``"patches"`` beside them, under
@@ -37,13 +38,13 @@ def build_prefill_step(cfg: ModelConfig, knobs: M.PerfKnobs = M.DEFAULT_KNOBS,
     def prefill_step(model: M.LM, batch: dict):
         extras = {k: batch[k] for k in M.EXTRAS if k in batch}
         with torch.no_grad(), ops.tile_cache_context(knobs, tile_cache):
-            return M.prefill(cfg, model, batch["tokens"], knobs=knobs, extras=extras)
+            return M.prefill(cfg, model, batch["tokens"], knobs=knobs, extras=extras, tp=tp)
 
     return prefill_step
 
 
 def build_serve_step(cfg: ModelConfig, knobs: M.PerfKnobs = M.DEFAULT_KNOBS,
-                     tile_cache: tuning.TileCache | None = None):
+                     tile_cache: tuning.TileCache | None = None, tp=None):
     """``serve_step(model, cache, batch) -> (logits, cache)``: one
     ``models.lm.decode_step`` of ``batch["tokens"]`` (B, 1) at positions
     ``batch["pos"]`` (B,) against ``cache``, under ``knobs``;
@@ -52,6 +53,7 @@ def build_serve_step(cfg: ModelConfig, knobs: M.PerfKnobs = M.DEFAULT_KNOBS,
 
     def serve_step(model: M.LM, cache: dict, batch: dict):
         with torch.no_grad(), ops.tile_cache_context(knobs, tile_cache):
-            return M.decode_step(cfg, model, cache, batch["tokens"], batch["pos"], knobs=knobs)
+            return M.decode_step(cfg, model, cache, batch["tokens"], batch["pos"], knobs=knobs,
+                                 tp=tp)
 
     return serve_step

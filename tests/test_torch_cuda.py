@@ -1036,3 +1036,60 @@ def test_host_refusal_is_the_kernels_check(cuda, problem):
         differ += host != pm.kernel_accepts(p, *problem)
         taken += host
     assert differ == 0 and taken > 0
+
+
+@pytest.mark.parametrize("form", ["skinny", "tall", "blocked"])
+def test_kernel_stores_fp32_partials_of_bf16_operands(cuda, form):
+    """``out_dtype=torch.float32`` on bf16 operands (a tensor-parallel
+    rank's partial sum): the fp32 epilogue result stored uncast, within
+    1e-5 of the plain version's fp32 oracle; the bf16 store of the same
+    launch is its cast."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=g, device=cuda).to(dt)
+    M_ = 4 if form == "skinny" else 300
+    res = rnd(M_, 48, dt=torch.float32)
+    if form == "blocked":
+        x, kmat, w_res = rnd(3, M_, 2 * 7 + 20), rnd(3, 7, 16), rnd(3, 20, 16)
+        run = lambda **kw: pm.paired_matmul_blocked_cuda(x, kmat, w_res, n_cols=48, residual=res,
+                                                         **kw)
+        want = pm.paired_matmul_blocked_plain(x, kmat, w_res, n_cols=48, residual=res,
+                                              out_dtype=torch.float32)
+    else:
+        x, kmat, w_res = rnd(M_, 2 * 30 + 100), rnd(30, 48), rnd(100, 48)
+        run = lambda **kw: pm.paired_matmul_cuda(x, kmat, w_res, residual=res, **kw)
+        want = pm.paired_matmul_plain(x, kmat, w_res, residual=res, out_dtype=torch.float32)
+    got = run(out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert rel_err(got, want) <= RTOL
+    assert torch.equal(run(), got.to(torch.bfloat16))
+
+
+def test_two_gloo_ranks_on_one_card_decode_the_single_rank_tokens(cuda):
+    """Two gloo ranks share the card (a (1, 2) mesh, one process each):
+    qwen2's smoke engine at r = 0 in fp32 gives the single-rank engine's
+    tokens on every rank, logits within 1e-5; each rank's decode step
+    launches K1 as ``analysis.decode_launches`` says and makes the
+    collectives ``analysis.mesh_decode_collectives`` says."""
+    from repro_torch import analysis
+    from repro_torch.benchmarks.mesh_decode import knobs_for, serve_rank
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.sharding import Mesh
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"), dtype="float32")
+    knobs = knobs_for(0.0)
+    ref = ServeEngine(cfg, M.init_lm(cfg, 0, device=cuda), max_seq=32, batch_size=3, knobs=knobs)
+    rng = np.random.default_rng(0)
+    prompts = {0: rng.integers(1, cfg.vocab, size=7), 1: rng.integers(1, cfg.vocab, size=12)}
+    want = ref.generate(dict(prompts), 6)
+    ranks = spawn(serve_rank, (1, 2), backend="gloo", device="cuda",
+                  args=(cfg, 0, knobs, prompts, 6), kwargs={"max_seq": 32, "batch_size": 3},
+                  timeout=300)
+    mesh = Mesh({"data": 1, "model": 2})
+    coll = analysis.mesh_decode_collectives(cfg, knobs, mesh, batch_size=3, max_seq=32)
+    k1 = sum(analysis.decode_launches(cfg, cfg.layer_kind(i), knobs)["paired_matmul"]
+             for i in range(cfg.n_layers))
+    for rec in ranks:
+        assert rec["tokens"] == want
+        assert rel_err(rec["logits"], ref.last_logits) <= RTOL
+        assert rec["step_k1"] == k1
+        assert {k: v["calls"] for k, v in rec["step_collectives"].items()} == coll
