@@ -173,15 +173,25 @@ result:
                 KV heads do not divide 4: a sequence-sharded cache, partial
                 softmaxes merged) and (2, 2) (slots over the data rows);
                 olmoe-1b-7b, 2 layers, structured, (1, 2) and (1, 4), a
-                40-token prompt on the expert-parallel route: every rank's
-                tokens equal the single-rank engine's, logits ≤ 1e-5.
-                Served, bf16, structured r=0.05, (1, 2): qwen2-1.5b at 28
-                layers (batch 4, 32 tokens a slot) and olmoe at 4 of its 16
-                layers; K1 launches and collectives a decode step held to
-                ``analysis.decode_launches`` / ``mesh_decode_collectives``;
-                decode ms (median, p90), each rank's wiring seconds and peak
-                memory; the r=0.05 ledger gates of
-                ``repro_torch/benchmarks/mesh_decode.py`` (bn=16);
+                40-token prompt on the expert-parallel route; the other five
+                families at full width, structured, (1, 2) and (1, 4):
+                deepseek-v2-lite-16b (2 layers: dense, then MLA with shared
+                experts; a sequence-sharded latent cache; a routed 40-token
+                prompt), mamba2-2.7b (2), hymba-1.5b (3; on (1, 4) its 50
+                SSM heads stay whole while its channels split), whisper-base
+                (2 + 2 over 1500 stub frames) and internvl2-2b (2, 256 stub
+                patches; on (2, 2) too): every rank's tokens equal the
+                single-rank engine's, logits ≤ 1e-5, every weight and cache
+                entry of a rank shaped as its resolved spec gives.  Served,
+                bf16, structured r=0.05, (1, 2): qwen2-1.5b at 28 layers
+                (batch 4, 32 tokens a slot), olmoe at 4 of its 16 layers and
+                the five (batch 4, 16 tokens a slot) at the depths of
+                ``MESH_SERVED_LAYERS``; K1 launches and collectives a decode
+                step and a prefill held to ``analysis.decode_launches`` /
+                ``prefill_launches`` / ``mesh_decode_collectives`` /
+                ``mesh_prefill_collectives``; decode ms (median, p90), each
+                rank's wiring seconds and peak memory; the r=0.05 ledger
+                gates of ``repro_torch/benchmarks/mesh_decode.py`` (bn=16);
 14. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
                 engine (``torch.einsum`` experts, plain attention) against
                 the paired one (structured, r=0; K1 + K2), batch 2, prompts
@@ -1971,15 +1981,41 @@ def _mesh_knobs(rounding: float, block_n: int):
                        pair_rounding=rounding, pair_block_n=block_n)
 
 
-def _mesh_ref(cfg, knobs, prompts: dict, steps: int, batch: int, max_seq: int):
+def _mesh_ref(cfg, knobs, prompts: dict, steps: int, batch: int, max_seq: int,
+              extras: dict | None = None):
     """The single-rank port engine on the card over the ranks' weights (seed
-    0): its tokens and last logits."""
+    0), slot ``i`` with row ``i`` of ``extras``: its tokens and last
+    logits."""
+    from repro_torch.benchmarks.mesh_decode import generate
     from repro_torch.models import lm as M
     from repro_torch.serving.engine import ServeEngine
 
     eng = ServeEngine(cfg, M.init_lm(cfg, 0), max_seq=max_seq, batch_size=batch, knobs=knobs)
-    out = eng.generate(dict(prompts), steps)
+    out = generate(eng, prompts, steps, extras)
     return out, eng.last_logits
+
+
+#: the other five families on the mesh: (arch, parity layers, served layers,
+#: prompt lengths, max_seq).  Served at published depth but deepseek (4 of
+#: 27: each rank builds the whole fp32 model on the card before slicing it,
+#: 13.6 GB a rank at 4 layers, so 27 layers on two ranks of one card do not
+#: fit its 80 GB).
+MESH_FAMILIES = (
+    ("deepseek-v2-lite-16b", 2, 4, (11, 40), 64),
+    ("mamba2-2.7b", 2, 64, (11, 40), 64),
+    ("hymba-1.5b", 3, 32, (11, 40), 64),
+    ("whisper-base", 2, 6, (11, 24), 64),
+    ("internvl2-2b", 2, 24, (260, 280), 336),
+)
+MESH_SERVED_LAYERS = {arch: served for arch, _, served, _, _ in MESH_FAMILIES}
+
+
+def _mesh_extras(cfg, batch: int) -> dict | None:
+    """``make_batch``'s stub frames or patches as numpy rows, one a slot."""
+    from repro_torch.launch.inputs import make_batch
+
+    b = make_batch(cfg, batch, 4, "prefill", seed=1)
+    return {k: b[k].float().cpu().numpy() for k in ("frames", "patches") if k in b} or None
 
 
 def phase_mesh_decode() -> dict:
@@ -1989,23 +2025,27 @@ def phase_mesh_decode() -> dict:
     weights regenerated on every rank): qwen2-1.5b at full width, 2 layers,
     column-blocked bn=16 on meshes (1, 2), (1, 4), (2, 2); olmoe-1b-7b at
     full width, 2 layers, structured, on (1, 2) and (1, 4), a 40-token
-    prompt on the expert-parallel route: every rank's tokens equal the
-    single-rank engine's on the card, logits ≤ 1e-5.  Served (bf16,
-    structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at 28 layers, 32
-    tokens a slot, and olmoe at 4 of its 16 layers: K1 launches and
-    collectives a decode step held to ``analysis.decode_launches`` and
-    ``mesh_decode_collectives``; decode ms (two ranks time-share one card:
-    no tensor-parallel speed is measured), each rank's wiring seconds
-    (slicing and pairing) and peak memory.  Ledgers: the three gates of
-    ``repro_torch/benchmarks/mesh_decode.py`` at r = 0.05, bn=16, on the
-    parity qwen2's weights at (1, 2)."""
+    prompt on the expert-parallel route; the five other families of
+    :data:`MESH_FAMILIES` at full width, structured, on (1, 2) and (1, 4)
+    (internvl2 on (2, 2) too), batch 4, each slot with its row of stub
+    frames or patches: every rank's tokens equal the single-rank engine's
+    on the card, logits ≤ 1e-5, and every weight and cache entry a rank
+    holds shaped as its resolved spec gives (``mesh_decode.shard_shapes``).
+    Served (bf16, structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at 28
+    layers, 32 tokens a slot, olmoe at 4 of its 16 layers and the five at
+    ``MESH_SERVED_LAYERS``, 16 tokens a slot: K1 launches and collectives a
+    decode step and a prefill held to ``analysis``; decode ms (two ranks
+    time-share one card: no tensor-parallel speed is measured), each rank's
+    wiring seconds (slicing and pairing) and peak memory.  Ledgers: the
+    three gates of ``repro_torch/benchmarks/mesh_decode.py`` at r = 0.05,
+    bn=16, on the parity qwen2's weights at (1, 2)."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch import analysis
-    from repro_torch.benchmarks.mesh_decode import ledger_checks, serve_many
+    from repro_torch.benchmarks.mesh_decode import ledger_checks, serve_many, shard_shapes
     from repro_torch.configs import cut_layers, get_config
     from repro_torch.kernels.ref import rel_err
     from repro_torch.launch.mesh import spawn
@@ -2022,13 +2062,32 @@ def phase_mesh_decode() -> dict:
     m_knobs = _mesh_knobs(0.0, 0)
     m_prompts = {0: rng.integers(1, m_cfg.vocab, size=11), 1: rng.integers(1, m_cfg.vocab, size=40)}
     m_want = _mesh_ref(m_cfg, m_knobs, m_prompts, 6, 3, 64)
+    wants = {"qwen2": q_want, "olmoe": m_want}
+    # the five other families: parity runs (fp32, r = 0, structured) and their
+    # single-rank references on the card, then their served runs
+    fam_knobs, served_knobs = _mesh_knobs(0.0, 0), _mesh_knobs(0.05, 0)
+    fam, fam_served = {}, {}
+    for arch, layers, served, lens, max_seq in MESH_FAMILIES:
+        name = arch.split("-")[0]
+        cfg = dataclasses.replace(cut_layers(get_config(arch), layers), dtype="float32")
+        prompts = {i: rng.integers(1, cfg.vocab, size=n) for i, n in enumerate(lens)}
+        extras = _mesh_extras(cfg, 4)
+        wants[name] = _mesh_ref(cfg, fam_knobs, prompts, 6, 4, max_seq, extras)
+        fam[name] = ((cfg, 0, fam_knobs, prompts, 6),
+                     {"max_seq": max_seq, "batch_size": 4, "extras": extras, "cycle": True})
+        s_cfg = cut_layers(get_config(arch), served)
+        s_lens = (260, 270, 280, 300) if cfg.vision_prefix else (12, 16, 24, 40)
+        s_prompts = {i: rng.integers(1, cfg.vocab, size=n) for i, n in enumerate(s_lens)}
+        fam_served[name + "_served"] = (
+            (s_cfg, 0, served_knobs, s_prompts, 16),
+            {"max_seq": max_seq + 64, "batch_size": 4, "hold": True, "timed_steps": 16,
+             "extras": _mesh_extras(s_cfg, 4)})
+        gc.collect()
+        torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
 
     sq_cfg = get_config("qwen2-1.5b")
     sm_cfg = cut_layers(get_config(MOE_ARCH), 4)
-    served_knobs = _mesh_knobs(0.05, 0)
     s_lens = (12, 16, 24, 40)
     s_prompts = {i: rng.integers(1, sq_cfg.vocab, size=n) for i, n in enumerate(s_lens)}
     sm_prompts = {i: rng.integers(1, sm_cfg.vocab, size=n) for i, n in enumerate(s_lens)}
@@ -2036,56 +2095,71 @@ def phase_mesh_decode() -> dict:
     jobs = {(1, 2): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw),
                      "olmoe": ((m_cfg, 0, m_knobs, m_prompts, 6),
                                {"max_seq": 64, "batch_size": 3}),
+                     **fam,
                      "qwen2_served": ((sq_cfg, 0, served_knobs, s_prompts, 32),
                                       {"max_seq": 128, "batch_size": 4, "hold": True,
                                        "timed_steps": 16}),
                      "olmoe_served": ((sm_cfg, 0, served_knobs, sm_prompts, 16),
                                       {"max_seq": 128, "batch_size": 4, "hold": True,
-                                       "timed_steps": 16})},
+                                       "timed_steps": 16}),
+                     **fam_served},
             (1, 4): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw),
                      "olmoe": ((m_cfg, 0, m_knobs, m_prompts, 6),
-                               {"max_seq": 64, "batch_size": 3})},
-            (2, 2): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw)}}
-    cfgs = {"qwen2": (q_cfg, q_knobs, 4, 64), "olmoe": (m_cfg, m_knobs, 3, 64),
-            "qwen2_served": (sq_cfg, served_knobs, 4, 128),
-            "olmoe_served": (sm_cfg, served_knobs, 4, 128)}
-    wants = {"qwen2": q_want, "olmoe": m_want}
+                               {"max_seq": 64, "batch_size": 3}),
+                     **fam},
+            (2, 2): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw),
+                     "internvl2": fam["internvl2"]}}
     meshes, k1_total, spawn_s = [], 0, {}
     for shape, mesh_jobs in jobs.items():
         t1 = time.perf_counter()
         try:
             ranks = spawn(serve_many, shape, backend="gloo", device="cuda",
-                          args=(mesh_jobs,), timeout=400)
+                          args=(mesh_jobs,), timeout=600)
         except RuntimeError as e:
             check(False, f"mesh_decode {shape}: {str(e)[-2000:]}")
             continue
         spawn_s[str(shape)] = time.perf_counter() - t1
         mesh = Mesh(dict(zip(("data", "model"), shape, strict=True)))
-        for name in mesh_jobs:
-            cfg, knobs, batch, max_seq = cfgs[name]
+        for name, ((cfg, _, knobs, prompts, steps), kw) in mesh_jobs.items():
+            batch, max_seq = kw["batch_size"], kw["max_seq"]
             coll = analysis.mesh_decode_collectives(cfg, knobs, mesh, batch_size=batch,
                                                     max_seq=max_seq)
+            pre_coll = analysis.mesh_prefill_collectives(cfg, knobs, mesh, batch_size=batch,
+                                                         max_seq=max_seq)
             k1 = sum(analysis.decode_launches(cfg, cfg.layer_kind(i), knobs)["paired_matmul"]
                      for i in range(cfg.n_layers))
-            # the split the rules give: qwen2's 2 KV heads divide 2 ranks, not 4 (then
-            # the cache's positions take the axis); olmoe's 16 divide both
-            kv = cfg.n_kv_heads % shape[1] == 0
-            want_tp = {"vocab_split": True, "q_split": True, "kv_split": kv,
-                       "cache_seq": not kv, "ff_split": cfg.moe is None,
-                       "experts_split": cfg.moe is not None, "batch_split": shape[0] > 1}
+            k1_pre = analysis.prefill_launches(cfg, knobs)["paired_matmul"]
+            want_tp = None
+            if name.split("_")[0] in ("qwen2", "olmoe"):
+                # the split the rules give: qwen2's 2 KV heads divide 2 ranks, not 4
+                # (then the cache's positions take the axis); olmoe's 16 divide both
+                kv = cfg.n_kv_heads % shape[1] == 0
+                want_tp = {"vocab_split": True, "q_split": True, "kv_split": kv,
+                           "cache_seq": not kv, "ff_split": cfg.moe is None,
+                           "experts_split": cfg.moe is not None, "batch_split": shape[0] > 1}
             row = {"mesh": list(shape), "job": name, "arch": cfg.name, "layers": cfg.n_layers,
                    "dtype": cfg.dtype, "want_collectives_per_step": coll,
-                   "want_k1_per_step": k1, "want_tp": want_tp, "ranks": []}
+                   "want_collectives_per_prefill": pre_coll, "want_k1_per_step": k1,
+                   "want_k1_per_prefill": k1_pre, "want_tp": want_tp, "ranks": []}
             for rec in ranks:
                 got = rec[name]
+                where = f"mesh_decode {shape} {name} rank {got['rank']}"
                 k1_total += got["k1_launches"]
-                check(got["tp"] == want_tp, f"mesh_decode {shape} {name} rank {got['rank']}: "
-                                            f"layout {got['tp']}, want {want_tp}")
+                if want_tp is not None:
+                    check(got["tp"] == want_tp, f"{where}: layout {got['tp']}, want {want_tp}")
+                rank_mesh = Mesh(mesh.shape, rank=got["rank"])
+                w_shapes, c_shapes = shard_shapes(cfg, rank_mesh, batch, max_seq)
+                check(got["shapes"] == w_shapes and got["cache_shapes"] == c_shapes,
+                      f"{where}: weights or cache not shaped as the resolved specs give")
                 calls = {k: v["calls"] for k, v in got["step_collectives"].items()}
-                check(calls == coll, f"mesh_decode {shape} {name} rank {got['rank']}: "
-                                     f"collectives a step {calls}, want {coll}")
-                check(got["step_k1"] == k1, f"mesh_decode {shape} {name} rank {got['rank']}: "
-                                            f"K1 launches a step {got['step_k1']}, want {k1}")
+                check(calls == coll, f"{where}: collectives a step {calls}, want {coll}")
+                check(got["step_k1"] == k1, f"{where}: K1 launches a step {got['step_k1']}, "
+                                            f"want {k1}")
+                if got["prefill_k1"] is not None:
+                    pre = {k: v["calls"] for k, v in got["prefill_collectives"].items()}
+                    check(pre == pre_coll and got["prefill_k1"] == k1_pre,
+                          f"{where}: a prefill's collectives {pre} and K1 launches "
+                          f"{got['prefill_k1']}, want {pre_coll} and {k1_pre}")
                 r = {"rank": got["rank"], "coords": got["coords"], "wire_s": got["wire_s"],
                      "slice_s": got["wire_seconds"].get("slice"),
                      "pair_s": got["wire_seconds"].get("pair"),
@@ -2093,35 +2167,37 @@ def phase_mesh_decode() -> dict:
                      "step_collectives": got["step_collectives"],
                      "wire_peak_gb": (got["wire_peak_bytes"] or 0) / 1e9,
                      "serve_peak_gb": got.get("peak_bytes", 0) / 1e9, "tp": got["tp"],
+                     "tp_segments": got["tp_segments"], "tp_encoder": got["tp_encoder"],
                      "moe_shard_map_calls": got["moe_shard_map_calls"]}
                 if name in wants:
                     want_tok, want_logits = wants[name]
                     r["tokens_identical"] = got["tokens"] == want_tok
                     r["max_logit_rel_err"] = rel_err(got["logits"], want_logits)
-                    check(r["tokens_identical"], f"mesh_decode {shape} {name} rank "
-                                                 f"{got['rank']}: tokens {got['tokens']} vs "
+                    check(r["tokens_identical"], f"{where}: tokens {got['tokens']} vs "
                                                  f"single-rank {want_tok}")
                     check(r["max_logit_rel_err"] <= FP32_RTOL,
-                          f"mesh_decode {shape} {name}: logits {r['max_logit_rel_err']:.3g}")
-                if name == "olmoe":  # the 40-token prefill dispatches in every layer
-                    mo = m_cfg.moe
-                    routed = sum(len(p) * mo.top_k > 2 * mo.n_experts for p in m_prompts.values())
-                    check(routed >= 1 and got["moe_shard_map_calls"] == routed * m_cfg.n_layers,
-                          f"mesh_decode {shape} olmoe: {got['moe_shard_map_calls']} "
-                          f"expert-parallel prefill layers for {routed} routed prompt(s)")
+                          f"{where}: logits {r['max_logit_rel_err']:.3g}")
+                if name in ("olmoe", "deepseek"):  # the 40-token prefill dispatches
+                    mo = cfg.moe
+                    routed = sum(len(p) * mo.top_k > 2 * mo.n_experts for p in prompts.values())
+                    n_moe = sum(cfg.layer_kind(i) == "moe" for i in range(cfg.n_layers))
+                    check(routed >= 1 and got["moe_shard_map_calls"] == routed * n_moe,
+                          f"{where}: {got['moe_shard_map_calls']} expert-parallel prefill "
+                          f"layers for {routed} routed prompt(s)")
                 if "step_ms" in got:
                     ms = sorted(got["step_ms"])
                     r["decode_ms_median"] = ms[len(ms) // 2]
                     r["decode_ms_p90"] = ms[int(0.9 * (len(ms) - 1))]
                     r["tokens"] = {s: t[:8] for s, t in got["tokens"].items()}
-                    check(all(len(t) == 32 if name == "qwen2_served" else len(t) == 16
-                              for t in got["tokens"].values()), f"mesh_decode {name} tokens")
+                    check(all(len(t) == steps for t in got["tokens"].values()),
+                          f"{where}: tokens")
                 row["ranks"].append(r)
             if name.endswith("served"):
                 toks = [rec[name]["tokens"] for rec in ranks]
                 check(all(t == toks[0] for t in toks),
                       f"mesh_decode {name}: the ranks returned different tokens")
             meshes.append(row)
+        del ranks
     t2 = time.perf_counter()
     q_model = M.init_lm(q_cfg, 0, device="cpu")
     rows, slices, failures = ledger_checks(q_cfg, q_model, {"data": 1, "model": 2}, 0.05, 16)
@@ -2132,6 +2208,7 @@ def phase_mesh_decode() -> dict:
     out = {"phase": "mesh_decode", "card": _card(), "backend": "gloo",
            "ranks_share_one_card": True, "reference_s": ref_s, "spawn_s": spawn_s,
            "ledger_s": ledger_s, "seconds": time.perf_counter() - t0,
+           "served_layers": {"qwen2-1.5b": 28, MOE_ARCH: 4, **MESH_SERVED_LAYERS},
            "main_path_launches": {"paired_matmul": k1_total, "decode_attention": 0,
                                   "flash_attention": 0},
            "runs": meshes,

@@ -99,11 +99,12 @@ def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:
     over the frames is plain, as in the JAX package).  K3 runs on no decode
     path.
 
-    One rank of a mesh (dense and MoE layers, ``attn="xla"``) launches each
+    One rank of a mesh (every family, ``attn="xla"``) launches each
     projection once on the shard it holds, whatever the split: a
-    column-parallel one on its columns, a row-parallel one on its rows, a
-    replicated one whole, the expert grid over its own experts; so its count
-    is a single device's.
+    column-parallel one on its columns (MLA's wq, an SSM block's w_z, w_x
+    and w_dt), a row-parallel one on its rows (wo, w_down, w_out), a
+    replicated one whole (MLA's w_dkv and w_kr, the SSM's w_B and w_C), the
+    expert grid over its own experts; so its count is a single device's.
     """
     if kind not in ("dense", "moe", "ssm", "hybrid_full", "hybrid_swa", "encdec"):
         raise ValueError(f"no decode layer of kind {kind!r}")
@@ -188,6 +189,32 @@ def _tp_layout(cfg, mesh, batch_size: int, max_seq: int):
     return layout_for(cfg, mesh, rules_for(cfg, "decode", mesh), batch_size, max_seq)
 
 
+def _layer_collectives(cfg, kind: str, tp, *, decode: bool) -> tuple[int, int]:
+    """(all-reduces, all-gathers) over ``model`` of one decoder layer of
+    ``kind`` under its view ``tp`` (``TensorParallel.layer``), a decode step
+    or a prompt (``decode=False``)."""
+    if tp.n == 1:  # a split over a model axis of one rank sends nothing
+        return 0, 0
+    reduce = gather = 0
+    if kind != "ssm":  # attention, GQA or MLA: wo's partial sums
+        reduce += tp.q_split
+        if decode and tp.cache_seq:  # the queries, then the partial softmaxes
+            gather += tp.q_split + 1
+    if kind == "encdec":  # the cross-attention's wo
+        reduce += tp.xq_split
+    if kind in ("ssm", "hybrid_full", "hybrid_swa"):
+        # the gated norm's statistic and w_out's partial sums; the conv'd
+        # channels where the heads are whole
+        reduce += 2 * tp.ssm_in_split
+        gather += tp.ssm_in_split and not tp.ssm_heads_split
+    if kind == "moe":  # the router's logits; the routed and shared sums, closed together
+        gather += tp.router_split
+        reduce += tp.experts_split or (tp.shared_split and bool(cfg.moe.n_shared))
+    else:
+        reduce += tp.ff_split
+    return int(reduce), int(gather)
+
+
 def mesh_decode_collectives(cfg, knobs, mesh, *, batch_size: int,
                             max_seq: int) -> dict[str, int]:
     """Collectives one rank makes in one decode step of a tensor-parallel
@@ -196,25 +223,27 @@ def mesh_decode_collectives(cfg, knobs, mesh, *, batch_size: int,
     ``parallel.collectives.collective_stats`` counts calls:
 
     * all-reduce over ``model``: the vocab-parallel embedding's lookup; in
-      each layer wo's partial sums where the query heads are split, and the
-      MLP's (w_down's) or the experts' where they are split;
+      each layer wo's partial sums where the query heads are split (GQA,
+      MLA, and the cross-attention's), the MLP's (w_down's) where it is
+      split, one for the experts' routed and shared sums together, and an
+      SSM block's two where its channels are split (the gated norm's sum of
+      squares, then w_out's partial sums);
     * all-gather over ``model``: in each layer against a sequence-sharded
-      cache the queries (where the heads are split) and the partial
-      softmaxes; the head's vocab columns; over the data axes, the logits of
-      the slots, where they are split there.
+      cache (GQA's K/V, MLA's latent) the queries (where the heads are
+      split) and the partial softmaxes; the router's logits where its
+      expert columns are split; an SSM block's conv'd channels where its
+      channels are split and its heads are not; the head's vocab columns;
+      over the data axes, the logits of the slots, where they are split
+      there.
 
     ``knobs`` picks nothing here: the GEMM route does not change the
     collectives."""
     tp = _tp_layout(cfg, mesh, batch_size, max_seq)
-    m = tp.n > 1  # a split over a model axis of one rank sends nothing
-    reduce = gather = 0
+    m = tp.n > 1
+    reduce, gather = m * tp.vocab_split, m * tp.vocab_split + tp.batch_split
     for i in range(cfg.n_layers):
-        kind = cfg.layer_kind(i)
-        reduce += m * (tp.q_split + (tp.experts_split if kind == "moe" else tp.ff_split))
-        if tp.cache_seq:
-            gather += m * (tp.q_split + 1)
-    reduce += m * tp.vocab_split
-    gather += m * tp.vocab_split + tp.batch_split
+        r, g = _layer_collectives(cfg, cfg.layer_kind(i), tp.layer(i), decode=True)
+        reduce, gather = reduce + r, gather + g
     return {"all_reduce": int(reduce), "all_gather": int(gather)}
 
 
@@ -222,15 +251,19 @@ def mesh_prefill_collectives(cfg, knobs, mesh, *, batch_size: int,
                              max_seq: int) -> dict[str, int]:
     """Collectives one rank makes in one request's prefill, by kind, as
     :func:`mesh_decode_collectives` counts them: the embedding's all-reduce;
-    each layer's all-reduce of wo's partial sums and of the MLP's or the
-    experts' (the expert-parallel route's combine on a routed prompt, the
-    dense branch's sum on a short one: one each); the head's all-gather.
-    A prompt's attention reads only keys the rank just computed, so it
-    makes none; every data row prefills alike, so nothing crosses them."""
+    each encoder layer's two (wo's and w_down's partial sums, where split);
+    each decoder layer's as in a decode step (the expert-parallel route's
+    combine on a routed prompt, the dense branch's sum on a short one: one
+    each), but no attention gathers: a prompt's attention reads only keys
+    the rank just computed; the head's all-gather.  Every data row prefills
+    alike, so nothing crosses them."""
     tp = _tp_layout(cfg, mesh, batch_size, max_seq)
     m = tp.n > 1
-    reduce = m * tp.vocab_split
+    reduce, gather = m * tp.vocab_split, m * tp.vocab_split
+    if cfg.encoder is not None:
+        enc = tp.encoder_view()
+        reduce += m * cfg.encoder.n_layers * (enc.q_split + enc.ff_split)
     for i in range(cfg.n_layers):
-        kind = cfg.layer_kind(i)
-        reduce += m * (tp.q_split + (tp.experts_split if kind == "moe" else tp.ff_split))
-    return {"all_reduce": int(reduce), "all_gather": int(m * tp.vocab_split)}
+        r, g = _layer_collectives(cfg, cfg.layer_kind(i), tp.layer(i), decode=False)
+        reduce, gather = reduce + r, gather + g
+    return {"all_reduce": int(reduce), "all_gather": int(gather)}

@@ -14,6 +14,8 @@ The port of ``benchmarks/mesh_decode.py``, with both of its gates:
 
     # a (2, 4) mesh of gloo ranks on the CPU, the smoke config
     PYTHONPATH=src python -m repro_torch.benchmarks.mesh_decode --mesh 2,4 --device cpu
+    # any of the ten archs: whisper with stub frames, internvl2 with patches
+    PYTHONPATH=src python -m repro_torch.benchmarks.mesh_decode --arch whisper-base --device cpu
 
 :func:`serve_rank` is what each rank runs (an engine over its shards, the
 prompts, its tokens and logits, K1 launches and collectives a step); the
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import time
 
 import numpy as np
@@ -54,14 +57,42 @@ def _k1_count() -> int:
     return pm.launch_count()
 
 
+def slot_extras(extras: dict | None, slot: int) -> dict | None:
+    """Row ``slot`` of each of ``extras`` (``launch.inputs.make_batch``'s
+    ``"frames"``/``"patches"``, a row a slot), with its batch axis of 1."""
+    return None if not extras else {k: v[slot:slot + 1] for k, v in extras.items()}
+
+
+def generate(eng, prompts: dict, n_steps: int, extras: dict | None = None) -> dict:
+    """``eng.generate`` with slot ``i``'s extras row ``i`` of ``extras``."""
+    outs = {slot: [eng.add_request(slot, p, slot_extras(extras, slot))]
+            for slot, p in prompts.items()}
+    for _ in range(n_steps - 1):
+        nxt = eng.step()
+        for slot in prompts:
+            outs[slot].append(int(nxt[slot]))
+    return outs
+
+
+def refill_len(cfg, plen: int) -> int:
+    """The length of the ``cycle``'s refill of a ``plen``-token prompt: half
+    of it, and longer than a vision-language model's patch positions."""
+    return max(1, plen // 2, cfg.vision_prefix + 1)
+
+
 def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_steps: int, *,
                max_seq: int, batch_size: int, cycle: bool = False, hold: bool = False,
-               timed_steps: int = 0, fold: bool = False, moe_x=None) -> dict:
+               timed_steps: int = 0, fold: bool = False, moe_x=None,
+               extras: dict | None = None) -> dict:
     """One rank's engine over ``cfg`` on ``mesh``: ``weights`` is the JAX
     package's value tree of numpy arrays (``lm_params_from_numpy``) or a seed
     (``init_lm`` on the rank's device, the same weights on every rank).
-    Generates ``n_steps`` tokens a slot from ``prompts`` and returns them
-    with the last step's logits, the rank's pairing report, and what one
+    Generates ``n_steps`` tokens a slot from ``prompts`` (slot ``i`` with
+    row ``i`` of ``extras``, an encoder-decoder model's frames or a
+    vision-language one's patches, :func:`generate`) and returns them with
+    the last step's logits, the rank's pairing report, its split
+    (``"tp"``, the first segment's and the model's; ``"tp_segments"``,
+    ``"tp_encoder"``), the shapes of its weights and cache, and what one
     more decode step and one more prefill launched and sent (K1 launches on
     the card, K1 calls on the CPU; collectives by kind).  ``cycle`` then
     releases slot 0, refills it and steps once more (its tokens under
@@ -96,7 +127,7 @@ def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_st
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     with counting(moe_routes=(Lyr._moe_shard_map,)) as routes:
-        out = eng.generate(dict(prompts), n_steps)
+        out = generate(eng, prompts, n_steps, extras)
     logits = eng.last_logits
     # one more decode step and one more prefill, counted
     reset_collectives()
@@ -111,7 +142,8 @@ def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_st
         reset_collectives()
         with counting() as c:
             before = _k1_count()
-            eng.add_request(free[0], np.asarray(next(iter(prompts.values()))))
+            eng.add_request(free[0], np.asarray(next(iter(prompts.values()))),
+                            slot_extras(extras, free[0]))
         prefill_k1 = _k1_count() - before if dev.type == "cuda" else c["k1_calls"]
         prefill_coll = collective_stats()
         eng.release_slot(free[0])
@@ -122,6 +154,10 @@ def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_st
            "tp": {k: getattr(eng.tp, k) for k in ("vocab_split", "q_split", "kv_split",
                                                   "cache_seq", "ff_split", "experts_split",
                                                   "batch_split")},
+           "tp_segments": [dict(splits) for _, splits in eng.tp.segment_splits],
+           "tp_encoder": None if eng.tp.encoder_splits is None else dict(eng.tp.encoder_splits),
+           "shapes": {name: tuple(t.shape) for name, t in eng.model.named_parameters()},
+           "cache_shapes": {name: tuple(t.shape) for name, t in eng.cache.items()},
            "moe_shard_map_calls": routes["moe_routes"],
            "pair_report": None if eng.pair_report is None else [
                {"path": lr.path, "n_pairs": lr.n_pairs, "row_shards": lr.row_shards,
@@ -129,8 +165,9 @@ def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_st
     if cycle:
         first = next(iter(prompts))
         eng.release_slot(first)
-        refill = np.asarray(prompts[first])[: max(1, len(prompts[first]) // 2)]
-        rec["cycle"] = [eng.add_request(first, refill), eng.step().tolist()]
+        refill = np.asarray(prompts[first])[: refill_len(cfg, len(prompts[first]))]
+        rec["cycle"] = [eng.add_request(first, refill, slot_extras(extras, first)),
+                        eng.step().tolist()]
     if timed_steps:
         times = []
         for _ in range(timed_steps):
@@ -164,10 +201,13 @@ def serve_many(mesh: Mesh, jobs: dict) -> dict:
 
 def folded_blocks(eng, mesh: Mesh) -> dict:
     """Each paired weight of the rank's engine folded by the rank's own
-    metadata, as ``{(layer, block, name): (starts, folded)}``: ``folded`` a
-    float64 numpy array of the rank's block in the weight's shape, and
+    metadata, as ``{(layer, block, name): (starts, folded)}`` for a decoder
+    layer (``block`` a dotted path: ``"attn"``, ``"moe.shared"``) and
+    ``{("encoder", layer, block, name): …}`` for an encoder one: ``folded``
+    a float64 numpy array of the rank's block in the weight's shape, and
     ``starts`` where it sits in the whole weight (its resolved spec and the
-    rank's coordinates); the folded-dense oracle of the mesh engine."""
+    rank's coordinates); the folded-dense oracle of the mesh engine
+    (:func:`assemble_folded`)."""
     from repro_torch.kernels.ops import fold_lm_expert_weight, fold_lm_weight
     from repro_torch.models.layers import MoE
     from repro_torch.parallel.sharding import shardings_for
@@ -175,28 +215,114 @@ def folded_blocks(eng, mesh: Mesh) -> dict:
     cfg, knobs = eng.cfg, eng.knobs
     axes, shapes = param_axes_and_shapes(cfg)
     specs = shardings_for(axes, mesh, eng.rules, shapes)
-    out, start = {}, 0
-    for si, (_, count) in enumerate(eng.model.segments):
-        for l in range(start, start + count):
-            for sub_name, sub in eng.model.layers[l].named_children():
-                for name, meta in sub.pairing.items():
-                    w = getattr(sub, name).detach().float()
-                    if isinstance(sub, MoE) and w.ndim == 3:
-                        wf = fold_lm_expert_weight(w, meta, knobs.pair_block_n)
-                    else:
-                        wf = fold_lm_weight(sub.matrix(name, torch.float32), meta,
-                                            knobs.pair_block_n)
-                    spec = specs["segments"][si][sub_name][name][1:]
-                    starts = [0 if e is None else mesh.index(e) * (w.shape[d])
-                              for d, e in enumerate(spec)]
-                    out[l, sub_name, name] = (starts, wf.reshape(w.shape).double().cpu().numpy())
-        start += count
+    out = {}
+
+    def walk(layers, segments, seg_specs, key) -> None:
+        start = 0
+        for (_, count), seg_spec in zip(segments, seg_specs, strict=True):
+            for l in range(start, start + count):
+                for path, sub in layers[l].named_modules():
+                    for name, meta in getattr(sub, "pairing", {}).items():
+                        w = getattr(sub, name).detach().float()
+                        if isinstance(sub, MoE) and w.ndim == 3:
+                            wf = fold_lm_expert_weight(w, meta, knobs.pair_block_n)
+                        else:
+                            wf = fold_lm_weight(sub.matrix(name, torch.float32), meta,
+                                                knobs.pair_block_n)
+                        spec = seg_spec
+                        for part in path.split("."):
+                            spec = spec[part]
+                        starts = [0 if e is None else mesh.index(e) * (w.shape[d])
+                                  for d, e in enumerate(spec[name][1:])]
+                        out[key(l, path, name)] = (starts,
+                                                   wf.reshape(w.shape).double().cpu().numpy())
+            start += count
+
+    walk(eng.model.layers, eng.model.segments, specs["segments"], lambda *k: k)
+    if eng.model.encoder is not None:
+        enc = eng.model.encoder
+        walk(enc.layers, enc.segments, specs["encoder"]["segments"], lambda *k: ("encoder", *k))
     return out
 
 
+def assemble_folded(cfg, model: M.LM, ranks_folded: list[dict]) -> M.LM:
+    """A copy of ``model`` (on the CPU) with every paired weight replaced by
+    the ranks' folded blocks (:func:`folded_blocks`), each placed where it
+    sits: the single-device model whose plain engine is the mesh engine's
+    folded-dense oracle."""
+    folded = M.init_lm(cfg, 0, device="cpu")
+    M.load_lm_values(folded, M.lm_value_tree(model))
+    with torch.no_grad():
+        for blocks in ranks_folded:
+            for key, (starts, block) in blocks.items():
+                layers = folded.encoder.layers if key[0] == "encoder" else folded.layers
+                l, path, name = key[-3:]
+                node = layers[l]
+                for part in path.split("."):
+                    node = getattr(node, part)
+                w = getattr(node, name)
+                idx = tuple(slice(s, s + n) for s, n in zip(starts, block.shape))
+                w[idx] = torch.as_tensor(block, dtype=w.dtype)
+    return folded
+
+
+def shard_shapes(cfg, mesh: Mesh, batch_size: int, max_seq: int) -> tuple[dict, dict]:
+    """What the rank of ``mesh`` should hold under ``rules_for(cfg,
+    "decode", mesh)``: each weight's shape keyed as the served model's
+    ``named_parameters``, and each cache entry's as ``models.lm.init_cache``
+    stacks it (all layers), every dim divided where its resolved spec splits
+    it; :func:`serve_rank`'s ``"shapes"`` and ``"cache_shapes"`` are held to
+    them."""
+    from repro_torch.models.param import cache_axes_and_shapes
+    from repro_torch.parallel.sharding import shardings_for
+
+    rules = rules_for(cfg, "decode", mesh)
+    axes, shapes = param_axes_and_shapes(cfg)
+    specs = shardings_for(axes, mesh, rules, shapes)
+
+    def local(shape, spec):
+        return tuple(n // mesh.axis_size(e) if e is not None else n for n, e in zip(shape, spec))
+
+    def leaves(spec_tree, shape_tree, path=()):
+        for k, v in spec_tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, shape_tree[k], path + (k,))
+            else:
+                yield path + (k,), shape_tree[k].shape, v
+
+    weights = {}
+
+    def stack(prefix, seg_specs, seg_shapes, segments):
+        start = 0
+        for (_, count), seg_spec, seg_shape in zip(segments, seg_specs, seg_shapes, strict=True):
+            for path, shape, spec in leaves(seg_spec, seg_shape):
+                for l in range(start, start + count):
+                    weights[".".join((prefix, str(l), *path))] = local(shape[1:], spec[1:])
+            start += count
+
+    stack("layers", specs["segments"], shapes["segments"], cfg.segments())
+    top = {k: v for k, v in specs.items() if k not in ("segments", "encoder")}
+    if cfg.encoder is not None:
+        enc = specs["encoder"]
+        stack("encoder.layers", enc["segments"], shapes["encoder"]["segments"],
+              (("encoder", cfg.encoder.n_layers),))
+        top["encoder"] = {"final_norm": enc["final_norm"]}
+    for path, shape, spec in leaves(top, shapes):
+        weights[".".join(path)] = local(shape, spec)
+    c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
+    c_specs = shardings_for(c_axes, mesh, rules, c_shapes)
+    cache = {}
+    for seg_spec, seg_shape in zip(c_specs["segments"], c_shapes["segments"], strict=True):
+        for k, spec in seg_spec.items():
+            cache[k] = (cfg.n_layers, *local(seg_shape[k].shape[1:], spec[1:]))
+    return weights, cache
+
+
 def _gemm_stack(model: M.LM, sub: str, name: str) -> np.ndarray:
-    """(L, K, N) float64 GEMM view of one decoder leaf over the layers."""
-    mats = [getattr(getattr(layer, sub), name).detach().cpu().double() for layer in model.layers]
+    """(L, K, N) float64 GEMM view of one decoder leaf over the layers that
+    hold it."""
+    mats = [getattr(getattr(layer, sub), name).detach().cpu().double() for layer in model.layers
+            if hasattr(layer, sub)]
     return np.stack([(m.reshape(-1, m.shape[-1]) if name == "wo" else m.reshape(m.shape[0], -1))
                      .numpy() for m in mats])
 
@@ -247,11 +373,13 @@ def ledger_checks(cfg, model: M.LM, mesh_shape: dict, rounding: float = LEDGER_R
         if (sub, name) not in plan:
             continue
         rs, cs = plan[(sub, name)]
-        lr = next(x for x in rep_mesh.leaves if x.path.endswith(f"{sub}.{name}"))
+        # the decoder's leaf in every segment (not the encoder's, nor xattn's)
+        leaf = re.compile(rf"segments\[\d+\]\.{sub}\.{name}")
+        segs = [x for x in rep_mesh.leaves if leaf.fullmatch(x.path)]
         if max(rs, cs) > 1:
             want = _standalone_shard_ledger(_gemm_stack(model, sub, name), rounding, rs, cs,
                                             block_n)
-            got = list(lr.shard_pairs or ())
+            got = [int(n) for n in np.sum([x.shard_pairs for x in segs], axis=0)]
             if got != want:
                 failures.append(f"{sub}.{name}: per-shard ledger {got} != standalone "
                                 f"slice builds {want}")
@@ -262,26 +390,33 @@ def ledger_checks(cfg, model: M.LM, mesh_shape: dict, rounding: float = LEDGER_R
 
 def run(mesh_shape=(1, 2), *, device: str | None = None, backend: str = "gloo",
         n_steps: int = 10, arch: str = "qwen2-1.5b") -> dict:
-    """Both gates on the ``arch`` smoke config in fp32: the mesh engine's
-    tokens against the single-rank engine's, then the ledgers; raises on a
-    failed gate, writes ``benchmarks/results/torch_mesh_decode.json``.  The
-    ranks and the reference run on the GPU unless ``device="cpu"``."""
+    """Both gates on the ``arch`` smoke config (any of the ten) in fp32: the
+    mesh engine's tokens against the single-rank engine's (each slot with
+    its row of ``make_batch``'s stub frames or patches), then the ledgers;
+    raises on a failed gate, writes
+    ``benchmarks/results/torch_mesh_decode.json``.  The ranks and the
+    reference run on the GPU unless ``device="cpu"``."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.serving.engine import ServeEngine
+
+    from repro_torch.launch.inputs import make_batch
 
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     dev = resolve_device(device)
     device = dev.type
     model = M.init_lm(cfg, 0, device=dev)
     rng = np.random.default_rng(0)
-    prompts = {0: rng.integers(1, cfg.vocab, size=7).astype(np.int32),
-               1: rng.integers(1, cfg.vocab, size=12).astype(np.int32)}
-    ref = ServeEngine(cfg, model, max_seq=32, batch_size=2, knobs=knobs_for(0.0))
-    want = ref.generate(dict(prompts), n_steps)
+    prompts = {0: rng.integers(1, cfg.vocab, size=cfg.vision_prefix + 7).astype(np.int32),
+               1: rng.integers(1, cfg.vocab, size=cfg.vision_prefix + 12).astype(np.int32)}
+    stubs = make_batch(cfg, 2, 1, "prefill", seed=0, device=dev)
+    extras = {k: stubs[k].cpu().numpy() for k in M.EXTRAS if k in stubs} or None
+    max_seq = 32 + cfg.vision_prefix
+    ref = ServeEngine(cfg, model, max_seq=max_seq, batch_size=2, knobs=knobs_for(0.0))
+    want = generate(ref, prompts, n_steps, extras)
     t0 = time.perf_counter()
     ranks = spawn(serve_rank, mesh_shape, backend=backend, device=device,
                   args=(cfg, 0, knobs_for(0.0), prompts, n_steps),
-                  kwargs={"max_seq": 32, "batch_size": 2})
+                  kwargs={"max_seq": max_seq, "batch_size": 2, "extras": extras})
     run_s = time.perf_counter() - t0
     failures = []
     for rec in ranks:

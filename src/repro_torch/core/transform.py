@@ -417,16 +417,21 @@ def _effective_shards(K: int, N: int, want: tuple[int, int], mode: str,
     return rs, cs
 
 
-def _pair_stacks(model, specs, min_dim: int, pair_stack):
-    """Run ``pair_stack(sub_path, w_name, mats, K, N, expert, segment, first)``
+def _pair_stacks(model, specs, min_dim: int, pair_stack, whole_dims=None):
+    """Run ``pair_stack(sub_path, w_name, mats, K, N, expert, segment, first,
+    stack)``
     over every eligible weight of each segment of identical layers of the
-    model (decoder, then encoder), ``mats`` the segment's (K, N) weight views
+    model (decoder, then encoder: ``stack`` is ``"segments"`` or
+    ``"encoder.segments"``), ``mats`` the segment's (K, N) weight views
     (tensors, ``count × E`` of them for experts; each is copied to float64 by
     :func:`_as_numpy` only as it is paired: a segment of expert matrices in
     float64 at once would not fit the host).  It returns ``(pairings,
     report kwargs)``; the pairings of a segment are padded to one
     (Pmax, Rmax) and each layer gets its slice.  Returns ``(matched,
-    reports, layer_pairing, encoder_pairing)``."""
+    reports, layer_pairing, encoder_pairing)``.  A weight is eligible when
+    both its GEMM dims reach ``min_dim``: its own, or those
+    ``whole_dims(sub_path, w_name, expert, stack, first)`` gives (a rank's
+    shard is paired where the whole weight would be)."""
     matched: set[tuple[str, str]] = set()
     report: list[LeafReport] = []
 
@@ -446,11 +451,14 @@ def _pair_stacks(model, specs, min_dim: int, pair_stack):
                 # expert weights carry a leading expert axis: one matrix per expert
                 expert = sub_path.split(".")[-1] == "moe" and len(shape) == 3
                 K, N = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
-                if K < min_dim or N < min_dim:
+                Ke, Ne = ((K, N) if whole_dims is None
+                          else whole_dims(sub_path, w_name, expert, prefix, start))
+                if Ke < min_dim or Ne < min_dim:
                     continue
                 mats = [m.reshape(K, N) for b in blocks
                         for m in (getattr(b, w_name) if expert else [getattr(b, w_name)])]
-                pairings, extra = pair_stack(sub_path, w_name, mats, K, N, expert, si, start)
+                pairings, extra = pair_stack(sub_path, w_name, mats, K, N, expert, si, start,
+                                             prefix)
                 blocked = isinstance(pairings[0], BlockedPairing)
                 meta = (_stack_blocked if blocked else _stack_structured)(pairings)
                 if expert:
@@ -551,7 +559,7 @@ def pair_params(
     mode, block_n = _check_mode(mode, block_n)
     specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
 
-    def pair_stack(sub_path, w_name, mats, K, N, expert, si, start):
+    def pair_stack(sub_path, w_name, mats, K, N, expert, si, start, stack):
         # the lane lists alone: the stacking needs nothing else, and a
         # full-depth model's float64 magnitudes would cost time and fill the host
         rs, cs = _effective_shards(K, N, (shards or {}).get((sub_path, w_name), (1, 1)),
@@ -610,7 +618,6 @@ def pair_shard_params(
     """
     mode, block_n = _check_mode(mode, block_n)
     specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
-    full_of = full.layers
 
     def pair_one(m: np.ndarray):
         if mode == "column_blocked":
@@ -618,10 +625,16 @@ def pair_shard_params(
                                      magnitudes=False)
         return pair_rows_structured(m, rounding, criterion=criterion, magnitudes=False)
 
-    def pair_stack(sub_path, w_name, mats, K, N, expert, si, first):
-        layer0 = _resolve_sub(full_of[first], sub_path)
-        shape = tuple(getattr(layer0, w_name).shape)
-        Kf, Nf = _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
+    def layers_of(stack: str):
+        return full.encoder.layers if stack == "encoder.segments" else full.layers
+
+    def whole_dims(sub_path, w_name, expert, stack, first):
+        shape = tuple(getattr(_resolve_sub(layers_of(stack)[first], sub_path), w_name).shape)
+        return _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
+
+    def pair_stack(sub_path, w_name, mats, K, N, expert, si, first, stack):
+        full_of = layers_of(stack)
+        Kf, Nf = whole_dims(sub_path, w_name, expert, stack, first)
         rs, cs = _effective_shards(Kf, Nf, shards.get((sub_path, w_name), (1, 1)), mode, block_n)
         if (rs > 1 and K * rs != Kf) or (cs > 1 and N * cs != Nf):
             raise ValueError(f"{sub_path}.{w_name}: the rank holds a ({K}, {N}) view of a "
@@ -640,7 +653,7 @@ def pair_shard_params(
             ps = [pair_one(_as_numpy(m)) for m in mats]
         return ps, {"row_shards": rs, "col_shards": cs}
 
-    found = _pair_stacks(local, specs, min_dim, pair_stack)
+    found = _pair_stacks(local, specs, min_dim, pair_stack, whole_dims)
     return _finish(local, specs, leaves, min_dim, *found, rounding, mode)
 
 

@@ -104,11 +104,6 @@ def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer]
 # one rank of a tensor-parallel serve cell
 # ---------------------------------------------------------------------------
 
-#: weights a rank holds whole whatever their spec says: the router (routing
-#: is replicated, every rank of a data row routes its tokens alike)
-KEEP_WHOLE = (("moe", "router"),)
-
-
 def _take(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     """This rank's block of ``t`` under ``spec``: each split dim narrowed to
     the rank's chunk along its mesh axes, copied (so the whole can go)."""
@@ -123,29 +118,37 @@ def shard_model(model: M.LM, specs: dict, mesh: Mesh) -> M.LM:
     """The rank's part of ``model``: every weight sliced by its resolved spec
     (``specs``, :func:`~repro_torch.parallel.sharding.shardings_for` of
     ``models.param.param_axes``; a stacked layer weight's spec without its
-    ``"layers"`` entry), the router whole (:data:`KEEP_WHOLE`); new tensors
-    on the weights' device, no pairing metadata."""
+    ``"layers"`` entry), the encoder's by its own, the router's expert
+    columns too; the ``meta`` tokens and ``vision_proj`` as their specs
+    give them (whole); new tensors on the weights' device, no pairing
+    metadata."""
 
-    def block(b: Lyr.Block, spec_tree: dict, path: str, stacked: bool) -> Lyr.Block:
-        weights = {}
-        for name, t in b.named_parameters(recurse=False):
-            spec = spec_tree[name][1:] if stacked else spec_tree[name]
-            whole = (path, name) in KEEP_WHOLE
-            weights[name] = t.detach().clone() if whole else _take(t, spec, mesh)
-        kids = {n: block(c, spec_tree[n], f"{path}.{n}", stacked) for n, c in b.named_children()}
+    def block(b: Lyr.Block, spec_tree: dict, stacked: bool) -> Lyr.Block:
+        weights = {name: _take(t, spec_tree[name][1:] if stacked else spec_tree[name], mesh)
+                   for name, t in b.named_parameters(recurse=False)}
+        kids = {n: block(c, spec_tree[n], stacked) for n, c in b.named_children()}
         return type(b)(**weights, **kids)
 
-    layers, start = [], 0
-    for si, (_, count) in enumerate(model.segments):
-        seg = specs["segments"][si]
-        for layer in model.layers[start:start + count]:
-            layers.append(Lyr.DecoderLayer(**{n: block(c, seg[n], n, True)
-                                             for n, c in layer.named_children()}))
-        start += count
+    def stack(all_layers, segments, seg_specs) -> list[Lyr.DecoderLayer]:
+        layers, start = [], 0
+        for (_, count), seg in zip(segments, seg_specs, strict=True):
+            for layer in all_layers[start:start + count]:
+                layers.append(Lyr.DecoderLayer(**{n: block(c, seg[n], True)
+                                                 for n, c in layer.named_children()}))
+            start += count
+        return layers
+
     top = {name: _take(getattr(model, name), specs[name], mesh)
-           for name in ("embed", "lm_head") if getattr(model, name, None) is not None}
-    return M.LM(final_norm=block(model.final_norm, specs["final_norm"], "final_norm", False),
-                layers=layers, segments=model.segments, **top)
+           for name in ("embed", "lm_head", "meta", "vision_proj")
+           if getattr(model, name, None) is not None}
+    encoder = None
+    if model.encoder is not None:
+        enc, enc_specs = model.encoder, specs["encoder"]
+        encoder = M.Encoder(stack(enc.layers, enc.segments, enc_specs["segments"]),
+                            block(enc.final_norm, enc_specs["final_norm"], False))
+    return M.LM(final_norm=block(model.final_norm, specs["final_norm"], False),
+                layers=stack(model.layers, model.segments, specs["segments"]),
+                segments=model.segments, encoder=encoder, **top)
 
 
 def _paired_shapes(cfg: ModelConfig, shapes: dict, mode: str, block_n: int) -> dict:
@@ -156,10 +159,10 @@ def _paired_shapes(cfg: ModelConfig, shapes: dict, mode: str, block_n: int) -> d
     def copy(tree):
         return {k: copy(v) for k, v in tree.items()} if isinstance(tree, dict) else tree
 
-    out = dict(shapes)
-    out["segments"] = []
-    for seg in shapes["segments"]:
-        seg = copy(seg)
+    def paired(segments: list) -> list:
+        return [with_meta(copy(seg)) for seg in segments]
+
+    def with_meta(seg: dict) -> dict:
         for sub_path, w_name in cfg.paired_leaves:
             parts = sub_path.split(".")
             node = seg
@@ -176,7 +179,11 @@ def _paired_shapes(cfg: ModelConfig, shapes: dict, mode: str, block_n: int) -> d
             meta = torch.empty((*lead, *blocks, 0), device="meta")
             node[w_name + "_pairing"] = {k: meta for k in
                                          ("I", "J", "resid", "pair_mask", "resid_mask")}
-        out["segments"].append(seg)
+        return seg
+
+    out = dict(shapes, segments=paired(shapes["segments"]))
+    if "encoder" in shapes:
+        out["encoder"] = dict(shapes["encoder"], segments=paired(shapes["encoder"]["segments"]))
     return out
 
 
@@ -230,12 +237,12 @@ def wire_serve_cell(
     weight's resolved spec (``parallel.sharding.paired_shardings_for``),
     and the rank's metadata is checked to hold that placement's blocks.  The
     steps are ``serving.steps``' with the rank's
-    :class:`~repro_torch.parallel.tp.TensorParallel`.  Raises
-    ``NotImplementedError`` for a family the mesh does not serve and for
-    ``attn="pallas_fused"`` (the one place both are checked: the steps and
-    the forward assume them).
+    :class:`~repro_torch.parallel.tp.TensorParallel`, which serves every
+    family.  Raises ``NotImplementedError`` for a split the forward does not
+    close (``parallel.tp.layout_for`` names it) and for
+    ``attn="pallas_fused"`` (the one place it is checked: the steps and the
+    forward assume it).
     """
-    M.check_mesh_family(cfg)
     if knobs.attn != "xla":
         raise NotImplementedError(MESH_FUSED_REFUSAL)
     if has_lm_pairing(model):
@@ -271,25 +278,39 @@ def wire_serve_cell(
 def _check_meta_placement(local: M.LM, p_shard: dict, meta_shapes: dict, mesh: Mesh) -> None:
     """Each blocked metadata leaf the rank built holds the blocks its
     placement gives it: all of them where the block axis is replicated,
-    ``B / n`` where it rides the weight's column split."""
-    start = 0
-    for si, (_, count) in enumerate(local.segments):
-        seg_spec, seg_shape = p_shard["segments"][si], meta_shapes["segments"][si]
-        for layer in local.layers[start:start + count]:
-            for sub_name, sub in layer.named_children():
-                for name, meta in getattr(sub, "pairing", {}).items():
-                    spec = seg_spec[sub_name][name + "_pairing"]["I"]
-                    shape = tuple(seg_shape[sub_name][name + "_pairing"]["I"].shape)
-                    # stacked (L, [E,] [B,] lanes); the rank's per layer ([E,] [B,] lanes)
-                    expert = isinstance(sub, Lyr.MoE) and getattr(sub, name).ndim == 3
-                    dims = [1] if expert else []
-                    if meta["I"].ndim == (3 if expert else 2):
-                        dims.append(2 if expert else 1)
-                    for dim in dims:
-                        want = shape[dim] // mesh.axis_size(spec[dim])
-                        if meta["I"].shape[dim - 1] != want:
-                            raise AssertionError(
-                                f"{sub_name}.{name}: the rank holds {meta['I'].shape[dim - 1]} "
-                                f"along metadata dim {dim}, its placement {tuple(spec)} "
-                                f"gives it {want}")
-        start += count
+    ``B / n`` where it rides the weight's column split; every paired block
+    of every layer (the shared experts' ``moe.shared``, an SSM block's, the
+    encoder's too)."""
+
+    def at(tree: dict, path: str):
+        for part in path.split("."):
+            tree = tree[part]
+        return tree
+
+    def check(layers, segments, seg_specs, seg_shapes) -> None:
+        start = 0
+        for (_, count), seg_spec, seg_shape in zip(segments, seg_specs, seg_shapes, strict=True):
+            for layer in layers[start:start + count]:
+                for path, sub in layer.named_modules():
+                    for name, meta in getattr(sub, "pairing", {}).items():
+                        spec = at(seg_spec, path)[name + "_pairing"]["I"]
+                        shape = tuple(at(seg_shape, path)[name + "_pairing"]["I"].shape)
+                        # stacked (L, [E,] [B,] lanes); the rank's per layer ([E,] [B,] lanes)
+                        expert = isinstance(sub, Lyr.MoE) and getattr(sub, name).ndim == 3
+                        dims = [1] if expert else []
+                        if meta["I"].ndim == (3 if expert else 2):
+                            dims.append(2 if expert else 1)
+                        for dim in dims:
+                            want = shape[dim] // mesh.axis_size(spec[dim])
+                            if meta["I"].shape[dim - 1] != want:
+                                raise AssertionError(
+                                    f"{path}.{name}: the rank holds {meta['I'].shape[dim - 1]} "
+                                    f"along metadata dim {dim}, its placement {tuple(spec)} "
+                                    f"gives it {want}")
+            start += count
+
+    check(local.layers, local.segments, p_shard["segments"], meta_shapes["segments"])
+    if local.encoder is not None:
+        enc = local.encoder
+        check(enc.layers, enc.segments, p_shard["encoder"]["segments"],
+              meta_shapes["encoder"]["segments"])

@@ -30,16 +30,18 @@ included.  Conventions, as in the JAX package:
   (:func:`ssm_decode_block`) per decode token: plain PyTorch, as the JAX
   package's are XLA code, not kernels.
 
-On a mesh (``tp``, a ``parallel.tp.TensorParallel``: one rank's split of the
-dense GQA and MoE families) each rank holds its shards and closes every
-split with a collective (``parallel.collectives``): the row-parallel
-out- and down-projections (:func:`row_parallel_dense`) store fp32 partial
+On a mesh (``tp``, a ``parallel.tp.TensorParallel``: one rank's view of a
+layer, every family) each rank holds its shards and closes every split
+with a collective (``parallel.collectives``): the row-parallel out-, down-
+and SSM output projections (:func:`row_parallel_dense`) store fp32 partial
 sums, the skip connection on the first model rank only, and all-reduce them
 before the one cast; attention reads the KV heads of the rank's query heads
-(:func:`local_kv`), or, against a sequence-sharded cache, merges the ranks'
-partial softmaxes (:func:`seq_sharded_decode_attention`); the experts run
-on the ranks that hold them (:func:`_moe_shard_map` on a prompt, the dense
-branch on decode rows), their gated sums all-reduced.
+(:func:`local_kv`), or, against a sequence-sharded cache (GQA's K/V, MLA's
+latent), merges the ranks' partial softmaxes
+(:func:`merge_partial_softmax`); the experts run on the ranks that hold
+them (:func:`_moe_shard_map` on a prompt, the dense branch on decode rows),
+their gated sums all-reduced with the shared experts'; an SSM block scans
+the rank's heads, its gated norm's statistic all-reduced.
 
 Weights live in :class:`Block` modules (fp32 masters, as the JAX package
 keeps them) with each weight's pairing metadata beside it; every GEMM goes
@@ -608,10 +610,10 @@ def attention_block(
     (:func:`local_kv`: the prompt's keys are all here), and the K/V returned
     are the ones its cache holds."""
     q, k, v = _qkv(cfg, p, x, positions, knobs)
+    kq, vq = local_kv(tp, k, v)
     if not causal and not window:
-        out = full_attention(q, k, v, knobs)
+        out = full_attention(q, kq, vq, knobs)
     else:
-        kq, vq = local_kv(tp, k, v)
         out = flash_attention(q, kq, vq, causal=causal, window=window, n_sink=n_sink,
                               q_chunk=knobs.q_chunk, k_chunk=knobs.k_chunk)
     return attn_out_proj(p, out, knobs, residual=residual, tp=tp), k, v
@@ -702,11 +704,8 @@ def seq_sharded_decode_attention(tp, q: torch.Tensor, k: torch.Tensor, v: torch.
     k_cache, v_cache = cache["k"], cache["v"]
     B, S_loc = k_cache.shape[0], k_cache.shape[1]
     lo = tp.r * S_loc
-    bidx = torch.arange(B, device=q.device)
-    mine = ((pos >= lo) & (pos < lo + S_loc))[:, None, None]
-    at = (pos - lo).clamp(0, S_loc - 1)
-    k_cache[bidx, at] = torch.where(mine, k[:, 0].to(k_cache.dtype), k_cache[bidx, at])
-    v_cache[bidx, at] = torch.where(mine, v[:, 0].to(v_cache.dtype), v_cache[bidx, at])
+    _write_at(tp, k_cache, k[:, 0], pos)
+    _write_at(tp, v_cache, v[:, 0], pos)
 
     h0, n_loc = tp.local_heads
     qf = all_gather(q, tp.model_group, dim=2) if tp.q_split else q  # (B, 1, H, D)
@@ -728,15 +727,41 @@ def seq_sharded_decode_attention(tp, q: torch.Tensor, k: torch.Tensor, v: torch.
     p = torch.exp(s - m_safe[..., None])  # masked keys: exp(−inf) = 0
     l = p.sum(-1)
     acc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    out = merge_partial_softmax(tp, m, l, acc)  # (B, KH, G, D)
+    out = out.reshape(B, 1, H, D)[:, :, h0:h0 + n_loc]
+    return out.to(q.dtype)
+
+
+def merge_partial_softmax(tp, m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                          ) -> torch.Tensor:
+    """The softmax-weighted sum of every rank's keys from each rank's fp32
+    partials over its own: the row maximum ``m`` (−inf where the rank
+    admitted no key), the sum ``l`` of ``exp(s − m)`` and ``acc`` (…, D),
+    the values weighted so.  One all-gather over ``model`` brings them
+    together, merged in fp32 in rank order."""
     parts = all_gather(torch.cat([m[..., None], l[..., None], acc], dim=-1)[None],
-                       tp.model_group, dim=0)  # (n, B, KH, G, D + 2)
+                       tp.model_group, dim=0)  # (n, …, D + 2)
     m_all, l_all, acc_all = parts[..., 0], parts[..., 1], parts[..., 2:]
     m_max = m_all.amax(0)
     m_max = torch.where(torch.isfinite(m_max), m_max, torch.zeros_like(m_max))
     w = torch.where(torch.isfinite(m_all), torch.exp(m_all - m_max), torch.zeros_like(m_all))
-    out = (w[..., None] * acc_all).sum(0) / (w * l_all).sum(0).clamp_min(1e-30)[..., None]
-    out = out.reshape(B, 1, H, D)[:, :, h0:h0 + n_loc]
-    return out.to(q.dtype)
+    return (w[..., None] * acc_all).sum(0) / (w * l_all).sum(0).clamp_min(1e-30)[..., None]
+
+
+def _write_at(tp, cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write each slot's ``new`` (B, …) into ``cache`` (B, S', …) at its
+    position ``pos``, in place; with the positions split over ``model``
+    (``tp.cache_seq``) only the rank that holds ``pos`` writes, at
+    ``pos − r·S'``."""
+    B, S_loc = cache.shape[0], cache.shape[1]
+    bidx = torch.arange(B, device=cache.device)
+    if tp is None or not tp.cache_seq:
+        cache[bidx, pos] = new.to(cache.dtype)
+        return
+    lo = tp.r * S_loc
+    mine = ((pos >= lo) & (pos < lo + S_loc)).reshape(B, *[1] * (new.dim() - 1))
+    at = (pos - lo).clamp(0, S_loc - 1)
+    cache[bidx, at] = torch.where(mine, new.to(cache.dtype), cache[bidx, at])
 
 
 # ---------------------------------------------------------------------------
@@ -756,7 +781,7 @@ def _mla_query(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tenso
     """``(q_nope, q_rope)`` of ``x``, (B, S, H, nope) and (B, S, H, rope)
     post-rope."""
     m = cfg.mla
-    q = _leaf_dense(p, "wq", x, knobs).reshape(*x.shape[:-1], cfg.n_heads,
+    q = _leaf_dense(p, "wq", x, knobs).reshape(*x.shape[:-1], p.wq.shape[-2],
                                                m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     return q_nope, rope(q_rope, positions, cfg.rope_theta)
@@ -767,7 +792,17 @@ def _mla_up(p: MLA, cdt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     return _cast(p, "w_uk", cdt), _cast(p, "w_uv", cdt)
 
 
-def mla_block(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor, knobs):
+def _mla_out(p: MLA, out: torch.Tensor, knobs, tp) -> torch.Tensor:
+    """MLA's out-projection of the heads' values (…, H·v): row-parallel
+    (:func:`row_parallel_dense`, no skip connection) where the heads are
+    split over a mesh."""
+    if tp is not None and tp.q_split:
+        return row_parallel_dense(p, "wo", out, knobs, tp)
+    return _leaf_dense(p, "wo", out, knobs)
+
+
+def mla_block(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor, knobs,
+              tp=None):
     """Prefill MLA: per-head K/V materialised from the latent, then
     :func:`flash_attention` (``v`` padded to the q/k head width, as in the
     JAX package) and the out-projection.  Returns ``(y, c_kv, k_rope)``:
@@ -776,9 +811,12 @@ def mla_block(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor
 
     The down-projections ``wq``/``w_dkv``/``w_kr`` and ``wo`` go through
     :func:`dense` (paired launches when they carry metadata); the
-    up-projections ``w_uk``/``w_uv`` stay einsums.
+    up-projections ``w_uk``/``w_uv`` stay einsums.  On a mesh the rank's
+    heads (its slices of ``wq``, ``w_uk`` and ``w_uv``) attend every key of
+    the prompt, and ``wo`` is row-parallel; the latent is whole on every
+    rank (``w_dkv``/``w_kr`` are replicated).
     """
-    m, H = cfg.mla, cfg.n_heads
+    m, H = cfg.mla, p.wq.shape[-2]
     cdt = x.dtype
     c_kv, k_rope = _mla_latent(cfg, p, x, positions, knobs)
     q_nope, q_rope = _mla_query(cfg, p, x, positions, knobs)
@@ -790,7 +828,7 @@ def mla_block(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor
     kc = torch.cat([k_nope, k_rope_h], dim=-1)
     out = flash_attention(qc, kc, F.pad(v, (0, qc.shape[-1] - m.v_head_dim)), causal=True,
                           q_chunk=knobs.q_chunk, k_chunk=knobs.k_chunk)[..., : m.v_head_dim]
-    y = _leaf_dense(p, "wo", out.reshape(*out.shape[:-2], H * m.v_head_dim), knobs)
+    y = _mla_out(p, out.reshape(*out.shape[:-2], H * m.v_head_dim), knobs, tp)
     return y, c_kv, k_rope
 
 
@@ -801,6 +839,7 @@ def mla_decode_block(
     cache: dict,  # {"c_kv": (B, S, R), "k_rope": (B, S, rope)}, updated in place
     pos: torch.Tensor,  # (B,)
     knobs,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Absorbed-matrix MLA decode: the new latent and rope key written into
     the cache at ``pos`` (in place), then attention in the latent space,
@@ -811,27 +850,51 @@ def mla_decode_block(
     the compute dtype; both scores and ``o_lat`` accumulated in fp32 (the
     operands cast up, as ``preferred_element_type=float32``); the
     probabilities cast to the compute dtype before ``o_lat``.
+
+    On a mesh the rank computes its heads' absorbed queries; against a cache
+    whose positions are split over ``model`` (``tp.cache_seq``) only the
+    rank that holds ``pos`` writes it, the queries ``[q_lat | q_rope]``
+    (576 lanes a head at full width) are all-gathered where the heads are
+    split, each rank takes the fp32 partial softmax of every head over its
+    positions (:func:`merge_partial_softmax`; the probabilities stay fp32)
+    and keeps its own heads' ``o_lat`` for ``w_uv``; ``wo`` is row-parallel.
     """
-    m, H = cfg.mla, cfg.n_heads
+    m, H = cfg.mla, p.wq.shape[-2]
     cdt, B = x.dtype, x.shape[0]
     q_nope, q_rope = _mla_query(cfg, p, x, pos[:, None], knobs)
     c_new, kr_new = _mla_latent(cfg, p, x, pos[:, None], knobs)
-    bidx = torch.arange(B, device=x.device)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv[bidx, pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[bidx, pos] = kr_new[:, 0].to(k_rope.dtype)
+    _write_at(tp, c_kv, c_new[:, 0], pos)
+    _write_at(tp, k_rope, kr_new[:, 0], pos)
 
     w_uk, w_uv = _mla_up(p, cdt)
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], w_uk)
     ckv = c_kv.float()
-    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv)
-    s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), k_rope.float())
-    s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    ok = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= pos[:, None]
-    pr = torch.softmax(s.masked_fill(~ok[:, None], -math.inf), dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", pr.to(cdt).float(), ckv).to(cdt)
+    scale = math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    if tp is not None and tp.cache_seq:
+        q = torch.cat([q_lat, q_rope[:, 0]], dim=-1)  # (B, H', R + rope)
+        q = all_gather(q, tp.model_group, dim=1) if tp.q_split else q
+        q_lat_all, q_rope_all = torch.split(q, [q_lat.shape[-1], m.qk_rope_dim], dim=-1)
+        s = torch.einsum("bhr,bsr->bhs", q_lat_all.float(), ckv)
+        s = s + torch.einsum("bhk,bsk->bhs", q_rope_all.float(), k_rope.float())
+        s = s / scale
+        S_loc = c_kv.shape[1]
+        pk = tp.r * S_loc + torch.arange(S_loc, device=x.device)[None, :]
+        s = s.masked_fill(~(pk <= pos.to(torch.int64)[:, None])[:, None], -math.inf)
+        mx = s.amax(-1)  # (B, H); −inf where the rank admits no key
+        pr = torch.exp(s - torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))[..., None])
+        o_all = merge_partial_softmax(tp, mx, pr.sum(-1), torch.einsum("bhs,bsr->bhr", pr, ckv))
+        h0 = tp.local_heads[0]
+        o_lat = o_all[:, h0:h0 + H].to(cdt)
+    else:
+        s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv)
+        s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), k_rope.float())
+        s = s / scale
+        ok = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= pos[:, None]
+        pr = torch.softmax(s.masked_fill(~ok[:, None], -math.inf), dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", pr.to(cdt).float(), ckv).to(cdt)
     out = torch.einsum("bhr,rhk->bhk", o_lat, w_uv)
-    y = _leaf_dense(p, "wo", out.reshape(B, H * m.v_head_dim), knobs)
+    y = _mla_out(p, out.reshape(B, H * m.v_head_dim), knobs, tp)
     return y[:, None], cache
 
 
@@ -971,11 +1034,15 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
     three projections through :func:`dense`, and add to the routed sum, as
     in the JAX package.
 
-    With the experts split over a mesh (``tp.experts_split``; the router is
-    replicated, every rank routes alike), a rank runs its own ``E/n``
-    experts: on the dense branch every token through them, their gated sum
-    in fp32; on the routed branch :func:`_moe_shard_map`.  One all-reduce
-    over ``model`` in fp32 closes the sum before its cast.
+    With the experts split over a mesh (``tp.experts_split``), a rank runs
+    its own ``E/n`` experts: on the dense branch every token through them,
+    their gated sum in fp32; on the routed branch :func:`_moe_shard_map`.
+    Where the router's expert columns are split too (``tp.router_split``)
+    each rank's logits are all-gathered over ``model`` first, so every rank
+    routes alike.  Shared experts split over their hidden columns
+    (``tp.shared_split``) add their row-parallel partial sum in fp32 beside
+    the routed one; one all-reduce over ``model`` in fp32 closes both before
+    the cast.
 
     Under ``knobs.gemm == "pallas_paired"`` with expert pairing metadata,
     each projection of all experts is one paired launch over the expert grid
@@ -991,11 +1058,30 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
     paired = knobs.gemm == "pallas_paired" and "w_gate" in p.pairing
 
     shared = getattr(p, "shared", None)
+    split = tp is not None and tp.experts_split
+    shared_split = tp is not None and tp.shared_split and shared is not None
 
-    def shared_experts(x2):
-        """The shared experts' gated MLP over (T, d) rows, no skip connection."""
+    def shared_experts(x2, partial=False):
+        """The shared experts' gated MLP over (T, d) rows, no skip
+        connection; ``partial``: the rank's fp32 row-parallel sum."""
         g = _leaf_dense(shared, "w_gate", x2, knobs, act=cfg.act)
-        return _leaf_dense(shared, "w_down", g * _leaf_dense(shared, "w_up", x2, knobs), knobs)
+        return _leaf_dense(shared, "w_down", g * _leaf_dense(shared, "w_up", x2, knobs), knobs,
+                           out_dtype=torch.float32 if partial else None)
+
+    def close(y2, partial):
+        """The routed sum ``y2`` (T, d) — the rank's fp32 partial sum where
+        ``partial`` — with the shared experts added; one all-reduce over
+        ``model`` closes whatever is partial."""
+        if shared is None:
+            return all_reduce(y2, tp.model_group).to(cdt) if partial else y2
+        if shared_split:
+            y_sh = shared_experts(x2, partial=True)
+            if partial:
+                return all_reduce(y2 + y_sh, tp.model_group).to(cdt)
+            return y2 + all_reduce(y_sh, tp.model_group).to(cdt)
+        if partial:
+            return all_reduce(y2, tp.model_group).to(cdt) + shared_experts(x2)
+        return y2 + shared_experts(x2)
 
     def experts(xe, per_expert):
         """gate, up and down of every expert; xe (M, d) or (E, M, d) → (M, E, d)."""
@@ -1010,14 +1096,12 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
 
     x2 = x.reshape(T, d)
     logits = x2.float() @ p.router.float()
+    if tp is not None and tp.router_split:
+        logits = all_gather(logits, tp.model_group, dim=-1)  # (T, E)
     gates = torch.softmax(logits, dim=-1)  # (T, E)
     topw, topi = _top_k(gates, K)
     topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    split = tp is not None and tp.experts_split
-    if split and shared is not None:
-        raise NotImplementedError("shared experts on a mesh (deepseek's MLA family: "
-                                  "ROADMAP queue 1, item 9)")
     if T * K <= 2 * E:
         y_all = experts(x2, per_expert=False)  # (T, E, d), or (T, E/n, d) on a mesh
         w_full = torch.zeros((T, E), dtype=cdt, device=x.device).scatter_(1, topi, topw.to(cdt))
@@ -1025,27 +1109,25 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
             e0 = tp.r * y_all.shape[1]
             w_loc = w_full[:, e0:e0 + y_all.shape[1]]
             y2 = torch.einsum("ted,te->td", y_all.float(), w_loc.float())
-            y2 = all_reduce(y2, tp.model_group).to(cdt)
         else:
             y2 = torch.einsum("ted,te->td", y_all, w_full)
-        if shared is not None:
-            y2 = y2 + shared_experts(x2)
-        return y2.reshape(B, S, d), torch.zeros((), dtype=torch.float32, device=x.device)
+        return (close(y2, split).reshape(B, S, d),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     if split:
         y2, counts = _moe_shard_map(cfg, x, topi, topw, experts, tp)
         me = gates.mean(0)
         ce = counts.float() / max(T * K, 1)
-        return y2, (me * ce).sum() * (E * mo.router_aux_weight)
+        return close(y2.reshape(T, d), True).reshape(B, S, d), (me * ce).sum() * (
+            E * mo.router_aux_weight)
 
     xb, inv_tok, inv_w, counts, C = _moe_route(cfg, x, topi, topw)
     # experts as the grid's blocks: the (B, C) token rows of each expert's
     # buffer are that expert's rows of the GEMM
     yb = experts(xb.permute(1, 0, 2, 3).reshape(E, B * C, d), per_expert=True)
     yb = yb.reshape(B, C, E, d).permute(0, 2, 1, 3)
-    y2 = _moe_combine(B, S, d, yb, inv_tok, inv_w, cdt, K)
-    if shared is not None:
-        y2 = y2 + shared_experts(x2).reshape(B, S, d)
+    y2 = close(_moe_combine(B, S, d, yb, inv_tok, inv_w, cdt, K).reshape(T, d), False)
+    y2 = y2.reshape(B, S, d)
 
     me = gates.mean(0)  # mean router probability of each expert
     ce = counts.sum(0).float() / max(T * K, 1)  # share of the choices it got
@@ -1061,11 +1143,12 @@ def _moe_shard_map(cfg: ModelConfig, x: torch.Tensor, topi: torch.Tensor,
     each rank slices its own experts' dispatch buffers from the full
     dispatch, runs them (``experts``, the rank's ``E/n`` expert weights: one
     K1 launch a projection over the grid under ``gemm="pallas_paired"``),
-    combines its slots' gated outputs into a partial sum in fp32, and one
-    all-reduce over ``model`` closes the combine; there is no all-to-all.
-    Returns ``(y (B, S, d) in x's dtype, counts (E,))``, the choices of
-    each expert summed over the sequences and, where the batch is split
-    over the data axes, over them (one all-reduce)."""
+    and combines its slots' gated outputs into a partial sum in fp32, which
+    the caller's one all-reduce over ``model`` closes (beside the shared
+    experts' partial sum); there is no all-to-all.  Returns ``(y (B, S, d)
+    fp32, the rank's partial sum; counts (E,))``, the choices of each expert
+    summed over the sequences and, where the batch is split over the data
+    axes, over them (one all-reduce)."""
     mo = cfg.moe
     B, S, d = x.shape
     E = mo.n_experts
@@ -1078,7 +1161,6 @@ def _moe_shard_map(cfg: ModelConfig, x: torch.Tensor, topi: torch.Tensor,
     inv_tok_m = inv_tok.reshape(B, E, C)[:, e0:e0 + E_loc].reshape(B, E_loc * C)
     inv_w_m = inv_w.reshape(B, E, C)[:, e0:e0 + E_loc].reshape(B, E_loc * C)
     y2 = _moe_combine(B, S, d, yb.float(), inv_tok_m, inv_w_m, torch.float32, mo.top_k)
-    y2 = all_reduce(y2, tp.model_group).to(x.dtype)
     counts = counts.sum(0)
     if tp.batch_split:
         counts = all_reduce(counts, tp.data_group)
@@ -1194,16 +1276,36 @@ def _ssm_projections(p: Mamba, x: torch.Tensor, knobs):
     return tuple(_leaf_dense(p, name, x, knobs) for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
-def _gated_out(cfg: ModelConfig, p: Mamba, y: torch.Tensor, z: torch.Tensor, knobs):
+def _gated_out(cfg: ModelConfig, p: Mamba, y: torch.Tensor, z: torch.Tensor, knobs, tp=None):
     """``y`` (fp32, (…, d_in)) in the compute dtype, gated by SiLU(z), the
-    RMSNorm in fp32, then the output projection through :func:`dense`."""
+    RMSNorm in fp32, then the output projection through :func:`dense`.
+    With the channels split over a mesh (``tp.ssm_in_split``) the norm's
+    sum of squares is all-reduced over ``model`` (its mean is over the
+    whole d_in) and w_out is row-parallel (:func:`row_parallel_dense`)."""
     y = y.to(z.dtype) * F.silu(z)
     yf = y.float()
-    y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6) * p.norm).to(z.dtype)
-    return _leaf_dense(p, "w_out", y, knobs)
+    if tp is None or not tp.ssm_in_split:
+        y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6) * p.norm).to(z.dtype)
+        return _leaf_dense(p, "w_out", y, knobs)
+    ms = all_reduce((yf * yf).sum(-1, keepdim=True), tp.model_group) / (
+        cfg.ssm.expand * cfg.d_model)
+    y = (yf * torch.rsqrt(ms + 1e-6) * p.norm).to(z.dtype)
+    return row_parallel_dense(p, "w_out", y, knobs, tp)
 
 
-def ssm_forward(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs):
+def _ssm_gathered(tp) -> bool:
+    """Whether an SSM block all-gathers its conv'd channels: its channels are
+    split over ``model`` and its heads are not, so each rank steps every
+    head (hymba's 50 heads on 4 ranks)."""
+    return tp is not None and tp.ssm_in_split and not tp.ssm_heads_split
+
+
+def _own_channels(tp, y: torch.Tensor, width: int) -> torch.Tensor:
+    """The rank's ``width`` channels of ``y`` (…, d_in) gathered whole."""
+    return y[..., tp.r * width:(tp.r + 1) * width]
+
+
+def ssm_forward(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs, tp=None):
     """Mamba-2 block over a sequence ``x`` (B, S, d). Returns ``(y, h_final,
     raw)``: ``y`` (B, S, d) without the skip connection, the final SSM state
     (B, H, P, N) fp32, and ``raw`` the conv inputs ``{"conv_x", "conv_B",
@@ -1212,23 +1314,35 @@ def ssm_forward(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs):
     Projections and the conv in the compute dtype; ``dt``, ``A``, the scan's
     state, the ``D`` skip and the gated RMSNorm in fp32, as in the JAX
     package's ``ssm_block``.
+
+    On a mesh ``d_in`` and ``H`` are the rank's: its channels (w_z, w_x and
+    the conv over them, their left padding kept) and, where the heads split
+    with them, its heads (the scan per local head group); where only the
+    channels split, the conv'd channels are all-gathered, the scan steps
+    every head, and the rank keeps its channels for the gate, the norm and
+    the row-parallel w_out (:func:`_gated_out`).
     """
     s = cfg.ssm
     cdt = x.dtype
-    d_in = s.expand * cfg.d_model
-    H = d_in // s.head_dim
     z, xi0, Bi0, Ci0, dt = _ssm_projections(p, x, knobs)
     xi = _causal_conv(xi0, _cast(p, "conv_x", cdt))
     Bi = _causal_conv(Bi0, _cast(p, "conv_B", cdt))
     Ci = _causal_conv(Ci0, _cast(p, "conv_C", cdt))
-    Bb, S = x.shape[:2]
+    gathered = _ssm_gathered(tp)
+    if gathered:
+        xi = all_gather(xi, tp.model_group, dim=-1)
+    Bb, S, d_in = xi.shape
+    H = d_in // s.head_dim  # the rank's heads where they are split (one B/C group)
     xh = xi.reshape(Bb, S, H, s.head_dim)
     dtp = _softplus(dt.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
     y, h = ssd_scan(xh, dtp, A, Bi.reshape(Bb, S, s.n_groups, s.d_state),
                     Ci.reshape(Bb, S, s.n_groups, s.d_state), chunk=s.chunk)
     y = (y + xh.float() * p.D[None, None, :, None]).reshape(Bb, S, d_in)
-    return _gated_out(cfg, p, y, z, knobs), h, {"conv_x": xi0, "conv_B": Bi0, "conv_C": Ci0}
+    if gathered:
+        y = _own_channels(tp, y, z.shape[-1])
+    return (_gated_out(cfg, p, y, z, knobs, tp), h,
+            {"conv_x": xi0, "conv_B": Bi0, "conv_C": Ci0})
 
 
 def ssm_block(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs) -> torch.Tensor:
@@ -1243,17 +1357,18 @@ def ssm_decode_block(
     x: torch.Tensor,  # (B, 1, d)
     cache: dict,  # {"h": (B, H, P, N) fp32, "conv_x": (B, W-1, d_in), "conv_B", "conv_C"}
     knobs,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode token per slot: the conv over the cached last W − 1 inputs
     and the new one, then one step of the state recurrence ``h ← h ·
     exp(dt·A) + dt·x ⊗ B`` and ``y = h·C + D·x``.  The cache entries are
     updated in place (the port's caches are mutable).  Returns ``(y,
     cache)``, y (B, 1, d) without the skip connection.  Unlike attention the
-    state carries time: no position is needed."""
+    state carries time: no position is needed.  On a mesh the rank's
+    channels and heads, as :func:`ssm_forward` splits them (the cache's conv
+    tail holds the rank's channels, its state the heads it steps)."""
     s = cfg.ssm
     cdt = x.dtype
-    d_in = s.expand * cfg.d_model
-    H = d_in // s.head_dim
     Bb = x.shape[0]
     z, xi, Bi, Ci, dt = (t[:, 0] for t in _ssm_projections(p, x, knobs))
 
@@ -1262,7 +1377,13 @@ def ssm_decode_block(
         cache[name].copy_(window[:, 1:])
         return F.silu((window * _cast(p, name, cdt)[None]).sum(1))
 
-    xh = conv_step("conv_x", xi).reshape(Bb, H, s.head_dim).float()
+    xc = conv_step("conv_x", xi)
+    gathered = _ssm_gathered(tp)
+    if gathered:
+        xc = all_gather(xc, tp.model_group, dim=-1)
+    d_in = xc.shape[-1]
+    H = d_in // s.head_dim
+    xh = xc.reshape(Bb, H, s.head_dim).float()
     rep = H // s.n_groups
     Bh = conv_step("conv_B", Bi).reshape(Bb, s.n_groups, s.d_state).float()
     Ch = conv_step("conv_C", Ci).reshape(Bb, s.n_groups, s.d_state).float()
@@ -1271,5 +1392,7 @@ def ssm_decode_block(
     dA = torch.exp(dtp * -torch.exp(p.A_log))
     h = cache["h"] * dA[..., None, None] + torch.einsum("bhp,bhn->bhpn", xh * dtp[..., None], Bh)
     cache["h"].copy_(h)
-    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + xh * p.D[None, :, None]
-    return _gated_out(cfg, p, y.reshape(Bb, d_in), z, knobs)[:, None], cache
+    y = (torch.einsum("bhpn,bhn->bhp", h, Ch) + xh * p.D[None, :, None]).reshape(Bb, d_in)
+    if gathered:
+        y = _own_channels(tp, y, z.shape[-1])
+    return _gated_out(cfg, p, y, z, knobs, tp)[:, None], cache

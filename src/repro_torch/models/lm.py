@@ -23,14 +23,15 @@ The port of ``repro.models.lm``:
   the MoE router's load-balance loss, each decoder layer checkpointed under
   ``knobs.remat``.
 
-On a mesh (``tp``, a ``parallel.tp.TensorParallel``; the dense GQA and MoE
-families) :func:`prefill`, :func:`decode_step` and :func:`init_cache` run
-one rank's part of the model it holds (``launch.steps.wire_serve_cell``
-slices it): the embedding vocab-parallel (a masked lookup, then an
-all-reduce), the head over the rank's vocab columns (then an all-gather, so
-every rank holds all the logits), the cache in the layout its resolved spec
-gives (heads or positions over ``model``, slots over the data axes), and the
-layers as ``models.layers`` splits them.
+On a mesh (``tp``, a ``parallel.tp.TensorParallel``; every family)
+:func:`prefill`, :func:`decode_step` and :func:`init_cache` run one rank's
+part of the model it holds (``launch.steps.wire_serve_cell`` slices it):
+the embedding vocab-parallel (a masked lookup, then an all-reduce), the head
+over the rank's vocab columns (then an all-gather, so every rank holds all
+the logits), the cache in the layout its resolved spec gives (heads or
+positions over ``model``, an SSM state's heads and conv tails' channels,
+slots over the data axes), the encoder over its own split, and each layer as
+``models.layers`` splits it under its segment's view (``tp.layer(i)``).
 
 The model is an :class:`LM` module: the embedding (tied as the head, or an
 ``lm_head`` of its own), learned ``meta`` token rows (hybrid) that precede
@@ -83,6 +84,7 @@ from repro_torch.models.layers import (
     attn_out_proj,
     decode_attention,
     full_attention,
+    local_kv,
     mla_block,
     mla_decode_block,
     mlp_block,
@@ -99,6 +101,9 @@ CONVS = ("xla", "im2col", "pallas_paired")
 REMATS = ("full", "dots", "none")
 #: the SSM block's cache entries: one state a slot, no sequence axis
 SSM_ENTRIES = ("h", "conv_x", "conv_B", "conv_C")
+#: the attention cache's entries, whose positions a prefill fills from 0
+#: (and a mesh may split over ``model``)
+SEQ_ENTRIES = ("k", "v", "c_kv", "k_rope")
 #: what a batch may carry beside its tokens (and labels): an
 #: encoder-decoder model's frame embeddings, a vision-language one's patches
 EXTRAS = ("frames", "patches")
@@ -569,37 +574,19 @@ def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs, t
     return mlp_block(cfg, p.mlp, x, knobs, residual=h, tp=tp), _no_aux(h)
 
 
-#: the layer kinds a mesh serves (GQA attention with a gated MLP or experts)
-MESH_KINDS = ("dense", "moe")
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the mesh path does not
-    serve: the tensor-parallel forward covers the dense GQA and MoE
-    families (no MLA, SSM, hybrid, encoder-decoder or vision prefix)."""
-    other = ("MLA" if cfg.mla is not None else "an SSM block" if cfg.ssm is not None
-             else "an encoder" if cfg.encoder is not None
-             else "a vision prefix" if cfg.vision_prefix else None)
-    if other or any(cfg.layer_kind(i) not in MESH_KINDS for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}{', ' + other if other else ''}) on a mesh: the port "
-            "serves the dense GQA and MoE families tensor-parallel; the rest waits in "
-            "ROADMAP queue 1, item 9")
-
-
 def _no_aux(h: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _mla_with_cache(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions: torch.Tensor,
-                    knobs: PerfKnobs):
+                    knobs: PerfKnobs, tp=None):
     """MLA prefill that also returns its compressed cache entries:
     ``(y, {"c_kv": (B, S, R), "k_rope": (B, S, rope)})``."""
-    y, c_kv, k_rope = mla_block(cfg, p, x, positions, knobs)
+    y, c_kv, k_rope = mla_block(cfg, p, x, positions, knobs, tp=tp)
     return y, {"c_kv": c_kv, "k_rope": k_rope}
 
 
-def _ssm_with_cache(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs: PerfKnobs):
+def _ssm_with_cache(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs: PerfKnobs, tp=None):
     """SSM prefill that also returns the block's decode cache entries: ``(y,
     {"h": (B, H, P, N) fp32, "conv_x"/"conv_B"/"conv_C": (B, W − 1, C)})``.
 
@@ -609,7 +596,7 @@ def _ssm_with_cache(cfg: ModelConfig, p: Mamba, x: torch.Tensor, knobs: PerfKnob
     ``x[:, -(W - 1):]``, which is short for a prompt of fewer than W − 1
     tokens.)
     """
-    y, h, raw = ssm_forward(cfg, p, x, knobs)
+    y, h, raw = ssm_forward(cfg, p, x, knobs, tp)
     W = cfg.ssm.conv_width
     tails = {name: F.pad(t, (0, 0, W - 1, 0))[:, -(W - 1):] for name, t in raw.items()}
     return y, {"h": h, **tails}
@@ -639,39 +626,52 @@ def _cross_kv(p: Attention, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.
     return proj("wk"), proj("wv")
 
 
+def _cross_view(tp):
+    """The view of a layer's cross-attention: its own head splits."""
+    return None if tp is None else dataclasses.replace(tp, q_split=tp.xq_split,
+                                                       kv_split=tp.xkv_split)
+
+
 def _cross_attention(p: Attention, xq: torch.Tensor, enc_out: torch.Tensor, knobs: PerfKnobs,
-                     residual: torch.Tensor | None = None):
+                     residual: torch.Tensor | None = None, tp=None):
     """Cross-attention of ``xq`` (B, S, d) over the encoder output:
     ``(residual + wo(attention), xk, xv)``, the attention every query
     against every frame (:func:`~repro_torch.models.layers.full_attention`,
     K3 under ``attn="pallas_fused"``), the skip connection fused into the
-    out-projection; ``xk``/``xv`` fill the decode cache."""
+    out-projection; ``xk``/``xv`` fill the decode cache.  On a mesh the
+    rank's query heads read the KV heads its ``wk``/``wv`` slices make
+    (the ones its cross cache holds), and wo is row-parallel."""
+    xtp = _cross_view(tp)
     xk, xv = _cross_kv(p, enc_out)
-    out = full_attention(_xattn_q(p, xq, knobs), xk, xv, knobs)
-    return attn_out_proj(p, out, knobs, residual=residual), xk, xv
+    out = full_attention(_xattn_q(p, xq, knobs), *local_kv(xtp, xk, xv), knobs)
+    return attn_out_proj(p, out, knobs, residual=residual, tp=xtp), xk, xv
 
 
-def _encoder_layer(cfg: ModelConfig, p: DecoderLayer, knobs: PerfKnobs, h: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(cfg: ModelConfig, p: DecoderLayer, knobs: PerfKnobs, tp,
+                   h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """One encoder layer: non-causal self-attention (no qkv bias, no
-    qk-norm), then the MLP, each added to ``h`` after it."""
-    a, _, _ = attention_block(cfg, p.attn, p.ln1(h), positions, knobs, causal=False)
+    qk-norm), then the MLP, each added to ``h`` after it (on a mesh each
+    all-reduced first: wo and w_down are row-parallel)."""
+    a, _, _ = attention_block(cfg, p.attn, p.ln1(h), positions, knobs, causal=False, tp=tp)
     h = h + a
-    return h + mlp_block(cfg, p.mlp, p.ln2(h), knobs)
+    return h + mlp_block(cfg, p.mlp, p.ln2(h), knobs, tp=tp)
 
 
 def encoder_fwd(cfg: ModelConfig, enc: Encoder, frames: torch.Tensor,
-                knobs: PerfKnobs = DEFAULT_KNOBS, *, train: bool = False) -> torch.Tensor:
+                knobs: PerfKnobs = DEFAULT_KNOBS, *, train: bool = False,
+                tp=None) -> torch.Tensor:
     """The audio encoder over ``frames`` (B, F, d), precomputed frame
     embeddings in the compute dtype (the conv front end is a stub): the
     sinusoid added, the layers, the final norm → (B, F, d).  With ``train``
-    each layer runs under :func:`_remat`, as the JAX package's scan does."""
+    each layer runs under :func:`_remat`, as the JAX package's scan does.
+    On a mesh (``tp``, the encoder's view) every rank runs it over its
+    heads and hidden columns, and every rank ends with the whole output."""
     B, n = frames.shape[:2]
     positions = torch.arange(n, device=frames.device).expand(B, n)
     h = frames + _sinusoid(positions, cfg.d_model).to(frames.dtype)
     ecfg = dataclasses.replace(cfg, qkv_bias=False, qk_norm=False)
     for layer in enc.layers:
-        step = functools.partial(_encoder_layer, ecfg, layer, knobs)
+        step = functools.partial(_encoder_layer, ecfg, layer, knobs, tp)
         h = (_remat(step, knobs) if train else step)(h, positions)
     return enc.final_norm(h)
 
@@ -685,38 +685,36 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
     "conv_B", "conv_C"}`` (a hybrid layer's beside its K/V); an
     encoder-decoder layer's cross-attention keys and values over
     ``enc_out``, ``{"xk", "xv"}`` (B, F, KH, hd), beside its K/V; the MoE
-    load-balance loss (fp32 scalar, 0 without experts).  On a mesh
-    (``tp``: dense and MoE layers) the rank's part of it."""
+    load-balance loss (fp32 scalar, 0 without experts).  On a mesh (``tp``,
+    the layer's view) the rank's part of it: the K/V, latent and SSM entries
+    in the layout the rank's cache holds, over all positions."""
     x = p.ln1(h)
-    if tp is not None:
-        h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
-                                  window=_window_for(cfg, kind), residual=h, tp=tp)
-        h, aux = _ffn(cfg, p, h, knobs, tp)
-        return h, {"k": k, "v": v}, aux
     if kind == "ssm":
-        y, c = _ssm_with_cache(cfg, p.mamba, x, knobs)
+        y, c = _ssm_with_cache(cfg, p.mamba, x, knobs, tp)
         return h + y, c, _no_aux(h)
     if kind in ("hybrid_full", "hybrid_swa"):
         # attention (windowed on hybrid_swa, the meta tokens its sinks) beside
-        # the SSM block; no skip connection rides the out-projection here
+        # the SSM block; no skip connection rides the out-projection here:
+        # each branch is normed whole (a mesh's row-parallel sums closed first)
         a, k, v = attention_block(cfg, p.attn, x, positions, knobs,
-                                  window=_window_for(cfg, kind), n_sink=cfg.meta_tokens)
-        m, c = _ssm_with_cache(cfg, p.mamba, x, knobs)
-        h, aux = _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs)
+                                  window=_window_for(cfg, kind), n_sink=cfg.meta_tokens, tp=tp)
+        m, c = _ssm_with_cache(cfg, p.mamba, x, knobs, tp)
+        h, aux = _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs, tp)
         return h, {"k": k, "v": v, **c}, aux
     if cfg.mla is not None:
         # the JAX package adds MLA's output after its out-projection
-        y, c = _mla_with_cache(cfg, p.attn, x, positions, knobs)
-        h, aux = _ffn(cfg, p, h + y, knobs)
+        y, c = _mla_with_cache(cfg, p.attn, x, positions, knobs, tp)
+        h, aux = _ffn(cfg, p, h + y, knobs, tp)
         return h, c, aux
     # the skip connections ride the out- and down-projections (fused into
     # the paired kernel's epilogue under gemm="pallas_paired")
     h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
-                              window=_window_for(cfg, kind), residual=h)
+                              window=_window_for(cfg, kind), residual=h, tp=tp)
     c = {"k": k, "v": v}
     if kind == "encdec":
-        h, c["xk"], c["xv"] = _cross_attention(p.xattn, p.lnx(h), enc_out, knobs, residual=h)
-    h, aux = _ffn(cfg, p, h, knobs)
+        h, c["xk"], c["xv"] = _cross_attention(p.xattn, p.lnx(h), enc_out, knobs, residual=h,
+                                               tp=tp)
+    h, aux = _ffn(cfg, p, h, knobs, tp)
     return h, c, aux
 
 
@@ -738,7 +736,7 @@ def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: d
     cdt = compute_dtype(cfg)
     h = embed_tokens(cfg, model, tokens, cdt, tp)
     B = tokens.shape[0]
-    if cfg.vision_prefix:
+    if cfg.vision_prefix:  # vision_proj is whole on every rank of a mesh
         proj = model.derived(("vision_proj", cdt), lambda: model.vision_proj.to(cdt))
         pe = torch.matmul(_extra(cfg, extras, "patches").to(cdt), proj)
         h = torch.cat([pe, h[:, cfg.vision_prefix:]], dim=1)
@@ -751,7 +749,7 @@ def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: d
     if cfg.encoder is not None:
         h = h + _sinusoid(positions, cfg.d_model).to(cdt)
         enc_out = encoder_fwd(cfg, model.encoder, _extra(cfg, extras, "frames").to(cdt), knobs,
-                              train=train)
+                              train=train, tp=None if tp is None else tp.encoder_view())
     return h, positions, enc_out
 
 
@@ -786,17 +784,20 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *,
     JAX package's ``prefill`` runs it a second time for the cross keys and
     values (the same ones).
 
-    On a mesh (``tp``) every rank runs the prompt (the same tokens on every
-    data row) through its shards; the head runs on the last position alone
-    (the logits of the others are never read), and the cache entries are
-    the K/V heads the rank's cache holds, over all ``S`` positions (the
-    engine keeps the rank's own positions of a sequence-sharded cache)."""
+    On a mesh (``tp``) every rank runs the prompt (the same tokens and
+    extras on every data row) through its shards, the encoder's too; the
+    head runs on the last position alone (the logits of the others are never
+    read), and the cache entries are in the layout the rank's cache holds
+    (its heads, channels, and all of a state's heads where they are whole),
+    over all ``meta_tokens + S`` positions (the engine keeps the rank's own
+    positions of a sequence-sharded cache)."""
     if tp is not None:
         tp = dataclasses.replace(tp, batch_split=False)  # every data row runs the prompt
-        h, positions, _ = _prepare_inputs(cfg, model, tokens, extras, knobs, tp=tp)
+        h, positions, enc_out = _prepare_inputs(cfg, model, tokens, extras, knobs, tp=tp)
         entries = []
         for i, layer in enumerate(model.layers):
-            h, c, _ = layer_fwd(cfg, cfg.layer_kind(i), layer, h, positions, knobs, tp=tp)
+            h, c, _ = layer_fwd(cfg, cfg.layer_kind(i), layer, h, positions, knobs,
+                                enc_out=enc_out, tp=tp.layer(i))
             entries.append(c)
         cache = {name: torch.stack([c[name] for c in entries]) for name in entries[0]}
         return lm_logits(cfg, model, h[:, -1:], tp), cache
@@ -951,18 +952,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None,
     encoder-decoder model's cross-attention keys and values ``"xk"``/``"xv"``
     (L, B, F, KH, hd) cover all F frames.
 
-    On a mesh (``tp``) the rank's part of the K/V cache, as its resolved
-    spec splits it: ``B / dp`` slots where the batch is split over the data
-    axes, ``S / n`` positions where it is sequence-sharded, ``KH / n`` heads
-    where the heads are split."""
+    On a mesh (``tp``) the rank's part of every entry, as its resolved spec
+    splits it (``TensorParallel.cache_specs``): ``B / dp`` slots where the
+    batch is split over the data axes, ``S / n`` positions where the
+    attention cache is sequence-sharded, ``KH / n`` heads where the (cross)
+    heads are split, the SSM state's heads and the conv tail's channels
+    where they are."""
     L, dev = (cfg.n_layers, batch_size), resolve_device(device)
     cdt, S = compute_dtype(cfg), max_seq + cfg.meta_tokens
-    if tp is not None:
-        B = batch_size // tp.dp if tp.batch_split else batch_size
-        S = S // tp.n if tp.cache_seq else S
-        KH = cfg.n_kv_heads // tp.n if tp.kv_split else cfg.n_kv_heads
-        return {name: torch.zeros((cfg.n_layers, B, S, KH, cfg.head_dim), dtype=cdt, device=dev)
-                for name in ("k", "v")}
     shapes = {}
     if cfg.family != "ssm":
         if cfg.mla is not None:
@@ -972,15 +969,19 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *, device=None,
     if cfg.encoder is not None:
         shapes.update({name: (*L, cfg.encoder.frames, cfg.n_kv_heads, cfg.head_dim)
                        for name in ("xk", "xv")})
-    cache = {name: torch.zeros(shape, dtype=cdt, device=dev) for name, shape in shapes.items()}
+    dtypes = dict.fromkeys(shapes, cdt)
     if cfg.ssm is not None:
         s = cfg.ssm
         d_in, GN, W = s.expand * cfg.d_model, s.n_groups * s.d_state, s.conv_width
-        cache["h"] = torch.zeros((*L, d_in // s.head_dim, s.head_dim, s.d_state),
-                                 dtype=torch.float32, device=dev)
+        shapes["h"] = (*L, d_in // s.head_dim, s.head_dim, s.d_state)
+        dtypes["h"] = torch.float32
         for name, width in (("conv_x", d_in), ("conv_B", GN), ("conv_C", GN)):
-            cache[name] = torch.zeros((*L, W - 1, width), dtype=cdt, device=dev)
-    return cache
+            shapes[name], dtypes[name] = (*L, W - 1, width), cdt
+    if tp is not None:  # the rank's part: each dim (past the layers) as its spec splits it
+        shapes = {name: (shape[0], *(tp.local_dim(name, d, n) for d, n in enumerate(shape[1:])))
+                  for name, shape in shapes.items()}
+    return {name: torch.zeros(shape, dtype=dtypes[name], device=dev)
+            for name, shape in shapes.items()}
 
 
 def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
@@ -989,33 +990,31 @@ def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
     """One decoder layer for one token per slot; ``c`` (this layer's cache
     entries, (B, …)) is written in place: attention entries at ``pos`` (the
     absolute position, meta tokens included), the SSM state whole.  On a
-    mesh (``tp``: dense and MoE layers) the rank's part of it."""
+    mesh (``tp``, the layer's view) the rank's part of it."""
     x = p.ln1(h)
-    if tp is not None:
-        h, c = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
-                                      window=_window_for(cfg, kind), residual=h, tp=tp)
-        return _ffn(cfg, p, h, knobs, tp)[0], c
     if kind == "ssm":
-        y, c = ssm_decode_block(cfg, p.mamba, x, c, knobs)
+        y, c = ssm_decode_block(cfg, p.mamba, x, c, knobs, tp)
         return h + y, c
     if kind in ("hybrid_full", "hybrid_swa"):
         a, _ = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
-                                      window=_window_for(cfg, kind), n_sink=cfg.meta_tokens)
-        m, _ = ssm_decode_block(cfg, p.mamba, x, c, knobs)
-        return _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs)[0], c
+                                      window=_window_for(cfg, kind), n_sink=cfg.meta_tokens,
+                                      tp=tp)
+        m, _ = ssm_decode_block(cfg, p.mamba, x, c, knobs, tp)
+        return _ffn(cfg, p, h + _hybrid_mix(p, a, m), knobs, tp)[0], c
     if cfg.mla is not None:
-        y, c = mla_decode_block(cfg, p.attn, x, c, pos, knobs)
-        return _ffn(cfg, p, h + y, knobs)[0], c
+        y, c = mla_decode_block(cfg, p.attn, x, c, pos, knobs, tp)
+        return _ffn(cfg, p, h + y, knobs, tp)[0], c
     h, c = attention_decode_block(cfg, p.attn, x, c, pos, knobs,
-                                  window=_window_for(cfg, kind), residual=h)
+                                  window=_window_for(cfg, kind), residual=h, tp=tp)
     if kind == "encdec":
         # every frame attended (plain, as in the JAX package); wq and wo
         # through dense, the skip connection fused into wo
+        xtp = _cross_view(tp)
         q = _xattn_q(p.xattn, p.lnx(h), knobs)
         frames = torch.full_like(pos, c["xk"].shape[1] - 1)
-        h = attn_out_proj(p.xattn, decode_attention(q, c["xk"], c["xv"], frames), knobs,
-                          residual=h)
-    return _ffn(cfg, p, h, knobs)[0], c
+        h = attn_out_proj(p.xattn, decode_attention(q, *local_kv(xtp, c["xk"], c["xv"]), frames),
+                          knobs, residual=h, tp=xtp)
+    return _ffn(cfg, p, h, knobs, tp)[0], c
 
 
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
@@ -1033,25 +1032,20 @@ def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
     against its cache, and the logits of all slots are all-gathered over the
     data axes, so every rank returns (B, 1, Vp).
     """
-    if tp is not None:
-        if tp.batch_split:
-            B_loc = tokens.shape[0] // tp.dp
-            rows = slice(tp.dr * B_loc, (tp.dr + 1) * B_loc)
-            tokens, pos = tokens[rows], pos[rows]
-        h = embed_tokens(cfg, model, tokens, compute_dtype(cfg), tp)
-        for i, layer in enumerate(model.layers):
-            c = {name: t[i] for name, t in cache.items()}
-            h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos, knobs, tp)
-        logits = lm_logits(cfg, model, h, tp)
-        if tp.batch_split:
-            logits = all_gather(logits, tp.data_group, dim=0)
-        return logits, cache
+    if tp is not None and tp.batch_split:
+        B_loc = tokens.shape[0] // tp.dp
+        rows = slice(tp.dr * B_loc, (tp.dr + 1) * B_loc)
+        tokens, pos = tokens[rows], pos[rows]
     cdt = compute_dtype(cfg)
-    h = embed_tokens(cfg, model, tokens, cdt)
+    h = embed_tokens(cfg, model, tokens, cdt, tp)
     pos_abs = pos + cfg.meta_tokens if cfg.meta_tokens else pos
     if cfg.encoder is not None:
         h = h + _sinusoid(pos_abs[:, None], cfg.d_model).to(cdt)
     for i, layer in enumerate(model.layers):
         c: dict[str, Any] = {name: t[i] for name, t in cache.items()}
-        h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos_abs, knobs)
-    return lm_logits(cfg, model, h), cache
+        h, _ = layer_decode(cfg, cfg.layer_kind(i), layer, c, h, pos_abs, knobs,
+                            None if tp is None else tp.layer(i))
+    logits = lm_logits(cfg, model, h, tp)
+    if tp is not None and tp.batch_split:
+        logits = all_gather(logits, tp.data_group, dim=0)
+    return logits, cache

@@ -3,33 +3,56 @@
 The JAX package's partitioner reads the resolved specs and rewrites the
 program; the port's forward reads a :class:`TensorParallel`, made once from
 the same specs (:func:`layout_for`), and closes each split with a
-collective (``models.layers`` and ``models.lm``):
+collective (``models.layers`` and ``models.lm``).  The model-wide splits:
 
 * ``vocab_split`` — the embedding's rows and the head's columns over
   ``model``: a masked lookup and an all-reduce; local logits and an
   all-gather;
-* ``q_split`` — the query heads over ``model`` (wq, its bias, and wo's rows):
-  wo's partial sums all-reduced in fp32;
-* ``kv_split`` — the KV heads too (wk, wv, their biases, the cache's heads);
-  where they are not, a rank's q heads read the global KV heads ``h // G``;
-* ``cache_seq`` — the cache's positions over ``model`` (where its heads do
-  not claim the axis): each rank attends its keys, the partial softmaxes
-  are gathered and merged in fp32;
-* ``ff_split`` / ``experts_split`` — the MLP's hidden columns (w_down's
-  rows) or the experts over ``model``, closed by one all-reduce;
 * ``batch_split`` — the decode slots over data axes of more than one rank:
   each data row decodes its slots, and the logits are gathered over the
-  data axes.
+  data axes;
+* ``cache_seq`` — the attention cache's positions (GQA's K/V, MLA's latent
+  ``c_kv``/``k_rope``) over ``model`` (where no head axis claims it first):
+  each rank attends its keys, the partial softmaxes are gathered and merged
+  in fp32.
+
+And each segment of layers' own (:meth:`TensorParallel.layer`; the
+encoder's under :meth:`TensorParallel.encoder_view`), since a segment's
+blocks resolve alike and segments differ (deepseek's dense first layer, its
+MoE layers):
+
+* ``q_split`` — the query heads over ``model`` (wq, its bias, MLA's
+  ``w_uk``/``w_uv``, and wo's rows): wo's partial sums all-reduced in fp32;
+* ``kv_split`` — the KV heads too (wk, wv, their biases, the cache's heads);
+  where they are not, a rank's q heads read the global KV heads ``h // G``;
+* ``xq_split`` / ``xkv_split`` — the same of the cross-attention (the
+  cross cache ``xk``/``xv`` split with its KV heads);
+* ``ff_split`` — the MLP's hidden columns (w_down's rows);
+* ``experts_split`` / ``router_split`` / ``shared_split`` — the routed
+  experts, the router's expert columns (its logits all-gathered) and the
+  shared experts' hidden columns over ``model``; one all-reduce closes the
+  routed and the shared partial sums together;
+* ``ssm_in_split`` / ``ssm_heads_split`` — an SSM block's channels (w_z,
+  w_x, conv_x, the gated norm, w_out's rows; the conv tail's channels) and
+  its heads (w_dt, A_log, D, dt_bias; the state's heads).  Where both split
+  a rank's channels are its heads'; where only the channels do (hymba's 50
+  heads on 4 ranks), the conv'd channels are all-gathered and every rank
+  steps all heads.  The gated norm's statistic is all-reduced either way.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import cache_axes_and_shapes, param_axes_and_shapes
 from repro_torch.parallel.sharding import DATA_AXES, Mesh, Rules, shardings_for
 
 MODEL_AXIS = "model"
+
+#: the splits a segment of layers sets for itself (:meth:`TensorParallel.layer`)
+LAYER_SPLITS = ("q_split", "kv_split", "xq_split", "xkv_split", "ff_split", "experts_split",
+                "router_split", "shared_split", "ssm_in_split", "ssm_heads_split")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +67,18 @@ class TensorParallel:
     ff_split: bool
     experts_split: bool
     batch_split: bool
+    xq_split: bool = False
+    xkv_split: bool = False
+    router_split: bool = False
+    shared_split: bool = False
+    ssm_in_split: bool = False
+    ssm_heads_split: bool = False
+    #: ((layer count, ((split, bool), …)), …) a segment of the decoder
+    segment_splits: tuple = ()
+    #: the encoder's ((split, bool), …), or None
+    encoder_splits: tuple | None = None
+    #: ((cache entry, its spec without the layers dim), …): the rank's cache
+    cache_specs: tuple = ()
 
     @property
     def model_group(self):
@@ -85,20 +120,161 @@ class TensorParallel:
         per = self.n_heads // self.n
         return self.r * per, per
 
+    @functools.cached_property
+    def _layer_views(self) -> tuple[TensorParallel, ...]:
+        return tuple(view for count, splits in self.segment_splits
+                     for view in [dataclasses.replace(self, **dict(splits))] * count)
+
+    def layer(self, i: int) -> TensorParallel:
+        """The view of decoder layer ``i``: its segment's splits."""
+        return self._layer_views[i]
+
+    def encoder_view(self) -> TensorParallel:
+        """The view of the encoder's layers."""
+        if self.encoder_splits is None:
+            raise ValueError("the layout has no encoder")
+        return dataclasses.replace(self, **dict(self.encoder_splits))
+
+    def local_dim(self, name: str, dim: int, size: int) -> int:
+        """The rank's length of dim ``dim`` (without the layers dim) of cache
+        entry ``name`` whose whole length is ``size``."""
+        entry = dict(self.cache_specs)[name][dim]
+        return size // self.mesh.axis_size(entry) if entry is not None else size
+
 
 def _on(spec, dim: int) -> bool:
     return spec[dim] is not None
+
+
+def _refuse(cfg: ModelConfig, what: str) -> None:
+    raise NotImplementedError(f"{cfg.name}: {what}; the port's tensor-parallel forward does "
+                              "not close that split")
+
+
+def _same(cfg: ModelConfig, block: dict, dims: dict[str, int], path: str) -> bool:
+    """Whether the leaves ``dims`` (name → the dim of the split axis in the
+    stacked spec) of ``block`` are all split or all whole; raises where they
+    disagree (a split the forward cannot close)."""
+    got = {name: _on(block[name], d) for name, d in dims.items() if name in block}
+    if len(set(got.values())) > 1:
+        _refuse(cfg, f"{path} splits {sorted(k for k, v in got.items() if v)} but not "
+                     f"{sorted(k for k, v in got.items() if not v)}")
+    return next(iter(got.values()), False)
+
+
+def _whole(cfg: ModelConfig, block: dict, names, path: str) -> None:
+    for name in names:
+        spec = block.get(name)
+        if spec is not None and any(e is not None for e in spec):
+            _refuse(cfg, f"{path}.{name} is split {tuple(spec)}")
+
+
+def _segment_splits(cfg: ModelConfig, seg: dict, path: str) -> dict[str, bool]:
+    """One segment's splits from its resolved (stacked) specs."""
+    out = dict.fromkeys(LAYER_SPLITS, False)
+    attn = seg.get("attn")
+    if attn is not None:
+        if "w_dkv" in attn:  # MLA: the heads of wq, w_uk, w_uv and wo together
+            out["q_split"] = _same(cfg, attn, {"wq": 2, "w_uk": 2, "w_uv": 2, "wo": 1},
+                                   f"{path}.attn")
+            _whole(cfg, attn, ("w_dkv", "w_kr", "kv_norm"), f"{path}.attn")
+            if _on(attn["wq"], 3) or _on(attn["w_uk"], 1) or _on(attn["w_uv"], 3):
+                _refuse(cfg, f"{path}.attn splits a head_dim or the latent rank")
+        else:
+            out["q_split"] = _same(cfg, attn, {"wq": 2, "bq": 1, "wo": 1}, f"{path}.attn")
+            out["kv_split"] = _same(cfg, attn, {"wk": 2, "wv": 2, "bk": 1, "bv": 1},
+                                    f"{path}.attn")
+            if any(_on(attn[n], d) for n, d in (("wq", 3), ("wk", 3), ("wo", 2))):
+                _refuse(cfg, f"{path}.attn splits a head_dim")
+            if out["kv_split"] and not out["q_split"]:
+                _refuse(cfg, f"{path}.attn splits its KV heads but not its query heads")
+        _whole(cfg, attn, ("q_norm", "k_norm"), f"{path}.attn")
+    xattn = seg.get("xattn")
+    if xattn is not None:
+        out["xq_split"] = _same(cfg, xattn, {"wq": 2, "wo": 1}, f"{path}.xattn")
+        out["xkv_split"] = _same(cfg, xattn, {"wk": 2, "wv": 2}, f"{path}.xattn")
+        if out["xkv_split"] and not out["xq_split"]:
+            _refuse(cfg, f"{path}.xattn splits its KV heads but not its query heads")
+    if "mlp" in seg:
+        out["ff_split"] = _same(cfg, seg["mlp"], {"w_gate": 2, "w_up": 2, "w_down": 1},
+                                f"{path}.mlp")
+    moe = seg.get("moe")
+    if moe is not None:
+        out["experts_split"] = _same(cfg, moe, {"w_gate": 1, "w_up": 1, "w_down": 1},
+                                     f"{path}.moe")
+        out["router_split"] = _on(moe["router"], 2)
+        if any(_on(moe[n], d) for n, d in (("w_gate", 3), ("w_up", 3), ("w_down", 2))):
+            _refuse(cfg, f"{path}.moe splits an expert's hidden columns")
+        if "shared" in moe:
+            out["shared_split"] = _same(cfg, moe["shared"], {"w_gate": 2, "w_up": 2,
+                                                             "w_down": 1}, f"{path}.moe.shared")
+    mamba = seg.get("mamba")
+    if mamba is not None:
+        out["ssm_in_split"] = _same(cfg, mamba, {"w_z": 2, "w_x": 2, "conv_x": 2, "norm": 1,
+                                                 "w_out": 1}, f"{path}.mamba")
+        out["ssm_heads_split"] = _same(cfg, mamba, {"w_dt": 2, "A_log": 1, "D": 1,
+                                                    "dt_bias": 1}, f"{path}.mamba")
+        _whole(cfg, mamba, ("w_B", "w_C", "conv_B", "conv_C"), f"{path}.mamba")
+        if out["ssm_heads_split"] and not out["ssm_in_split"]:
+            _refuse(cfg, f"{path}.mamba splits its heads but not their channels")
+        if out["ssm_heads_split"] and cfg.ssm.n_groups > 1:
+            _refuse(cfg, f"{path}.mamba splits the heads of {cfg.ssm.n_groups} B/C groups")
+    for block in ("ln1", "ln2", "lnx", "ln_attn_out", "ln_ssm_out"):
+        if block in seg:
+            _whole(cfg, seg[block], ("scale", "bias"), f"{path}.{block}")
+    return out
+
+
+def _cache_splits(cfg: ModelConfig, c_seg: dict, splits: dict[str, bool], path: str
+                  ) -> tuple[bool, dict]:
+    """A cache segment's position split and its entries' specs (without the
+    layers dim), checked against the segment's weight splits: the cache
+    holds what the rank's projections write."""
+    specs = {name: tuple(spec[1:]) for name, spec in c_seg.items()}
+    seq = None
+    for name in ("k", "v", "c_kv", "k_rope"):
+        if name not in specs:
+            continue
+        spec = specs[name]  # (batch, cache_seq, kv_heads, head_dim) or (batch, cache_seq, R)
+        if any(e is not None for e in spec[3 if name in ("k", "v") else 2:]):
+            _refuse(cfg, f"{path}.{name} splits its {'head_dim' if name in ('k', 'v') else 'width'}"
+                         f" {spec}")
+        if name in ("k", "v") and _on(spec, 2) != splits["kv_split"]:
+            _refuse(cfg, f"the cache split {spec} of {path}.{name} that its KV projections' do "
+                         "not match")
+        seq = _on(spec, 1) if seq is None else seq
+        if _on(spec, 1) != seq:
+            _refuse(cfg, f"{path}: the attention cache's entries split their positions unlike")
+    for name in ("xk", "xv"):
+        if name in specs:
+            spec = specs[name]  # (batch, frames, kv_heads, head_dim)
+            if _on(spec, 1) or _on(spec, 3) or _on(spec, 2) != splits["xkv_split"]:
+                _refuse(cfg, f"the cross cache split {spec} of {path}.{name} that its KV "
+                             "projections' do not match")
+    if "h" in specs:  # (batch, ssm_heads, head_dim, ssm_state)
+        if _on(specs["h"], 2) or _on(specs["h"], 3) or (
+                _on(specs["h"], 1) != splits["ssm_heads_split"]):
+            _refuse(cfg, f"the SSM state split {specs['h']} of {path} that its heads' do not "
+                         "match")
+        if _on(specs["conv_x"], 1) or _on(specs["conv_x"], 2) != splits["ssm_in_split"]:
+            _refuse(cfg, f"the conv tail split {specs['conv_x']} of {path} that its channels' "
+                         "do not match")
+        for name in ("conv_B", "conv_C"):
+            if any(e is not None for e in specs[name][1:]):
+                _refuse(cfg, f"{path}.{name} is split {specs[name]}")
+    return bool(seq), specs
 
 
 def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
                max_seq: int) -> TensorParallel:
     """The :class:`TensorParallel` of ``cfg`` served on ``mesh`` under
     ``rules`` with ``batch_size`` slots of ``max_seq`` positions, read from
-    the resolved specs of the first layer's weights and cache (every layer
-    of a dense or MoE model resolves alike).  Raises ``NotImplementedError``
-    where the specs ask for a split the port's forward does not close: a
-    weight over a data axis (FSDP), a head_dim, a cache entry other than
-    GQA's K/V."""
+    the resolved specs of every segment's weights and cache entries, and of
+    the encoder's weights.  Raises ``NotImplementedError`` where the specs
+    ask for a split the port's forward does not close (and names it): a
+    weight over a data axis (FSDP), a head_dim, half of a block's leaves
+    split and half whole, a cache entry split unlike the projection that
+    writes it."""
     axes, shapes = param_axes_and_shapes(cfg)
     specs = shardings_for(axes, mesh, rules, shapes)
     c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
@@ -121,19 +297,36 @@ def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
             f"{cfg.name}: the rules shard weights over {sorted(map(str, off_model))} "
             "(FSDP); the port's tensor-parallel forward splits weights over 'model' only "
             "(ROADMAP queue 1, item 9)")
-    seg, cseg = specs["segments"][0], c_specs["segments"][0]
-    attn = seg["attn"]
-    k_spec = cseg["k"]  # (layers, batch, cache_seq, kv_heads, head_dim)
-    if _on(k_spec, 4) or _on(k_spec, 3) != _on(attn["wk"], 2):
-        raise NotImplementedError(f"{cfg.name}: a cache split {tuple(k_spec)} that its "
-                                  f"KV projections' {tuple(attn['wk'])} do not match")
-    ffn = seg.get("mlp") or seg.get("moe")
+    _whole(cfg, specs["final_norm"], ("scale", "bias"), "final_norm")
+    for name in ("meta", "vision_proj"):
+        if name in specs and any(e is not None for e in specs[name]):
+            _refuse(cfg, f"{name} is split {tuple(specs[name])}")
+    seg_splits, seqs, cache_specs = [], set(), {}
+    for si, ((_, count), seg, cseg) in enumerate(zip(
+            cfg.segments(), specs["segments"], c_specs["segments"], strict=True)):
+        splits = _segment_splits(cfg, seg, f"segments[{si}]")
+        seq, entry_specs = _cache_splits(cfg, cseg, splits, f"cache segments[{si}]")
+        if any(n in cseg for n in ("k", "c_kv")):
+            seqs.add(seq)
+        for name, spec in entry_specs.items():
+            if cache_specs.setdefault(name, spec) != spec:
+                _refuse(cfg, f"cache entry {name} splits unlike in two segments")
+        seg_splits.append((count, tuple(splits.items())))
+    if len(seqs) > 1:
+        _refuse(cfg, "the attention cache splits its positions in some segments only")
+    enc = None
+    if "encoder" in specs:
+        _whole(cfg, specs["encoder"]["final_norm"], ("scale", "bias"), "encoder.final_norm")
+        enc = tuple(_segment_splits(cfg, specs["encoder"]["segments"][0],
+                                    "encoder.segments[0]").items())
+    batch = {s[0] for s in cache_specs.values()}
+    if len(batch) > 1:
+        _refuse(cfg, "the cache entries split their slots unlike")
+    b = next(iter(batch), None)
+    first = dict(seg_splits[0][1])
     return TensorParallel(
         mesh=mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        vocab_split=_on(specs["embed"], 0),
-        q_split=_on(attn["wq"], 2), kv_split=_on(attn["wk"], 2),
-        cache_seq=_on(k_spec, 2),
-        ff_split="mlp" in seg and _on(ffn["w_gate"], 2),
-        experts_split="moe" in seg and _on(ffn["w_gate"], 1),
-        batch_split=_on(k_spec, 1) and mesh.axis_size(k_spec[1]) > 1,
-    )
+        vocab_split=_on(specs["embed"], 0), cache_seq=bool(seqs and seqs.pop()),
+        batch_split=b is not None and mesh.axis_size(b) > 1,
+        segment_splits=tuple(seg_splits), encoder_splits=enc,
+        cache_specs=tuple(cache_specs.items()), **first)

@@ -120,12 +120,12 @@ class ServeEngine:
                                        for k, v in (extras or {}).items()}}
         last_logits, cache = self._prefill(self.model, batch)
         # splice this request's cache into the slot: an SSM entry (L, 1, …)
-        # whole, an attention entry (L, 1, meta_tokens + plen, …) over its
-        # positions, a cross-attention one (L, 1, frames, …) over all frames
+        # and a cross-attention one (L, 1, frames, …) whole, an attention
+        # entry (L, 1, meta_tokens + plen, …) over its positions
         local, lo = self._local_slot(slot)
         for name, dst in self.cache.items() if local is not None else ():
             src = cache[name][:, 0].to(dst.dtype)
-            if name in M.SSM_ENTRIES:
+            if name not in M.SEQ_ENTRIES:
                 dst[:, local] = src
             else:  # a sequence-sharded cache keeps its own positions [lo, lo + S')
                 src = src[:, lo:lo + dst.shape[2]]
@@ -165,7 +165,8 @@ class ServeEngine:
         tp = self.tp
         if tp is None:
             return slot, 0
-        lo = tp.r * next(iter(self.cache.values())).shape[2] if tp.cache_seq else 0
+        seq = [t for name, t in self.cache.items() if name in M.SEQ_ENTRIES]
+        lo = tp.r * seq[0].shape[2] if tp.cache_seq else 0
         if not tp.batch_split:
             return slot, lo
         per = self.batch_size // tp.dp

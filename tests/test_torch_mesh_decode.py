@@ -24,7 +24,7 @@ through the spawn's results.
 * collectives a decode step and a prefill make, equal to
   ``analysis.mesh_decode_collectives`` / ``mesh_prefill_collectives``; K1
   calls a decode step equal to ``analysis.decode_launches`` over the layers.
-* ``attn="pallas_fused"``, MLA and SSM configs on a mesh raise.
+* ``attn="pallas_fused"`` on a mesh raises; the other five families wire.
 """
 import dataclasses
 import functools
@@ -43,7 +43,7 @@ from repro.parallel.sharding import activate as jax_activate
 from repro.parallel.sharding import make_mesh_compat
 from repro.serving.engine import ServeEngine as JaxEngine
 from repro_torch import analysis
-from repro_torch.benchmarks.mesh_decode import knobs_for, serve_many
+from repro_torch.benchmarks.mesh_decode import assemble_folded, knobs_for, serve_many
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import spawn
 from repro_torch.models import lm as M
@@ -178,25 +178,11 @@ def test_layouts_split_what_the_rules_say(ranks, shape):
     assert tp["batch_split"] == (shape[0] > 1)  # a data axis of one rank splits nothing
 
 
-def _assemble(cfg, model, ranks_folded, shape):
-    """The whole model with every paired weight replaced by the ranks'
-    folded blocks, placed where each block sits."""
-    folded = M.init_lm(cfg, 0, device="cpu")
-    M.load_lm_values(folded, M.lm_value_tree(model))
-    with torch.no_grad():
-        for blocks in ranks_folded:
-            for (l, sub, name), (starts, block) in blocks.items():
-                w = getattr(getattr(folded.layers[l], sub), name)
-                idx = tuple(slice(s, s + n) for s, n in zip(starts, block.shape))
-                w[idx] = torch.as_tensor(block, dtype=w.dtype)
-    return folded
-
-
 @pytest.mark.parametrize("shape", MESHES)
 def test_qwen2_r005_equals_the_folded_dense_oracle(ranks, shape):
     jcfg, cfg = _cfg("qwen2-1.5b")
     model = M.lm_params_from_numpy(_values("qwen2-1.5b"), cfg, device="cpu")
-    oracle = _assemble(cfg, model, [rec["qwen2_r05"]["folded"] for rec in ranks[shape]], shape)
+    oracle = assemble_folded(cfg, model, [rec["qwen2_r05"]["folded"] for rec in ranks[shape]])
     batch = 4 if shape[0] > 1 else 3
     eng = ServeEngine(cfg, oracle, max_seq=MAX_SEQ, batch_size=batch,
                       knobs=M.PerfKnobs(q_chunk=16, k_chunk=16, remat="none"))
@@ -278,6 +264,10 @@ def test_collectives_and_k1_calls_equal_the_analysis(ranks, shape):
 
 
 def test_mesh_refuses_fused_attention_and_other_families():
+    """The fused decode attention stays refused on a mesh; the other five
+    families (MLA with shared experts, SSM, hybrid, encoder-decoder, vision
+    prefix) wire on a shape-only mesh (no process: wiring sends nothing),
+    and the analysis gives their collectives."""
     mesh = Mesh({"data": 1, "model": 2})
     _, cfg = _cfg("qwen2-1.5b")
     model = M.init_lm(cfg, 0, device="cpu")
@@ -287,9 +277,12 @@ def test_mesh_refuses_fused_attention_and_other_families():
     for arch in ("deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b", "whisper-base",
                  "internvl2-2b"):
         other = get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-            ServeEngine(other, M.init_lm(other, 0, device="cpu"), max_seq=16, batch_size=2,
-                        mesh=mesh)
+        eng = ServeEngine(other, M.init_lm(other, 0, device="cpu"), max_seq=16, batch_size=2,
+                          mesh=mesh, knobs=knobs_for(0.0))
+        assert eng.tp.vocab_split and eng.pair_report is not None
+        step = analysis.mesh_decode_collectives(other, knobs_for(0.0), mesh, batch_size=2,
+                                                max_seq=16)
+        assert step["all_reduce"] > 1 and step["all_gather"] >= 1  # the embedding's, the head's
 
 
 def test_mesh_embedding_refuses_a_token_no_rank_holds():
