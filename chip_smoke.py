@@ -183,8 +183,8 @@ result:
                 patches; on (2, 2) too): every rank's tokens equal the
                 single-rank engine's, logits ≤ 1e-5, every weight and cache
                 entry of a rank shaped as its resolved spec gives.  Served,
-                bf16, structured r=0.05, (1, 2): qwen2-1.5b at 28 layers
-                (batch 4, 32 tokens a slot), olmoe at 4 of its 16 layers and
+                bf16, structured r=0.05, (1, 2): qwen2-1.5b at 14 of its 28
+                layers (batch 4, 32 tokens a slot), olmoe at 4 of its 16 and
                 the five (batch 4, 16 tokens a slot) at the depths of
                 ``MESH_SERVED_LAYERS``; K1 launches and collectives a decode
                 step and a prefill held to ``analysis.decode_launches`` /
@@ -213,7 +213,7 @@ result:
                 ``torch.einsum`` on the folded experts and the bound; K2 at
                 olmoe's G = 1 heads;
 16. mla_parity, 17. mla_serve — deepseek-v2-lite-16b the same way (2
-                layers: dense, MoE; then its 27), K1 at its new shapes,
+                layers: dense, MoE; then 9 of its 27), K1 at its new shapes,
                 peak device memory and its reckoning;
 18. ssm_parity — mamba2-2.7b at full width, 2 layers, fp32: the plain
                 engine against the paired one (structured, r=0), prompts
@@ -221,7 +221,7 @@ result:
                 6 tokens a slot: identical tokens, logits, state and conv
                 tails ≤ 1e-5, launches of the prefills and of a decode step
                 (6 K1 a layer, no K2) by the wrappers and the profiler;
-19. ssm_serve — mamba2-2.7b at its 64 layers, bf16, structured r=0.05:
+19. ssm_serve — mamba2-2.7b at 32 of its 64 layers, bf16, structured r=0.05:
                 batch 4, prompts 12/16/24/300, max_seq 512, 32 tokens a
                 slot; what moe_serve records, K1 timed at w_x, w_B, w_dt,
                 w_out, peak memory;
@@ -230,7 +230,7 @@ result:
                 keys past the 128 meta-token sinks in the prefill and the
                 decode): ssm_parity's gates, the K/V caches too (12 K1 and
                 one K2 a layer);
-21. hybrid_serve — hymba-1.5b at its 32 layers, bf16, r=0.05: batch 4,
+21. hybrid_serve — hymba-1.5b at 16 of its 32 layers, bf16, r=0.05: batch 4,
                 prompts 12/16/24/1200, max_seq 1280; ssm_serve's record,
                 K1 at hymba's GEMMs, its K2 launches by window and sinks
                 (every windowed one on a slot whose window drops keys), K2
@@ -245,10 +245,11 @@ result:
                 the others' 11 and 24; the prefills' launches held to
                 ``analysis.prefill_launches`` (whisper's K3: one an encoder
                 layer and one a decoder layer's cross-attention);
-23. zoo_serve — the same five at full width and their published depth
-                (qwen3 36 layers, granite 40, internvl2 24, whisper 6 + 6),
-                mistral-large-123b at 4 of its 88 (123 G parameters are 246
-                GB in bf16), bf16, structured r=0.05, batch 4, 32 tokens a
+23. zoo_serve — the same five at full width, internvl2 and whisper at
+                their published depth (24 layers, 6 + 6), qwen3 at 12 of 36,
+                granite at 12 of 40, mistral-large-123b at 2 of its 88 (123
+                G parameters are 246 GB in bf16), bf16, structured r=0.05,
+                batch 4, 32 tokens a
                 slot: ssm_serve's record, K1 at qwen3's wq, mistral's w_gate
                 and w_down and whisper's cross wq/wo (4 rows), K2 at layer 0
                 of each, whisper's K3 launches a prefill;
@@ -267,13 +268,13 @@ result:
 25. lm_train  — qwen2-1.5b at full width and depth (28 layers) trained
                 through ``launch.train.train``: bf16 compute, fp32 masters,
                 structured r=0.05 (``pair_lm_params``), remat "full", batch
-                8 × seq 128, AdamW 3e-4 with the cosine schedule, 6 steps,
+                8 × seq 128, AdamW 3e-4 with the cosine schedule, 5 steps,
                 a checkpoint at step 3 (``build/lm_train_ckpt``, removed at
                 the end): every metric finite, the last loss below the first,
                 K1 launches a step equal to ``train_launches``, and the run
-                resumed from step 3 giving steps 4–6's losses (≤ 1e-5, and
+                resumed from step 3 giving steps 4–5's losses (≤ 1e-5, and
                 whether bit-identical); pairing seconds, ms a step (median of
-                steps 2–6), tokens/s, a profiled step (busy, idle share, K1
+                steps 2–5), tokens/s, a profiled step (busy, idle share, K1
                 ms and launches, the library GEMMs' ms: the backward's and
                 the head's ``torch.matmul``), peak memory; K1 timed at 1024
                 rows on layer 0's wq, wk, wo, w_gate and w_down, paired and
@@ -308,7 +309,33 @@ result:
                 its plain version, ``torch.einsum`` on the folded experts
                 and its bound; the device ms of the expert fold and of its
                 backward (the index kernels the expert grid's backward adds);
-28. the kernels table, the card's name and power limit, and the ``ok`` line.
+28. mesh_train — the training mesh (``launch.steps.build_train_step``
+                with a mesh; the train CLI's ``--mesh``) on ranks of
+                ``launch.mesh.spawn`` (gloo, all on this one card: no
+                tensor-parallel speed is measured).  Parity, fp32, r=0,
+                ``pallas_paired``, seed-0 weights on every rank, one AdamW
+                step (lr 1e-4, eps 1e-6) on batch 8 × seq 128: qwen2-1.5b
+                at full width, 2 layers, on (1, 2), (2, 1), (2, 2) and (1, 4),
+                olmoe-1b-7b on (1, 2) and (2, 2): every rank's loss, xent,
+                aux and gradients, shard by shard, within
+                rtol 1e-4 / atol 1e-5 of the single-rank ``TrainStep``'s
+                (run first, saved under ``build/``, off the card before the
+                ranks start); r=0.05 (structured, per-shard pairing) on
+                (1, 2) and (2, 2) against its fold oracle; collectives
+                (calls and bytes) and K1 launches a step equal to
+                ``analysis.mesh_train_collectives`` and ``train_launches``.
+                Trained: qwen2-1.5b at 28 layers on (1, 2) through the
+                CLI's ``launch.train.train_rank`` (bf16, fp32 masters,
+                structured r=0.05, remat full, 3 steps): finite losses, K1
+                launches and collectives a step held to ``analysis``, ms a
+                step, peak memory and wiring seconds per rank.  Resume:
+                qwen2 at 2 layers, fp32, saved on (1, 2) at step 2 and
+                resumed on (2, 1): step 3's loss ≤ 1e-5 of the straight
+                run's.  K1 at a rank's training shards of qwen2's
+                layer 0 (wq and w_gate at half their columns, wo and w_down
+                at half their rows; 1024 rows, bf16, structured r=0.05)
+                beside ``torch.matmul`` on the folded shard and the bound;
+29. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -1999,13 +2026,16 @@ def _mesh_ref(cfg, knobs, prompts: dict, steps: int, batch: int, max_seq: int,
 #: prompt lengths, max_seq).  Served at published depth but deepseek (4 of
 #: 27: each rank builds the whole fp32 model on the card before slicing it,
 #: 13.6 GB a rank at 4 layers, so 27 layers on two ranks of one card do not
-#: fit its 80 GB).
+#: fit its 80 GB), mamba2 (16 of 64), hymba (16 of 32) and internvl2 (12 of
+#: 24): the script's time limit pays for the mesh_train phase there (PERF.md
+#: §6), as it does with qwen2 served at 14 of its 28 layers.
+MESH_SERVED_QWEN2_LAYERS = 14
 MESH_FAMILIES = (
     ("deepseek-v2-lite-16b", 2, 4, (11, 40), 64),
-    ("mamba2-2.7b", 2, 64, (11, 40), 64),
-    ("hymba-1.5b", 3, 32, (11, 40), 64),
+    ("mamba2-2.7b", 2, 16, (11, 40), 64),
+    ("hymba-1.5b", 3, 16, (11, 40), 64),
     ("whisper-base", 2, 6, (11, 24), 64),
-    ("internvl2-2b", 2, 24, (260, 280), 336),
+    ("internvl2-2b", 2, 12, (260, 280), 336),
 )
 MESH_SERVED_LAYERS = {arch: served for arch, _, served, _, _ in MESH_FAMILIES}
 
@@ -2031,10 +2061,11 @@ def phase_mesh_decode() -> dict:
     frames or patches: every rank's tokens equal the single-rank engine's
     on the card, logits ≤ 1e-5, and every weight and cache entry a rank
     holds shaped as its resolved spec gives (``mesh_decode.shard_shapes``).
-    Served (bf16, structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at 28
-    layers, 32 tokens a slot, olmoe at 4 of its 16 layers and the five at
-    ``MESH_SERVED_LAYERS``, 16 tokens a slot: K1 launches and collectives a
-    decode step and a prefill held to ``analysis``; decode ms (two ranks
+    Served (bf16, structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at
+    ``MESH_SERVED_QWEN2_LAYERS``, 32 tokens a slot, olmoe at 4 of its 16
+    layers and the five at ``MESH_SERVED_LAYERS``, 16 tokens a slot: K1
+    launches and collectives a decode step and a prefill held to
+    ``analysis``; decode ms (two ranks
     time-share one card: no tensor-parallel speed is measured), each rank's
     wiring seconds (slicing and pairing) and peak memory.  Ledgers: the
     three gates of ``repro_torch/benchmarks/mesh_decode.py`` at r = 0.05,
@@ -2086,7 +2117,7 @@ def phase_mesh_decode() -> dict:
         torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
 
-    sq_cfg = get_config("qwen2-1.5b")
+    sq_cfg = cut_layers(get_config("qwen2-1.5b"), MESH_SERVED_QWEN2_LAYERS)
     sm_cfg = cut_layers(get_config(MOE_ARCH), 4)
     s_lens = (12, 16, 24, 40)
     s_prompts = {i: rng.integers(1, sq_cfg.vocab, size=n) for i, n in enumerate(s_lens)}
@@ -2208,7 +2239,8 @@ def phase_mesh_decode() -> dict:
     out = {"phase": "mesh_decode", "card": _card(), "backend": "gloo",
            "ranks_share_one_card": True, "reference_s": ref_s, "spawn_s": spawn_s,
            "ledger_s": ledger_s, "seconds": time.perf_counter() - t0,
-           "served_layers": {"qwen2-1.5b": 28, MOE_ARCH: 4, **MESH_SERVED_LAYERS},
+           "served_layers": {"qwen2-1.5b": MESH_SERVED_QWEN2_LAYERS, MOE_ARCH: 4,
+                             **MESH_SERVED_LAYERS},
            "main_path_launches": {"paired_matmul": k1_total, "decode_attention": 0,
                                   "flash_attention": 0},
            "runs": meshes,
@@ -2449,6 +2481,13 @@ def phase_moe_serve() -> dict:
 
 MLA_ARCH = "deepseek-v2-lite-16b"
 
+#: serve phases run below their published depth, so that the whole script
+#: fits its time limit with the mesh_train phase (PERF.md §6): arch →
+#: layers (published: deepseek 27, mamba2 64, hymba 32, qwen3 36, granite 40,
+#: mistral 88, of which one card holds 4)
+SERVE_DEPTH_CUTS = {"deepseek-v2-lite-16b": 9, "mamba2-2.7b": 32, "hymba-1.5b": 16,
+                    "qwen3-4b": 12, "granite-3-2b": 12, "mistral-large-123b": 2}
+
 
 def _per_step_want(cfg, knobs) -> dict[str, int]:
     """Launches of one decode step: ``decode_launches`` summed over the
@@ -2578,7 +2617,8 @@ def phase_mla_serve() -> dict:
     _reset_launches()  # the path's own counts from here
     with _moe_routes() as routes:
         rec = serve(arch=MLA_ARCH, batch=batch, max_seq=256, steps=steps, pair_rounding=0.05,
-                    gemm="pallas_paired", attn="pallas_fused", prompt_lens=lens)
+                    gemm="pallas_paired", attn="pallas_fused", prompt_lens=lens,
+                    layers=SERVE_DEPTH_CUTS[MLA_ARCH])
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     eng = rec["engine"]
@@ -2591,8 +2631,9 @@ def phase_mla_serve() -> dict:
     want = _per_step_want(cfg, eng.knobs)
     toks = rec["outputs"]
     memory = {"peak_gb": peak / 1e9, **_memory_reckoning(eng)}
-    check(L == 27 and cfg.segments() == (("dense", 1), ("moe", 26)),
-          f"mla_serve runs {cfg.segments()}, not the published 27 layers")
+    check(L == SERVE_DEPTH_CUTS[MLA_ARCH]
+          and cfg.segments() == (("dense", 1), ("moe", L - 1)),
+          f"mla_serve runs {cfg.segments()}, not {SERVE_DEPTH_CUTS[MLA_ARCH]} layers")
     check(routes["moe_routes"] == len(routed) * n_moe and len(routed) == 2,
           f"mla_serve routed prefills {routes['moe_routes']} for prompts {lens}")
     check(per_step == want, f"mla_serve launches per decode step {per_step}, want {want}")
@@ -2921,9 +2962,11 @@ def phase_ssm_serve() -> dict:
         return [_k1_at(mamba, "w_x", x(4, d)), _k1_at(mamba, "w_B", x(4, d)),
                 _k1_at(mamba, "w_dt", x(4, d)), _k1_at(mamba, "w_out", x(4, d_in))]
 
-    out, eng = phase_state_serve("ssm_serve", SSM_ARCH, [12, 16, 24, 300], 512, k1_at)
-    check(out["layers"] == 64 and out["segments"] == (("ssm", 64),),
-          f"ssm_serve runs {out['segments']}, not the published 64 layers")
+    n = SERVE_DEPTH_CUTS[SSM_ARCH]
+    out, eng = phase_state_serve("ssm_serve", SSM_ARCH, [12, 16, 24, 300], 512, k1_at,
+                                 layers=n)
+    check(out["layers"] == n and out["segments"] == (("ssm", n),),
+          f"ssm_serve runs {out['segments']}, not {n} layers")
     emit(out)
     return out
 
@@ -2938,10 +2981,12 @@ def phase_hybrid_serve() -> dict:
                 _k1_at(layer.mamba, "w_z", x(4, d)), _k1_at(layer.mamba, "w_B", x(4, d)),
                 _k1_at(layer.mamba, "w_dt", x(4, d)), _k1_at(layer.mamba, "w_out", x(4, d_in))]
 
-    out, eng = phase_state_serve("hybrid_serve", HYBRID_ARCH, [12, 16, 24, 1200], 1280, k1_at)
+    n = SERVE_DEPTH_CUTS[HYBRID_ARCH]
+    out, eng = phase_state_serve("hybrid_serve", HYBRID_ARCH, [12, 16, 24, 1200], 1280, k1_at,
+                                 layers=n)
     cfg = eng.cfg
-    check(out["layers"] == 32 and len(out["segments"]) == 5,
-          f"hybrid_serve runs {out['segments']}, not the published 32 layers")
+    check(out["layers"] == n and len(out["segments"]) == 3,
+          f"hybrid_serve runs {out['segments']}, not {n} layers (full, swa, full)")
     # K2 on the swa layers with window 1024 and the 128 meta tokens as sinks,
     # on a slot whose window drops keys; no window on the full layers (the
     # sinks are passed, and mean nothing without one)
@@ -2968,14 +3013,15 @@ def phase_hybrid_serve() -> dict:
 
 # arch → (parity prompts, parity max_seq, serve prompts, serve max_seq, serve
 # layers: None is the published depth); internvl2's prompts are longer than
-# its 256 patch positions
+# its 256 patch positions.  SERVE_DEPTH_CUTS is defined with the MLA phases
 ZOO = {
-    "qwen3-4b": ([11, 24], 32, [12, 16, 24, 64], 128, None),
-    "granite-3-2b": ([11, 24], 32, [12, 16, 24, 64], 128, None),
+    "qwen3-4b": ([11, 24], 32, [12, 16, 24, 64], 128, SERVE_DEPTH_CUTS["qwen3-4b"]),
+    "granite-3-2b": ([11, 24], 32, [12, 16, 24, 64], 128, SERVE_DEPTH_CUTS["granite-3-2b"]),
     "internvl2-2b": ([260, 300], 320, [260, 270, 280, 300], 336, None),
     "whisper-base": ([11, 24], 32, [12, 16, 24, 64], 128, None),
     # 88 layers are 123 G parameters, 246 GB in bf16: one 80 GB card holds 4
-    "mistral-large-123b": ([11, 24], 32, [12, 16, 24, 64], 128, 4),
+    "mistral-large-123b": ([11, 24], 32, [12, 16, 24, 64], 128,
+                           SERVE_DEPTH_CUTS["mistral-large-123b"]),
 }
 
 
@@ -3011,8 +3057,8 @@ def _zoo_k1_at(eng, x) -> list[dict]:
 
 
 def phase_zoo_serve() -> list[dict]:
-    """Each zoo arch at full width and its published depth (mistral at 4
-    layers), bf16, structured r=0.05, batch 4, 32 tokens a slot:
+    """Each zoo arch at full width and the depth of :data:`ZOO` (mistral at
+    2 layers), bf16, structured r=0.05, batch 4, 32 tokens a slot:
     :func:`phase_state_serve`, K1 at its shapes, K2 at layer 0 (whisper
     G = 1 and qwen3 G = 4 among them), and whisper's K3 launches a
     prefill."""
@@ -3259,7 +3305,8 @@ def phase_lm_train() -> dict:
 
     ckpt = Path(__file__).resolve().parent / "build" / "lm_train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    kw = dict(arch=TRAIN_ARCH, steps=6, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4,
+    # 5 steps, so the one 18.5 GB checkpoint is step 3's (PERF.md §6)
+    kw = dict(arch=TRAIN_ARCH, steps=5, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4,
               gemm="pallas_paired", pair_rounding=0.05, log_every=1, ckpt_dir=str(ckpt))
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()  # the path's own counts from here
@@ -3269,7 +3316,7 @@ def phase_lm_train() -> dict:
     cfg, knobs, model = rec["cfg"], rec["knobs"], rec["model"]
     want = train_launches(cfg, knobs)
     losses, xents = [h["loss"] for h in rec["history"]], [h["xent"] for h in rec["history"]]
-    check(launches == 6 * want, f"lm_train: {launches} K1 launches in 6 steps, want 6 × {want}")
+    check(launches == 5 * want, f"lm_train: {launches} K1 launches in 5 steps, want 5 × {want}")
     check(all(math.isfinite(v) for h in rec["history"] for v in h.values()),
           f"lm_train: metrics not finite: {rec['history']}")
     check(losses[-1] < losses[0], f"lm_train: loss did not fall: {losses}")
@@ -3285,7 +3332,6 @@ def phase_lm_train() -> dict:
     torch.cuda.empty_cache()
 
     # resume: the checkpoint of step 3, the run again from there
-    shutil.rmtree(ckpt / f"step_{6:010d}")
     resumed = train(**kw)
     check(resumed["start"] == 3, f"lm_train: resumed from step {resumed['start']}, want 3")
     again = [h["loss"] for h in resumed["history"]]
@@ -3300,7 +3346,7 @@ def phase_lm_train() -> dict:
         "remat": knobs.remat, "optimizer": "adamw 3e-4, cosine, clip 1.0",
         "losses": losses, "xent": xents,
         "step_ms": step_ms,
-        "median_step_ms_2_6": median, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median * 1e3,
+        "median_step_ms_2_5": median, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median * 1e3,
         "k1_launches_per_step": want, "main_path_launches": launches,
         "profiled_step": prof, "peak_memory_gb": peak / 1e9,
         "resume": {"from_step": 3, "losses": again, "max_rel_err": resume_err,
@@ -3577,6 +3623,250 @@ def phase_moe_train() -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 28: the training mesh (qwen2-1.5b, olmoe-1b-7b)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_PARITY = {(1, 2): ("qwen2", "olmoe"), (2, 1): ("qwen2",),
+                     (2, 2): ("qwen2", "olmoe"), (1, 4): ("qwen2",)}
+MESH_TRAIN_R05 = ((1, 2), (2, 2))
+
+
+def _mesh_train_ref(cfg, knobs, batch, path: Path) -> dict:
+    """The single-rank ``TrainStep`` on the card (the whole model paired by
+    ``pair_lm_params``): its metrics and gradients of one AdamW step, saved
+    to ``path`` for the ranks to hold theirs to; nothing of it stays on the
+    card."""
+    import torch
+
+    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR
+    from repro_torch.core.transform import pair_lm_params
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm as M
+    from repro_torch.train.optimizer import adamw
+
+    model = pair_lm_params(M.init_lm(cfg, 0, device="cuda"), knobs.pair_rounding)[0]
+    step = build_train_step(cfg, adamw(PARITY_LR, eps=PARITY_EPS), knobs)
+    opt = step.init(model)
+    tok, lab = batch
+    m = step(model, opt, 0, {"tokens": torch.as_tensor(tok, dtype=torch.int64, device="cuda"),
+                             "labels": torch.as_tensor(lab, dtype=torch.int64, device="cuda")})
+    rec = {k: float(v) for k, v in m.items()}
+    torch.save({**rec, "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}, path)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _k1_shard_rows() -> list[dict]:
+    """K1 at a (1, 2) training rank's shards of qwen2-1.5b's layer 0: the
+    rank-0 block of each weight under the ``train`` rules, paired per shard
+    (structured r = 0.05, ``pair_shard_params``), 1024 bf16 rows."""
+    import torch
+
+    from repro_torch.configs import cut_layers, get_config
+    from repro_torch.core.transform import pair_shard_params, tp_shard_plan
+    from repro_torch.launch.steps import shard_model
+    from repro_torch.models import lm as M
+    from repro_torch.models.param import param_axes_and_shapes
+    from repro_torch.parallel.rules import rules_for
+    from repro_torch.parallel.sharding import Mesh, shardings_for
+
+    cfg = cut_layers(get_config(TRAIN_ARCH), 1)
+    mesh = Mesh({"data": 1, "model": 2}, rank=0, device="cuda")
+    rules = rules_for(cfg, "train", mesh)
+    axes, shapes = param_axes_and_shapes(cfg)
+    whole = M.init_lm(cfg, 0, device="cuda")
+    local = shard_model(whole, shardings_for(axes, mesh, rules, shapes), mesh)
+    local, _ = pair_shard_params(local, whole, 0.05,
+                                 shards=tp_shard_plan(axes, shapes, mesh, rules,
+                                                      leaves=cfg.paired_leaves),
+                                 leaves=cfg.paired_leaves)
+    del whole
+    layer = local.layers[0]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for block, name in ((layer.attn, "wq"), (layer.attn, "wo"), (layer.mlp, "w_gate"),
+                        (layer.mlp, "w_down")):
+        k = block.matrix(name, torch.bfloat16).shape[0]
+        x = torch.randn(TRAIN_BATCH * TRAIN_SEQ, k, generator=gen, device="cuda")
+        row = _k1_at(block, name, x.to(torch.bfloat16))
+        check(row["ulps"] <= BF16_MAX_ULPS, f"mesh_train K1 {name} shard {row['ulps']:.3g} ulps")
+        rows.append({**row, "shard": "rank 0 of (1, 2)"})
+    del local, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_trained_row(recs: list, mesh, where: str) -> dict:
+    """The trained run's record per rank, its gates checked: finite
+    metrics, every rank's losses the same, K1 launches and collectives a
+    step as ``analysis`` says."""
+    import math
+
+    from repro_torch import analysis
+
+    cfg, knobs = recs[0]["cfg"], recs[0]["knobs"]
+    want_k1 = analysis.train_launches(cfg, knobs)
+    want_coll = analysis.mesh_train_collectives(cfg, knobs, mesh, TRAIN_BATCH, TRAIN_SEQ)
+    losses = [[h["loss"] for h in r["history"]] for r in recs]
+    check(all(math.isfinite(v) for r in recs for h in r["history"] for v in h.values()),
+          f"{where}: metrics not finite")
+    check(all(x == losses[0] for x in losses), f"{where}: the ranks' losses differ: {losses}")
+    ranks = []
+    for r in recs:
+        check(r["k1_launches"] == [want_k1] * len(r["history"]),
+              f"{where} rank {r['rank']}: K1 launches {r['k1_launches']}, want {want_k1}")
+        check(all(c == want_coll for c in r["collectives"]),
+              f"{where} rank {r['rank']}: collectives {r['collectives']}, want {want_coll}")
+        ranks.append({"rank": r["rank"], "coords": r["coords"], "losses": losses[r["rank"]],
+                      "step_ms": r["step_ms"], "max_step_ms_2_3": max(r["step_ms"][1:]),
+                      "peak_gb": (r["peak_bytes"] or 0) / 1e9, "wiring_s": r["wiring_s"],
+                      "pairing_s": r["pairing_s"], "k1_launches_per_step": r["k1_launches"][0],
+                      "collectives_per_step": r["collectives"][0]})
+    return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype, "masters": "float32",
+            "pairing": {"mode": "structured", "rounding": knobs.pair_rounding},
+            "remat": knobs.remat, "want_k1_per_step": want_k1,
+            "want_collectives_per_step": want_coll, "ranks": ranks,
+            "note": "two ranks time-share one card and one host: no tensor-parallel speed"}
+
+
+def phase_mesh_train() -> dict:
+    """The training mesh on ranks of ``launch.mesh.spawn`` (gloo, every rank
+    on this one card, so they time-share it): parity, the trained run, the
+    resume across shapes, and K1 at a rank's training shards (phase 28 of
+    the module docstring)."""
+    import dataclasses
+    import math
+    import shutil
+
+    from repro_torch import analysis
+    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR, train_many
+    from repro_torch.configs import cut_layers, get_config
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import lm as M
+    from repro_torch.parallel.sharding import Mesh
+
+    t0 = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    knobs = M.PerfKnobs(q_chunk=TRAIN_SEQ, gemm="pallas_paired", pair_rounding=0.0)
+    knobs05 = dataclasses.replace(knobs, pair_rounding=0.05)
+    cfgs = {"qwen2": dataclasses.replace(cut_layers(get_config(TRAIN_ARCH), 2), dtype="float32"),
+            "olmoe": dataclasses.replace(cut_layers(get_config(MOE_ARCH), 2), dtype="float32")}
+    batches = {k: [next(token_batches(TRAIN_BATCH, TRAIN_SEQ, c.vocab, seed=1))]
+               for k, c in cfgs.items()}
+    refs, ref_paths = {}, {}
+    for key, cfg in cfgs.items():
+        ref_paths[key] = str(build / f"mesh_train_ref_{key}.pt")
+        refs[key] = _mesh_train_ref(cfg, knobs, batches[key][0], Path(ref_paths[key]))
+    ref_s = time.perf_counter() - t0
+    ckpt = build / "mesh_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # 3 steps: the one checkpoint is step 2's, and step 3 runs on both shapes
+    resume_kw = dict(arch=TRAIN_ARCH, smoke=False, steps=3, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     lr=3e-4, ckpt_dir=str(ckpt), ckpt_every=2, paired_rounding=0.0,
+                     log_every=1, gemm="pallas_paired", pair_rounding=0.0, pair_block_n=0,
+                     layers=2, dtype="float32")
+    trained_kw = dict(resume_kw, ckpt_dir="", ckpt_every=0, pair_rounding=0.05, layers=0,
+                      dtype="")
+    jobs = {}
+    for shape, archs in MESH_TRAIN_PARITY.items():
+        jobs[shape] = {key: ("train_job", (cfgs[key], 0, knobs, batches[key]),
+                             {"lr": PARITY_LR, "eps": PARITY_EPS, "want": ref_paths[key]})
+                       for key in archs}
+        if shape in MESH_TRAIN_R05:
+            jobs[shape]["qwen2_r05"] = ("train_job", (cfgs["qwen2"], 0, knobs05,
+                                                      batches["qwen2"]),
+                                        {"lr": PARITY_LR, "eps": PARITY_EPS,
+                                         "fold_oracle": True})
+    jobs[(1, 2)]["trained"] = ("train_rank", (), trained_kw)
+    jobs[(1, 2)]["resume_straight"] = ("train_rank", (), resume_kw)
+    jobs[(2, 1)]["resume"] = ("train_rank", (), resume_kw)
+    runs, k1_total, spawn_s, trained, resume = [], 0, {}, None, {}
+    for shape, mesh_jobs in jobs.items():
+        t1 = time.perf_counter()
+        try:
+            ranks = spawn(train_many, shape, backend="gloo", device="cuda",
+                          args=(mesh_jobs,), timeout=900)
+        except RuntimeError as e:
+            check(False, f"mesh_train {shape}: {str(e)[-2000:]}")
+            continue
+        spawn_s[str(shape)] = time.perf_counter() - t1
+        mesh = Mesh(dict(zip(("data", "model"), shape, strict=True)))
+        for name, (fn, args, _) in mesh_jobs.items():
+            where = f"mesh_train {shape} {name}"
+            if fn == "train_rank":
+                recs = [r[name] for r in ranks]
+                k1_total += sum(sum(r["k1_launches"]) for r in recs)
+                if name == "trained":
+                    trained = _mesh_trained_row(recs, mesh, where)
+                else:
+                    resume[name] = [[h["loss"] for h in r["history"]] for r in recs]
+                    resume[name + "_start"] = [r["start"] for r in recs]
+                continue
+            cfg, knob = args[0], args[2]
+            want_coll = analysis.mesh_train_collectives(cfg, knob, mesh, TRAIN_BATCH, TRAIN_SEQ)
+            want_k1 = analysis.train_launches(cfg, knob)
+            row = {"mesh": list(shape), "job": name, "arch": cfg.name, "layers": cfg.n_layers,
+                   "want_collectives": want_coll, "want_k1": want_k1, "ranks": []}
+            for rank in ranks:
+                got = rank[name]
+                k1_total += sum(got["k1"])
+                check(got["collectives"][0] == want_coll,
+                      f"{where} rank {got['rank']}: collectives {got['collectives'][0]}, "
+                      f"want {want_coll}")
+                check(got["k1"] == [want_k1], f"{where} rank {got['rank']}: K1 launches "
+                                              f"{got['k1']}, want {want_k1}")
+                r = {k: got.get(k) for k in ("rank", "coords", "wire_s", "wiring", "metrics",
+                                             "grad_violation", "params_violation",
+                                             "loss_violation", "oracle_loss_violation",
+                                             "oracle_grad_violation", "clip_norm", "tp",
+                                             "pair_report")}
+                for gate in ("grad_violation", "params_violation", "loss_violation",
+                             "oracle_loss_violation", "oracle_grad_violation"):
+                    if got.get(gate) is not None:
+                        check(got[gate] <= 0, f"{where} rank {got['rank']}: {gate} "
+                                              f"{got[gate]:.3g}")
+                row["ranks"].append(r)
+            runs.append(row)
+        del ranks
+        gc.collect()
+    straight, again = resume.get("resume_straight"), resume.get("resume")
+    resume_err = None
+    if straight and again:
+        check(resume["resume_start"] == [2, 2], f"mesh_train resume: started at "
+                                                f"{resume['resume_start']}, want step 2")
+        resume_err = max(abs(a - b) / abs(b) for r in again
+                         for a, b in zip(r, straight[0][2:], strict=True))
+        check(resume_err <= FP32_RTOL, f"mesh_train resume on (2, 1): {again} vs "
+                                       f"{straight[0][2:]}")
+    else:
+        check(False, "mesh_train: the resume runs did not both report")
+    check(trained is not None, "mesh_train: the trained run did not report")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for path in ref_paths.values():
+        Path(path).unlink(missing_ok=True)
+    t2 = time.perf_counter()
+    k1_rows = _k1_shard_rows()
+    check(all(math.isfinite(v) for v in refs["qwen2"].values()), "mesh_train: reference loss")
+    out = {"phase": "mesh_train", "card": _card(), "backend": "gloo",
+           "ranks_share_one_card": True, "adamw": {"lr": PARITY_LR, "eps": PARITY_EPS},
+           "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "references": refs, "reference_s": ref_s, "spawn_s": spawn_s,
+           "runs": runs, "trained": trained,
+           "resume": {"saved_on": [1, 2], "resumed_on": [2, 1], "straight": straight,
+                      "resumed": again, "max_rel_err": resume_err},
+           "k1_shard_rows": k1_rows, "k1_rows_s": time.perf_counter() - t2,
+           "main_path_launches": k1_total, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3645,6 +3935,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_train = phase_moe_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train = phase_mesh_train()
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]
@@ -3671,7 +3964,8 @@ def main() -> int:
              "lm_train_parity": train_parity["main_path_launches"],
              "moe_train_parity": moe_train_parity["main_path_launches"],
              "lm_train": lm_train["main_path_launches"],
-             "moe_train": moe_train["main_path_launches"]}
+             "moe_train": moe_train["main_path_launches"],
+             "mesh_train": mesh_train["main_path_launches"]}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},
@@ -3746,6 +4040,11 @@ def main() -> int:
         "training": [{k: row[k] for k in ("weight", "form", "M", "K", "N", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}
                      for row in lm_train["k1_training_rows"]],
+        # a (1, 2) training rank's shards of qwen2-1.5b's layer 0 (bf16,
+        # 1024 rows, structured r=0.05): wq and w_gate at half their
+        # columns, wo and w_down at half their rows
+        "mesh_training": [{k: row[k] for k in ("weight", "M", "K", "N", *timing_keys)}
+                          for row in mesh_train["k1_shard_rows"]],
         # olmoe-1b-7b's training step (bf16, structured r=0.05), layer 0's
         # gate, up and down on the expert grid at the step's routed rows
         # (batch 8 × capacity 20 = 160 rows an expert), launches a step

@@ -18,9 +18,11 @@ what one request's prefill should, and :func:`train_launches` what one
 training step should, for the launch counters of the serving and training
 paths to be held to; :func:`mesh_decode_collectives` and
 :func:`mesh_prefill_collectives` say which collectives one rank of a
-tensor-parallel serve cell should make a decode step and a prefill, for
-``parallel.collectives``' counter to be held to (the counterpart of the JAX
-package's ``collective_stats`` over a compiled step).
+tensor-parallel serve cell should make a decode step and a prefill, and
+:func:`mesh_train_collectives` which (calls and bytes) one rank of the
+training mesh should make a step, for ``parallel.collectives``' counter to
+be held to (the counterpart of the JAX package's ``collective_stats`` over a
+compiled step).
 
 Calls are counted with ``sys.monitoring`` (Python 3.12+) on those
 functions' code objects alone, so nothing on the path changes and nothing
@@ -31,6 +33,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 import sys
 
 from repro_torch.kernels import paired_matmul as pm
@@ -175,7 +178,10 @@ def train_launches(cfg, knobs) -> int:
     and the same again under
     ``remat="full"``, which reruns every layer's forward in the backward
     (``"dots"`` keeps K1's outputs).  The backward's GEMMs and the head are
-    ``torch.matmul``; K2 and K3 run on no training path."""
+    ``torch.matmul``; K2 and K3 run on no training path.  One rank of the
+    training mesh launches the same: each GEMM once on its shard (the
+    column-parallel ones on its columns, the row-parallel ones on its rows,
+    the expert grid over its own experts)."""
     fwd = sum(_forward_gemms(cfg, cfg.layer_kind(i), knobs) for i in range(cfg.n_layers))
     if cfg.encoder is not None:  # an encoder layer is a dense one
         fwd += cfg.encoder.n_layers * _forward_gemms(cfg, "dense", knobs)
@@ -244,7 +250,7 @@ def mesh_decode_collectives(cfg, knobs, mesh, *, batch_size: int,
     for i in range(cfg.n_layers):
         r, g = _layer_collectives(cfg, cfg.layer_kind(i), tp.layer(i), decode=True)
         reduce, gather = reduce + r, gather + g
-    return {"all_reduce": int(reduce), "all_gather": int(gather)}
+    return {"all_reduce": int(reduce), "all_gather": int(gather), "reduce_scatter": 0}
 
 
 def mesh_prefill_collectives(cfg, knobs, mesh, *, batch_size: int,
@@ -266,4 +272,141 @@ def mesh_prefill_collectives(cfg, knobs, mesh, *, batch_size: int,
     for i in range(cfg.n_layers):
         r, g = _layer_collectives(cfg, cfg.layer_kind(i), tp.layer(i), decode=False)
         reduce, gather = reduce + r, gather + g
-    return {"all_reduce": int(reduce), "all_gather": int(gather)}
+    return {"all_reduce": int(reduce), "all_gather": int(gather), "reduce_scatter": 0}
+
+
+def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
+                           clip: bool = True) -> dict[str, dict[str, int]]:
+    """Collectives one rank of the training mesh makes in one step
+    (``launch.steps.build_train_step`` with ``mesh``; global batches of
+    ``batch`` × ``seq`` tokens, ``rules_for(cfg, "train", mesh)``), by kind,
+    calls and bytes (of each call's local input), as
+    ``parallel.collectives.collective_stats`` counts them:
+
+    * a block whose weights split over ``model`` (attention with its query
+      heads split, a split MLP, experts split): under sequence parallelism
+      an all-gather of the rank's positions (compute dtype) enters it and a
+      reduce-scatter of the fp32 partial sums (B, S, d) closes it; their
+      backward, a reduce-scatter of the input's gradient (B, S, d) and an
+      all-gather of the output's (B, S/n, d, fp32); without it, an
+      all-reduce of the partial sums and one of their gradient.  A block
+      whose weights are whole still gathers its positions under sequence
+      parallelism (and reduce-scatters their gradient); it closes with none;
+    * an MoE layer: the router's logits (T, E/n, fp32) all-gathered where
+      its expert columns split (their gradient reduce-scattered); on the
+      routed branch the aux loss's statistics (2, E, fp32) in one all-reduce
+      over ``model`` and the data axes that split the batch;
+    * the embedding, vocab split: its rows closed as a block's partial sums
+      (fp32); the head, vocab split: the final-normed positions all-gathered
+      (their gradient reduce-scattered), and each chunk of the
+      cross-entropy (``knobs.xent_chunk`` positions) an all-reduce of the
+      logits' maxima (B, chunk) and one of the exps' and the label logits'
+      sums (2, B, chunk); whole, one all-reduce of the rank's sum;
+    * the loss's sum and its denominator over the data axes that split the
+      batch (one all-reduce of 2 fp32);
+    * after the backward, the gradients (fp32): those of the weights whole
+      under ``model`` in one all-reduce over ``model`` (and those data axes),
+      the split ones in one over those data axes; the clip's norm
+      (``clip``: AdamW's default) one all-reduce of one fp32 over
+      ``model``.
+
+    Each layer's forward collectives run twice under ``knobs.remat``
+    ``"full"`` or ``"dots"`` (the backward recomputes the layer), each
+    cross-entropy chunk's twice always (it is checkpointed).  A group of one
+    rank sends nothing."""
+    from repro_torch.models.lm import compute_dtype
+    from repro_torch.models.param import param_axes_and_shapes
+    from repro_torch.parallel.rules import rules_for
+    from repro_torch.parallel.sharding import shardings_for
+    from repro_torch.parallel.tp import train_layout_for
+
+    rules = rules_for(cfg, "train", mesh)
+    tp = train_layout_for(cfg, mesh, rules, batch, seq)
+    n, c = tp.n, compute_dtype(cfg).itemsize
+    b = batch // tp.dp if tp.batch_split else batch
+    d, S = cfg.d_model, seq
+    out = {k: {"calls": 0, "bytes": 0} for k in ("all_reduce", "all_gather", "reduce_scatter")}
+
+    def add(kind: str, nbytes: int, times: int = 1) -> None:
+        out[kind]["calls"] += times
+        out[kind]["bytes"] += times * nbytes
+
+    m = n > 1
+    redo = 2 if knobs.remat in ("full", "dots") else 1
+    # a block's (B, S, d) and a rank's (B, S/n, d), in fp32 and in the compute dtype
+    full32, own32 = b * S * d * 4, b * S // n * d * 4
+    full_c, own_c = b * S * d * c, b * S // n * d * c
+
+    def block(split: bool) -> None:
+        """One block's way in and out, forward (``redo`` times) and backward."""
+        if not m:
+            return
+        if tp.seq_split:
+            add("all_gather", own_c, redo)
+            add("reduce_scatter", full_c)
+            if split:
+                add("reduce_scatter", full32, redo)
+                add("all_gather", own32)
+        elif split:
+            add("all_reduce", full32, redo)
+            add("all_reduce", full32)
+
+    for i in range(cfg.n_layers):
+        view, kind = tp.layer(i), cfg.layer_kind(i)
+        block(view.q_split)
+        if kind == "moe":
+            E, K = cfg.moe.n_experts, cfg.moe.top_k
+            if m and view.router_split:
+                add("all_gather", b * S * E // n * 4, redo)
+                add("reduce_scatter", b * S * E * 4)
+            block(view.experts_split)
+            routed = b * S * (tp.dp if tp.batch_split else 1) * K > 2 * E
+            if routed and (m or tp.batch_split):
+                add("all_reduce", 2 * E * 4, redo)
+        else:
+            block(view.ff_split)
+    if m and tp.vocab_split:
+        # the embedding's rows, closed as a block's partial sums (fp32 masters)
+        if tp.seq_split:
+            add("reduce_scatter", full32)
+            add("all_gather", own32)
+        else:
+            add("all_reduce", full32, 2)
+        if tp.seq_split:
+            add("all_gather", own_c)
+            add("reduce_scatter", full_c)
+        chunk = min(knobs.xent_chunk, S) if knobs.xent_chunk else S
+        chunks = -(-S // chunk)
+        add("all_reduce", b * chunk * 4, 2 * chunks)
+        add("all_reduce", 2 * b * chunk * 4, 2 * chunks)
+    elif m:
+        add("all_reduce", 4)
+    if tp.batch_split:
+        add("all_reduce", 8)
+    axes, shapes = param_axes_and_shapes(cfg)
+    specs = shardings_for(axes, mesh, rules, shapes)
+    whole = split = 0
+
+    def count(spec_tree, shape_tree) -> None:
+        nonlocal whole, split
+        if isinstance(spec_tree, dict):
+            for k in spec_tree:
+                count(spec_tree[k], shape_tree[k])
+        elif isinstance(spec_tree, list):
+            for sp, sh in zip(spec_tree, shape_tree, strict=True):
+                count(sp, sh)
+        else:
+            numel = shape_tree.numel() // math.prod(mesh.axis_size(e) for e in spec_tree)
+            if any(e == "model" or (isinstance(e, tuple) and "model" in e) for e in spec_tree):
+                split += numel
+            else:
+                whole += numel
+
+    count(specs, shapes)
+    if whole and (m or tp.batch_split):
+        add("all_reduce", whole * 4)
+    if split and tp.batch_split:
+        add("all_reduce", split * 4)
+    if clip and m:
+        add("all_reduce", 4)
+    return out

@@ -285,11 +285,15 @@ def _k1(xg: torch.Tensor, kmat: torch.Tensor, w_res: torch.Tensor, bias: torch.T
 
 @torch.library.custom_op("repro_torch::k1", mutates_args=())
 def k1_op(xg: torch.Tensor, kmat: torch.Tensor, w_res: torch.Tensor, bias: torch.Tensor | None,
-          residual: torch.Tensor | None, n_cols: int, activation: str) -> torch.Tensor:
+          residual: torch.Tensor | None, n_cols: int, activation: str,
+          out_fp32: bool = False) -> torch.Tensor:
     """:func:`_k1` as an operator of its own, which the differentiable LM
     GEMMs call: a selective checkpoint policy sees it among the aten ops and
-    can keep its output (``models.lm`` under ``remat="dots"``)."""
-    return _k1(xg, kmat, w_res, bias, residual, n_cols, activation)
+    can keep its output (``models.lm`` under ``remat="dots"``).  ``out_fp32``
+    stores the fp32 epilogue result uncast (a tensor-parallel rank's partial
+    sum)."""
+    return _k1(xg, kmat, w_res, bias, residual, n_cols, activation,
+               out_dtype=torch.float32 if out_fp32 else None)
 
 
 def _paired_dense(x, seg: PairedSegments, bias, activation, residual, gemm,
@@ -351,6 +355,14 @@ def _ref_grads(ref, tensors, needs, dy: torch.Tensor) -> list:
     return [next(grads) if t is not None and t.requires_grad else None for t in inputs]
 
 
+def _out_fp32(x: torch.Tensor, out_dtype: torch.dtype | None) -> bool:
+    """Whether a differentiable K1 GEMM stores fp32 rather than x's dtype
+    (``out_dtype`` None, x's dtype or float32; the kernel stores no other)."""
+    if out_dtype not in (None, x.dtype, torch.float32):
+        raise TypeError(f"K1 stores {x.dtype} or float32, not {out_dtype}")
+    return out_dtype == torch.float32 and x.dtype != torch.float32
+
+
 def _act_grad(activation: str, z: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dy · act'(z)."""
     if activation == "none":
@@ -366,9 +378,9 @@ class _FusedDense(torch.autograd.Function):
     of the JAX package's ``kernels/ops.py``)."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, activation):
+    def forward(ctx, x, w, bias, activation, out_fp32):
         N = w.shape[1]
-        y = k1_op(x, w.new_zeros((0, N)), w, bias, None, N, activation)
+        y = k1_op(x, w.new_zeros((0, N)), w, bias, None, N, activation, out_fp32)
         ctx.save_for_backward(x, w, bias)
         ctx.activation = activation
         return y
@@ -376,6 +388,7 @@ class _FusedDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, b = ctx.saved_tensors
+        dy = dy.to(x.dtype)  # an fp32 store's cotangent, as _ref_grads casts it
         z = torch.matmul(x, w)  # the pre-activation, recomputed
         if b is not None:
             z = z + b
@@ -385,7 +398,7 @@ class _FusedDense(torch.autograd.Function):
         dx = torch.matmul(dz, w.t()) if ctx.needs_input_grad[0] else None
         dw = torch.matmul(x2.t(), dz2).to(w.dtype) if ctx.needs_input_grad[1] else None
         db = dz2.sum(0).to(b.dtype) if b is not None and ctx.needs_input_grad[2] else None
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def fused_dense(
@@ -394,11 +407,14 @@ def fused_dense(
     bias: torch.Tensor | None = None,
     *,
     activation: str = "none",
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Differentiable ``act(x @ w + bias)``: one launch of K1's dense form
     (P = 0), the bias and activation in its epilogue; what
-    ``layers.dense`` calls under ``gemm="pallas"``."""
-    return _FusedDense.apply(x, w, bias, activation)
+    ``layers.dense`` calls under ``gemm="pallas"``.  ``out_dtype=torch.float32``
+    stores the epilogue's fp32 result uncast (a tensor-parallel rank's
+    partial sum); the backward is the same."""
+    return _FusedDense.apply(x, w, bias, activation, _out_fp32(x, out_dtype))
 
 
 def fused_paired_dense_ref(
@@ -428,9 +444,9 @@ class _FusedPairedDense(torch.autograd.Function):
     LeNet)."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, residual, meta, activation, pair_block_n):
+    def forward(ctx, x, w, bias, residual, meta, activation, pair_block_n, out_fp32):
         seg = lm_paired_segments(w, meta, pair_block_n)
-        y = _paired_dense(x, seg, bias, activation, residual, k1_op)
+        y = _paired_dense(x, seg, bias, activation, residual, k1_op, out_fp32=out_fp32)
         ctx.save_for_backward(x, w, bias, residual)
         ctx.conf = (meta, activation, pair_block_n)
         return y
@@ -440,7 +456,8 @@ class _FusedPairedDense(torch.autograd.Function):
         meta, activation, pair_block_n = ctx.conf
         ref = lambda x, w, b, res: fused_paired_dense_ref(
             x, w, meta, b, activation=activation, residual=res, pair_block_n=pair_block_n)
-        return (*_ref_grads(ref, ctx.saved_tensors, ctx.needs_input_grad, dy), None, None, None)
+        return (*_ref_grads(ref, ctx.saved_tensors, ctx.needs_input_grad, dy),
+                None, None, None, None)
 
 
 def fused_paired_dense(
@@ -452,6 +469,7 @@ def fused_paired_dense(
     activation: str = "none",
     residual: torch.Tensor | None = None,
     pair_block_n: int = 0,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Differentiable paired GEMM from live weights + frozen LM pairing.
 
@@ -460,10 +478,14 @@ def fused_paired_dense(
     was built with).  ``residual`` fuses the sublayer skip connection into
     the kernel's epilogue.  One K1 launch forward; the backward is
     :func:`fused_paired_dense_ref`'s, with respect to ``x``, ``w``,
-    ``bias`` and ``residual``.
+    ``bias`` and ``residual``.  ``out_dtype=torch.float32`` stores the
+    epilogue's fp32 result uncast, as :func:`paired_dense` does (a
+    tensor-parallel rank's partial sum, rounded once after its sum); the
+    backward is the same.
     """
     _check_block_n(meta, pair_block_n)
-    return _FusedPairedDense.apply(x, w, bias, residual, meta, activation, pair_block_n)
+    return _FusedPairedDense.apply(x, w, bias, residual, meta, activation, pair_block_n,
+                                   _out_fp32(x, out_dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,8 @@ def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl",
                          device: str = "cuda") -> Mesh:
     """This rank's mesh over the ranks of the initialised process group, laid
     out by :func:`production_mesh_shape`.  No path of the port calls it yet:
-    mesh training and the dry-run will (ROADMAP queue 1, items 9 and 10)."""
+    the train CLI's ``--mesh`` names its shape, and the dry run will lay out
+    the production meshes (ROADMAP queue 1, item 4)."""
     shape, names = production_mesh_shape(dist.get_world_size(), multi_pod=multi_pod)
     return make_mesh(shape, names, backend=backend, device=device)
 

@@ -3,8 +3,13 @@
 The port of ``repro.launch.steps`` ``build_train_step``,
 ``build_prefill_step`` and ``build_serve_step``, and of ``wire_serve_cell``,
 which wires one rank of a tensor-parallel serve cell over a
-``parallel.sharding.Mesh`` (the training step runs on one device; the
-abstract-shape builders of the dry run have no counterpart).  Each step runs
+``parallel.sharding.Mesh`` (the abstract-shape builders of the dry run have
+no counterpart).  The training step runs on one device, or as one rank of a
+mesh (``build_train_step(cfg, opt, knobs, mesh, rules)``, the JAX
+signature): the rank holds its shards of the ``train`` rules' specs, paired
+per shard, runs the sequence- and tensor-parallel forward and backward of
+``parallel.tp.train_layout_for``, sums the gradients over the mesh and
+clips by the whole model's norm (:class:`TrainStep`).  Each step runs
 under ``kernels.ops.tile_cache_context(knobs)`` (the tile cache is read
 once, when the step is built), as the JAX package's steps run under
 ``perf_context(knobs)``; the serving steps live in ``serving.steps`` and
@@ -15,13 +20,15 @@ K1's dense form, under ``"pallas_paired"`` every weight that carries
 pairing metadata is one of K1's paired forms, an MoE layer's experts one
 launch a projection over the expert grid; the backward is ``torch.matmul``
 or ``torch.einsum`` on the folded weights either way (``kernels.ops``).
-Every family trains: dense, MoE (olmoe, deepseek with MLA and shared
-experts), SSM, hybrid, encoder-decoder and vision-language models, the last
-two with their ``frames`` or ``patches`` in the batch.
+Every family trains on one device: dense, MoE (olmoe, deepseek with MLA and
+shared experts), SSM, hybrid, encoder-decoder and vision-language models,
+the last two with their ``frames`` or ``patches`` in the batch; on a mesh,
+the dense GQA and routed MoE families.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from collections.abc import Callable
@@ -43,14 +50,17 @@ from repro_torch.models.param import (
     pairing_axes,
     param_axes_and_shapes,
 )
+from repro_torch.parallel.collectives import all_gather, all_reduce
 from repro_torch.parallel.rules import rules_for
 from repro_torch.parallel.sharding import (
     Mesh,
+    PartitionSpec,
     Rules,
     paired_shardings_for,
     shardings_for,
 )
-from repro_torch.parallel.tp import TensorParallel, layout_for
+from repro_torch.parallel.tp import MODEL_AXIS, TensorParallel, layout_for, train_layout_for
+from repro_torch.train.optimizer import mesh_global_norm
 from repro_torch.serving.steps import (  # noqa: F401  (the JAX module's three builders)
     build_prefill_step,
     build_serve_step,
@@ -66,38 +76,194 @@ class TrainStep:
     see ``step + 1``).  ``opt_state`` is the optimizer :meth:`init` builds,
     which holds the moments and updates the model's weights in place.
     ``metrics`` holds ``loss``, ``xent`` and ``aux``, detached fp32 scalars
-    on the device."""
+    on the device.
+
+    With a ``mesh`` the step is one rank's: ``model`` is the rank's part
+    (:meth:`shard`), ``batch`` the global batch, of which the rank takes its
+    rows; the loss and metrics are the global batch's, the same on every
+    rank.  After the backward each gradient is summed over the data axes
+    that split the batch, and a weight left whole under ``model`` also over
+    ``model`` (each rank's is its part: ``parallel.tp``), in one all-reduce
+    a group; the optimizer clips by the whole model's norm
+    (``train.optimizer.mesh_global_norm``), so every rank's update of a
+    weight it shares is the same."""
 
     cfg: ModelConfig
     opt: Callable[..., torch.optim.Optimizer]  # train.optimizer.adamw(...) or sgd(...)
     knobs: M.PerfKnobs
     tile_cache: tuning.TileCache | None = None  # the one knobs.tile_cache names
+    mesh: Mesh | None = None
+    rules: Rules | None = None
+    #: the layouts by (batch, seq), and the weights' resolved specs
+    _layouts: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def shard(self, model: M.LM) -> TrainCell:
+        """This rank's part of ``model`` (the whole unpaired model, the same
+        on every rank): each weight sliced by its resolved ``train`` spec and,
+        under ``gemm="pallas_paired"``, paired per shard (no pair crosses a
+        shard boundary), as :func:`wire_serve_cell` wires a serve cell."""
+        if self.mesh is None:
+            raise ValueError("a step without a mesh trains the whole model")
+        local, _, report, _, seconds = _shard_and_pair(self.cfg, model, self.mesh, self.rules,
+                                                       self.knobs)
+        return TrainCell(local, report, seconds)
+
+    def layout(self, batch_size: int, seq_len: int) -> TensorParallel:
+        """The rank's :func:`~repro_torch.parallel.tp.train_layout_for` for
+        global batches of ``batch_size`` × ``seq_len`` tokens."""
+        key = (batch_size, seq_len)
+        if key not in self._layouts:
+            self._layouts[key] = train_layout_for(self.cfg, self.mesh, self.rules, batch_size,
+                                                  seq_len)
+        return self._layouts[key]
+
+    def param_specs(self, model: M.LM) -> dict[str, PartitionSpec]:
+        """Each of the rank's parameters (by name) and its resolved spec."""
+        if "specs" not in self._layouts:
+            axes, shapes = param_axes_and_shapes(self.cfg)
+            self._layouts["specs"] = shardings_for(axes, self.mesh, self.rules, shapes)
+        return named_specs(model, self._layouts["specs"])
 
     def init(self, model: M.LM) -> torch.optim.Optimizer:
         """Make ``model``'s weights trainable and build the optimizer over
         them (the JAX package's ``opt.init(params)``).  Copies of the model
         share these weights; the serving engines run under ``no_grad``, so
-        theirs track nothing."""
+        theirs track nothing.  On a mesh the optimizer clips by the norm of
+        the whole model (the split weights' squares summed over ``model``)."""
         model.requires_grad_(True)
-        return self.opt(list(model.parameters()))
+        opt = self.opt(list(model.parameters()))
+        if self.mesh is not None:
+            specs = self.param_specs(model)
+            split = [_over_model(specs[n]) for n, _ in model.named_parameters()]
+            opt.norm_fn = functools.partial(mesh_global_norm, split=split,
+                                            group=self.mesh.group(MODEL_AXIS))
+        return opt
 
     def __call__(self, model: M.LM, opt_state: torch.optim.Optimizer, step: int,
                  batch: dict) -> dict[str, torch.Tensor]:
         opt_state.zero_grad(set_to_none=True)
+        tp = None
+        if self.mesh is not None:
+            tp = self.layout(*batch["tokens"].shape)
+            if tp.batch_split:
+                rows = batch["tokens"].shape[0] // tp.dp
+                batch = {k: v[tp.dr * rows:(tp.dr + 1) * rows] for k, v in batch.items()}
         with ops.tile_cache_context(self.knobs, self.tile_cache):
-            loss, metrics = M.lm_loss(self.cfg, model, batch, knobs=self.knobs)
+            loss, metrics = M.lm_loss(self.cfg, model, batch, knobs=self.knobs, tp=tp)
             loss.backward()
+        if tp is not None:
+            self._sum_grads(model, tp)
         for group in opt_state.param_groups:
             group["step"] = int(step)
         opt_state.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
 
+    def _sum_grads(self, model: M.LM, tp: TensorParallel) -> None:
+        """Sum the rank's gradients over the mesh: a whole weight's over
+        ``model`` (and the data axes where they split the batch), a split
+        weight's over those data axes; one all-reduce of the flattened
+        gradients a group (none over a group of one rank)."""
+        specs = self.param_specs(model)
+        whole, split = [], []
+        for name, p in model.named_parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            (split if _over_model(specs[name]) else whole).append(p.grad)
+        data = tp.data_group if tp.batch_split else None
+        for grads, group in ((whole, tp.mesh_group if tp.batch_split else tp.model_group),
+                             (split, data)):
+            if group is None or not grads:
+                continue
+            flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads]), strict=True):
+                g.copy_(part.view_as(g))
+
+    def whole(self, model: M.LM):
+        """``fn(name, t)``: the whole tensor of the rank's parameter ``name``
+        (or its optimizer moment) ``t``, all-gathered over ``model`` along
+        its split dim (a checkpoint stores whole arrays)."""
+        specs = self.param_specs(model)
+
+        def fn(name: str, t: torch.Tensor) -> torch.Tensor:
+            t = t.detach()
+            for dim, entry in enumerate(specs[name]):
+                if entry is not None:
+                    t = all_gather(t, self.mesh.group(entry), dim=dim)
+            return t
+
+        return fn
+
+    def take(self, model: M.LM):
+        """``fn(name, array)``: the rank's block of the whole array saved
+        for parameter ``name`` (or its moment), by its resolved spec."""
+        specs = self.param_specs(model)
+        return lambda name, a: _take(torch.as_tensor(a), specs[name], self.mesh)
+
+
+def _over_model(spec) -> bool:
+    """Whether a resolved spec splits its tensor over ``model``."""
+    return any(e == MODEL_AXIS or (isinstance(e, tuple) and MODEL_AXIS in e) for e in spec)
+
+
+@dataclasses.dataclass
+class TrainCell:
+    """One training rank's part of a model: the sliced (and per-shard
+    paired) ``model``, the pairing report and the wiring's seconds
+    (``"slice"``, ``"pair"``)."""
+
+    model: M.LM
+    pair_report: Any
+    seconds: dict
+
+
+def named_specs(model: M.LM, specs: dict) -> dict[str, PartitionSpec]:
+    """``model.named_parameters()``'s names mapped to their resolved specs
+    (``specs``: ``shardings_for`` of ``models.param.param_axes``; a stacked
+    layer weight's spec without its ``"layers"`` entry)."""
+    out = {name: specs[name] for name in ("embed", "lm_head", "meta", "vision_proj")
+           if getattr(model, name, None) is not None}
+
+    def stack(prefix: str, layers, segments, seg_specs) -> None:
+        start = 0
+        for (_, count), seg in zip(segments, seg_specs, strict=True):
+            for i in range(start, start + count):
+                for name, _ in layers[i].named_parameters():
+                    node = seg
+                    for part in name.split("."):
+                        node = node[part]
+                    out[f"{prefix}.{i}.{name}"] = PartitionSpec(*node[1:])
+            start += count
+
+    for name, _ in model.final_norm.named_parameters():
+        out[f"final_norm.{name}"] = specs["final_norm"][name]
+    stack("layers", model.layers, model.segments, specs["segments"])
+    if model.encoder is not None:
+        enc = model.encoder
+        stack("encoder.layers", enc.layers, enc.segments, specs["encoder"]["segments"])
+        for name, _ in enc.final_norm.named_parameters():
+            out[f"encoder.final_norm.{name}"] = specs["encoder"]["final_norm"][name]
+    return out
+
 
 def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer],
-                     knobs: M.PerfKnobs) -> TrainStep:
+                     knobs: M.PerfKnobs, mesh: Mesh | None = None,
+                     rules: Rules | None = None) -> TrainStep:
     """The training step of ``cfg`` under ``knobs`` with optimizer ``opt``
-    (a constructor over the parameters, the JAX package's ``Optimizer``)."""
-    return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs))
+    (a constructor over the parameters, the JAX package's ``Optimizer``);
+    with a ``mesh`` (made by ``parallel.sharding.make_mesh``), one rank's
+    step under ``rules`` (``rules_for(cfg, "train", mesh)`` unless given).
+    Raises ``NotImplementedError`` on a mesh for ``attn="pallas_fused"``
+    (K3 has no backward), for FSDP and for a family other than dense GQA
+    and routed MoE (``parallel.tp.train_layout_for``)."""
+    if mesh is None:
+        return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs))
+    if knobs.attn != "xla":
+        raise NotImplementedError("attn='pallas_fused' does not train: the flash-attention "
+                                  "kernel has no backward, so the mesh trains under "
+                                  "attn='xla'")
+    rules = rules or rules_for(cfg, "train", mesh)
+    train_layout_for(cfg, mesh, rules, 1, 1)  # the refusals, before any wiring
+    return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs), mesh, rules)
 
 
 # ---------------------------------------------------------------------------
@@ -245,12 +411,32 @@ def wire_serve_cell(
     """
     if knobs.attn != "xla":
         raise NotImplementedError(MESH_FUSED_REFUSAL)
-    if has_lm_pairing(model):
-        raise ValueError("a mesh pairs each rank's shards itself: hand wire_serve_cell the "
-                         "unpaired model")
     rules = rules or rules_for(cfg, "decode", mesh)
-    axes, shapes = param_axes_and_shapes(cfg)
     tp = layout_for(cfg, mesh, rules, batch_size, max_seq)
+    local, p_shard, report, plan, seconds = _shard_and_pair(cfg, model, mesh, rules, knobs)
+    c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
+    c_shard = shardings_for(c_axes, mesh, rules, c_shapes)
+    tile_cache = load_knobs_tile_cache(knobs)
+    return ServeCell(model=local.copy(frozen=True),
+                     decode=build_serve_step(cfg, knobs, tile_cache, tp=tp),
+                     prefill=build_prefill_step(cfg, knobs, tile_cache, tp=tp),
+                     p_shard=p_shard, c_shard=c_shard, rules=rules, tp=tp,
+                     pair_report=report, plan=plan, seconds=seconds)
+
+
+def _shard_and_pair(cfg: ModelConfig, model: M.LM, mesh: Mesh, rules: Rules,
+                    knobs: M.PerfKnobs):
+    """The rank's part of the whole unpaired ``model``: ``(local, p_shard,
+    pair report, shard plan, seconds)``.  The weights' axes resolve against
+    (mesh, rules); the rank slices its weights by their specs
+    (:func:`shard_model`) and, under ``gemm="pallas_paired"``, pairs only
+    what it reads at the shard plan's splits
+    (``core.transform.tp_shard_plan``, ``pair_shard_params``); the
+    metadata's placement comes from its weight's resolved spec and is
+    checked against what the rank built."""
+    if has_lm_pairing(model):
+        raise ValueError("a mesh pairs each rank's shards itself: hand it the unpaired model")
+    axes, shapes = param_axes_and_shapes(cfg)
     t0 = time.perf_counter()
     p_shard = shardings_for(axes, mesh, rules, shapes)
     local = shard_model(model, p_shard, mesh)
@@ -265,14 +451,7 @@ def wire_serve_cell(
         p_shard = paired_shardings_for(pairing_axes(meta_shapes, axes), mesh, rules, meta_shapes)
         _check_meta_placement(local, p_shard, meta_shapes, mesh)
         seconds["pair"] = time.perf_counter() - t0 - seconds["slice"]
-    c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
-    c_shard = shardings_for(c_axes, mesh, rules, c_shapes)
-    tile_cache = load_knobs_tile_cache(knobs)
-    return ServeCell(model=local.copy(frozen=True),
-                     decode=build_serve_step(cfg, knobs, tile_cache, tp=tp),
-                     prefill=build_prefill_step(cfg, knobs, tile_cache, tp=tp),
-                     p_shard=p_shard, c_shard=c_shard, rules=rules, tp=tp,
-                     pair_report=report, plan=plan, seconds=seconds)
+    return local, p_shard, report, plan, seconds
 
 
 def _check_meta_placement(local: M.LM, p_shard: dict, meta_shapes: dict, mesh: Mesh) -> None:

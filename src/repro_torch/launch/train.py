@@ -5,18 +5,30 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --steps 6 --gemm pallas_paired --pair-rounding 0.05
 
+    # on a (data, model) mesh of 1 × 2 ranks: tensor and sequence parallel
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        --mesh 1x2 --gemm pallas_paired --pair-rounding 0.05
+
     # on the CPU, the kernels' plain versions, a reduced config
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \
         --steps 2 --gemm pallas_paired --device cpu
 
-The port of ``repro.launch.train`` on one device: ``--mesh`` is dropped.
-The port's mesh (``parallel``, ``launch.steps.wire_serve_cell``) serves the
-dense and MoE families tensor-parallel; training on it, with the ``train``
-rules' sequence parallelism, is ROADMAP queue 1, item 9.  Checkpoints (weights and
-the optimizer's moments) are written every ``--ckpt-every`` steps; a run
-finding one in ``--ckpt-dir`` resumes from it and regenerates the token
-stream from the step counter (``data.tokens``), so a killed run continues
-as the straight one would.  ``--paired-rounding`` folds the weights at that
+The port of ``repro.launch.train``.  ``--mesh AxB`` trains on a mesh of
+axes (data, model) under ``rules_for(cfg, "train", mesh)``, as the JAX CLI
+does: one process a rank (``launch.mesh.spawn``, over ``--backend``: gloo,
+which lets the ranks share a card, or nccl, a card a rank), the batch's
+rows over ``data``, heads, ff, experts and vocab over ``model`` and the
+residual stream's positions too (``launch.steps.TrainStep``); the dense GQA
+and routed MoE families train there (the others are ROADMAP queue 1, item
+2a).  Each rank pairs its own shards under ``--gemm pallas_paired``.  The
+log lines are rank 0's, printed when the ranks end.  Without ``--mesh`` it
+trains on one device.  Checkpoints (weights and the optimizer's moments,
+whole arrays: a mesh gathers its shards) are written every
+``--ckpt-every`` steps; a run finding one in ``--ckpt-dir`` resumes from it
+(on any mesh shape, or none: each rank slices the whole arrays) and
+regenerates the token stream from the step counter (``data.tokens``), so a
+killed run continues as the straight one would.  ``--paired-rounding``
+folds the weights at that
 rounding before training (the JAX CLI's pairing-aware finetune): the paper's
 per-column pairing of each layer's ``(K, N)`` matrix,
 ``core.transform.fold_lm_params``.  The JAX CLI folds the whole value tree
@@ -36,17 +48,22 @@ layer's experts run on K1's expert grid under ``pallas_paired``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 import time
 
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import cut_layers, get_config, get_smoke_config
 from repro_torch.core.transform import fold_lm_params, pair_lm_params
 from repro_torch.data.tokens import token_batches
 from repro_torch.device import resolve_device
+from repro_torch.kernels import paired_matmul as pm
 from repro_torch.kernels.ops import paired_mode_of
+from repro_torch.launch.mesh import spawn
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import lm as M
+from repro_torch.parallel.collectives import collective_stats, reset_collectives
 from repro_torch.train.checkpoint import latest_step, restore_train_state, save_train_state
 from repro_torch.train.optimizer import adamw, cosine_schedule
 
@@ -67,6 +84,14 @@ def train_extras(cfg, batch: int, device) -> dict[str, torch.Tensor]:
     return extras
 
 
+def mesh_shape(spec: str) -> tuple[int, int]:
+    """``"AxB"`` → (A, B): the JAX CLI's ``--mesh``, axes (data, model)."""
+    parts = tuple(int(x) for x in spec.lower().split("x"))
+    if len(parts) != 2 or min(parts) < 1:
+        raise ValueError(f"--mesh {spec!r}: expected AxB, axes (data, model)")
+    return parts
+
+
 def train(
     *,
     arch: str,
@@ -83,67 +108,129 @@ def train(
     pair_rounding: float = 0.0,
     pair_block_n: int = 0,
     device: str | None = None,
+    mesh: str = "",
+    backend: str = "gloo",
+    layers: int = 0,
+    dtype: str = "",
 ) -> dict:
     """Train ``arch`` for ``steps`` steps (from the newest checkpoint in
     ``ckpt_dir`` if there is one), printing the JAX CLI's log lines.
     Returns the run's record: the model, the optimizer, the train step and
     its knobs, the step it started from, seconds spent pairing, every
     step's metrics (floats) and wall ms (each ends in a device-to-host copy
-    of the metrics, so it includes the device work), and wall seconds."""
+    of the metrics, so it includes the device work), and wall seconds.
+    ``layers`` cuts the config's depth and ``dtype`` sets its compute dtype
+    (0 / "": the config's).
+
+    With ``mesh`` (``"AxB"``) every rank of the mesh runs :func:`train_rank`
+    in a process of its own; the record is rank 0's (no model, optimizer or
+    step: they live in the ranks), with every rank's under ``"ranks"``."""
+    kw = dict(arch=arch, smoke=smoke, steps=steps, batch=batch, seq=seq, lr=lr,
+              ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, paired_rounding=paired_rounding,
+              log_every=log_every, gemm=gemm, pair_rounding=pair_rounding,
+              pair_block_n=pair_block_n, layers=layers, dtype=dtype)
+    if not mesh:
+        return _train(None, device=device, emit=print, **kw)
+    ranks = spawn(train_rank, mesh_shape(mesh), backend=backend,
+                  device="cpu" if device == "cpu" else "cuda", kwargs=kw, timeout=math.inf)
+    for line in ranks[0].pop("lines"):
+        print(line)
+    return {**ranks[0], "ranks": ranks}
+
+
+def train_rank(mesh, **kw) -> dict:
+    """One rank of a mesh training run (:func:`train`'s ``mesh``): the
+    rank's record, its log lines (rank 0's) under ``"lines"``, beside every
+    step's collectives (``parallel.collectives``' counter) and K1 launches
+    (CUDA tensors only), its wiring seconds and its peak device memory."""
+    lines: list[str] = []
+    rec = _train(mesh, device=None, emit=lines.append if mesh.rank == 0 else lambda _: None,
+                 **kw)
+    return {k: v for k, v in rec.items() if k not in ("model", "opt_state", "step")} | {
+        "lines": lines, "rank": mesh.rank, "coords": mesh.coords}
+
+
+def _train(mesh, *, arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every, paired_rounding,
+           log_every, gemm, pair_rounding, pair_block_n, device, layers, dtype, emit) -> dict:
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    dev = resolve_device(device)
+    if layers:
+        cfg = cut_layers(cfg, layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     model = M.init_lm(cfg, 0, device=dev)
     if paired_rounding > 0:
         model, report = fold_lm_params(model, paired_rounding)
-        print(f"[train] paired {report.total_pairs} weight pairs "
-              f"({100 * report.pair_fraction:.1f}% of weights) "
-              f"→ modeled savings {report.savings()}")
+        emit(f"[train] paired {report.total_pairs} weight pairs "
+             f"({100 * report.pair_fraction:.1f}% of weights) "
+             f"→ modeled savings {report.savings()}")
     knobs = M.PerfKnobs(q_chunk=min(1024, seq), gemm=gemm, pair_rounding=pair_rounding,
                         pair_block_n=pair_block_n)
-    pairing_s = 0.0
-    if gemm == "pallas_paired":
+    step_fn = build_train_step(
+        cfg, adamw(cosine_schedule(lr, steps, warmup_steps=min(100, steps // 10))), knobs,
+        mesh=mesh)
+    pairing_s, wiring = 0.0, {}
+    rp = None
+    if mesh is not None:
+        cell = step_fn.shard(model)
+        model, rp, wiring = cell.model, cell.pair_report, cell.seconds
+        pairing_s = wiring.get("pair", 0.0)
+    elif gemm == "pallas_paired":
         mode, block_n = paired_mode_of(knobs)
         t0 = time.perf_counter()
         model, rp = pair_lm_params(model, pair_rounding, mode=mode, block_n=block_n)
         pairing_s = time.perf_counter() - t0
-        print(f"[train] paired-kernel GEMMs ({rp.mode}"
-              f"{f', block_n={block_n}' if block_n else ''}, rounding {pair_rounding}): "
-              f"{rp.total_pairs} per-column-equivalent pairs across {len(rp.leaves)} "
-              f"decoder weights ({100 * rp.pair_fraction:.1f}%); paired in {pairing_s:.1f} s")
-
-    step_fn = build_train_step(
-        cfg, adamw(cosine_schedule(lr, steps, warmup_steps=min(100, steps // 10))), knobs)
+    if rp is not None:
+        block_n = paired_mode_of(knobs)[1]
+        emit(f"[train] paired-kernel GEMMs ({rp.mode}"
+             f"{f', block_n={block_n}' if block_n else ''}, rounding {pair_rounding}): "
+             f"{rp.total_pairs} per-column-equivalent pairs across {len(rp.leaves)} "
+             f"decoder weights ({100 * rp.pair_fraction:.1f}%); paired in {pairing_s:.1f} s")
     opt_state = step_fn.init(model)
     params = dict(model.named_parameters())
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
-        start = restore_train_state(ckpt_dir, params, opt_state)
-        print(f"[train] resumed from step {start}")
+        start = restore_train_state(ckpt_dir, params, opt_state,
+                                    take=None if mesh is None else step_fn.take(model))
+        emit(f"[train] resumed from step {start}")
 
+    # the global batch: a mesh's step takes its rank's rows
     data = token_batches(batch, seq, cfg.vocab, seed=1, start_step=start)
     extras = train_extras(cfg, batch, dev)
     history: list[dict[str, float]] = []
     step_ms: list[float] = []
+    collectives: list[dict] = []
+    k1: list[int] = []
     t0 = time.time()
     for i in range(start, steps):
         tok, lab = next(data)
         b = {"tokens": torch.as_tensor(tok, dtype=torch.int64, device=dev),
              "labels": torch.as_tensor(lab, dtype=torch.int64, device=dev), **extras}
+        reset_collectives()
+        before = pm.launch_count()
         t_step = time.perf_counter()
         metrics = {k: float(v) for k, v in step_fn(model, opt_state, i, b).items()}
         step_ms.append((time.perf_counter() - t_step) * 1e3)
+        k1.append(pm.launch_count() - before)
+        collectives.append(collective_stats())
         history.append(metrics)
         if log_every and (i + 1) % log_every == 0:
-            print(f"[train] step {i + 1} loss {metrics['loss']:.4f} xent {metrics['xent']:.4f} "
-                  f"({(i + 1 - start) / (time.time() - t0):.2f} it/s)")
+            emit(f"[train] step {i + 1} loss {metrics['loss']:.4f} xent {metrics['xent']:.4f} "
+                 f"({(i + 1 - start) / (time.time() - t0):.2f} it/s)")
         if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
-            save_train_state(ckpt_dir, i + 1, params, opt_state)
+            save_train_state(ckpt_dir, i + 1, params, opt_state,
+                             whole=None if mesh is None else step_fn.whole(model),
+                             write=mesh is None or mesh.rank == 0)
     seconds = time.time() - t0
     final = f", final loss {history[-1]['loss']:.4f}" if history else ""
-    print(f"[train] done: {steps - start} steps in {seconds:.1f}s{final}")
+    emit(f"[train] done: {steps - start} steps in {seconds:.1f}s{final}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     return {"cfg": cfg, "model": model, "opt_state": opt_state, "step": step_fn,
             "knobs": knobs, "start": start, "pairing_s": pairing_s, "history": history,
-            "step_ms": step_ms, "seconds": seconds}
+            "step_ms": step_ms, "seconds": seconds, "collectives": collectives,
+            "k1_launches": k1, "wiring_s": wiring, "peak_bytes": peak}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -171,6 +258,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device; default the GPU ('cpu' runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 2x2 → axes (data, model): one process a rank, tensor, "
+                         "sequence and data parallel")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                    help="the mesh's collectives: gloo (ranks may share a card, or run on "
+                         "the CPU) or nccl (a card a rank)")
     train(**vars(ap.parse_args(argv)))
 
 

@@ -41,7 +41,10 @@ latent), merges the ranks' partial softmaxes
 (:func:`merge_partial_softmax`); the experts run on the ranks that hold
 them (:func:`_moe_shard_map` on a prompt, the dense branch on decode rows),
 their gated sums all-reduced with the shared experts'; an SSM block scans
-the rank's heads, its gated norm's statistic all-reduced.
+the rank's heads, its gated norm's statistic all-reduced.  A training rank
+(``tp.train``) enters each block with its positions gathered along the
+sequence and closes it with a reduce-scatter (:func:`seq_enter`,
+:func:`close_partial`), and its MoE aux loss is the global batch's.
 
 Weights live in :class:`Block` modules (fp32 masters, as the JAX package
 keeps them) with each weight's pairing metadata beside it; every GEMM goes
@@ -66,7 +69,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_mask
-from repro_torch.parallel.collectives import all_gather, all_reduce
+from repro_torch.parallel.collectives import (
+    all_gather,
+    all_reduce,
+    grad_all_reduce,
+    reduce_scatter,
+)
 
 # ---------------------------------------------------------------------------
 # weight containers
@@ -314,20 +322,19 @@ def dense(
 
     ``residual`` is an output-shaped skip connection added after the
     activation.  ``out_dtype=torch.float32`` returns the result before its
-    cast to x's dtype (a tensor-parallel rank's partial sum): the paired
-    kernel's fp32 epilogue stored uncast; elsewhere the product in x's dtype,
-    then the epilogue in fp32.
+    cast to x's dtype (a tensor-parallel rank's partial sum): K1's fp32
+    epilogue stored uncast, under autograd too; under ``torch.matmul`` the
+    product in x's dtype, then the epilogue in fp32.
     """
     if pairing is not None and knobs.gemm == "pallas_paired":
         if segments is None:
-            y = ops.fused_paired_dense(x, w, pairing, bias, activation=act or "none",
-                                       residual=residual, pair_block_n=knobs.pair_block_n)
-            return y if out_dtype is None else y.to(out_dtype)
+            return ops.fused_paired_dense(x, w, pairing, bias, activation=act or "none",
+                                          residual=residual, pair_block_n=knobs.pair_block_n,
+                                          out_dtype=out_dtype)
         return ops.paired_dense(x, segments, bias, activation=act or "none", residual=residual,
                                 out_dtype=out_dtype)
     if knobs.gemm == "pallas":
-        y = ops.fused_dense(x, w, bias, activation=act or "none")
-        y = y if out_dtype is None else y.to(out_dtype)
+        y = ops.fused_dense(x, w, bias, activation=act or "none", out_dtype=out_dtype)
         return y if residual is None else y + residual.to(y.dtype)
     y = torch.matmul(x, w)
     if out_dtype is not None:
@@ -370,10 +377,73 @@ def row_parallel_dense(p: Block, name: str, x: torch.Tensor, knobs, tp, *,
     slab of the contraction rows and ``x``'s matching columns): the partial
     sum stored in fp32 (the paired kernel's ``out_dtype``), the skip
     connection fused on the first model rank only, one all-reduce over
-    ``model`` in fp32, then the one cast to x's dtype."""
+    ``model`` in fp32, then the one cast to x's dtype.  A training rank
+    closes it with :func:`close_partial` (the skip connection added after
+    the sum: under sequence parallelism it is the rank's positions only)."""
+    if tp.train:
+        y = _leaf_dense(p, name, x, knobs, out_dtype=torch.float32)
+        return close_partial(tp, y, x.dtype, residual)
     y = _leaf_dense(p, name, x, knobs, residual=residual if tp.r == 0 else None,
                     out_dtype=torch.float32)
     return all_reduce(y, tp.model_group).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# a training rank's way into and out of a tensor-parallel block
+# ---------------------------------------------------------------------------
+#
+# A training rank (``tp.train``) holds, between sublayers, the residual
+# stream's positions its layout gives it: its ``S/n`` chunk under sequence
+# parallelism (``tp.seq_split``), all of them otherwise.  Each block runs
+# on all positions: under sequence parallelism :func:`seq_enter`
+# all-gathers them (the gradient reduce-scattered back), and
+# :func:`close_partial` reduce-scatters the block's fp32 partial sums (the
+# gradient all-gathered back); otherwise the partial sums are all-reduced,
+# and so is their gradient, since every rank's gradient of a tensor it holds
+# whole is its own part (``parallel.tp``).  A block whose weights are whole
+# runs on every rank alike and keeps its positions (:func:`close_whole`).
+
+
+def seq_enter(tp, x: torch.Tensor) -> torch.Tensor:
+    """The (B, S, d) input of a block on a training rank: its positions
+    all-gathered along the sequence under sequence parallelism, else ``x``
+    (and ``x`` off a training mesh)."""
+    if tp is None or not tp.train or not tp.seq_split:
+        return x
+    return all_gather(x, tp.model_group, dim=1)
+
+
+def close_partial(tp, y: torch.Tensor, cdt: torch.dtype,
+                  residual: torch.Tensor | None = None) -> torch.Tensor:
+    """A training rank's fp32 partial sum ``y`` (B, S, d) over ``model``,
+    closed: reduce-scattered to its positions under sequence parallelism,
+    else all-reduced (the gradient all-reduced too); ``residual`` (the
+    rank's positions of the skip connection) added in fp32; then the one
+    cast to ``cdt``."""
+    if tp.seq_split:
+        y = reduce_scatter(y, tp.model_group, dim=1)
+    else:
+        y = grad_all_reduce(all_reduce(y, tp.model_group), tp.model_group)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return y.to(cdt)
+
+
+def close_whole(tp, y: torch.Tensor, cdt: torch.dtype,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+    """The fp32 output ``y`` (B, S, d) of a block whose weights are whole
+    on a training rank under sequence parallelism: the rank's positions,
+    ``residual`` added in fp32, then the one cast to ``cdt``."""
+    n = y.shape[1] // tp.n
+    y = y[:, tp.r * n:(tp.r + 1) * n]
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return y.to(cdt)
+
+
+def _whole_seq_split(tp) -> bool:
+    """A block whose weights are whole, on a sequence-parallel training rank."""
+    return tp is not None and tp.train and tp.seq_split
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +637,9 @@ def attn_out_proj(p: Attention, out: torch.Tensor, knobs,
     o2 = out.reshape(*out.shape[:-2], -1)
     if tp is not None and tp.q_split:
         return row_parallel_dense(p, "wo", o2, knobs, tp, residual=residual)
+    if _whole_seq_split(tp):
+        return close_whole(tp, _leaf_dense(p, "wo", o2, knobs, out_dtype=torch.float32),
+                           o2.dtype, residual)
     return _leaf_dense(p, "wo", o2, knobs, residual=residual)
 
 
@@ -913,6 +986,9 @@ def mlp_block(cfg: ModelConfig, p: MLP, x: torch.Tensor, knobs,
     u = _leaf_dense(p, "w_up", x, knobs)
     if tp is not None and tp.ff_split:
         return row_parallel_dense(p, "w_down", g * u, knobs, tp, residual=residual)
+    if _whole_seq_split(tp):
+        return close_whole(tp, _leaf_dense(p, "w_down", g * u, knobs, out_dtype=torch.float32),
+                           x.dtype, residual)
     return _leaf_dense(p, "w_down", g * u, knobs, residual=residual)
 
 
@@ -1050,6 +1126,14 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
     backward is autograd of the einsum on the folded experts, as the JAX
     package's custom VJP; otherwise ``torch.einsum`` as the JAX package's
     ``jnp.einsum``.
+
+    A training rank (``tp.train``; ``train_layout_for`` refuses shared
+    experts) runs the block over
+    all positions of its rows (``x`` is what :func:`seq_enter` gathered) and
+    returns its own positions of ``y`` (:func:`close_partial`, or
+    :func:`close_whole` where the experts are whole); the branch is chosen
+    by the global batch's tokens, and the aux loss is the global batch's
+    (:func:`_train_aux`).
     """
     mo = cfg.moe
     B, S, d = x.shape
@@ -1060,6 +1144,9 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
     shared = getattr(p, "shared", None)
     split = tp is not None and tp.experts_split
     shared_split = tp is not None and tp.shared_split and shared is not None
+    train = tp is not None and tp.train
+    # the global batch's tokens: a data-split training rank holds some of its rows
+    T_all = T * (tp.dp if train and tp.batch_split else 1)
 
     def shared_experts(x2, partial=False):
         """The shared experts' gated MLP over (T, d) rows, no skip
@@ -1070,8 +1157,17 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
 
     def close(y2, partial):
         """The routed sum ``y2`` (T, d) — the rank's fp32 partial sum where
-        ``partial`` — with the shared experts added; one all-reduce over
-        ``model`` closes whatever is partial."""
+        ``partial`` — with the shared experts added, as (B, S, d); one
+        all-reduce over ``model`` closes whatever is partial.  A training
+        rank's: its positions (B, S/n, d) under sequence parallelism."""
+        if train:
+            y3 = y2.reshape(B, S, d)
+            if partial:
+                return close_partial(tp, y3, cdt)
+            return close_whole(tp, y3.float(), cdt) if tp.seq_split else y3
+        return _close_shared(y2, partial).reshape(B, S, d)
+
+    def _close_shared(y2, partial):
         if shared is None:
             return all_reduce(y2, tp.model_group).to(cdt) if partial else y2
         if shared_split:
@@ -1102,7 +1198,7 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
     topw, topi = _top_k(gates, K)
     topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    if T * K <= 2 * E:
+    if T_all * K <= 2 * E:
         y_all = experts(x2, per_expert=False)  # (T, E, d), or (T, E/n, d) on a mesh
         w_full = torch.zeros((T, E), dtype=cdt, device=x.device).scatter_(1, topi, topw.to(cdt))
         if split:
@@ -1111,15 +1207,15 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
             y2 = torch.einsum("ted,te->td", y_all.float(), w_loc.float())
         else:
             y2 = torch.einsum("ted,te->td", y_all, w_full)
-        return (close(y2, split).reshape(B, S, d),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        return close(y2, split), torch.zeros((), dtype=torch.float32, device=x.device)
 
     if split:
         y2, counts = _moe_shard_map(cfg, x, topi, topw, experts, tp)
+        if train:
+            return close(y2.reshape(T, d), True), _train_aux(cfg, tp, gates, topi, B, S, T_all)
         me = gates.mean(0)
         ce = counts.float() / max(T * K, 1)
-        return close(y2.reshape(T, d), True).reshape(B, S, d), (me * ce).sum() * (
-            E * mo.router_aux_weight)
+        return close(y2.reshape(T, d), True), (me * ce).sum() * (E * mo.router_aux_weight)
 
     xb, inv_tok, inv_w, counts, C = _moe_route(cfg, x, topi, topw)
     # experts as the grid's blocks: the (B, C) token rows of each expert's
@@ -1127,12 +1223,35 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
     yb = experts(xb.permute(1, 0, 2, 3).reshape(E, B * C, d), per_expert=True)
     yb = yb.reshape(B, C, E, d).permute(0, 2, 1, 3)
     y2 = close(_moe_combine(B, S, d, yb, inv_tok, inv_w, cdt, K).reshape(T, d), False)
-    y2 = y2.reshape(B, S, d)
+    if train:
+        return y2, _train_aux(cfg, tp, gates, topi, B, S, T_all)
 
     me = gates.mean(0)  # mean router probability of each expert
     ce = counts.sum(0).float() / max(T * K, 1)  # share of the choices it got
     aux = (me * ce).sum() * (E * mo.router_aux_weight)
     return y2, aux
+
+
+def _train_aux(cfg: ModelConfig, tp, gates: torch.Tensor, topi: torch.Tensor, B: int, S: int,
+               T_all: int) -> torch.Tensor:
+    """The Switch load-balance loss of the global batch on a training rank:
+    the mean router probability ``me`` and the share of the choices ``ce``
+    of each expert over all ``T_all`` tokens.  Every rank holds the gates
+    (T, E) and choices (T, K) of all positions of its rows; it sums those
+    of its own positions (``tp.own``), and one all-reduce over the model
+    axis and the data axes that split the batch adds every rank's (each
+    position of each row counted once).  The gradient reaches the gates of
+    the rank's own positions only: its part of theirs."""
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    own = tp.own(S)
+    g = gates.reshape(B, S, E)[:, own].sum((0, 1))
+    chosen = topi.reshape(B, S, K)[:, own].reshape(-1)
+    c = torch.zeros(E, dtype=torch.float32, device=gates.device).index_add_(
+        0, chosen, torch.ones(chosen.shape, dtype=torch.float32, device=gates.device))
+    stat = all_reduce(torch.stack([g, c]), tp.mesh_group if tp.batch_split else tp.model_group)
+    me = stat[0] / T_all
+    ce = stat[1] / max(T_all * K, 1)
+    return (me * ce).sum() * (E * cfg.moe.router_aux_weight)
 
 
 def _moe_shard_map(cfg: ModelConfig, x: torch.Tensor, topi: torch.Tensor,
@@ -1162,7 +1281,7 @@ def _moe_shard_map(cfg: ModelConfig, x: torch.Tensor, topi: torch.Tensor,
     inv_w_m = inv_w.reshape(B, E, C)[:, e0:e0 + E_loc].reshape(B, E_loc * C)
     y2 = _moe_combine(B, S, d, yb.float(), inv_tok_m, inv_w_m, torch.float32, mo.top_k)
     counts = counts.sum(0)
-    if tp.batch_split:
+    if tp.batch_split and not tp.train:  # a training rank counts its own positions instead
         counts = all_reduce(counts, tp.data_group)
     return y2, counts
 

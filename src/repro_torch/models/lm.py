@@ -32,6 +32,10 @@ the logits), the cache in the layout its resolved spec gives (heads or
 positions over ``model``, an SSM state's heads and conv tails' channels,
 slots over the data axes), the encoder over its own split, and each layer as
 ``models.layers`` splits it under its segment's view (``tp.layer(i)``).
+:func:`lm_loss` runs one training rank's part (``tp`` from
+``parallel.tp.train_layout_for``; dense GQA and MoE): the rank's rows, its
+positions of the residual stream under sequence parallelism, the
+vocab-parallel cross-entropy, and the global batch's loss.
 
 The model is an :class:`LM` module: the embedding (tied as the head, or an
 ``lm_head`` of its own), learned ``meta`` token rows (hybrid) that precede
@@ -82,6 +86,7 @@ from repro_torch.models.layers import (
     attention_block,
     attention_decode_block,
     attn_out_proj,
+    close_partial,
     decode_attention,
     full_attention,
     local_kv,
@@ -89,6 +94,7 @@ from repro_torch.models.layers import (
     mla_decode_block,
     mlp_block,
     moe_block,
+    seq_enter,
     ssm_decode_block,
     ssm_forward,
 )
@@ -515,7 +521,12 @@ def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt,
     mesh, each rank looks up the tokens its rows hold (zeros for the rest)
     and an all-reduce over ``model`` sums them: the one row, exactly.  A
     token no rank holds raises ``IndexError`` on every rank (they all see
-    the same tokens), as the whole table's lookup does on one device."""
+    the same tokens), as the whole table's lookup does on one device.
+
+    A training rank (``tp.train``) returns its positions of the residual
+    stream: under sequence parallelism the split lookup is reduce-scattered
+    along the sequence (``layers.close_partial``), and a whole table looks
+    up the rank's positions alone."""
     if tp is not None and tp.vocab_split:
         rows = model.embed.shape[0]
         bad = (tokens < 0) | (tokens >= rows * tp.n)
@@ -525,7 +536,9 @@ def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt,
         local = tokens - tp.r * rows
         held = (local >= 0) & (local < rows)
         h = model.embed[local.clamp(0, rows - 1)] * held[..., None].to(model.embed.dtype)
-        h = all_reduce(h, tp.model_group).to(cdt)
+        h = close_partial(tp, h, cdt) if tp.train else all_reduce(h, tp.model_group).to(cdt)
+    elif tp is not None and tp.train and tp.seq_split:
+        h = model.embed[tokens[:, tp.own(tokens.shape[1])]].to(cdt)
     else:
         h = model.embed[tokens].to(cdt)
     if not cfg.tie_embeddings:
@@ -567,7 +580,7 @@ def _ffn(cfg: ModelConfig, p: DecoderLayer, h: torch.Tensor, knobs: PerfKnobs, t
     package, and ``aux`` is their load-balance loss (0 without experts)."""
     if p.ffn is None:  # an SSM layer
         return h, _no_aux(h)
-    x = p.ln2(h)
+    x = seq_enter(tp, p.ln2(h))
     if p.ffn == "moe":
         y, aux = moe_block(cfg, p.moe, x, knobs, tp=tp)
         return h + y, aux
@@ -707,8 +720,9 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
         h, aux = _ffn(cfg, p, h + y, knobs, tp)
         return h, c, aux
     # the skip connections ride the out- and down-projections (fused into
-    # the paired kernel's epilogue under gemm="pallas_paired")
-    h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
+    # the paired kernel's epilogue under gemm="pallas_paired"); a
+    # sequence-parallel training rank gathers the block's positions first
+    h, k, v = attention_block(cfg, p.attn, seq_enter(tp, x), positions, knobs,
                               window=_window_for(cfg, kind), residual=h, tp=tp)
     c = {"k": k, "v": v}
     if kind == "encdec":
@@ -732,7 +746,9 @@ def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: d
     ``vision_prefix`` rows replaced by ``extras["patches"] @ vision_proj``,
     an encoder-decoder model's with the sinusoid added; their positions
     (B, meta_tokens + S); and the encoder's output over ``extras["frames"]``
-    (None without an encoder)."""
+    (None without an encoder).  A sequence-parallel training rank's rows
+    are its positions of the stream (:func:`embed_tokens`); the positions
+    stay the whole sequence's."""
     cdt = compute_dtype(cfg)
     h = embed_tokens(cfg, model, tokens, cdt, tp)
     B = tokens.shape[0]
@@ -743,7 +759,7 @@ def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: d
     if cfg.meta_tokens:
         meta = model.meta.to(cdt)[None].expand(B, *model.meta.shape)
         h = torch.cat([meta, h], dim=1)
-    S = h.shape[1]
+    S = cfg.meta_tokens + tokens.shape[1]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     enc_out = None
     if cfg.encoder is not None:
@@ -842,22 +858,26 @@ def _remat(fn, knobs: PerfKnobs):
     return run
 
 
-def _train_layer(cfg: ModelConfig, kind: str, p: DecoderLayer, knobs: PerfKnobs,
+def _train_layer(cfg: ModelConfig, kind: str, p: DecoderLayer, knobs: PerfKnobs, tp,
                  h: torch.Tensor, positions: torch.Tensor, enc_out: torch.Tensor | None):
     """One decoder layer for the loss: ``(h, aux)``, no cache."""
-    h, _, aux = layer_fwd(cfg, kind, p, h, positions, knobs, enc_out=enc_out)
+    h, _, aux = layer_fwd(cfg, kind, p, h, positions, knobs, enc_out=enc_out, tp=tp)
     return h, aux
 
 
 def _hidden_for_loss(cfg: ModelConfig, model: LM, tokens: torch.Tensor, knobs: PerfKnobs,
-                     extras: dict | None = None):
+                     extras: dict | None = None, tp=None):
     """The forward up to the final-normed hidden states (B, S, d), skipping
     the logits, and the summed router aux loss; each layer (the encoder's
-    too) under :func:`_remat`."""
-    h, positions, enc_out = _prepare_inputs(cfg, model, tokens, extras, knobs, train=True)
+    too) under :func:`_remat`.  A training rank (``tp``, its layout; dense
+    GQA and MoE) returns its positions: (B, S/n, d) under sequence
+    parallelism."""
+    h, positions, enc_out = _prepare_inputs(cfg, model, tokens, extras, knobs, train=True,
+                                            tp=tp)
     aux_total = _no_aux(h)
     for i, layer in enumerate(model.layers):
-        step = functools.partial(_train_layer, cfg, cfg.layer_kind(i), layer, knobs)
+        step = functools.partial(_train_layer, cfg, cfg.layer_kind(i), layer, knobs,
+                                 None if tp is None else tp.layer(i))
         h, aux = _remat(step, knobs)(h, positions, enc_out)
         aux_total = aux_total + aux
     return model.final_norm(h[:, cfg.meta_tokens:]), aux_total
@@ -877,8 +897,27 @@ def _xent_chunk(cfg: ModelConfig, w: torch.Tensor, hx, lx, mx) -> torch.Tensor:
     return ((lse - lab) * mx).sum()
 
 
+def _xent_chunk_vocab_split(cfg: ModelConfig, tp, w: torch.Tensor, hx, lx, mx) -> torch.Tensor:
+    """:func:`_xent_chunk` on a training rank that holds the head's vocab
+    columns ``tp.r·V/n …``: its logits (B, chunk, V/n) fp32, the padded
+    vocab at −1e9 where this rank holds it; the log-sum-exp from the largest
+    logit over ``model`` (an all-reduce of the maxima, outside the gradient)
+    and the sum of the shifted exps, and the label logit from the rank that
+    holds it (one all-reduce of both sums, whose gradient each rank's logits
+    take whole): the (B, chunk, V) logits are never gathered."""
+    w = w.to(hx.dtype)
+    logits = torch.matmul(hx, w.t() if cfg.tie_embeddings else w).float()
+    vocab = tp.r * logits.shape[-1] + torch.arange(logits.shape[-1], device=hx.device)
+    logits = torch.where(vocab < cfg.vocab, logits, -1e9)
+    m = all_reduce(logits.detach().amax(-1), tp.model_group, op="max")  # (B, chunk)
+    sum_exp = torch.exp(logits - m[..., None]).sum(-1)
+    lab = torch.where(lx[..., None] == vocab, logits, 0.0).sum(-1)
+    sum_exp, lab = all_reduce(torch.stack([sum_exp, lab]), tp.model_group).unbind(0)
+    return ((m + torch.log(sum_exp) - lab) * mx).sum()
+
+
 def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor, chunk: int) -> torch.Tensor:
+                 mask: torch.Tensor, chunk: int, tp=None) -> torch.Tensor:
     """Sequence-chunked softmax cross-entropy, summed over the masked
     positions: ``h`` (B, S, d) final-normed hiddens, ``labels`` (B, S) (no
     negatives), ``mask`` (B, S) fp32.
@@ -888,7 +927,23 @@ def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Ten
     chunk body is checkpointed, so the backward rebuilds them instead of
     keeping them: the (B, S, Vp) logits never exist.  The head is
     ``torch.matmul``, as the JAX package's is an XLA einsum.
+
+    On a training rank (``tp``) ``h`` is its positions (B, S/n, d) under
+    sequence parallelism, and the sum is over the rank's rows of the whole
+    sequence: with the vocab split over ``model``, ``h`` all-gathered along
+    the sequence (``layers.seq_enter``) meets the rank's vocab columns
+    (:func:`_xent_chunk_vocab_split`); with the head whole, each rank sums
+    its own positions (``tp.own``) and an all-reduce over ``model`` adds
+    them.
     """
+    if tp is not None:
+        if tp.vocab_split:
+            h = seq_enter(tp, h)
+        else:
+            own = tp.own(labels.shape[1])
+            if not tp.seq_split:
+                h = h[:, own]
+            labels, mask = labels[:, own], mask[:, own]
     B, S, _ = h.shape
     w = model.embed if cfg.tie_embeddings else model.lm_head
     chunk = min(chunk, S) if chunk else S
@@ -897,16 +952,20 @@ def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Ten
     if pad:
         h = F.pad(h, (0, 0, 0, pad))
         labels, mask = F.pad(labels, (0, pad)), F.pad(mask, (0, pad))
+    body = (functools.partial(_xent_chunk_vocab_split, cfg, tp)
+            if tp is not None and tp.vocab_split else functools.partial(_xent_chunk, cfg))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(n):
         cols = slice(c * chunk, (c + 1) * chunk)
-        total = total + checkpoint(_xent_chunk, cfg, w, h[:, cols], labels[:, cols],
-                                   mask[:, cols], use_reentrant=False,
-                                   preserve_rng_state=False)
+        total = total + checkpoint(body, w, h[:, cols], labels[:, cols], mask[:, cols],
+                                   use_reentrant=False, preserve_rng_state=False)
+    if tp is not None and not tp.vocab_split:
+        total = all_reduce(total, tp.model_group)
     return total
 
 
-def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFAULT_KNOBS):
+def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFAULT_KNOBS,
+            tp=None):
     """Masked next-token cross-entropy plus the router's aux loss.
 
     ``batch`` holds ``"tokens"`` and ``"labels"`` (B, S), and the
@@ -916,7 +975,14 @@ def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFA
     {"xent", "aux"})``, fp32 scalars, as the JAX package's ``lm_loss``.
     Under ``knobs.gemm="pallas"`` or ``"pallas_paired"`` every layer GEMM's
     forward is a K1 launch and its backward ``torch.matmul``
-    (``kernels.ops``)."""
+    (``kernels.ops``).
+
+    On a training rank (``tp``, ``parallel.tp.train_layout_for``'s; the
+    rank's shards in ``model``, its rows in ``batch``) the loss is the
+    global batch's, the same on every rank: the masked sum and its
+    denominator are summed over the data axes that split the batch (one
+    all-reduce; the gradient reaches the rank's rows alone), and the aux
+    loss is the global batch's (``layers.moe_block``)."""
     labels = batch["labels"]
     if cfg.vision_prefix and labels.shape[1] <= cfg.vision_prefix:
         # the JAX package's lm_loss fails on a shorter one and returns 0 on
@@ -926,11 +992,13 @@ def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFA
     mask = (labels >= 0).float()
     if cfg.vision_prefix:  # patch positions carry no token labels
         mask = mask * (torch.arange(labels.shape[1], device=labels.device) >= cfg.vision_prefix)
-    denom = mask.sum().clamp_min(1.0)
     extras = {k: batch[k] for k in EXTRAS if k in batch}
-    h, aux = _hidden_for_loss(cfg, model, batch["tokens"], knobs, extras)
-    total = chunked_xent(cfg, model, h, labels.clamp_min(0), mask, knobs.xent_chunk)
-    xent = total / denom
+    h, aux = _hidden_for_loss(cfg, model, batch["tokens"], knobs, extras, tp)
+    total = chunked_xent(cfg, model, h, labels.clamp_min(0), mask, knobs.xent_chunk, tp)
+    count = mask.sum()
+    if tp is not None and tp.batch_split:
+        total, count = all_reduce(torch.stack([total, count]), tp.data_group).unbind(0)
+    xent = total / count.clamp_min(1.0)
     return xent + aux, {"xent": xent, "aux": aux}
 
 

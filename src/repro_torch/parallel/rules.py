@@ -5,8 +5,10 @@ The port of ``repro.parallel.rules``, table for table:
 * ``train``   — batch over (pod, data); tensor parallelism over ``model``
   for ff / heads / experts / vocab / ssm; the residual stream's saved
   activations sequence-sharded over ``model``; FSDP (d_model over ``data``)
-  for models past :data:`FSDP_PARAM_THRESHOLD` parameters.  Ported as a
-  table; no path of the port trains on a mesh yet;
+  for models past :data:`FSDP_PARAM_THRESHOLD` parameters.  The training
+  mesh (``launch.steps.build_train_step`` with a mesh, the train CLI's
+  ``--mesh``) reads it through ``parallel.tp.train_layout_for``, which
+  refuses FSDP;
 * ``prefill`` — tensor parallelism as in train, no sequence sharding, the KV
   cache sharded over ``model`` along its sequence;
 * ``decode``  — weights tensor-parallel over ``model`` where they divide;

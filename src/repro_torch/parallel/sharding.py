@@ -16,10 +16,10 @@ itself: a rank slices each tensor by its spec and its coordinates on the
 closes every split with an explicit collective (``parallel.collectives``).
 So :func:`constrain` stays a no-op.  A :class:`Mesh` made by
 :func:`make_mesh` holds this process's coordinates, one process group per
-mesh axis (and one over the data axes together) and its ``torch.device``; a
-mesh made from a shape alone (``Mesh({"data": 2, "model": 4})``) carries no
-process and serves the spec functions, which read only ``shape`` and
-``axis_names``.
+mesh axis (and one over the data axes together, and one over all of them)
+and its ``torch.device``; a mesh made from a shape alone
+(``Mesh({"data": 2, "model": 4})``) carries no process and serves the spec
+functions, which read only ``shape`` and ``axis_names``.
 """
 from __future__ import annotations
 
@@ -61,8 +61,8 @@ class Mesh:
     Made by :func:`make_mesh` it is also this process's place in it:
     ``coords`` (axis → index; ranks are laid out row-major over the axes,
     as ``jax.make_mesh`` lays out devices), the process ``group`` of each
-    axis and of the data axes together (None where the axes have size 1),
-    and ``device``, where this rank's tensors live."""
+    axis, of the data axes together and of all axes (None where the axes
+    have size 1), and ``device``, where this rank's tensors live."""
 
     def __init__(self, shape: Mapping[str, int], *, rank: int = 0, device=None,
                  groups: dict | None = None):
@@ -111,12 +111,16 @@ class Mesh:
 
 
 def _group_keys(names: tuple[str, ...], shape: dict) -> list[tuple[str, ...]]:
-    """The axis sets a mesh builds process groups over: each axis, and the
-    data axes together where there are several."""
+    """The axis sets a mesh builds process groups over: each axis, the data
+    axes together where there are several, and all the axes together (a
+    training step's router statistics) where that is yet another set."""
     keys = [(a,) for a in names if shape[a] > 1]
     data = tuple(a for a in names if a in DATA_AXES and shape[a] > 1)
     if len(data) > 1:
         keys.append(data)
+    every = tuple(a for a in names if shape[a] > 1)
+    if len(every) > 1 and every not in keys:
+        keys.append(every)
     return keys
 
 
@@ -128,8 +132,8 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *, backend: str,
     switched).  ``device``: ``"cuda"`` puts rank ``r`` on card ``r`` modulo
     the cards there are (ranks share cards under gloo; ``"nccl"`` with more
     ranks than cards raises), ``"cpu"`` on the host.  Builds one process
-    group a mesh axis, and one over the data axes together, on every rank
-    in the same order."""
+    group a mesh axis, one over the data axes together and one over all
+    axes, on every rank in the same order."""
     import torch.distributed as dist
 
     shape, names = tuple(int(s) for s in shape), tuple(names)

@@ -38,6 +38,24 @@ MoE layers):
   a rank's channels are its heads'; where only the channels do (hymba's 50
   heads on 4 ranks), the conv'd channels are all-gathered and every rank
   steps all heads.  The gated norm's statistic is all-reduced either way.
+
+A training rank's layout (:func:`train_layout_for`, from the ``train``
+rules' specs; ``train`` set) splits the same weights and adds:
+
+* ``seq_split`` — the residual stream's positions over ``model`` (the
+  ``train`` rules' ``seq``, where it divides): between sublayers a rank
+  holds its ``S/n`` positions; an all-gather along the sequence enters each
+  block whose weights split, a reduce-scatter of the fp32 partial sums
+  closes it (``models.layers.seq_enter``, ``close_partial``);
+* ``batch_split`` — the batch's rows over the data axes: the loss's
+  denominators and the router's statistics are summed over them, and so is
+  every gradient after the backward.
+
+Its gradients follow one rule: a rank's gradient of a tensor every rank
+holds whole is its part of the whole gradient (its positions', its vocab
+columns', its heads'), so the gradient of a weight left whole under
+``model`` is summed over ``model`` after the backward, beside the split
+weights' sum over the data axes.
 """
 from __future__ import annotations
 
@@ -46,7 +64,7 @@ import functools
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import cache_axes_and_shapes, param_axes_and_shapes
-from repro_torch.parallel.sharding import DATA_AXES, Mesh, Rules, shardings_for
+from repro_torch.parallel.sharding import DATA_AXES, Mesh, Rules, shardings_for, spec_for_axes
 
 MODEL_AXIS = "model"
 
@@ -79,6 +97,10 @@ class TensorParallel:
     encoder_splits: tuple | None = None
     #: ((cache entry, its spec without the layers dim), …): the rank's cache
     cache_specs: tuple = ()
+    #: a training rank's layout (:func:`train_layout_for`)
+    train: bool = False
+    #: training: the residual stream's positions split over ``model``
+    seq_split: bool = False
 
     @property
     def model_group(self):
@@ -91,6 +113,11 @@ class TensorParallel:
     @property
     def data_group(self):
         return self.mesh.group(self.data_axes) if self.data_axes else None
+
+    @property
+    def mesh_group(self):
+        """The process group of every rank of the mesh (None on one rank)."""
+        return self.mesh.group(self.mesh.axis_names)
 
     @property
     def n(self) -> int:
@@ -134,6 +161,14 @@ class TensorParallel:
         if self.encoder_splits is None:
             raise ValueError("the layout has no encoder")
         return dataclasses.replace(self, **dict(self.encoder_splits))
+
+    def own(self, size: int) -> slice:
+        """This rank's chunk of ``size`` positions along ``model`` (the
+        ``r``-th of ``n`` chunks; the first ``size % n`` chunks one longer):
+        the positions whose loss and router statistics it counts."""
+        per, extra = divmod(size, self.n)
+        start = self.r * per + min(self.r, extra)
+        return slice(start, start + per + (self.r < extra))
 
     def local_dim(self, name: str, dim: int, size: int) -> int:
         """The rank's length of dim ``dim`` (without the layers dim) of cache
@@ -265,21 +300,9 @@ def _cache_splits(cfg: ModelConfig, c_seg: dict, splits: dict[str, bool], path: 
     return bool(seq), specs
 
 
-def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
-               max_seq: int) -> TensorParallel:
-    """The :class:`TensorParallel` of ``cfg`` served on ``mesh`` under
-    ``rules`` with ``batch_size`` slots of ``max_seq`` positions, read from
-    the resolved specs of every segment's weights and cache entries, and of
-    the encoder's weights.  Raises ``NotImplementedError`` where the specs
-    ask for a split the port's forward does not close (and names it): a
-    weight over a data axis (FSDP), a head_dim, half of a block's leaves
-    split and half whole, a cache entry split unlike the projection that
-    writes it."""
-    axes, shapes = param_axes_and_shapes(cfg)
-    specs = shardings_for(axes, mesh, rules, shapes)
-    c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
-    c_specs = shardings_for(c_axes, mesh, rules, c_shapes)
-
+def _refuse_fsdp(cfg: ModelConfig, specs: dict, mesh: Mesh) -> None:
+    """Raise where the resolved weight specs split a weight over an axis
+    other than ``model`` (of more than one rank): FSDP."""
     def entries(tree):
         if isinstance(tree, dict):
             for v in tree.values():
@@ -296,7 +319,68 @@ def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
         raise NotImplementedError(
             f"{cfg.name}: the rules shard weights over {sorted(map(str, off_model))} "
             "(FSDP); the port's tensor-parallel forward splits weights over 'model' only "
-            "(ROADMAP queue 1, item 9)")
+            "(ROADMAP queue 1, item 2b)")
+
+
+#: why a family does not train on a mesh
+TRAIN_FAMILIES_REFUSAL = (
+    "the training mesh runs the dense GQA and routed MoE families; MLA, shared experts, "
+    "SSM, hybrid, encoder-decoder and vision-prefix models train on one device "
+    "(ROADMAP queue 1, item 2a)")
+
+
+def train_layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
+                     seq_len: int) -> TensorParallel:
+    """The :class:`TensorParallel` of one training rank of ``cfg`` on
+    ``mesh`` under ``rules`` (``rules_for(cfg, "train", mesh)``) for global
+    batches of ``batch_size`` rows of ``seq_len`` tokens: each segment's
+    weight splits as :func:`layout_for` reads them, ``batch_split`` where
+    the activations' ``batch`` axis splits over data axes, ``seq_split``
+    where their ``seq`` axis splits (``spec_for_axes`` of ``("batch",
+    "seq", "embed")`` at those sizes: a sequence that does not divide
+    ``model`` stays whole, as a weight that does not divide does).  Raises
+    ``NotImplementedError`` for FSDP, for a family other than dense GQA and
+    routed MoE, and for any split :func:`layout_for` refuses."""
+    if (cfg.family not in ("dense", "moe") or cfg.mla is not None or cfg.ssm is not None
+            or cfg.encoder is not None or cfg.vision_prefix or cfg.meta_tokens
+            or (cfg.moe is not None and cfg.moe.n_shared)):
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {TRAIN_FAMILIES_REFUSAL}")
+    axes, shapes = param_axes_and_shapes(cfg)
+    specs = shardings_for(axes, mesh, rules, shapes)
+    _refuse_fsdp(cfg, specs, mesh)
+    _whole(cfg, specs["final_norm"], ("scale", "bias"), "final_norm")
+    seg_splits = [(count, tuple(_segment_splits(cfg, seg, f"segments[{si}]").items()))
+                  for si, ((_, count), seg) in enumerate(zip(cfg.segments(), specs["segments"],
+                                                             strict=True))]
+    act = spec_for_axes(("batch", "seq", "embed"), mesh=mesh, rules=rules,
+                        dim_sizes=(batch_size, seq_len, cfg.d_model))
+    if act[2] is not None:
+        _refuse(cfg, f"the residual stream's width is split {tuple(act)}")
+    if act[1] not in (None, MODEL_AXIS):
+        _refuse(cfg, f"the sequence is split over {act[1]!r}, not 'model'")
+    first = dict(seg_splits[0][1])
+    return TensorParallel(
+        mesh=mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        vocab_split=_on(specs["embed"], 0), cache_seq=False,
+        batch_split=act[0] is not None and mesh.axis_size(act[0]) > 1,
+        segment_splits=tuple(seg_splits), train=True, seq_split=act[1] is not None, **first)
+
+
+def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
+               max_seq: int) -> TensorParallel:
+    """The :class:`TensorParallel` of ``cfg`` served on ``mesh`` under
+    ``rules`` with ``batch_size`` slots of ``max_seq`` positions, read from
+    the resolved specs of every segment's weights and cache entries, and of
+    the encoder's weights.  Raises ``NotImplementedError`` where the specs
+    ask for a split the port's forward does not close (and names it): a
+    weight over a data axis (FSDP), a head_dim, half of a block's leaves
+    split and half whole, a cache entry split unlike the projection that
+    writes it."""
+    axes, shapes = param_axes_and_shapes(cfg)
+    specs = shardings_for(axes, mesh, rules, shapes)
+    c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
+    c_specs = shardings_for(c_axes, mesh, rules, c_shapes)
+    _refuse_fsdp(cfg, specs, mesh)
     _whole(cfg, specs["final_norm"], ("scale", "bias"), "final_norm")
     for name in ("meta", "vision_proj"):
         if name in specs and any(e is not None for e in specs[name]):

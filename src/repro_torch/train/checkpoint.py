@@ -16,6 +16,11 @@ caller's metadata):
 
 :func:`save_train_state` and :func:`restore_train_state` checkpoint a
 training run: its parameters and the optimizer's moments, with the step.
+A tensor-parallel run stores "plain host arrays, re-placed on load", as
+the JAX package does: every rank gathers each weight and moment whole
+(``whole``, ``launch.steps.TrainStep.whole``), one rank writes, and a run
+on any mesh shape, or on one device, restores by slicing the whole arrays
+to its own blocks (``take``).
 
 One process writes; the shard's name keeps the reference's layout, which
 numbers a shard by its process.
@@ -119,11 +124,12 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
 
 
 def restore_checkpoint(
-    ckpt_dir: str | os.PathLike, tree_like: Any, *, step: int | None = None
+    ckpt_dir: str | os.PathLike, tree_like: Any, *, step: int | None = None, load=None
 ) -> tuple[Any, dict]:
     """Restore into the structure of ``tree_like`` (the newest step unless
     ``step`` is given): each leaf comes back as the type, dtype and device
-    of its counterpart there.  Returns ``(tree, metadata)``."""
+    of its counterpart there, or as ``load(i, saved, leaf)`` gives it for
+    the ``i``-th leaf.  Returns ``(tree, metadata)``."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -137,32 +143,56 @@ def restore_checkpoint(
             f"checkpoint leaves {manifest['paths']} do not match the target tree's "
             f"{[p for p, _ in flat_like]}"
         )
+    load = load or (lambda i, saved, leaf: _like(saved, leaf))
     with np.load(final / SHARD) as z:
-        leaves = [_like(z[f"arr_{i}"], leaf) for i, (_, leaf) in enumerate(flat_like)]
+        leaves = [load(i, z[f"arr_{i}"], leaf) for i, (_, leaf) in enumerate(flat_like)]
     return _unflatten(tree_like, iter(leaves)), manifest["metadata"]
 
 
-def _train_state(params: Any, optimizer: torch.optim.Optimizer):
+def _train_state(params: dict, optimizer: torch.optim.Optimizer):
     """``(params, [the optimizer's state of each leaf])``: what a run needs
     to continue, beside its step counter."""
     return params, [optimizer.state[leaf] for _, leaf in flatten(params)]
 
 
-def save_train_state(ckpt_dir: str | os.PathLike, step: int, params: Any,
-                     optimizer: torch.optim.Optimizer, *, keep: int = 3) -> Path:
-    """Checkpoint ``params`` (a tree of the optimizer's parameters) and
-    their optimizer state as step ``step``."""
-    return save_checkpoint(ckpt_dir, step, _train_state(params, optimizer),
-                           metadata={"step": int(step)}, keep=keep)
+def _named_leaves(params: dict, optimizer: torch.optim.Optimizer) -> list[tuple[str, Any]]:
+    """Each leaf of :func:`_train_state` in its flattened order (every
+    parameter leaf, then each one's moments), beside the key of ``params``
+    it sits under: the parameter's name."""
+    keyed = [(k, leaf) for k in sorted(params, key=str) for _, leaf in flatten(params[k])]
+    return [*keyed, *((k, v) for k, leaf in keyed for _, v in flatten(optimizer.state[leaf]))]
+
+
+def save_train_state(ckpt_dir: str | os.PathLike, step: int, params: dict,
+                     optimizer: torch.optim.Optimizer, *, keep: int = 3,
+                     whole=None, write: bool = True) -> Path | None:
+    """Checkpoint ``params`` (the optimizer's parameters by name) and their
+    optimizer state as step ``step``.  ``whole(name, tensor)`` gives the
+    whole tensor of parameter ``name``'s leaf (a tensor-parallel rank
+    gathers it: every rank calls this, in the same order); only a caller
+    with ``write`` writes (returns None otherwise)."""
+    state = _train_state(params, optimizer)
+    if whole is not None:
+        gathered = iter([whole(name, t) for name, t in _named_leaves(params, optimizer)])
+        state = _unflatten(state, gathered)
+    if not write:
+        return None
+    return save_checkpoint(ckpt_dir, step, state, metadata={"step": int(step)}, keep=keep)
 
 
 def restore_train_state(ckpt_dir: str | os.PathLike, params: Any,
-                        optimizer: torch.optim.Optimizer) -> int:
+                        optimizer: torch.optim.Optimizer, *, take=None) -> int:
     """Copy the newest checkpoint's parameters and optimizer state into
-    ``params`` and ``optimizer`` in place; returns its step."""
-    live = _train_state(params, optimizer)
-    saved, meta = restore_checkpoint(ckpt_dir, live)
+    ``params`` and ``optimizer`` in place; returns its step.  ``take(name,
+    array)`` gives this rank's block of parameter ``name``'s whole saved
+    array (a tensor-parallel rank's slice of it; by default the whole
+    array), one leaf at a time."""
+    take = take or (lambda name, a: torch.as_tensor(a))
+    names = [name for name, _ in _named_leaves(params, optimizer)]
+
+    def load(i, saved, dst):
+        return dst.copy_(take(names[i], saved))
+
     with torch.no_grad():
-        for (_, dst), (_, src) in zip(flatten(live), flatten(saved), strict=True):
-            dst.copy_(src)
+        _, meta = restore_checkpoint(ckpt_dir, _train_state(params, optimizer), load=load)
     return int(meta.get("step", latest_step(ckpt_dir)))

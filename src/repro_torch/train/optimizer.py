@@ -13,7 +13,9 @@ takes the place of the reference's ``init``.  Kept exactly:
   bias corrections;
 * the schedule and the bias corrections are computed in fp32;
 * global-norm clipping (AdamW's default: 1.0) scales the gradients of all
-  groups together before the moments see them;
+  groups together before the moments see them; a tensor-parallel rank's
+  optimizer clips by the whole model's norm (:func:`mesh_global_norm`, its
+  ``norm_fn``), so every rank scales alike;
 * the moments are fp32 whatever the parameter's dtype, created when the
   optimizer is (as ``init`` does);
 * AdamW's weight decay is decoupled and added to the update direction
@@ -33,6 +35,8 @@ from functools import partial
 
 import torch
 
+from repro_torch.parallel.collectives import all_reduce
+
 Schedule = Callable[[int], "float | torch.Tensor"]
 
 
@@ -41,15 +45,30 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
+def mesh_global_norm(grads: Sequence[torch.Tensor], *, split: Sequence[bool],
+                     group) -> torch.Tensor:
+    """The global norm of a whole model from one tensor-parallel rank's
+    gradients, summed over the mesh already (``launch.steps.TrainStep``):
+    the squares of the weights split over ``model`` (``split``, in the
+    gradients' order) summed over ``group`` (its ranks hold the other
+    shards; one all-reduce of one fp32 scalar), those of the weights every
+    rank holds whole counted once; in fp32."""
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    sq = [sum((torch.sum(torch.square(g.float())) for g, s in zip(grads, split, strict=True)
+               if s == part), zero) for part in (True, False)]
+    return torch.sqrt(all_reduce(sq[0], group) + sq[1])
+
+
 def clip_by_global_norm(
-    grads: Sequence[torch.Tensor], max_norm: float
+    grads: Sequence[torch.Tensor], max_norm: float, norm_fn=global_norm
 ) -> tuple[list[torch.Tensor], torch.Tensor]:
-    """Scale ``grads`` so their global norm is at most ``max_norm``.
+    """Scale ``grads`` so their global norm (``norm_fn(grads)``) is at most
+    ``max_norm``.
 
     Returns ``(clipped, norm)``.  The scale is fp32 and promotes the
     gradients as the reference's does (a bf16 gradient comes back fp32).
     """
-    norm = global_norm(grads)
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return [g.to(torch.promote_types(g.dtype, scale.dtype)) * scale for g in grads], norm
 
@@ -72,7 +91,9 @@ def cosine_schedule(
 
 class _ScheduledOptimizer(torch.optim.Optimizer):
     """Shared plumbing: an fp32 learning-rate schedule of ``t``, optional
-    global-norm clipping over every group, fp32 state made up front."""
+    global-norm clipping over every group (by ``norm_fn``, :func:`global_norm`
+    unless set; the last step's norm in ``last_norm``), fp32 state made up
+    front."""
 
     STATE: tuple[str, ...] = ()
 
@@ -80,6 +101,8 @@ class _ScheduledOptimizer(torch.optim.Optimizer):
         super().__init__(params, {**defaults, "step": 0})
         self.lr_fn: Schedule = lr if callable(lr) else (lambda _: lr)
         self.grad_clip = grad_clip
+        self.norm_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm
+        self.last_norm: torch.Tensor | None = None
         for group in self.param_groups:
             for p in group["params"]:
                 self.state[p] = {
@@ -97,7 +120,7 @@ class _ScheduledOptimizer(torch.optim.Optimizer):
         # a parameter without a gradient moves as under a zero gradient, as in the reference
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if self.grad_clip is not None:
-            grads, _ = clip_by_global_norm(grads, self.grad_clip)
+            grads, self.last_norm = clip_by_global_norm(grads, self.grad_clip, self.norm_fn)
         grads = iter(grads)
         for group in self.param_groups:
             t = group["step"] + 1
