@@ -26,9 +26,10 @@ one K1 launch over the expert grid (its backward ``torch.einsum`` on the
 folded experts), with the fused decode attention's VJP (K2); K1's
 measured tile cache over qwen2's serving and training problems, and the
 serving CLI with the JAX CLI's flags (the weights folded per column, the
-cache's plans, the front end degrading to K1's dense form); and the
-tensor-parallel paired decode of qwen2-1.5b and olmoe-1b-7b on gloo ranks
-that share the card (K1 on every rank).  Phases,
+cache's plans, the front end degrading to K1's dense form); the
+tensor-parallel paired decode of every family on gloo ranks that share the
+card (K1 on every rank); and training on such a mesh, every family, K1 on
+every rank under autograd.  Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
 
@@ -142,7 +143,7 @@ result:
                 virtual-clock figures labelled so;
 11. tile_cache — K1's measured tile cache (``kernels/tuning.py``
                 ``TileCache``, ``autotune_plans``): every distinct K1 problem
-                of the lm_serve engine (prefills of 8/12/16/20 tokens, decode
+                of the lm_serve engine (prefills of 8 and 20 tokens, decode
                 at batch 4), of the training step's 1024 rows (layer 0's wq,
                 wk, wo, w_gate, w_down, paired and dense) and of the
                 lm_parity engine (fp32, bn=64); each problem's
@@ -183,15 +184,19 @@ result:
                 patches; on (2, 2) too): every rank's tokens equal the
                 single-rank engine's, logits ≤ 1e-5, every weight and cache
                 entry of a rank shaped as its resolved spec gives.  Served,
-                bf16, structured r=0.05, (1, 2): qwen2-1.5b at 14 of its 28
-                layers (batch 4, 32 tokens a slot), olmoe at 4 of its 16 and
+                bf16, structured r=0.05, (1, 2): qwen2-1.5b at 4 of its 28
+                layers (batch 4, 32 tokens a slot), olmoe at 2 of its 16 and
                 the five (batch 4, 16 tokens a slot) at the depths of
                 ``MESH_SERVED_LAYERS``; K1 launches and collectives a decode
                 step and a prefill held to ``analysis.decode_launches`` /
                 ``prefill_launches`` / ``mesh_decode_collectives`` /
                 ``mesh_prefill_collectives``; decode ms (median, p90), each
                 rank's wiring seconds and peak memory; the r=0.05 ledger
-                gates of ``repro_torch/benchmarks/mesh_decode.py`` (bn=16);
+                gates of ``repro_torch/benchmarks/mesh_decode.py`` (bn=16).
+                It runs last, beside phase 28, on the same spawns
+                (``phase_mesh``: one a mesh shape, its ranks running both
+                phases' jobs, in two lanes at once), so its decode ms are
+                taken while other ranks share the card (since PR 27);
 14. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
                 engine (``torch.einsum`` experts, plain attention) against
                 the paired one (structured, r=0; K1 + K2), batch 2, prompts
@@ -199,8 +204,9 @@ result:
                 tokens per slot: identical tokens, logits ≤ 1e-5, the routed
                 prefill counted, 7 launches per decode layer (3 QKV K1, one
                 K2, 3 expert K1), by the wrappers and by ``torch.profiler``;
-15. moe_serve — olmoe-1b-7b at full width and its published depth (16
-                layers), bf16, structured r=0.05, through ``launch.serve.serve``:
+15. moe_serve — olmoe-1b-7b at full width, 4 of its 16 layers since PR 27
+                (the script's time limit), bf16, structured r=0.05, through
+                ``launch.serve.serve``:
                 batch 4, prompts of 12/16 (dense branch) and 24/64 tokens
                 (routed: two prefills each dispatch in every layer), max_seq
                 256, 32 tokens per slot; pairing seconds and pair fraction,
@@ -213,7 +219,8 @@ result:
                 ``torch.einsum`` on the folded experts and the bound; K2 at
                 olmoe's G = 1 heads;
 16. mla_parity, 17. mla_serve — deepseek-v2-lite-16b the same way (2
-                layers: dense, MoE; then 9 of its 27), K1 at its new shapes,
+                layers: dense, MoE; then 3 of its 27 since PR 27), K1 at its
+                new shapes,
                 peak device memory and its reckoning;
 18. ssm_parity — mamba2-2.7b at full width, 2 layers, fp32: the plain
                 engine against the paired one (structured, r=0), prompts
@@ -221,7 +228,8 @@ result:
                 6 tokens a slot: identical tokens, logits, state and conv
                 tails ≤ 1e-5, launches of the prefills and of a decode step
                 (6 K1 a layer, no K2) by the wrappers and the profiler;
-19. ssm_serve — mamba2-2.7b at 32 of its 64 layers, bf16, structured r=0.05:
+19. ssm_serve — mamba2-2.7b at 8 of its 64 layers since PR 27, bf16,
+                structured r=0.05:
                 batch 4, prompts 12/16/24/300, max_seq 512, 32 tokens a
                 slot; what moe_serve records, K1 timed at w_x, w_B, w_dt,
                 w_out, peak memory;
@@ -230,7 +238,8 @@ result:
                 keys past the 128 meta-token sinks in the prefill and the
                 decode): ssm_parity's gates, the K/V caches too (12 K1 and
                 one K2 a layer);
-21. hybrid_serve — hymba-1.5b at 16 of its 32 layers, bf16, r=0.05: batch 4,
+21. hybrid_serve — hymba-1.5b at 16 of its 32 layers (full, swa, full), bf16,
+                r=0.05: batch 4,
                 prompts 12/16/24/1200, max_seq 1280; ssm_serve's record,
                 K1 at hymba's GEMMs, its K2 launches by window and sinks
                 (every windowed one on a slot whose window drops keys), K2
@@ -238,16 +247,18 @@ result:
                 its bound and SDPA + ``torch.matmul`` under the same mask;
 22. zoo_parity — qwen3-4b, granite-3-2b, internvl2-2b, whisper-base and
                 mistral-large-123b at full width, 2 layers (whisper 2 + 2
-                over its 1500 stub frames), fp32, r=0: ssm_parity's gates
+                over its 1500 stub frames; mistral 1 since PR 27), fp32,
+                r=0: ssm_parity's gates
                 (tokens identical; logits and every cache entry, whisper's
                 cross-attention ``xk``/``xv`` too, ≤ 1e-5), internvl2's
                 prompts of 260 and 300 tokens after its 256 stub patches,
                 the others' 11 and 24; the prefills' launches held to
                 ``analysis.prefill_launches`` (whisper's K3: one an encoder
                 layer and one a decoder layer's cross-attention);
-23. zoo_serve — the same five at full width, internvl2 and whisper at
-                their published depth (24 layers, 6 + 6), qwen3 at 12 of 36,
-                granite at 12 of 40, mistral-large-123b at 2 of its 88 (123
+23. zoo_serve — the same five at full width, whisper at its published
+                depth (6 + 6), internvl2 at 6 of 24, qwen3 at 4 of 36 and
+                granite at 4 of 40 (since PR 27), mistral-large-123b at 1 of
+                its 88 (123
                 G parameters are 246 GB in bf16), bf16, structured r=0.05,
                 batch 4, 32 tokens a
                 slot: ssm_serve's record, K1 at qwen3's wq, mistral's w_gate
@@ -265,7 +276,8 @@ result:
                 ``ops.fused_paired_dense`` structured and blocked) against
                 their plain versions forward and backward (≤ 1e-5, one launch
                 forward, none backward);
-25. lm_train  — qwen2-1.5b at full width and depth (28 layers) trained
+25. lm_train  — qwen2-1.5b at full width, 4 of its 28 layers since PR 27
+                (the script's time limit), trained
                 through ``launch.train.train``: bf16 compute, fp32 masters,
                 structured r=0.05 (``pair_lm_params``), remat "full", batch
                 8 × seq 128, AdamW 3e-4 with the cosine schedule, 5 steps,
@@ -314,19 +326,32 @@ result:
                 ``launch.mesh.spawn`` (gloo, all on this one card: no
                 tensor-parallel speed is measured).  Parity, fp32, r=0,
                 ``pallas_paired``, seed-0 weights on every rank, one AdamW
-                step (lr 1e-4, eps 1e-6) on batch 8 × seq 128: qwen2-1.5b
-                at full width, 2 layers, on (1, 2), (2, 1), (2, 2) and (1, 4),
-                olmoe-1b-7b on (1, 2) and (2, 2): every rank's loss, xent,
-                aux and gradients, shard by shard, within
+                step (lr 1e-4, eps 1e-6) on batch 8 × seq 128 (internvl2:
+                384, past its 256 patch positions) of seeded random tokens
+                and seeded random frames or patches
+                (``benchmarks.mesh_train.smoke_batches``), every model at
+                full width, 2 layers: qwen2-1.5b on (1, 2), (2, 1), (2, 2)
+                and (1, 4), olmoe-1b-7b on (1, 2) and (2, 2),
+                deepseek-v2-lite-16b (its dense layer 0 and an MoE layer with
+                shared experts), mamba2-2.7b, hymba-1.5b (full layer 0,
+                windowed layer 1, 128 meta tokens), whisper-base (2 + 2
+                layers over 1500 frames) and internvl2-2b on (1, 2),
+                deepseek and internvl2 on (2, 2), hymba on (1, 4) (its 50
+                SSM heads whole over split channels): every rank's loss,
+                xent, aux and gradients, shard by shard, within
                 rtol 1e-4 / atol 1e-5 of the single-rank ``TrainStep``'s
-                (run first, saved under ``build/``, off the card before the
-                ranks start); r=0.05 (structured, per-shard pairing) on
-                (1, 2) and (2, 2) against its fold oracle; collectives
-                (calls and bytes) and K1 launches a step equal to
-                ``analysis.mesh_train_collectives`` and ``train_launches``.
-                Trained: qwen2-1.5b at 28 layers on (1, 2) through the
-                CLI's ``launch.train.train_rank`` (bf16, fp32 masters,
-                structured r=0.05, remat full, 3 steps): finite losses, K1
+                (run in this process, saved under ``build/``, off the card
+                before a rank that reads them starts); r=0.05 (structured, per-shard pairing) against
+                its fold oracle, qwen2 on (1, 2) and (2, 2), deepseek and
+                hymba on (1, 2); collectives (calls and bytes) and K1
+                launches a step equal to ``analysis.mesh_train_collectives``
+                and ``train_launches``.
+                Trained on (1, 2) through the CLI's
+                ``launch.train.train_rank`` (bf16, fp32 masters, structured
+                r=0.05, remat full, 3 steps; in a spawn alone on the card):
+                qwen2-1.5b at 4 of its 28
+                layers (since PR 27) and deepseek-v2-lite-16b at 3 of its 27
+                (the dense layer 0 and two MoE layers): finite losses, K1
                 launches and collectives a step held to ``analysis``, ms a
                 step, peak memory and wiring seconds per rank.  Resume:
                 qwen2 at 2 layers, fp32, saved on (1, 2) at step 2 and
@@ -1874,7 +1899,9 @@ def phase_tile_cache(parity_ctx, lm_engine) -> dict:
     cache = tuning.TileCache(path)
     eng = lm_engine
     rng = np.random.default_rng(0)
-    serve_prompts = {i: rng.integers(0, eng.cfg.vocab, size=8 + 4 * i) for i in range(4)}
+    # two prompts (8 and 20 tokens) since PR 27: the prefill rows of two
+    # lengths, not four, are tuned (the script's time limit)
+    serve_prompts = {i: rng.integers(0, eng.cfg.vocab, size=8 + 12 * i) for i in range(2)}
     serve_keys = set(_engine_keys(eng, serve_prompts, 3)["by_plan"])  # (key, plan)
     layer0 = eng.model.layers[0]
     rows, dt = TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16
@@ -2023,19 +2050,21 @@ def _mesh_ref(cfg, knobs, prompts: dict, steps: int, batch: int, max_seq: int,
 
 
 #: the other five families on the mesh: (arch, parity layers, served layers,
-#: prompt lengths, max_seq).  Served at published depth but deepseek (4 of
-#: 27: each rank builds the whole fp32 model on the card before slicing it,
-#: 13.6 GB a rank at 4 layers, so 27 layers on two ranks of one card do not
-#: fit its 80 GB), mamba2 (16 of 64), hymba (16 of 32) and internvl2 (12 of
-#: 24): the script's time limit pays for the mesh_train phase there (PERF.md
-#: §6), as it does with qwen2 served at 14 of its 28 layers.
-MESH_SERVED_QWEN2_LAYERS = 14
+#: prompt lengths, max_seq).  Served below published depth: deepseek at 3 of
+#: 27 (its dense layer and two MoE layers; each rank builds the whole fp32
+#: model on the card before slicing it, 13.6 GB a rank at 4 layers, so 27
+#: layers on two ranks of one card do not fit its 80 GB), mamba2 4 of 64,
+#: hymba 4 of 32, whisper 2 of 6 and internvl2 4 of 24, as qwen2 is served
+#: at 4 of its 28 layers and olmoe at 2 of 16: the script's time limit pays
+#: for the mesh_train phase there (PERF.md §4).
+MESH_SERVED_QWEN2_LAYERS = 4
+MESH_SERVED_OLMOE_LAYERS = 2
 MESH_FAMILIES = (
-    ("deepseek-v2-lite-16b", 2, 4, (11, 40), 64),
-    ("mamba2-2.7b", 2, 16, (11, 40), 64),
-    ("hymba-1.5b", 3, 16, (11, 40), 64),
-    ("whisper-base", 2, 6, (11, 24), 64),
-    ("internvl2-2b", 2, 12, (260, 280), 336),
+    ("deepseek-v2-lite-16b", 2, 3, (11, 40), 64),
+    ("mamba2-2.7b", 2, 4, (11, 40), 64),
+    ("hymba-1.5b", 3, 4, (11, 40), 64),
+    ("whisper-base", 2, 2, (11, 24), 64),
+    ("internvl2-2b", 2, 4, (260, 280), 336),
 )
 MESH_SERVED_LAYERS = {arch: served for arch, _, served, _, _ in MESH_FAMILIES}
 
@@ -2048,54 +2077,27 @@ def _mesh_extras(cfg, batch: int) -> dict | None:
     return {k: b[k].float().cpu().numpy() for k in ("frames", "patches") if k in b} or None
 
 
-def phase_mesh_decode() -> dict:
-    """Tensor-parallel paired decode: ranks of ``launch.mesh.spawn`` (one
-    process each, gloo, every rank on this one card) each serving its
-    shards through ``ServeEngine(mesh=...)``.  Parity (fp32, r = 0, seed-0
-    weights regenerated on every rank): qwen2-1.5b at full width, 2 layers,
-    column-blocked bn=16 on meshes (1, 2), (1, 4), (2, 2); olmoe-1b-7b at
-    full width, 2 layers, structured, on (1, 2) and (1, 4), a 40-token
-    prompt on the expert-parallel route; the five other families of
-    :data:`MESH_FAMILIES` at full width, structured, on (1, 2) and (1, 4)
-    (internvl2 on (2, 2) too), batch 4, each slot with its row of stub
-    frames or patches: every rank's tokens equal the single-rank engine's
-    on the card, logits ≤ 1e-5, and every weight and cache entry a rank
-    holds shaped as its resolved spec gives (``mesh_decode.shard_shapes``).
-    Served (bf16, structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at
-    ``MESH_SERVED_QWEN2_LAYERS``, 32 tokens a slot, olmoe at 4 of its 16
-    layers and the five at ``MESH_SERVED_LAYERS``, 16 tokens a slot: K1
-    launches and collectives a decode step and a prefill held to
-    ``analysis``; decode ms (two ranks
-    time-share one card: no tensor-parallel speed is measured), each rank's
-    wiring seconds (slicing and pairing) and peak memory.  Ledgers: the
-    three gates of ``repro_torch/benchmarks/mesh_decode.py`` at r = 0.05,
-    bn=16, on the parity qwen2's weights at (1, 2)."""
+def _mesh_decode_plan() -> dict:
+    """Phase 13's rank jobs by mesh shape (``serve_rank``'s arguments), and
+    what the single-rank references need; nothing runs on the card here."""
     import dataclasses
 
     import numpy as np
-    import torch
 
-    from repro_torch import analysis
-    from repro_torch.benchmarks.mesh_decode import ledger_checks, serve_many, shard_shapes
     from repro_torch.configs import cut_layers, get_config
-    from repro_torch.kernels.ref import rel_err
-    from repro_torch.launch.mesh import spawn
-    from repro_torch.models import lm as M
-    from repro_torch.parallel.sharding import Mesh
 
-    t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     q_cfg = dataclasses.replace(cut_layers(get_config("qwen2-1.5b"), 2), dtype="float32")
     q_knobs = _mesh_knobs(0.0, 16)
     q_prompts = {i: rng.integers(1, q_cfg.vocab, size=n) for i, n in enumerate((12, 16, 24))}
-    q_want = _mesh_ref(q_cfg, q_knobs, q_prompts, 6, 4, 64)
     m_cfg = dataclasses.replace(cut_layers(get_config(MOE_ARCH), 2), dtype="float32")
     m_knobs = _mesh_knobs(0.0, 0)
     m_prompts = {0: rng.integers(1, m_cfg.vocab, size=11), 1: rng.integers(1, m_cfg.vocab, size=40)}
-    m_want = _mesh_ref(m_cfg, m_knobs, m_prompts, 6, 3, 64)
-    wants = {"qwen2": q_want, "olmoe": m_want}
-    # the five other families: parity runs (fp32, r = 0, structured) and their
-    # single-rank references on the card, then their served runs
+    # the references: (cfg, knobs, prompts, steps, batch, max_seq, extras) by job
+    refs = {"qwen2": (q_cfg, q_knobs, q_prompts, 6, 4, 64, None),
+            "olmoe": (m_cfg, m_knobs, m_prompts, 6, 3, 64, None)}
+    # the five other families: parity runs (fp32, r = 0, structured), then
+    # their served runs
     fam_knobs, served_knobs = _mesh_knobs(0.0, 0), _mesh_knobs(0.05, 0)
     fam, fam_served = {}, {}
     for arch, layers, served, lens, max_seq in MESH_FAMILIES:
@@ -2103,7 +2105,7 @@ def phase_mesh_decode() -> dict:
         cfg = dataclasses.replace(cut_layers(get_config(arch), layers), dtype="float32")
         prompts = {i: rng.integers(1, cfg.vocab, size=n) for i, n in enumerate(lens)}
         extras = _mesh_extras(cfg, 4)
-        wants[name] = _mesh_ref(cfg, fam_knobs, prompts, 6, 4, max_seq, extras)
+        refs[name] = (cfg, fam_knobs, prompts, 6, 4, max_seq, extras)
         fam[name] = ((cfg, 0, fam_knobs, prompts, 6),
                      {"max_seq": max_seq, "batch_size": 4, "extras": extras, "cycle": True})
         s_cfg = cut_layers(get_config(arch), served)
@@ -2113,12 +2115,9 @@ def phase_mesh_decode() -> dict:
             (s_cfg, 0, served_knobs, s_prompts, 16),
             {"max_seq": max_seq + 64, "batch_size": 4, "hold": True, "timed_steps": 16,
              "extras": _mesh_extras(s_cfg, 4)})
-        gc.collect()
-        torch.cuda.empty_cache()
-    ref_s = time.perf_counter() - t0
 
     sq_cfg = cut_layers(get_config("qwen2-1.5b"), MESH_SERVED_QWEN2_LAYERS)
-    sm_cfg = cut_layers(get_config(MOE_ARCH), 4)
+    sm_cfg = cut_layers(get_config(MOE_ARCH), MESH_SERVED_OLMOE_LAYERS)
     s_lens = (12, 16, 24, 40)
     s_prompts = {i: rng.integers(1, sq_cfg.vocab, size=n) for i, n in enumerate(s_lens)}
     sm_prompts = {i: rng.integers(1, sm_cfg.vocab, size=n) for i, n in enumerate(s_lens)}
@@ -2140,16 +2139,69 @@ def phase_mesh_decode() -> dict:
                      **fam},
             (2, 2): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw),
                      "internvl2": fam["internvl2"]}}
-    meshes, k1_total, spawn_s = [], 0, {}
-    for shape, mesh_jobs in jobs.items():
-        t1 = time.perf_counter()
-        try:
-            ranks = spawn(serve_many, shape, backend="gloo", device="cuda",
-                          args=(mesh_jobs,), timeout=600)
-        except RuntimeError as e:
-            check(False, f"mesh_decode {shape}: {str(e)[-2000:]}")
-            continue
-        spawn_s[str(shape)] = time.perf_counter() - t1
+    return {"jobs": jobs, "refs": refs, "q_cfg": q_cfg}
+
+
+def _mesh_decode_refs(plan: dict) -> dict:
+    """The single-rank engine's tokens and logits of every parity job (on
+    the card, in this process), then the ledger gates (host work)."""
+    import torch
+
+    from repro_torch.benchmarks.mesh_decode import ledger_checks
+    from repro_torch.models import lm as M
+
+    t0 = time.perf_counter()
+    wants = {}
+    for name, (cfg, knobs, prompts, steps, batch, max_seq, extras) in plan["refs"].items():
+        wants[name] = _mesh_ref(cfg, knobs, prompts, steps, batch, max_seq, extras)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    q_cfg = plan["q_cfg"]
+    rows, slices, failures = ledger_checks(q_cfg, M.init_lm(q_cfg, 0, device="cpu"),
+                                           {"data": 1, "model": 2}, 0.05, 16)
+    return {"wants": wants, "reference_s": ref_s, "ledger": (rows, slices, failures),
+            "ledger_s": time.perf_counter() - t1}
+
+
+def phase_mesh_decode(plan: dict, refs: dict, ranks_by_shape: dict, spawns: dict) -> dict:
+    """Tensor-parallel paired decode: ranks of ``launch.mesh.spawn`` (one
+    process each, gloo, every rank on this one card) each serving its
+    shards through ``ServeEngine(mesh=...)``; the spawns are
+    :func:`phase_mesh`'s, shared with phase 28.  Parity (fp32, r = 0, seed-0
+    weights regenerated on every rank): qwen2-1.5b at full width, 2 layers,
+    column-blocked bn=16 on meshes (1, 2), (1, 4), (2, 2); olmoe-1b-7b at
+    full width, 2 layers, structured, on (1, 2) and (1, 4), a 40-token
+    prompt on the expert-parallel route; the five other families of
+    :data:`MESH_FAMILIES` at full width, structured, on (1, 2) and (1, 4)
+    (internvl2 on (2, 2) too), batch 4, each slot with its row of stub
+    frames or patches: every rank's tokens equal the single-rank engine's
+    on the card, logits ≤ 1e-5, and every weight and cache entry a rank
+    holds shaped as its resolved spec gives (``mesh_decode.shard_shapes``).
+    Served (bf16, structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at
+    ``MESH_SERVED_QWEN2_LAYERS``, 32 tokens a slot, olmoe at
+    ``MESH_SERVED_OLMOE_LAYERS`` and the five at ``MESH_SERVED_LAYERS``, 16
+    tokens a slot: K1 launches and collectives a decode step and a prefill
+    held to ``analysis``; decode ms (two ranks time-share one card, beside
+    the other lane's ranks: no tensor-parallel speed is measured), each rank's
+    wiring seconds (slicing and pairing) and peak memory.  Ledgers: the
+    three gates of ``repro_torch/benchmarks/mesh_decode.py`` at r = 0.05,
+    bn=16, on the parity qwen2's weights at (1, 2)."""
+    from repro_torch import analysis
+    from repro_torch.benchmarks.mesh_decode import shard_shapes
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.parallel.sharding import Mesh
+
+    t0 = time.perf_counter()
+    wants = refs["wants"]
+    meshes, k1_total, job_s = [], 0, {}
+    for shape, mesh_jobs in plan["jobs"].items():
+        ranks = ranks_by_shape.get(shape)
+        if ranks is None:
+            continue  # its spawn failed, and said so
+        mesh_jobs = {n: j for n, j in mesh_jobs.items() if n in ranks[0]}
+        job_s[str(shape)] = {name: max(r[name]["job_s"] for r in ranks) for name in mesh_jobs}
         mesh = Mesh(dict(zip(("data", "model"), shape, strict=True)))
         for name, ((cfg, _, knobs, prompts, steps), kw) in mesh_jobs.items():
             batch, max_seq = kw["batch_size"], kw["max_seq"]
@@ -2228,18 +2280,16 @@ def phase_mesh_decode() -> dict:
                 check(all(t == toks[0] for t in toks),
                       f"mesh_decode {name}: the ranks returned different tokens")
             meshes.append(row)
-        del ranks
-    t2 = time.perf_counter()
-    q_model = M.init_lm(q_cfg, 0, device="cpu")
-    rows, slices, failures = ledger_checks(q_cfg, q_model, {"data": 1, "model": 2}, 0.05, 16)
+    rows, slices, failures = refs["ledger"]
     for f in failures:
         check(False, f"mesh_decode ledger: {f}")
     check(len(slices) == 2, f"mesh_decode ledger: slice checks {slices}")
-    ledger_s = time.perf_counter() - t2
     out = {"phase": "mesh_decode", "card": _card(), "backend": "gloo",
-           "ranks_share_one_card": True, "reference_s": ref_s, "spawn_s": spawn_s,
-           "ledger_s": ledger_s, "seconds": time.perf_counter() - t0,
-           "served_layers": {"qwen2-1.5b": MESH_SERVED_QWEN2_LAYERS, MOE_ARCH: 4,
+           "ranks_share_one_card": True, "reference_s": refs["reference_s"],
+           "spawns": spawns, "job_s": job_s, "ledger_s": refs["ledger_s"],
+           "check_s": time.perf_counter() - t0,
+           "served_layers": {"qwen2-1.5b": MESH_SERVED_QWEN2_LAYERS,
+                             MOE_ARCH: MESH_SERVED_OLMOE_LAYERS,
                              **MESH_SERVED_LAYERS},
            "main_path_launches": {"paired_matmul": k1_total, "decode_attention": 0,
                                   "flash_attention": 0},
@@ -2414,7 +2464,8 @@ def phase_moe_serve() -> dict:
     _reset_launches()  # the path's own counts from here
     with _moe_routes() as routes:
         rec = serve(arch=MOE_ARCH, batch=batch, max_seq=256, steps=steps, pair_rounding=0.05,
-                    gemm="pallas_paired", attn="pallas_fused", prompt_lens=lens)
+                    gemm="pallas_paired", attn="pallas_fused", prompt_lens=lens,
+                    layers=SERVE_DEPTH_CUTS[MOE_ARCH])
     launches = kernel_launches()
     eng = rec["engine"]
     cfg, L = eng.cfg, eng.cfg.n_layers
@@ -2482,11 +2533,13 @@ def phase_moe_serve() -> dict:
 MLA_ARCH = "deepseek-v2-lite-16b"
 
 #: serve phases run below their published depth, so that the whole script
-#: fits its time limit with the mesh_train phase (PERF.md §6): arch →
-#: layers (published: deepseek 27, mamba2 64, hymba 32, qwen3 36, granite 40,
-#: mistral 88, of which one card holds 4)
-SERVE_DEPTH_CUTS = {"deepseek-v2-lite-16b": 9, "mamba2-2.7b": 32, "hymba-1.5b": 16,
-                    "qwen3-4b": 12, "granite-3-2b": 12, "mistral-large-123b": 2}
+#: fits its time limit with the mesh_train phase (PERF.md §4): arch →
+#: layers (published: olmoe 16, deepseek 27, mamba2 64, hymba 32, qwen3 36,
+#: granite 40, internvl2 24, mistral 88, of which one card holds 4); deepseek
+#: keeps its dense layer and two MoE layers, hymba its full layers 0 and 15
+SERVE_DEPTH_CUTS = {"olmoe-1b-7b": 4, "deepseek-v2-lite-16b": 3, "mamba2-2.7b": 8,
+                    "hymba-1.5b": 16, "qwen3-4b": 4, "granite-3-2b": 4, "internvl2-2b": 6,
+                    "mistral-large-123b": 1}
 
 
 def _per_step_want(cfg, knobs) -> dict[str, int]:
@@ -3017,7 +3070,8 @@ def phase_hybrid_serve() -> dict:
 ZOO = {
     "qwen3-4b": ([11, 24], 32, [12, 16, 24, 64], 128, SERVE_DEPTH_CUTS["qwen3-4b"]),
     "granite-3-2b": ([11, 24], 32, [12, 16, 24, 64], 128, SERVE_DEPTH_CUTS["granite-3-2b"]),
-    "internvl2-2b": ([260, 300], 320, [260, 270, 280, 300], 336, None),
+    "internvl2-2b": ([260, 300], 320, [260, 270, 280, 300], 336,
+                     SERVE_DEPTH_CUTS["internvl2-2b"]),
     "whisper-base": ([11, 24], 32, [12, 16, 24, 64], 128, None),
     # 88 layers are 123 G parameters, 246 GB in bf16: one 80 GB card holds 4
     "mistral-large-123b": ([11, 24], 32, [12, 16, 24, 64], 128,
@@ -3025,17 +3079,24 @@ ZOO = {
 }
 
 
+#: zoo_parity's depth but 2: mistral at 1 since PR 27 (its fp32 pairing,
+#: 13 s at 2 layers, pays for the mesh_train phase)
+ZOO_PARITY_LAYERS = {"mistral-large-123b": 1}
+
+
 def phase_zoo_parity() -> list[dict]:
     """Each zoo arch at full width, 2 layers (whisper 2 + 2 over its 1500
-    frames), fp32, r=0: :func:`phase_state_parity` (whisper's K3 launches
-    of the prefills counted)."""
+    frames; mistral 1, :data:`ZOO_PARITY_LAYERS`), fp32, r=0:
+    :func:`phase_state_parity` (whisper's K3 launches of the prefills
+    counted)."""
     import dataclasses
 
     from repro_torch.configs import cut_layers, get_config
 
     out = []
     for arch, (lens, max_seq, *_) in ZOO.items():
-        cfg = dataclasses.replace(cut_layers(get_config(arch), 2), dtype="float32")
+        cfg = dataclasses.replace(cut_layers(get_config(arch), ZOO_PARITY_LAYERS.get(arch, 2)),
+                                  dtype="float32")
         out.append(phase_state_parity("zoo_parity", cfg, lens, max_seq))
         gc.collect()
     return out
@@ -3058,7 +3119,7 @@ def _zoo_k1_at(eng, x) -> list[dict]:
 
 def phase_zoo_serve() -> list[dict]:
     """Each zoo arch at full width and the depth of :data:`ZOO` (mistral at
-    2 layers), bf16, structured r=0.05, batch 4, 32 tokens a slot:
+    1 layer), bf16, structured r=0.05, batch 4, 32 tokens a slot:
     :func:`phase_state_serve`, K1 at its shapes, K2 at layer 0 (whisper
     G = 1 and qwen3 G = 4 among them), and whisper's K3 launches a
     prefill."""
@@ -3103,6 +3164,9 @@ def phase_zoo_serve() -> list[dict]:
 TRAIN_ARCH = "qwen2-1.5b"
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5  # the JAX package's test_lm_loss_grad_r0_parity
 TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the JAX train CLI's defaults: K1 at 1024 rows
+#: ``lm_train``'s depth: 4 of qwen2-1.5b's 28 layers since PR 27, which pays
+#: for the five families on the training mesh (PERF.md §4)
+LM_TRAIN_LAYERS = 4
 
 
 def _train_batch(cfg, step: int) -> dict:
@@ -3305,9 +3369,10 @@ def phase_lm_train() -> dict:
 
     ckpt = Path(__file__).resolve().parent / "build" / "lm_train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    # 5 steps, so the one 18.5 GB checkpoint is step 3's (PERF.md §6)
+    # 5 steps, so the one checkpoint (18.5 GB at 28 layers) is step 3's (PERF.md §6)
     kw = dict(arch=TRAIN_ARCH, steps=5, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4,
-              gemm="pallas_paired", pair_rounding=0.05, log_every=1, ckpt_dir=str(ckpt))
+              gemm="pallas_paired", pair_rounding=0.05, log_every=1, ckpt_dir=str(ckpt),
+              layers=LM_TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()  # the path's own counts from here
     rec = train(**kw, ckpt_every=3)
@@ -3625,12 +3690,25 @@ def phase_moe_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 28: the training mesh (qwen2-1.5b, olmoe-1b-7b)
+# phase 28: the training mesh (every family but FSDP's mistral-large-123b)
 # ---------------------------------------------------------------------------
 
-MESH_TRAIN_PARITY = {(1, 2): ("qwen2", "olmoe"), (2, 1): ("qwen2",),
-                     (2, 2): ("qwen2", "olmoe"), (1, 4): ("qwen2",)}
-MESH_TRAIN_R05 = ((1, 2), (2, 2))
+MESH_TRAIN_ARCHS = {"qwen2": TRAIN_ARCH, "olmoe": MOE_ARCH, "deepseek": MLA_ARCH,
+                    "mamba2": SSM_ARCH, "hymba": HYBRID_ARCH, "whisper": "whisper-base",
+                    "internvl2": "internvl2-2b"}
+MESH_TRAIN_PARITY = {(1, 2): ("qwen2", "olmoe", "deepseek", "mamba2", "hymba", "whisper",
+                              "internvl2"),
+                     (2, 1): ("qwen2",),
+                     (2, 2): ("qwen2", "olmoe", "deepseek", "internvl2"),
+                     (1, 4): ("qwen2", "hymba")}
+#: r = 0.05 (structured, per-shard pairing) against the fold oracle
+MESH_TRAIN_R05 = {(1, 2): ("qwen2", "deepseek", "hymba"), (2, 2): ("qwen2",)}
+#: the parity runs' sequence: internvl2's 256 patch positions need labelled
+#: tokens after them
+MESH_TRAIN_SEQ = {"internvl2": 384}
+#: the trained runs on (1, 2): (arch, layers); qwen2 at 4 of its 28 layers
+#: since PR 27, which pays for the five families' parity runs
+MESH_TRAINED = {"trained": (TRAIN_ARCH, 4), "trained_deepseek": (MLA_ARCH, 3)}
 
 
 def _mesh_train_ref(cfg, knobs, batch, path: Path) -> dict:
@@ -3640,7 +3718,7 @@ def _mesh_train_ref(cfg, knobs, batch, path: Path) -> dict:
     card."""
     import torch
 
-    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR
+    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR, batch_dict
     from repro_torch.core.transform import pair_lm_params
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models import lm as M
@@ -3649,9 +3727,7 @@ def _mesh_train_ref(cfg, knobs, batch, path: Path) -> dict:
     model = pair_lm_params(M.init_lm(cfg, 0, device="cuda"), knobs.pair_rounding)[0]
     step = build_train_step(cfg, adamw(PARITY_LR, eps=PARITY_EPS), knobs)
     opt = step.init(model)
-    tok, lab = batch
-    m = step(model, opt, 0, {"tokens": torch.as_tensor(tok, dtype=torch.int64, device="cuda"),
-                             "labels": torch.as_tensor(lab, dtype=torch.int64, device="cuda")})
+    m = step(model, opt, 0, batch_dict(cfg, batch, "cuda"))
     rec = {k: float(v) for k, v in m.items()}
     torch.save({**rec, "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}, path)
     del model, opt, step
@@ -3727,44 +3803,37 @@ def _mesh_trained_row(recs: list, mesh, where: str) -> dict:
                       "peak_gb": (r["peak_bytes"] or 0) / 1e9, "wiring_s": r["wiring_s"],
                       "pairing_s": r["pairing_s"], "k1_launches_per_step": r["k1_launches"][0],
                       "collectives_per_step": r["collectives"][0]})
-    return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype, "masters": "float32",
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
+            "dtype": cfg.dtype, "masters": "float32",
             "pairing": {"mode": "structured", "rounding": knobs.pair_rounding},
             "remat": knobs.remat, "want_k1_per_step": want_k1,
             "want_collectives_per_step": want_coll, "ranks": ranks,
             "note": "two ranks time-share one card and one host: no tensor-parallel speed"}
 
 
-def phase_mesh_train() -> dict:
-    """The training mesh on ranks of ``launch.mesh.spawn`` (gloo, every rank
-    on this one card, so they time-share it): parity, the trained run, the
-    resume across shapes, and K1 at a rank's training shards (phase 28 of
-    the module docstring)."""
+def _mesh_train_plan() -> dict:
+    """Phase 28's rank jobs by mesh shape (``train_many``'s), and the
+    single-rank references they are held to (:func:`_mesh_train_refs` runs
+    them); nothing runs on the card here."""
     import dataclasses
-    import math
     import shutil
 
-    from repro_torch import analysis
-    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR, train_many
+    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR, smoke_batches
     from repro_torch.configs import cut_layers, get_config
-    from repro_torch.data.tokens import token_batches
-    from repro_torch.launch.mesh import spawn
     from repro_torch.models import lm as M
-    from repro_torch.parallel.sharding import Mesh
 
-    t0 = time.perf_counter()
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     knobs = M.PerfKnobs(q_chunk=TRAIN_SEQ, gemm="pallas_paired", pair_rounding=0.0)
     knobs05 = dataclasses.replace(knobs, pair_rounding=0.05)
-    cfgs = {"qwen2": dataclasses.replace(cut_layers(get_config(TRAIN_ARCH), 2), dtype="float32"),
-            "olmoe": dataclasses.replace(cut_layers(get_config(MOE_ARCH), 2), dtype="float32")}
-    batches = {k: [next(token_batches(TRAIN_BATCH, TRAIN_SEQ, c.vocab, seed=1))]
+    # full width, 2 layers (deepseek's dense layer 0 and an MoE layer with
+    # shared experts; hymba's full layer 0 and windowed layer 1; whisper 2 + 2)
+    cfgs = {k: dataclasses.replace(cut_layers(get_config(a), 2), dtype="float32")
+            for k, a in MESH_TRAIN_ARCHS.items()}
+    # seeded random tokens, and seeded random frames or patches
+    batches = {k: smoke_batches(c, TRAIN_BATCH, MESH_TRAIN_SEQ.get(k, TRAIN_SEQ), 1)
                for k, c in cfgs.items()}
-    refs, ref_paths = {}, {}
-    for key, cfg in cfgs.items():
-        ref_paths[key] = str(build / f"mesh_train_ref_{key}.pt")
-        refs[key] = _mesh_train_ref(cfg, knobs, batches[key][0], Path(ref_paths[key]))
-    ref_s = time.perf_counter() - t0
+    ref_paths = {key: str(build / f"mesh_train_ref_{key}.pt") for key in cfgs}
     ckpt = build / "mesh_train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     # 3 steps: the one checkpoint is step 2's, and step 3 runs on both shapes
@@ -3772,48 +3841,80 @@ def phase_mesh_train() -> dict:
                      lr=3e-4, ckpt_dir=str(ckpt), ckpt_every=2, paired_rounding=0.0,
                      log_every=1, gemm="pallas_paired", pair_rounding=0.0, pair_block_n=0,
                      layers=2, dtype="float32")
-    trained_kw = dict(resume_kw, ckpt_dir="", ckpt_every=0, pair_rounding=0.05, layers=0,
-                      dtype="")
     jobs = {}
     for shape, archs in MESH_TRAIN_PARITY.items():
         jobs[shape] = {key: ("train_job", (cfgs[key], 0, knobs, batches[key]),
                              {"lr": PARITY_LR, "eps": PARITY_EPS, "want": ref_paths[key]})
                        for key in archs}
-        if shape in MESH_TRAIN_R05:
-            jobs[shape]["qwen2_r05"] = ("train_job", (cfgs["qwen2"], 0, knobs05,
-                                                      batches["qwen2"]),
-                                        {"lr": PARITY_LR, "eps": PARITY_EPS,
-                                         "fold_oracle": True})
-    jobs[(1, 2)]["trained"] = ("train_rank", (), trained_kw)
+        for key in MESH_TRAIN_R05.get(shape, ()):
+            jobs[shape][key + "_r05"] = ("train_job", (cfgs[key], 0, knobs05, batches[key]),
+                                         {"lr": PARITY_LR, "eps": PARITY_EPS,
+                                          "fold_oracle": True})
+    for name, (arch, layers) in MESH_TRAINED.items():
+        jobs[(1, 2)][name] = ("train_rank", (), dict(resume_kw, arch=arch, ckpt_dir="",
+                                                     ckpt_every=0, pair_rounding=0.05,
+                                                     layers=layers, dtype=""))
     jobs[(1, 2)]["resume_straight"] = ("train_rank", (), resume_kw)
     jobs[(2, 1)]["resume"] = ("train_rank", (), resume_kw)
-    runs, k1_total, spawn_s, trained, resume = [], 0, {}, None, {}
-    for shape, mesh_jobs in jobs.items():
+    return {"jobs": jobs, "cfgs": cfgs, "knobs": knobs, "batches": batches,
+            "ref_paths": ref_paths, "ckpt": ckpt}
+
+
+def _mesh_train_refs(plan: dict) -> None:
+    """The single-rank steps of :func:`_mesh_train_plan`'s parity jobs, on
+    the card in this process, saved where the ranks read them; their
+    metrics and seconds go into ``plan``."""
+    plan["refs"], plan["reference_s"] = {}, {}
+    for key, cfg in plan["cfgs"].items():
         t1 = time.perf_counter()
-        try:
-            ranks = spawn(train_many, shape, backend="gloo", device="cuda",
-                          args=(mesh_jobs,), timeout=900)
-        except RuntimeError as e:
-            check(False, f"mesh_train {shape}: {str(e)[-2000:]}")
-            continue
-        spawn_s[str(shape)] = time.perf_counter() - t1
+        plan["refs"][key] = _mesh_train_ref(cfg, plan["knobs"], plan["batches"][key][0],
+                                            Path(plan["ref_paths"][key]))
+        plan["reference_s"][key] = time.perf_counter() - t1
+
+
+def phase_mesh_train(plan: dict, ranks_by_shape: dict, spawns: dict) -> dict:
+    """The training mesh on ranks of ``launch.mesh.spawn`` (gloo, every rank
+    on this one card, so they time-share it; the spawns are
+    :func:`phase_mesh`'s, shared with phase 13): parity, the trained runs (in
+    a spawn alone on the card), the resume across shapes, and K1 at a
+    rank's training shards (phase 28 of the module docstring)."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import analysis
+    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR
+    from repro_torch.parallel.sharding import Mesh
+
+    t0 = time.perf_counter()
+    refs, ref_paths, ckpt = plan["refs"], plan["ref_paths"], plan["ckpt"]
+    runs, k1_total, job_s, trained, resume = [], 0, {}, {}, {}
+    for shape, mesh_jobs in plan["jobs"].items():
+        ranks = ranks_by_shape.get(shape)
+        if ranks is None:
+            continue  # its spawn failed, and said so
+        mesh_jobs = {n: j for n, j in mesh_jobs.items() if n in ranks[0]}
+        job_s[str(shape)] = {name: max(r[name]["job_s"] for r in ranks) for name in mesh_jobs}
         mesh = Mesh(dict(zip(("data", "model"), shape, strict=True)))
         for name, (fn, args, _) in mesh_jobs.items():
             where = f"mesh_train {shape} {name}"
             if fn == "train_rank":
                 recs = [r[name] for r in ranks]
                 k1_total += sum(sum(r["k1_launches"]) for r in recs)
-                if name == "trained":
-                    trained = _mesh_trained_row(recs, mesh, where)
+                if name in MESH_TRAINED:
+                    trained[name] = _mesh_trained_row(recs, mesh, where)
                 else:
                     resume[name] = [[h["loss"] for h in r["history"]] for r in recs]
                     resume[name + "_start"] = [r["start"] for r in recs]
                 continue
             cfg, knob = args[0], args[2]
-            want_coll = analysis.mesh_train_collectives(cfg, knob, mesh, TRAIN_BATCH, TRAIN_SEQ)
+            B, S = np.asarray(args[3][0][0]).shape
+            want_coll = analysis.mesh_train_collectives(cfg, knob, mesh, B, S)
             want_k1 = analysis.train_launches(cfg, knob)
             row = {"mesh": list(shape), "job": name, "arch": cfg.name, "layers": cfg.n_layers,
-                   "want_collectives": want_coll, "want_k1": want_k1, "ranks": []}
+                   "batch": B, "seq": S, "want_collectives": want_coll, "want_k1": want_k1,
+                   "ranks": []}
             for rank in ranks:
                 got = rank[name]
                 k1_total += sum(got["k1"])
@@ -3834,8 +3935,6 @@ def phase_mesh_train() -> dict:
                                               f"{got[gate]:.3g}")
                 row["ranks"].append(r)
             runs.append(row)
-        del ranks
-        gc.collect()
     straight, again = resume.get("resume_straight"), resume.get("resume")
     resume_err = None
     if straight and again:
@@ -3847,24 +3946,128 @@ def phase_mesh_train() -> dict:
                                        f"{straight[0][2:]}")
     else:
         check(False, "mesh_train: the resume runs did not both report")
-    check(trained is not None, "mesh_train: the trained run did not report")
+    check(set(trained) == set(MESH_TRAINED), f"mesh_train: of the trained runs only "
+                                             f"{sorted(trained)} reported")
     shutil.rmtree(ckpt, ignore_errors=True)
     for path in ref_paths.values():
         Path(path).unlink(missing_ok=True)
     t2 = time.perf_counter()
     k1_rows = _k1_shard_rows()
-    check(all(math.isfinite(v) for v in refs["qwen2"].values()), "mesh_train: reference loss")
+    check(all(math.isfinite(v) for r in refs.values() for v in r.values()),
+          "mesh_train: reference loss")
     out = {"phase": "mesh_train", "card": _card(), "backend": "gloo",
            "ranks_share_one_card": True, "adamw": {"lr": PARITY_LR, "eps": PARITY_EPS},
            "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "references": refs, "reference_s": ref_s, "spawn_s": spawn_s,
-           "runs": runs, "trained": trained,
+           "seq": TRAIN_SEQ, "seq_by_arch": MESH_TRAIN_SEQ, "references": refs,
+           "reference_s": plan["reference_s"], "spawns": spawns, "job_s": job_s, "runs": runs,
+           **trained,
            "resume": {"saved_on": [1, 2], "resumed_on": [2, 1], "straight": straight,
                       "resumed": again, "max_rel_err": resume_err},
            "k1_shard_rows": k1_rows, "k1_rows_s": time.perf_counter() - t2,
-           "main_path_launches": k1_total, "seconds": time.perf_counter() - t0}
+           "main_path_launches": k1_total, "check_s": time.perf_counter() - t0}
     emit(out)
     return out
+
+
+#: the spawns of phases 13 and 28: one a mesh shape, both phases' jobs on
+#: its ranks, but (1, 2)'s, which are split three ways: phase 13's parity and
+#: served runs, phase 28's parity runs, and its trained runs.  The spawns of
+#: a lane run one after another, the two lanes at once; the trained runs
+#: then have the card alone.  (2, 1)'s resume reads the checkpoint that
+#: (1, 2)'s straight run writes; the lanes never run phase 28's deepseek jobs
+#: on (1, 2) and on (2, 2) at once (the card's 80 GB).
+MESH_LANES = (("(1, 2) decode", "(1, 4)", "(2, 1)"), ("(1, 2)", "(2, 2)"))
+MESH_AFTER = {"(2, 1)": "(1, 2)"}
+MESH_ALONE = "(1, 2) timed"
+
+
+def _mesh_unit(phase: str, shape: tuple, name: str) -> str:
+    if shape == (1, 2) and phase == "decode":
+        return "(1, 2) decode"
+    return f"{shape} timed" if name in MESH_TRAINED else str(shape)
+
+
+def phase_mesh() -> tuple[dict, dict]:
+    """Phases 13 and 28 on shared spawns (:data:`MESH_LANES`): each rank
+    runs its spawn's jobs of both phases through
+    ``benchmarks.mesh_train.train_many`` (``serve_rank`` for phase 13's).
+    Phase 13's (1, 2) spawn starts first, its served runs first; meanwhile
+    this process runs phase 28's single-rank references (the spawns with
+    phase 28's parity jobs wait for them), then phase 13's references and
+    ledger gates.  Returns the two phases' records."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.benchmarks.mesh_train import train_many
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    dec, trn = _mesh_decode_plan(), _mesh_train_plan()
+    units: dict[str, tuple] = {}  # spawn → (shape, {"<phase>/<job>": (fn, args, kwargs)})
+    for phase, jobs_by_shape in (("decode", {s: {n: ("serve_rank", *j) for n, j in js.items()}
+                                             for s, js in dec["jobs"].items()}),
+                                 ("train", trn["jobs"])):
+        for shape, jobs in jobs_by_shape.items():
+            # the served runs first: (1, 2)'s whole fp32 models are built before
+            # the other lane starts
+            for name in sorted(jobs, key=lambda n: not n.endswith("_served")):
+                unit = units.setdefault(_mesh_unit(phase, shape, name), (shape, {}))
+                unit[1][f"{phase}/{name}"] = jobs[name]
+    check(sorted(units) == sorted([*(u for lane in MESH_LANES for u in lane), MESH_ALONE]),
+          f"mesh: spawns {sorted(units)} not those of the lanes")
+    done = {unit: threading.Event() for unit in units}
+    refs_done = threading.Event()
+    results, spawn_s, started = {}, {}, {}
+
+    def run(unit: str) -> None:
+        shape, jobs = units[unit]
+        if any(n.startswith("train/") and j[0] == "train_job" for n, j in jobs.items()):
+            refs_done.wait()
+        if unit in MESH_AFTER:
+            done[MESH_AFTER[unit]].wait()
+        started[unit] = time.perf_counter() - t0
+        try:
+            results[unit] = spawn(train_many, shape, backend="gloo", device="cuda",
+                                  args=(jobs,), timeout=900)
+        except RuntimeError as e:
+            check(False, f"mesh {unit}: {str(e)[-2000:]}")
+        finally:
+            spawn_s[unit] = time.perf_counter() - t0 - started[unit]
+            done[unit].set()
+
+    def lane(names) -> None:
+        for unit in names:
+            run(unit)
+
+    with ThreadPoolExecutor(max_workers=len(MESH_LANES)) as pool:
+        lanes = [pool.submit(lane, names) for names in MESH_LANES]
+        try:
+            _mesh_train_refs(trn)
+        finally:
+            refs_done.set()  # a failed reference fails the script; the ranks stop waiting
+        gc.collect()
+        torch.cuda.empty_cache()
+        dec_refs = _mesh_decode_refs(dec)
+        for f in lanes:
+            f.result()
+    t1 = time.perf_counter()
+    run(MESH_ALONE)
+    spawns = {"started_s": started, "spawn_s": spawn_s, "lanes": MESH_LANES,
+              "lanes_s": t1 - t0, "alone_s": time.perf_counter() - t1,
+              "seconds": time.perf_counter() - t0}
+    by_phase: dict[str, dict] = {"decode": {}, "train": {}}
+    for unit, ranks in results.items():
+        for phase, by_shape in by_phase.items():
+            merged = by_shape.setdefault(units[unit][0], [{} for _ in ranks])
+            for mine, rank in zip(merged, ranks, strict=True):
+                mine.update({n.split("/", 1)[1]: v for n, v in rank.items()
+                             if n.startswith(phase + "/")})
+    del results
+    gc.collect()
+    return (phase_mesh_decode(dec, dec_refs, by_phase["decode"], spawns),
+            phase_mesh_train(trn, by_phase["train"], spawns))
 
 
 def main() -> int:
@@ -3898,9 +4101,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli = phase_serve_cli(tile["path"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    mesh = phase_mesh_decode()
     gc.collect()
     torch.cuda.empty_cache()
     moe_parity = phase_moe_parity()
@@ -3937,7 +4137,7 @@ def main() -> int:
     moe_train = phase_moe_train()
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_train = phase_mesh_train()
+    mesh, mesh_train = phase_mesh()  # phases 13 and 28, on shared spawns
 
     head = [row for row in layers["rows"]
             if (row["mode"], row["rounding"]) == HEADLINE and row["fused_pool"]]

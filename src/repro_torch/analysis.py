@@ -281,39 +281,52 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
     (``launch.steps.build_train_step`` with ``mesh``; global batches of
     ``batch`` × ``seq`` tokens, ``rules_for(cfg, "train", mesh)``), by kind,
     calls and bytes (of each call's local input), as
-    ``parallel.collectives.collective_stats`` counts them:
+    ``parallel.collectives.collective_stats`` counts them.  The decoder's
+    stream is ``meta_tokens + seq`` positions (S below):
 
-    * a block whose weights split over ``model`` (attention with its query
-      heads split, a split MLP, experts split): under sequence parallelism
-      an all-gather of the rank's positions (compute dtype) enters it and a
-      reduce-scatter of the fp32 partial sums (B, S, d) closes it; their
-      backward, a reduce-scatter of the input's gradient (B, S, d) and an
-      all-gather of the output's (B, S/n, d, fp32); without it, an
-      all-reduce of the partial sums and one of their gradient.  A block
-      whose weights are whole still gathers its positions under sequence
-      parallelism (and reduce-scatters their gradient); it closes with none;
+    * each decoder block (attention, GQA or MLA; an SSM block; a hybrid
+      layer's two branches, on one gather; the cross-attention's query; the
+      FFN) under sequence parallelism: an all-gather of the rank's positions
+      (compute dtype) enters it and a reduce-scatter of the input's gradient
+      (B, S, d) leaves it in the backward; a block whose weights split over
+      ``model`` (its query heads, an MLP's or the shared experts' columns,
+      the experts, an SSM block's channels) closes with a reduce-scatter of
+      its fp32 partial sums (B, S, d), whose gradient is all-gathered (B,
+      S/n, d, fp32); without sequence parallelism, an all-reduce of the
+      partial sums and one of their gradient.  A block whose weights are
+      whole closes with none;
+    * an SSM block with its channels split: the gated norm's statistic (B,
+      S, 1, fp32) all-reduced, and its gradient; where its heads stay whole,
+      the conv'd channels (B, S, d_in/n, compute dtype) all-gathered, their
+      gradient (B, S, d_in) reduce-scattered;
     * an MoE layer: the router's logits (T, E/n, fp32) all-gathered where
       its expert columns split (their gradient reduce-scattered); on the
       routed branch the aux loss's statistics (2, E, fp32) in one all-reduce
-      over ``model`` and the data axes that split the batch;
-    * the embedding, vocab split: its rows closed as a block's partial sums
-      (fp32); the head, vocab split: the final-normed positions all-gathered
-      (their gradient reduce-scattered), and each chunk of the
-      cross-entropy (``knobs.xent_chunk`` positions) an all-reduce of the
-      logits' maxima (B, chunk) and one of the exps' and the label logits'
-      sums (2, B, chunk); whole, one all-reduce of the rank's sum;
+      over ``model`` and the data axes that split the batch; the routed and
+      the shared experts' partial sums close together, as one block;
+    * the encoder (its frames F whole on every rank): each layer's
+      attention and MLP, where split, an all-reduce of the fp32 partial
+      sums (B, F, d) and one of their gradient;
+    * the embedding, vocab split: its rows (the meta tokens' zero rows
+      first) closed as a block's partial sums (fp32); the head, vocab split:
+      the final-normed positions all-gathered (their gradient
+      reduce-scattered), and each chunk of the cross-entropy over the
+      ``seq`` token positions (``knobs.xent_chunk`` positions) an all-reduce
+      of the logits' maxima (B, chunk) and one of the exps' and the label
+      logits' sums (2, B, chunk); whole, one all-reduce of the rank's sum;
     * the loss's sum and its denominator over the data axes that split the
       batch (one all-reduce of 2 fp32);
     * after the backward, the gradients (fp32): those of the weights whole
-      under ``model`` in one all-reduce over ``model`` (and those data axes),
-      the split ones in one over those data axes; the clip's norm
+      under ``model`` (the meta tokens, ``vision_proj`` and whole encoder
+      weights among them) in one all-reduce over ``model`` (and those data
+      axes), the split ones in one over those data axes; the clip's norm
       (``clip``: AdamW's default) one all-reduce of one fp32 over
       ``model``.
 
     Each layer's forward collectives run twice under ``knobs.remat``
-    ``"full"`` or ``"dots"`` (the backward recomputes the layer), each
-    cross-entropy chunk's twice always (it is checkpointed).  A group of one
-    rank sends nothing."""
+    ``"full"`` or ``"dots"`` (the backward recomputes the layer; the
+    encoder's too), each cross-entropy chunk's twice always (it is
+    checkpointed).  A group of one rank sends nothing."""
     from repro_torch.models.lm import compute_dtype
     from repro_torch.models.param import param_axes_and_shapes
     from repro_torch.parallel.rules import rules_for
@@ -324,7 +337,7 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
     tp = train_layout_for(cfg, mesh, rules, batch, seq)
     n, c = tp.n, compute_dtype(cfg).itemsize
     b = batch // tp.dp if tp.batch_split else batch
-    d, S = cfg.d_model, seq
+    d, S = cfg.d_model, cfg.meta_tokens + seq
     out = {k: {"calls": 0, "bytes": 0} for k in ("all_reduce", "all_gather", "reduce_scatter")}
 
     def add(kind: str, nbytes: int, times: int = 1) -> None:
@@ -337,34 +350,64 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
     full32, own32 = b * S * d * 4, b * S // n * d * 4
     full_c, own_c = b * S * d * c, b * S // n * d * c
 
-    def block(split: bool) -> None:
-        """One block's way in and out, forward (``redo`` times) and backward."""
-        if not m:
-            return
-        if tp.seq_split:
+    def enter() -> None:
+        """A block's way in, forward (``redo`` times) and backward."""
+        if m and tp.seq_split:
             add("all_gather", own_c, redo)
             add("reduce_scatter", full_c)
-            if split:
-                add("reduce_scatter", full32, redo)
-                add("all_gather", own32)
-        elif split:
-            add("all_reduce", full32, redo)
-            add("all_reduce", full32)
+
+    def close(split: bool, whole32: int = full32, seq_split: bool = tp.seq_split) -> None:
+        """A block's way out, forward (``redo`` times) and backward."""
+        if not (m and split):
+            return
+        if seq_split:
+            add("reduce_scatter", whole32, redo)
+            add("all_gather", whole32 // n)
+        else:
+            add("all_reduce", whole32, redo)
+            add("all_reduce", whole32)
+
+    def ssm(view) -> None:
+        """An SSM block's gated-norm statistic and its gathered channels."""
+        if not (m and view.ssm_in_split):
+            return
+        add("all_reduce", b * S * 4, redo)
+        add("all_reduce", b * S * 4)
+        if not view.ssm_heads_split:
+            d_in = cfg.ssm.expand * d
+            add("all_gather", b * S * d_in // n * c, redo)
+            add("reduce_scatter", b * S * d_in * c)
 
     for i in range(cfg.n_layers):
         view, kind = tp.layer(i), cfg.layer_kind(i)
-        block(view.q_split)
+        enter()
+        if kind != "ssm":  # attention, GQA or MLA
+            close(view.q_split)
+        if kind in ("ssm", "hybrid_full", "hybrid_swa"):
+            ssm(view)
+            close(view.ssm_in_split)
+        if kind == "encdec":  # the cross-attention
+            enter()
+            close(view.xq_split)
         if kind == "moe":
             E, K = cfg.moe.n_experts, cfg.moe.top_k
+            enter()
             if m and view.router_split:
                 add("all_gather", b * S * E // n * 4, redo)
                 add("reduce_scatter", b * S * E * 4)
-            block(view.experts_split)
+            close(view.experts_split or (view.shared_split and bool(cfg.moe.n_shared)))
             routed = b * S * (tp.dp if tp.batch_split else 1) * K > 2 * E
             if routed and (m or tp.batch_split):
                 add("all_reduce", 2 * E * 4, redo)
-        else:
-            block(view.ff_split)
+        elif kind != "ssm" and (not kind.startswith("hybrid") or cfg.d_ff):
+            enter()
+            close(view.ff_split)
+    if cfg.encoder is not None:
+        enc = tp.encoder_view()
+        enc32 = b * cfg.encoder.frames * d * 4
+        for _ in range(cfg.encoder.n_layers):
+            close(enc.q_split, enc32, seq_split=False)
+            close(enc.ff_split, enc32, seq_split=False)
     if m and tp.vocab_split:
         # the embedding's rows, closed as a block's partial sums (fp32 masters)
         if tp.seq_split:
@@ -375,8 +418,8 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
         if tp.seq_split:
             add("all_gather", own_c)
             add("reduce_scatter", full_c)
-        chunk = min(knobs.xent_chunk, S) if knobs.xent_chunk else S
-        chunks = -(-S // chunk)
+        chunk = min(knobs.xent_chunk, seq) if knobs.xent_chunk else seq
+        chunks = -(-seq // chunk)
         add("all_reduce", b * chunk * 4, 2 * chunks)
         add("all_reduce", 2 * b * chunk * 4, 2 * chunks)
     elif m:

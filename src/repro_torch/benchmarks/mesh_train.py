@@ -14,8 +14,8 @@ pairing metadata).  :func:`partial_sum_check` holds a bf16 row-parallel
 partial sum under autograd to the serving path's.  The tests and
 ``chip_smoke.py`` spawn them.
 
-    # qwen2's and olmoe's smoke configs on a (2, 2) mesh of gloo ranks on
-    # the CPU, fp32, held to the single-rank step (the GPU without --device)
+    # every family's smoke config on a (2, 2) mesh of gloo ranks on the
+    # CPU, fp32, held to the single-rank step (the GPU without --device)
     PYTHONPATH=src python -m repro_torch.benchmarks.mesh_train --mesh 2,2 --device cpu
 """
 from __future__ import annotations
@@ -34,6 +34,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import paired_matmul as pm
+from repro_torch.launch.inputs import make_batch
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import layers as Lyr
 from repro_torch.models import lm as M
@@ -55,9 +56,11 @@ def knobs_for(rounding: float = 0.0, gemm: str = "pallas_paired", **kw) -> M.Per
 
 def violation(got, want) -> float:
     """max(|got − want| − (ATOL + RTOL·|want|)): ≤ 0 where every element is
-    within the gates."""
+    within the gates; inf where either holds a NaN (so a NaN fails a gate,
+    and a Python ``max`` over violations cannot drop it)."""
     got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
-    return float(np.max(np.abs(got - want) - (ATOL + RTOL * np.abs(want))))
+    excess = np.abs(got - want) - (ATOL + RTOL * np.abs(want))
+    return float(np.max(np.where(np.isnan(excess), np.inf, excess)))
 
 
 def _model(cfg, weights, device) -> M.LM:
@@ -66,9 +69,17 @@ def _model(cfg, weights, device) -> M.LM:
     return M.lm_params_from_numpy(weights, cfg, device=device)
 
 
-def _batch(tokens, labels, device) -> dict:
+def batch_dict(cfg, item, device) -> dict:
+    """A global batch ``(tokens, labels)`` or ``(tokens, labels, extras)``
+    (numpy; ``extras`` an encoder-decoder model's ``frames`` or a
+    vision-language model's ``patches``) as the step's tensors on
+    ``device``, the extras in the compute dtype."""
+    tokens, labels, *rest = item
+    cdt = M.compute_dtype(cfg)
     return {"tokens": torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=device),
-            "labels": torch.as_tensor(np.asarray(labels), dtype=torch.int64, device=device)}
+            "labels": torch.as_tensor(np.asarray(labels), dtype=torch.int64, device=device),
+            **{k: torch.as_tensor(np.asarray(v), device=device).to(cdt)
+               for k, v in (rest[0] if rest else {}).items()}}
 
 
 def fold_model(local: M.LM, knobs: M.PerfKnobs) -> M.LM:
@@ -116,13 +127,14 @@ def _unfold_grads(local: M.LM, folded: M.LM, knobs: M.PerfKnobs) -> dict[str, to
 def _held_to(step_fn, local: M.LM, got: dict, want: dict) -> float:
     """The largest :func:`violation` of the rank's tensors ``got`` (by
     parameter name) against its blocks of the whole ``want``, computed on
-    the rank's device in fp32, a tensor at a time."""
+    the rank's device in fp32, a tensor at a time (a NaN: inf)."""
     take = step_fn.take(local)
     worst = -np.inf
     for n, g in got.items():
         g = g.detach()
         w = take(n, want[n]).to(device=g.device, dtype=torch.float32)
-        worst = max(worst, float(((g.float() - w).abs() - (ATOL + RTOL * w.abs())).max()))
+        excess = (g.float() - w).abs() - (ATOL + RTOL * w.abs())
+        worst = max(worst, float(torch.nan_to_num(excess, nan=np.inf).max()))
     return worst
 
 
@@ -134,7 +146,8 @@ def train_job(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, batches: list, *,
     from ``weights`` (the JAX package's value tree of numpy arrays, or an
     ``init_lm`` seed; the same on every rank), the rank's part of it
     (``TrainStep.shard``), one AdamW step (``lr``, ``eps``, ``grad_clip``)
-    on each of ``batches`` (global ``(tokens, labels)`` numpy pairs).
+    on each of ``batches`` (global batches of :func:`batch_dict`'s: numpy
+    tokens and labels, and the model's frames or patches).
 
     Returns every step's metrics, collectives (by kind, calls and bytes)
     and K1 launches (calls of its wrappers on the CPU) against what
@@ -160,7 +173,7 @@ def train_job(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, batches: list, *,
     local = cell.model
     rec: dict = {"rank": mesh.rank, "coords": dict(mesh.coords), "wire_s": wire_s,
                  "wiring": cell.seconds}
-    b0 = _batch(*batches[0], dev)
+    b0 = batch_dict(cfg, batches[0], dev)
     if fold_oracle:
         folded = fold_model(local, knobs)
         x_step = build_train_step(cfg, sgd(0.0), dataclasses.replace(knobs, gemm="xla"), mesh)
@@ -171,8 +184,8 @@ def train_job(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, batches: list, *,
     opt = step_fn.init(local)
     want_rec = torch.load(want, map_location="cpu", mmap=True) if want else None
     metrics, colls, k1 = [], [], []
-    for i, (tok, lab) in enumerate(batches):
-        b = b0 if i == 0 else _batch(tok, lab, dev)
+    for i, item in enumerate(batches):
+        b = b0 if i == 0 else batch_dict(cfg, item, dev)
         reset_collectives()
         with counting() as c:
             before = pm.launch_count()
@@ -212,6 +225,8 @@ def train_job(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, batches: list, *,
     rec["tp"] = {k: getattr(tp, k) for k in ("vocab_split", "q_split", "kv_split", "ff_split",
                                              "experts_split", "router_split", "batch_split",
                                              "seq_split")}
+    rec["tp_segments"] = [dict(splits) for _, splits in tp.segment_splits]
+    rec["tp_encoder"] = None if tp.encoder_splits is None else dict(tp.encoder_splits)
     rec["shapes"] = {n: {"param": tuple(p.shape), "grad": tuple(p.grad.shape),
                          "moments": [tuple(v.shape) for v in opt.state[p].values()],
                          "spec": tuple(specs[n])}
@@ -263,25 +278,38 @@ def partial_sum_check(mesh: Mesh, cfg, seed: int, batch: int, seq: int) -> dict:
 
 def train_many(mesh: Mesh, jobs: dict) -> dict:
     """Each job ``name → (fn name, args, kwargs)`` on this rank, in order:
-    ``fn`` one of :func:`train_job`, :func:`partial_sum_check` and the train
-    CLI's ``launch.train.train_rank``."""
+    ``fn`` one of :func:`train_job`, :func:`partial_sum_check`, the train
+    CLI's ``launch.train.train_rank`` and ``mesh_decode.serve_rank`` (a
+    serving job beside the training ones).  Each record gains ``job_s``,
+    the rank's wall seconds for that job."""
+    from repro_torch.benchmarks.mesh_decode import serve_rank
     from repro_torch.launch.train import train_rank
 
     fns = {"train_job": train_job, "partial_sum_check": partial_sum_check,
-           "train_rank": train_rank}
-    return {name: fns[fn](mesh, *args, **kwargs) for name, (fn, args, kwargs) in jobs.items()}
+           "train_rank": train_rank, "serve_rank": serve_rank}
+    out = {}
+    for name, (fn, args, kwargs) in jobs.items():
+        t0 = time.perf_counter()
+        out[name] = fns[fn](mesh, *args, **kwargs)
+        out[name]["job_s"] = time.perf_counter() - t0
+    return out
 
 
 def smoke_batches(cfg, batch: int, seq: int, n: int, seed: int = 5) -> list:
     """``n`` global batches of seeded random tokens and labels, a few labels
-    masked (-1)."""
+    masked (-1), and, for a model that takes them, seeded random frames or
+    patches (``launch.inputs.make_batch``'s stubs, numpy fp32, seed ``seed +
+    i`` for batch ``i``): ``(tokens, labels)`` or ``(tokens, labels,
+    extras)``."""
     rng = np.random.default_rng(seed)
     out = []
-    for _ in range(n):
+    for i in range(n):
         tok = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int64)
         lab = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int64)
         lab[0, 1] = lab[-1, -1] = -1
-        out.append((tok, lab))
+        stub = make_batch(cfg, batch, seq, "train", seed + i, device="cpu")
+        extras = {k: stub[k].float().numpy() for k in M.EXTRAS if k in stub}
+        out.append((tok, lab, extras) if extras else (tok, lab))
     return out
 
 
@@ -300,7 +328,8 @@ def run(mesh_shape=(1, 2), *, device: str | None = None, backend: str = "gloo",
     ref_step = build_train_step(cfg, adamw(PARITY_LR, eps=PARITY_EPS),
                                 knobs_for(0.0, gemm="xla"))
     opt = ref_step.init(ref)
-    losses = [float(ref_step(ref, opt, i, _batch(*b, dev))["loss"]) for i, b in enumerate(batches)]
+    losses = [float(ref_step(ref, opt, i, batch_dict(cfg, b, dev))["loss"])
+              for i, b in enumerate(batches)]
     want_params = {n: p.detach().cpu().numpy() for n, p in ref.named_parameters()}
     t0 = time.perf_counter()
     ranks = spawn(train_many, mesh_shape, backend=backend, device=dev.type,
@@ -334,7 +363,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     a = ap.parse_args(argv)
     shape = tuple(int(x) for x in a.mesh.split(","))
-    for arch in ("qwen2-1.5b", "olmoe-1b-7b"):
+    for arch in ("qwen2-1.5b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                 "hymba-1.5b", "whisper-base", "internvl2-2b"):
         out = run(shape, device=a.device, backend=a.backend, arch=arch)
         print(f"[mesh_train] {arch} on mesh {shape}: losses {out['losses']} held on every "
               f"rank; {out['spawn_and_run_s']:.1f} s")

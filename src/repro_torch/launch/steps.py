@@ -22,8 +22,9 @@ launch a projection over the expert grid; the backward is ``torch.matmul``
 or ``torch.einsum`` on the folded weights either way (``kernels.ops``).
 Every family trains on one device: dense, MoE (olmoe, deepseek with MLA and
 shared experts), SSM, hybrid, encoder-decoder and vision-language models,
-the last two with their ``frames`` or ``patches`` in the batch; on a mesh,
-the dense GQA and routed MoE families.
+the last two with their ``frames`` or ``patches`` in the batch; and on a
+mesh too (the ``meta`` tokens, ``vision_proj`` and the encoder's weights
+among the rank's parameters), all but a model whose rules ask for FSDP.
 """
 from __future__ import annotations
 
@@ -253,8 +254,7 @@ def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer]
     with a ``mesh`` (made by ``parallel.sharding.make_mesh``), one rank's
     step under ``rules`` (``rules_for(cfg, "train", mesh)`` unless given).
     Raises ``NotImplementedError`` on a mesh for ``attn="pallas_fused"``
-    (K3 has no backward), for FSDP and for a family other than dense GQA
-    and routed MoE (``parallel.tp.train_layout_for``)."""
+    (K3 has no backward) and for FSDP (``parallel.tp.train_layout_for``)."""
     if mesh is None:
         return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs))
     if knobs.attn != "xla":

@@ -18,9 +18,11 @@ axes (data, model) under ``rules_for(cfg, "train", mesh)``, as the JAX CLI
 does: one process a rank (``launch.mesh.spawn``, over ``--backend``: gloo,
 which lets the ranks share a card, or nccl, a card a rank), the batch's
 rows over ``data``, heads, ff, experts and vocab over ``model`` and the
-residual stream's positions too (``launch.steps.TrainStep``); the dense GQA
-and routed MoE families train there (the others are ROADMAP queue 1, item
-2a).  Each rank pairs its own shards under ``--gemm pallas_paired``.  The
+residual stream's positions too (``launch.steps.TrainStep``); every family
+trains there (MLA and shared experts, SSM and hybrid layers with their meta
+tokens, the encoder-decoder's encoder, the vision prefix; each rank feeds
+:func:`train_extras`), but a model whose rules ask for FSDP (ROADMAP queue
+1, item 2b).  Each rank pairs its own shards under ``--gemm pallas_paired``.  The
 log lines are rank 0's, printed when the ranks end.  Without ``--mesh`` it
 trains on one device.  Checkpoints (weights and the optimizer's moments,
 whole arrays: a mesh gathers its shards) are written every

@@ -44,7 +44,11 @@ their gated sums all-reduced with the shared experts'; an SSM block scans
 the rank's heads, its gated norm's statistic all-reduced.  A training rank
 (``tp.train``) enters each block with its positions gathered along the
 sequence and closes it with a reduce-scatter (:func:`seq_enter`,
-:func:`close_partial`), and its MoE aux loss is the global batch's.
+:func:`close_partial`), or keeps its positions of a block whose weights are
+whole (:func:`close_whole`: MLA's or an SSM block's too); its shared
+experts' partial sums join the routed ones before the one close, an SSM
+block's gated-norm statistic has its gradient all-reduced, and its MoE aux
+loss is the global batch's.
 
 Weights live in :class:`Block` modules (fp32 masters, as the JAX package
 keeps them) with each weight's pairing metadata beside it; every GEMM goes
@@ -444,6 +448,13 @@ def close_whole(tp, y: torch.Tensor, cdt: torch.dtype,
 def _whole_seq_split(tp) -> bool:
     """A block whose weights are whole, on a sequence-parallel training rank."""
     return tp is not None and tp.train and tp.seq_split
+
+
+def _own_positions(tp, y: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """A training rank's output ``y`` (B, S, d) of a block whose weights are
+    whole, in ``cdt``: its positions under sequence parallelism
+    (:func:`close_whole`), else all of them."""
+    return close_whole(tp, y.float(), cdt) if tp.seq_split else y.to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -868,9 +879,13 @@ def _mla_up(p: MLA, cdt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
 def _mla_out(p: MLA, out: torch.Tensor, knobs, tp) -> torch.Tensor:
     """MLA's out-projection of the heads' values (…, H·v): row-parallel
     (:func:`row_parallel_dense`, no skip connection) where the heads are
-    split over a mesh."""
+    split over a mesh; whole on a sequence-parallel training rank, the
+    rank's positions of it (:func:`close_whole`)."""
     if tp is not None and tp.q_split:
         return row_parallel_dense(p, "wo", out, knobs, tp)
+    if _whole_seq_split(tp):
+        return close_whole(tp, _leaf_dense(p, "wo", out, knobs, out_dtype=torch.float32),
+                           out.dtype)
     return _leaf_dense(p, "wo", out, knobs)
 
 
@@ -1127,13 +1142,13 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
     package's custom VJP; otherwise ``torch.einsum`` as the JAX package's
     ``jnp.einsum``.
 
-    A training rank (``tp.train``; ``train_layout_for`` refuses shared
-    experts) runs the block over
-    all positions of its rows (``x`` is what :func:`seq_enter` gathered) and
-    returns its own positions of ``y`` (:func:`close_partial`, or
-    :func:`close_whole` where the experts are whole); the branch is chosen
-    by the global batch's tokens, and the aux loss is the global batch's
-    (:func:`_train_aux`).
+    A training rank (``tp.train``) runs the block over all positions of its
+    rows (``x`` is what :func:`seq_enter` gathered) and returns its own
+    positions of ``y``: the routed and the shared experts' partial sums
+    closed together by one :func:`close_partial`, or kept at the rank's
+    positions where they are whole (:func:`close_whole`); the branch is
+    chosen by the global batch's tokens, and the aux loss is the global
+    batch's (:func:`_train_aux`).
     """
     mo = cfg.moe
     B, S, d = x.shape
@@ -1161,11 +1176,23 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor, knobs, tp=None
         all-reduce over ``model`` closes whatever is partial.  A training
         rank's: its positions (B, S/n, d) under sequence parallelism."""
         if train:
-            y3 = y2.reshape(B, S, d)
-            if partial:
-                return close_partial(tp, y3, cdt)
-            return close_whole(tp, y3.float(), cdt) if tp.seq_split else y3
+            return _close_train(y2.reshape(B, S, d), partial)
         return _close_shared(y2, partial).reshape(B, S, d)
+
+    def _close_train(y3, partial):
+        """A training rank's close: the fp32 partial sums (the routed one
+        where ``partial``, the shared experts' where their columns split)
+        closed together by one :func:`close_partial`, what is whole kept at
+        the rank's positions (:func:`_own_positions`), the shared experts'
+        output added to the routed one."""
+        if shared is None:
+            return close_partial(tp, y3, cdt) if partial else _own_positions(tp, y3, cdt)
+        y_sh = shared_experts(x2, partial=True).reshape(B, S, d)
+        if partial and shared_split:
+            return close_partial(tp, y3 + y_sh, cdt)
+        routed = close_partial(tp, y3, cdt) if partial else _own_positions(tp, y3, cdt)
+        return routed + (close_partial(tp, y_sh, cdt) if shared_split
+                         else _own_positions(tp, y_sh, cdt))
 
     def _close_shared(y2, partial):
         if shared is None:
@@ -1303,12 +1330,18 @@ def _segsum_decay(dA_chunk: torch.Tensor) -> torch.Tensor:
     """Lower-triangular decay matrix ``L[q, t] = exp(sum_{t<i<=q} dA_i)``.
 
     dA_chunk: (..., Q). Returns (..., Q, Q) with zeros above the diagonal.
+    Those are masked to −inf before the exp: above the diagonal ``diff`` is
+    a sum of −dA, which overflows fp32 at full width (hymba-1.5b's 50 heads
+    over a 256-position chunk), and the exp's gradient there, 0 · inf, was
+    NaN in every weight's gradient.  The JAX package masks after the exp
+    (``jnp.where``) and takes that NaN; the values and every finite
+    gradient are the same.
     """
     Q = dA_chunk.shape[-1]
     cs = torch.cumsum(dA_chunk, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]  # sum over (t, q]
     mask = torch.ones((Q, Q), dtype=torch.bool, device=dA_chunk.device).tril()
-    return torch.where(mask, torch.exp(diff), torch.zeros((), device=diff.device))
+    return torch.exp(diff.masked_fill(~mask, -math.inf))
 
 
 def ssd_scan(
@@ -1400,14 +1433,20 @@ def _gated_out(cfg: ModelConfig, p: Mamba, y: torch.Tensor, z: torch.Tensor, kno
     RMSNorm in fp32, then the output projection through :func:`dense`.
     With the channels split over a mesh (``tp.ssm_in_split``) the norm's
     sum of squares is all-reduced over ``model`` (its mean is over the
-    whole d_in) and w_out is row-parallel (:func:`row_parallel_dense`)."""
+    whole d_in), and so is its gradient under autograd (each rank's is its
+    channels' part), and w_out is row-parallel (:func:`row_parallel_dense`);
+    with them whole, a sequence-parallel training rank keeps its positions
+    of w_out's product (:func:`close_whole`)."""
     y = y.to(z.dtype) * F.silu(z)
     yf = y.float()
     if tp is None or not tp.ssm_in_split:
         y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6) * p.norm).to(z.dtype)
+        if _whole_seq_split(tp):
+            return close_whole(tp, _leaf_dense(p, "w_out", y, knobs, out_dtype=torch.float32),
+                               z.dtype)
         return _leaf_dense(p, "w_out", y, knobs)
-    ms = all_reduce((yf * yf).sum(-1, keepdim=True), tp.model_group) / (
-        cfg.ssm.expand * cfg.d_model)
+    ss = all_reduce((yf * yf).sum(-1, keepdim=True), tp.model_group)
+    ms = grad_all_reduce(ss, tp.model_group) / (cfg.ssm.expand * cfg.d_model)
     y = (yf * torch.rsqrt(ms + 1e-6) * p.norm).to(z.dtype)
     return row_parallel_dense(p, "w_out", y, knobs, tp)
 

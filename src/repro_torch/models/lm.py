@@ -33,9 +33,10 @@ positions over ``model``, an SSM state's heads and conv tails' channels,
 slots over the data axes), the encoder over its own split, and each layer as
 ``models.layers`` splits it under its segment's view (``tp.layer(i)``).
 :func:`lm_loss` runs one training rank's part (``tp`` from
-``parallel.tp.train_layout_for``; dense GQA and MoE): the rank's rows, its
-positions of the residual stream under sequence parallelism, the
-vocab-parallel cross-entropy, and the global batch's loss.
+``parallel.tp.train_layout_for``; every family): the rank's rows, its
+positions of the residual stream (the meta tokens' among them) under
+sequence parallelism, the encoder over all frames, the vocab-parallel
+cross-entropy, and the global batch's loss.
 
 The model is an :class:`LM` module: the embedding (tied as the head, or an
 ``lm_head`` of its own), learned ``meta`` token rows (hybrid) that precede
@@ -515,18 +516,21 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt,
-                 tp=None) -> torch.Tensor:
+                 tp=None, lead: int = 0) -> torch.Tensor:
     """Rows of the embedding in the compute dtype, scaled by sqrt(d_model)
-    in that dtype when it is tied as the head.  With the vocab split over a
-    mesh, each rank looks up the tokens its rows hold (zeros for the rest)
-    and an all-reduce over ``model`` sums them: the one row, exactly.  A
-    token no rank holds raises ``IndexError`` on every rank (they all see
-    the same tokens), as the whole table's lookup does on one device.
+    in that dtype when it is tied as the head, after ``lead`` zero rows
+    (the positions of the meta tokens that precede the tokens).  With the
+    vocab split over a mesh, each rank looks up the tokens its rows hold
+    (zeros for the rest) and an all-reduce over ``model`` sums them: the
+    one row, exactly.  A token no rank holds raises ``IndexError`` on every
+    rank (they all see the same tokens), as the whole table's lookup does
+    on one device.
 
-    A training rank (``tp.train``) returns its positions of the residual
-    stream: under sequence parallelism the split lookup is reduce-scattered
-    along the sequence (``layers.close_partial``), and a whole table looks
-    up the rank's positions alone."""
+    A training rank (``tp.train``) returns its positions of that stream of
+    ``lead + S`` rows: under sequence parallelism the split lookup is
+    reduce-scattered along the stream (``layers.close_partial``), and a
+    whole table's rows are sliced to the rank's positions."""
+    lead_rows = (lambda t: F.pad(t, (0, 0, lead, 0))) if lead else (lambda t: t)
     if tp is not None and tp.vocab_split:
         rows = model.embed.shape[0]
         bad = (tokens < 0) | (tokens >= rows * tp.n)
@@ -536,11 +540,12 @@ def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt,
         local = tokens - tp.r * rows
         held = (local >= 0) & (local < rows)
         h = model.embed[local.clamp(0, rows - 1)] * held[..., None].to(model.embed.dtype)
-        h = close_partial(tp, h, cdt) if tp.train else all_reduce(h, tp.model_group).to(cdt)
+        h = (close_partial(tp, lead_rows(h), cdt) if tp.train
+             else lead_rows(all_reduce(h, tp.model_group).to(cdt)))
     elif tp is not None and tp.train and tp.seq_split:
-        h = model.embed[tokens[:, tp.own(tokens.shape[1])]].to(cdt)
+        h = lead_rows(model.embed[tokens].to(cdt))[:, tp.own(lead + tokens.shape[1])]
     else:
-        h = model.embed[tokens].to(cdt)
+        h = lead_rows(model.embed[tokens].to(cdt))
     if not cfg.tie_embeddings:
         return h
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt, device=h.device)
@@ -700,15 +705,21 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
     ``enc_out``, ``{"xk", "xv"}`` (B, F, KH, hd), beside its K/V; the MoE
     load-balance loss (fp32 scalar, 0 without experts).  On a mesh (``tp``,
     the layer's view) the rank's part of it: the K/V, latent and SSM entries
-    in the layout the rank's cache holds, over all positions."""
-    x = p.ln1(h)
+    in the layout the rank's cache holds, over all positions.  A
+    sequence-parallel training rank's ``h`` is its positions of the stream:
+    every block runs on all of them (``layers.seq_enter``; a hybrid layer's
+    two branches on one gather) and returns the rank's."""
+    # a sequence-parallel training rank gathers the block's positions first
+    x = seq_enter(tp, p.ln1(h))
     if kind == "ssm":
         y, c = _ssm_with_cache(cfg, p.mamba, x, knobs, tp)
         return h + y, c, _no_aux(h)
     if kind in ("hybrid_full", "hybrid_swa"):
         # attention (windowed on hybrid_swa, the meta tokens its sinks) beside
         # the SSM block; no skip connection rides the out-projection here:
-        # each branch is normed whole (a mesh's row-parallel sums closed first)
+        # each branch is normed whole (a mesh's row-parallel sums closed
+        # first; the norms act on each position alone, so a training rank's
+        # run on its positions)
         a, k, v = attention_block(cfg, p.attn, x, positions, knobs,
                                   window=_window_for(cfg, kind), n_sink=cfg.meta_tokens, tp=tp)
         m, c = _ssm_with_cache(cfg, p.mamba, x, knobs, tp)
@@ -720,14 +731,13 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
         h, aux = _ffn(cfg, p, h + y, knobs, tp)
         return h, c, aux
     # the skip connections ride the out- and down-projections (fused into
-    # the paired kernel's epilogue under gemm="pallas_paired"); a
-    # sequence-parallel training rank gathers the block's positions first
-    h, k, v = attention_block(cfg, p.attn, seq_enter(tp, x), positions, knobs,
+    # the paired kernel's epilogue under gemm="pallas_paired")
+    h, k, v = attention_block(cfg, p.attn, x, positions, knobs,
                               window=_window_for(cfg, kind), residual=h, tp=tp)
     c = {"k": k, "v": v}
     if kind == "encdec":
-        h, c["xk"], c["xv"] = _cross_attention(p.xattn, p.lnx(h), enc_out, knobs, residual=h,
-                                               tp=tp)
+        h, c["xk"], c["xv"] = _cross_attention(p.xattn, seq_enter(tp, p.lnx(h)), enc_out, knobs,
+                                               residual=h, tp=tp)
     h, aux = _ffn(cfg, p, h, knobs, tp)
     return h, c, aux
 
@@ -739,6 +749,18 @@ def _extra(cfg: ModelConfig, extras: dict | None, name: str) -> torch.Tensor:
     return extras[name]
 
 
+def _splice(h: torch.Tensor, rows: torch.Tensor, at: int, own: slice) -> torch.Tensor:
+    """``h`` (B, ·, d), the positions ``own`` of a stream, with those of the
+    stream's positions ``at …`` that ``rows`` (B, n, d) hold and ``own``
+    covers replaced by them (a rank's share of a prefix; ``h`` itself where
+    it holds none)."""
+    a, b = max(own.start, at), min(own.stop, at + rows.shape[1])
+    if a >= b:
+        return h
+    return torch.cat([h[:, :a - own.start], rows[:, a - at:b - at], h[:, b - own.start:]],
+                     dim=1)
+
+
 def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: dict | None,
                     knobs: PerfKnobs, *, train: bool = False, tp=None):
     """The embedded tokens (B, meta_tokens + S, d) in the compute dtype, a
@@ -747,23 +769,25 @@ def _prepare_inputs(cfg: ModelConfig, model: LM, tokens: torch.Tensor, extras: d
     an encoder-decoder model's with the sinusoid added; their positions
     (B, meta_tokens + S); and the encoder's output over ``extras["frames"]``
     (None without an encoder).  A sequence-parallel training rank's rows
-    are its positions of the stream (:func:`embed_tokens`); the positions
-    stay the whole sequence's."""
+    are its positions of that stream (:func:`embed_tokens`): the meta rows,
+    patch rows and sinusoid of those positions alone (the rank that holds
+    no patch position replaces none); the positions stay the whole
+    stream's.  The encoder runs over all frames on every rank (its view's
+    stream is whole)."""
     cdt = compute_dtype(cfg)
-    h = embed_tokens(cfg, model, tokens, cdt, tp)
-    B = tokens.shape[0]
+    B, S = tokens.shape[0], cfg.meta_tokens + tokens.shape[1]
+    h = embed_tokens(cfg, model, tokens, cdt, tp, lead=cfg.meta_tokens)
+    own = tp.own(S) if tp is not None and tp.train and tp.seq_split else slice(0, S)
     if cfg.vision_prefix:  # vision_proj is whole on every rank of a mesh
         proj = model.derived(("vision_proj", cdt), lambda: model.vision_proj.to(cdt))
         pe = torch.matmul(_extra(cfg, extras, "patches").to(cdt), proj)
-        h = torch.cat([pe, h[:, cfg.vision_prefix:]], dim=1)
+        h = _splice(h, pe, cfg.meta_tokens, own)
     if cfg.meta_tokens:
-        meta = model.meta.to(cdt)[None].expand(B, *model.meta.shape)
-        h = torch.cat([meta, h], dim=1)
-    S = cfg.meta_tokens + tokens.shape[1]
+        h = _splice(h, model.meta.to(cdt)[None].expand(B, *model.meta.shape), 0, own)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     enc_out = None
     if cfg.encoder is not None:
-        h = h + _sinusoid(positions, cfg.d_model).to(cdt)
+        h = h + _sinusoid(positions[:, own], cfg.d_model).to(cdt)
         enc_out = encoder_fwd(cfg, model.encoder, _extra(cfg, extras, "frames").to(cdt), knobs,
                               train=train, tp=None if tp is None else tp.encoder_view())
     return h, positions, enc_out
@@ -869,9 +893,10 @@ def _hidden_for_loss(cfg: ModelConfig, model: LM, tokens: torch.Tensor, knobs: P
                      extras: dict | None = None, tp=None):
     """The forward up to the final-normed hidden states (B, S, d), skipping
     the logits, and the summed router aux loss; each layer (the encoder's
-    too) under :func:`_remat`.  A training rank (``tp``, its layout; dense
-    GQA and MoE) returns its positions: (B, S/n, d) under sequence
-    parallelism."""
+    too) under :func:`_remat`.  A training rank (``tp``, its layout) returns
+    its positions of the stream, the meta tokens' included (their loss is
+    masked: :func:`chunked_xent`'s ``lead``): (B, (meta_tokens + S)/n, d)
+    under sequence parallelism."""
     h, positions, enc_out = _prepare_inputs(cfg, model, tokens, extras, knobs, train=True,
                                             tp=tp)
     aux_total = _no_aux(h)
@@ -880,7 +905,7 @@ def _hidden_for_loss(cfg: ModelConfig, model: LM, tokens: torch.Tensor, knobs: P
                                  None if tp is None else tp.layer(i))
         h, aux = _remat(step, knobs)(h, positions, enc_out)
         aux_total = aux_total + aux
-    return model.final_norm(h[:, cfg.meta_tokens:]), aux_total
+    return model.final_norm(h if tp is not None else h[:, cfg.meta_tokens:]), aux_total
 
 
 def _xent_chunk(cfg: ModelConfig, w: torch.Tensor, hx, lx, mx) -> torch.Tensor:
@@ -917,7 +942,7 @@ def _xent_chunk_vocab_split(cfg: ModelConfig, tp, w: torch.Tensor, hx, lx, mx) -
 
 
 def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor, chunk: int, tp=None) -> torch.Tensor:
+                 mask: torch.Tensor, chunk: int, tp=None, lead: int = 0) -> torch.Tensor:
     """Sequence-chunked softmax cross-entropy, summed over the masked
     positions: ``h`` (B, S, d) final-normed hiddens, ``labels`` (B, S) (no
     negatives), ``mask`` (B, S) fp32.
@@ -928,18 +953,22 @@ def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Ten
     keeping them: the (B, S, Vp) logits never exist.  The head is
     ``torch.matmul``, as the JAX package's is an XLA einsum.
 
-    On a training rank (``tp``) ``h`` is its positions (B, S/n, d) under
+    On a training rank (``tp``) ``h`` is its positions of the stream of
+    ``lead + S`` rows (the meta tokens' first), (B, (lead + S)/n, d) under
     sequence parallelism, and the sum is over the rank's rows of the whole
     sequence: with the vocab split over ``model``, ``h`` all-gathered along
-    the sequence (``layers.seq_enter``) meets the rank's vocab columns
-    (:func:`_xent_chunk_vocab_split`); with the head whole, each rank sums
-    its own positions (``tp.own``) and an all-reduce over ``model`` adds
-    them.
+    the sequence (``layers.seq_enter``), the lead rows cut, meets the rank's
+    vocab columns (:func:`_xent_chunk_vocab_split`); with the head whole,
+    each rank sums its own positions (``tp.own``) of the stream, whose
+    ``lead`` positions carry masked labels, and an all-reduce over
+    ``model`` adds them.
     """
     if tp is not None:
         if tp.vocab_split:
-            h = seq_enter(tp, h)
+            h = seq_enter(tp, h)[:, lead:]
         else:
+            if lead:
+                labels, mask = F.pad(labels, (lead, 0)), F.pad(mask, (lead, 0))
             own = tp.own(labels.shape[1])
             if not tp.seq_split:
                 h = h[:, own]
@@ -994,7 +1023,8 @@ def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFA
         mask = mask * (torch.arange(labels.shape[1], device=labels.device) >= cfg.vision_prefix)
     extras = {k: batch[k] for k in EXTRAS if k in batch}
     h, aux = _hidden_for_loss(cfg, model, batch["tokens"], knobs, extras, tp)
-    total = chunked_xent(cfg, model, h, labels.clamp_min(0), mask, knobs.xent_chunk, tp)
+    total = chunked_xent(cfg, model, h, labels.clamp_min(0), mask, knobs.xent_chunk, tp,
+                         lead=cfg.meta_tokens if tp is not None else 0)
     count = mask.sum()
     if tp is not None and tp.batch_split:
         total, count = all_reduce(torch.stack([total, count]), tp.data_group).unbind(0)

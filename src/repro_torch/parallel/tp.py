@@ -42,11 +42,17 @@ MoE layers):
 A training rank's layout (:func:`train_layout_for`, from the ``train``
 rules' specs; ``train`` set) splits the same weights and adds:
 
-* ``seq_split`` — the residual stream's positions over ``model`` (the
-  ``train`` rules' ``seq``, where it divides): between sublayers a rank
-  holds its ``S/n`` positions; an all-gather along the sequence enters each
-  block whose weights split, a reduce-scatter of the fp32 partial sums
-  closes it (``models.layers.seq_enter``, ``close_partial``);
+* ``seq_split`` — the decoder's residual stream over ``model`` (the
+  ``train`` rules' ``seq``, where its ``meta_tokens + S`` positions
+  divide): between sublayers a rank holds its chunk of them; an all-gather
+  along the sequence enters each block (attention, MLA, an SSM block, a
+  hybrid layer's two branches together, the cross-attention's query, the
+  FFN), a reduce-scatter of the fp32 partial sums closes a block whose
+  weights split (``models.layers.seq_enter``, ``close_partial``), and a
+  block whose weights are whole keeps the rank's positions
+  (``close_whole``).  The encoder's frames stay whole (its view has
+  ``seq_split`` off): its blocks close with an all-reduce whose gradient is
+  all-reduced too;
 * ``batch_split`` — the batch's rows over the data axes: the loss's
   denominators and the router's statistics are summed over them, and so is
   every gradient after the backward.
@@ -322,38 +328,39 @@ def _refuse_fsdp(cfg: ModelConfig, specs: dict, mesh: Mesh) -> None:
             "(ROADMAP queue 1, item 2b)")
 
 
-#: why a family does not train on a mesh
-TRAIN_FAMILIES_REFUSAL = (
-    "the training mesh runs the dense GQA and routed MoE families; MLA, shared experts, "
-    "SSM, hybrid, encoder-decoder and vision-prefix models train on one device "
-    "(ROADMAP queue 1, item 2a)")
-
-
 def train_layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
                      seq_len: int) -> TensorParallel:
     """The :class:`TensorParallel` of one training rank of ``cfg`` on
     ``mesh`` under ``rules`` (``rules_for(cfg, "train", mesh)``) for global
     batches of ``batch_size`` rows of ``seq_len`` tokens: each segment's
-    weight splits as :func:`layout_for` reads them, ``batch_split`` where
-    the activations' ``batch`` axis splits over data axes, ``seq_split``
-    where their ``seq`` axis splits (``spec_for_axes`` of ``("batch",
-    "seq", "embed")`` at those sizes: a sequence that does not divide
-    ``model`` stays whole, as a weight that does not divide does).  Raises
-    ``NotImplementedError`` for FSDP, for a family other than dense GQA and
-    routed MoE, and for any split :func:`layout_for` refuses."""
-    if (cfg.family not in ("dense", "moe") or cfg.mla is not None or cfg.ssm is not None
-            or cfg.encoder is not None or cfg.vision_prefix or cfg.meta_tokens
-            or (cfg.moe is not None and cfg.moe.n_shared)):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {TRAIN_FAMILIES_REFUSAL}")
+    weight splits as :func:`layout_for` reads them (MLA's heads, the shared
+    experts' and an SSM block's columns and heads among them), the
+    encoder's, ``batch_split`` where the activations' ``batch`` axis splits
+    over data axes, ``seq_split`` where their ``seq`` axis splits
+    (``spec_for_axes`` of ``("batch", "seq", "embed")`` at the decoder's
+    stream, ``meta_tokens + seq_len`` positions: a stream that does not
+    divide ``model`` stays whole, as a weight that does not divide does).
+    The encoder's view keeps its frames whole (the ``train`` rules give
+    ``frames`` no mesh axis): its blocks close with an all-reduce.  Raises
+    ``NotImplementedError`` for FSDP and for any split :func:`layout_for`
+    refuses."""
     axes, shapes = param_axes_and_shapes(cfg)
     specs = shardings_for(axes, mesh, rules, shapes)
     _refuse_fsdp(cfg, specs, mesh)
     _whole(cfg, specs["final_norm"], ("scale", "bias"), "final_norm")
+    for name in ("meta", "vision_proj"):
+        if name in specs and any(e is not None for e in specs[name]):
+            _refuse(cfg, f"{name} is split {tuple(specs[name])}")
     seg_splits = [(count, tuple(_segment_splits(cfg, seg, f"segments[{si}]").items()))
                   for si, ((_, count), seg) in enumerate(zip(cfg.segments(), specs["segments"],
                                                              strict=True))]
+    enc = None
+    if "encoder" in specs:
+        _whole(cfg, specs["encoder"]["final_norm"], ("scale", "bias"), "encoder.final_norm")
+        enc = (*_segment_splits(cfg, specs["encoder"]["segments"][0],
+                                "encoder.segments[0]").items(), ("seq_split", False))
     act = spec_for_axes(("batch", "seq", "embed"), mesh=mesh, rules=rules,
-                        dim_sizes=(batch_size, seq_len, cfg.d_model))
+                        dim_sizes=(batch_size, cfg.meta_tokens + seq_len, cfg.d_model))
     if act[2] is not None:
         _refuse(cfg, f"the residual stream's width is split {tuple(act)}")
     if act[1] not in (None, MODEL_AXIS):
@@ -363,7 +370,8 @@ def train_layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int
         mesh=mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         vocab_split=_on(specs["embed"], 0), cache_seq=False,
         batch_split=act[0] is not None and mesh.axis_size(act[0]) > 1,
-        segment_splits=tuple(seg_splits), train=True, seq_split=act[1] is not None, **first)
+        segment_splits=tuple(seg_splits), encoder_splits=enc, train=True,
+        seq_split=act[1] is not None, **first)
 
 
 def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,

@@ -40,8 +40,8 @@ module; every job of a shape runs inside its ranks
 * the CLI: ``--mesh 1x2`` gives the losses of the run without it (bf16
   smoke config: within 2e-3); a run checkpointed at step 2 on 1 × 2 and
   resumed on 2 × 1 gives the straight run's losses (fp32, rtol 1e-5).
-* FSDP, a family outside dense GQA and routed MoE, and the fused attention
-  are refused.
+* FSDP and the fused attention are refused (the other five families train
+  on the mesh: ``test_torch_mesh_train_families.py``).
 """
 import concurrent.futures
 import dataclasses
@@ -405,17 +405,13 @@ def test_cli_resumes_across_mesh_shapes(tmp_path):
 
 
 def test_refusals():
-    """FSDP (mistral-large-123b's rules put ``embed`` over ``data``), the
-    families outside dense GQA and routed MoE, and the fused attention raise
-    ``NotImplementedError`` before any rank is wired."""
+    """FSDP (mistral-large-123b's rules put ``embed`` over ``data``) and the
+    fused attention raise ``NotImplementedError`` before any rank is
+    wired."""
     mesh = _mesh((2, 2))
     opt = adamw(LR)
     with pytest.raises(NotImplementedError, match="FSDP"):
         build_train_step(get_config("mistral-large-123b"), opt, KNOBS, mesh)
-    for arch in ("deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b", "whisper-base",
-                 "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="item 2a"):
-            build_train_step(get_smoke_config(arch), opt, KNOBS, mesh)
     with pytest.raises(NotImplementedError, match="no backward"):
         build_train_step(_cfg("qwen2-1.5b"), opt, dataclasses.replace(KNOBS, attn="pallas_fused"),
                          mesh)
