@@ -29,7 +29,9 @@ serving CLI with the JAX CLI's flags (the weights folded per column, the
 cache's plans, the front end degrading to K1's dense form); the
 tensor-parallel paired decode of every family on gloo ranks that share the
 card (K1 on every rank); and training on such a mesh, every family, K1 on
-every rank under autograd.  Phases,
+every rank under autograd; both under FSDP too (mistral-large-123b's
+``embed`` over ``data``), every mesh rank building only its own shards.
+Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
 
@@ -143,8 +145,8 @@ result:
                 virtual-clock figures labelled so;
 11. tile_cache — K1's measured tile cache (``kernels/tuning.py``
                 ``TileCache``, ``autotune_plans``): every distinct K1 problem
-                of the lm_serve engine (prefills of 8 and 20 tokens, decode
-                at batch 4), of the training step's 1024 rows (layer 0's wq,
+                of the lm_serve engine (a prefill of 20 tokens, decode at
+                batch 4), of the training step's 1024 rows (layer 0's wq,
                 wk, wo, w_gate, w_down, paired and dense) and of the
                 lm_parity engine (fp32, bn=64); each problem's
                 ``candidate_plans`` launched on seeded operands and held to
@@ -184,19 +186,32 @@ result:
                 patches; on (2, 2) too): every rank's tokens equal the
                 single-rank engine's, logits ≤ 1e-5, every weight and cache
                 entry of a rank shaped as its resolved spec gives.  Served,
-                bf16, structured r=0.05, (1, 2): qwen2-1.5b at 4 of its 28
-                layers (batch 4, 32 tokens a slot), olmoe at 2 of its 16 and
+                bf16, structured r=0.05, (1, 2): qwen2-1.5b at 2 of its 28
+                layers (batch 4, 16 tokens a slot), olmoe at 2 of its 16 and
                 the five (batch 4, 16 tokens a slot) at the depths of
                 ``MESH_SERVED_LAYERS``; K1 launches and collectives a decode
                 step and a prefill held to ``analysis.decode_launches`` /
                 ``prefill_launches`` / ``mesh_decode_collectives`` /
-                ``mesh_prefill_collectives``; decode ms (median, p90), each
+                ``mesh_prefill_collectives``; decode ms (median, p90 of 8
+                timed steps), each
                 rank's wiring seconds and peak memory; the r=0.05 ledger
                 gates of ``repro_torch/benchmarks/mesh_decode.py`` (bn=16).
                 It runs last, beside phase 28, on the same spawns
                 (``phase_mesh``: one a mesh shape, its ranks running both
                 phases' jobs, in two lanes at once), so its decode ms are
-                taken while other ranks share the card (since PR 27);
+                taken while other ranks share the card.
+                Every rank builds only its blocks, leaf by leaf
+                from the seed, and its wiring peak is held to what it holds
+                after the wiring plus two whole leaves
+                (``launch.steps.wiring_excess``); deepseek's served wiring
+                peak is recorded.  Under FSDP (``phase_mesh_fsdp``, right
+                after the build, alone on the card): mistral-large-123b at full
+                width, 1 of 88 layers, fp32, r=0, under its published
+                config's decode rules on (2, 2), a prompt on each data row
+                (slots 0 and 2): every rank's tokens equal
+                the single-rank engine's (``torch.matmul``), logits ≤ 1e-5,
+                collectives (each layer's, the embedding's and the head's
+                gathers over ``data``) held to ``analysis``;
 14. moe_parity — olmoe-1b-7b at full width, 2 layers, fp32: the plain
                 engine (``torch.einsum`` experts, plain attention) against
                 the paired one (structured, r=0; K1 + K2), batch 2, prompts
@@ -256,8 +271,8 @@ result:
                 ``analysis.prefill_launches`` (whisper's K3: one an encoder
                 layer and one a decoder layer's cross-attention);
 23. zoo_serve — the same five at full width, whisper at its published
-                depth (6 + 6), internvl2 at 6 of 24, qwen3 at 4 of 36 and
-                granite at 4 of 40 (since PR 27), mistral-large-123b at 1 of
+                depth (6 + 6), internvl2 at 4 of 24, qwen3 at 2 of 36 and
+                granite at 2 of 40, mistral-large-123b at 1 of
                 its 88 (123
                 G parameters are 246 GB in bf16), bf16, structured r=0.05,
                 batch 4, 32 tokens a
@@ -348,10 +363,11 @@ result:
                 and ``train_launches``.
                 Trained on (1, 2) through the CLI's
                 ``launch.train.train_rank`` (bf16, fp32 masters, structured
-                r=0.05, remat full, 3 steps; in a spawn alone on the card):
-                qwen2-1.5b at 4 of its 28
-                layers (since PR 27) and deepseek-v2-lite-16b at 3 of its 27
-                (the dense layer 0 and two MoE layers): finite losses, K1
+                r=0.05, remat full, 3 steps; in a spawn of their own, last in
+                the first lane):
+                qwen2-1.5b at 2 of its 28
+                layers and deepseek-v2-lite-16b at 2 of its 27 (the dense
+                layer 0 and an MoE layer): finite losses, K1
                 launches and collectives a step held to ``analysis``, ms a
                 step, peak memory and wiring seconds per rank.  Resume:
                 qwen2 at 2 layers, fp32, saved on (1, 2) at step 2 and
@@ -359,7 +375,22 @@ result:
                 run's.  K1 at a rank's training shards of qwen2's
                 layer 0 (wq and w_gate at half their columns, wo and w_down
                 at half their rows; 1024 rows, bf16, structured r=0.05)
-                beside ``torch.matmul`` on the folded shard and the bound;
+                beside ``torch.matmul`` on the folded shard and the bound.
+                Every job's wiring peak held as in phase 13.  Under FSDP
+                (``phase_mesh_fsdp``, right after the build, its ranks alone
+                on the card):
+                mistral-large-123b at full width, 1 of 88 layers, under its
+                published config's train rules (``embed`` over ``data``):
+                parity on (2, 2) ((2, 1)'s in the CPU tests, for the time
+                limit; fp32, r=0, remat full as in the trained run, one
+                AdamW step, batch 8 × seq 128): every rank's loss, gradients and updated
+                weights, block by block, within rtol 1e-4 / atol 1e-5 of the
+                single-rank step's (``torch.matmul``, saved under ``build/``),
+                a NaN failing; trained on (2, 2) (bf16, fp32 masters,
+                structured r=0.05, remat full, 2 steps): equal finite losses on every
+                rank, ms a step, peak memory and bytes held a rank beside
+                the reckoning; collectives (calls and bytes) and K1
+                launches held to ``analysis`` with the FSDP rules;
 29. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
@@ -1770,7 +1801,7 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
 # phases 11 and 12: K1's measured tile cache, and the serving CLI with it
 # ---------------------------------------------------------------------------
 
-TILE_CACHE_REPLAYS = 3  # CUDA-graph replays (of 10 calls) a candidate plan is timed over
+TILE_CACHE_REPLAYS = 2  # CUDA-graph replays (of 10 calls) a candidate plan is timed over
 
 
 def _card() -> str:
@@ -1899,9 +1930,9 @@ def phase_tile_cache(parity_ctx, lm_engine) -> dict:
     cache = tuning.TileCache(path)
     eng = lm_engine
     rng = np.random.default_rng(0)
-    # two prompts (8 and 20 tokens) since PR 27: the prefill rows of two
-    # lengths, not four, are tuned (the script's time limit)
-    serve_prompts = {i: rng.integers(0, eng.cfg.vocab, size=8 + 12 * i) for i in range(2)}
+    # one prompt (20 tokens): the prefill rows of one length are tuned (the
+    # script's time limit)
+    serve_prompts = {0: rng.integers(0, eng.cfg.vocab, size=20)}
     serve_keys = set(_engine_keys(eng, serve_prompts, 3)["by_plan"])  # (key, plan)
     layer0 = eng.model.layers[0]
     rows, dt = TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16
@@ -2050,21 +2081,18 @@ def _mesh_ref(cfg, knobs, prompts: dict, steps: int, batch: int, max_seq: int,
 
 
 #: the other five families on the mesh: (arch, parity layers, served layers,
-#: prompt lengths, max_seq).  Served below published depth: deepseek at 3 of
-#: 27 (its dense layer and two MoE layers; each rank builds the whole fp32
-#: model on the card before slicing it, 13.6 GB a rank at 4 layers, so 27
-#: layers on two ranks of one card do not fit its 80 GB), mamba2 4 of 64,
-#: hymba 4 of 32, whisper 2 of 6 and internvl2 4 of 24, as qwen2 is served
-#: at 4 of its 28 layers and olmoe at 2 of 16: the script's time limit pays
-#: for the mesh_train phase there (PERF.md §4).
-MESH_SERVED_QWEN2_LAYERS = 4
+#: prompt lengths, max_seq).  Served below published depth, 2 layers each
+#: (deepseek its dense layer and an MoE layer, hymba a full and a windowed
+#: one), as qwen2 and olmoe are: the script's time limit pays for the
+#: mesh_train and FSDP phases there (PERF.md §4).
+MESH_SERVED_QWEN2_LAYERS = 2
 MESH_SERVED_OLMOE_LAYERS = 2
 MESH_FAMILIES = (
-    ("deepseek-v2-lite-16b", 2, 3, (11, 40), 64),
-    ("mamba2-2.7b", 2, 4, (11, 40), 64),
-    ("hymba-1.5b", 3, 4, (11, 40), 64),
+    ("deepseek-v2-lite-16b", 2, 2, (11, 40), 64),
+    ("mamba2-2.7b", 2, 2, (11, 40), 64),
+    ("hymba-1.5b", 3, 2, (11, 40), 64),
     ("whisper-base", 2, 2, (11, 24), 64),
-    ("internvl2-2b", 2, 4, (260, 280), 336),
+    ("internvl2-2b", 2, 2, (260, 280), 336),
 )
 MESH_SERVED_LAYERS = {arch: served for arch, _, served, _, _ in MESH_FAMILIES}
 
@@ -2113,7 +2141,7 @@ def _mesh_decode_plan() -> dict:
         s_prompts = {i: rng.integers(1, cfg.vocab, size=n) for i, n in enumerate(s_lens)}
         fam_served[name + "_served"] = (
             (s_cfg, 0, served_knobs, s_prompts, 16),
-            {"max_seq": max_seq + 64, "batch_size": 4, "hold": True, "timed_steps": 16,
+            {"max_seq": max_seq + 64, "batch_size": 4, "hold": True, "timed_steps": 8,
              "extras": _mesh_extras(s_cfg, 4)})
 
     sq_cfg = cut_layers(get_config("qwen2-1.5b"), MESH_SERVED_QWEN2_LAYERS)
@@ -2126,12 +2154,12 @@ def _mesh_decode_plan() -> dict:
                      "olmoe": ((m_cfg, 0, m_knobs, m_prompts, 6),
                                {"max_seq": 64, "batch_size": 3}),
                      **fam,
-                     "qwen2_served": ((sq_cfg, 0, served_knobs, s_prompts, 32),
+                     "qwen2_served": ((sq_cfg, 0, served_knobs, s_prompts, 16),
                                       {"max_seq": 128, "batch_size": 4, "hold": True,
-                                       "timed_steps": 16}),
+                                       "timed_steps": 8}),
                      "olmoe_served": ((sm_cfg, 0, served_knobs, sm_prompts, 16),
                                       {"max_seq": 128, "batch_size": 4, "hold": True,
-                                       "timed_steps": 16}),
+                                       "timed_steps": 8}),
                      **fam_served},
             (1, 4): {"qwen2": ((q_cfg, 0, q_knobs, q_prompts, 6), parity_kw),
                      "olmoe": ((m_cfg, 0, m_knobs, m_prompts, 6),
@@ -2180,17 +2208,22 @@ def phase_mesh_decode(plan: dict, refs: dict, ranks_by_shape: dict, spawns: dict
     on the card, logits ≤ 1e-5, and every weight and cache entry a rank
     holds shaped as its resolved spec gives (``mesh_decode.shard_shapes``).
     Served (bf16, structured r = 0.05, batch 4, (1, 2)): qwen2-1.5b at
-    ``MESH_SERVED_QWEN2_LAYERS``, 32 tokens a slot, olmoe at
+    ``MESH_SERVED_QWEN2_LAYERS``, 16 tokens a slot, olmoe at
     ``MESH_SERVED_OLMOE_LAYERS`` and the five at ``MESH_SERVED_LAYERS``, 16
     tokens a slot: K1 launches and collectives a decode step and a prefill
     held to ``analysis``; decode ms (two ranks time-share one card, beside
     the other lane's ranks: no tensor-parallel speed is measured), each rank's
-    wiring seconds (slicing and pairing) and peak memory.  Ledgers: the
+    wiring seconds (building its blocks leaf by leaf, and pairing them) and
+    peak memory, the wiring's held to the bound of building rank-locally
+    (``launch.steps.wiring_excess``: what the rank holds after it, plus two
+    whole leaves); deepseek's served wiring peak recorded (a rank that built
+    the whole model held 13.58 GB at 4 layers).  Ledgers: the
     three gates of ``repro_torch/benchmarks/mesh_decode.py`` at r = 0.05,
     bn=16, on the parity qwen2's weights at (1, 2)."""
     from repro_torch import analysis
     from repro_torch.benchmarks.mesh_decode import shard_shapes
     from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.steps import WIRING_WHOLE_LEAVES, wiring_excess
     from repro_torch.parallel.sharding import Mesh
 
     t0 = time.perf_counter()
@@ -2243,9 +2276,16 @@ def phase_mesh_decode(plan: dict, refs: dict, ranks_by_shape: dict, spawns: dict
                     check(pre == pre_coll and got["prefill_k1"] == k1_pre,
                           f"{where}: a prefill's collectives {pre} and K1 launches "
                           f"{got['prefill_k1']}, want {pre_coll} and {k1_pre}")
+                excess = wiring_excess(got)
+                check(excess is not None and excess <= 0,
+                      f"{where}: wiring peak {got.get('wire_peak_bytes')} B past its blocks, "
+                      f"metadata and cache ({got['held_bytes']} B) and "
+                      f"{WIRING_WHOLE_LEAVES} whole leaves of {got['leaf_bytes']} B")
                 r = {"rank": got["rank"], "coords": got["coords"], "wire_s": got["wire_s"],
-                     "slice_s": got["wire_seconds"].get("slice"),
+                     "build_s": got["wire_seconds"].get("build"),
                      "pair_s": got["wire_seconds"].get("pair"),
+                     "held_gb": got["held_bytes"] / 1e9, "leaf_gb": got["leaf_bytes"] / 1e9,
+                     "wiring_excess_gb": excess / 1e9,
                      "k1_launches": got["k1_launches"], "step_k1": got["step_k1"],
                      "step_collectives": got["step_collectives"],
                      "wire_peak_gb": (got["wire_peak_bytes"] or 0) / 1e9,
@@ -2294,6 +2334,10 @@ def phase_mesh_decode(plan: dict, refs: dict, ranks_by_shape: dict, spawns: dict
            "main_path_launches": {"paired_matmul": k1_total, "decode_attention": 0,
                                   "flash_attention": 0},
            "runs": meshes,
+           # a rank that built the whole fp32 model held 13.58 GB at 4 layers
+           "deepseek_served_wire_peak_gb": [
+               r["wire_peak_gb"] for row in meshes if row["job"] == "deepseek_served"
+               for r in row["ranks"]],
            "ledger": {"mesh": [1, 2], "rounding": 0.05, "block_n": 16, "rows": rows,
                       "slice_checks": slices}}
     emit(out)
@@ -2538,7 +2582,7 @@ MLA_ARCH = "deepseek-v2-lite-16b"
 #: granite 40, internvl2 24, mistral 88, of which one card holds 4); deepseek
 #: keeps its dense layer and two MoE layers, hymba its full layers 0 and 15
 SERVE_DEPTH_CUTS = {"olmoe-1b-7b": 4, "deepseek-v2-lite-16b": 3, "mamba2-2.7b": 8,
-                    "hymba-1.5b": 16, "qwen3-4b": 4, "granite-3-2b": 4, "internvl2-2b": 6,
+                    "hymba-1.5b": 16, "qwen3-4b": 2, "granite-3-2b": 2, "internvl2-2b": 4,
                     "mistral-large-123b": 1}
 
 
@@ -3706,9 +3750,9 @@ MESH_TRAIN_R05 = {(1, 2): ("qwen2", "deepseek", "hymba"), (2, 2): ("qwen2",)}
 #: the parity runs' sequence: internvl2's 256 patch positions need labelled
 #: tokens after them
 MESH_TRAIN_SEQ = {"internvl2": 384}
-#: the trained runs on (1, 2): (arch, layers); qwen2 at 4 of its 28 layers
-#: since PR 27, which pays for the five families' parity runs
-MESH_TRAINED = {"trained": (TRAIN_ARCH, 4), "trained_deepseek": (MLA_ARCH, 3)}
+#: the trained runs on (1, 2): (arch, layers); qwen2 and deepseek at 2 layers,
+#: which pays for the FSDP phase
+MESH_TRAINED = {"trained": (TRAIN_ARCH, 2), "trained_deepseek": (MLA_ARCH, 2)}
 
 
 def _mesh_train_ref(cfg, knobs, batch, path: Path) -> dict:
@@ -3729,7 +3773,10 @@ def _mesh_train_ref(cfg, knobs, batch, path: Path) -> dict:
     opt = step.init(model)
     m = step(model, opt, 0, batch_dict(cfg, batch, "cuda"))
     rec = {k: float(v) for k, v in m.items()}
-    torch.save({**rec, "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}, path)
+    # whole before it has its name: a rank waits for the name after its step
+    part = path.with_name(path.name + ".part")
+    torch.save({**rec, "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}, part)
+    part.replace(path)
     del model, opt, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3876,7 +3923,7 @@ def phase_mesh_train(plan: dict, ranks_by_shape: dict, spawns: dict) -> dict:
     """The training mesh on ranks of ``launch.mesh.spawn`` (gloo, every rank
     on this one card, so they time-share it; the spawns are
     :func:`phase_mesh`'s, shared with phase 13): parity, the trained runs (in
-    a spawn alone on the card), the resume across shapes, and K1 at a
+    a spawn of their own), the resume across shapes, and K1 at a
     rank's training shards (phase 28 of the module docstring)."""
     import math
     import shutil
@@ -3885,6 +3932,7 @@ def phase_mesh_train(plan: dict, ranks_by_shape: dict, spawns: dict) -> dict:
 
     from repro_torch import analysis
     from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR
+    from repro_torch.launch.steps import wiring_excess
     from repro_torch.parallel.sharding import Mesh
 
     t0 = time.perf_counter()
@@ -3899,6 +3947,11 @@ def phase_mesh_train(plan: dict, ranks_by_shape: dict, spawns: dict) -> dict:
         mesh = Mesh(dict(zip(("data", "model"), shape, strict=True)))
         for name, (fn, args, _) in mesh_jobs.items():
             where = f"mesh_train {shape} {name}"
+            for r in ranks:
+                excess = wiring_excess(r[name])
+                check(excess is not None and excess <= 0,
+                      f"{where} rank {r[name]['rank']}: wiring peak "
+                      f"{r[name].get('wire_peak_bytes')} B past the rank-local bound")
             if fn == "train_rank":
                 recs = [r[name] for r in ranks]
                 k1_total += sum(sum(r["k1_launches"]) for r in recs)
@@ -3923,7 +3976,8 @@ def phase_mesh_train(plan: dict, ranks_by_shape: dict, spawns: dict) -> dict:
                       f"want {want_coll}")
                 check(got["k1"] == [want_k1], f"{where} rank {got['rank']}: K1 launches "
                                               f"{got['k1']}, want {want_k1}")
-                r = {k: got.get(k) for k in ("rank", "coords", "wire_s", "wiring", "metrics",
+                r = {k: got.get(k) for k in ("rank", "coords", "wire_s", "wiring",
+                                             "wire_peak_bytes", "held_bytes", "metrics",
                                              "grad_violation", "params_violation",
                                              "loss_violation", "oracle_loss_violation",
                                              "oracle_grad_violation", "clip_norm", "tp",
@@ -3972,13 +4026,13 @@ def phase_mesh_train(plan: dict, ranks_by_shape: dict, spawns: dict) -> dict:
 #: the spawns of phases 13 and 28: one a mesh shape, both phases' jobs on
 #: its ranks, but (1, 2)'s, which are split three ways: phase 13's parity and
 #: served runs, phase 28's parity runs, and its trained runs.  The spawns of
-#: a lane run one after another, the two lanes at once; the trained runs
-#: then have the card alone.  (2, 1)'s resume reads the checkpoint that
-#: (1, 2)'s straight run writes; the lanes never run phase 28's deepseek jobs
-#: on (1, 2) and on (2, 2) at once (the card's 80 GB).
-MESH_LANES = (("(1, 2) decode", "(1, 4)", "(2, 1)"), ("(1, 2)", "(2, 2)"))
+#: a lane run one after another, the two lanes at once, the trained runs
+#: last in the first (beside the other lane's ranks: the script's time
+#: limit).  (2, 1)'s resume reads the checkpoint that (1, 2)'s straight run
+#: writes; the lanes never run phase 28's deepseek parity jobs on (1, 2) and
+#: on (2, 2) at once.
+MESH_LANES = (("(1, 2) decode", "(1, 4)", "(2, 1)", "(1, 2) timed"), ("(1, 2)", "(2, 2)"))
 MESH_AFTER = {"(2, 1)": "(1, 2)"}
-MESH_ALONE = "(1, 2) timed"
 
 
 def _mesh_unit(phase: str, shape: tuple, name: str) -> str:
@@ -3992,9 +4046,12 @@ def phase_mesh() -> tuple[dict, dict]:
     runs its spawn's jobs of both phases through
     ``benchmarks.mesh_train.train_many`` (``serve_rank`` for phase 13's).
     Phase 13's (1, 2) spawn starts first, its served runs first; meanwhile
-    this process runs phase 28's single-rank references (the spawns with
-    phase 28's parity jobs wait for them), then phase 13's references and
-    ledger gates.  Returns the two phases' records."""
+    this process runs phase 28's single-rank references, then phase 13's
+    references and
+    ledger gates.  The spawns do not wait for the references: a
+    parity job runs its step, then waits for its reference's file (written
+    under another name and renamed when whole).  Returns the two phases'
+    records."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4015,16 +4072,13 @@ def phase_mesh() -> tuple[dict, dict]:
             for name in sorted(jobs, key=lambda n: not n.endswith("_served")):
                 unit = units.setdefault(_mesh_unit(phase, shape, name), (shape, {}))
                 unit[1][f"{phase}/{name}"] = jobs[name]
-    check(sorted(units) == sorted([*(u for lane in MESH_LANES for u in lane), MESH_ALONE]),
+    check(sorted(units) == sorted(u for lane in MESH_LANES for u in lane),
           f"mesh: spawns {sorted(units)} not those of the lanes")
     done = {unit: threading.Event() for unit in units}
-    refs_done = threading.Event()
     results, spawn_s, started = {}, {}, {}
 
     def run(unit: str) -> None:
         shape, jobs = units[unit]
-        if any(n.startswith("train/") and j[0] == "train_job" for n, j in jobs.items()):
-            refs_done.wait()
         if unit in MESH_AFTER:
             done[MESH_AFTER[unit]].wait()
         started[unit] = time.perf_counter() - t0
@@ -4043,19 +4097,13 @@ def phase_mesh() -> tuple[dict, dict]:
 
     with ThreadPoolExecutor(max_workers=len(MESH_LANES)) as pool:
         lanes = [pool.submit(lane, names) for names in MESH_LANES]
-        try:
-            _mesh_train_refs(trn)
-        finally:
-            refs_done.set()  # a failed reference fails the script; the ranks stop waiting
+        _mesh_train_refs(trn)
         gc.collect()
         torch.cuda.empty_cache()
         dec_refs = _mesh_decode_refs(dec)
         for f in lanes:
             f.result()
-    t1 = time.perf_counter()
-    run(MESH_ALONE)
     spawns = {"started_s": started, "spawn_s": spawn_s, "lanes": MESH_LANES,
-              "lanes_s": t1 - t0, "alone_s": time.perf_counter() - t1,
               "seconds": time.perf_counter() - t0}
     by_phase: dict[str, dict] = {"decode": {}, "train": {}}
     for unit, ranks in results.items():
@@ -4068,6 +4116,301 @@ def phase_mesh() -> tuple[dict, dict]:
     gc.collect()
     return (phase_mesh_decode(dec, dec_refs, by_phase["decode"], spawns),
             phase_mesh_train(trn, by_phase["train"], spawns))
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 28 under FSDP: mistral-large-123b, embed over data
+# ---------------------------------------------------------------------------
+
+FSDP_ARCH = "mistral-large-123b"
+#: 1 of its 88 layers at full width: 2.19 G parameters (a layer 1.38 G, the
+#: embedding and the head 0.40 G each), 35.0 GB of training state at 16
+#: bytes a parameter, a quarter of it a rank on (2, 2)
+FSDP_LAYERS = 1
+#: the spawn starts with the phase: its ranks build the parity job's blocks
+#: beside the reference, then run the train parity, the served parity and
+#: the trained run one after another once the reference has left the card.
+#: (2, 1)'s train parity (a spawn of its own: 75-90 s of gloo's host
+#: copies) is left to the CPU tests (``test_torch_fsdp.py``) for the
+#: script's time limit
+FSDP_SHAPES = ((2, 2),)
+#: a prompt on each data row, 2 tokens: every forward gathers the layer over
+#: gloo's host copies (about 5 s in fp32), and the harness adds a step and a
+#: prefill
+FSDP_SERVE_STEPS = 2
+#: 2 steps (the first warms up): 3 cost 11-12 s more of the time limit
+FSDP_TRAINED_STEPS = 2
+
+
+def _fsdp_plan() -> dict:
+    """The FSDP jobs by mesh shape (``train_many``'s) under the published
+    config's rules (``rules_for(get_config(FSDP_ARCH), mode, mesh)``: the
+    cut config is under the FSDP threshold), and what the references need;
+    nothing runs on the card here."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR, smoke_batches
+    from repro_torch.configs import cut_layers, get_config
+    from repro_torch.models import lm as M
+    from repro_torch.parallel.rules import rules_for
+    from repro_torch.parallel.sharding import Mesh
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    published = get_config(FSDP_ARCH)
+    cfg = cut_layers(published, FSDP_LAYERS)  # bf16 compute, fp32 masters
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # remat full, as in the trained run: the recompute gathers each layer
+    # again, and the parity holds its reduce-scatter to the reference
+    knobs = M.PerfKnobs(q_chunk=TRAIN_SEQ, gemm="pallas_paired", pair_rounding=0.0)
+    batches = smoke_batches(cfg32, TRAIN_BATCH, TRAIN_SEQ, FSDP_TRAINED_STEPS)
+    # slots 0 and 2: a live request on each data row of the batch of 4
+    rng = np.random.default_rng(7)
+    prompts = {0: rng.integers(1, cfg.vocab, size=16), 2: rng.integers(1, cfg.vocab, size=11)}
+    rules = {(shape, mode): rules_for(published, mode,
+                                      Mesh(dict(zip(("data", "model"), shape, strict=True))))
+             for shape in FSDP_SHAPES for mode in ("train", "prefill", "decode")}
+    ref_path = str(build / "mesh_fsdp_ref.pt")
+    # made when the card is free for a spawn's first job
+    go = {shape: build / f"mesh_fsdp_go_{shape[0]}x{shape[1]}" for shape in FSDP_SHAPES}
+    for path in go.values():
+        path.unlink(missing_ok=True)
+    serve = {"max_seq": 64, "batch_size": 4, "rules": rules[((2, 2), "decode")]}
+
+    def parity(shape):
+        return ("train_job", (cfg32, 0, knobs, batches[:1]),
+                {"lr": PARITY_LR, "eps": PARITY_EPS, "want": ref_path,
+                 "rules": rules[(shape, "train")], "start_after": str(go[shape])})
+
+    jobs = {(2, 2): {"parity": parity((2, 2)),
+                     "serve": ("serve_rank", (cfg32, 0, _mesh_knobs(0.0, 0), prompts,
+                                              FSDP_SERVE_STEPS), serve),
+                     "trained": ("train_job", (cfg, 0, dataclasses.replace(
+                         knobs, pair_rounding=0.05), batches),
+                                 {"rules": rules[((2, 2), "train")]})}}
+    return {"cfg": cfg, "cfg32": cfg32, "knobs": knobs, "batches": batches,
+            "prompts": prompts, "rules": rules, "ref_path": ref_path, "jobs": jobs, "go": go}
+
+
+def _fsdp_refs(plan: dict):
+    """The single-rank step (fp32, ``torch.matmul``: at r = 0 the paired
+    kernel computes the same product) on the whole model, its gradients and
+    updated weights copied to the host and written, in a thread, where the
+    ranks read their blocks of them (under another name, renamed when whole:
+    a rank waits for it after its step); then the single-rank engine's
+    tokens and logits over the same weights.  Nothing of either stays on the
+    card.  Returns the record and the writing thread."""
+    import dataclasses
+    import os
+    import threading
+
+    import torch
+
+    from repro_torch.benchmarks.mesh_decode import generate
+    from repro_torch.benchmarks.mesh_train import PARITY_EPS, PARITY_LR, batch_dict
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm as M
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.train.optimizer import adamw
+
+    cfg, t0 = plan["cfg32"], time.perf_counter()
+    model = M.init_lm(cfg, 0, device="cuda")
+    step = build_train_step(cfg, adamw(PARITY_LR, eps=PARITY_EPS),
+                            dataclasses.replace(plan["knobs"], gemm="xla"))
+    opt = step.init(model)
+    m = {k: float(v) for k, v in
+         step(model, opt, 0, batch_dict(cfg, plan["batches"][0], "cuda")).items()}
+    t1 = time.perf_counter()
+    ref = {**m, "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+           "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = {}
+
+    def write() -> None:
+        t = time.perf_counter()
+        torch.save(ref, plan["ref_path"] + ".part")
+        os.replace(plan["ref_path"] + ".part", plan["ref_path"])
+        saved["save_s"] = time.perf_counter() - t
+
+    writer = threading.Thread(target=write)
+    writer.start()
+    t2 = time.perf_counter()
+    eng = ServeEngine(cfg, M.init_lm(cfg, 0), max_seq=64, batch_size=4,
+                      knobs=dataclasses.replace(_mesh_knobs(0.0, 0), gemm="xla"))
+    tokens = generate(eng, plan["prompts"], FSDP_SERVE_STEPS)
+    logits = eng.last_logits
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train": m, "tokens": tokens, "logits": logits, "train_s": t1 - t0,
+            "to_host_s": t2 - t1, "serve_s": time.perf_counter() - t2, "saved": saved}, writer
+
+
+def phase_mesh_fsdp() -> dict:
+    """Phases 13 and 28 under FSDP: mistral-large-123b at full width, 1 of
+    its 88 layers, under its published config's rules (``embed`` over
+    ``data``: each layer's blocks gathered over ``data`` before it runs, its
+    gradient reduce-scattered), on gloo ranks that share this one card, each
+    building only its own blocks.  Train parity on (2, 2) (fp32, r = 0,
+    remat full, one AdamW step, batch 8 × seq 128; (2, 1)'s in the CPU
+    tests, for the script's time limit): every rank's loss, gradients
+    and updated weights held to the single-rank step's, its block of them at
+    a time, rtol 1e-4 / atol 1e-5 (a NaN fails); served parity on (2, 2)
+    (fp32, r = 0, a prompt on each data row): every rank's tokens the
+    single-rank engine's, logits ≤ 1e-5; the trained run on (2, 2) (bf16,
+    fp32 masters, structured r = 0.05, 2 steps): finite, equal losses on every rank, ms a step, peak
+    memory and what a rank holds beside the reckoning (a quarter of 35.0 GB,
+    and one gathered layer); collectives and K1 launches held to
+    ``analysis`` throughout, with the FSDP rules; every rank's wiring peak
+    within the bound of building rank-locally."""
+    import math
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch import analysis
+    from repro_torch.benchmarks.mesh_decode import PARITY_TOL
+    from repro_torch.benchmarks.mesh_train import train_many
+    from repro_torch.kernels.ref import rel_err
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.steps import WIRING_WHOLE_LEAVES, wiring_excess
+    from repro_torch.parallel.sharding import Mesh
+
+    t0 = time.perf_counter()
+    parent_gb = torch.cuda.memory_allocated() / 1e9  # this process's, beside the ranks'
+    plan = _fsdp_plan()
+    ranks, done_s = {}, {}
+    # four ranks at 16-18 GB each on the one card: segments that grow in place
+    # spare the allocator's fragments
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    writer = None
+    try:
+        # the spawn starts now (a spawn's start is 15-20 s); its first job
+        # builds its blocks, then waits for its file: the reference to leave
+        # the card
+        with ThreadPoolExecutor(max_workers=len(FSDP_SHAPES)) as pool:
+            runs = {shape: pool.submit(spawn, train_many, shape, backend="gloo", device="cuda",
+                                       args=(plan["jobs"][shape],), timeout=900)
+                    for shape in FSDP_SHAPES}
+            try:
+                refs, writer = _fsdp_refs(plan)
+            finally:
+                plan["go"][(2, 2)].touch()  # a failed reference fails the ranks' gates
+            for shape in FSDP_SHAPES:
+                try:
+                    ranks[shape] = runs[shape].result()
+                except RuntimeError as e:
+                    check(False, f"mesh_fsdp {shape}: {str(e)[-2000:]}")
+                done_s[str(shape)] = time.perf_counter() - t0
+    finally:
+        for path in plan["go"].values():
+            path.touch()
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    if writer is not None:
+        writer.join()
+    for path in plan["go"].values():
+        path.unlink(missing_ok=True)
+    Path(plan["ref_path"]).unlink(missing_ok=True)
+    t2 = time.perf_counter()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    runs, k1_total = {}, 0
+    jobs = [(shape, name, job) for shape, by_name in plan["jobs"].items() if shape in ranks
+            for name, job in by_name.items()]
+    for shape, name, (fn, args, kw) in jobs:
+        mesh = Mesh(dict(zip(("data", "model"), shape, strict=True)))
+        where = f"mesh_fsdp {shape} {name}"
+        cfg, knobs = args[0], args[2]
+        rows = []
+        for rank in ranks[shape]:
+            got = rank[name]
+            excess = wiring_excess(got)
+            check(excess is not None and excess <= 0,
+                  f"{where} rank {got['rank']}: wiring peak {got.get('wire_peak_bytes')} B "
+                  f"past {got['held_bytes']} B held and {WIRING_WHOLE_LEAVES} whole "
+                  f"leaves of {got['leaf_bytes']} B")
+            row = {"rank": got["rank"], "coords": got["coords"], "wire_s": got["wire_s"],
+                   "job_s": got["job_s"], "wire_peak_gb": (got.get("wire_peak_bytes") or 0) / 1e9,
+                   "held_gb": got["held_bytes"] / 1e9, "leaf_gb": got["leaf_bytes"] / 1e9,
+                   "peak_gb": got.get("peak_bytes", 0) / 1e9, "tp": got["tp"]}
+            if fn == "serve_rank":
+                k1_total += got["k1_launches"]
+                rules = {m: plan["rules"][(shape, m)] for m in ("decode", "prefill")}
+                dec = analysis.mesh_decode_collectives(cfg, knobs, mesh, batch_size=4,
+                                                       max_seq=64, rules=rules["decode"])
+                pre = analysis.mesh_prefill_collectives(cfg, knobs, mesh, batch_size=4,
+                                                        max_seq=64, rules=rules["prefill"])
+                calls = lambda c: {k: v["calls"] for k, v in c.items()}
+                row.update(tokens_identical=got["tokens"] == refs["tokens"],
+                           max_logit_rel_err=rel_err(got["logits"], refs["logits"]),
+                           step_collectives=got["step_collectives"])
+                check(row["tokens_identical"], f"{where} rank {got['rank']}: tokens "
+                                               f"{got['tokens']} vs {refs['tokens']}")
+                check(row["max_logit_rel_err"] <= PARITY_TOL,
+                      f"{where} rank {got['rank']}: logits {row['max_logit_rel_err']:.3g}")
+                check(calls(got["step_collectives"]) == dec
+                      and calls(got["prefill_collectives"]) == pre,
+                      f"{where} rank {got['rank']}: collectives {got['step_collectives']} "
+                      f"/ {got['prefill_collectives']}, want {dec} / {pre}")
+                rows.append(row)
+                continue
+            k1_total += sum(got["k1"])
+            want_coll = analysis.mesh_train_collectives(cfg, knobs, mesh, B, S,
+                                                        rules=plan["rules"][(shape, "train")])
+            want_k1 = analysis.train_launches(cfg, knobs)
+            check(all(c == want_coll for c in got["collectives"]),
+                  f"{where} rank {got['rank']}: collectives {got['collectives']}, "
+                  f"want {want_coll}")
+            check(got["k1"] == [want_k1] * len(got["k1"]),
+                  f"{where} rank {got['rank']}: K1 launches {got['k1']}, want {want_k1}")
+            check(all(math.isfinite(v) for m in got["metrics"] for v in m.values()),
+                  f"{where} rank {got['rank']}: metrics not finite")
+            row.update(losses=[m["loss"] for m in got["metrics"]], step_ms=got["step_ms"],
+                       collectives_per_step=got["collectives"][0],
+                       k1_per_step=got["k1"][0], wiring=got["wiring"],
+                       check_s=got.get("check_s"))
+            for gate in ("loss_violation", "grad_violation", "params_violation"):
+                if name.startswith("parity"):
+                    row[gate] = got[gate]
+                    check(got[gate] <= 0, f"{where} rank {got['rank']}: {gate} "
+                                          f"{got[gate]:.3g}")
+            rows.append(row)
+        if fn == "train_job":
+            losses = [r["losses"] for r in rows]
+            check(all(x == losses[0] for x in losses), f"{where}: the ranks' losses differ")
+        check(len(rows) == mesh.axis_size(("data", "model")),
+              f"{where}: {len(rows)} ranks reported")
+        runs[f"{shape} {name}"] = rows
+    cfg = plan["cfg"]
+    params = cfg.param_count()
+    out = {"phase": "mesh_fsdp", "card": _card(), "backend": "gloo",
+           "ranks_share_one_card": True, "arch": FSDP_ARCH, "layers": FSDP_LAYERS,
+           "params": params, "batch": B, "seq": S, "parent_allocated_gb": parent_gb,
+           "rules": {"embed": "data", "of": f"{FSDP_ARCH} (published)"},
+           # the reckoning: 16 bytes a parameter (fp32 master, gradient, two
+           # moments) over four ranks, and one layer's model shard gathered in bf16
+           "reckoning_gb": {"state_a_rank": 16 * params / 4 / 1e9,
+                            # the layer's weights (the embedding and the head
+                            # aside) at 2 bytes, over 2 model ranks
+                            "gathered_layer_bf16": (params - 2 * cfg.d_model * (
+                                (cfg.vocab + 127) // 128 * 128)) / 1e9},
+           "reference": {"train": refs["train"], "train_s": refs["train_s"],
+                         "to_host_s": refs["to_host_s"], "serve_s": refs["serve_s"],
+                         "save_s": refs["saved"].get("save_s")},
+           "done_s": done_s, "runs": runs, "main_path_launches": k1_total,
+           "check_s": time.perf_counter() - t2, "seconds": time.perf_counter() - t0,
+           "note": "ranks time-share one card through gloo's host copies: no speed claim"}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -4086,6 +4429,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     build = phase_build()
+    # phases 13 and 28 under FSDP first: their ranks need the card (up to
+    # 18 GB each of four) while this process holds nothing yet
+    fsdp = phase_mesh_fsdp()
     kernel = phase_kernel()
     attn = phase_decode_attention()
     flash = phase_flash_attention()
@@ -4165,7 +4511,8 @@ def main() -> int:
              "moe_train_parity": moe_train_parity["main_path_launches"],
              "lm_train": lm_train["main_path_launches"],
              "moe_train": moe_train["main_path_launches"],
-             "mesh_train": mesh_train["main_path_launches"]}
+             "mesh_train": mesh_train["main_path_launches"],
+             "mesh_fsdp": fsdp["main_path_launches"]}
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},

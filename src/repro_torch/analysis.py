@@ -188,11 +188,24 @@ def train_launches(cfg, knobs) -> int:
     return fwd * (2 if knobs.remat == "full" else 1)
 
 
-def _tp_layout(cfg, mesh, batch_size: int, max_seq: int):
+def _tp_layout(cfg, mesh, batch_size: int, max_seq: int, rules=None):
     from repro_torch.parallel.rules import rules_for
     from repro_torch.parallel.tp import layout_for
 
-    return layout_for(cfg, mesh, rules_for(cfg, "decode", mesh), batch_size, max_seq)
+    return layout_for(cfg, mesh, rules or rules_for(cfg, "decode", mesh), batch_size, max_seq)
+
+
+def _fsdp_gathers(tp, n_layers: int, *, encoder: int = 0) -> int:
+    """FSDP's all-gathers one forward makes (``layers.gather_layer``, the
+    embedding's, the head's): one a decoder layer with data-split weights,
+    one an encoder layer (``encoder`` of them) and the encoder's final norm,
+    the embedding's, the head's with the final norm."""
+    if not tp.fsdp_axes:
+        return 0
+    calls = sum(bool(tp.layer(i).gathers) for i in range(n_layers)) + bool(tp.top("embed"))
+    if encoder:
+        calls += encoder * bool(tp.encoder_view().gathers) + bool(tp.top("encoder.final_norm."))
+    return calls + bool(tp.top("final_norm.") or tp.top("lm_head") or tp.top("embed"))
 
 
 def _layer_collectives(cfg, kind: str, tp, *, decode: bool) -> tuple[int, int]:
@@ -222,7 +235,7 @@ def _layer_collectives(cfg, kind: str, tp, *, decode: bool) -> tuple[int, int]:
 
 
 def mesh_decode_collectives(cfg, knobs, mesh, *, batch_size: int,
-                            max_seq: int) -> dict[str, int]:
+                            max_seq: int, rules=None) -> dict[str, int]:
     """Collectives one rank makes in one decode step of a tensor-parallel
     serve cell of ``cfg`` on ``mesh`` (``batch_size`` slots of ``max_seq``
     positions, ``rules_for(cfg, "decode", mesh)``), by kind, as
@@ -240,13 +253,16 @@ def mesh_decode_collectives(cfg, knobs, mesh, *, batch_size: int,
       expert columns are split; an SSM block's conv'd channels where its
       channels are split and its heads are not; the head's vocab columns;
       over the data axes, the logits of the slots, where they are split
-      there.
+      there, and under FSDP (``rules``: ``rules_for(cfg, "decode", mesh)``
+      unless given) each layer's data-split weights, the embedding's and the
+      head's with the final norm (:func:`_fsdp_gathers`).
 
     ``knobs`` picks nothing here: the GEMM route does not change the
     collectives."""
-    tp = _tp_layout(cfg, mesh, batch_size, max_seq)
+    tp = _tp_layout(cfg, mesh, batch_size, max_seq, rules)
     m = tp.n > 1
-    reduce, gather = m * tp.vocab_split, m * tp.vocab_split + tp.batch_split
+    reduce = m * tp.vocab_split
+    gather = m * tp.vocab_split + tp.batch_split + _fsdp_gathers(tp, cfg.n_layers)
     for i in range(cfg.n_layers):
         r, g = _layer_collectives(cfg, cfg.layer_kind(i), tp.layer(i), decode=True)
         reduce, gather = reduce + r, gather + g
@@ -254,18 +270,21 @@ def mesh_decode_collectives(cfg, knobs, mesh, *, batch_size: int,
 
 
 def mesh_prefill_collectives(cfg, knobs, mesh, *, batch_size: int,
-                             max_seq: int) -> dict[str, int]:
+                             max_seq: int, rules=None) -> dict[str, int]:
     """Collectives one rank makes in one request's prefill, by kind, as
     :func:`mesh_decode_collectives` counts them: the embedding's all-reduce;
     each encoder layer's two (wo's and w_down's partial sums, where split);
     each decoder layer's as in a decode step (the expert-parallel route's
     combine on a routed prompt, the dense branch's sum on a short one: one
     each), but no attention gathers: a prompt's attention reads only keys
-    the rank just computed; the head's all-gather.  Every data row prefills
-    alike, so nothing crosses them."""
-    tp = _tp_layout(cfg, mesh, batch_size, max_seq)
+    the rank just computed; the head's all-gather; FSDP's gathers over the
+    data axes (:func:`_fsdp_gathers`, the encoder's too).  Every data row
+    prefills alike, so nothing else crosses them."""
+    tp = _tp_layout(cfg, mesh, batch_size, max_seq, rules)
     m = tp.n > 1
-    reduce, gather = m * tp.vocab_split, m * tp.vocab_split
+    reduce = m * tp.vocab_split
+    gather = m * tp.vocab_split + _fsdp_gathers(
+        tp, cfg.n_layers, encoder=cfg.encoder.n_layers if cfg.encoder is not None else 0)
     if cfg.encoder is not None:
         enc = tp.encoder_view()
         reduce += m * cfg.encoder.n_layers * (enc.q_split + enc.ff_split)
@@ -276,7 +295,7 @@ def mesh_prefill_collectives(cfg, knobs, mesh, *, batch_size: int,
 
 
 def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
-                           clip: bool = True) -> dict[str, dict[str, int]]:
+                           clip: bool = True, rules=None) -> dict[str, dict[str, int]]:
     """Collectives one rank of the training mesh makes in one step
     (``launch.steps.build_train_step`` with ``mesh``; global batches of
     ``batch`` × ``seq`` tokens, ``rules_for(cfg, "train", mesh)``), by kind,
@@ -326,14 +345,27 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
     Each layer's forward collectives run twice under ``knobs.remat``
     ``"full"`` or ``"dots"`` (the backward recomputes the layer; the
     encoder's too), each cross-entropy chunk's twice always (it is
-    checkpointed).  A group of one rank sends nothing."""
+    checkpointed).
+
+    Under FSDP (``rules``, ``rules_for(cfg, "train", mesh)`` unless given,
+    splitting weights over data axes) each layer's data-split blocks are
+    all-gathered in one call (``redo`` times; the matrices in the compute
+    dtype, the norms and the router in fp32) and their gradients
+    reduce-scattered in one, in fp32; the embedding's, the head's with the
+    final norm and the encoder's final norm the same, once.  After the
+    backward a weight's gradient is summed over the mesh axes it is whole
+    on (``model``; the data axes where the batch splits), one all-reduce a
+    set of axes, and the clip's norm sums each set of split axes' squares
+    in one of its own (``model``'s always).  A group of one rank sends
+    nothing."""
+    from repro_torch.models.layers import gather_dtype
     from repro_torch.models.lm import compute_dtype
     from repro_torch.models.param import param_axes_and_shapes
     from repro_torch.parallel.rules import rules_for
     from repro_torch.parallel.sharding import shardings_for
-    from repro_torch.parallel.tp import train_layout_for
+    from repro_torch.parallel.tp import MODEL_AXIS, train_layout_for
 
-    rules = rules_for(cfg, "train", mesh)
+    rules = rules or rules_for(cfg, "train", mesh)
     tp = train_layout_for(cfg, mesh, rules, batch, seq)
     n, c = tp.n, compute_dtype(cfg).itemsize
     b = batch // tp.dp if tp.batch_split else batch
@@ -428,28 +460,62 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
         add("all_reduce", 8)
     axes, shapes = param_axes_and_shapes(cfg)
     specs = shardings_for(axes, mesh, rules, shapes)
-    whole = split = 0
+    cdt = compute_dtype(cfg)
+    batch_axes = tp.data_axes if tp.batch_split else ()
+    sums: dict[tuple, int] = {}  # the gradients' sums: fp32 bytes by set of mesh axes
+    norms = {(MODEL_AXIS,)} if mesh.shape.get(MODEL_AXIS, 1) > 1 else set()
+    moved: dict[tuple, list[int]] = {}  # FSDP, by gather: bytes gathered, bytes reduced
 
-    def count(spec_tree, shape_tree) -> None:
-        nonlocal whole, split
+    def gathers(path: tuple) -> list[tuple]:
+        """The FSDP gathers a data-split leaf rides in: its segment's layers'
+        (the decoder's or the encoder's), or one of the top ones."""
+        if path[0] == "segments":
+            return [("decoder", path[1])]
+        if path[0] == "encoder":
+            return [("encoder", path[2]) if path[1] == "segments" else ("encoder norm",)]
+        if path == ("embed",):
+            return [("embed",), ("head",)] if cfg.tie_embeddings else [("embed",)]
+        return [("head",)]  # lm_head, the final norm
+
+    def leaf(path: tuple, spec, shape) -> None:
+        on = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)
+              if mesh.shape[a] > 1}
+        stacked = "segments" in path  # a layer's leaf, stacked: count one layer's
+        per = shape.shape[0] if stacked else 1
+        numel = shape.numel() // per // math.prod(mesh.axis_size(e) for e in spec)
+        over = tuple(a for a in mesh.axis_names if a not in on and mesh.shape[a] > 1
+                     and (a == MODEL_AXIS or a in batch_axes))
+        sums[over] = sums.get(over, 0) + per * numel * 4
+        if on:
+            norms.add(tuple(a for a in mesh.axis_names if a in on))
+        if on & set(tp.fsdp_axes):
+            item = gather_dtype(str(path[-1]), shape[0] if stacked else shape, cdt).itemsize
+            for key in gathers(path):
+                got = moved.setdefault(key, [0, 0])
+                got[0] += numel * item
+                got[1] += numel * 4 * mesh.axis_size(tp.fsdp_axes)
+
+    def walk(spec_tree, shape_tree, path=()) -> None:
         if isinstance(spec_tree, dict):
             for k in spec_tree:
-                count(spec_tree[k], shape_tree[k])
+                walk(spec_tree[k], shape_tree[k], (*path, k))
         elif isinstance(spec_tree, list):
-            for sp, sh in zip(spec_tree, shape_tree, strict=True):
-                count(sp, sh)
+            for i, (sp, sh) in enumerate(zip(spec_tree, shape_tree, strict=True)):
+                walk(sp, sh, (*path, i))
         else:
-            numel = shape_tree.numel() // math.prod(mesh.axis_size(e) for e in spec_tree)
-            if any(e == "model" or (isinstance(e, tuple) and "model" in e) for e in spec_tree):
-                split += numel
-            else:
-                whole += numel
+            leaf(path, spec_tree, shape_tree)
 
-    count(specs, shapes)
-    if whole and (m or tp.batch_split):
-        add("all_reduce", whole * 4)
-    if split and tp.batch_split:
-        add("all_reduce", split * 4)
-    if clip and m:
-        add("all_reduce", 4)
+    walk(specs, shapes)
+    counts = {"decoder": [n for _, n in cfg.segments()],
+              "encoder": [cfg.encoder.n_layers if cfg.encoder is not None else 0]}
+    for key, (nbytes, rbytes) in moved.items():
+        # a segment's layers, each checkpointed: gathered again in the backward
+        times = counts[key[0]][key[1]] if len(key) == 2 else 1
+        add("all_gather", nbytes, times * (redo if len(key) == 2 else 1))
+        add("reduce_scatter", rbytes, times)
+    for over, nbytes in sums.items():
+        if over:
+            add("all_reduce", nbytes)
+    if clip:
+        add("all_reduce", 4, len(norms))
     return out

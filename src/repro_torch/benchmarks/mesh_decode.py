@@ -16,6 +16,12 @@ The port of ``benchmarks/mesh_decode.py``, with both of its gates:
     PYTHONPATH=src python -m repro_torch.benchmarks.mesh_decode --mesh 2,4 --device cpu
     # any of the ten archs: whisper with stub frames, internvl2 with patches
     PYTHONPATH=src python -m repro_torch.benchmarks.mesh_decode --arch whisper-base --device cpu
+    # FSDP: mistral-large-123b's smoke config (embed over data, as its
+    # published config's rules say); on the card at full width, 1 of 88 layers
+    PYTHONPATH=src python -m repro_torch.benchmarks.mesh_decode --arch mistral-large-123b \
+        --mesh 2,2 --device cpu
+    PYTHONPATH=src python -m repro_torch.benchmarks.mesh_decode --arch mistral-large-123b \
+        --mesh 2,2 --layers 1
 
 :func:`serve_rank` is what each rank runs (an engine over its shards, the
 prompts, its tokens and logits, K1 launches and collectives a step); the
@@ -39,7 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm as M
 from repro_torch.models.param import param_axes_and_shapes
 from repro_torch.parallel.collectives import collective_stats, reset_collectives
-from repro_torch.parallel.rules import rules_for
+from repro_torch.parallel.rules import arch_rules, rules_for
 from repro_torch.parallel.sharding import Mesh
 
 LEDGER_ROUNDING = 0.05
@@ -83,10 +89,12 @@ def refill_len(cfg, plen: int) -> int:
 def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_steps: int, *,
                max_seq: int, batch_size: int, cycle: bool = False, hold: bool = False,
                timed_steps: int = 0, fold: bool = False, moe_x=None,
-               extras: dict | None = None) -> dict:
-    """One rank's engine over ``cfg`` on ``mesh``: ``weights`` is the JAX
-    package's value tree of numpy arrays (``lm_params_from_numpy``) or a seed
-    (``init_lm`` on the rank's device, the same weights on every rank).
+               extras: dict | None = None, rules=None) -> dict:
+    """One rank's engine over ``cfg`` on ``mesh`` (under ``rules``:
+    ``rules_for(cfg, "decode", mesh)`` unless given): ``weights`` is the JAX
+    package's value tree of numpy arrays or a seed (``init_lm``'s weights,
+    the same on every rank), of which the rank builds only its blocks, leaf
+    by leaf (``launch.steps.local_model``).
     Generates ``n_steps`` tokens a slot from ``prompts`` (slot ``i`` with
     row ``i`` of ``extras``, an encoder-decoder model's frames or a
     vision-language one's patches, :func:`generate`) and returns them with
@@ -106,24 +114,27 @@ def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_st
     expert-parallel route (``models.layers._moe_shard_map``).  ``k1_launches``
     counts every K1 launch of the rank from the engine's wiring on."""
     from repro_torch.analysis import counting
+    from repro_torch.launch.steps import held_bytes, largest_leaf_bytes
     from repro_torch.models import layers as Lyr
     from repro_torch.serving.engine import ServeEngine
 
     dev = mesh.device
-    if isinstance(weights, int):
-        model = M.init_lm(cfg, weights, device=dev)
-    else:
-        model = M.lm_params_from_numpy(weights, cfg, device=dev)
     k1_start = _k1_count()
+    wire_peak = base = None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, model, max_seq=max_seq, batch_size=batch_size, knobs=knobs, mesh=mesh)
+    eng = ServeEngine(cfg, weights, max_seq=max_seq, batch_size=batch_size, knobs=knobs,
+                      mesh=mesh, rules=rules)
     wire_s = time.perf_counter() - t0
-    del model
+    # what the wiring left on the device (before ``hold`` narrows the paired weights)
+    held = held_bytes(eng.model) + sum(t.numel() * t.element_size() for t in eng.cache.values())
     if hold:
         M.hold_paired_in_compute_dtype(cfg, eng.model)
-    wire_peak = None
     if dev.type == "cuda":
-        wire_peak = torch.cuda.max_memory_allocated(dev)  # the whole model's masters too
+        wire_peak = torch.cuda.max_memory_allocated(dev) - base  # its blocks, one whole leaf
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     with counting(moe_routes=(Lyr._moe_shard_map,)) as routes:
@@ -149,11 +160,14 @@ def serve_rank(mesh: Mesh, cfg, weights, knobs: M.PerfKnobs, prompts: dict, n_st
         eng.release_slot(free[0])
     rec = {"rank": mesh.rank, "coords": mesh.coords, "tokens": out, "logits": logits,
            "wire_s": wire_s, "wire_seconds": eng.cell.seconds, "wire_peak_bytes": wire_peak,
+           "held_bytes": held,
+           "leaf_bytes": largest_leaf_bytes(cfg),
            "step_k1": step_k1, "step_collectives": step_coll,
            "prefill_k1": prefill_k1, "prefill_collectives": prefill_coll,
            "tp": {k: getattr(eng.tp, k) for k in ("vocab_split", "q_split", "kv_split",
                                                   "cache_seq", "ff_split", "experts_split",
                                                   "batch_split")},
+           "fsdp_axes": eng.tp.fsdp_axes, "top_gathers": eng.tp.top_gathers,
            "tp_segments": [dict(splits) for _, splits in eng.tp.segment_splits],
            "tp_encoder": None if eng.tp.encoder_splits is None else dict(eng.tp.encoder_splits),
            "shapes": {name: tuple(t.shape) for name, t in eng.model.named_parameters()},
@@ -347,7 +361,9 @@ def ledger_checks(cfg, model: M.LM, mesh_shape: dict, rounding: float = LEDGER_R
                   block_n: int = 1):
     """The r = ``rounding`` ledger gates on the host (no process needed: the
     plan reads only the mesh's shape), column-blocked at ``block_n`` (1: per
-    column, the JAX bench's).  Returns ``(rows, slice_checks, failures)``."""
+    column, the JAX bench's), under the tensor-parallel splits of
+    ``rules_for(cfg, "decode", mesh)`` (its gates read one split a leaf: an
+    FSDP leaf splits two ways).  Returns ``(rows, slice_checks, failures)``."""
     mesh = Mesh(mesh_shape)
     rules = rules_for(cfg, "decode", mesh)
     axes, shapes = param_axes_and_shapes(cfg)
@@ -389,19 +405,29 @@ def ledger_checks(cfg, model: M.LM, mesh_shape: dict, rounding: float = LEDGER_R
 
 
 def run(mesh_shape=(1, 2), *, device: str | None = None, backend: str = "gloo",
-        n_steps: int = 10, arch: str = "qwen2-1.5b") -> dict:
+        n_steps: int = 10, arch: str = "qwen2-1.5b", layers: int = 0) -> dict:
     """Both gates on the ``arch`` smoke config (any of the ten) in fp32: the
     mesh engine's tokens against the single-rank engine's (each slot with
     its row of ``make_batch``'s stub frames or patches), then the ledgers;
     raises on a failed gate, writes
-    ``benchmarks/results/torch_mesh_decode.json``.  The ranks and the
-    reference run on the GPU unless ``device="cpu"``."""
+    ``benchmarks/results/torch_mesh_decode.json``.  ``layers``: the
+    published config at full width cut to that depth instead (no ledgers:
+    they pair the whole model on the host).  Either cut is sharded by the
+    arch's rules (``parallel.rules.arch_rules``: mistral-large-123b's FSDP,
+    ``embed`` over ``data``).  Each rank builds only its own blocks;
+    its wiring seconds, wiring peak and held bytes are reported.  The ranks
+    and the reference run on the GPU unless ``device="cpu"``."""
+    from repro_torch.configs import cut_layers, get_config
     from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.sharding import Mesh
     from repro_torch.serving.engine import ServeEngine
 
     from repro_torch.launch.inputs import make_batch
 
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(cut_layers(get_config(arch), layers) if layers
+                              else get_smoke_config(arch), dtype="float32")
+    names = ("data", "model")[-len(mesh_shape):]
+    rules = arch_rules(arch, "decode", Mesh(dict(zip(names, mesh_shape))))
     dev = resolve_device(device)
     device = dev.type
     model = M.init_lm(cfg, 0, device=dev)
@@ -416,7 +442,8 @@ def run(mesh_shape=(1, 2), *, device: str | None = None, backend: str = "gloo",
     t0 = time.perf_counter()
     ranks = spawn(serve_rank, mesh_shape, backend=backend, device=device,
                   args=(cfg, 0, knobs_for(0.0), prompts, n_steps),
-                  kwargs={"max_seq": max_seq, "batch_size": 2, "extras": extras})
+                  kwargs={"max_seq": max_seq, "batch_size": 2, "extras": extras,
+                          "rules": rules})
     run_s = time.perf_counter() - t0
     failures = []
     for rec in ranks:
@@ -427,15 +454,24 @@ def run(mesh_shape=(1, 2), *, device: str | None = None, backend: str = "gloo",
         if err > PARITY_TOL:
             failures.append(f"rank {rec['rank']}: logits {err:.3g} from the single-rank "
                             f"engine's (tolerance {PARITY_TOL})")
-    names = ("data", "model")[-len(mesh_shape):]
-    rows, slices, ledger_failures = ledger_checks(cfg, model, dict(zip(names, mesh_shape)))
-    failures += ledger_failures
-    print(fmt_table(rows, ["leaf", "rs", "cs", "pairs", "single_host", "pair_frac"],
-                    f"mesh_decode r={LEDGER_ROUNDING} shard ledger (mesh {mesh_shape})"))
-    payload = {"mesh": list(mesh_shape), "arch": arch, "device": device, "backend": backend,
+    rows, slices = [], []
+    if not layers:
+        rows, slices, ledger_failures = ledger_checks(cfg, model, dict(zip(names, mesh_shape)))
+        failures += ledger_failures
+        print(fmt_table(rows, ["leaf", "rs", "cs", "pairs", "single_host", "pair_frac"],
+                        f"mesh_decode r={LEDGER_ROUNDING} shard ledger (mesh {mesh_shape})"))
+    for rec in ranks:
+        print(f"[mesh_decode] rank {rec['rank']}: wired in {rec['wire_s']:.2f} s, holds "
+              f"{rec['held_bytes'] / 1e9:.3f} GB, wiring peak "
+              f"{(rec['wire_peak_bytes'] or 0) / 1e9:.3f} GB (0: not on a card)")
+    payload = {"mesh": list(mesh_shape), "arch": arch, "layers": cfg.n_layers,
+               "rules": None if rules is None else dict(rules.table),
+               "device": device, "backend": backend,
                "parity_steps": n_steps, "parity_ok": not any("token" in f for f in failures),
                "ledger": rows, "slice_checks": slices, "spawn_and_run_s": run_s,
-               "wire_s": [r["wire_s"] for r in ranks], "failures": failures}
+               "wire_s": [r["wire_s"] for r in ranks],
+               "wire_peak_bytes": [r["wire_peak_bytes"] for r in ranks],
+               "held_bytes": [r["held_bytes"] for r in ranks], "failures": failures}
     write_result("mesh_decode", payload)
     if failures:
         raise AssertionError("; ".join(failures))
@@ -450,9 +486,12 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="the published config at full width, cut to this depth (0: smoke)")
     a = ap.parse_args(argv)
     shape = tuple(int(x) for x in a.mesh.split(","))
-    out = run(shape, device=a.device, backend=a.backend, n_steps=a.steps, arch=a.arch)
+    out = run(shape, device=a.device, backend=a.backend, n_steps=a.steps, arch=a.arch,
+              layers=a.layers)
     print(f"[mesh_decode] mesh {shape}: r=0 parity over {a.steps} steps; "
           f"{len(out['ledger'])} leaves, ledgers ok; {out['spawn_and_run_s']:.1f} s")
     return 0

@@ -89,7 +89,7 @@ def _as_numpy(w: Any) -> np.ndarray:
     if isinstance(w, torch.Tensor):
         if not w.is_floating_point():
             return w.detach().cpu().numpy()
-        return w.detach().to("cpu", torch.float64).numpy()
+        return w.detach().cpu().to(torch.float64).numpy()  # widened on the host
     return np.asarray(w)
 
 
@@ -581,6 +581,99 @@ def pair_params(
     return _finish(model, specs, leaves, min_dim, *found, rounding, mode)
 
 
+def _pair_one(m: np.ndarray, rounding: float, mode: str, block_n: int, criterion: str):
+    if mode == "column_blocked":
+        return pair_rows_blocked(m, rounding, min(block_n, m.shape[1]), criterion=criterion,
+                                 magnitudes=False)
+    return pair_rows_structured(m, rounding, criterion=criterion, magnitudes=False)
+
+
+def row_lead_dim(w_name: str, expert: bool) -> int:
+    """The leading dim of a per-layer weight's GEMM rows (its contraction):
+    the expert axis comes first in an expert stack."""
+    return 1 if expert and w_name != "wo" else 0
+
+
+def pair_shard_leaf(whole, local, w_name: str, rounding: float, *, shards: tuple[int, int],
+                    expert: bool = False, mode: str = "structured", block_n: int = 0,
+                    criterion: str = "rms", row_slab: int = 0):
+    """One layer's pairing of one leaf on a tensor-parallel rank, at its
+    :func:`tp_shard_plan` split ``shards`` (degraded as :func:`pair_params`
+    degrades it): ``whole`` the layer's whole weight (per layer, experts
+    first), ``local`` the rank's block of it, ``row_slab`` the rank's index
+    among the row shards.  Returns ``(pairings, (Kf, Nf), (rs, cs))``, one
+    pairing per matrix the rank holds (per expert of an expert stack):
+
+    * a row-parallel leaf (``rs > 1``): the rank's row slab, paired alone;
+      its lane lists index the slab's rows;
+    * a column-blocked, column-parallel leaf: the rank's own blocks, from its
+      local columns (a split that would cut a block raises);
+    * a structured, column-parallel leaf: the lane lists of the whole
+      matrix's rows (of the rank's row slab, where the rows split too: FSDP's
+      ``wq``), shared by the rank's columns;
+    * a replicated leaf, and every expert the rank holds: its whole matrix.
+    """
+    mode, block_n = _check_mode(mode, block_n)
+    Kf, Nf = _lm_weight_matrix_shape(w_name, tuple(whole.shape[1:] if expert else whole.shape))
+    K, N = _lm_weight_matrix_shape(w_name, tuple(local.shape[1:] if expert else local.shape))
+    rs, cs = _effective_shards(Kf, Nf, shards, mode, block_n)
+    if (rs > 1 and K * rs != Kf) or (cs > 1 and N * cs != Nf):
+        raise ValueError(f"{w_name}: the rank holds a ({K}, {N}) view of a ({Kf}, {Nf}) "
+                         f"matrix split ({rs}, {cs})")
+    if mode == "column_blocked" and N != Nf and cs == 1 and shards[1] > 1:
+        raise ValueError(f"{w_name}: pair_block_n={block_n} cuts the {Nf // shards[1]}-column "
+                         "shards' blocks; pick a block size that divides them")
+    if mode == "structured" and N != Nf and not expert:
+        # the lane lists of the whole rows the rank holds, shared by its columns
+        rows = whole.reshape(Kf, Nf)[row_slab * K:(row_slab + 1) * K]
+        ps = [dataclasses.replace(_pair_one(_as_numpy(rows), rounding, mode, block_n,
+                                            criterion), shape=(K, N))]
+    else:
+        ps = [_pair_one(_as_numpy(m.reshape(K, N)), rounding, mode, block_n, criterion)
+              for m in (local if expert else [local])]
+    return ps, (Kf, Nf), (rs, cs)
+
+
+def _paired_leaf(name: str, whole, leaves):
+    """Parameter ``name``'s ``((stack, layer, sub_path, w_name), expert)``
+    where its per-layer weight ``whole`` is a paired leaf's matrix (of
+    ``leaves``, :data:`DEFAULT_PAIRED_LEAVES` by default), else None."""
+    parts = name.split(".")
+    stack = "encoder.segments" if parts[0] == "encoder" else "segments"
+    parts = parts[1:] if parts[0] == "encoder" else parts
+    if parts[0] != "layers" or whole.ndim < 2:
+        return None
+    sub_path, w_name = ".".join(parts[2:-1]), parts[-1]
+    if (sub_path, w_name) not in (tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES):
+        return None
+    expert = sub_path.split(".")[-1] == "moe" and whole.ndim == 3
+    return (stack, int(parts[1]), sub_path, w_name), expert
+
+
+def premade_entry(name: str, whole, block, spec, mesh, rounding: float, *,
+                  shards: dict[tuple[str, str], tuple[int, int]], mode: str = "structured",
+                  block_n: int = 0, leaves: tuple[tuple[str, str], ...] | None = None,
+                  criterion: str = "rms", min_dim: int = 8):
+    """The :func:`pair_shard_params` ``premade`` entry of parameter ``name``
+    (``"layers.3.attn.wq"``, ``"encoder.layers.0.mlp.w_up"``) from its
+    ``whole`` per-layer weight and the rank's ``block`` of it under its
+    per-layer ``spec``: ``(key, (pairings, (Kf, Nf), (rs, cs)))``, the
+    pairings None where the leaf is too small to pair; None for a parameter
+    that is no paired leaf's."""
+    found = _paired_leaf(name, whole, leaves)
+    if found is None:
+        return None
+    key, expert = found
+    sub_path, w_name = key[2:]
+    Kf, Nf = _lm_weight_matrix_shape(w_name, tuple(whole.shape[1:] if expert else whole.shape))
+    if Kf < min_dim or Nf < min_dim:
+        return key, (None, (Kf, Nf), (1, 1))
+    return key, pair_shard_leaf(whole, block, w_name, rounding,
+                                shards=shards.get((sub_path, w_name), (1, 1)), expert=expert,
+                                mode=mode, block_n=block_n, criterion=criterion,
+                                row_slab=mesh.index(spec[row_lead_dim(w_name, expert)]))
+
+
 def pair_shard_params(
     local,
     full,
@@ -592,69 +685,66 @@ def pair_shard_params(
     leaves: tuple[tuple[str, str], ...] | None = None,
     criterion: str = "rms",
     min_dim: int = 8,
+    mesh=None,
+    specs: dict | None = None,
+    premade: dict | None = None,
 ):
     """One tensor-parallel rank's pairing: the metadata of ``local``, the
     rank's shard of the model ``full`` (``launch.steps.wire_serve_cell``
-    slices it), built from what the rank reads.
-
-    For each leaf at its :func:`tp_shard_plan` split (degraded as
-    :func:`pair_params` degrades it):
-
-    * a row-parallel leaf (``row_shards > 1``): the rank's row slab, paired
-      alone; its lane lists index the slab's rows, and equal the shard's
-      part of ``pair_params(shards=…)``'s build, rebased;
-    * a column-blocked, column-parallel leaf: the rank's own blocks, from
-      its local columns, equal to that build's blocks of this shard (a split
-      that would cut a block raises);
-    * a structured, column-parallel leaf: the whole matrix's lane lists,
-      from ``full`` (a structured pairing is shared by every column); the
-      magnitudes come from the live local columns when the kernel's
-      segments are made;
-    * a replicated leaf, and every expert the rank holds: its whole matrix.
+    slices it), built from what the rank reads: each leaf of each layer by
+    :func:`pair_shard_leaf` at its :func:`tp_shard_plan` split.  ``mesh``
+    and ``specs`` (the weights' resolved specs) give the rank's row slab of
+    a leaf whose rows and columns both split (FSDP).  ``premade`` (with
+    ``full=None``): each leaf's :func:`pair_shard_leaf` result already made,
+    keyed ``(stack, layer, sub_path, w_name)`` (``stack`` ``"segments"`` or
+    ``"encoder.segments"``; the pairings ``None`` for a leaf too small to
+    pair): a rank that builds its shards leaf by leaf pairs each whole
+    leaf while it exists (``launch.steps.local_model``).
 
     Returns ``(local', report)``: ``local'`` shares ``local``'s weights and
     carries the metadata; the report's ``n_pairs`` count the rank's own
     matrices at their local column counts, with the leaf's split.
     """
     mode, block_n = _check_mode(mode, block_n)
-    specs = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
+    specs_l = tuple(leaves) if leaves is not None else DEFAULT_PAIRED_LEAVES
 
-    def pair_one(m: np.ndarray):
-        if mode == "column_blocked":
-            return pair_rows_blocked(m, rounding, min(block_n, m.shape[1]), criterion=criterion,
-                                     magnitudes=False)
-        return pair_rows_structured(m, rounding, criterion=criterion, magnitudes=False)
-
-    def layers_of(stack: str):
-        return full.encoder.layers if stack == "encoder.segments" else full.layers
+    def layers_of(model, stack: str):
+        return model.encoder.layers if stack == "encoder.segments" else model.layers
 
     def whole_dims(sub_path, w_name, expert, stack, first):
-        shape = tuple(getattr(_resolve_sub(layers_of(stack)[first], sub_path), w_name).shape)
+        if premade is not None:
+            return premade[(stack, first, sub_path, w_name)][1]
+        shape = tuple(getattr(_resolve_sub(layers_of(full, stack)[first], sub_path),
+                              w_name).shape)
         return _lm_weight_matrix_shape(w_name, shape[1:] if expert else shape)
 
-    def pair_stack(sub_path, w_name, mats, K, N, expert, si, first, stack):
-        full_of = layers_of(stack)
-        Kf, Nf = whole_dims(sub_path, w_name, expert, stack, first)
-        rs, cs = _effective_shards(Kf, Nf, shards.get((sub_path, w_name), (1, 1)), mode, block_n)
-        if (rs > 1 and K * rs != Kf) or (cs > 1 and N * cs != Nf):
-            raise ValueError(f"{sub_path}.{w_name}: the rank holds a ({K}, {N}) view of a "
-                             f"({Kf}, {Nf}) matrix split ({rs}, {cs})")
-        want_cs = shards.get((sub_path, w_name), (1, 1))[1]
-        if mode == "column_blocked" and N != Nf and cs == 1 and want_cs > 1:
-            raise ValueError(f"{sub_path}.{w_name}: pair_block_n={block_n} cuts the "
-                             f"{Nf // want_cs}-column shards' blocks; pick a block size "
-                             "that divides them")
-        if mode == "structured" and N != Nf and not expert:
-            # the whole matrix's lane lists, shared by the rank's columns
-            whole = (getattr(_resolve_sub(full_of[first + l], sub_path), w_name).reshape(Kf, Nf)
-                     for l in range(len(mats)))
-            ps = [dataclasses.replace(pair_one(_as_numpy(m)), shape=(Kf, N)) for m in whole]
-        else:
-            ps = [pair_one(_as_numpy(m)) for m in mats]
-        return ps, {"row_shards": rs, "col_shards": cs}
+    def row_slab(stack, si, sub_path, w_name, expert):
+        if mesh is None:
+            return 0
+        seg = specs["encoder"]["segments"][si] if stack == "encoder.segments" else \
+            specs["segments"][si]
+        spec = _resolve_tree(seg, sub_path)[w_name][1:]
+        return mesh.index(spec[row_lead_dim(w_name, expert)])
 
-    found = _pair_stacks(local, specs, min_dim, pair_stack, whole_dims)
-    return _finish(local, specs, leaves, min_dim, *found, rounding, mode)
+    def pair_stack(sub_path, w_name, mats, K, N, expert, si, first, stack):
+        loc = layers_of(local, stack)
+        per = getattr(_resolve_sub(loc[first], sub_path), w_name).shape[0] if expert else 1
+        ps, rcs = [], None
+        for l in range(first, first + len(mats) // per):
+            if premade is not None:
+                got, _, rcs = premade[(stack, l, sub_path, w_name)]
+            else:
+                whole = getattr(_resolve_sub(layers_of(full, stack)[l], sub_path), w_name)
+                got, _, rcs = pair_shard_leaf(
+                    whole, getattr(_resolve_sub(loc[l], sub_path), w_name), w_name, rounding,
+                    shards=shards.get((sub_path, w_name), (1, 1)), expert=expert, mode=mode,
+                    block_n=block_n, criterion=criterion,
+                    row_slab=row_slab(stack, si, sub_path, w_name, expert))
+            ps.extend(got)
+        return ps, {"row_shards": rcs[0], "col_shards": rcs[1]}
+
+    found = _pair_stacks(local, specs_l, min_dim, pair_stack, whole_dims)
+    return _finish(local, specs_l, leaves, min_dim, *found, rounding, mode)
 
 
 def pair_lm_params(
@@ -706,6 +796,48 @@ def fold_lm_params(model, rounding: float, *, block_n: int = 1, criterion: str =
                 wf.reshape(w.shape).to(w.dtype), requires_grad=w.requires_grad))
         dst.pairing = {}
     return folded, report
+
+
+def leaf_folder(rounding: float, *, block_n: int = 1, criterion: str = "rms",
+                min_dim: int = 8):
+    """:func:`fold_lm_params` a leaf at a time, for a rank that builds its
+    blocks leaf by leaf (``launch.steps.local_model``'s ``fold``).  Returns
+    ``(fold, report)``: ``fold(name, whole)`` gives parameter ``name``'s
+    whole per-layer weight folded, paired as :func:`fold_lm_params` pairs
+    it (column-blocked at ``block_n``, each expert's matrix alone), or
+    ``whole`` itself where it is no paired leaf's; each folded leaf's
+    ledger joins ``report``'s leaves (one a layer: the totals are
+    :func:`fold_lm_params`'s)."""
+    from repro_torch.kernels.ops import fold_lm_expert_weight, fold_lm_weight
+
+    report = PairedModelReport(rounding=rounding, mode="column_blocked", leaves=[])
+
+    def fold(name: str, whole: torch.Tensor) -> torch.Tensor:
+        found = _paired_leaf(name, whole, None)
+        if found is None:
+            return whole
+        (_, _, _, w_name), expert = found
+        K, N = _lm_weight_matrix_shape(w_name, tuple(whole.shape[1:] if expert else whole.shape))
+        if K < min_dim or N < min_dim:
+            return whole
+        mats = list(whole) if expert else [whole]
+        ps = [_pair_one(_as_numpy(m.reshape(K, N)), rounding, "column_blocked", block_n,
+                        criterion) for m in mats]
+        meta = {k: torch.as_tensor(v, device=whole.device) for k, v in _stack_blocked(ps).items()}
+        for k in ("I", "J", "resid"):
+            meta[k] = meta[k].long()
+        if expert:
+            wf = fold_lm_expert_weight(whole.float(), meta, block_n)
+        else:
+            wf = fold_lm_weight(whole.reshape(K, N).float(), {k: v[0] for k, v in meta.items()},
+                                block_n)
+        n_pairs = sum(p.weighted_pairs for p in ps)
+        report.leaves.append(LeafReport(path=name, shape=tuple(whole.shape),
+                                        n_weights=len(mats) * K * N, n_pairs=int(n_pairs),
+                                        pair_fraction=2.0 * n_pairs / (len(mats) * K * N)))
+        return wf.reshape(whole.shape).to(whole.dtype)
+
+    return fold, report
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,7 @@ def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl",
     """This rank's mesh over the ranks of the initialised process group, laid
     out by :func:`production_mesh_shape`.  No path of the port calls it yet:
     the train CLI's ``--mesh`` names its shape, and the dry run will lay out
-    the production meshes (ROADMAP queue 1, item 4)."""
+    the production meshes (ROADMAP queue 1, item 2)."""
     shape, names = production_mesh_shape(dist.get_world_size(), multi_pod=multi_pod)
     return make_mesh(shape, names, backend=backend, device=device)
 

@@ -24,7 +24,10 @@ Every family trains on one device: dense, MoE (olmoe, deepseek with MLA and
 shared experts), SSM, hybrid, encoder-decoder and vision-language models,
 the last two with their ``frames`` or ``patches`` in the batch; and on a
 mesh too (the ``meta`` tokens, ``vision_proj`` and the encoder's weights
-among the rank's parameters), all but a model whose rules ask for FSDP.
+among the rank's parameters), FSDP's data-split weights as well (each
+layer gathered over the data axes, its gradient reduce-scattered).  A mesh
+rank builds only its own shards (:func:`local_model`: each whole leaf of
+the source exists while its block is taken and it is paired).
 """
 from __future__ import annotations
 
@@ -36,11 +39,14 @@ from collections.abc import Callable
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.transform import (
     has_lm_pairing,
     pair_shard_params,
+    premade_entry,
+    row_lead_dim,
     tp_shard_plan,
 )
 from repro_torch.kernels import ops, tuning
@@ -54,13 +60,20 @@ from repro_torch.models.param import (
 from repro_torch.parallel.collectives import all_gather, all_reduce
 from repro_torch.parallel.rules import rules_for
 from repro_torch.parallel.sharding import (
+    DATA_AXES,
     Mesh,
     PartitionSpec,
     Rules,
     paired_shardings_for,
     shardings_for,
 )
-from repro_torch.parallel.tp import MODEL_AXIS, TensorParallel, layout_for, train_layout_for
+from repro_torch.parallel.tp import (
+    MODEL_AXIS,
+    TensorParallel,
+    fsdp_layout,
+    layout_for,
+    train_layout_for,
+)
 from repro_torch.train.optimizer import mesh_global_norm
 from repro_torch.serving.steps import (  # noqa: F401  (the JAX module's three builders)
     build_prefill_step,
@@ -98,15 +111,19 @@ class TrainStep:
     #: the layouts by (batch, seq), and the weights' resolved specs
     _layouts: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
-    def shard(self, model: M.LM) -> TrainCell:
-        """This rank's part of ``model`` (the whole unpaired model, the same
-        on every rank): each weight sliced by its resolved ``train`` spec and,
-        under ``gemm="pallas_paired"``, paired per shard (no pair crosses a
-        shard boundary), as :func:`wire_serve_cell` wires a serve cell."""
+    def shard(self, source, fold=None) -> TrainCell:
+        """This rank's part of the model ``source`` names, the same on every
+        rank (an ``init_lm`` seed, the JAX package's value tree, or the whole
+        unpaired model: ``models.lm.lm_leaves``), built leaf by leaf
+        (:func:`local_model`): each weight sliced by its resolved ``train``
+        spec and, under ``gemm="pallas_paired"``, paired per shard (no pair
+        crosses a shard boundary), as :func:`wire_serve_cell` wires a serve
+        cell; each whole leaf first through ``fold`` where it is given
+        (:func:`local_model`)."""
         if self.mesh is None:
             raise ValueError("a step without a mesh trains the whole model")
-        local, _, report, _, seconds = _shard_and_pair(self.cfg, model, self.mesh, self.rules,
-                                                       self.knobs)
+        local, _, report, _, seconds = _shard_and_pair(self.cfg, source, self.mesh, self.rules,
+                                                       self.knobs, fold=fold)
         return TrainCell(local, report, seconds)
 
     def layout(self, batch_size: int, seq_len: int) -> TensorParallel:
@@ -130,14 +147,18 @@ class TrainStep:
         them (the JAX package's ``opt.init(params)``).  Copies of the model
         share these weights; the serving engines run under ``no_grad``, so
         theirs track nothing.  On a mesh the optimizer clips by the norm of
-        the whole model (the split weights' squares summed over ``model``)."""
+        the whole model: each weight's squares summed over the mesh axes that
+        split it (``model``, FSDP's data axes, both)."""
         model.requires_grad_(True)
         opt = self.opt(list(model.parameters()))
         if self.mesh is not None:
             specs = self.param_specs(model)
-            split = [_over_model(specs[n]) for n, _ in model.named_parameters()]
-            opt.norm_fn = functools.partial(mesh_global_norm, split=split,
-                                            group=self.mesh.group(MODEL_AXIS))
+            over = [_split_axes(specs[n], self.mesh) for n, _ in model.named_parameters()]
+            keys = {axes for axes in over if axes} | {(MODEL_AXIS,)}  # every split over model
+            opt.norm_fn = functools.partial(
+                mesh_global_norm, split=over,
+                groups={axes: self.mesh.group(axes) for axes in keys
+                        if self.mesh.group(axes) is not None})
         return opt
 
     def __call__(self, model: M.LM, opt_state: torch.optim.Optimizer, step: int,
@@ -160,20 +181,25 @@ class TrainStep:
         return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
 
     def _sum_grads(self, model: M.LM, tp: TensorParallel) -> None:
-        """Sum the rank's gradients over the mesh: a whole weight's over
-        ``model`` (and the data axes where they split the batch), a split
-        weight's over those data axes; one all-reduce of the flattened
-        gradients a group (none over a group of one rank)."""
+        """Sum the rank's gradients over the mesh: a weight's over ``model``
+        where it is whole there, and over the data axes that split the batch
+        where it is whole there; one all-reduce of the flattened gradients a
+        group of axes (none over a group of one rank).  A block FSDP splits
+        over data axes has its gradient summed over them already, by the
+        gather's reduce-scatter (``parallel.collectives.gather_blocks``)."""
         specs = self.param_specs(model)
-        whole, split = [], []
+        batch = tp.data_axes if tp.batch_split else ()
+        groups: dict[tuple, list] = {}
         for name, p in model.named_parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            (split if _over_model(specs[name]) else whole).append(p.grad)
-        data = tp.data_group if tp.batch_split else None
-        for grads, group in ((whole, tp.mesh_group if tp.batch_split else tp.model_group),
-                             (split, data)):
-            if group is None or not grads:
+            split = _split_axes(specs[name], self.mesh)
+            axes = tuple(a for a in self.mesh.axis_names
+                         if a not in split and (a == MODEL_AXIS or a in batch))
+            groups.setdefault(axes, []).append(p.grad)
+        for axes, grads in groups.items():
+            group = self.mesh.group(axes) if axes else None
+            if group is None:
                 continue
             flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
             for g, part in zip(grads, flat.split([g.numel() for g in grads]), strict=True):
@@ -201,16 +227,18 @@ class TrainStep:
         return lambda name, a: _take(torch.as_tensor(a), specs[name], self.mesh)
 
 
-def _over_model(spec) -> bool:
-    """Whether a resolved spec splits its tensor over ``model``."""
-    return any(e == MODEL_AXIS or (isinstance(e, tuple) and MODEL_AXIS in e) for e in spec)
+def _split_axes(spec, mesh: Mesh) -> tuple[str, ...]:
+    """The mesh axes (of more than one rank) a resolved spec splits its
+    tensor over, in the mesh's order."""
+    used = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+    return tuple(a for a in mesh.axis_names if a in used and mesh.shape[a] > 1)
 
 
 @dataclasses.dataclass
 class TrainCell:
     """One training rank's part of a model: the sliced (and per-shard
     paired) ``model``, the pairing report and the wiring's seconds
-    (``"slice"``, ``"pair"``)."""
+    (``"build"``, ``"pair"``: :func:`_shard_and_pair`)."""
 
     model: M.LM
     pair_report: Any
@@ -254,7 +282,9 @@ def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer]
     with a ``mesh`` (made by ``parallel.sharding.make_mesh``), one rank's
     step under ``rules`` (``rules_for(cfg, "train", mesh)`` unless given).
     Raises ``NotImplementedError`` on a mesh for ``attn="pallas_fused"``
-    (K3 has no backward) and for FSDP (``parallel.tp.train_layout_for``)."""
+    (K3 has no backward) and for any split the forward does not close
+    (``parallel.tp.train_layout_for`` names it); FSDP's data-split weights
+    train (each layer gathered over the data axes)."""
     if mesh is None:
         return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs))
     if knobs.attn != "xla":
@@ -262,7 +292,9 @@ def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer]
                                   "kernel has no backward, so the mesh trains under "
                                   "attn='xla'")
     rules = rules or rules_for(cfg, "train", mesh)
-    train_layout_for(cfg, mesh, rules, 1, 1)  # the refusals, before any wiring
+    # the refusals, before any wiring (a batch of a row a data rank)
+    train_layout_for(cfg, mesh, rules, mesh.axis_size(tuple(a for a in DATA_AXES
+                                                            if a in mesh.shape)), 1)
     return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs), mesh, rules)
 
 
@@ -278,6 +310,112 @@ def _take(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
             size = t.shape[dim] // mesh.axis_size(entry)
             t = t.narrow(dim, mesh.index(entry) * size, size)
     return t.detach().clone()
+
+
+def leaf_specs(cfg: ModelConfig, specs: dict) -> dict[str, PartitionSpec]:
+    """Each parameter name of the model of ``cfg`` (``named_parameters``')
+    mapped to its resolved spec (``specs``: ``shardings_for`` of
+    ``models.param.param_axes``), a layer weight's without its ``"layers"``
+    entry."""
+    out = {}
+
+    def leaves(tree: dict, prefix: str, stacked: bool) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                leaves(v, f"{prefix}{k}.", stacked)
+            else:
+                out[f"{prefix}{k}"] = PartitionSpec(*v[1:]) if stacked else v
+
+    def stack(prefix: str, segments, seg_specs) -> None:
+        start = 0
+        for (_, count), seg in zip(segments, seg_specs, strict=True):
+            for i in range(start, start + count):
+                leaves(seg, f"{prefix}.{i}.", True)
+            start += count
+
+    leaves({k: v for k, v in specs.items() if k not in ("segments", "encoder")}, "", False)
+    stack("layers", cfg.segments(), specs["segments"])
+    if "encoder" in specs:
+        stack("encoder.layers", (("encoder", cfg.encoder.n_layers),),
+              specs["encoder"]["segments"])
+        leaves(specs["encoder"]["final_norm"], "encoder.final_norm.", False)
+    return out
+
+
+#: what a rank building its blocks leaf by leaf (:func:`local_model`) holds
+#: on its device beside them at most, in its largest whole leaf's bytes: the
+#: leaf being built, and a workspace of one more for its pairing (the rows
+#: the pairing reads, and the allocator's rounding)
+WIRING_WHOLE_LEAVES = 2
+
+
+def local_model(cfg: ModelConfig, source, specs: dict, mesh: Mesh, *, on_leaf=None,
+                fold=None) -> M.LM:
+    """This rank's part of the model ``source`` names (``models.lm.lm_leaves``:
+    an ``init_lm`` seed, the JAX package's value tree, or the whole model),
+    built leaf by leaf on the rank's device (``models.lm.init_lm_local``):
+    each whole leaf is made, the rank's block of it taken by its resolved
+    spec (``specs``, as :func:`shard_model` reads them), ``on_leaf(name,
+    whole, block, spec)`` called (the pairing of the leaf while it is whole),
+    and the whole dropped; so a rank holds its blocks, and one whole leaf
+    beside them.  Its blocks are :func:`shard_model`'s of the whole model,
+    bit for bit.  ``fold(name, whole)`` first replaces each whole leaf
+    (``core.transform.leaf_folder``: the train CLI's ``--paired-rounding``;
+    its workspace is the fold's, beside the whole leaf)."""
+    by_name = leaf_specs(cfg, specs)
+
+    def keep(name: str, whole: torch.Tensor) -> torch.Tensor:
+        if fold is not None:
+            whole = fold(name, whole)
+        block = _take(whole, by_name[name], mesh)
+        if on_leaf is not None:
+            on_leaf(name, whole, block, by_name[name])
+        return block
+
+    return M.init_lm_local(cfg, source, keep, device=mesh.device)
+
+
+def held_bytes(model: M.LM) -> int:
+    """The bytes a rank's model holds on its device: its weights (its
+    blocks) and their pairing metadata (its own and the data-gathered)."""
+    metas = [meta for block in model.modules()
+             for group in (getattr(block, "pairing", {}), getattr(block, "gathered", {}))
+             for meta in group.values()]
+    return (sum(p.numel() * p.element_size() for p in model.parameters())
+            + sum(t.numel() * t.element_size() for meta in metas for t in meta.values()))
+
+
+def wiring_excess(rec: dict) -> float | None:
+    """How far a rank's wiring peak (``wire_peak_bytes``, on the card) passes
+    the bound of building its blocks leaf by leaf: what it holds after the wiring
+    (``held_bytes``: its blocks, their metadata, a serve cell's cache) plus
+    :data:`WIRING_WHOLE_LEAVES` of its largest whole leaf
+    (``leaf_bytes``); ≤ 0 within it, None off the card."""
+    if rec.get("wire_peak_bytes") is None:
+        return None
+    return rec["wire_peak_bytes"] - rec["held_bytes"] - WIRING_WHOLE_LEAVES * rec["leaf_bytes"]
+
+
+def largest_leaf_bytes(cfg) -> int:
+    """The fp32 bytes of the largest per-layer weight of ``cfg`` (a layer
+    weight without its layers axis): the one whole leaf a rank that builds
+    its blocks leaf by leaf holds beside them."""
+    _, shapes = param_axes_and_shapes(cfg)
+    out = 0
+
+    def walk(tree, stacked: bool) -> None:
+        nonlocal out
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, stacked)
+            elif isinstance(v, list):
+                for seg in v:
+                    walk(seg, True)
+            else:
+                out = max(out, 4 * (v.numel() // (v.shape[0] if stacked else 1)))
+
+    walk(shapes, False)
+    return out
 
 
 def shard_model(model: M.LM, specs: dict, mesh: Mesh) -> M.LM:
@@ -378,12 +516,12 @@ class ServeCell:
     tp: TensorParallel
     pair_report: Any
     plan: dict | None = None
-    seconds: dict = dataclasses.field(default_factory=dict)  # "slice", "pair"
+    seconds: dict = dataclasses.field(default_factory=dict)  # "build", "pair"
 
 
 def wire_serve_cell(
     cfg: ModelConfig,
-    model: M.LM,
+    source,
     mesh: Mesh,
     *,
     batch_size: int,
@@ -391,15 +529,17 @@ def wire_serve_cell(
     knobs: M.PerfKnobs = M.DEFAULT_KNOBS,
     rules: Rules | None = None,
 ) -> ServeCell:
-    """Wire this rank's part of a decode cell of ``model`` (the whole
-    unpaired model, the same on every rank) on ``mesh``.
+    """Wire this rank's part of a decode cell of the model ``source`` names
+    (the same on every rank: an ``init_lm`` seed, the JAX package's value
+    tree, or the whole unpaired model) on ``mesh``.
 
     The JAX package's chain, rank by rank: the weights' axes resolve against
     (mesh, rules) (``rules_for(cfg, "decode", mesh)`` unless given) to a
     tensor-parallel shard plan (``core.transform.tp_shard_plan``); the rank
-    slices its weights by their resolved specs (:func:`shard_model`) and
-    pairs only what it reads (``core.transform.pair_shard_params``: no pair
-    crosses a shard boundary); the metadata's placement comes from its
+    builds its blocks of the weights by their resolved specs, leaf by leaf
+    (:func:`local_model`), and pairs only what it reads
+    (``core.transform.pair_shard_params``: no pair crosses a shard
+    boundary), each leaf while it is whole; the metadata's placement comes from its
     weight's resolved spec (``parallel.sharding.paired_shardings_for``),
     and the rank's metadata is checked to hold that placement's blocks.  The
     steps are ``serving.steps``' with the rank's
@@ -413,7 +553,7 @@ def wire_serve_cell(
         raise NotImplementedError(MESH_FUSED_REFUSAL)
     rules = rules or rules_for(cfg, "decode", mesh)
     tp = layout_for(cfg, mesh, rules, batch_size, max_seq)
-    local, p_shard, report, plan, seconds = _shard_and_pair(cfg, model, mesh, rules, knobs)
+    local, p_shard, report, plan, seconds = _shard_and_pair(cfg, source, mesh, rules, knobs)
     c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
     c_shard = shardings_for(c_axes, mesh, rules, c_shapes)
     tile_cache = load_knobs_tile_cache(knobs)
@@ -424,36 +564,111 @@ def wire_serve_cell(
                      pair_report=report, plan=plan, seconds=seconds)
 
 
-def _shard_and_pair(cfg: ModelConfig, model: M.LM, mesh: Mesh, rules: Rules,
-                    knobs: M.PerfKnobs):
-    """The rank's part of the whole unpaired ``model``: ``(local, p_shard,
-    pair report, shard plan, seconds)``.  The weights' axes resolve against
-    (mesh, rules); the rank slices its weights by their specs
-    (:func:`shard_model`) and, under ``gemm="pallas_paired"``, pairs only
-    what it reads at the shard plan's splits
-    (``core.transform.tp_shard_plan``, ``pair_shard_params``); the
-    metadata's placement comes from its weight's resolved spec and is
-    checked against what the rank built."""
-    if has_lm_pairing(model):
+def _shard_and_pair(cfg: ModelConfig, source, mesh: Mesh, rules: Rules, knobs: M.PerfKnobs, *,
+                    fold=None):
+    """The rank's part of the unpaired model ``source`` names: ``(local,
+    p_shard, pair report, shard plan, seconds)``.  The weights' axes resolve
+    against (mesh, rules); the rank builds its blocks by their specs
+    (:func:`local_model`) and, under ``gemm="pallas_paired"``, pairs only
+    what it reads at the shard plan's splits, each leaf while it is whole
+    (``core.transform.tp_shard_plan``, ``premade_entry``,
+    ``pair_shard_params``); the metadata's placement comes from its weight's
+    resolved spec and is checked against what the rank built.  Under FSDP
+    each layer's data-gathered metadata is gathered once here
+    (:func:`_gather_pairing`).  ``seconds``: ``"build"`` (the blocks and
+    the pairing of each leaf), ``"pair"`` (the stacking, the placement's
+    check and the gathered metadata)."""
+    if isinstance(source, M.LM) and has_lm_pairing(source):
         raise ValueError("a mesh pairs each rank's shards itself: hand it the unpaired model")
     axes, shapes = param_axes_and_shapes(cfg)
     t0 = time.perf_counter()
     p_shard = shardings_for(axes, mesh, rules, shapes)
-    local = shard_model(model, p_shard, mesh)
-    seconds = {"slice": time.perf_counter() - t0}
-    report = plan = None
-    if knobs.gemm == "pallas_paired":
-        mode, block_n = ops.paired_mode_of(knobs)
-        plan = tp_shard_plan(axes, shapes, mesh, rules, leaves=cfg.paired_leaves)
-        local, report = pair_shard_params(local, model, knobs.pair_rounding, shards=plan,
-                                          mode=mode, block_n=block_n, leaves=cfg.paired_leaves)
+    paired = knobs.gemm == "pallas_paired"
+    mode, block_n = ops.paired_mode_of(knobs) if paired else ("structured", 0)
+    plan = tp_shard_plan(axes, shapes, mesh, rules, leaves=cfg.paired_leaves) if paired else None
+    premade: dict = {}
+
+    def on_leaf(name, whole, block, spec) -> None:
+        got = premade_entry(name, whole, block, spec, mesh, knobs.pair_rounding, shards=plan,
+                            mode=mode, block_n=block_n, leaves=cfg.paired_leaves)
+        if got is not None:
+            premade[got[0]] = got[1]
+
+    local = local_model(cfg, source, p_shard, mesh, on_leaf=on_leaf if paired else None,
+                        fold=fold)
+    seconds = {"build": time.perf_counter() - t0}
+    report = None
+    if paired:
+        local, report = pair_shard_params(local, None, knobs.pair_rounding, shards=plan,
+                                          mode=mode, block_n=block_n, leaves=cfg.paired_leaves,
+                                          premade=premade)
         meta_shapes = _paired_shapes(cfg, shapes, mode, block_n)
         p_shard = paired_shardings_for(pairing_axes(meta_shapes, axes), mesh, rules, meta_shapes)
         _check_meta_placement(local, p_shard, meta_shapes, mesh)
-        seconds["pair"] = time.perf_counter() - t0 - seconds["slice"]
+        _gather_pairing(cfg, local, mesh, rules)
+        seconds["pair"] = time.perf_counter() - t0 - seconds["build"]
     return local, p_shard, report, plan, seconds
 
 
+def _gather_pairing(cfg: ModelConfig, local: M.LM, mesh: Mesh, rules: Rules) -> None:
+    """FSDP: each paired leaf that splits over data axes gets, as its block's
+    ``gathered`` metadata, that of its data-gathered model shard, gathered
+    from the data ranks once: a row split's slabs' lane lists concatenated,
+    each rebased by its slab's first row (no pair crosses a slab, so it is a
+    valid pairing of the gathered rows); a column split's blocks
+    concatenated (column-blocked), or the rank's own (structured: every
+    slab pairs the same whole rows).  The lane lists pad to the longest
+    slab's with masked lanes."""
+    fsdp = fsdp_layout(cfg, mesh, rules)
+    if not fsdp["fsdp_axes"]:
+        return
+    group, n = mesh.group(fsdp["fsdp_axes"]), mesh.axis_size(fsdp["fsdp_axes"])
+
+    def gather(meta: dict, rows: int | None) -> dict:
+        P, R = meta["I"].shape[-1], meta["resid"].shape[-1]
+        lens = all_reduce(torch.tensor([P, R], device=meta["I"].device), group, op="max")
+        Pm, Rm = (int(v) for v in lens.tolist())
+        pad = lambda t, m: F.pad(t, (0, m - t.shape[-1]))
+        packed = torch.cat([pad(meta["I"], Pm), pad(meta["J"], Pm), pad(meta["resid"], Rm),
+                            pad(meta["pair_mask"].long(), Pm), pad(meta["resid_mask"].long(), Rm)],
+                           dim=-1)
+        parts = all_gather(packed[None], group, dim=0).split([Pm, Pm, Rm, Pm, Rm], dim=-1)
+        out = dict(zip(("I", "J", "resid", "pair_mask", "resid_mask"), parts, strict=True))
+        if rows is not None:  # the slabs' lanes, each rebased by its first row
+            shift = (torch.arange(n, device=packed.device) * rows).view(n, *[1] * packed.ndim)
+            out.update({k: out[k] + shift for k in ("I", "J", "resid")})
+        dim = -1 if rows is not None else -2  # lanes, or blocks
+        return {k: torch.cat(list(v), dim=dim).float() if k.endswith("mask")
+                else torch.cat(list(v), dim=dim) for k, v in out.items()}
+
+    def walk(layers, segments, seg_gathers) -> None:
+        start = 0
+        for (_, count), gathers in zip(segments, seg_gathers, strict=True):
+            for layer in layers[start:start + count]:
+                for path, dim in gathers:
+                    sub, name = path.rsplit(".", 1)
+                    block = layer.get_submodule(sub)
+                    meta = block.pairing.get(name)
+                    if meta is None:
+                        continue
+                    w = getattr(block, name)
+                    expert = isinstance(block, Lyr.MoE) and w.ndim == 3
+                    row = row_lead_dim(name, expert)
+                    col = w.ndim - 1 if name == "wo" else row + 1
+                    if dim == row:
+                        rows = math.prod(w.shape[:-1]) if name == "wo" else w.shape[row]
+                        block.gathered[name] = gather(meta, rows)
+                    elif dim == col and meta["I"].ndim > (2 if expert else 1):
+                        block.gathered[name] = gather(meta, None)
+                    elif dim != col:
+                        raise NotImplementedError(
+                            f"{cfg.name}: {path} splits dim {dim} over the data axes, neither "
+                            "the first of its GEMM rows nor of its columns")
+            start += count
+
+    walk(local.layers, local.segments, fsdp["segments"])
+    if local.encoder is not None:
+        walk(local.encoder.layers, local.encoder.segments, [fsdp["encoder"]])
 def _check_meta_placement(local: M.LM, p_shard: dict, meta_shapes: dict, mesh: Mesh) -> None:
     """Each blocked metadata leaf the rank built holds the blocks its
     placement gives it: all of them where the block axis is replicated,

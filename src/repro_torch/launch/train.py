@@ -9,20 +9,30 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --mesh 1x2 --gemm pallas_paired --pair-rounding 0.05
 
+    # mistral-large-123b at 1 of its 88 layers on 2 × 2 ranks: FSDP (embed
+    # over data, as its published config's rules say) beside tensor parallel
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mistral-large-123b \
+        --layers 1 --mesh 2x2 --steps 3 --gemm pallas_paired
+
     # on the CPU, the kernels' plain versions, a reduced config
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \
         --steps 2 --gemm pallas_paired --device cpu
 
 The port of ``repro.launch.train``.  ``--mesh AxB`` trains on a mesh of
-axes (data, model) under ``rules_for(cfg, "train", mesh)``, as the JAX CLI
-does: one process a rank (``launch.mesh.spawn``, over ``--backend``: gloo,
+axes (data, model) under the arch's rules (``parallel.rules.arch_rules``:
+its published config's, at any ``--smoke`` or ``--layers`` cut), as the
+JAX CLI does: one process a rank (``launch.mesh.spawn``, over ``--backend``: gloo,
 which lets the ranks share a card, or nccl, a card a rank), the batch's
 rows over ``data``, heads, ff, experts and vocab over ``model`` and the
 residual stream's positions too (``launch.steps.TrainStep``); every family
 trains there (MLA and shared experts, SSM and hybrid layers with their meta
 tokens, the encoder-decoder's encoder, the vision prefix; each rank feeds
-:func:`train_extras`), but a model whose rules ask for FSDP (ROADMAP queue
-1, item 2b).  Each rank pairs its own shards under ``--gemm pallas_paired``.  The
+:func:`train_extras`), and a model whose rules ask for FSDP (``embed`` over
+``data``: each layer's blocks gathered over ``data`` before it runs, its
+gradient reduce-scattered) trains there too, at any cut.  Each rank builds
+only its own shards, from the seed, leaf by leaf, and folds
+(``--paired-rounding``) and pairs (``--gemm pallas_paired``) each whole
+leaf before it keeps its block.  The
 log lines are rank 0's, printed when the ranks end.  Without ``--mesh`` it
 trains on one device.  Checkpoints (weights and the optimizer's moments,
 whole arrays: a mesh gathers its shards) are written every
@@ -33,7 +43,8 @@ killed run continues as the straight one would.  ``--paired-rounding``
 folds the weights at that
 rounding before training (the JAX CLI's pairing-aware finetune): the paper's
 per-column pairing of each layer's ``(K, N)`` matrix,
-``core.transform.fold_lm_params``.  The JAX CLI folds the whole value tree
+``core.transform.fold_lm_params`` (a mesh rank: ``leaf_folder``, on each whole
+leaf).  The JAX CLI folds the whole value tree
 through ``pair_model_params``, which on an LM tree pairs the wrong axes: the
 port departs from it there on purpose.
 Beyond the JAX CLI: ``--gemm`` picks the layer GEMMs' route (``xla``:
@@ -57,15 +68,16 @@ import time
 import torch
 
 from repro_torch.configs import cut_layers, get_config, get_smoke_config
-from repro_torch.core.transform import fold_lm_params, pair_lm_params
+from repro_torch.core.transform import fold_lm_params, leaf_folder, pair_lm_params
 from repro_torch.data.tokens import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels import paired_matmul as pm
 from repro_torch.kernels.ops import paired_mode_of
 from repro_torch.launch.mesh import spawn
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import build_train_step, held_bytes, largest_leaf_bytes
 from repro_torch.models import lm as M
 from repro_torch.parallel.collectives import collective_stats, reset_collectives
+from repro_torch.parallel.rules import arch_rules
 from repro_torch.train.checkpoint import latest_step, restore_train_state, save_train_state
 from repro_torch.train.optimizer import adamw, cosine_schedule
 
@@ -120,9 +132,12 @@ def train(
     Returns the run's record: the model, the optimizer, the train step and
     its knobs, the step it started from, seconds spent pairing, every
     step's metrics (floats) and wall ms (each ends in a device-to-host copy
-    of the metrics, so it includes the device work), and wall seconds.
+    of the metrics, so it includes the device work), and wall seconds; a
+    mesh rank on the card built from the seed, its wiring peak beside what
+    it holds after it (``launch.steps.wiring_excess``).
     ``layers`` cuts the config's depth and ``dtype`` sets its compute dtype
-    (0 / "": the config's).
+    (0 / "": the config's); a mesh is sharded by the arch's rules
+    (``parallel.rules.arch_rules``), whatever the cut.
 
     With ``mesh`` (``"AxB"``) every rank of the mesh runs :func:`train_rank`
     in a process of its own; the record is rank 0's (no model, optimizer or
@@ -153,7 +168,8 @@ def train_rank(mesh, **kw) -> dict:
 
 
 def _train(mesh, *, arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every, paired_rounding,
-           log_every, gemm, pair_rounding, pair_block_n, device, layers, dtype, emit) -> dict:
+           log_every, gemm, pair_rounding, pair_block_n, device, layers, dtype,
+           emit) -> dict:
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if layers:
         cfg = cut_layers(cfg, layers)
@@ -162,24 +178,35 @@ def _train(mesh, *, arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every, pa
     dev = mesh.device if mesh is not None else resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    model = M.init_lm(cfg, 0, device=dev)
-    if paired_rounding > 0:
-        model, report = fold_lm_params(model, paired_rounding)
-        emit(f"[train] paired {report.total_pairs} weight pairs "
-             f"({100 * report.pair_fraction:.1f}% of weights) "
-             f"→ modeled savings {report.savings()}")
+        base = torch.cuda.memory_allocated(dev)  # another job's, in the same process
+    # the weights from seed 0: a mesh rank builds only its blocks, folding
+    # each whole leaf before it keeps its block
+    model = M.init_lm(cfg, 0, device=dev) if mesh is None else 0
+    fold, folded = None, None
+    if paired_rounding > 0 and mesh is None:
+        model, folded = fold_lm_params(model, paired_rounding)
+    elif paired_rounding > 0:
+        fold, folded = leaf_folder(paired_rounding)
     knobs = M.PerfKnobs(q_chunk=min(1024, seq), gemm=gemm, pair_rounding=pair_rounding,
                         pair_block_n=pair_block_n)
+    rules = arch_rules(arch, "train", mesh) if mesh is not None else None
     step_fn = build_train_step(
         cfg, adamw(cosine_schedule(lr, steps, warmup_steps=min(100, steps // 10))), knobs,
-        mesh=mesh)
-    pairing_s, wiring = 0.0, {}
+        mesh=mesh, rules=rules)
+    pairing_s, wiring, wire = 0.0, {}, {}
     rp = None
     if mesh is not None:
-        cell = step_fn.shard(model)
+        cell = step_fn.shard(model, fold=fold)
         model, rp, wiring = cell.model, cell.pair_report, cell.seconds
         pairing_s = wiring.get("pair", 0.0)
-    elif gemm == "pallas_paired":
+        if dev.type == "cuda":  # built from the seed, leaf by leaf
+            wire = {"wire_peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                    "held_bytes": held_bytes(model), "leaf_bytes": largest_leaf_bytes(cfg)}
+    if folded is not None:
+        emit(f"[train] paired {folded.total_pairs} weight pairs "
+             f"({100 * folded.pair_fraction:.1f}% of weights) "
+             f"→ modeled savings {folded.savings()}")
+    if mesh is None and gemm == "pallas_paired":
         mode, block_n = paired_mode_of(knobs)
         t0 = time.perf_counter()
         model, rp = pair_lm_params(model, pair_rounding, mode=mode, block_n=block_n)
@@ -232,7 +259,7 @@ def _train(mesh, *, arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every, pa
     return {"cfg": cfg, "model": model, "opt_state": opt_state, "step": step_fn,
             "knobs": knobs, "start": start, "pairing_s": pairing_s, "history": history,
             "step_ms": step_ms, "seconds": seconds, "collectives": collectives,
-            "k1_launches": k1, "wiring_s": wiring, "peak_bytes": peak}
+            "k1_launches": k1, "wiring_s": wiring, "peak_bytes": peak, **wire}
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -76,6 +76,7 @@ from repro_torch.kernels.decode_attention import decode_mask
 from repro_torch.parallel.collectives import (
     all_gather,
     all_reduce,
+    gather_blocks,
     grad_all_reduce,
     reduce_scatter,
 )
@@ -117,21 +118,45 @@ class Block(nn.Module):
                     t = nn.Parameter(t, requires_grad=False)
                 self.register_parameter(name, t)
         self.pairing: dict[str, dict[str, torch.Tensor]] = dict(pairing or {})
+        #: FSDP: the metadata of a weight's data-gathered model shard (its
+        #: data slabs' lane lists, concatenated and rebased), where it
+        #: differs from ``pairing`` (the rank's own block's)
+        self.gathered: dict[str, dict[str, torch.Tensor]] = {}
         self.frozen = False
         self._derived: dict[Any, Any] = {}
 
     def copy(self, *, frozen: bool, pairing: dict | None = None,
              children: dict | None = None) -> Block:
         """A block sharing these weights (not copied), with ``pairing`` (or
-        this block's) and an empty cache; its child blocks are copied the
-        same way, ``children`` mapping a dotted sub-path below this block
-        (``"shared"``) to that block's new pairing dict."""
+        this block's, and its ``gathered``) and an empty cache; its child
+        blocks are copied the same way, ``children`` mapping a dotted
+        sub-path below this block (``"shared"``) to that block's new pairing
+        dict."""
         children = children or {}
         kids = {n: c.copy(frozen=frozen, pairing=children.get(n), children=_below(children, n))
                 for n, c in self.named_children()}
         new = type(self)(pairing=self.pairing if pairing is None else pairing,
                          **dict(self.named_parameters(recurse=False)), **kids)
+        if pairing is None:
+            new.gathered = self.gathered
         new.frozen = frozen
+        return new
+
+    def rebound(self, tensors: dict) -> Block:
+        """A block of this one's kind whose weights are ``tensors`` (dotted
+        names below it: ``"w_gate"``, ``"shared.w_up"``) where given and its
+        own elsewhere, each with its gathered metadata (``gathered``, else
+        ``pairing``): an FSDP rank's layer as the forward reads it, its
+        gathered tensors tracked by autograd back to the rank's blocks."""
+        if not tensors:
+            return self
+        kids = {n: c.rebound(_below(tensors, n)) for n, c in self.named_children()}
+        new = type(self)(pairing={**self.pairing, **self.gathered},
+                         **dict(self.named_parameters(recurse=False)), **kids)
+        for name, t in tensors.items():
+            if "." not in name:
+                new._parameters[name] = t
+        new.frozen = self.frozen
         return new
 
     def derived(self, key, fn: Callable[[], Any]):
@@ -250,6 +275,12 @@ class DecoderLayer(nn.Module):
         pairing = pairing or {}
         return DecoderLayer(**{n: b.copy(frozen=frozen, pairing=pairing.get(n),
                                          children=_below(pairing, n))
+                               for n, b in self.named_children()})
+
+    def rebound(self, tensors: dict) -> DecoderLayer:
+        """The layer with the weights ``tensors`` (dotted names: ``"attn.wq"``)
+        in place of its own (:meth:`Block.rebound`)."""
+        return DecoderLayer(**{n: b.rebound(_below(tensors, n))
                                for n, b in self.named_children()})
 
 
@@ -373,6 +404,43 @@ def _leaf_dense(p: Block, name: str, x: torch.Tensor, knobs, *, act=None, residu
     w = p.derived(("matrix", name, cdt), lambda: p.matrix(name, cdt))
     return dense(x, w, act=act, pairing=meta, residual=residual, knobs=knobs,
                  out_dtype=out_dtype)
+
+
+#: weights the forward reads in fp32 (beside every 1-D one): an FSDP
+#: gather moves them in their own dtype, every other one in the compute dtype
+FP32_WEIGHTS = ("router",)
+
+
+def gather_dtype(name: str, t: torch.Tensor, cdt: torch.dtype) -> torch.dtype:
+    """The dtype an FSDP gather moves weight ``name`` in: its own for a norm's
+    scale or bias and what else the forward reads in fp32, the compute dtype
+    for a matrix (every use casts it first, so the gathered bits are the
+    same)."""
+    return t.dtype if t.ndim == 1 or name.rsplit(".", 1)[-1] in FP32_WEIGHTS else cdt
+
+
+def gather_weights(tp, owner: nn.Module, leaves: tuple, cdt: torch.dtype) -> dict:
+    """FSDP: the data-split weights ``leaves`` (``((dotted name, dim), …)``)
+    of ``owner`` gathered over ``tp.fsdp_axes`` in one call
+    (``parallel.collectives.gather_blocks``), by name."""
+    if not leaves:
+        return {}
+    names = [name for name, _ in leaves]
+    blocks = [owner.get_parameter(name) for name in names]
+    got = gather_blocks(blocks, [dim for _, dim in leaves], tp.fsdp_group,
+                        [gather_dtype(n, b, cdt) for n, b in zip(names, blocks, strict=True)])
+    return dict(zip(names, got, strict=True))
+
+
+def gather_layer(tp, p, cdt: torch.dtype):
+    """The layer (or block) ``p`` as the forward reads it on an FSDP rank:
+    its data-split weights (``tp.gathers``, the layer's view) gathered over
+    the data axes, the rest its own (``p`` itself where nothing splits).
+    Called inside the layer's checkpoint, so the backward gathers again
+    instead of keeping the gathered weights."""
+    if tp is None or not tp.gathers:
+        return p
+    return p.rebound(gather_weights(tp, p, tp.gathers, cdt))
 
 
 def row_parallel_dense(p: Block, name: str, x: torch.Tensor, knobs, tp, *,

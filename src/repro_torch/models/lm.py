@@ -90,6 +90,8 @@ from repro_torch.models.layers import (
     close_partial,
     decode_attention,
     full_attention,
+    gather_layer,
+    gather_weights,
     local_kv,
     mla_block,
     mla_decode_block,
@@ -270,49 +272,135 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     rank; an SSM block's as ``init_ssm`` makes them: ``A_log = log(1…H)``,
     ``dt_bias`` the inverse softplus of a log-uniform ``dt`` in [dt_min,
     dt_max], the B/C convs passing their input through), made on ``device``
-    (the GPU unless ``"cpu"`` is asked for)."""
-    dev = resolve_device(device)
+    (the GPU unless ``"cpu"`` is asked for): :func:`lm_leaves` of the seed,
+    every leaf kept whole."""
+    return init_lm_local(cfg, seed, device=device)
+
+
+def init_lm_local(cfg: ModelConfig, source, keep=None, *, device=None) -> LM:
+    """The model of ``source`` (:func:`lm_leaves`: an :func:`init_lm` seed,
+    the JAX package's value tree, or a model) built leaf by leaf: each
+    whole leaf is made on ``device`` (the GPU unless ``"cpu"`` is asked
+    for), handed to ``keep(name, whole)``, and only what that returns is
+    held (a mesh rank's block of it: ``launch.steps.local_model``), so the
+    whole model never exists at once; ``keep=None`` holds every leaf
+    whole."""
+    named = {}
+    for name, whole in lm_leaves(cfg, source, device=device):
+        named[name] = whole if keep is None else keep(name, whole)
+        del whole  # before the next leaf is made
+    return _assemble(cfg, named)
+
+
+#: a decoder layer's blocks by name, and their classes (``attn`` is MLA's
+#: where the config has MLA)
+_BLOCKS = {"ln1": Norm, "attn": Attention, "mamba": Mamba, "ln_attn_out": Norm,
+           "ln_ssm_out": Norm, "lnx": Norm, "xattn": Attention, "ln2": Norm, "mlp": MLP,
+           "moe": MoE}
+
+
+def _assemble(cfg: ModelConfig, named: dict) -> LM:
+    """The :class:`LM` whose parameters are ``named`` (``named_parameters``'
+    names), each block's in ``named``'s order."""
+    tree: dict = {}
+    for name, t in named.items():
+        node, *parts = name.split(".")
+        at = tree.setdefault(node, {}) if parts else tree
+        for part in parts[:-1]:
+            at = at.setdefault(part, {})
+        at[parts[-1] if parts else node] = t
+
+    def block(cls, values: dict):
+        return cls(**{k: v if not isinstance(v, dict) else block(MLP, v)  # an MoE's shared experts
+                      for k, v in values.items()})
+
+    def layer(values: dict) -> DecoderLayer:
+        return DecoderLayer(**{k: block(MLA if k == "attn" and cfg.mla is not None else _BLOCKS[k],
+                                        v) for k, v in values.items()})
+
+    encoder = None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        encoder = Encoder([layer(enc["layers"][str(j)]) for j in range(len(enc["layers"]))],
+                          Norm(**enc["final_norm"]))
+    return LM(embed=tree["embed"], lm_head=tree.get("lm_head"), meta=tree.get("meta"),
+              vision_proj=tree.get("vision_proj"), final_norm=Norm(**tree["final_norm"]),
+              layers=[layer(tree["layers"][str(i)]) for i in range(cfg.n_layers)],
+              segments=cfg.segments(), encoder=encoder)
+
+
+def lm_leaves(cfg: ModelConfig, source, *, device=None):
+    """``(name, whole tensor)`` of every weight of the model ``source``
+    names, one at a time (``named_parameters``' names): an :func:`init_lm`
+    seed (an int: the leaves drawn on ``device`` in the order of
+    :func:`init_lm`'s random draws, so any consumer sees the same values),
+    the JAX package's unpaired value tree of numpy arrays (each leaf a
+    tensor on ``device`` as :func:`lm_params_from_numpy` makes it), or an
+    :class:`LM` (its own parameters, detached)."""
+    if isinstance(source, LM):
+        yield from ((name, p.detach()) for name, p in source.named_parameters())
+    elif isinstance(source, int):
+        yield from _init_leaves(cfg, source, resolve_device(device))
+    else:
+        yield from _numpy_leaves(cfg, source, resolve_device(device))
+
+
+def _init_leaves(cfg: ModelConfig, seed: int, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, H, KH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     tn = lambda shape, fan_in: _trunc_normal(shape, fan_in, gen, dev)
     ones = lambda *shape: torch.ones(shape, device=dev)
     zeros = lambda *shape: torch.zeros(shape, device=dev)
 
-    def norm() -> Norm:
-        return Norm(scale=ones(d), bias=zeros(d) if cfg.norm == "layernorm" else None)
+    def norm(p: str):
+        yield f"{p}.scale", ones(d)
+        if cfg.norm == "layernorm":
+            yield f"{p}.bias", zeros(d)
 
-    def mlp(f: int) -> MLP:
-        return MLP(w_gate=tn((d, f), d), w_up=tn((d, f), d), w_down=tn((f, d), f))
+    def mlp(p: str, f: int):
+        yield f"{p}.w_gate", tn((d, f), d)
+        yield f"{p}.w_up", tn((d, f), d)
+        yield f"{p}.w_down", tn((f, d), f)
 
-    def ffn(kind: str) -> dict:
+    def ffn(p: str, kind: str):
         mo = cfg.moe
         if kind == "moe":
             E, fe = mo.n_experts, mo.d_ff_expert
-            return {"moe": MoE(router=tn((d, E), d), w_gate=tn((E, d, fe), d),
-                               w_up=tn((E, d, fe), d), w_down=tn((E, fe, d), fe),
-                               shared=mlp(fe * mo.n_shared) if mo.n_shared else None)}
-        return {"mlp": mlp(mo.d_ff_dense if mo is not None else f)}
+            yield f"{p}.moe.router", tn((d, E), d)
+            yield f"{p}.moe.w_gate", tn((E, d, fe), d)
+            yield f"{p}.moe.w_up", tn((E, d, fe), d)
+            yield f"{p}.moe.w_down", tn((E, fe, d), fe)
+            if mo.n_shared:
+                yield from mlp(f"{p}.moe.shared", fe * mo.n_shared)
+        else:
+            yield from mlp(f"{p}.mlp", mo.d_ff_dense if mo is not None else f)
 
-    def plain_attention() -> Attention:  # no biases, no qk-norm: cross and encoder
-        return Attention(wq=tn((d, H, hd), d), wk=tn((d, KH, hd), d), wv=tn((d, KH, hd), d),
-                         wo=tn((H, hd, d), H * hd))
+    def plain_attention(p: str):  # no biases, no qk-norm: cross and encoder
+        yield f"{p}.wq", tn((d, H, hd), d)
+        yield f"{p}.wk", tn((d, KH, hd), d)
+        yield f"{p}.wv", tn((d, KH, hd), d)
+        yield f"{p}.wo", tn((H, hd, d), H * hd)
 
-    def attention() -> Attention | MLA:
+    def attention(p: str):
         if cfg.mla is not None:
             m = cfg.mla
             R, nope, rp, v = m.kv_lora_rank, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
-            return MLA(wq=tn((d, H, nope + rp), d), w_dkv=tn((d, R), d), w_kr=tn((d, rp), d),
-                       w_uk=tn((R, H, nope), R), w_uv=tn((R, H, v), R),
-                       wo=tn((H, v, d), H * v), kv_norm=ones(R))
-        attn = {"wq": tn((d, H, hd), d), "wk": tn((d, KH, hd), d),
-                "wv": tn((d, KH, hd), d), "wo": tn((H, hd, d), H * hd)}
+            yield f"{p}.wq", tn((d, H, nope + rp), d)
+            yield f"{p}.w_dkv", tn((d, R), d)
+            yield f"{p}.w_kr", tn((d, rp), d)
+            yield f"{p}.w_uk", tn((R, H, nope), R)
+            yield f"{p}.w_uv", tn((R, H, v), R)
+            yield f"{p}.wo", tn((H, v, d), H * v)
+            yield f"{p}.kv_norm", ones(R)
+            return
+        yield from plain_attention(p)
         if cfg.qkv_bias:
-            attn.update(bq=zeros(H, hd), bk=zeros(KH, hd), bv=zeros(KH, hd))
+            yield from ((f"{p}.{n}", zeros(h, hd)) for n, h in (("bq", H), ("bk", KH), ("bv", KH)))
         if cfg.qk_norm:
-            attn.update(q_norm=ones(hd), k_norm=ones(hd))
-        return Attention(**attn)
+            yield f"{p}.q_norm", ones(hd)
+            yield f"{p}.k_norm", ones(hd)
 
-    def mamba() -> Mamba:
+    def mamba(p: str):
         s = cfg.ssm
         d_in, GN, W = s.expand * d, s.n_groups * s.d_state, s.conv_width
         H_s = d_in // s.head_dim
@@ -321,38 +409,97 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
         u = torch.rand((H_s,), generator=gen, device=dev)
         dt0 = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min)) + math.log(s.dt_min))
         conv_x = torch.randn((W, d_in), generator=gen, device=dev) / math.sqrt(W)
-        return Mamba(w_z=tn((d, d_in), d), w_x=tn((d, d_in), d), w_B=tn((d, GN), d),
-                     w_C=tn((d, GN), d), w_dt=tn((d, H_s), d), conv_x=conv_x,
-                     conv_B=passthrough, conv_C=passthrough.clone(),
-                     A_log=torch.log(torch.arange(1, H_s + 1, dtype=torch.float32, device=dev)),
-                     D=ones(H_s), dt_bias=dt0 + torch.log(-torch.expm1(-dt0)), norm=ones(d_in),
-                     w_out=tn((d_in, d), d_in))
+        yield f"{p}.w_z", tn((d, d_in), d)
+        yield f"{p}.w_x", tn((d, d_in), d)
+        yield f"{p}.w_B", tn((d, GN), d)
+        yield f"{p}.w_C", tn((d, GN), d)
+        yield f"{p}.w_dt", tn((d, H_s), d)
+        yield f"{p}.conv_x", conv_x
+        yield f"{p}.conv_B", passthrough
+        yield f"{p}.conv_C", passthrough.clone()
+        yield f"{p}.A_log", torch.log(torch.arange(1, H_s + 1, dtype=torch.float32, device=dev))
+        yield f"{p}.D", ones(H_s)
+        yield f"{p}.dt_bias", dt0 + torch.log(-torch.expm1(-dt0))
+        yield f"{p}.norm", ones(d_in)
+        yield f"{p}.w_out", tn((d_in, d), d_in)
 
-    def layer(kind: str) -> DecoderLayer:
+    def layer(p: str, kind: str):
+        yield from norm(f"{p}.ln1")
         if kind == "ssm":
-            return DecoderLayer(norm(), mamba=mamba())
-        if kind in ("hybrid_full", "hybrid_swa"):
-            ffn_of = {"ln2": norm(), "mlp": mlp(f)} if f else {}
-            return DecoderLayer(norm(), attention(), mamba=mamba(),
-                                ln_attn_out=norm(), ln_ssm_out=norm(), **ffn_of)
-        if kind == "encdec":
-            return DecoderLayer(norm(), attention(), norm(), mlp(f), lnx=norm(),
-                                xattn=plain_attention())
-        return DecoderLayer(norm(), attention(), norm(), **ffn(kind))
+            yield from mamba(f"{p}.mamba")
+        elif kind in ("hybrid_full", "hybrid_swa"):
+            if f:  # drawn before the attention and the SSM block, as init_lm always has
+                yield from norm(f"{p}.ln2")
+                yield from mlp(f"{p}.mlp", f)
+            yield from attention(f"{p}.attn")
+            yield from mamba(f"{p}.mamba")
+            yield from norm(f"{p}.ln_attn_out")
+            yield from norm(f"{p}.ln_ssm_out")
+        elif kind == "encdec":
+            yield from attention(f"{p}.attn")
+            yield from norm(f"{p}.ln2")
+            yield from mlp(f"{p}.mlp", f)
+            yield from norm(f"{p}.lnx")
+            yield from plain_attention(f"{p}.xattn")
+        else:
+            yield from attention(f"{p}.attn")
+            yield from norm(f"{p}.ln2")
+            yield from ffn(p, kind)
 
-    embed = tn((padded_vocab(cfg), d), d)
-    layers = [layer(cfg.layer_kind(i)) for i in range(cfg.n_layers)]
-    head = None if cfg.tie_embeddings else tn((d, padded_vocab(cfg)), d)
-    meta = (torch.randn((cfg.meta_tokens, d), generator=gen, device=dev) * 0.02
-            if cfg.meta_tokens else None)
-    E = cfg.vision_embed_dim
-    vision_proj = tn((E, d), E) if cfg.vision_prefix else None
-    encoder = None
+    yield "embed", tn((padded_vocab(cfg), d), d)
+    for i in range(cfg.n_layers):
+        yield from layer(f"layers.{i}", cfg.layer_kind(i))
+    if not cfg.tie_embeddings:
+        yield "lm_head", tn((d, padded_vocab(cfg)), d)
+    if cfg.meta_tokens:
+        yield "meta", torch.randn((cfg.meta_tokens, d), generator=gen, device=dev) * 0.02
+    if cfg.vision_prefix:
+        E = cfg.vision_embed_dim
+        yield "vision_proj", tn((E, d), E)
     if cfg.encoder is not None:
-        encoder = Encoder([DecoderLayer(norm(), plain_attention(), norm(), mlp(f))
-                           for _ in range(cfg.encoder.n_layers)], norm())
-    return LM(embed=embed, lm_head=head, meta=meta, vision_proj=vision_proj, final_norm=norm(),
-              layers=layers, segments=cfg.segments(), encoder=encoder)
+        for j in range(cfg.encoder.n_layers):
+            p = f"encoder.layers.{j}"
+            yield from norm(f"{p}.ln1")
+            yield from plain_attention(f"{p}.attn")
+            yield from norm(f"{p}.ln2")
+            yield from mlp(f"{p}.mlp", f)
+        yield from norm("encoder.final_norm")
+    yield from norm("final_norm")
+
+
+def _numpy_leaves(cfg: ModelConfig, values: dict, dev):
+    def tensor(a) -> torch.Tensor:
+        return torch.as_tensor(np.array(a), device=dev).float()
+
+    def block(prefix: str, sub: dict, l: int):
+        for k, v in sub.items():
+            if k.endswith("_pairing"):
+                raise ValueError("the value tree carries pairing metadata: a mesh pairs each "
+                                 "rank's shards itself")
+            if isinstance(v, dict):  # an MoE's shared experts
+                yield from block(f"{prefix}.{k}", v, l)
+            else:
+                yield f"{prefix}.{k}", tensor(v[l])
+
+    def stack(prefix: str, segments: list, counts):
+        i = 0
+        for count, seg in zip(counts, segments, strict=True):
+            for l in range(count):
+                for name, sub in seg.items():
+                    yield from block(f"{prefix}.{i}.{name}", sub, l)
+                i += 1
+
+    yield "embed", tensor(values["embed"])
+    yield from stack("layers", values["segments"], [n for _, n in cfg.segments()])
+    for name in ("lm_head", "meta", "vision_proj"):
+        if values.get(name) is not None:
+            yield name, tensor(values[name])
+    if "encoder" in values:
+        enc = values["encoder"]
+        yield from stack("encoder.layers", enc["segments"],
+                         [len(np.asarray(seg["ln1"]["scale"])) for seg in enc["segments"]])
+        yield from ((f"encoder.final_norm.{k}", tensor(a)) for k, a in enc["final_norm"].items())
+    yield from ((f"final_norm.{k}", tensor(a)) for k, a in values["final_norm"].items())
 
 
 def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
@@ -382,9 +529,7 @@ def lm_params_from_numpy(values: dict, cfg: ModelConfig, *, device=None) -> LM:
                   if isinstance(v, dict) and not k.endswith("_pairing")}
         return cls(pairing=pairing, **weights, **shared)
 
-    classes = {"ln1": Norm, "attn": MLA if cfg.mla is not None else Attention, "mamba": Mamba,
-               "ln_attn_out": Norm, "ln_ssm_out": Norm, "lnx": Norm, "xattn": Attention,
-               "ln2": Norm, "mlp": MLP, "moe": MoE}
+    classes = {**_BLOCKS, "attn": MLA if cfg.mla is not None else Attention}
 
     def stack_of(segments: list, counts) -> list[DecoderLayer]:
         layers = []
@@ -529,36 +674,67 @@ def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt,
     A training rank (``tp.train``) returns its positions of that stream of
     ``lead + S`` rows: under sequence parallelism the split lookup is
     reduce-scattered along the stream (``layers.close_partial``), and a
-    whole table's rows are sliced to the rank's positions."""
+    whole table's rows are sliced to the rank's positions.  An FSDP rank
+    gathers its columns of the table over the data axes first, in the
+    compute dtype (the rows it looks up are cast to it anyway)."""
     lead_rows = (lambda t: F.pad(t, (0, 0, lead, 0))) if lead else (lambda t: t)
+    embed = _top(model, tp, ("embed",), cdt)["embed"]
     if tp is not None and tp.vocab_split:
-        rows = model.embed.shape[0]
+        rows = embed.shape[0]
         bad = (tokens < 0) | (tokens >= rows * tp.n)
         if bool(bad.any()):
             raise IndexError(f"token ids {tokens[bad].tolist()[:8]} outside the "
                              f"embedding's {rows * tp.n} rows")
         local = tokens - tp.r * rows
         held = (local >= 0) & (local < rows)
-        h = model.embed[local.clamp(0, rows - 1)] * held[..., None].to(model.embed.dtype)
+        # the rows in the masters' dtype (exact from the gathered compute dtype)
+        h = (embed[local.clamp(0, rows - 1)] * held[..., None].to(embed.dtype)).to(
+            model.embed.dtype)
         h = (close_partial(tp, lead_rows(h), cdt) if tp.train
              else lead_rows(all_reduce(h, tp.model_group).to(cdt)))
     elif tp is not None and tp.train and tp.seq_split:
-        h = lead_rows(model.embed[tokens].to(cdt))[:, tp.own(lead + tokens.shape[1])]
+        h = lead_rows(embed[tokens].to(cdt))[:, tp.own(lead + tokens.shape[1])]
     else:
-        h = lead_rows(model.embed[tokens].to(cdt))
+        h = lead_rows(embed[tokens].to(cdt))
     if not cfg.tie_embeddings:
         return h
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt, device=h.device)
+
+
+def _top(model: LM, tp, names: tuple[str, ...], cdt) -> dict[str, torch.Tensor]:
+    """The model's weights ``names`` (``"embed"``, ``"final_norm.scale"``, …)
+    as the forward reads them: on an FSDP rank those its layout gathers
+    (``tp.top_gathers``) gathered over the data axes, in one call
+    (``layers.gather_weights``), the rest its own."""
+    got = {} if tp is None else gather_weights(
+        tp, model, tuple((n, d) for n, d in tp.top_gathers if n in names), cdt)
+    return {n: got[n] if n in got else model.get_parameter(n) for n in names}
+
+
+def _head_weights(cfg: ModelConfig, model: LM, tp, cdt) -> tuple[Norm, torch.Tensor]:
+    """The final norm and the head's weight (the tied embedding (Vp, d) or
+    ``lm_head`` (d, Vp)), gathered together on an FSDP rank (:func:`_top`)."""
+    norm = tuple(f"final_norm.{n}" for n, _ in model.final_norm.named_parameters())
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    got = _top(model, tp, (*norm, head), cdt)
+    swapped = {n[len("final_norm."):]: got[n] for n in norm
+               if tp is not None and n in dict(tp.top_gathers)}
+    return model.final_norm.rebound(swapped), got[head]
 
 
 def lm_logits(cfg: ModelConfig, model: LM, h: torch.Tensor, tp=None) -> torch.Tensor:
     """Final norm, then the head (the tied embedding, or ``lm_head``) in the
     compute dtype; fp32 logits with the padded vocab set to −1e9.  With the
     vocab split over a mesh, each rank's logits over its vocab columns are
-    all-gathered over ``model``."""
-    h = model.final_norm(h)
-    w = model.derived(("head", h.dtype), lambda: model.embed.to(h.dtype).t()
-                      if cfg.tie_embeddings else model.lm_head.to(h.dtype))
+    all-gathered over ``model``; an FSDP rank gathers the norm and the head
+    over the data axes first (:func:`_head_weights`)."""
+    if tp is not None and tp.top_gathers:
+        norm, w = _head_weights(cfg, model, tp, h.dtype)
+        h, w = norm(h), (w.t() if cfg.tie_embeddings else w).to(h.dtype)
+    else:
+        h = model.final_norm(h)
+        w = model.derived(("head", h.dtype), lambda: model.embed.to(h.dtype).t()
+                          if cfg.tie_embeddings else model.lm_head.to(h.dtype))
     logits = torch.matmul(h, w).float()
     if tp is not None and tp.vocab_split:
         logits = all_gather(logits, tp.model_group, dim=-1)
@@ -669,7 +845,9 @@ def _encoder_layer(cfg: ModelConfig, p: DecoderLayer, knobs: PerfKnobs, tp,
                    h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """One encoder layer: non-causal self-attention (no qkv bias, no
     qk-norm), then the MLP, each added to ``h`` after it (on a mesh each
-    all-reduced first: wo and w_down are row-parallel)."""
+    all-reduced first: wo and w_down are row-parallel; an FSDP rank's
+    data-split weights gathered at its top)."""
+    p = gather_layer(tp, p, h.dtype)
     a, _, _ = attention_block(cfg, p.attn, p.ln1(h), positions, knobs, causal=False, tp=tp)
     h = h + a
     return h + mlp_block(cfg, p.mlp, p.ln2(h), knobs, tp=tp)
@@ -691,7 +869,10 @@ def encoder_fwd(cfg: ModelConfig, enc: Encoder, frames: torch.Tensor,
     for layer in enc.layers:
         step = functools.partial(_encoder_layer, ecfg, layer, knobs, tp)
         h = (_remat(step, knobs) if train else step)(h, positions)
-    return enc.final_norm(h)
+    if tp is None or not tp.top("encoder.final_norm."):
+        return enc.final_norm(h)
+    return enc.final_norm.rebound(gather_weights(tp, enc.final_norm,
+                                                 tp.top("encoder.final_norm."), h.dtype))(h)
 
 
 def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
@@ -708,7 +889,10 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: DecoderLayer, h: torch.Tensor,
     in the layout the rank's cache holds, over all positions.  A
     sequence-parallel training rank's ``h`` is its positions of the stream:
     every block runs on all of them (``layers.seq_enter``; a hybrid layer's
-    two branches on one gather) and returns the rank's."""
+    two branches on one gather) and returns the rank's.  An FSDP rank gathers
+    the layer's data-split weights over the data axes first (inside the
+    layer's checkpoint: the backward gathers them again)."""
+    p = gather_layer(tp, p, h.dtype)
     # a sequence-parallel training rank gathers the block's positions first
     x = seq_enter(tp, p.ln1(h))
     if kind == "ssm":
@@ -896,7 +1080,8 @@ def _hidden_for_loss(cfg: ModelConfig, model: LM, tokens: torch.Tensor, knobs: P
     too) under :func:`_remat`.  A training rank (``tp``, its layout) returns
     its positions of the stream, the meta tokens' included (their loss is
     masked: :func:`chunked_xent`'s ``lead``): (B, (meta_tokens + S)/n, d)
-    under sequence parallelism."""
+    under sequence parallelism.  Also returns the head's weight
+    (:func:`_head_weights`: gathered with the final norm on an FSDP rank)."""
     h, positions, enc_out = _prepare_inputs(cfg, model, tokens, extras, knobs, train=True,
                                             tp=tp)
     aux_total = _no_aux(h)
@@ -905,7 +1090,8 @@ def _hidden_for_loss(cfg: ModelConfig, model: LM, tokens: torch.Tensor, knobs: P
                                  None if tp is None else tp.layer(i))
         h, aux = _remat(step, knobs)(h, positions, enc_out)
         aux_total = aux_total + aux
-    return model.final_norm(h if tp is not None else h[:, cfg.meta_tokens:]), aux_total
+    norm, head = _head_weights(cfg, model, tp, h.dtype)
+    return norm(h if tp is not None else h[:, cfg.meta_tokens:]), aux_total, head
 
 
 def _xent_chunk(cfg: ModelConfig, w: torch.Tensor, hx, lx, mx) -> torch.Tensor:
@@ -942,7 +1128,8 @@ def _xent_chunk_vocab_split(cfg: ModelConfig, tp, w: torch.Tensor, hx, lx, mx) -
 
 
 def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor, chunk: int, tp=None, lead: int = 0) -> torch.Tensor:
+                 mask: torch.Tensor, chunk: int, tp=None, lead: int = 0,
+                 w: torch.Tensor | None = None) -> torch.Tensor:
     """Sequence-chunked softmax cross-entropy, summed over the masked
     positions: ``h`` (B, S, d) final-normed hiddens, ``labels`` (B, S) (no
     negatives), ``mask`` (B, S) fp32.
@@ -974,7 +1161,8 @@ def chunked_xent(cfg: ModelConfig, model: LM, h: torch.Tensor, labels: torch.Ten
                 h = h[:, own]
             labels, mask = labels[:, own], mask[:, own]
     B, S, _ = h.shape
-    w = model.embed if cfg.tie_embeddings else model.lm_head
+    if w is None:
+        w = model.embed if cfg.tie_embeddings else model.lm_head
     chunk = min(chunk, S) if chunk else S
     n = -(-S // chunk)
     pad = n * chunk - S
@@ -1022,9 +1210,9 @@ def lm_loss(cfg: ModelConfig, model: LM, batch: dict, *, knobs: PerfKnobs = DEFA
     if cfg.vision_prefix:  # patch positions carry no token labels
         mask = mask * (torch.arange(labels.shape[1], device=labels.device) >= cfg.vision_prefix)
     extras = {k: batch[k] for k in EXTRAS if k in batch}
-    h, aux = _hidden_for_loss(cfg, model, batch["tokens"], knobs, extras, tp)
+    h, aux, head = _hidden_for_loss(cfg, model, batch["tokens"], knobs, extras, tp)
     total = chunked_xent(cfg, model, h, labels.clamp_min(0), mask, knobs.xent_chunk, tp,
-                         lead=cfg.meta_tokens if tp is not None else 0)
+                         lead=cfg.meta_tokens if tp is not None else 0, w=head)
     count = mask.sum()
     if tp is not None and tp.batch_split:
         total, count = all_reduce(torch.stack([total, count]), tp.data_group).unbind(0)
@@ -1088,7 +1276,9 @@ def layer_decode(cfg: ModelConfig, kind: str, p: DecoderLayer, c: dict,
     """One decoder layer for one token per slot; ``c`` (this layer's cache
     entries, (B, …)) is written in place: attention entries at ``pos`` (the
     absolute position, meta tokens included), the SSM state whole.  On a
-    mesh (``tp``, the layer's view) the rank's part of it."""
+    mesh (``tp``, the layer's view) the rank's part of it, an FSDP rank's
+    data-split weights gathered first."""
+    p = gather_layer(tp, p, h.dtype)
     x = p.ln1(h)
     if kind == "ssm":
         y, c = ssm_decode_block(cfg, p.mamba, x, c, knobs, tp)

@@ -1,7 +1,9 @@
 """The collectives of the tensor-parallel paths, and their counter.
 
 Every collective of the port goes through :func:`all_reduce`,
-:func:`all_gather`, :func:`reduce_scatter` or :func:`grad_all_reduce`, over
+:func:`all_gather`, :func:`reduce_scatter`, :func:`grad_all_reduce` or
+:func:`gather_blocks` (FSDP's: a layer's data-split weights in one
+all-gather, their gradients in one reduce-scatter), over
 the process group of a mesh axis (``Mesh.group``); each collective that runs
 adds one call and the bytes of its local input tensor to :data:`STATS` under
 its kind, and nothing runs (and nothing is counted) over a group of one
@@ -22,6 +24,7 @@ collective the backend refuses raises, and nothing reroutes it.
 from __future__ import annotations
 
 import collections
+import math
 
 import torch
 import torch.distributed as dist
@@ -163,3 +166,59 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if not _tracked(t):
         return _reduce_scatter(t, group, dim)
     return _ReduceScatter.apply(t, group, dim)
+
+
+def _gather_blocks(blocks, dims, dtypes, group) -> list[torch.Tensor]:
+    """Every rank's ``blocks`` in one all-gather of their bytes (each in its
+    ``dtypes`` entry), concatenated along its dim in rank order."""
+    n = dist.get_world_size(group)
+    parts = [b.detach().to(dt).contiguous().reshape(-1).view(torch.uint8)
+             for b, dt in zip(blocks, dtypes, strict=True)]
+    rows = _all_gather(torch.cat(parts), group, 0).view(n, -1)
+    out, off = [], 0
+    for b, dt, part, dim in zip(blocks, dtypes, parts, dims, strict=True):
+        chunks = []
+        for r in range(n):
+            raw = rows[r, off:off + part.numel()]
+            if raw.storage_offset() % dt.itemsize:
+                raw = raw.clone()  # a view of another width needs an aligned start
+            chunks.append(raw.view(dt).view(b.shape))
+        out.append(torch.cat(chunks, dim=dim))
+        off += part.numel()
+    return out
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dims, dtypes, *blocks):
+        ctx.group, ctx.dims = group, dims
+        ctx.shapes = [b.shape for b in blocks]
+        return tuple(_gather_blocks(blocks, dims, dtypes, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = dist.get_world_size(ctx.group)
+        flat = torch.cat([g.float().narrow(dim, r * shape[dim], shape[dim]).reshape(-1)
+                          for r in range(n)
+                          for g, dim, shape in zip(grads, ctx.dims, ctx.shapes, strict=True)])
+        mine = _reduce_scatter(flat.view(n, -1), ctx.group, 0).reshape(-1)
+        sizes = [math.prod(shape) for shape in ctx.shapes]
+        return (None, None, None, *(part.view(shape) for part, shape in
+                                    zip(mine.split(sizes), ctx.shapes, strict=True)))
+
+
+def gather_blocks(blocks: list[torch.Tensor], dims: list[int], group,
+                  dtypes: list[torch.dtype]) -> list[torch.Tensor]:
+    """FSDP's gather: each rank's ``blocks`` (its data-split weights) with
+    the other ranks' of ``group``, each concatenated along its ``dims``
+    entry in rank order and in its ``dtypes`` entry (the compute dtype for
+    a matrix, its own for what the forward reads in fp32), in one
+    all-gather of their bytes (``blocks`` themselves where the group is
+    None).  Under autograd the gradient of every gathered tensor is
+    reduce-scattered back in fp32, all of them in one call: each rank's
+    block gets the sum of its rows' gradients over the group."""
+    if group is None:
+        return [b.to(dt) for b, dt in zip(blocks, dtypes, strict=True)]
+    if not any(_tracked(b) for b in blocks):
+        return _gather_blocks(blocks, dims, dtypes, group)
+    return list(_GatherBlocks.apply(group, tuple(dims), tuple(dtypes), *blocks))

@@ -7,8 +7,9 @@ The port of ``repro.parallel.rules``, table for table:
   activations sequence-sharded over ``model``; FSDP (d_model over ``data``)
   for models past :data:`FSDP_PARAM_THRESHOLD` parameters.  The training
   mesh (``launch.steps.build_train_step`` with a mesh, the train CLI's
-  ``--mesh``) reads it through ``parallel.tp.train_layout_for``, which
-  refuses FSDP;
+  ``--mesh``) reads it through ``parallel.tp.train_layout_for``: each
+  FSDP rank holds its (data × model) blocks and gathers a layer's over
+  ``data`` before it runs (``parallel.tp``);
 * ``prefill`` — tensor parallelism as in train, no sequence sharding, the KV
   cache sharded over ``model`` along its sequence;
 * ``decode``  — weights tensor-parallel over ``model`` where they divide;
@@ -21,9 +22,13 @@ The port of ``repro.parallel.rules``, table for table:
 Divisibility is guarded downstream (``sharding.spec_for_axes``): an axis
 that does not divide its mesh axes is replicated, e.g. qwen2-1.5b's 2 KV
 heads on a 4-way ``model`` axis.
+
+The train CLI and the mesh benches shard a mesh by :func:`arch_rules`: the
+published config's rules, whatever depth or width they cut it to.
 """
 from __future__ import annotations
 
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import DATA_AXES, Rules
 
@@ -75,3 +80,12 @@ def rules_for(cfg: ModelConfig, mode: str, mesh) -> Rules:
         raise ValueError(f"unknown mode {mode!r}")
 
     return Rules(table=base)
+
+
+def arch_rules(arch: str, mode: str, mesh) -> Rules:
+    """The rules a mesh run of ``arch`` is sharded by at any depth or width
+    (the CLIs' ``--smoke`` and ``--layers`` cuts): those of its published
+    config.  They differ from a cut config's own only where the cut falls
+    under :data:`FSDP_PARAM_THRESHOLD`: mistral-large-123b keeps ``embed``
+    over ``data`` at 1 layer and at its smoke widths."""
+    return rules_for(get_config(arch), mode, mesh)

@@ -62,15 +62,36 @@ holds whole is its part of the whole gradient (its positions', its vocab
 columns', its heads'), so the gradient of a weight left whole under
 ``model`` is summed over ``model`` after the backward, beside the split
 weights' sum over the data axes.
+
+FSDP (the rules put ``embed`` over ``data`` for a model past
+``rules.FSDP_PARAM_THRESHOLD`` parameters; every mode): a rank holds its
+(data × model) block of each weight whose spec splits it over a data axis,
+and the forward gathers the blocks over those axes before it reads them
+(``fsdp_axes``; ``gathers``, each layer's data-split leaves and the dim
+each splits, a layer's in one ``parallel.collectives.gather_blocks`` call
+at its top; ``top_gathers``, the embedding's, the head's and the final
+norms').  The gathered model shard is the tensor-parallel shard the splits
+above describe: every check below reads the specs with their data entries
+taken out.  The gather's backward reduce-scatters the gradient over the
+data axes, which sums a data-split block's gradient over them (the batch's
+rows with it): a training rank's FSDP batch splits over the same axes.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import cache_axes_and_shapes, param_axes_and_shapes
-from repro_torch.parallel.sharding import DATA_AXES, Mesh, Rules, shardings_for, spec_for_axes
+from repro_torch.parallel.sharding import (
+    DATA_AXES,
+    Mesh,
+    PartitionSpec,
+    Rules,
+    shardings_for,
+    spec_for_axes,
+)
 
 MODEL_AXIS = "model"
 
@@ -107,6 +128,14 @@ class TensorParallel:
     train: bool = False
     #: training: the residual stream's positions split over ``model``
     seq_split: bool = False
+    #: FSDP: the data axes the weights split over (empty: none)
+    fsdp_axes: tuple = ()
+    #: FSDP: ((leaf path in the layer, dim), …) of a layer's data-split
+    #: leaves (set by the segment's view, :meth:`layer`)
+    gathers: tuple = ()
+    #: FSDP: ((parameter name, dim), …) of the data-split leaves outside the
+    #: layers (``embed``, ``lm_head``, ``final_norm.*``, ``encoder.final_norm.*``)
+    top_gathers: tuple = ()
 
     @property
     def model_group(self):
@@ -119,6 +148,17 @@ class TensorParallel:
     @property
     def data_group(self):
         return self.mesh.group(self.data_axes) if self.data_axes else None
+
+    @property
+    def fsdp_group(self):
+        """The process group the data-split weights gather over (None: no FSDP)."""
+        return self.mesh.group(self.fsdp_axes) if self.fsdp_axes else None
+
+    def top(self, prefix: str) -> tuple:
+        """``top_gathers`` under ``prefix`` (``"embed"``, ``"final_norm."``, …),
+        the prefix cut."""
+        return tuple((name[len(prefix):], dim) for name, dim in self.top_gathers
+                     if name.startswith(prefix))
 
     @property
     def mesh_group(self):
@@ -306,26 +346,74 @@ def _cache_splits(cfg: ModelConfig, c_seg: dict, splits: dict[str, bool], path: 
     return bool(seq), specs
 
 
-def _refuse_fsdp(cfg: ModelConfig, specs: dict, mesh: Mesh) -> None:
-    """Raise where the resolved weight specs split a weight over an axis
-    other than ``model`` (of more than one rank): FSDP."""
-    def entries(tree):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                yield from entries(v)
-        elif isinstance(tree, list):
-            for v in tree:
-                yield from entries(v)
-        else:
-            yield from (e for e in tree if e is not None)
+def _with_leaves(tree, fn, path: tuple = ()):
+    """``fn(path, spec)`` over every leaf of a spec tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: _with_leaves(v, fn, (*path, k)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_with_leaves(v, fn, (*path, i)) for i, v in enumerate(tree)]
+    return fn(path, tree)
 
-    # a split over a data axis of one rank is no split
-    off_model = {e for e in entries(specs) if e != MODEL_AXIS and mesh.axis_size(e) > 1}
-    if off_model:
-        raise NotImplementedError(
-            f"{cfg.name}: the rules shard weights over {sorted(map(str, off_model))} "
-            "(FSDP); the port's tensor-parallel forward splits weights over 'model' only "
-            "(ROADMAP queue 1, item 2b)")
+
+def _fsdp(cfg: ModelConfig, specs: dict, mesh: Mesh) -> tuple[dict, dict]:
+    """The weights' specs with their data-axis entries taken out (the gathered
+    model shard's: what the tensor-parallel forward reads) and the FSDP
+    fields of :class:`TensorParallel`: ``fsdp_axes``, the ``gathers`` of
+    each segment and of the encoder (leaf path in the layer, its dim
+    without the layers dim) and the ``top_gathers``.  A data axis of one
+    rank splits nothing.  Raises where a leaf splits a dim over data and
+    ``model`` at once, two dims over data axes, or where the leaves split
+    over different data axes, and for a data-split ``meta`` or
+    ``vision_proj`` (the forward does not gather them)."""
+    splits: dict[tuple, tuple[int, Any]] = {}
+
+    def strip(path: tuple, spec) -> PartitionSpec:
+        out = []
+        for dim, e in enumerate(spec):
+            names = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+            on_data = all(a in DATA_AXES for a in names)
+            data = [a for a in names if a in DATA_AXES and mesh.axis_size(a) > 1]
+            if data and not on_data:
+                _refuse(cfg, f"{'.'.join(map(str, path))} splits dim {dim} over {e} (data and "
+                             "model together)")
+            if data:
+                if path in splits:
+                    _refuse(cfg, f"{'.'.join(map(str, path))} splits two dims over data axes")
+                splits[path] = (dim, e)
+            out.append(None if names and on_data else e)
+        return PartitionSpec(*out)
+
+    model_specs = _with_leaves(specs, strip)
+    entries = {e for _, e in splits.values()}
+    if len(entries) > 1:
+        _refuse(cfg, f"the weights split over unlike data axes {sorted(map(str, entries))}")
+    for name in ("meta", "vision_proj"):
+        if (name,) in splits:
+            _refuse(cfg, f"{name} splits over {splits[(name,)][1]!r} (FSDP): the forward "
+                         "gathers the layers, the embedding, the head and the norms only")
+
+    def layer_gathers(prefix: tuple) -> tuple:
+        return tuple((".".join(path[len(prefix):]), dim - 1) for path, (dim, _) in splits.items()
+                     if path[:len(prefix)] == prefix)
+
+    n_segments = len(specs["segments"])
+    info = {"fsdp_axes": next(iter(entries), ()),
+            "segments": [layer_gathers(("segments", si)) for si in range(n_segments)],
+            "encoder": layer_gathers(("encoder", "segments", 0)) if "encoder" in specs else (),
+            "top_gathers": tuple((".".join(path), dim) for path, (dim, _) in splits.items()
+                                 if path[0] in ("embed", "lm_head", "final_norm")
+                                 or path[:2] == ("encoder", "final_norm"))}
+    if isinstance(info["fsdp_axes"], str):
+        info["fsdp_axes"] = (info["fsdp_axes"],)
+    return model_specs, info
+
+
+def fsdp_layout(cfg: ModelConfig, mesh: Mesh, rules: Rules) -> dict:
+    """The FSDP fields of the weights' resolved specs (``fsdp_axes``; the
+    ``gathers`` of each segment, ``"segments"``, and of the encoder,
+    ``"encoder"``; the ``top_gathers``), all empty without FSDP."""
+    axes, shapes = param_axes_and_shapes(cfg)
+    return _fsdp(cfg, shardings_for(axes, mesh, rules, shapes), mesh)[1]
 
 
 def train_layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
@@ -342,25 +430,21 @@ def train_layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int
     divide ``model`` stays whole, as a weight that does not divide does).
     The encoder's view keeps its frames whole (the ``train`` rules give
     ``frames`` no mesh axis): its blocks close with an all-reduce.  Raises
-    ``NotImplementedError`` for FSDP and for any split :func:`layout_for`
-    refuses."""
+    ``NotImplementedError`` for any split :func:`layout_for` refuses, and
+    for FSDP weights whose data axes the batch does not split over (the
+    gather's reduce-scatter would count a whole batch's gradient once a data
+    rank)."""
     axes, shapes = param_axes_and_shapes(cfg)
-    specs = shardings_for(axes, mesh, rules, shapes)
-    _refuse_fsdp(cfg, specs, mesh)
-    _whole(cfg, specs["final_norm"], ("scale", "bias"), "final_norm")
-    for name in ("meta", "vision_proj"):
-        if name in specs and any(e is not None for e in specs[name]):
-            _refuse(cfg, f"{name} is split {tuple(specs[name])}")
-    seg_splits = [(count, tuple(_segment_splits(cfg, seg, f"segments[{si}]").items()))
-                  for si, ((_, count), seg) in enumerate(zip(cfg.segments(), specs["segments"],
-                                                             strict=True))]
-    enc = None
-    if "encoder" in specs:
-        _whole(cfg, specs["encoder"]["final_norm"], ("scale", "bias"), "encoder.final_norm")
-        enc = (*_segment_splits(cfg, specs["encoder"]["segments"][0],
-                                "encoder.segments[0]").items(), ("seq_split", False))
+    specs, fsdp = _fsdp(cfg, shardings_for(axes, mesh, rules, shapes), mesh)
+    seg_splits, enc = _weight_splits(cfg, specs, fsdp)
+    if enc is not None:
+        enc = (*enc, ("seq_split", False))
     act = spec_for_axes(("batch", "seq", "embed"), mesh=mesh, rules=rules,
                         dim_sizes=(batch_size, cfg.meta_tokens + seq_len, cfg.d_model))
+    batch_axes = () if act[0] is None else (act[0],) if isinstance(act[0], str) else act[0]
+    if not set(fsdp["fsdp_axes"]) <= set(batch_axes):
+        _refuse(cfg, f"the weights split over {fsdp['fsdp_axes']} (FSDP) but the batch of "
+                     f"{batch_size} rows does not")
     if act[2] is not None:
         _refuse(cfg, f"the residual stream's width is split {tuple(act)}")
     if act[1] not in (None, MODEL_AXIS):
@@ -371,7 +455,28 @@ def train_layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int
         vocab_split=_on(specs["embed"], 0), cache_seq=False,
         batch_split=act[0] is not None and mesh.axis_size(act[0]) > 1,
         segment_splits=tuple(seg_splits), encoder_splits=enc, train=True,
-        seq_split=act[1] is not None, **first)
+        seq_split=act[1] is not None, fsdp_axes=fsdp["fsdp_axes"],
+        top_gathers=fsdp["top_gathers"], **first)
+
+
+def _weight_splits(cfg: ModelConfig, specs: dict, fsdp: dict) -> tuple[list, tuple | None]:
+    """Each segment's ``(count, ((split, value), …))`` and the encoder's
+    splits, read from the weights' specs without their data entries, each
+    with its ``gathers``."""
+    _whole(cfg, specs["final_norm"], ("scale", "bias"), "final_norm")
+    for name in ("meta", "vision_proj"):
+        if name in specs and any(e is not None for e in specs[name]):
+            _refuse(cfg, f"{name} is split {tuple(specs[name])}")
+    seg_splits = [(count, (*_segment_splits(cfg, seg, f"segments[{si}]").items(),
+                           ("gathers", fsdp["segments"][si])))
+                  for si, ((_, count), seg) in enumerate(zip(cfg.segments(), specs["segments"],
+                                                             strict=True))]
+    enc = None
+    if "encoder" in specs:
+        _whole(cfg, specs["encoder"]["final_norm"], ("scale", "bias"), "encoder.final_norm")
+        enc = (*_segment_splits(cfg, specs["encoder"]["segments"][0],
+                                "encoder.segments[0]").items(), ("gathers", fsdp["encoder"]))
+    return seg_splits, enc
 
 
 def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
@@ -381,36 +486,25 @@ def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
     the resolved specs of every segment's weights and cache entries, and of
     the encoder's weights.  Raises ``NotImplementedError`` where the specs
     ask for a split the port's forward does not close (and names it): a
-    weight over a data axis (FSDP), a head_dim, half of a block's leaves
-    split and half whole, a cache entry split unlike the projection that
-    writes it."""
+    head_dim, half of a block's leaves split and half whole, a cache entry
+    split unlike the projection that writes it, a dim split over data and
+    ``model`` at once.  Weights split over data axes (FSDP) are gathered
+    over them before the forward reads them (``gathers``, ``top_gathers``)."""
     axes, shapes = param_axes_and_shapes(cfg)
-    specs = shardings_for(axes, mesh, rules, shapes)
+    specs, fsdp = _fsdp(cfg, shardings_for(axes, mesh, rules, shapes), mesh)
     c_axes, c_shapes = cache_axes_and_shapes(cfg, batch_size, max_seq)
     c_specs = shardings_for(c_axes, mesh, rules, c_shapes)
-    _refuse_fsdp(cfg, specs, mesh)
-    _whole(cfg, specs["final_norm"], ("scale", "bias"), "final_norm")
-    for name in ("meta", "vision_proj"):
-        if name in specs and any(e is not None for e in specs[name]):
-            _refuse(cfg, f"{name} is split {tuple(specs[name])}")
-    seg_splits, seqs, cache_specs = [], set(), {}
-    for si, ((_, count), seg, cseg) in enumerate(zip(
-            cfg.segments(), specs["segments"], c_specs["segments"], strict=True)):
-        splits = _segment_splits(cfg, seg, f"segments[{si}]")
-        seq, entry_specs = _cache_splits(cfg, cseg, splits, f"cache segments[{si}]")
+    seg_splits, enc = _weight_splits(cfg, specs, fsdp)
+    seqs, cache_specs = set(), {}
+    for si, ((_, splits), cseg) in enumerate(zip(seg_splits, c_specs["segments"], strict=True)):
+        seq, entry_specs = _cache_splits(cfg, cseg, dict(splits), f"cache segments[{si}]")
         if any(n in cseg for n in ("k", "c_kv")):
             seqs.add(seq)
         for name, spec in entry_specs.items():
             if cache_specs.setdefault(name, spec) != spec:
                 _refuse(cfg, f"cache entry {name} splits unlike in two segments")
-        seg_splits.append((count, tuple(splits.items())))
     if len(seqs) > 1:
         _refuse(cfg, "the attention cache splits its positions in some segments only")
-    enc = None
-    if "encoder" in specs:
-        _whole(cfg, specs["encoder"]["final_norm"], ("scale", "bias"), "encoder.final_norm")
-        enc = tuple(_segment_splits(cfg, specs["encoder"]["segments"][0],
-                                    "encoder.segments[0]").items())
     batch = {s[0] for s in cache_specs.values()}
     if len(batch) > 1:
         _refuse(cfg, "the cache entries split their slots unlike")
@@ -421,4 +515,5 @@ def layout_for(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch_size: int,
         vocab_split=_on(specs["embed"], 0), cache_seq=bool(seqs and seqs.pop()),
         batch_split=b is not None and mesh.axis_size(b) > 1,
         segment_splits=tuple(seg_splits), encoder_splits=enc,
-        cache_specs=tuple(cache_specs.items()), **first)
+        cache_specs=tuple(cache_specs.items()), fsdp_axes=fsdp["fsdp_axes"],
+        top_gathers=fsdp["top_gathers"], **first)

@@ -20,7 +20,11 @@ cell (``launch.steps.wire_serve_cell``): it holds its shards of the weights,
 paired per shard, and its part of the cache; its steps close each split
 with a collective, and every rank returns every slot's token.  With a
 ``data`` axis the slots are split over the data rows: a request's cache
-lives on its slot's row, and every row prefills it alike.
+lives on its slot's row, and every row prefills it alike; under FSDP
+(mistral-large-123b's rules) each layer's weights are gathered over the
+data rows before it runs.  ``model`` may then be the model's source, an
+``init_lm`` seed or the JAX package's value tree, of which the rank builds
+only its shards (``launch.steps.local_model``).
 """
 from __future__ import annotations
 

@@ -45,18 +45,24 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
-def mesh_global_norm(grads: Sequence[torch.Tensor], *, split: Sequence[bool],
-                     group) -> torch.Tensor:
+def mesh_global_norm(grads: Sequence[torch.Tensor], *, split: Sequence[tuple],
+                     groups: dict) -> torch.Tensor:
     """The global norm of a whole model from one tensor-parallel rank's
     gradients, summed over the mesh already (``launch.steps.TrainStep``):
-    the squares of the weights split over ``model`` (``split``, in the
-    gradients' order) summed over ``group`` (its ranks hold the other
-    shards; one all-reduce of one fp32 scalar), those of the weights every
-    rank holds whole counted once; in fp32."""
+    each tensor's squares summed over the ranks that hold its other blocks,
+    ``groups[split[i]]`` for the mesh axes ``split[i]`` that split tensor
+    ``i`` (``model``; FSDP's data axes; both), one all-reduce of one fp32
+    scalar for each set of axes in ``groups`` (a set no tensor splits over
+    sums 0), in their sorted order; those of the tensors every rank holds
+    whole (``()``) counted once; in fp32."""
     zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    sq = [sum((torch.sum(torch.square(g.float())) for g, s in zip(grads, split, strict=True)
-               if s == part), zero) for part in (True, False)]
-    return torch.sqrt(all_reduce(sq[0], group) + sq[1])
+    sq: dict[tuple, torch.Tensor] = {}
+    for g, axes in zip(grads, split, strict=True):
+        sq[axes] = sq.get(axes, zero) + torch.sum(torch.square(g.float()))
+    total = sq.pop((), zero)
+    for axes in sorted(set(sq) | set(groups)):
+        total = total + all_reduce(sq.get(axes, zero).clone(), groups.get(axes))
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(

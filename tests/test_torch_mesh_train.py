@@ -40,8 +40,9 @@ module; every job of a shape runs inside its ranks
 * the CLI: ``--mesh 1x2`` gives the losses of the run without it (bf16
   smoke config: within 2e-3); a run checkpointed at step 2 on 1 × 2 and
   resumed on 2 × 1 gives the straight run's losses (fp32, rtol 1e-5).
-* FSDP and the fused attention are refused (the other five families train
-  on the mesh: ``test_torch_mesh_train_families.py``).
+* the fused attention is refused; FSDP builds (the other five families
+  train on the mesh: ``test_torch_mesh_train_families.py``; FSDP's parity:
+  ``test_torch_fsdp.py``).
 """
 import concurrent.futures
 import dataclasses
@@ -405,13 +406,14 @@ def test_cli_resumes_across_mesh_shapes(tmp_path):
 
 
 def test_refusals():
-    """FSDP (mistral-large-123b's rules put ``embed`` over ``data``) and the
-    fused attention raise ``NotImplementedError`` before any rank is
-    wired."""
+    """The fused attention raises ``NotImplementedError`` before any rank is
+    wired; FSDP (mistral-large-123b's rules put ``embed`` over ``data``)
+    builds, every layer gathered over ``data`` (its parity:
+    ``test_torch_fsdp.py``)."""
     mesh = _mesh((2, 2))
     opt = adamw(LR)
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        build_train_step(get_config("mistral-large-123b"), opt, KNOBS, mesh)
+    step = build_train_step(get_config("mistral-large-123b"), opt, KNOBS, mesh)
+    assert step.layout(8, 128).fsdp_axes == ("data",)
     with pytest.raises(NotImplementedError, match="no backward"):
         build_train_step(_cfg("qwen2-1.5b"), opt, dataclasses.replace(KNOBS, attn="pallas_fused"),
                          mesh)

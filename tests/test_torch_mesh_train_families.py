@@ -277,8 +277,8 @@ def test_stream_is_sized_with_its_meta_tokens(seq, split):
 @pytest.mark.parametrize("name", list(ARCHS))
 def test_full_configs_train_on_a_mesh(name):
     """``build_train_step`` wires each of the five families' full configs on
-    a (2, 2) mesh (FSDP and the fused attention stay refused:
-    ``test_torch_mesh_train.py``)."""
+    a (2, 2) mesh (the fused attention stays refused:
+    ``test_torch_mesh_train.py``; FSDP: ``test_torch_fsdp.py``)."""
     cfg = get_config(ARCHS[name])
     step = build_train_step(cfg, adamw(LR), KNOBS, _mesh((2, 2)))
     seq = 384 if cfg.vision_prefix else 128
