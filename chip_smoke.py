@@ -391,7 +391,25 @@ result:
                 rank, ms a step, peak memory and bytes held a rank beside
                 the reckoning; collectives (calls and bytes) and K1
                 launches held to ``analysis`` with the FSDP rules;
-29. the kernels table, the card's name and power limit, and the ``ok`` line.
+29. dryrun    — the dry run (``launch.dryrun``) against the card, right
+                after the build: (a) the roofline's K1 sweep
+                (``benchmarks.roofline.kernel_block_sweep``) at its four
+                shapes, the conv→pool ``max2`` one among them: every
+                candidate plan within 1e-5 of K1's plain version (fp32), the
+                winners written to ``build/roofline_tiles.json``, the
+                heuristic's ms, the winner's and ``torch.matmul``'s on the
+                folded weight; (b) qwen2-1.5b at full width, 4 layers,
+                batch 8 × seq 128, bf16, one rank, default knobs, one AdamW
+                training step: the traced FLOPs equal ``FlopCounterMode``'s
+                on the real step, the predicted temporaries within 15 % of
+                the growth of ``torch.cuda.max_memory_allocated`` over the
+                bytes held before it; (c) rank 0 of the (16, 16) mesh,
+                qwen2-1.5b ``decode_32k`` at all 28 layers, run for real on
+                the card over a fake process group of 256 ranks (its
+                collectives move nothing), in a child process of its own:
+                the predicted peak within 15 % of the measured one.  Every
+                number beside the card's name and power limit;
+30. the kernels table, the card's name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -403,11 +421,10 @@ import time
 from pathlib import Path
 
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FMA-unit FLOP/s and
-# dense bf16 tensor-core FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
+# H100 SXM peaks: HBM3 bytes/s, fp32 FMA-unit FLOP/s and dense bf16
+# tensor-core FLOP/s, from ``repro_torch.core.cost_model.H100_SXM``
+# (:func:`load_peaks`, once ``src`` is on the path)
+HBM_BYTES_PER_S = FP32_FLOP_PER_S = BF16_FLOP_PER_S = None
 FP32_RTOL = 1e-5
 ATTN_RTOL = 2e-5  # the JAX decode-attention tests' tolerance
 BF16_MAX_ULPS = 2.0
@@ -428,6 +445,17 @@ def emit(obj: dict) -> None:
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
+
+
+def load_peaks() -> None:
+    """Set the card's peaks from the port's roofline (``H100_SXM``, NVIDIA's
+    data sheet at 700 W); ``main`` calls it once ``src`` is importable."""
+    global HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_FLOP_PER_S
+    from repro_torch.core.cost_model import H100_SXM
+
+    HBM_BYTES_PER_S = H100_SXM.hbm_bw
+    FP32_FLOP_PER_S = H100_SXM.peak_flops_fp32
+    BF16_FLOP_PER_S = H100_SXM.peak_flops
 
 
 def check(ok: bool, what: str) -> None:
@@ -579,6 +607,85 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 # phase 2: K1 against its plain version, every form
 # ---------------------------------------------------------------------------
+
+
+DRYRUN_ARCH = "qwen2-1.5b"
+DRYRUN_TRAIN = (4, 8, 128)  # one rank's training step: layers, batch, seq
+DRYRUN_MEM_RTOL = 0.15  # predicted memory against the card's
+
+
+def phase_dryrun() -> dict:
+    """Phase 29: the roofline's K1 sweep, and the dry run's prediction of a
+    training step on one rank and of rank 0 of the (16, 16) mesh's
+    ``decode_32k`` step against the card (that one in a child process: its
+    peak its own, and no process group left here)."""
+    import dataclasses
+    import os
+
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import measure_cell
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + (
+        os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--measure", "--arch", DRYRUN_ARCH,
+         "--shape", "decode_32k", "--multi-pod", "false", "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        stdin=subprocess.DEVNULL)
+    try:
+        cache = root / "build" / "roofline_tiles.json"
+        cache.unlink(missing_ok=True)
+        try:
+            sweep, summary = roofline.kernel_block_sweep(cache)
+        except AssertionError as e:
+            check(False, f"dryrun: K1 sweep candidate off its plain version: {e}")
+            sweep, summary = [], {"entries": 0}
+        check(summary["entries"] == len(roofline.KERNEL_SWEEP_SHAPES) and cache.is_file(),
+              f"dryrun: {summary['entries']} sweep winners in {cache}")
+        t_sweep = time.perf_counter() - t0
+        layers, batch, seq = DRYRUN_TRAIN
+        cfg = dataclasses.replace(get_config(DRYRUN_ARCH), n_layers=layers)
+        one = measure_cell(cfg, ShapeConfig("train_rank", seq, batch, "train"), (1, 1))
+        t_one = time.perf_counter() - t0 - t_sweep
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    line = next((ln for ln in out.splitlines() if ln.startswith("MEASURED ")), None)
+    check(child.returncode == 0 and line is not None,
+          f"dryrun: the (16, 16) rank's run failed (exit {child.returncode}): {err[-2000:]}")
+    rank = json.loads(line[len("MEASURED "):]) if line else None
+    p1, m1 = one["predicted"], one["measured"]
+    one_err = p1["temp_bytes"] / m1["growth_bytes"] - 1
+    check(p1["flops"] == m1["flops"],
+          f"dryrun: traced FLOPs {p1['flops']} != FlopCounterMode's {m1['flops']}")
+    check(abs(one_err) <= DRYRUN_MEM_RTOL,
+          f"dryrun: predicted temporaries {p1['temp_bytes']} vs growth {m1['growth_bytes']}")
+    rank_err = None
+    if rank is not None:
+        pr, mr = rank["predicted"], rank["measured"]
+        rank_err = pr["peak_bytes"] / mr["peak_bytes"] - 1
+        check(abs(rank_err) <= DRYRUN_MEM_RTOL,
+              f"dryrun: (16, 16) rank 0 predicted peak {pr['peak_bytes']} vs {mr['peak_bytes']}")
+        check(pr["flops"] == mr["flops"],
+              f"dryrun: (16, 16) rank 0 traced FLOPs {pr['flops']} != {mr['flops']}")
+    res = {"phase": "dryrun", "card": _card(), "seconds": time.perf_counter() - t0,
+           "sweep_seconds": t_sweep, "train_rank_seconds": t_one,
+           "k1_sweep": [{k: row[k] for k in ("shape", "MNK", "pool", "candidates",
+                                             "max_rel_err", "heuristic_ms", "winner_ms",
+                                             "heuristic_matches", "bound_ms", "bound_by",
+                                             "matmul_ms")} for row in sweep],
+           "sweep_cache_entries": summary["entries"],
+           "train_rank": {"arch": DRYRUN_ARCH, "layers": layers, "batch": batch, "seq": seq,
+                          **one, "temp_rel_err": one_err},
+           "mesh_rank": None if rank is None else {**rank, "peak_rel_err": rank_err}}
+    emit(res)
+    return res
 
 
 def phase_kernel() -> dict:
@@ -4428,7 +4535,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
+    load_peaks()
     build = phase_build()
+    dry = phase_dryrun()
     # phases 13 and 28 under FSDP first: their ranks need the card (up to
     # 18 GB each of four) while this process holds nothing yet
     fsdp = phase_mesh_fsdp()
@@ -4610,6 +4719,10 @@ def main() -> int:
         "tile_cache": [{k: row[k] for k in ("key", "heuristic_ms", "winner_ms", "bound_ms",
                                             "bound_by", "library_ms")}
                        for row in tile["problems"]],
+        # the roofline's sweep (fp32, the JAX sweep's four shapes): the
+        # heuristic plan's ms, the measured winner's, torch.matmul's on the
+        # folded weight (phase 29)
+        "roofline_sweep": dry["k1_sweep"],
     }, {
         "name": "decode_attention",
         "route": "cuda",

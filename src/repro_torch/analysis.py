@@ -295,7 +295,8 @@ def mesh_prefill_collectives(cfg, knobs, mesh, *, batch_size: int,
 
 
 def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
-                           clip: bool = True, rules=None) -> dict[str, dict[str, int]]:
+                           clip: bool = True, rules=None,
+                           block: bool = False) -> dict[str, dict[str, int]]:
     """Collectives one rank of the training mesh makes in one step
     (``launch.steps.build_train_step`` with ``mesh``; global batches of
     ``batch`` × ``seq`` tokens, ``rules_for(cfg, "train", mesh)``), by kind,
@@ -357,7 +358,10 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
     on (``model``; the data axes where the batch splits), one all-reduce a
     set of axes, and the clip's norm sums each set of split axes' squares
     in one of its own (``model``'s always).  A group of one rank sends
-    nothing."""
+    nothing.  ``block``: the step takes the rank's block of the batch by its
+    specs (the dry run's ``TrainStep(..., block_of=)``), and where the
+    ``seq`` axis splits the ids, one all-gather of its tokens and labels
+    (int32) along the sequence comes first."""
     from repro_torch.models.layers import gather_dtype
     from repro_torch.models.lm import compute_dtype
     from repro_torch.models.param import param_axes_and_shapes
@@ -518,4 +522,12 @@ def mesh_train_collectives(cfg, knobs, mesh, batch: int, seq: int, *,
             add("all_reduce", nbytes)
     if clip:
         add("all_reduce", 4, len(norms))
+    if block:
+        from repro_torch.parallel.sharding import spec_for_axes
+
+        rows, ids = spec_for_axes(("batch", "seq"), mesh=mesh, rules=rules,
+                                  dim_sizes=(batch, seq))
+        if ids is not None and mesh.axis_size(ids) > 1:
+            ids_bytes = 2 * (batch // mesh.axis_size(rows)) * (seq // mesh.axis_size(ids)) * 4
+            add("all_gather", ids_bytes)
     return out

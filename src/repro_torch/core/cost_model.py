@@ -1,9 +1,14 @@
 """The paper's 65 nm ASIC power/area model over op counts (§IV).
 
 A copy of the ASIC half of ``repro.core.cost_model`` for the PyTorch port
-(the port imports nothing from the JAX package).  The JAX package's TPU
-roofline model has no counterpart here: device numbers of the port come
-from measurements on the GPU (``chip_smoke.py``).
+(the port imports nothing from the JAX package), the classic useful-FLOP
+counts of a step (:func:`model_flops_train`, :func:`model_flops_decode`),
+and, in place of the JAX package's ``TpuRoofline`` / ``TPU_V5E``, the
+three-term roofline of one GPU (:class:`GpuRoofline`, :data:`H100_SXM`):
+the dry run's per-rank FLOPs, HBM bytes and collective wire bytes
+(``launch.dryrun``) over the card's peaks.  Those peaks are a data sheet's,
+not measurements: device times of the port come from the card
+(``chip_smoke.py``).
 
 The paper synthesises IEEE-754 FP multiply / add / subtract units with
 Synopsys Design Compiler @ 1 GHz on TSMC 65 nm and reports, for LeNet-5 with
@@ -90,3 +95,73 @@ def paper_table1() -> list[dict[str, int | float]]:
         {"rounding": r, "adds": a, "subs": s, "mults": m, "total": a + s + m}
         for (r, a, s, m) in rows
     ]
+
+
+# ---------------------------------------------------------------------------
+# (b) GPU roofline model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuRoofline:
+    """One card's peaks and the three-term roofline evaluation (the JAX
+    package's ``TpuRoofline.terms``, with the card's link in place of the
+    TPU's ICI link)."""
+
+    name: str
+    peak_flops: float  # FLOP/s, bf16 dense on the tensor cores
+    peak_flops_fp32: float  # FLOP/s, fp32 outside the tensor cores
+    hbm_bw: float  # B/s
+    hbm_bytes: float  # bytes of device memory
+    link_bw: float  # B/s each way, the card's NVLink
+
+    def terms(
+        self,
+        flops: float,
+        hbm_bytes: float,
+        collective_bytes: float,
+    ) -> dict[str, float]:
+        """Roofline terms in seconds.  Inputs are PER-RANK quantities (one
+        rank a card): the FLOPs at the bf16 tensor-core peak, the HBM bytes
+        over the memory rate, the collectives' wire bytes over the link."""
+        t_compute = flops / self.peak_flops
+        t_memory = hbm_bytes / self.hbm_bw
+        t_collective = collective_bytes / self.link_bw
+        bound = max(
+            ("compute", t_compute),
+            ("memory", t_memory),
+            ("collective", t_collective),
+            key=lambda kv: kv[1],
+        )[0]
+        return {
+            "t_compute_s": t_compute,
+            "t_memory_s": t_memory,
+            "t_collective_s": t_collective,
+            "bound": bound,  # type: ignore[dict-item]
+            "t_bound_s": max(t_compute, t_memory, t_collective),
+        }
+
+
+#: NVIDIA H100 SXM5 80 GB, the data sheet's peaks at the card's 700 W limit:
+#: 989 TFLOP/s bf16 dense (tensor cores), 67 TFLOP/s fp32 (CUDA cores),
+#: 3.35 TB/s HBM3, 80 GB, NVLink 4 at 900 GB/s both ways (450 each way).  A
+#: card set below 700 W runs slower under load: a roofline share printed
+#: from these peaks stands beside the card's ``power.limit``.
+H100_SXM = GpuRoofline(
+    name="h100-sxm",
+    peak_flops=989e12,
+    peak_flops_fp32=67e12,
+    hbm_bw=3.35e12,
+    hbm_bytes=80e9,
+    link_bw=450e9,
+)
+
+
+def model_flops_train(n_params: int, n_tokens: int) -> float:
+    """Classic 6·N·D estimate for one training step (fwd+bwd)."""
+    return 6.0 * n_params * n_tokens
+
+
+def model_flops_decode(n_params: int, n_tokens: int) -> float:
+    """2·N per token for one forward (decode) step."""
+    return 2.0 * n_params * n_tokens

@@ -26,6 +26,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from repro_torch.device import fake_mode_active
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paired_matmul", "decode_attention", "flash_attention")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -118,7 +120,17 @@ def build_all() -> dict[str, dict]:
         return {name: f.result() for name, f in futures.items()}
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; one handle per process.
+    Raises under a ``FakeTensorMode``: a trace on fake tensors (the dry run)
+    builds and launches no kernel."""
+    if fake_mode_active():
+        raise RuntimeError(f"a trace on fake tensors reached the {name} kernel: the dry run "
+                           "builds and launches none (give the operator a fake implementation)")
+    return _load(name)
+
+
+@functools.cache
+def _load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
     return ctypes.CDLL(str(build_all()[name]["path"]))

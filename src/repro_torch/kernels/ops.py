@@ -20,15 +20,20 @@ only.
 K1's launch plans come from ``kernels.tuning``: a persisted, measured tile
 cache where :func:`tile_cache_context` installs one, else the heuristic.
 Each call runs where its tensors lie: the CUDA kernels for CUDA tensors,
-the plain PyTorch versions for CPU tensors.
+the plain PyTorch versions for CPU tensors.  K1's operator
+``repro_torch::k1`` has a fake implementation (its result's shape and
+dtype) and a FLOP formula (its plain version's products), so the dry run
+traces a step through it on fake tensors and launches nothing.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.pairing import BlockedPairing, StructuredPairing
 from repro_torch.kernels import tuning
@@ -294,6 +299,25 @@ def k1_op(xg: torch.Tensor, kmat: torch.Tensor, w_res: torch.Tensor, bias: torch
     sum)."""
     return _k1(xg, kmat, w_res, bias, residual, n_cols, activation,
                out_dtype=torch.float32 if out_fp32 else None)
+
+
+@k1_op.register_fake
+def _k1_fake(xg, kmat, w_res, bias, residual, n_cols, activation, out_fp32=False):
+    """K1's result on fake tensors (the dry run traces a step without
+    building or launching a kernel): (…, n_cols) structured, (M, n_cols)
+    column-blocked, fp32 where ``out_fp32`` asks, else ``xg``'s dtype."""
+    lead = xg.shape[-2:-1] if kmat.ndim == 3 else xg.shape[:-1]
+    return xg.new_empty((*lead, n_cols), dtype=torch.float32 if out_fp32 else xg.dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.k1)
+def _k1_flops(xg_shape, kmat_shape, w_res_shape, *args, **kwargs) -> int:
+    """What K1's plain version computes: the two products of every row
+    against the pair magnitudes and the residual weights, 2·M·(|kmat| +
+    |w_res|) (the subtract and the epilogue, as ``torch.utils.flop_counter``
+    counts no elementwise op, are not counted)."""
+    rows = xg_shape[-2] if len(kmat_shape) == 3 else math.prod(xg_shape[:-1])
+    return 2 * rows * (math.prod(kmat_shape) + math.prod(w_res_shape))
 
 
 def _paired_dense(x, seg: PairedSegments, bias, activation, residual, gemm,

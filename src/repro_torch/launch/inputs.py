@@ -1,5 +1,8 @@
-"""Model inputs for smoke runs and the serving CLI: a concrete seeded
-batch, as ``repro.launch.inputs.make_batch`` makes it.
+"""Model inputs: a concrete seeded batch for smoke runs and the serving
+CLI, as ``repro.launch.inputs.make_batch`` makes it, and the shape-only
+stand-ins of the dry run (:func:`batch_specs`, empty tensors that allocate
+nothing on ``meta`` or under a ``FakeTensorMode``) with each entry's
+logical sharding axes (:func:`batch_logical_axes`).
 
 The modality front ends are stubs, as in the JAX package: an
 encoder-decoder model (whisper) gets precomputed frame embeddings, a
@@ -13,6 +16,40 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+
+
+def batch_logical_axes(cfg: ModelConfig, kind: str) -> dict:
+    """Logical sharding axes for each batch entry (leading dim = batch)."""
+    ax: dict = {"tokens": ("batch", "seq")}
+    if kind == "train":
+        ax["labels"] = ("batch", "seq")
+    if cfg.vision_prefix:
+        ax["patches"] = ("batch", None, None)
+    if cfg.encoder is not None:
+        ax["frames"] = ("batch", None, None)
+    if kind == "decode":
+        ax = {"tokens": ("batch", None), "pos": ("batch",)}
+    return ax
+
+
+def batch_specs(cfg: ModelConfig, batch: int, seq: int, kind: str, *,
+                device="meta") -> dict:
+    """Stand-ins for one step's inputs, the JAX package's ShapeDtypeStructs:
+    empty tensors of the same shapes and dtypes (int32 ids and positions,
+    the stub frames and patches in the compute dtype) on ``device``, which
+    allocate nothing on ``meta`` or under a ``FakeTensorMode``."""
+    cdt = getattr(torch, cfg.dtype)
+    empty = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=device)
+    if kind == "decode":
+        return {"tokens": empty((batch, 1), torch.int32), "pos": empty((batch,), torch.int32)}
+    specs = {"tokens": empty((batch, seq), torch.int32)}
+    if kind == "train":
+        specs["labels"] = empty((batch, seq), torch.int32)
+    if cfg.vision_prefix:
+        specs["patches"] = empty((batch, cfg.vision_prefix, cfg.vision_embed_dim), cdt)
+    if cfg.encoder is not None:
+        specs["frames"] = empty((batch, cfg.encoder.frames, cfg.d_model), cdt)
+    return specs
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, kind: str = "train", seed: int = 0, *,

@@ -20,6 +20,7 @@ one fails or the time runs out.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import math
 import os
@@ -62,11 +63,31 @@ def production_mesh_shape(world: int, *, multi_pod: bool = False
 def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl",
                          device: str = "cuda") -> Mesh:
     """This rank's mesh over the ranks of the initialised process group, laid
-    out by :func:`production_mesh_shape`.  No path of the port calls it yet:
-    the train CLI's ``--mesh`` names its shape, and the dry run will lay out
-    the production meshes (ROADMAP queue 1, item 2)."""
+    out by :func:`production_mesh_shape`: the dry run (``launch.dryrun``)
+    lays out the (16, 16) and (2, 16, 16) meshes with it over a fake group
+    of 256 or 512 ranks (``backend="fake"``, :func:`fake_process_group`);
+    the train CLI's ``--mesh`` names its own shape."""
     shape, names = production_mesh_shape(dist.get_world_size(), multi_pod=multi_pod)
     return make_mesh(shape, names, backend=backend, device=device)
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int, rank: int = 0):
+    """A process group of ``world`` ranks that moves nothing, this process
+    rank ``rank`` of it (``torch.testing``'s ``"fake"`` backend: every
+    collective returns at once, its output as it was), for the block only:
+    it is destroyed on the way out, also when the block raises, so no later
+    code sees it.  Raises if a process group exists already."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialised already: the fake one would "
+                           "replace it")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _names(shape: Sequence[int]) -> tuple[str, ...]:

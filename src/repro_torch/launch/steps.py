@@ -3,10 +3,13 @@
 The port of ``repro.launch.steps`` ``build_train_step``,
 ``build_prefill_step`` and ``build_serve_step``, and of ``wire_serve_cell``,
 which wires one rank of a tensor-parallel serve cell over a
-``parallel.sharding.Mesh`` (the abstract-shape builders of the dry run have
-no counterpart).  The training step runs on one device, or as one rank of a
-mesh (``build_train_step(cfg, opt, knobs, mesh, rules)``, the JAX
-signature): the rank holds its shards of the ``train`` rules' specs, paired
+``parallel.sharding.Mesh``, and of the dry run's ``wire_cell`` /
+``LoweredCell``, ``abstract_opt_state`` and ``opt_state_axes`` (one rank's
+step of a cell wired and run on fake tensors, ``launch.dryrun``; the other
+abstract-shape builders have ``models.param``'s axes and shapes).  The
+training step runs on one device, or as one rank of a mesh
+(``build_train_step(cfg, opt, knobs, mesh, rules)``, the JAX signature):
+the rank holds its shards of the ``train`` rules' specs, paired
 per shard, runs the sequence- and tensor-parallel forward and backward of
 ``parallel.tp.train_layout_for``, sums the gradients over the mesh and
 clips by the whole model's norm (:class:`TrainStep`).  Each step runs
@@ -31,6 +34,7 @@ the source exists while its block is taken and it is paired).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -65,7 +69,9 @@ from repro_torch.parallel.sharding import (
     PartitionSpec,
     Rules,
     paired_shardings_for,
+    record_spec_fallbacks,
     shardings_for,
+    spec_for_axes,
 )
 from repro_torch.parallel.tp import (
     MODEL_AXIS,
@@ -162,10 +168,20 @@ class TrainStep:
         return opt
 
     def __call__(self, model: M.LM, opt_state: torch.optim.Optimizer, step: int,
-                 batch: dict) -> dict[str, torch.Tensor]:
+                 batch: dict, *, block_of: tuple[int, int] | None = None
+                 ) -> dict[str, torch.Tensor]:
+        """``block_of=(B, S)`` (a mesh rank): ``batch`` is the rank's block of
+        a global batch of B × S tokens by its resolved specs
+        (``launch.inputs.batch_logical_axes`` under the rules), as the JAX
+        package's sharded step takes it: the rank's rows, and its positions
+        of the ids where the ``seq`` axis splits them, which the step
+        all-gathers (one call for the tokens and labels together)."""
         opt_state.zero_grad(set_to_none=True)
         tp = None
-        if self.mesh is not None:
+        if self.mesh is not None and block_of is not None:
+            tp = self.layout(*block_of)
+            batch = self._whole_rows(batch, *block_of)
+        elif self.mesh is not None:
             tp = self.layout(*batch["tokens"].shape)
             if tp.batch_split:
                 rows = batch["tokens"].shape[0] // tp.dp
@@ -179,6 +195,18 @@ class TrainStep:
             group["step"] = int(step)
         opt_state.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+
+    def _whole_rows(self, block: dict, batch_size: int, seq_len: int) -> dict:
+        """The rank's rows of the ids over all ``seq_len`` positions, from its
+        block: the tokens and labels gathered along the sequence over the
+        mesh axes the ``seq`` axis splits them on (none where it does not)."""
+        seq = spec_for_axes(("batch", "seq"), mesh=self.mesh, rules=self.rules,
+                            dim_sizes=(batch_size, seq_len))[1]
+        if seq is None or block["tokens"].shape[1] == seq_len:
+            return block
+        ids = all_gather(torch.stack([block["tokens"], block["labels"]]),
+                         self.mesh.group(seq), dim=2)
+        return dict(block, tokens=ids[0], labels=ids[1])
 
     def _sum_grads(self, model: M.LM, tp: TensorParallel) -> None:
         """Sum the rank's gradients over the mesh: a weight's over ``model``
@@ -292,9 +320,11 @@ def build_train_step(cfg: ModelConfig, opt: Callable[..., torch.optim.Optimizer]
                                   "kernel has no backward, so the mesh trains under "
                                   "attn='xla'")
     rules = rules or rules_for(cfg, "train", mesh)
-    # the refusals, before any wiring (a batch of a row a data rank)
-    train_layout_for(cfg, mesh, rules, mesh.axis_size(tuple(a for a in DATA_AXES
-                                                            if a in mesh.shape)), 1)
+    # the refusals, before any wiring (a batch of a row a data rank; the
+    # fallbacks this probe's one position takes are no step's)
+    with record_spec_fallbacks():
+        train_layout_for(cfg, mesh, rules, mesh.axis_size(tuple(a for a in DATA_AXES
+                                                                if a in mesh.shape)), 1)
     return TrainStep(cfg, opt, knobs, load_knobs_tile_cache(knobs), mesh, rules)
 
 
@@ -708,3 +738,171 @@ def _check_meta_placement(local: M.LM, p_shard: dict, meta_shapes: dict, mesh: M
         enc = local.encoder
         check(enc.layers, enc.segments, p_shard["encoder"]["segments"],
               meta_shapes["encoder"]["segments"])
+
+
+# ---------------------------------------------------------------------------
+# the dry run: one rank's step of one (arch × shape × mesh) cell, on fake tensors
+# ---------------------------------------------------------------------------
+
+
+def abstract_opt_state(opt: Callable[..., torch.optim.Optimizer], param_shapes):
+    """The optimizer state ``opt`` (a constructor, ``train.optimizer.adamw``)
+    makes for a tree of parameter shapes (``models.param``'s meta tensors):
+    ``{slot: tree}``, one tree a state slot (AdamW's ``m`` and ``v``, the
+    JAX package's ``m``/``v``), each leaf the slot's tensor for that
+    parameter (fp32, on the parameters' device)."""
+    leaves: list[torch.Tensor] = []
+
+    def collect(tree):
+        if isinstance(tree, dict):
+            return {k: collect(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [collect(v) for v in tree]
+        leaves.append(torch.empty_like(tree))
+        return len(leaves) - 1
+
+    index = collect(param_shapes)
+    state = opt(leaves).state
+
+    def rebuild(tree, slot: str):
+        if isinstance(tree, dict):
+            return {k: rebuild(v, slot) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [rebuild(v, slot) for v in tree]
+        return state[leaves[tree]][slot]
+
+    return {slot: rebuild(index, slot) for slot in state[leaves[0]]}
+
+
+def opt_state_axes(param_axes, opt_state_shapes):
+    """Optimizer state shards exactly like its parameter (moments are
+    elementwise): every top-level state slot — adamw's m/v, sgd's mom —
+    mirrors the param axes tree."""
+    return {k: param_axes for k in opt_state_shapes}
+
+
+@dataclasses.dataclass
+class LoweredCell:
+    """One rank's step of a dry-run cell, wired on fake tensors: ``args``,
+    the step's arguments by group (``"params"``: the rank's part of the
+    model; ``"opt_state"`` and ``"step"`` in training; ``"cache"`` in
+    decode; ``"batch"``: the rank's block of the batch by its specs), all
+    fake tensors on the rank's ``device``; ``run()`` runs the step on them
+    once.  :meth:`lower` runs it under the cell's ``FakeTensorMode`` and
+    ``parallel.cost.record``: the JAX package's ``lower()``, whose trace
+    ``parallel.cost`` reads as the JAX package reads the compiled HLO."""
+
+    run: Callable[[], Any]
+    args: dict
+    mode: str
+    device: torch.device
+    rules: Rules
+    fake_mode: Any
+
+    def lower(self):
+        from repro_torch.parallel import cost
+
+        if self.fake_mode is None:
+            raise ValueError("a cell wired on real tensors (a seed) runs; it is not traced")
+        with self.fake_mode, cost.record(self.args, self.device,
+                                         backward=self.mode == "train") as trace:
+            self.run()
+        return trace
+
+
+def _batch_block(cfg: ModelConfig, mesh: Mesh, rules: Rules, batch: int, seq: int, kind: str,
+                 device, seed: int | None = None) -> dict:
+    """The rank's block of each batch entry of ``launch.inputs.batch_specs``
+    by its resolved spec (each split dim cut to its share), as the JAX
+    package's ``in_shardings`` place it, on ``device``: empty tensors, or
+    with a ``seed`` drawn (token ids below the vocab, positions 0, the stub
+    embeddings normals times 0.02)."""
+    from repro_torch.launch.inputs import batch_logical_axes, batch_specs
+
+    specs = batch_specs(cfg, batch, seq, kind)
+    gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, axes in batch_logical_axes(cfg, kind).items():
+        full = tuple(specs[k].shape)
+        spec = spec_for_axes(axes, mesh=mesh, rules=rules, dim_sizes=full)
+        shape = tuple(n // mesh.axis_size(e) for n, e in zip(full, spec, strict=True))
+        dt = specs[k].dtype
+        if gen is None:
+            out[k] = torch.empty(shape, dtype=dt, device=device)
+        elif k == "pos":
+            out[k] = torch.zeros(shape, dtype=dt, device=device)
+        elif dt == torch.int32:
+            out[k] = torch.randint(0, cfg.vocab, shape, generator=gen, device=device, dtype=dt)
+        else:
+            out[k] = (torch.randn(shape, generator=gen, device=device) * 0.02).to(dt)
+    return out
+
+
+def wire_cell(
+    cfg: ModelConfig,
+    mesh: Mesh,
+    *,
+    seq_len: int,
+    global_batch: int,
+    mode: str,
+    knobs: M.PerfKnobs = M.DEFAULT_KNOBS,
+    rules: Rules | None = None,
+    seed: int | None = None,
+) -> LoweredCell:
+    """Wire this rank's step of one dry-run cell on ``mesh`` (a
+    ``parallel.sharding.Mesh`` over a process group, the fake one of the
+    dry run: ``launch.mesh.fake_process_group``), under a ``FakeTensorMode``
+    of its own, so nothing is allocated and no kernel is built.
+
+    ``mode="train"``: :func:`build_train_step` with AdamW at 1e-4 and weight
+    decay 0.1 (the JAX dry run's), the rank's fp32 shards and their moments,
+    the step index, and the rank's block of a ``global_batch`` ×
+    ``seq_len`` batch (``TrainStep(..., block_of=)``).  ``"prefill"`` and
+    ``"decode"``: :func:`wire_serve_cell`'s steps over the rank's shards
+    held in the compute dtype (the JAX dry run's ``abstract_params(cfg,
+    dtype)``), decode against the rank's part of a ``global_batch`` ×
+    ``seq_len`` cache.  The rank's shards come leaf by leaf from
+    ``models.lm.SHAPES_ONLY`` (:func:`local_model`).  ``rules``:
+    ``rules_for(cfg, mode, mesh)`` unless given.
+
+    With a ``seed`` the same rank's step is wired on real tensors instead
+    (its shards from that ``init_lm`` seed, a batch drawn from it), which
+    ``run()`` runs for real: the card's check of the dry run's prediction
+    (``launch.dryrun.measure_cell``); :meth:`LoweredCell.lower` then
+    refuses."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.train.optimizer import adamw
+
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    rules = rules or rules_for(cfg, mode, mesh)
+    fake = FakeTensorMode() if seed is None else None
+    source = M.SHAPES_ONLY if seed is None else seed
+    dev = mesh.device
+    with fake if fake is not None else contextlib.nullcontext():
+        block = _batch_block(cfg, mesh, rules, global_batch, seq_len, mode, dev, seed)
+        if mode == "train":
+            step = build_train_step(cfg, adamw(1e-4, weight_decay=0.1), knobs, mesh, rules)
+            model = step.shard(source).model
+            opt = step.init(model)
+            # the JAX step's int32 index on the device; the port's optimizer
+            # reads the host int
+            args = {"params": model, "opt_state": opt,
+                    "step": torch.zeros((), dtype=torch.int32, device=dev), "batch": block}
+            run = functools.partial(step, model, opt, 0, block,
+                                    block_of=(global_batch, seq_len))
+            return LoweredCell(run, args, mode, dev, rules, fake)
+        cell = wire_serve_cell(cfg, source, mesh, batch_size=global_batch,
+                               max_seq=seq_len, knobs=knobs, rules=rules)
+        cdt = M.compute_dtype(cfg)
+        for p in cell.model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(cdt)
+        args = {"params": cell.model, "batch": block}
+        if mode == "prefill":
+            run = functools.partial(cell.prefill, cell.model, block)
+        else:
+            args["cache"] = M.init_cache(cfg, global_batch, seq_len, device=dev, tp=cell.tp)
+            run = functools.partial(cell.decode, cell.model, args["cache"], block)
+        return LoweredCell(run, args, mode, dev, rules, fake)

@@ -1147,7 +1147,9 @@ def _moe_combine(B: int, S: int, d: int, yb: torch.Tensor, inv_tok: torch.Tensor
     # token S many more, and its row is cut off
     table = torch.full((B, S + 1, top_k), EC, dtype=torch.int64, device=dev)
     real = tok < S
-    table[bidx.expand_as(tok)[real], tok[real], rank[real]] = order[real]
+    # every empty slot writes the dummy row's first entry (a shape that does
+    # not depend on the routing, so a trace on fake tensors runs it)
+    table[bidx.expand_as(tok), tok, torch.where(real, rank, 0)] = torch.where(real, order, EC)
     contrib = yb.reshape(B, EC, d) * inv_w[..., None].to(cdt)
     contrib = torch.cat([contrib, contrib.new_zeros((B, 1, d))], dim=1)  # slot EC: zeros
     y = torch.zeros((B, S, d), dtype=cdt, device=dev)

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -72,7 +73,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import fake_mode_active, resolve_device
 from repro_torch.parallel.collectives import all_gather, all_reduce
 from repro_torch.models.layers import (
     MLA,
@@ -329,24 +330,36 @@ def _assemble(cfg: ModelConfig, named: dict) -> LM:
               segments=cfg.segments(), encoder=encoder)
 
 
+#: the leaf source of the dry run (:func:`lm_leaves`): shapes only, as fake
+#: tensors under a ``FakeTensorMode``
+SHAPES_ONLY = "shapes"
+
+
 def lm_leaves(cfg: ModelConfig, source, *, device=None):
     """``(name, whole tensor)`` of every weight of the model ``source``
-    names, one at a time (``named_parameters``' names): an :func:`init_lm`
-    seed (an int: the leaves drawn on ``device`` in the order of
-    :func:`init_lm`'s random draws, so any consumer sees the same values),
+    names, one at a time (``named_parameters``' names): :data:`SHAPES_ONLY`
+    (under a ``FakeTensorMode``: every leaf of its shape, values drawn from
+    no seed), an :func:`init_lm` seed (an int: the leaves drawn on
+    ``device`` in the order of :func:`init_lm`'s random draws, so any
+    consumer sees the same values),
     the JAX package's unpaired value tree of numpy arrays (each leaf a
     tensor on ``device`` as :func:`lm_params_from_numpy` makes it), or an
     :class:`LM` (its own parameters, detached)."""
     if isinstance(source, LM):
         yield from ((name, p.detach()) for name, p in source.named_parameters())
+    elif isinstance(source, str) and source == SHAPES_ONLY:
+        if not fake_mode_active():
+            raise RuntimeError(f"the {SHAPES_ONLY!r} source draws nothing: it makes fake "
+                               "tensors, under a FakeTensorMode (the dry run)")
+        yield from _init_leaves(cfg, None, resolve_device(device))
     elif isinstance(source, int):
         yield from _init_leaves(cfg, source, resolve_device(device))
     else:
         yield from _numpy_leaves(cfg, source, resolve_device(device))
 
 
-def _init_leaves(cfg: ModelConfig, seed: int, dev):
-    gen = torch.Generator(device=dev).manual_seed(seed)
+def _init_leaves(cfg: ModelConfig, seed: int | None, dev):
+    gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
     d, H, KH, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     tn = lambda shape, fan_in: _trunc_normal(shape, fan_in, gen, dev)
     ones = lambda *shape: torch.ones(shape, device=dev)
@@ -682,7 +695,8 @@ def embed_tokens(cfg: ModelConfig, model: LM, tokens: torch.Tensor, cdt,
     if tp is not None and tp.vocab_split:
         rows = embed.shape[0]
         bad = (tokens < 0) | (tokens >= rows * tp.n)
-        if bool(bad.any()):
+        # a fake tensor (the dry run's trace) has no ids to read
+        if not isinstance(tokens, FakeTensor) and bool(bad.any()):
             raise IndexError(f"token ids {tokens[bad].tolist()[:8]} outside the "
                              f"embedding's {rows * tp.n} rows")
         local = tokens - tp.r * rows
@@ -1315,12 +1329,15 @@ def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens: torch.Tensor,
     The cache is updated in place (and returned): the port's caches are
     mutable, which saves a copy of every layer's K/V per step.
 
-    On a mesh (``tp``) ``tokens`` and ``pos`` cover all slots: where the
-    batch is split over the data axes the rank decodes its data row's slots
-    against its cache, and the logits of all slots are all-gathered over the
-    data axes, so every rank returns (B, 1, Vp).
+    On a mesh (``tp``) ``tokens`` and ``pos`` cover all slots, or the
+    rank's own (as many as its cache holds: the dry run hands a rank its
+    block of the batch): where the batch is split over the data axes the
+    rank decodes its data row's slots against its cache, and the logits of
+    all slots are all-gathered over the data axes, so every rank returns
+    (B, 1, Vp).
     """
-    if tp is not None and tp.batch_split:
+    own = next(iter(cache.values())).shape[1]
+    if tp is not None and tp.batch_split and tokens.shape[0] != own:
         B_loc = tokens.shape[0] // tp.dp
         rows = slice(tp.dr * B_loc, (tp.dr + 1) * B_loc)
         tokens, pos = tokens[rows], pos[rows]

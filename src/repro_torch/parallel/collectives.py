@@ -9,7 +9,9 @@ adds one call and the bytes of its local input tensor to :data:`STATS` under
 its kind, and nothing runs (and nothing is counted) over a group of one
 rank.  :func:`collective_stats` reads the counter, the counterpart of the
 JAX package's ``collective_stats``, which counts the collectives of a
-compiled program (``repro.parallel.hlo``).
+compiled program (``repro.parallel.hlo``); :func:`collective_wire_bytes`
+the bytes each rank puts on the wire, by the JAX package's ring factors
+(``parallel.cost``, the dry run).
 
 Under autograd they are Megatron's pairs, each backward the other's
 forward: :func:`all_reduce` sums forward and passes the gradient through;
@@ -31,7 +33,8 @@ import torch.distributed as dist
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter")
 
-#: calls and bytes by kind: ``STATS["all_reduce"] = {"calls": n, "bytes": b}``
+#: calls, bytes and wire bytes by kind:
+#: ``STATS["all_reduce"] = {"calls": n, "bytes": b, "wire": w}``
 STATS: dict[str, collections.Counter] = {k: collections.Counter() for k in KINDS}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -47,20 +50,35 @@ def collective_stats() -> dict[str, dict[str, int]]:
     return {k: {"calls": int(c["calls"]), "bytes": int(c["bytes"])} for k, c in STATS.items()}
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def collective_wire_bytes() -> dict[str, float]:
+    """The bytes this rank sent of each kind since the last
+    :func:`reset_collectives`, by ``repro.parallel.hlo``'s ring factors over
+    a group of ``n`` ranks and a local input of ``b`` bytes: an all-reduce
+    2·(n−1)/n·b; an all-gather (n−1)/n of its n·b result; a reduce-scatter
+    (n−1) times its b/n result."""
+    return {k: float(c["wire"]) for k, c in STATS.items()}
+
+
+_RING = {"all_reduce": lambda n: 2 * (n - 1) / n, "all_gather": lambda n: n - 1,
+         "reduce_scatter": lambda n: (n - 1) / n}
+
+
+def _count(kind: str, t: torch.Tensor, group) -> None:
+    b = t.numel() * t.element_size()
     STATS[kind]["calls"] += 1
-    STATS[kind]["bytes"] += t.numel() * t.element_size()
+    STATS[kind]["bytes"] += b
+    STATS[kind]["wire"] += _RING[kind](dist.get_world_size(group)) * b
 
 
 def _all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    _count("all_reduce", t)
+    _count("all_reduce", t, group)
     dist.all_reduce(t, op=_OPS[op], group=group)
     return t
 
 
 def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     t = t.contiguous()
-    _count("all_gather", t)
+    _count("all_gather", t, group)
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
@@ -71,7 +89,7 @@ def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     if t.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {n} ranks")
     lead = t.movedim(dim, 0).contiguous()
-    _count("reduce_scatter", lead)
+    _count("reduce_scatter", lead, group)
     out = lead.new_empty((lead.shape[0] // n, *lead.shape[1:]))
     dist.reduce_scatter_tensor(out, lead, group=group)
     return out.movedim(0, dim)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import logging
 import math
 import threading
@@ -112,8 +113,11 @@ class Mesh:
 
 def _group_keys(names: tuple[str, ...], shape: dict) -> list[tuple[str, ...]]:
     """The axis sets a mesh builds process groups over: each axis, the data
-    axes together where there are several, and all the axes together (a
-    training step's router statistics) where that is yet another set."""
+    axes together where there are several, all the axes together (a
+    training step's router statistics) where that is yet another set, and
+    every other set of its axes (on a (pod, data, model) mesh FSDP splits a
+    weight over ``data`` and ``model``, and the clip's norm sums its squares
+    over both)."""
     keys = [(a,) for a in names if shape[a] > 1]
     data = tuple(a for a in names if a in DATA_AXES and shape[a] > 1)
     if len(data) > 1:
@@ -121,6 +125,8 @@ def _group_keys(names: tuple[str, ...], shape: dict) -> list[tuple[str, ...]]:
     every = tuple(a for a in names if shape[a] > 1)
     if len(every) > 1 and every not in keys:
         keys.append(every)
+    for n in range(2, len(every)):
+        keys += [c for c in itertools.combinations(every, n) if c not in keys]
     return keys
 
 
@@ -129,9 +135,12 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *, backend: str,
     """This process's :class:`Mesh` over the initialised default process
     group, whose world must be ``prod(shape)`` ranks of ``backend``
     (``"gloo"`` or ``"nccl"``, the caller's choice: nothing is probed or
-    switched).  ``device``: ``"cuda"`` puts rank ``r`` on card ``r`` modulo
-    the cards there are (ranks share cards under gloo; ``"nccl"`` with more
-    ranks than cards raises), ``"cpu"`` on the host.  Builds one process
+    switched; or ``"fake"``, ``torch.testing``'s process group that moves
+    nothing, over which the dry run traces one rank of a production mesh on
+    fake tensors).  ``device``: ``"cuda"`` puts rank ``r`` on card ``r``
+    modulo the cards there are (ranks share cards under gloo; ``"nccl"``
+    with more ranks than cards raises; over the fake group, card 0, which
+    need not exist), ``"cpu"`` on the host.  Builds one process
     group a mesh axis, one over the data axes together and one over all
     axes, on every rank in the same order."""
     import torch.distributed as dist
@@ -148,7 +157,9 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *, backend: str,
                          f"the process group has {world}")
     if dist.get_backend() != backend:
         raise ValueError(f"the process group runs {dist.get_backend()!r}, not {backend!r}")
-    if device == "cuda":
+    if device == "cuda" and backend == "fake":
+        dev = torch.device("cuda", 0)
+    elif device == "cuda":
         cards = torch.cuda.device_count()
         if cards < 1:
             raise RuntimeError("device='cuda' but there is no CUDA card")
