@@ -30,7 +30,10 @@ cache's plans, the front end degrading to K1's dense form); the
 tensor-parallel paired decode of every family on gloo ranks that share the
 card (K1 on every rank); and training on such a mesh, every family, K1 on
 every rank under autograd; both under FSDP too (mistral-large-123b's
-``embed`` over ``data``), every mesh rank building only its own shards.
+``embed`` over ``data``), every mesh rank building only its own shards;
+and the port's benchmark harness (``repro_torch.benchmarks.run``: the
+model zoo's parity and pairing ledger, the LM pairing rates, the serving
+bench's load sweep and chaos run; K1).
 Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
@@ -128,21 +131,35 @@ result:
                 plain versions, library calls and bounds (K2 fused and bare:
                 the bare time is the attention, the rest the projection; a
                 relaunch bit-identical);
-10. frontend  — ``serving.frontend`` over the LM engines.  (a) chaos: full
-                width, 2 layers, fp32, the lm_parity phase's paired engine
-                (bn=64, r=0, fused decode attention) with an unpaired
-                fallback, ``benchmarks/serving.py``'s chaos workload (30
-                req/s over 0.6 virtual s, batch 4) and fault schedule: 0
-                lost, every faulted request degraded or shed with a reason,
-                at least one of each, and every completion token-exact
-                against a fresh unpaired engine (the top-2 logit margin is
-                printed at any divergence).  (b) load sweep: the lm_serve
-                phase's engine (28 layers, bf16) with an unpaired fallback
-                on the same weights, the same workload shape at 10, 25 and
-                60 req/s: 0 lost; requests, steps, tokens, wall seconds and
-                wall tokens/s (a smoke-sized functional run, a few dozen
-                requests: not a throughput measurement), and the
-                virtual-clock figures labelled so;
+10. frontend  — ``serving.frontend`` over the LM engines, through the
+                port's serving bench (``repro_torch.benchmarks.serving``).
+                (a) ``chaos_run``: full width, 2 layers, fp32, the
+                lm_parity phase's paired engine (bn=64, r=0, fused decode
+                attention) with an unpaired fallback,
+                ``benchmarks/serving.py``'s chaos workload (30 req/s over
+                0.6 virtual s, batch 4) and fault schedule: the bench's
+                gates (0 lost, every faulted request degraded or shed with
+                a reason, and every completion token-exact against a fresh
+                unpaired engine, at least one degraded; the step and the
+                reference's top-2 logit margin at any divergence) and its
+                record.  (b) ``load_sweep``: the lm_serve phase's engine
+                (28 layers, bf16) with an unpaired fallback on the same
+                weights, the same workload shape at 10, 25 and 60 req/s:
+                0 lost; the bench's rows (virtual-clock figures labelled
+                so), steps, tokens, wall seconds and wall tokens/s (a
+                smoke-sized functional run, a few dozen requests: not a
+                throughput measurement); K1 and K2 launches of each run;
+10b. benches  — ``python -m repro_torch.benchmarks.run`` in this process
+                (``run.main``): model_zoo over the ten families (smoke
+                configs, fp32: r=0 parity of the paired forward through
+                K1 within 1e-5 of ``torch.matmul``'s, the r=0.05
+                per-column ledger), then ``--quick`` pairing_rate_lm (three
+                archs, per-GEMM pairing rates) and serving (qwen2 smoke:
+                the load sweep at 10 and 40 req/s, the chaos run at 20 with
+                the six pinned faults, its three gates); exit code 0, each
+                bench's ``torch_BENCH_<name>.json`` record and seconds, K1's
+                launches a bench (> 0 for model_zoo and serving; their sum
+                the phase's count), the phase within 30 s;
 11. tile_cache — K1's measured tile cache (``kernels/tuning.py``
                 ``TileCache``, ``autotune_plans``): every distinct K1 problem
                 of the lm_serve engine (a prefill of 20 tokens, decode at
@@ -1783,49 +1800,24 @@ def phase_lm_serve() -> dict:
 # phase 10: the serving front end over the LM engines
 # ---------------------------------------------------------------------------
 
-def _reset_slots(*engines) -> None:
-    for eng in engines:
-        for slot in range(eng.batch_size):
-            eng.clear_quarantine(slot)
-            eng.release_slot(slot)
-
-
-def _divergence(cfg, model, r, want) -> dict:
-    """Where a request's tokens leave the reference's, and the reference's
-    top-2 logit margin there (a near tie on random weights, or a fault)."""
-    import torch
-
-    from repro_torch.models import lm as M
-
-    t = next(i for i, (a, b) in enumerate(zip(r.tokens + [None], want)) if a != b)
-    seq = torch.as_tensor(list(r.prompt) + want[:t], device="cuda")[None]
-    logits = M.lm_forward(cfg, model, seq)[0][0, -1, : cfg.vocab]
-    top2 = torch.topk(logits, 2).values
-    return {"rid": r.rid, "state": r.state, "step": t, "got": r.tokens[t: t + 1],
-            "want": want[t], "ref_top2_margin": float(top2[0] - top2[1])}
-
-
-def _fe_row(report, launches: dict) -> dict:
-    summ = report.summary()
-    return {
-        "offered_rps": report.offered_load_rps, "requests": summ["n_requests"],
-        "completed": summ["completed"], "degraded": summ["degraded"], "shed": summ["shed"],
-        "shed_reasons": summ["shed_reasons"], "lost": summ["lost"], "steps": report.steps,
-        "generated_tokens": summ["generated_tokens"], "wall_s": report.wall_s,
-        "wall_ms_per_step": report.wall_s / max(report.steps, 1) * 1e3,
-        "wall_tokens_per_s": summ["generated_tokens"] / report.wall_s,
-        "virtual_clock": {k: summ[k] for k in ("latency_s", "ttft_s", "tokens_per_s_virtual",
-                                                "virtual_time_s")},
-        "incidents": summ["incidents"], "launches": launches,
-    }
+def _fe_row(row: dict, launches: dict) -> dict:
+    """A ``serving.load_sweep`` row (or chaos record) with its wall-clock
+    rates and the kernel launches of its run."""
+    steps, wall = row["steps"], row["wall_s"]
+    return {**row, "wall_ms_per_step": wall / max(steps, 1) * 1e3,
+            "wall_tokens_per_s": row["generated_tokens"] / wall if wall else None,
+            "launches": launches}
 
 
 def phase_frontend(parity_ctx, lm_engine) -> dict:
+    """``repro_torch.benchmarks.serving``'s chaos run and load sweep on the
+    full-width engines (the bench's gates, its record, the launches)."""
     import torch
 
+    from repro_torch.benchmarks import serving
     from repro_torch.launch.serve import kernel_launches
     from repro_torch.models import lm as M
-    from repro_torch.serving import ServeEngine, ServeFrontend, chaos, faulted_request_ids
+    from repro_torch.serving import ServeEngine, chaos
 
     # (a) chaos at full width, 2 layers, fp32: K1 + K2 primary, exact fallback
     cfg, plain_model = parity_ctx["cfg"], parity_ctx["plain_model"]
@@ -1836,43 +1828,21 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
                               pair_block_n=64))
     fallback = ServeEngine(cfg, plain_model, max_seq=chaos.MAX_SEQ, batch_size=chaos.BATCH,
                            knobs=M.PerfKnobs(**base))
-    workload = chaos.chaos_workload(cfg.vocab, chaos.CHAOS_RPS)
+    ref = ServeEngine(cfg, plain_model, max_seq=chaos.MAX_SEQ, batch_size=1,
+                      knobs=M.PerfKnobs(**base))  # unpaired, plain attention: no launch
     faults = chaos.chaos_schedule()
     _reset_launches()  # the path's own counts from here
-    report = ServeFrontend(primary, fallback, chaos.frontend_config(), faults=faults).run(
-        workload, offered_load_rps=chaos.CHAOS_RPS)
-    chaos_run = _fe_row(report, kernel_launches())
-    faulted = faulted_request_ids(report)
-    by_rid = {r.rid: r for r in report.requests}
-    unaccounted = [rid for rid in faulted if not (
-        by_rid[rid].state == "degraded"
-        or (by_rid[rid].state == "shed" and by_rid[rid].shed_reason))]
-    done = [r for r in report.requests if r.state in ("completed", "degraded")]
-    ref = ServeEngine(cfg, plain_model, max_seq=chaos.MAX_SEQ, batch_size=1,
-                      knobs=M.PerfKnobs(**base))
-    diverged, n_parity = [], {"completed": 0, "degraded": 0}
-    for r in done:
-        want = ref.generate({0: r.prompt}, n_steps=r.max_new_tokens)[0]
-        ref.release_slot(0)
-        if r.tokens == want:
-            n_parity[r.state] += 1
-        else:
-            diverged.append(_divergence(cfg, ref.model, r, want))
-    check(chaos_run["lost"] == 0, f"frontend chaos lost {chaos_run['lost']} request(s)")
-    check(bool(faulted), "frontend chaos: no slot fault hit an occupied slot")
-    check(not unaccounted, f"frontend chaos: faulted requests {unaccounted} ended "
-                           "without degrading or a shed reason")
-    check(n_parity["degraded"] >= 1, "frontend chaos: no degraded completion")
-    check(not diverged, f"frontend chaos: token parity failed {diverged}")
+    record, chaos_failures = serving.chaos_run(primary, fallback, ref, faults, chaos.CHAOS_RPS)
+    chaos_run = _fe_row({k: v for k, v in record.items() if k != "incident_log"},
+                        kernel_launches())
+    for f in chaos_failures:
+        check(False, f"frontend chaos: {f}")
     launches = chaos_run["launches"]
     check(launches["paired_matmul"] > 0 and launches["decode_attention"] > 0,
           f"frontend chaos launches {launches}")
     chaos_run.update({"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
                       "primary": "column_blocked bn=64 r=0, pallas_paired + pallas_fused",
-                      "fallback": "unpaired (torch.matmul, plain decode attention)",
-                      "scheduled_faults": len(faults.events), "fired_faults": len(faults.fired),
-                      "faulted_requests": sorted(faulted), "parity_checked": n_parity,
-                      "diverged": diverged})
+                      "fallback": "unpaired (torch.matmul, plain decode attention)"})
 
     # (b) load sweep at full width and depth, bf16: the lm_serve engine
     eng = lm_engine
@@ -1880,12 +1850,10 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
                      knobs=M.PerfKnobs(q_chunk=32, k_chunk=32))  # gemm="xla": unpaired
     sweep = []
     for rate in chaos.LOADS_RPS:
-        _reset_slots(eng, fb)
         _reset_launches()
-        report = ServeFrontend(eng, fb, chaos.frontend_config()).run(
-            chaos.chaos_workload(eng.cfg.vocab, rate), offered_load_rps=rate)
+        rows = serving.load_sweep(eng, fb, (rate,), eng.cfg.vocab)
         torch.cuda.synchronize()
-        row = _fe_row(report, kernel_launches())
+        row = _fe_row(rows[0], kernel_launches())
         check(row["lost"] == 0, f"frontend load {rate}: lost {row['lost']} request(s)")
         check(row["launches"]["paired_matmul"] > 0, f"frontend load {rate}: {row['launches']}")
         sweep.append(row)
@@ -1897,9 +1865,54 @@ def phase_frontend(parity_ctx, lm_engine) -> dict:
                        "fallback": "unpaired (torch.matmul) on the same weights",
                        "wall_clock_note": "smoke-sized functional run (6-29 requests of 2-7 "
                                           "tokens): wall figures are not a throughput "
-                                          "measurement",
+                                          "measurement; p50_s, p99_s, ttft_p50_s and "
+                                          "tok_per_s are on the virtual clock",
                        "rows": sweep},
     }
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: the port's benchmark harness on the card
+# ---------------------------------------------------------------------------
+
+#: (``benchmarks.run`` argv, what it runs): model_zoo's ten families, then
+#: the quick runs of the other two (the JAX benches' smoke shapes)
+BENCH_RUNS = ((["--only", "model_zoo"], "model_zoo, all ten families"),
+              (["--quick", "--only", "pairing_rate_lm", "--only", "serving"],
+               "pairing_rate_lm (3 archs) and serving (quick)"))
+BENCHES_BUDGET_S = 30.0
+
+
+def phase_benches() -> dict:
+    """``python -m repro_torch.benchmarks.run`` on the card: model_zoo over
+    the ten families (r=0 parity through K1, the r=0.05 ledger),
+    pairing_rate_lm and serving quick; exit code 0, each bench's record and
+    seconds, K1's launches a bench (from its ``torch_BENCH_<name>.json``)."""
+    from repro_torch.benchmarks import common, run
+    from repro_torch.launch.serve import kernel_launches
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    rcs = [run.main(argv) for argv, _ in BENCH_RUNS]
+    total = kernel_launches()
+    seconds = time.perf_counter() - t0
+    check(rcs == [0] * len(BENCH_RUNS), f"benches: benchmarks.run exit codes {rcs}")
+    benches = {}
+    for name in ("model_zoo", "pairing_rate_lm", "serving"):
+        rec = json.loads((common.RESULTS_DIR / f"torch_BENCH_{name}.json").read_text())
+        check(rec["status"] == "ok" and rec["device"] == "cuda", f"benches: {name} {rec}")
+        benches[name] = rec
+    k1 = {name: rec["kernel_launches"]["paired_matmul"] for name, rec in benches.items()}
+    check(k1["model_zoo"] > 0 and k1["serving"] > 0, f"benches: K1 launches {k1}")
+    check(sum(k1.values()) == total["paired_matmul"], f"benches: K1 {k1} against {total}")
+    check(seconds <= BENCHES_BUDGET_S,
+          f"benches: {seconds:.1f} s over its {BENCHES_BUDGET_S:.0f} s budget")
+    out = {"phase": "benches", "runs": [what for _, what in BENCH_RUNS], "rcs": rcs,
+           "seconds": seconds, "budget_s": BENCHES_BUDGET_S,
+           "bench_seconds": {name: rec["wall_clock_s"] for name, rec in benches.items()},
+           "k1_launches": k1, "main_path_launches": total, "records": benches}
     emit(out)
     return out
 
@@ -1932,9 +1945,10 @@ def _engine_keys(eng, prompts: dict, steps: int) -> dict:
     logits beside them."""
     import torch
 
+    from repro_torch.benchmarks.serving import reset_slots
     from repro_torch.kernels import paired_matmul as pm
 
-    _reset_slots(eng)
+    reset_slots(eng)
     _reset_launches()
     toks = {s: [eng.add_request(s, p)] for s, p in prompts.items()}
     logits = []
@@ -4551,6 +4565,7 @@ def main() -> int:
     parity, parity_ctx = phase_lm_parity()
     lm, lm_engine = phase_lm_serve()
     fe = phase_frontend(parity_ctx, lm_engine)
+    benches = phase_benches()
     tile = phase_tile_cache(parity_ctx, lm_engine)
     del parity_ctx, lm_engine  # qwen2's weights and segments leave the card
     gc.collect()
@@ -4608,6 +4623,7 @@ def main() -> int:
              "lm_parity": parity["main_path_launches"]["paired_matmul"],
              "lm_serve": lm["main_path_launches"]["paired_matmul"],
              **{k: v["paired_matmul"] for k, v in fe_runs.items()},
+             **{f"bench_{name}": n for name, n in benches["k1_launches"].items()},
              "tile_cache": tile["main_path_launches"]["paired_matmul"],
              "serve_cli": cli["main_path_launches"]["paired_matmul"],
              "mesh_decode": mesh["main_path_launches"]["paired_matmul"],

@@ -473,5 +473,5 @@ def lm_paired_decode_bench(quick: bool = False, *, device=None, trained=None) ->
 def run_lm_paired(quick: bool = False, *, device=None) -> dict:
     """The paired-LM decode bench on its own; writes ``torch_lm_paired``."""
     out = lm_paired_decode_bench(quick=quick, device=device)
-    write_result("torch_lm_paired", out)
+    write_result("lm_paired", out)
     return out

@@ -1,12 +1,13 @@
 """The chaos workload of the JAX package's serving benchmark
-(``benchmarks/serving.py``): its workload shape, front-end settings and
-fault schedule, kept here so that the port's smoke run and its tests build
-the same run from one place.
+(``benchmarks/serving.py``): its workload shape, offered loads, front-end
+settings and fault schedule, kept here so that the port's serving bench
+(``repro_torch.benchmarks.serving``), its smoke run and its tests build the
+same run from one place.
 
 ``chaos_workload`` gives the same requests as the benchmark's
 ``poisson_workload`` call for the same vocab and rate, ``chaos_schedule``
-the same pinned faults and seeded background draw, ``frontend_config`` the
-same ``FrontendConfig``.
+the same pinned faults and (unless ``quick``) seeded background draw,
+``frontend_config`` the same ``FrontendConfig``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ PROMPT_LEN = (3, 20)
 NEW_TOKENS = (2, 8)
 CHAOS_RPS = 30.0
 LOADS_RPS = (10.0, 25.0, 60.0)
+LOADS_RPS_QUICK = (10.0, 40.0)
 
 
 def frontend_config() -> FrontendConfig:
@@ -34,9 +36,10 @@ def chaos_workload(vocab: int, rate: float) -> list[Request]:
                             prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS)
 
 
-def chaos_schedule() -> FaultInjector:
-    """Pinned early-step faults (they hit occupied slots at this load) plus a
-    seeded low-rate background draw across the whole run."""
+def chaos_schedule(quick: bool = False) -> FaultInjector:
+    """Pinned early-step faults (they hit occupied slots at this load) plus,
+    unless ``quick``, a seeded low-rate background draw across the whole
+    run."""
     pinned = [
         FaultEvent(step=3, kind="nan_logits", slot=0),
         FaultEvent(step=5, kind="kv_poison", slot=1),
@@ -45,7 +48,7 @@ def chaos_schedule() -> FaultInjector:
         FaultEvent(step=11, kind="latency_spike", magnitude=8.0),
         FaultEvent(step=14, kind="kv_poison", slot=3),
     ]
-    background = FaultInjector.from_rates(
+    background = () if quick else FaultInjector.from_rates(
         SEED + 1, n_steps=256, batch_size=BATCH,
         rates={"nan_logits": 0.02, "kv_poison": 0.01, "kernel_failure": 0.01,
                "latency_spike": 0.02},

@@ -71,8 +71,12 @@ def test_same_workload_schedule_and_config(runs):
         [dataclasses.asdict(e) for e in tfaults.events]
     jcfg, tcfg = runs["configs"]
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    names = ("SEED", "BATCH", "MAX_SEQ", "HORIZON_S", "PROMPT_LEN", "NEW_TOKENS", "LOADS_RPS")
+    names = ("SEED", "BATCH", "MAX_SEQ", "HORIZON_S", "PROMPT_LEN", "NEW_TOKENS", "LOADS_RPS",
+             "LOADS_RPS_QUICK")
     assert {n: getattr(chaos, n) for n in names} == {n: getattr(bench, n) for n in names}
+    # the bench's quick run: the pinned faults alone
+    assert [dataclasses.asdict(e) for e in bench._chaos_schedule(quick=True).events] == \
+        [dataclasses.asdict(e) for e in chaos.chaos_schedule(quick=True).events]
     # the bench's chaos run offers half its top load
     assert RATE == bench.LOADS_RPS[-1] / 2
 
