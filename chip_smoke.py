@@ -33,7 +33,9 @@ every rank under autograd; both under FSDP too (mistral-large-123b's
 ``embed`` over ``data``), every mesh rank building only its own shards;
 and the port's benchmark harness (``repro_torch.benchmarks.run``: the
 model zoo's parity and pairing ledger, the LM pairing rates, the serving
-bench's load sweep and chaos run; K1).
+bench's load sweep and chaos run; K1); and the schedule linter
+(``python -m repro_torch.analysis``: its seven targets, then qwen2-1.5b's
+decode at full width in bf16; K1 + K2).
 Phases,
 each printing one JSON line; any failure exits non-zero and prints no
 result:
@@ -160,6 +162,20 @@ result:
                 bench's ``torch_BENCH_<name>.json`` record and seconds, K1's
                 launches a bench (> 0 for model_zoo and serving; their sum
                 the phase's count), the phase within 30 s;
+10c. analysis — the schedule linter (``python -m repro_torch.analysis``,
+                ``main`` in this process) over its seven targets on the
+                card, against the same CLI on the CPU in a child running
+                beside it: exit codes 0, every target's findings equal
+                (rules run and skipped, each finding's severity, location
+                and measured value, ``dtype/convert-churn`` aside); then
+                ``lm_decode`` and ``fused_attn_decode`` at qwen2-1.5b's full
+                width, 2 layers, bf16, structured r=0.05 under lm_serve's
+                knobs: no error finding, at least one bf16 K1 plan probed
+                (its difference rounded to bf16 before the multiply), the
+                shared-memory peak of the real plans within 232 448 bytes,
+                the kernel writebacks a layer equal to
+                ``analysis.decode_launches`` and to the launches; the phase
+                within 90 s;
 11. tile_cache — K1's measured tile cache (``kernels/tuning.py``
                 ``TileCache``, ``autotune_plans``): every distinct K1 problem
                 of the lm_serve engine (a prefill of 20 tokens, decode at
@@ -1913,6 +1929,127 @@ def phase_benches() -> dict:
            "seconds": seconds, "budget_s": BENCHES_BUDGET_S,
            "bench_seconds": {name: rec["wall_clock_s"] for name, rec in benches.items()},
            "k1_launches": k1, "main_path_launches": total, "records": benches}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10c: the schedule linter on the card
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BUDGET_S = 90.0
+ANALYSIS_LAYERS = 2  # qwen2-1.5b at full width, 2 of its 28 layers
+
+
+def _lint_rows(report: dict) -> dict:
+    """What two runs of one target must share: the rules run and skipped,
+    and every finding's rule, severity, location and measured value
+    (``dtype/convert-churn`` aside: no target caps it)."""
+    return {"rules_run": report["rules_run"], "rules_skipped": report["rules_skipped"],
+            "findings": [(f["rule"], f["severity"], f["location"], f["measured"])
+                         for f in report["findings"] if f["rule"] != "dtype/convert-churn"]}
+
+
+def phase_analysis() -> dict:
+    """``python -m repro_torch.analysis --target all`` on the card (``main``
+    in this process; the sharded target's two gloo ranks share the card)
+    against the same CLI on the CPU (a child process started first, running
+    beside it): exit codes 0, every target's findings equal.  Then
+    ``lm_decode`` and ``fused_attn_decode`` at qwen2-1.5b's full width, 2
+    layers, bf16, structured r=0.05 under lm_serve's knobs: no error, the
+    bf16 probe passing on at least one K1 plan, the shared-memory peak of
+    real plans within a block's 232 448 bytes, the kernel writebacks a layer
+    equal to ``analysis.decode_launches`` and, on the card, to the launches."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from repro_torch.analysis import decode_launches, run_rules, targets
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.configs import cut_layers, get_config
+    from repro_torch.kernels import tuning
+    from repro_torch.launch.serve import kernel_launches
+    from repro_torch.models import lm as M
+
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "analysis"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {dev: out_dir / f"report_{dev}.json" for dev in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    cpu = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--target", "all", "--device", "cpu",
+         "--json", str(paths["cpu"])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env={**os.environ, "PYTHONPATH": str(root / "src")})
+    try:
+        _reset_launches()
+        rc = analysis_main(["--target", "all", "--json", str(paths["cuda"])])
+        cli_s = time.perf_counter() - t0
+
+        cfg = cut_layers(get_config("qwen2-1.5b"), ANALYSIS_LAYERS)
+        knobs = M.PerfKnobs(q_chunk=32, k_chunk=32, gemm="pallas_paired", pair_block_n=0,
+                            pair_rounding=0.05)
+        model = targets.paired_lm(cfg, knobs, "cuda")
+        full = {}
+        for name, kn in (("lm_decode", knobs),
+                         ("fused_attn_decode", dataclasses.replace(knobs, attn="pallas_fused"))):
+            ctx = targets.decode_context(name, cfg, model, kn)
+            rep = run_rules(ctx)
+            per_layer = [f.measured for f in rep.findings
+                         if f.rule == "schedule/writebacks-per-decode-layer"]
+            want = sum(decode_launches(cfg, "dense", kn).values())
+            nodes = {k: len(ctx.trace.kernels(k)) for k in ("K1", "K2", "K3")}
+            full[name] = {
+                "errors": [f.as_dict() for f in rep.errors()],
+                "writebacks_per_layer": per_layer, "want_per_layer": want,
+                "kernel_nodes": nodes, "trace_launches": ctx.trace.launches,
+                "bf16_plans_probed": rep.measured("dtype/reduce-precision-on-bf16"),
+                "smem_peak": rep.measured("smem/static-budget"),
+                "residual_adds": rep.measured("schedule/standalone-residual-adds"),
+                "pairing_moved": rep.measured("moves/pairing-in-step"),
+                "plans": sorted({str(op.info["plan"]) for op in ctx.trace.kernels("K1")})}
+            check(rep.exit_code == 0, f"analysis: {name} at full width: {full[name]['errors']}")
+            check(per_layer == [want] * ANALYSIS_LAYERS,
+                  f"analysis: {name} writebacks a layer {per_layer}, want {want}")
+            check(nodes == ctx.trace.launches,
+                  f"analysis: {name} kernel nodes {nodes} against launches {ctx.trace.launches}")
+            check(full[name]["bf16_plans_probed"] >= 1,
+                  f"analysis: {name} probed no bf16 K1 plan")
+            check(0 < full[name]["smem_peak"] <= tuning.SMEM_PER_BLOCK,
+                  f"analysis: {name} shared-memory peak {full[name]['smem_peak']}")
+            del ctx
+        del model
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+    finally:
+        cpu_out, _ = cpu.communicate(timeout=600)
+    seconds = time.perf_counter() - t0
+
+    check(rc == 0, f"analysis: the CLI on the card exited {rc}")
+    check(cpu.returncode == 0, f"analysis: the CLI on the CPU exited {cpu.returncode}: "
+                               f"{cpu_out[-2000:]}")
+    reports = {dev: json.loads(p.read_text())["targets"] if p.exists() else []
+               for dev, p in paths.items()}
+    by_target = {}
+    for card, host in zip(reports["cuda"], reports["cpu"], strict=True):
+        name = card["target"]
+        check(card["errors"] == 0, f"analysis: {name} on the card: {card['findings']}")
+        check(_lint_rows(card) == _lint_rows(host),
+              f"analysis: {name}: the card's findings {_lint_rows(card)} "
+              f"against the CPU's {_lint_rows(host)}")
+        measured: dict = {}
+        for f in card["findings"]:
+            measured.setdefault(f["rule"], []).append(f["measured"])
+        by_target[name] = {k: v[0] if len(v) == 1 else v for k, v in measured.items()}
+    check(len(by_target) == 7, f"analysis: {len(by_target)} targets in the reports")
+    check(launches["paired_matmul"] > 0 and launches["decode_attention"] > 0,
+          f"analysis: launches {launches}")
+    check(seconds <= ANALYSIS_BUDGET_S,
+          f"analysis: {seconds:.1f} s over its {ANALYSIS_BUDGET_S:.0f} s budget")
+    out = {"phase": "analysis", "seconds": seconds, "cli_seconds": cli_s,
+           "budget_s": ANALYSIS_BUDGET_S, "card": _card(), "cli_rc": rc,
+           "cpu_rc": cpu.returncode, "targets": by_target, "full_width": full,
+           "main_path_launches": launches}
     emit(out)
     return out
 
@@ -4566,6 +4703,7 @@ def main() -> int:
     lm, lm_engine = phase_lm_serve()
     fe = phase_frontend(parity_ctx, lm_engine)
     benches = phase_benches()
+    analysis = phase_analysis()
     tile = phase_tile_cache(parity_ctx, lm_engine)
     del parity_ctx, lm_engine  # qwen2's weights and segments leave the card
     gc.collect()
@@ -4624,6 +4762,7 @@ def main() -> int:
              "lm_serve": lm["main_path_launches"]["paired_matmul"],
              **{k: v["paired_matmul"] for k, v in fe_runs.items()},
              **{f"bench_{name}": n for name, n in benches["k1_launches"].items()},
+             "analysis": analysis["main_path_launches"]["paired_matmul"],
              "tile_cache": tile["main_path_launches"]["paired_matmul"],
              "serve_cli": cli["main_path_launches"]["paired_matmul"],
              "mesh_decode": mesh["main_path_launches"]["paired_matmul"],
@@ -4641,6 +4780,7 @@ def main() -> int:
     k2_paths = {"lm_parity": parity["main_path_launches"]["decode_attention"],
                 "lm_serve": lm["main_path_launches"]["decode_attention"],
                 **{k: v["decode_attention"] for k, v in fe_runs.items()},
+                "analysis": analysis["main_path_launches"]["decode_attention"],
                 "tile_cache": tile["main_path_launches"]["decode_attention"],
                 "serve_cli": cli["main_path_launches"]["decode_attention"],
                 "moe_parity": moe_parity["main_path_launches"]["decode_attention"],

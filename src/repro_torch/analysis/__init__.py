@@ -1,9 +1,25 @@
-"""Schedule checks of the port: counts of what a forward really ran.
+"""The port's schedule linter, and counts of what a step really ran.
 
-The JAX package audits the traced program (``repro.analysis``: jaxpr rules
-such as ``schedule/no-standalone-pool`` and
-``schedule/writebacks-per-program``).  PyTorch runs eagerly, so the port
-counts while the function runs:
+The port of ``repro.analysis``, in three layers, as the JAX package's:
+
+* :mod:`~repro_torch.analysis.trace` — the dispatch trace of one step
+  (``record_trace``: every aten op, each kernel call one opaque node, the
+  decode layers' boundaries), the port's counterpart of a jaxpr, and its
+  walks (``count_ops``, ``count_shape_adds``, ``kernels_by_layer``);
+* :mod:`~repro_torch.analysis.core` — the rule registry, :class:`Finding`,
+  :class:`RuleContext`, and :func:`run_rules` → :class:`AnalysisReport`
+  (the JAX report's schema, key for key);
+* ``rules_*`` modules — the twelve registered rules (schedule, dtype,
+  shared memory, pairing artifacts, pairing moves), imported on the first
+  :func:`run_rules` call; ``targets`` — the seven traced programs the CLI
+  lints.
+
+CLI: ``python -m repro_torch.analysis --target lm_decode [--json report.json]
+[--device cpu]``; the exit code is non-zero iff an error-severity finding
+fires.
+
+Beside the linter, this module keeps the port's counters.  PyTorch runs
+eagerly, so :func:`counting` counts while a function runs:
 
 * ``k1_launches`` — launches of the paired GEMM kernel (K1), read from its
   wrappers' ``LAUNCHES`` counter: CUDA tensors only;
@@ -34,8 +50,24 @@ import collections
 import contextlib
 import dataclasses
 import math
-import sys
 
+from repro_torch.analysis.core import (
+    RULE_REGISTRY,
+    AnalysisReport,
+    Finding,
+    Rule,
+    RuleContext,
+    rule,
+    run_rules,
+)
+from repro_torch.analysis.trace import (
+    count_ops,
+    count_shape_adds,
+    kernels_by_layer,
+    monitoring,
+    record_trace,
+    tracing,
+)
 from repro_torch.kernels import paired_matmul as pm
 from repro_torch.kernels.paired_conv import pool2_reference
 
@@ -51,31 +83,16 @@ def counting(**extra):
     yields a ``Counter`` that is complete once the block exits.  ``extra``
     names more functions to count calls of, by key (for instance
     ``moe_routes=(models.layers._moe_route,)``: the routed MoE dispatches)."""
-    mon = sys.monitoring
-    tool = next((i for i in range(6) if mon.get_tool(i) is None), None)
-    if tool is None:
-        raise RuntimeError("no free sys.monitoring tool id")
     counted = {**_COUNTED, **extra}
-    codes = {fn.__code__: key for key, fns in counted.items() for fn in fns}
     counts = collections.Counter({key: 0 for key in (*counted, "k1_launches")})
 
-    def on_start(code, offset):
-        counts[codes[code]] += 1
+    def hook(key):
+        return lambda _locals: counts.update((key,)), None
 
-    mon.use_tool_id(tool, __name__)
-    try:
-        mon.register_callback(tool, mon.events.PY_START, on_start)
-        for code in codes:
-            mon.set_local_events(tool, code, mon.events.PY_START)
-        before = pm.launch_count()
+    before = pm.launch_count()
+    with monitoring({fn.__code__: hook(key) for key, fns in counted.items() for fn in fns}):
         yield counts
-        counts["k1_launches"] = pm.launch_count() - before
-    finally:
-        for code in codes:
-            mon.set_local_events(tool, code, 0)
-        mon.register_callback(tool, mon.events.PY_START, None)
-        mon.free_tool_id(tool)
-
+    counts["k1_launches"] = pm.launch_count() - before
 
 
 def decode_launches(cfg, kind: str, knobs) -> dict[str, int]:

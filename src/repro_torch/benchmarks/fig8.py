@@ -11,12 +11,15 @@ Three substitutions for the reference's TPU machinery: the tile configs of
 ``choose_blocks`` become K1's launch plans (``kernels/tuning.plan``); the
 host timer ``measure`` becomes CUDA-event timing on the card
 (``common.device_ms``; ``None`` on the CPU); the jaxpr schedule audit
-becomes counts of K1 launches, K1 calls and standalone pools
-(``repro_torch.analysis``).  The LM parts (:func:`lm_paired_decode_bench`,
-:func:`run_lm_paired`) train a tiny qwen2 on the token stream, hold the
+runs the same rules (``repro_torch.analysis.run_rules``) over a dispatch
+trace of the forward (``analysis.record_trace``: K1's writebacks, the
+standalone pools; K1's launches from the trace's counters).  The LM parts
+(:func:`lm_paired_decode_bench`, :func:`run_lm_paired`) train a tiny qwen2
+on the token stream, hold the
 paired decode engines to the plain one at r = 0, report the pair rates of
-the trained weights at r = 0.05, and count a decode step's launches (the
-jaxpr audit's writebacks) against ``analysis.decode_launches``.
+the trained weights at r = 0.05, and audit a decode step's trace with the
+rules (kernel writebacks a layer against ``analysis.decode_launches``, no
+standalone residual add).
 
 Paper headline at rounding 0.05: 32.03 % power, 24.59 % area, 0.1 %
 accuracy loss.
@@ -28,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.analysis import counting
+from repro_torch.analysis import RuleContext, record_trace, run_rules
 from repro_torch.benchmarks.common import device_ms, fmt_table, full_fp32, write_result
 from repro_torch.core.cost_model import AsicCostModel, OpCounts
 from repro_torch.core.pairing import (
@@ -101,8 +104,8 @@ def measured_conv_path(params, test_x, rounding: float, batch: int = 32,
                                mode=mode, block_n=block_n)
     xb = torch.as_tensor(test_x[:batch], dtype=torch.float32, device=_device(params))
     y_ref = lenet_apply(params, xb)
-    with counting() as counts:
-        y = lenet_apply(params, xb, conv_impl="paired", paired=arts)
+    trace = record_trace(lenet_apply, params, xb, conv_impl="paired", paired=arts)
+    y = trace.result
     per_layer = {}
     for name, art in arts.items():
         kh, kw, cin, cout = art.kernel_shape
@@ -120,7 +123,7 @@ def measured_conv_path(params, test_x, rounding: float, batch: int = 32,
         "total_baseline_lanes": total_baseline,
         "total_paired_lanes": sum(v["paired_lanes"] for v in per_layer.values()),
         "total_subs_per_image": sum(v["subs_executed"] for v in per_layer.values()),
-        "k1_launches": counts["k1_launches"],
+        "k1_launches": trace.launches["K1"],
         "max_abs_err_vs_conv2d": float((y - y_ref).abs().max()),
         # relative to the logit scale: the stable gate (absolute fp32 error
         # grows with batch and accumulation order; relative does not)
@@ -174,11 +177,13 @@ def fused_pool_path(params, test_x, batch: int = 32) -> dict:
     (K1, the pool still standalone), ``paired_fused`` (K1 with the pool in
     its epilogue: one store per conv layer) and ``paired_fused_blocked``
     (the same through the column-blocked layout, block_n=4).  Each variant
-    records its ``repro_torch.analysis`` counts (K1 launches and calls,
-    standalone pools), its device ms on the card, and its relative error
-    against ``torch``.  Gates: both fused variants run 3 K1 calls (and, on
-    the card, 3 launches), no standalone pool, and match ``torch`` within
-    1e-5; the unfused one runs the 2 pools.
+    records what the schedule rules read from its trace
+    (``schedule/writebacks-per-program``: K1 calls; ``schedule/no-standalone-pool``:
+    standalone pools; the fused variants carry the expectations, so their
+    error findings are the audit), K1's launches, its device ms on the card,
+    and its relative error against ``torch``.  Gates: both fused variants
+    run 3 K1 calls (and, on the card, 3 launches), no standalone pool, and
+    match ``torch`` within 1e-5; the unfused one runs the 2 pools.
     """
     arts = build_conv_pairings(params, 0.0, positions=LENET_CONV_POSITIONS)
     barts = build_conv_pairings(params, 0.0, positions=LENET_CONV_POSITIONS,
@@ -191,19 +196,28 @@ def fused_pool_path(params, test_x, batch: int = 32) -> dict:
         "paired_fused": dict(conv_impl="paired", paired=arts, fuse_pool=True),
         "paired_fused_blocked": dict(conv_impl="paired", paired=barts, fuse_pool=True),
     }
+    schedule_rules = ("schedule/no-standalone-pool", "schedule/writebacks-per-program")
     out: dict = {}
     y_ref = lenet_apply(params, xb)
     for name, kw in variants.items():
-        with counting() as counts:
-            y = lenet_apply(params, xb, **kw)
+        trace = record_trace(lenet_apply, params, xb, **kw)
+        y = trace.result
+        expect = ({"fused_pool": True, "pallas_calls": len(kw["paired"])}
+                  if kw.get("fuse_pool") else {})
+        report = run_rules(RuleContext(target=f"fig8/{name}", trace=trace, expect=expect),
+                           rule_ids=schedule_rules)
         out[name] = {
-            **counts,
+            "k1_calls": report.measured("schedule/writebacks-per-program"),
+            "pool_ops": report.measured("schedule/no-standalone-pool"),
+            "k1_launches": trace.launches["K1"],
+            "schedule_errors": [f.as_dict() for f in report.errors()],
             "ms": device_ms(lambda kw=kw: lenet_apply(params, xb, **kw), dev),
             "rel_err_vs_torch": rel_err(y, y_ref),
         }
     want_launches = 3 if dev.type == "cuda" else 0
     for tag in ("paired_fused", "paired_fused_blocked"):
         v = out[tag]
+        assert not v["schedule_errors"], f"{tag} violates the fused schedule: {v}"
         assert v["pool_ops"] == 0 and v["k1_calls"] == 3, (
             f"{tag}: {v['pool_ops']} standalone pools, {v['k1_calls']} K1 calls "
             "(want 0 and one a conv layer)")
@@ -375,14 +389,23 @@ def lm_pair_rates(model, rounding: float = LM_HEADLINE_ROUNDING) -> dict:
     return rates
 
 
-def _decode_step_counts(cfg, eng) -> dict:
-    """Calls of K1 and of K2 in one decode step of ``eng``, per layer."""
-    from repro_torch.kernels import decode_attention as da
+def _decode_step_audit(cfg, eng, tag: str) -> tuple[dict, list]:
+    """One decode step of ``eng``, traced: its K1 and K2 writebacks a
+    layer, and the error findings of the schedule rules over it (the
+    writebacks of each layer against ``analysis.decode_launches``, no
+    standalone residual add: the skips ride the kernels' epilogue)."""
+    from repro_torch.analysis.targets import writebacks_per_layer
 
-    with counting(k2_calls=(da.fused_decode_attention_cuda, da.decode_attention_cuda)) as c:
-        eng.step()
-    return {"paired_matmul": c["k1_calls"] / cfg.n_layers,
-            "decode_attention": c["k2_calls"] / cfg.n_layers}
+    trace = record_trace(eng.step)
+    report = run_rules(
+        RuleContext(target=f"fig8/lm_decode_{tag}", trace=trace,
+                    hidden_shape=(eng.batch_size, 1, cfg.d_model),
+                    expect={"residual_adds": 0,
+                            "writebacks_per_layer": writebacks_per_layer(cfg, eng.knobs)}),
+        rule_ids=("schedule/standalone-residual-adds", "schedule/writebacks-per-decode-layer"))
+    counts = {"paired_matmul": len(trace.kernels("K1")) / trace.n_layers,
+              "decode_attention": len(trace.kernels("K2")) / trace.n_layers}
+    return counts, [f.as_dict() for f in report.errors()]
 
 
 @torch.no_grad()
@@ -398,8 +421,9 @@ def lm_paired_decode_bench(quick: bool = False, *, device=None, trained=None) ->
     * **schedule**: a paired decode step launches 7 kernels a layer (the
       seven GEMMs, the skip connections in their epilogue), 5 with fused
       decode attention (one QKV launch, one attention + out-projection, the
-      MLP's three), as ``analysis.decode_launches`` says; counted as calls
-      of the kernels' wrappers, so the CPU run counts too.
+      MLP's three), as ``analysis.decode_launches`` says, and no standalone
+      residual add: the schedule rules over the step's trace, whose kernel
+      nodes the CPU run has too.
 
     ``trained`` is ``_train_tiny_lm``'s result (trained here when None).
     """
@@ -440,7 +464,8 @@ def lm_paired_decode_bench(quick: bool = False, *, device=None, trained=None) ->
 
     counts, want = {}, {}
     for tag in ("paired", "fused"):
-        counts[tag] = _decode_step_counts(cfg, engines[tag])
+        counts[tag], errors = _decode_step_audit(cfg, engines[tag], tag)
+        assert not errors, f"{tag} decode step violates the schedule: {errors}"
         want[tag] = {k: decode_launches(cfg, "dense", knobs[tag])[k]
                      for k in ("paired_matmul", "decode_attention")}
         assert counts[tag] == want[tag], (

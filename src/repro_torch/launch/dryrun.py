@@ -18,15 +18,17 @@ rank, what ``parallel.cost`` reads from that run:
   (roofline term 3);
 * ``sharding_fallbacks`` — every replication fallback the specs took;
 * ``model``       — 6·N·D (train) or 2·N·D FLOPs a rank and their share of
-  the traced FLOPs.
+  the traced FLOPs;
+* ``analysis``    — a prefill or decode cell's lint (the JAX record's):
+  ``repro_torch.analysis``' ``moves/pairing-in-step`` over the same run of
+  the step, the storages of the rank's pairing metadata registered (errors
+  and findings).
 
-The JAX record's ``analysis`` (the HLO lint of ``repro.analysis``) has no
-counterpart: the port has no compiled program to lint.  ``--attn-fused``
-accounts the blocked attention's interior as the flash-attention kernel
-(K3) keeps it on chip: the bytes of ``models.layers.flash_attention``'s ops
-are dropped and the kernel's boundary traffic is added from the shapes
-(:func:`fused_attention_hbm_bytes`); the mesh steps themselves run the
-plain attention, as the JAX mesh paths do.
+``--attn-fused`` accounts the blocked attention's interior as the
+flash-attention kernel (K3) keeps it on chip: the bytes of
+``models.layers.flash_attention``'s ops are dropped and the kernel's
+boundary traffic is added from the shapes (:func:`fused_attention_hbm_bytes`);
+the mesh steps themselves run the plain attention, as the JAX mesh paths do.
 
 The fake tensors live on ``cuda`` where this PyTorch is built with CUDA,
 else on the CPU (``--device`` picks; autograd on a fake CUDA tensor needs
@@ -150,6 +152,7 @@ def run_cell(
                 for (axis, reason), count in fallbacks.items()
             ],
             "top": top_contributors(trace, 5),
+            **({} if trace.step is None else {"analysis": _lint(cell_id, trace.step)}),
             "model": {
                 "params": cfg.param_count(),
                 "params_active": cfg.param_count(active_only=True),
@@ -180,6 +183,17 @@ def run_cell(
     if save:
         _save(cell_id, out)
     return out
+
+
+def _lint(cell_id: str, step) -> dict:
+    """The record's ``analysis``: ``moves/pairing-in-step`` over the
+    serving step's trace (error findings mark the record dirty without
+    failing the run, as in the JAX dry run)."""
+    from repro_torch.analysis import RuleContext, run_rules
+
+    lint = run_rules(RuleContext(target=cell_id, step=step),
+                     rule_ids=("moves/pairing-in-step",))
+    return {"errors": len(lint.errors()), "findings": [f.as_dict() for f in lint.findings]}
 
 
 def fused_attention_hbm_bytes(cfg, shape, mesh, knobs: PerfKnobs) -> float:

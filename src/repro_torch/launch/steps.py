@@ -800,13 +800,19 @@ class LoweredCell:
     fake_mode: Any
 
     def lower(self):
+        from repro_torch.analysis.trace import tracing
         from repro_torch.parallel import cost
 
         if self.fake_mode is None:
             raise ValueError("a cell wired on real tensors (a seed) runs; it is not traced")
-        with self.fake_mode, cost.record(self.args, self.device,
-                                         backward=self.mode == "train") as trace:
+        # a serving step is also traced for the schedule linter, its pairing
+        # storages registered (cost's recorder, entered last, sees each op first)
+        serving = self.mode != "train"
+        lint = tracing(pairing=self.args["params"]) if serving else contextlib.nullcontext()
+        with self.fake_mode, lint as step, cost.record(self.args, self.device,
+                                                       backward=not serving) as trace:
             self.run()
+        trace.step = step
         return trace
 
 

@@ -30,8 +30,10 @@ process group, inside :func:`record`, which sees every aten op and counts:
 (``models/layers.py:attention_block``); an op of the backward is charged to
 the forward function whose output it differentiates (``backward of …``).
 :func:`top_contributors` lists the ops and modules that carry the most FLOPs
-and bytes (``hlo_debug.top_contributors``).  The HLO lint the JAX package
-runs on the compiled program (``repro.analysis``) has no counterpart.
+and bytes (``hlo_debug.top_contributors``).  The lint the JAX package runs
+on the compiled program (``repro.analysis``' ``hlo/pairing-resharding-in-loop``)
+is the port's ``moves/pairing-in-step`` over the same run of a serving step
+(``repro_torch.analysis``, traced beside this record: ``LoweredCell.lower``).
 """
 from __future__ import annotations
 
@@ -46,19 +48,12 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.analysis.trace import NO_LAUNCH
 from repro_torch.parallel import collectives
 
 #: the caching allocator's block: a CUDA storage takes a multiple of it
 CUDA_BLOCK = 512
 
-#: ops that launch nothing: device and dtype queries, allocations without a
-#: fill, and ``_unsafe_view`` (a view the schema does not mark as one)
-_NO_LAUNCH = {"aten.detach", "prim.device", "aten.empty", "aten.empty_like",
-              "aten.empty_strided", "aten.new_empty", "aten.new_empty_strided",
-              "aten.lift_fresh", "aten._local_scalar_dense", "aten.sym_size",
-              "aten.sym_stride", "aten.sym_numel", "aten.sym_storage_offset",
-              "aten.is_same_size", "aten._has_compatible_shallow_copy_type",
-              "aten.promote_types", "aten._unsafe_view"}
 
 _SELF = __file__.rsplit("/", 1)[0] + "/cost.py"
 
@@ -79,6 +74,9 @@ class Trace:
     seconds: float = 0.0
     #: the arguments' bytes as the rank's device allocates them
     args_allocated: int = 0
+    #: a serving step's ``repro_torch.analysis`` trace of the same run
+    #: (``launch.steps.LoweredCell.lower``), or None
+    step: object = None
 
     @property
     def memory(self) -> dict:
@@ -201,7 +199,7 @@ class _Recorder(TorchDispatchMode):
                 if isinstance(t, torch.Tensor)]
         for t in outs:
             self.hold(t)
-        if name in _NO_LAUNCH or name.startswith("profiler.") or getattr(func, "is_view", False):
+        if name in NO_LAUNCH or name.startswith("profiler.") or getattr(func, "is_view", False):
             return out
         node = torch._C._current_autograd_node()
         if node is None:

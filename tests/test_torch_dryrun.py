@@ -391,6 +391,23 @@ def test_run_cell_skips_long_context_dense():
     assert not dist.is_initialized()
 
 
+def test_decode_cell_record_carries_its_lint():
+    """A serving cell's record carries the JAX record's ``analysis``:
+    ``moves/pairing-in-step`` over the same traced decode step (qwen2's
+    smoke config on rank 0 of a fake (1, 2) mesh), 0 errors; a training
+    cell has no serving step to lint."""
+    cfg = get_smoke_config("qwen2-1.5b")
+    with fake_process_group(2):
+        mesh = make_mesh((1, 2), ("data", "model"), backend="fake", device="cpu")
+        trace = wire_cell(cfg, mesh, seq_len=SEQ, global_batch=BATCH, mode="decode").lower()
+    assert trace.step is not None and trace.step.ops
+    lint = dryrun._lint("qwen2-smoke/decode", trace.step)
+    assert lint["errors"] == 0
+    assert [(f["rule"], f["severity"], f["measured"]) for f in lint["findings"]] == [
+        ("moves/pairing-in-step", "info", 0)]
+    assert not dist.is_initialized()
+
+
 def _ok_record() -> dict:
     return {"cell": "qwen2-1.5b__decode_32k__pod16x16", "status": "ok", "arch": "qwen2-1.5b",
             "shape": "decode_32k", "cost": {"flops": 989e12 * 0.5, "bytes_accessed": 3.35e12},
